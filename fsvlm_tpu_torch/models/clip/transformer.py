@@ -1,0 +1,74 @@
+"""Residual attention transformer with functional prompt splicing
+(counterpart of fsvlm_tpu.models.clip.transformer).
+
+The JAX package stacks the blocks on a layer axis and drives them with
+``lax.scan``; here they are an ``nn.ModuleList`` run by a Python loop.
+Splicing semantics (parity with the reference, PromptSRC/clip/model.py:229-256):
+- text: tokens [1 : 1+n_ctx) are replaced (SOT stays at 0);
+- vision: the trailing n_ctx tokens are replaced;
+- row i of the deep prompts is spliced before layer i where ``flags[i]``;
+  layer 0 never splices (its prompts were injected at the embedding level).
+"""
+
+import torch
+from torch import nn
+
+from ...ops.attention import Attention
+from ...ops.layers import LayerNorm, frozen_param, linear, quick_gelu
+
+
+class MLP(nn.Module):
+    def __init__(self, width, dtype=torch.float32, device=None):
+        super().__init__()
+        self.w_fc = frozen_param((width, 4 * width), dtype, device)
+        self.b_fc = frozen_param((4 * width,), dtype, device)
+        self.w_proj = frozen_param((4 * width, width), dtype, device)
+        self.b_proj = frozen_param((width,), dtype, device)
+
+    def forward(self, x):
+        return linear(quick_gelu(linear(x, self.w_fc, self.b_fc)), self.w_proj, self.b_proj)
+
+
+class ResidualAttentionBlock(nn.Module):
+    """One pre-LN block; parameter names follow the JAX pytree
+    {ln_1, attn{w_qkv,b_qkv,w_out,b_out}, ln_2, mlp{w_fc,b_fc,w_proj,b_proj}}."""
+
+    def __init__(self, width, n_heads, dtype=torch.float32, device=None):
+        super().__init__()
+        self.ln_1 = LayerNorm(width, dtype, device)
+        self.attn = Attention(width, n_heads, dtype, device)
+        self.ln_2 = LayerNorm(width, dtype, device)
+        self.mlp = MLP(width, dtype, device)
+
+    def forward(self, x, mask=None, attn_impl=None):
+        x = x + self.attn(self.ln_1(x), mask=mask, impl=attn_impl)
+        return x + self.mlp(self.ln_2(x))
+
+
+def _splice_text(x, prompt):
+    """Replace x[:, 1:1+n_ctx] with prompt (n_ctx, D)."""
+    n = prompt.shape[0]
+    p = prompt.to(x.dtype).expand(x.shape[0], n, x.shape[-1])
+    return torch.cat([x[:, :1], p, x[:, 1 + n:]], dim=1)
+
+
+def _splice_vision(x, prompt):
+    """Replace the trailing n_ctx tokens with prompt (n_ctx, D)."""
+    n = prompt.shape[0]
+    p = prompt.to(x.dtype).expand(x.shape[0], n, x.shape[-1])
+    return torch.cat([x[:, : x.shape[1] - n], p], dim=1)
+
+
+def transformer(blocks, x, *, mask=None, deep_prompts=None, splice_flags=None,
+                splice_kind="text", attn_impl=None):
+    """Run ``blocks`` (an nn.ModuleList of ResidualAttentionBlock) over x (B, L, D).
+
+    deep_prompts: optional (n_layers, n_ctx, D); row i replaces the prompt
+    tokens before layer i wherever ``splice_flags[i]`` (a sequence of bools).
+    """
+    splice = _splice_text if splice_kind == "text" else _splice_vision
+    for i, block in enumerate(blocks):
+        if deep_prompts is not None and deep_prompts.shape[1] > 0 and splice_flags[i]:
+            x = splice(x, deep_prompts[i])
+        x = block(x, mask=mask, attn_impl=attn_impl)
+    return x

@@ -1,0 +1,187 @@
+"""The port's PromptSRC serving path (PromptSRCPredictor on the CPU) against
+the JAX package's serving functions on the same weights and prompts, a
+JAX-written prompt checkpoint loaded into the port, and the import boundary.
+
+fp32; logits atol 1e-3 and identical top-1.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fsvlm_tpu.engine.checkpoint import save_checkpoint
+from fsvlm_tpu.models.clip import clip_logits, l2_normalize
+from fsvlm_tpu.models.clip.config import CLIPConfig as JaxCLIPConfig
+from fsvlm_tpu.ops.preprocess import normalize_only
+from fsvlm_tpu.trainers import ivlp_family as jax_family
+from fsvlm_tpu_torch.models.clip import CLIPConfig, random_clip_params
+from fsvlm_tpu_torch.serve import PromptSRCPredictor, PromptSRCServeConfig
+from fsvlm_tpu_torch.trainers.backbone import clip_from_params
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = (64, 32, 2, 128, 16, 77, 49408, 128, 2, 2)
+CLASSNAMES = ["cat", "golden_retriever", "aircraft carrier", "sea", "Ferrari 250 GTO"]
+NODE = PromptSRCServeConfig()  # the yaml's values: 4+4 ctx, depth 9 (capped at 2 layers)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    params = random_clip_params(CLIPConfig(*TINY), seed=3)
+    images = np.random.RandomState(4).randint(0, 256, (6, 32, 32, 3), dtype=np.uint8)
+    clip = clip_from_params(params, CLIPConfig(*TINY), device="cpu")
+    pred = PromptSRCPredictor(CLASSNAMES, node=NODE, clip=clip, seed=3, device="cpu")
+    return params, images, pred
+
+
+def _jax_logits(params, classnames, prompt_params, images, seed=3):
+    cfg = types.SimpleNamespace(MODEL=types.SimpleNamespace(TEXT_TRUNCATE=NODE.TEXT_TRUNCATE))
+    frozen, pc = jax_family.build_vlp_frozen(cfg, NODE, params, JaxCLIPConfig(*TINY),
+                                             classnames, seed)
+    if prompt_params is None:
+        prompt_params = jax_family.init_vlp_params(NODE, JaxCLIPConfig(*TINY), pc,
+                                                   np.random.RandomState(seed))
+    txf = l2_normalize(jax_family.vlp_text_features(prompt_params, frozen, JaxCLIPConfig(*TINY),
+                                                    jnp.float32))
+    imf = jax_family.vlp_image_features(prompt_params, frozen, JaxCLIPConfig(*TINY),
+                                        normalize_only(images), jnp.float32)
+    logits = jnp.exp(frozen["clip"]["logit_scale"]) * l2_normalize(imf) @ txf.T
+    return np.asarray(logits), prompt_params, np.asarray(imf), np.asarray(txf)
+
+
+def test_predictor_matches_jax_serving(setup):
+    params, images, pred = setup
+    ref, ref_prompts, ref_imf, ref_txf = _jax_logits(params, CLASSNAMES, None, images)
+    assert sorted(pred.prompt_params) == sorted(ref_prompts)
+    for k, v in ref_prompts.items():  # same RandomState draws
+        np.testing.assert_array_equal(pred.prompt_params[k].numpy(), np.asarray(v), err_msg=k)
+    assert pred.compute_dtype == torch.float32
+    np.testing.assert_allclose(pred.text_features().numpy(), ref_txf, atol=1e-4)
+    np.testing.assert_allclose(pred.image_features(images).numpy(), ref_imf, rtol=1e-4, atol=1e-4)
+    logits = pred.image_logits(images).numpy()
+    np.testing.assert_allclose(logits, ref, atol=1e-3)
+    assert (logits.argmax(1) == ref.argmax(1)).all()
+    ref_clip = np.asarray(clip_logits(ref_imf, ref_txf, params["logit_scale"]))
+    np.testing.assert_allclose(logits, ref_clip, atol=1e-3)
+
+
+def test_predict_topk_matches_predict_tool_math(setup):
+    _, images, pred = setup
+    top = pred.predict(images, topk=3)
+    logits = pred.image_logits(images).double().numpy()
+    probs = np.exp(logits - logits.max(1, keepdims=True))
+    probs /= probs.sum(1, keepdims=True)
+    assert len(top) == len(images) and all(len(row) == 3 for row in top)
+    for row, pr in zip(top, probs):
+        idx = np.argsort(-pr)[:3]
+        assert [n for n, _ in row] == [CLASSNAMES[i] for i in idx]
+        np.testing.assert_allclose([p for _, p in row], pr[idx], rtol=1e-12)
+    assert len(pred.predict(images[:1], topk=50)[0]) == len(CLASSNAMES)
+
+
+def test_predictor_loads_jax_written_checkpoint(setup, tmp_path):
+    import optax
+
+    params, images, pred = setup
+    _, ref_prompts, _, _ = _jax_logits(params, CLASSNAMES, None, images)
+    rng = np.random.RandomState(9)
+    trained = {k: np.asarray(v) + (0.05 * rng.randn(*np.shape(v))).astype(np.float32)
+               for k, v in ref_prompts.items()}
+    opt_state = optax.sgd(0.01, momentum=0.9).init(trained)
+    for epoch, best in ((1, True), (2, False)):
+        state = trained if best else {k: v + 1.0 for k, v in trained.items()}
+        save_checkpoint({"state_dict": state, "epoch": epoch, "optimizer": opt_state,
+                         "val_result": 50.0, "extra": {"best_result": 50.0}},
+                        str(tmp_path / "VLPromptLearner"), is_best=best)
+    ref, _, _, _ = _jax_logits(params, CLASSNAMES, trained, images)
+
+    pred2 = PromptSRCPredictor(CLASSNAMES, node=NODE, clip=pred.clip, seed=3, device="cpu")
+    pred2.text_features()  # the cache must be dropped by load_model
+    pred2.load_model(str(tmp_path))  # model-best.pkl: epoch 1
+    for k, v in trained.items():
+        np.testing.assert_array_equal(pred2.prompt_params[k].numpy(), v, err_msg=k)
+    logits = pred2.image_logits(images).numpy()
+    np.testing.assert_allclose(logits, ref, atol=1e-3)
+    assert (logits.argmax(1) == ref.argmax(1)).all()
+    pred2.load_model(str(tmp_path), epoch=2)
+    np.testing.assert_array_equal(pred2.prompt_params["ctx"].numpy(), trained["ctx"] + 1.0)
+
+
+def test_predictor_requires_a_card_for_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this box has a CUDA card")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PromptSRCPredictor(CLASSNAMES)
+
+
+@pytest.mark.parametrize("entry", ["load_clip_backbone", "clip_from_params", "CLIP", "causal_mask"])
+def test_entry_points_default_to_the_card(entry):
+    """With no device given, every entry point asks for cuda, and raises on
+    a box without one instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this box has a CUDA card")
+    from fsvlm_tpu_torch.models.clip import CLIP
+    from fsvlm_tpu_torch.ops.attention import causal_mask
+    from fsvlm_tpu_torch.trainers.backbone import load_clip_backbone
+
+    calls = {
+        "load_clip_backbone": lambda: load_clip_backbone("test-tiny"),
+        "clip_from_params": lambda: clip_from_params(random_clip_params(CLIPConfig(*TINY)),
+                                                     CLIPConfig(*TINY)),
+        "CLIP": lambda: CLIP(CLIPConfig(*TINY)),
+        "causal_mask": lambda: causal_mask(8),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+
+
+_BOUNDARY = r"""
+import sys
+sys.path.insert(0, {repo!r})
+import numpy as np
+import fsvlm_tpu_torch.serve as serve
+from fsvlm_tpu_torch.trainers.backbone import load_clip_backbone
+clip = load_clip_backbone("test-tiny", device="cpu")
+pred = serve.PromptSRCPredictor(["cat", "dog"], clip=clip, device="cpu")
+top = pred.predict(np.zeros((2, 32, 32, 3), np.uint8), topk=2)
+assert len(top) == 2 and len(top[0]) == 2, top
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "fsvlm_tpu", "regex", "yaml", "PIL"))
+print("FORBIDDEN", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_serving_path_imports_no_jax_regex_yaml_or_pil():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _BOUNDARY.format(repo=REPO)], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "FORBIDDEN []" in proc.stdout
+
+
+def test_predictor_with_bf16_frozen_towers_matches_jax(setup):
+    """FROZEN_DTYPE bf16: towers stored in bfloat16 (the JAX package's
+    _apply_frozen_dtype cast), computed in fp32 on the CPU as in JAX."""
+    import jax
+
+    from fsvlm_tpu.trainers.backbone import _apply_frozen_dtype
+
+    params, images, _ = setup
+    node = dataclasses.replace(NODE, FROZEN_DTYPE="bf16")
+    cfg = types.SimpleNamespace(MODEL=types.SimpleNamespace(FROZEN_DTYPE="bf16"))
+    params_bf16 = jax.tree.map(np.asarray, _apply_frozen_dtype(cfg, params))
+    ref, _, _, _ = _jax_logits(params_bf16, CLASSNAMES, None, images)
+    pred = PromptSRCPredictor(CLASSNAMES, node=node, backbone="test-tiny", seed=3, device="cpu",
+                              clip=clip_from_params(params, CLIPConfig(*TINY), torch.bfloat16,
+                                                    device="cpu"))
+    assert pred.clip.visual.proj.dtype == torch.bfloat16
+    logits = pred.image_logits(images).numpy()
+    np.testing.assert_allclose(logits, ref, atol=1e-3)
+    assert (logits.argmax(1) == ref.argmax(1)).all()
