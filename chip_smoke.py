@@ -8,20 +8,34 @@ Phases; each passes or raises, and any failure exits non-zero:
 1. device: require CUDA; print the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them.
 2. build: compile every hand-written kernel from the repo's sources
-   (one nvcc per source) and print the build time.
-3. kernels: hold each kernel against its plain PyTorch version on the card
-   (fp32 and bf16, O and LSE, max-abs tolerances below) at the shapes the
-   main path gives it, then time kernel, plain version and the one PyTorch
+   (one nvcc per source, all started together) and print the build time.
+3. kernels: hold each kernel against its plain PyTorch version on the card,
+   in fp32 and bf16, at the shapes the main paths give it and at edges of L:
+   the forward (O and LSE, max-abs tolerances below) and the two backward
+   kernels (dQ, dK, dV: max abs error over the largest abs value of the plain
+   version's three).  Then time kernels, plain versions and the one PyTorch
    library call that computes the same function (a yardstick only).
-4. main path: PromptSRC ViT-B/16 serving at full width (random weights from
-   seed 0, bf16 frozen towers, bf16 compute, 100 classes): text features
-   once, then 3 batches of 100 uint8 224x224 images, through the kernel and
-   again with the plain attention; text features, image features, logits
-   (absolutely and against their spread between classes) and top-1 must agree.
-   Kernel launch counts are zeroed just before the kernel run and read just
-   after it: every kernel of the path must have launched.
+4. serving: PromptSRC ViT-B/16 at full width (random weights from seed 0,
+   bf16 frozen towers, bf16 compute, 100 classes): text features once, then
+   3 batches of 100 uint8 224x224 images, through the kernel and again with
+   the plain attention; text features, image features, logits (absolutely
+   and against their spread between classes) and top-1 must agree.  Kernel
+   launch counts are zeroed just before the kernel run and read just after
+   it: every kernel of the path must have launched.
 5. profile: device time by kernel (torch.profiler) over one serving batch
    and one text pass, and the wall time of repeated text passes.
+6. train: the PromptSRC ViT-B/16 train step at full width (the recipe's
+   prompt and optimizer settings, bf16, batch 48, 100 classes, a uint8
+   cache of 288 224x224 images, DEVICE_AUG, the per-step frozen teacher):
+   6 steps over 2 epochs of 3 (warmup LR, then the cosine's first LR; GPA
+   at both epoch ends and the final swap-in), through the kernels and again
+   with the plain attention on the same weights, batches, boxes and flips.
+   The first step's prompt gradients (in fp32, and in bf16 against their
+   rounding noise), the per-step losses and the prompts' total change must
+   agree (limits below), and each kernel must launch its expected count per
+   step.  Then step time, images/s, peak memory, one step checked to make
+   no synchronizing call, epochs timed with and without per-step syncs in
+   alternation, and one profiled step.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -42,6 +56,14 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 TOL = {"float32": {"o": 1e-4, "lse": 1e-4}, "bfloat16": {"o": 2e-2, "lse": 1e-2}}
+# backward: max abs error of dQ, dK, dV over the largest abs value of the plain
+# version's three (bf16: an output ulp is 2^-8 relative)
+TOL_BWD = {"float32": 1e-5, "bfloat16": 1e-2}
+BWD_SHAPES = [  # (B, H, L, causal): the train step's vision and text shapes, edges of L
+    (48, 12, 201, False), (100, 8, 16, True),
+    (3, 2, 1, False), (4, 8, 8, True), (4, 8, 24, True), (2, 8, 77, True),
+    (2, 4, 513, True), (2, 4, 1024, True),
+]
 KERNEL_SHAPES = [  # (B, H, L, causal): vision, text at its truncated lengths, edges of L
     (100, 12, 201, False),
     (100, 8, 8, True), (100, 8, 16, True), (100, 8, 24, True), (100, 8, 77, True),
@@ -52,6 +74,13 @@ N_CLASSES, N_BATCHES, BATCH = 100, 3, 100
 # of the text features; the largest logit difference, absolutely and as a
 # share of the image's logit spread between classes (std over the classes)
 MIN_COSINE, MAX_DLOGIT, MAX_DLOGIT_OVER_SPREAD = 0.999, 0.1, 0.25
+# train path, kernels against plain attention: per-step |dloss| <= DLOSS * (1 + |loss|);
+# cosine of each prompt tensor's first-step gradient in fp32, and of its total
+# change; in bf16, each first-step gradient's distance (1 - cosine) to the fp32
+# plain gradient at most BF16_NOISE_RATIO times the plain bf16 path's
+TRAIN_BATCH, TRAIN_CACHE, TRAIN_EPOCHS, TRAIN_STEPS_PER_EPOCH = 48, 288, 2, 3
+DLOSS, MIN_GRAD_COSINE, MIN_DELTA_COSINE, BF16_NOISE_RATIO = 1e-2, 0.999, 0.99, 4.0
+N_EPOCH_PAIRS = 4  # epochs timed synced after every step and as train() runs them
 
 
 def log(msg):
@@ -75,11 +104,10 @@ def phase_device():
 
 
 def phase_build():
-    from fsvlm_tpu_torch.ops.kernels.build import SOURCES, build
+    from fsvlm_tpu_torch.ops.kernels.build import build_all
 
     t0 = time.perf_counter()
-    for name in SOURCES:
-        info = build(name)
+    for name, info in build_all().items():
         usage = [ln.strip() for ln in info["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
         log(f"build {name}: nvcc {info['seconds']:.1f} s; " + " | ".join(usage))
@@ -115,6 +143,110 @@ def _bound(B, H, L, causal, dtype_name, elsize):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _bound_bwd(B, H, L, causal, elsize, n_out, flops_per_pair):
+    """Least time of one backward kernel at bf16 peak: q, k, v, dO read, LSE
+    and delta read, ``n_out`` gradients written, the mask read when there is
+    one; ``flops_per_pair`` operations per (query, key) pair this data needs."""
+    pairs = L * (L + 1) // 2 if causal else L * L
+    nbytes = (4 + n_out) * B * H * L * 64 * elsize + 2 * B * H * L * 4 + (L * L * 4 if causal else 0)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops_per_pair * B * H * pairs * 64 / PEAK_FLOPS["bfloat16"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _blhd_grad(B, H, L, dtype, gen):
+    """dO as it reaches the attention from mha's merge of the heads: a
+    (B, H, L, 64) view of (B, L, H, 64) memory."""
+    import torch
+
+    return torch.randn((B, L, H, 64), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+
+
+def _library_bwd_ms(q, k, v, do, causal):
+    """Time of the one PyTorch call that computes dQ, dK and dV for these
+    inputs, aten's flash-attention backward (after its own forward,
+    untimed); None where it does not take them."""
+    import torch
+
+    aten = torch.ops.aten
+    try:
+        o, lse, cq, ck, mq, mk, seed, off = aten._scaled_dot_product_flash_attention(
+            q, k, v, 0.0, causal, False)[:8]
+        return _time_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
+            do, q, k, v, o, lse, cq, ck, mq, mk, 0.0, causal, seed, off))
+    except (RuntimeError, TypeError) as e:
+        log(f"library: the flash backward does not take these inputs ({str(e).splitlines()[0]})")
+        return None
+
+
+def phase_kernels_bwd():
+    """The dK/dV and dQ kernels against the plain backward; then times."""
+    import torch
+
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.ops.attention import causal_mask
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst = {fa.KERNEL_DKV: [0.0, 0.0], fa.KERNEL_DQ: [0.0, 0.0]}  # [abs, relative]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for B, H, L, causal in BWD_SHAPES:
+            q, k, v = _qkv(B, H, L, dtype, gen)
+            do = _blhd_grad(B, H, L, dtype, gen)
+            mask = causal_mask(L, device="cuda") if causal else None
+            o, lse = fa._kernel_fwd(q, k, v, mask)
+            dq, dk, dv = fa._kernel_bwd(q, k, v, o, lse, do, mask)
+            ref = fa.reference_attention_bwd(q, k, v, o, lse, do, mask)
+            torch.cuda.synchronize()
+            scale = max(r.float().abs().max().item() for r in ref)
+            errs = [(g.float() - r.float()).abs().max().item() for g, r in zip((dq, dk, dv), ref)]
+            rel = [e / scale for e in errs]
+            ok = all(np.isfinite(e) and r <= TOL_BWD[name] for e, r in zip(errs, rel))
+            log(f"kernel flash_attn_bwd {name} B={B} H={H} L={L} "
+                f"{'causal' if causal else 'nomask'}: max|err|/max|ref| dQ {rel[0]:.3e} "
+                f"dK {rel[1]:.3e} dV {rel[2]:.3e} (max|ref| {scale:.3e}, tol {TOL_BWD[name]:g}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"FAIL: the backward kernels disagree with their plain version "
+                                 f"({name}, B={B} H={H} L={L})")
+            for kern, idx in ((fa.KERNEL_DKV, (1, 2)), (fa.KERNEL_DQ, (0,))):
+                worst[kern][0] = max(worst[kern][0], *(errs[i] for i in idx))
+                worst[kern][1] = max(worst[kern][1], *(rel[i] for i in idx))
+            del q, k, v, do, o, lse, dq, dk, dv, ref
+
+    timings = {}
+    for label, (B, H, L, causal) in (("vision", (48, 12, 201, False)),
+                                     ("text", (100, 8, 16, True))):
+        q, k, v = _qkv(B, H, L, torch.bfloat16, gen)
+        do = _blhd_grad(B, H, L, torch.bfloat16, gen)
+        mask = causal_mask(L, device="cuda") if causal else None
+        o, lse = fa._kernel_fwd(q, k, v, mask)
+        delta = fa.attention_delta(o, do)
+        args = (q, k, v, do, lse, delta, mask)
+        dkv_ms = _time_ms(lambda: fa._launch_dkv(*args))
+        dq_ms = _time_ms(lambda: fa._launch_dq(*args))
+        bwd_ms = _time_ms(lambda: fa._kernel_bwd(q, k, v, o, lse, do, mask))
+        plain_ms = _time_ms(lambda: fa.reference_attention_bwd(q, k, v, o, lse, do, mask))
+        lib_ms = _library_bwd_ms(q, k, v, do, causal)
+        b_dkv = _bound_bwd(B, H, L, causal, 2, 2, 8)
+        b_dq = _bound_bwd(B, H, L, causal, 2, 1, 6)
+        timings[label] = {
+            fa.KERNEL_DKV: dict(ms=dkv_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                bound_ms=b_dkv[0], bound_by=b_dkv[1]),
+            fa.KERNEL_DQ: dict(ms=dq_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=b_dq[0], bound_by=b_dq[1]),
+        }
+        log(f"time flash_attn_bwd bf16 {label} ({B},{H},{L},64) "
+            f"{'causal' if causal else 'nomask'}: dK/dV kernel {dkv_ms:.4f} ms (bound "
+            f"{b_dkv[0]:.4f} ms, {b_dkv[1]}), dQ kernel {dq_ms:.4f} ms (bound {b_dq[0]:.4f} ms, "
+            f"{b_dq[1]}), whole backward with the delta pre-pass {bwd_ms:.4f} ms; "
+            f"plain backward {plain_ms:.4f} ms; aten._scaled_dot_product_flash_attention_backward "
+            f"{lib_ms} ms")
+    for kern, (a, r) in worst.items():
+        log(f"kernel {kern}: worst max|err| {a:.3e}, worst max|err|/max|ref| {r:.3e}")
+    return {k: v[0] for k, v in worst.items()}, timings
 
 
 def phase_kernels():
@@ -214,7 +346,7 @@ def phase_main():
         p._text_features = None
     torch.cuda.synchronize()
 
-    fa.LAUNCHES[fa.KERNEL] = 0
+    fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
     k_text_ms, k_txf, k_feats, k_logits, k_top, k_ms = run(pred)
     launches = dict(fa.LAUNCHES)
     p_text_ms, p_txf, p_feats, p_logits, _, p_ms = run(plain)
@@ -257,8 +389,37 @@ def phase_main():
     expected = pred.clip.cfg.transformer_layers + N_BATCHES * pred.clip.cfg.vision_layers
     if launches[fa.KERNEL] != expected:
         raise SystemExit(f"FAIL: {fa.KERNEL} launched {launches[fa.KERNEL]} times on the "
-                         f"main path, expected {expected}")
-    return launches, pred, batches[0]
+                         f"serving path, expected {expected}")
+    return pred, batches[0]
+
+
+def _profile(label, fn, top=12):
+    """Run ``fn`` once under torch.profiler; print its wall time, the device's
+    busy time (kernels' self device time) and idle share, and the top
+    kernels by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    # kernels only: the aten ops that launched them carry the same device time
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                  key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in rows)
+    log(f"profile: {label}: wall {wall_us / 1e3:.3f} ms under the profiler, device busy "
+        f"{busy / 1e3:.3f} ms, idle share {max(0.0, 1 - busy / wall_us):.3f}")
+    for e in rows[:top]:
+        log(f"profile:   {dev_us(e) / 1e3:9.3f} ms  {100 * dev_us(e) / busy:5.1f}%  "
+            f"x{e.count:<4d} {e.key[:100]}")
 
 
 def phase_profile(pred, batch):
@@ -269,11 +430,6 @@ def phase_profile(pred, batch):
     import torch
 
     from fsvlm_tpu_torch.ops import flash_attention as fa
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     def text_pass():
         pred._text_features = None
@@ -281,22 +437,7 @@ def phase_profile(pred, batch):
 
     for label, fn in (("image batch of %d" % len(batch), lambda: pred.logits(pred.image_features(batch))),
                       ("text pass", text_pass)):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t) * 1e6
-        # kernels only: the aten ops that launched them carry the same device time
-        rows = sorted((e for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
-                      key=dev_us, reverse=True)
-        busy = sum(dev_us(e) for e in rows)
-        log(f"profile: {label}: wall {wall_us / 1e3:.3f} ms under the profiler, device busy "
-            f"{busy / 1e3:.3f} ms, idle share {max(0.0, 1 - busy / wall_us):.3f}")
-        for e in rows[:12]:
-            log(f"profile:   {dev_us(e) / 1e3:9.3f} ms  {100 * dev_us(e) / busy:5.1f}%  "
-                f"x{e.count:<4d} {e.key[:100]}")
+        _profile(label, fn)
     op = fa._flash_attn_fwd_op
     walls = {"operator": [], "direct": []}
     try:
@@ -314,31 +455,209 @@ def phase_profile(pred, batch):
         f"{walls['operator']}, launched directly {walls['direct']}")
 
 
+def _cosine(a, b):
+    import torch
+
+    return torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(),
+                                                 dim=0).item()
+
+
+def phase_train(clip):
+    """The PromptSRC ViT-B/16 train step at full width, through the kernels
+    and through the plain attention (same weights, batches, boxes, flips)."""
+    import torch
+
+    from fsvlm_tpu_torch.config import get_cfg_default
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.ops.preprocess import (
+        crop_resize_flip_normalize, sample_crop_boxes, sample_flips)
+    from fsvlm_tpu_torch.trainers.promptsrc import PromptSRC
+
+    cfg = get_cfg_default()  # the vit_b16_c2_ep20_batch4_4+4ctx recipe
+    cfg.SEED = 0
+    cfg.MODEL.FROZEN_DTYPE = "bf16"
+    cfg.TRAINER.PROMPTSRC.PREC = "bf16"
+    cfg.DATALOADER.DEVICE_AUG = True
+    cfg.DATALOADER.TRAIN_X.BATCH_SIZE = TRAIN_BATCH
+    cfg.OPTIM.MAX_EPOCH = TRAIN_EPOCHS  # depth cut: 2 of the recipe's 20 epochs
+    classnames = [f"class {i}" for i in range(N_CLASSES)]
+    rng = np.random.RandomState(1234)
+    cache = torch.from_numpy(rng.randint(0, 256, (TRAIN_CACHE, 224, 224, 3), dtype=np.uint8)).cuda()
+    labels = torch.from_numpy(np.arange(TRAIN_CACHE) % N_CLASSES).cuda()
+
+    fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+    t0 = time.perf_counter()
+    kt = PromptSRC(cfg, classnames, cache, labels, clip=clip, device="cuda",
+                   steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+    build_launches = dict(fa.LAUNCHES)
+    pt = PromptSRC(cfg, classnames, cache, labels, clip=clip, device="cuda",
+                   steps_per_epoch=TRAIN_STEPS_PER_EPOCH, attn_impl="plain")
+    log(f"train: trainers built in {time.perf_counter() - t0:.1f} s (text L="
+        f"{kt.frozen['base_embed'].shape[1]}, teacher text L=77); launches while building the "
+        f"kernel trainer {build_launches}")
+    if build_launches[fa.KERNEL] != clip.cfg.transformer_layers:
+        raise SystemExit(f"FAIL: the teacher text features launched {fa.KERNEL} "
+                         f"{build_launches[fa.KERNEL]} times, expected {clip.cfg.transformer_layers}")
+    cos_txt = torch.nn.functional.cosine_similarity(kt.frozen["zs_text"], pt.frozen["zs_text"], dim=-1)
+    if cos_txt.min().item() < MIN_COSINE:
+        raise SystemExit(f"FAIL: teacher text features disagree (min cosine {cos_txt.min().item()})")
+
+    # the first step's prompt gradients on one augmented batch (untimed; the
+    # trainers' own generators are not drawn from), through the kernels and
+    # the plain attention, in the step's bf16 and again in fp32
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    images = crop_resize_flip_normalize(
+        cache[:TRAIN_BATCH], sample_crop_boxes(TRAIN_BATCH, 224, 224, (0.08, 1.0), gen),
+        sample_flips(TRAIN_BATCH, gen), 224)
+    batch = {"img": images, "label": labels[:TRAIN_BATCH]}
+    grads = {}
+    for prec in ("bf16", "fp32"):
+        cfg.TRAINER.PROMPTSRC.PREC = prec  # read by both trainers' compute_dtype()
+        for name, t in (("kernel", kt), ("plain", pt)):
+            loss, _ = t.loss_fn(t.params, t.frozen, batch)
+            grads[name, prec] = dict(zip(t.params, torch.autograd.grad(loss, list(t.params.values()))))
+    cfg.TRAINER.PROMPTSRC.PREC = "bf16"
+    cos = {pair: {k: _cosine(grads[pair[0]][k], grads[pair[1]][k]) for k in kt.params}
+           for pair in ((("kernel", "fp32"), ("plain", "fp32")), (("kernel", "bf16"), ("plain", "bf16")),
+                        (("kernel", "bf16"), ("plain", "fp32")), (("plain", "bf16"), ("plain", "fp32")))}
+    for (a, b), c in cos.items():
+        log(f"train: first-step gradient cosine, {' '.join(a)} against {' '.join(b)}: "
+            + ", ".join(f"{k} {v:.7f}" for k, v in c.items()))
+    # fp32: kernel against plain at MIN_GRAD_COSINE.  bf16: each path's
+    # distance (1 - cosine) to the fp32 plain gradient is its rounding noise;
+    # the kernel path's may be at most BF16_NOISE_RATIO times the plain path's
+    k_vs_p32 = cos[("kernel", "fp32"), ("plain", "fp32")]
+    noise_k = cos[("kernel", "bf16"), ("plain", "fp32")]
+    noise_p = cos[("plain", "bf16"), ("plain", "fp32")]
+    if (min(k_vs_p32.values()) < MIN_GRAD_COSINE
+            or any(1 - noise_k[k] > BF16_NOISE_RATIO * (1 - noise_p[k]) + 1e-9 for k in kt.params)):
+        raise SystemExit("FAIL: kernel and plain first-step prompt gradients disagree")
+    del grads, images, batch
+
+    # the train path through the kernels, every step timed on the host clock
+    init = {k: v.detach().clone() for k, v in kt.params.items()}
+    step_ms = []
+    run_step = kt.train_step_resident
+
+    def timed_step(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run_step(*args, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    kt.train_step_resident = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+    k_hist = kt.train()
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    kt.train_step_resident = run_step
+    p_hist = pt.train()
+    if not torch.equal(kt.generator.get_state(), pt.generator.get_state()):
+        raise SystemExit("FAIL: the two runs drew differently from their generators")
+
+    k_loss = [m["loss"] for h in k_hist for m in h]
+    p_loss = [m["loss"] for h in p_hist for m in h]
+    n_steps = TRAIN_EPOCHS * TRAIN_STEPS_PER_EPOCH
+    dloss = [abs(a - b) / (1 + abs(b)) for a, b in zip(k_loss, p_loss)]
+    delta_cos = {k: _cosine(kt.params[k].detach() - init[k], pt.params[k].detach() - init[k])
+                 for k in kt.params}
+    lrs = [kt.lr_schedule.lr_at_epoch(e) for e in range(TRAIN_EPOCHS)]
+    log(f"train: losses kernel {[round(x, 5) for x in k_loss]}, plain "
+        f"{[round(x, 5) for x in p_loss]}; max |dloss|/(1+|loss|) {max(dloss):.3e} "
+        f"(limit {DLOSS:g}); LR per epoch {lrs}; optimizer count {int(kt.optim.count)}")
+    log(f"train: cosine of each prompt tensor's total change (GPA swapped in) {delta_cos}")
+    per_step = {fa.KERNEL: 3 * clip.cfg.vision_layers, fa.KERNEL_DKV: 2 * clip.cfg.vision_layers,
+                fa.KERNEL_DQ: 2 * clip.cfg.vision_layers}  # text + student + teacher; text + student
+    log(f"train: launches over {n_steps} steps {launches}, expected per step {per_step}")
+    if (len(k_loss) != n_steps or not all(np.isfinite(k_loss + p_loss))
+            or max(dloss) > DLOSS or min(delta_cos.values()) < MIN_DELTA_COSINE):
+        raise SystemExit("FAIL: kernel and plain train paths disagree")
+    for kern, n in per_step.items():
+        if launches[kern] != n * n_steps:
+            raise SystemExit(f"FAIL: {kern} launched {launches[kern]} times on the train path, "
+                             f"expected {n * n_steps}")
+    med = float(np.median(step_ms[1:]))
+    log(f"train: step ms {[round(x, 2) for x in step_ms]}; median over steps 2-{n_steps} "
+        f"{med:.2f} ms, {TRAIN_BATCH / med * 1e3:.1f} images/s; peak memory "
+        f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    # the step issues no host sync (nor does JAX's): one step with torch.cuda's
+    # sync debug mode set to raise on a synchronizing call
+    index = kt.epoch_schedule()[0][0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kt.train_step_resident(index)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("train: one step under sync debug mode 'error' made no synchronizing call")
+
+    # epochs as train() runs them (no sync between steps, one read-back at the
+    # end) against epochs synced after every step, in alternating order
+    def synced_step(*args, **kw):
+        torch.cuda.synchronize()
+        out = run_step(*args, **kw)
+        torch.cuda.synchronize()
+        return out
+
+    def epoch_ms_per_step(step_fn):
+        kt.train_step_resident = step_fn
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        kt.run_epoch()
+        kt.train_step_resident = run_step
+        return (time.perf_counter() - t) * 1e3 / TRAIN_STEPS_PER_EPOCH
+
+    epochs = {"synced": [], "pipelined": []}
+    for i in range(N_EPOCH_PAIRS):
+        order = ("synced", "pipelined") if i % 2 == 0 else ("pipelined", "synced")
+        for mode in order:
+            epochs[mode].append(epoch_ms_per_step(synced_step if mode == "synced" else run_step))
+    epoch_med = {m: float(np.median(v)) for m, v in epochs.items()}
+    log(f"train: ms per step over {N_EPOCH_PAIRS} epochs of {TRAIN_STEPS_PER_EPOCH} steps each way, "
+        f"alternating: synced after every step {[round(x, 2) for x in epochs['synced']]} "
+        f"(median {epoch_med['synced']:.2f}), as train() runs them "
+        f"{[round(x, 2) for x in epochs['pipelined']]} (median {epoch_med['pipelined']:.2f}, "
+        f"{TRAIN_BATCH / epoch_med['pipelined'] * 1e3:.1f} images/s)")
+    _profile(f"one train step, batch {TRAIN_BATCH}", lambda: kt.train_step_resident(index), top=30)
+    return launches
+
+
 def main():
     phase_device()
     phase_build()
     worst, timings = phase_kernels()
-    launches, pred, batch = phase_main()
+    worst_bwd, timings_bwd = phase_kernels_bwd()
+    pred, batch = phase_main()
     phase_profile(pred, batch)
+    launches = phase_train(pred.clip)
 
     import torch
 
     from fsvlm_tpu_torch.ops import flash_attention as fa
 
-    vis = timings["vision"]
+    src = "fsvlm_tpu_torch/ops/kernels/"
+    rows = [(fa.KERNEL, "flash_attn_fwd.cu", 544, worst, timings["vision"]),
+            (fa.KERNEL_DKV, "flash_attn_bwd.cu", 599, worst_bwd[fa.KERNEL_DKV],
+             timings_bwd["vision"][fa.KERNEL_DKV]),
+            (fa.KERNEL_DQ, "flash_attn_bwd.cu", 648, worst_bwd[fa.KERNEL_DQ],
+             timings_bwd["vision"][fa.KERNEL_DQ])]
     print(json.dumps({"kernels": [{
-        "name": fa.KERNEL,
+        "name": name,
         "route": "cuda",
-        "source": "fsvlm_tpu_torch/ops/kernels/flash_attn_fwd.cu",
-        "replaces": "fsvlm_tpu/ops/flash_attention.py:544",
-        "launches": launches[fa.KERNEL],
-        "max_abs_err": worst,
-        "ms": vis["ms"],
-        "plain_ms": vis["plain_ms"],
-        "bound_ms": vis["bound_ms"],
-        "bound_by": vis["bound_by"],
-        "library_ms": vis["library_ms"],
-    }]}))
+        "source": src + source,
+        "replaces": f"fsvlm_tpu/ops/flash_attention.py:{line}",
+        "launches": launches[name],
+        "max_abs_err": err,
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
+    } for name, source, line, err, t in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -25,6 +25,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(KERNEL_DIR)), "_build")
 # library name -> source file in this directory
 SOURCES = {
     "flash_attn_fwd": "flash_attn_fwd.cu",
+    "flash_attn_bwd": "flash_attn_bwd.cu",
 }
 
 NVCC_FLAGS = [
@@ -73,6 +74,17 @@ def build(name):
         raise RuntimeError(f"nvcc failed for {SOURCES[name]} (rc {proc.returncode}):\n{log}")
     os.replace(tmp, out)
     return {"path": out, "seconds": time.perf_counter() - t0, "log": log}
+
+
+def build_all():
+    """Build every library in ``SOURCES`` at once, one ``nvcc`` process
+    each, all started together.  Returns {name: build()'s dict}; raises the
+    first failure once every build has ended."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        futures = {name: pool.submit(build, name) for name in SOURCES}
+        return {name: f.result() for name, f in futures.items()}
 
 
 def load_library(name):

@@ -1,29 +1,78 @@
 """Elementwise / normalization primitives with CLIP's precision semantics
-(forward only; counterpart of fsvlm_tpu.ops.layers).
+(counterpart of fsvlm_tpu.ops.layers).
 
 CLIP's LayerNorm computes in fp32 whatever the activation dtype
 (reference: PromptSRC/clip/model.py:153-159); QuickGELU is x*sigmoid(1.702x)
-(model.py:162-164).  Linear weights are stored (in_features, out_features),
-the JAX package's layout, so the forward is ``x @ w``.
+(model.py:162-164).  Both are ``torch.autograd.Function``s with the
+memory-lean backward of the JAX package's custom VJPs (:23-84): LayerNorm
+saves x in its own dtype plus the fp32 mean and rstd and recomputes x-hat,
+QuickGELU saves only x and recomputes the sigmoid.  Linear weights are
+stored (in_features, out_features), the JAX package's layout, so the
+forward is ``x @ w``.
 """
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 from .. import resolve_device
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        y, mean, rstd = torch.native_layer_norm(x.float(), (x.shape[-1],), scale.float(),
+                                                bias.float(), eps)
+        ctx.save_for_backward(x, scale, mean, rstd)
+        return y.to(x.dtype)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, scale, mean, rstd = ctx.saved_tensors
+        xhat = (x.float() - mean) * rstd
+        g32 = g.float()
+        dx = dscale = dbias = None
+        if ctx.needs_input_grad[0]:
+            dxhat = g32 * scale.float()
+            m1 = dxhat.mean(dim=-1, keepdim=True)
+            m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+            dx = (rstd * (dxhat - m1 - xhat * m2)).to(x.dtype)
+        red = tuple(range(x.dim() - 1))  # every leading axis, for the (D,) grads
+        if ctx.needs_input_grad[1]:
+            dscale = (g32 * xhat).sum(dim=red).to(scale.dtype)
+        if ctx.needs_input_grad[2]:
+            dbias = g32.sum(dim=red).to(scale.dtype)
+        return dx, dscale, dbias, None
 
 
 def layer_norm(x, scale, bias, eps=1e-5):
     """LayerNorm over the last axis: fp32 statistics (population variance),
     output in the input dtype."""
-    y = F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(), eps)
-    return y.to(x.dtype)
+    return _LayerNorm.apply(x, scale, bias, eps)
+
+
+def _sigmoid_1702(x):
+    return torch.reciprocal(1.0 + torch.exp(-1.702 * x))
+
+
+class _QuickGELU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x * _sigmoid_1702(x)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        s = _sigmoid_1702(x)
+        return g * (s + 1.702 * x * s * (1.0 - s))
 
 
 def quick_gelu(x):
     """x * sigmoid(1.702 x) in the input dtype (OpenAI CLIP's GELU)."""
-    return x * torch.reciprocal(1.0 + torch.exp(-1.702 * x))
+    return _QuickGELU.apply(x)
 
 
 def linear(x, w, b=None):

@@ -146,7 +146,8 @@ class PromptSRCPredictor:
         if clip.logit_scale.device != self.device:
             raise ValueError(f"clip lies on {clip.logit_scale.device}, not {self.device}")
         self.clip = clip
-        self.frozen, pc = build_vlp_frozen(self.node, clip, self.classnames, seed)
+        self.frozen, pc = build_vlp_frozen(self.node, clip, self.classnames, seed,
+                                            self.node.TEXT_TRUNCATE)
         if prompt_params is None:
             prompt_params = init_vlp_params(self.node, clip.cfg, pc,
                                             np.random.RandomState(max(seed, 0)))

@@ -79,9 +79,10 @@ def vlp_image_features(params, frozen, images, compute_dtype, attn_impl=None):
                             compute_dtype=compute_dtype, attn_impl=attn_impl)
 
 
-def build_vlp_frozen(cfg_node, clip, classnames, seed):
+def build_vlp_frozen(cfg_node, clip, classnames, seed, text_truncate):
     """Frozen state shared by the family: the towers + text prompt assembly
-    on the towers' device.  Returns (frozen, prompt context)."""
+    on the towers' device (``text_truncate``: MODEL.TEXT_TRUNCATE).  Returns
+    (frozen, prompt context)."""
     # phrase-init only when n_ctx <= 4, as in the reference (promptsrc.py:90)
     device = clip.logit_scale.device
     pc = build_prompt_context(
@@ -93,7 +94,7 @@ def build_vlp_frozen(cfg_node, clip, classnames, seed):
         rng=np.random.RandomState(max(seed, 0)),
         context_length=clip.cfg.context_length,
         init_keep_n_ctx=True,
-        truncate=bool(cfg_node.TEXT_TRUNCATE),
+        truncate=bool(text_truncate),
     )
     frozen = {
         "clip": clip,

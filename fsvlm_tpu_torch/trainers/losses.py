@@ -1,0 +1,91 @@
+"""Loss functions PromptSRC reaches (counterpart of fsvlm_tpu.trainers.losses).
+
+Parity targets (reference, PromptSRC/trainers/coop.py and simclr_utils.py):
+- MultiClassFocalLoss (coop.py:131-163): alpha[target] * (1-pt)^gamma * CE,
+  alpha the inverse-frequency weights of DATASET.PER_CLASS_SHOTS
+  (coop.py:326-346);
+- NT-Xent over L2-normalized rows, temperature 0.07 (coop.py:66-128,
+  simclr_utils.py:62-86).
+
+Every batch-reduced loss takes an optional ``valid`` (B,) bool mask: padded
+rows of a short final batch repeat the last item and must not weigh in.
+Losses are fp32 whatever the input dtype.
+"""
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def masked_mean(per_example, valid=None):
+    """Mean of (B,) per-example values over valid rows (plain mean if no
+    mask); masked entries are selected away, so they may be inf or NaN."""
+    if valid is None:
+        return per_example.mean()
+    safe = torch.where(valid, per_example, torch.zeros_like(per_example))
+    return safe.sum() / valid.to(per_example.dtype).sum().clamp_min(1.0)
+
+
+def masked_acc(logits, labels, valid=None):
+    """Batch top-1 accuracy (%) over valid rows."""
+    correct = (logits.argmax(-1) == labels).float()
+    return masked_mean(correct, valid) * 100.0
+
+
+def _ce_per_example(logits, labels):
+    return F.cross_entropy(logits.float(), labels, reduction="none")
+
+
+def cross_entropy(logits, labels, valid=None):
+    return masked_mean(_ce_per_example(logits, labels), valid)
+
+
+def focal_loss(logits, labels, alpha=None, gamma=2.0, valid=None):
+    """Multi-class focal loss; ``alpha``: optional (C,) per-class weights."""
+    ce = _ce_per_example(logits, labels)
+    pt = torch.exp(-ce)
+    focal = (1.0 - pt) ** gamma * ce
+    if alpha is not None:
+        focal = alpha[labels] * focal
+    return masked_mean(focal, valid)
+
+
+def focal_alpha_from_shots(per_class_shots, device=None):
+    """Inverse-frequency alpha: total / (n_cls * count), 0 for empty classes
+    (coop.py:337-345).  A (C,) float32 tensor on ``device`` (default: CPU)."""
+    counts = np.asarray(per_class_shots, np.float32)
+    alpha = np.where(counts > 0, counts.sum() / (len(counts) * np.maximum(counts, 1)), 0.0)
+    return torch.as_tensor(alpha.astype(np.float32), device=device)
+
+
+def nt_xent(z1, z2, temperature=0.07, valid=None):
+    """SimCLR NT-Xent over two aligned views z1, z2 (N, D), rows
+    L2-normalized here.  Positives are (i, i+N); self-similarity is excluded.
+    With ``valid``, padded rows are excluded as anchors and as negatives."""
+    z1 = z1 / torch.linalg.vector_norm(z1, dim=1, keepdim=True)
+    z2 = z2 / torch.linalg.vector_norm(z2, dim=1, keepdim=True)
+    z = torch.cat([z1, z2], dim=0).float()
+    n2 = z.shape[0]
+    n = n2 // 2
+    sim = z @ z.T / temperature
+    eye = torch.eye(n2, dtype=torch.bool, device=z.device)
+    sim = sim.masked_fill(eye, float("-inf"))
+    v2 = None
+    if valid is not None:
+        v2 = torch.cat([valid, valid]).bool()
+        sim = sim.masked_fill(~v2[None, :], float("-inf"))
+    ar = torch.arange(n, device=z.device)
+    pos_idx = torch.cat([ar + n, ar])
+    per_row = torch.logsumexp(sim, dim=1) - sim[torch.arange(n2, device=z.device), pos_idx]
+    if v2 is not None:
+        per_row = torch.where(v2, per_row, torch.zeros_like(per_row))
+        return per_row.sum() / v2.float().sum().clamp_min(1.0)
+    return per_row.mean()
+
+
+def l1_loss(a, b, valid=None):
+    """Elementwise-mean L1; with ``valid``, rows (axis 0) are masked."""
+    d = (a.float() - b.float()).abs()
+    if valid is None:
+        return d.mean()
+    return masked_mean(d.reshape(d.shape[0], -1).mean(dim=1), valid)

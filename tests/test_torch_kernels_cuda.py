@@ -7,8 +7,12 @@ that has only PyTorch; skip the suite's JAX-loading conftest there:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 
-Tolerances (max abs error) are chip_smoke.py's: fp32 1e-4 for O and LSE;
-bf16 2e-2 for O (one output ulp near 2-4 is 0.016) and 1e-2 for LSE.
+Tolerances are chip_smoke.py's.  Forward (max abs error): fp32 1e-4 for O
+and LSE; bf16 2e-2 for O (one output ulp near 2-4 is 0.016) and 1e-2 for
+LSE.  Backward (max abs error of each of dQ, dK and dV over the largest
+abs value of the plain version's three): fp32 1e-5; bf16 1e-2 (an output
+ulp is 2^-8 relative).  One denominator for the three, because a gradient
+can be zero up to rounding (at L = 1, dQ = dK = 0 exactly and dV = dO).
 """
 
 import numpy as np
@@ -21,6 +25,7 @@ from fsvlm_tpu_torch.ops.layers import linear
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
+TOL_BWD = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture
@@ -109,3 +114,123 @@ def test_mha_through_the_kernel_matches_the_plain_path(card, causal):
         *[t.view(B, L, H, 64).transpose(1, 2)
           for t in linear(x, w["w_qkv"], b_qkv).split(D, dim=-1)], mask)
     assert o.transpose(1, 2).is_contiguous()
+
+
+# ------------------------------------------------------------------ backward
+def _rel_errs(got, want):
+    """max |got_i - want_i| over the largest |want_j|, for each gradient i."""
+    scale = max(w.float().abs().max().item() for w in want)
+    return [(g.float() - w.float()).abs().max().item() / scale for g, w in zip(got, want)]
+
+
+def _blhd_view(B, H, L, dtype, seed):
+    """A (B, H, L, 64) view of (B, L, H, 64) memory: the layout in which dO
+    reaches the attention from mha's merge of the heads."""
+    g = np.random.RandomState(seed).randn(B, L, H, 64).astype(np.float32)
+    return torch.from_numpy(g).cuda().to(dtype).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,H,L,causal", [
+    (48, 12, 201, False), (100, 8, 16, True),  # the train step's vision and text shapes
+    (3, 2, 1, False), (4, 8, 8, True), (4, 8, 24, True), (2, 8, 77, True),
+    (2, 4, 513, True), (2, 2, 1024, True),
+])
+def test_flash_attn_bwd_matches_plain(card, dtype, B, H, L, causal):
+    fa = flash_attention
+    q, k, v = _qkv_views(B, H, L, dtype, seed=L + H)
+    do = _blhd_view(B, H, L, dtype, seed=L + H + 1)
+    mask = attention.causal_mask(L, device=card) if causal else None
+    o, lse = fa.attention_fwd(q, k, v, mask)
+    before = (fa.LAUNCHES[fa.KERNEL_DKV], fa.LAUNCHES[fa.KERNEL_DQ])
+    dq, dk, dv = fa._kernel_bwd(q, k, v, o, lse, do, mask)
+    assert (fa.LAUNCHES[fa.KERNEL_DKV], fa.LAUNCHES[fa.KERNEL_DQ]) == (before[0] + 1, before[1] + 1)
+    ref = fa.reference_attention_bwd(q, k, v, o, lse, do, mask)
+    torch.cuda.synchronize()
+    for name, got in zip(("dq", "dk", "dv"), (dq, dk, dv)):
+        assert got.dtype == dtype and got.shape == (B, H, L, 64), name
+        assert got.transpose(1, 2).is_contiguous(), name  # written (B, L, H, d)
+        assert torch.isfinite(got).all(), name
+    errs = _rel_errs((dq, dk, dv), ref)
+    assert max(errs) <= TOL_BWD[dtype], errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_attention_grads_through_the_kernels_match_the_plain_path(card, dtype):
+    """autograd through attention_fwd: the kernels' backward against the
+    plain backward, on strided q, k, v views and a (B, L, H, d) dO."""
+    B, H, L = 4, 4, 150
+    q, k, v = [t.detach().requires_grad_() for t in _qkv_views(B, H, L, dtype, seed=4)]
+    do = _blhd_view(B, H, L, dtype, seed=5)
+    mask = attention.causal_mask(L, device=card)
+    grads = {}
+    for impl in (None, "plain"):
+        o, _ = flash_attention.attention_fwd(q, k, v, mask, impl=impl)
+        grads[impl] = torch.autograd.grad(o, (q, k, v), do)
+    assert max(_rel_errs(grads[None], grads["plain"])) <= TOL_BWD[dtype]
+
+
+def test_flash_attn_bwd_general_mask_and_a_fully_masked_row(card):
+    q, k, v = [t.contiguous() for t in _qkv_views(2, 4, 40, torch.float32, seed=9)]
+    do = torch.from_numpy(np.random.RandomState(10).randn(2, 4, 40, 64).astype(np.float32)).cuda()
+    mask = torch.from_numpy(np.random.RandomState(11).randn(40, 40).astype(np.float32)).cuda()
+    mask[3] = float("-inf")  # every key masked: LSE ~ -1e30, zero gradients, no NaN
+    mask[:, 5] = float("-inf")  # one key masked for every query: zero dK, dV rows
+    o, lse = flash_attention.attention_fwd(q, k, v, mask)
+    grads = flash_attention._kernel_bwd(q, k, v, o, lse, do, mask)
+    ref = flash_attention.reference_attention_bwd(q, k, v, o, lse, do, mask)
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert max(_rel_errs(grads, ref)) <= TOL_BWD[torch.float32]
+    dq, dk, dv = grads
+    assert dq[:, :, 3].abs().max().item() == 0.0
+    assert dk[:, :, 5].abs().max().item() == 0.0 and dv[:, :, 5].abs().max().item() == 0.0
+
+
+def test_flash_attn_bwd_counts_launches_and_rejects_what_it_does_not_take(card):
+    fa = flash_attention
+    q, k, v = _qkv_views(2, 2, 16, torch.bfloat16, seed=1)
+    o, lse = fa.attention_fwd(q, k, v)
+    do = torch.ones_like(o)
+    delta = fa.attention_delta(o, do)
+    counts = (fa.LAUNCHES[fa.KERNEL_DKV], fa.LAUNCHES[fa.KERNEL_DQ])
+    op = torch.ops.fsvlm.flash_attn_bwd_d64
+    bad = [
+        (q, k, v, do.float(), lse, delta, None),  # dO dtype
+        (q, k, v, do[:, :, :8], lse, delta, None),  # dO shape
+        (q, k, v, do, lse[:, :, :8].contiguous(), delta, None),  # LSE shape
+        (q, k, v, do, lse, delta.bfloat16(), None),  # delta dtype
+        (q, k, v, do, lse.transpose(1, 2).contiguous().transpose(1, 2), delta, None),  # LSE layout
+        (q, k, v, do, lse, delta, torch.zeros(8, 8, device=card)),  # mask shape
+        (q[..., :32], k[..., :32], v[..., :32], do[..., :32], lse, delta, None),  # head dim 32
+    ]
+    for args in bad:
+        with pytest.raises((ValueError, TypeError)):
+            op(*args)
+    assert (fa.LAUNCHES[fa.KERNEL_DKV], fa.LAUNCHES[fa.KERNEL_DQ]) == counts
+    # the plain path launches nothing
+    qg = q.detach().requires_grad_()
+    o2, _ = fa.attention_fwd(qg, k, v, impl="plain")
+    o2.float().sum().backward()
+    assert (fa.LAUNCHES[fa.KERNEL_DKV], fa.LAUNCHES[fa.KERNEL_DQ]) == counts
+    o3, _ = fa.attention_fwd(qg, k, v)
+    o3.float().sum().backward()
+    assert (fa.LAUNCHES[fa.KERNEL_DKV], fa.LAUNCHES[fa.KERNEL_DQ]) == (counts[0] + 1, counts[1] + 1)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "nomask"])
+def test_mha_backward_through_the_kernels_matches_the_plain_path(card, causal):
+    rng = np.random.RandomState(3)
+    B, L, D, H = 3, 37, 256, 4
+    x0 = torch.from_numpy(rng.randn(B, L, D).astype(np.float32)).cuda()
+    w = {n: torch.from_numpy((rng.randn(*s) * s[0] ** -0.5).astype(np.float32)).cuda()
+         for n, s in (("w_qkv", (D, 3 * D)), ("w_out", (D, D)))}
+    b_qkv = torch.zeros(3 * D, device=card)
+    b_out = torch.zeros(D, device=card)
+    g = torch.from_numpy(rng.randn(B, L, D).astype(np.float32)).cuda()
+    mask = attention.causal_mask(L, device=card) if causal else None
+    grads = {}
+    for impl in (None, "plain"):
+        x = x0.clone().requires_grad_()
+        out = attention.mha(x, w["w_qkv"], b_qkv, w["w_out"], b_out, H, mask=mask, impl=impl)
+        grads[impl], = torch.autograd.grad(out, x, g)
+    assert max(_rel_errs([grads[None]], [grads["plain"]])) <= 1e-5

@@ -120,15 +120,19 @@ def test_predictor_requires_a_card_for_cuda():
         PromptSRCPredictor(CLASSNAMES)
 
 
-@pytest.mark.parametrize("entry", ["load_clip_backbone", "clip_from_params", "CLIP", "causal_mask"])
+@pytest.mark.parametrize("entry", ["load_clip_backbone", "clip_from_params", "CLIP", "causal_mask",
+                                   "PromptSRC", "make_lr_schedule"])
 def test_entry_points_default_to_the_card(entry):
     """With no device given, every entry point asks for cuda, and raises on
     a box without one instead of falling back to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this box has a CUDA card")
+    from fsvlm_tpu_torch.config import get_cfg_default
+    from fsvlm_tpu_torch.engine.optim import make_lr_schedule
     from fsvlm_tpu_torch.models.clip import CLIP
     from fsvlm_tpu_torch.ops.attention import causal_mask
     from fsvlm_tpu_torch.trainers.backbone import load_clip_backbone
+    from fsvlm_tpu_torch.trainers.promptsrc import PromptSRC
 
     calls = {
         "load_clip_backbone": lambda: load_clip_backbone("test-tiny"),
@@ -136,6 +140,9 @@ def test_entry_points_default_to_the_card(entry):
                                                      CLIPConfig(*TINY)),
         "CLIP": lambda: CLIP(CLIPConfig(*TINY)),
         "causal_mask": lambda: causal_mask(8),
+        "PromptSRC": lambda: PromptSRC(get_cfg_default(), ["cat", "dog"],
+                                       np.zeros((4, 32, 32, 3), np.uint8), np.zeros(4)),
+        "make_lr_schedule": lambda: make_lr_schedule(get_cfg_default(), 10),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
@@ -146,11 +153,20 @@ import sys
 sys.path.insert(0, {repo!r})
 import numpy as np
 import fsvlm_tpu_torch.serve as serve
+import fsvlm_tpu_torch.config, fsvlm_tpu_torch.engine.optim, fsvlm_tpu_torch.engine.trainer
+import fsvlm_tpu_torch.ops.preprocess, fsvlm_tpu_torch.ops.kernels.build
+import fsvlm_tpu_torch.trainers.ivlp, fsvlm_tpu_torch.trainers.losses
 from fsvlm_tpu_torch.trainers.backbone import load_clip_backbone
+from fsvlm_tpu_torch.trainers.promptsrc import PromptSRC
 clip = load_clip_backbone("test-tiny", device="cpu")
 pred = serve.PromptSRCPredictor(["cat", "dog"], clip=clip, device="cpu")
 top = pred.predict(np.zeros((2, 32, 32, 3), np.uint8), topk=2)
 assert len(top) == 2 and len(top[0]) == 2, top
+cfg = fsvlm_tpu_torch.config.get_cfg_default()
+cfg.INPUT.SIZE, cfg.DATALOADER.DEVICE_AUG, cfg.OPTIM.MAX_EPOCH = (32, 32), True, 1
+trainer = PromptSRC(cfg, ["cat", "dog"], np.zeros((4, 40, 40, 3), np.uint8), np.zeros(4),
+                    clip=clip, device="cpu")
+assert np.isfinite(trainer.train()[0][0]["loss"])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "fsvlm_tpu", "regex", "yaml", "PIL"))
 print("FORBIDDEN", bad)
@@ -159,6 +175,8 @@ sys.exit(1 if bad else 0)
 
 
 def test_serving_path_imports_no_jax_regex_yaml_or_pil():
+    """Serving and a train epoch on the CPU, with every module of the port
+    imported, load nothing of JAX, the JAX package, regex, yaml or PIL."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _BOUNDARY.format(repo=REPO)], cwd=REPO,
                           env=env, capture_output=True, text=True, timeout=300)
