@@ -13,8 +13,10 @@ Phases; each passes or raises, and any failure exits non-zero:
    in fp32 and bf16, at the shapes the main paths give it and at edges of L:
    the forward (O and LSE, max-abs tolerances below) and the two backward
    kernels (dQ, dK, dV: max abs error over the largest abs value of the plain
-   version's three).  Then time kernels, plain versions and the one PyTorch
-   library call that computes the same function (a yardstick only).
+   version's three); the d = 64 kernels #6-#8, then the blockwise kernels
+   #3-#5 at head dims 32, 64, 128 and 80 (zero-padded to 128).  Then time
+   kernels, plain versions and the one PyTorch library call that computes the
+   same function (a yardstick only), with each kernel's bound.
 4. serving: PromptSRC ViT-B/16 at full width (random weights from seed 0,
    bf16 frozen towers, bf16 compute, 100 classes): text features once, then
    3 batches of 100 uint8 224x224 images, through the kernel and again with
@@ -36,6 +38,23 @@ Phases; each passes or raises, and any failure exits non-zero:
    step.  Then step time, images/s, peak memory, one step checked to make
    no synchronizing call, epochs timed with and without per-step syncs in
    alternation, and one profiled step.
+7. IVLP train: the IVLP ViT-B/16 KD train step (the _kd recipe: CE plus KD
+   from the zero-shot CLIP teacher, whose image pass runs on every batch)
+   under FSVLM_FORCE_PALLAS=1, so that every attention takes the blockwise
+   kernels #3-#5 and none the d = 64 ones.  The recipe's KD_ALPHA 1.0 gives
+   the KD term weight 0, so the teacher's logits on one batch, and the loss
+   at KD_ALPHA 0.5, are first held to the plain path's.  Then phase 6's run
+   and agreement rules on the same cache (6 steps over 2 epochs of 3,
+   kernels against plain attention), then 2 steps with mixup on, the same
+   perm and lam handed to
+   both; step time, images/s, peak memory, one step checked to make no
+   synchronizing call (and one with the trainer's own mixup draws), and one
+   profiled step.  The variable is set for the phase and restored after it;
+   phases 4-6 run with it unset, on the d = 64 kernels.
+
+Phases 4, 6 and 7 zero the launch counts just before their main path and
+read them just after: each kernel of the path must have launched its
+expected count, and the other family none.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -81,10 +100,50 @@ MIN_COSINE, MAX_DLOGIT, MAX_DLOGIT_OVER_SPREAD = 0.999, 0.1, 0.25
 TRAIN_BATCH, TRAIN_CACHE, TRAIN_EPOCHS, TRAIN_STEPS_PER_EPOCH = 48, 288, 2, 3
 DLOSS, MIN_GRAD_COSINE, MIN_DELTA_COSINE, BF16_NOISE_RATIO = 1e-2, 0.999, 0.99, 4.0
 N_EPOCH_PAIRS = 4  # epochs timed synced after every step and as train() runs them
+# blockwise kernels #3-#5: head dims (80 is zero-padded to the 128 instantiation),
+# lengths (the IVLP step's text 16 and vision 201, edges of L), and the timed
+# shapes: the train vision shape and two of the same D * H at other head dims
+BW_DIMS, BW_LENGTHS = (32, 64, 128, 80), (1, 8, 16, 77, 201, 300, 513)
+BW_PATH_SHAPES = [  # (B, H, L, causal) at d = 64: the IVLP step's student vision,
+    # KD-teacher vision (no prompts), student text and the build's teacher text
+    (48, 12, 201, False), (48, 12, 197, False), (100, 8, 16, True), (100, 8, 77, True),
+]
+BW_TIMED = {"vision": (48, 12, 201, 64, False), "vision_d32": (48, 24, 201, 32, False),
+            "vision_d128": (48, 6, 201, 128, False), "text": (100, 8, 16, 64, True)}
+N_MIX_STEPS = 2  # IVLP steps with mixup on, after the 6 without
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+class force_pallas:
+    """FSVLM_FORCE_PALLAS set to ``value`` (None: unset) inside the block, and
+    restored after it."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __enter__(self):
+        self.saved = os.environ.get("FSVLM_FORCE_PALLAS")
+        self._set(self.value)
+
+    def __exit__(self, *exc):
+        self._set(self.saved)
+
+    @staticmethod
+    def _set(value):
+        if value is None:
+            os.environ.pop("FSVLM_FORCE_PALLAS", None)
+        else:
+            os.environ["FSVLM_FORCE_PALLAS"] = value
+
+
+def _others_silent(launches, family_prefix, where):
+    """Fail if a kernel outside ``family_prefix`` launched on this path."""
+    stray = {k: n for k, n in launches.items() if n and not k.startswith(family_prefix)}
+    if stray:
+        raise SystemExit(f"FAIL: {where} launched kernels of the other family: {stray}")
 
 
 def phase_device():
@@ -108,18 +167,25 @@ def phase_build():
 
     t0 = time.perf_counter()
     for name, info in build_all().items():
-        usage = [ln.strip() for ln in info["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
-        log(f"build {name}: nvcc {info['seconds']:.1f} s; " + " | ".join(usage))
+        log(f"build {name}: nvcc {info['seconds']:.1f} s")
+        # ptxas prints, per kernel instantiation, "Compiling entry function
+        # '<mangled name>'", then its spills, then its registers
+        entry = ""
+        for ln in info["log"].splitlines():
+            if "Compiling entry function" in ln:
+                mangled = ln.split("'")[1]
+                entry = mangled.split("_cu_")[-1][:60] if "_cu_" in mangled else mangled[:60]
+            elif "registers" in ln or "spill" in ln:
+                log(f"build   {entry}: {ln.split(':', 1)[-1].strip()}")
     log(f"build: {time.perf_counter() - t0:.1f} s in all")
 
 
-def _qkv(B, H, L, dtype, gen):
-    """q, k, v as the strided (B, H, L, 64) views that the port's mha makes."""
+def _qkv(B, H, L, dtype, gen, d=64):
+    """q, k, v as the strided (B, H, L, d) views that the port's mha makes."""
     import torch
 
-    qkv = torch.randn((B, L, 3 * H * 64), generator=gen, device="cuda").to(dtype)
-    return [t.view(B, L, H, 64).transpose(1, 2) for t in qkv.split(H * 64, dim=-1)]
+    qkv = torch.randn((B, L, 3 * H * d), generator=gen, device="cuda").to(dtype)
+    return [t.view(B, L, H, d).transpose(1, 2) for t in qkv.split(H * d, dim=-1)]
 
 
 def _time_ms(fn, iters=20):
@@ -136,32 +202,33 @@ def _time_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def _bound(B, H, L, causal, dtype_name, elsize):
+def _bound(B, H, L, causal, dtype_name, elsize, d=64):
     pairs = L * (L + 1) // 2 if causal else L * L  # score entries this data needs
-    nbytes = 4 * B * H * L * 64 * elsize + B * H * L * 4 + (L * L * 4 if causal else 0)
-    flops = 4 * B * H * pairs * 64
+    nbytes = 4 * B * H * L * d * elsize + B * H * L * 4 + (L * L * 4 if causal else 0)
+    flops = 4 * B * H * pairs * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _bound_bwd(B, H, L, causal, elsize, n_out, flops_per_pair):
+def _bound_bwd(B, H, L, causal, elsize, n_out, flops_per_pair, d=64):
     """Least time of one backward kernel at bf16 peak: q, k, v, dO read, LSE
     and delta read, ``n_out`` gradients written, the mask read when there is
-    one; ``flops_per_pair`` operations per (query, key) pair this data needs."""
+    one; ``flops_per_pair`` operations per (query, key) pair and head dim
+    this data needs."""
     pairs = L * (L + 1) // 2 if causal else L * L
-    nbytes = (4 + n_out) * B * H * L * 64 * elsize + 2 * B * H * L * 4 + (L * L * 4 if causal else 0)
+    nbytes = (4 + n_out) * B * H * L * d * elsize + 2 * B * H * L * 4 + (L * L * 4 if causal else 0)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops_per_pair * B * H * pairs * 64 / PEAK_FLOPS["bfloat16"] * 1e3
+    t_ops = flops_per_pair * B * H * pairs * d / PEAK_FLOPS["bfloat16"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _blhd_grad(B, H, L, dtype, gen):
+def _blhd_grad(B, H, L, dtype, gen, d=64):
     """dO as it reaches the attention from mha's merge of the heads: a
-    (B, H, L, 64) view of (B, L, H, 64) memory."""
+    (B, H, L, d) view of (B, L, H, d) memory."""
     import torch
 
-    return torch.randn((B, L, H, 64), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    return torch.randn((B, L, H, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
 
 
 def _library_bwd_ms(q, k, v, do, causal):
@@ -247,6 +314,100 @@ def phase_kernels_bwd():
     for kern, (a, r) in worst.items():
         log(f"kernel {kern}: worst max|err| {a:.3e}, worst max|err|/max|ref| {r:.3e}")
     return {k: v[0] for k, v in worst.items()}, timings
+
+
+def phase_kernels_blockwise():
+    """The blockwise kernels #3-#5 against their plain versions at every
+    head dim and edge of L, causal and unmasked, and at the IVLP step's own
+    shapes (BW_PATH_SHAPES), fp32 and bf16; then times at BW_TIMED in bf16,
+    with bounds, plain and library times."""
+    import torch
+    import torch.nn.functional as F
+
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.ops.attention import causal_mask
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    kernels = (fa.BW_KERNEL, fa.BW_KERNEL_DKV, fa.BW_KERNEL_DQ)
+    worst = {(k, n): [0.0, 0.0] for k in kernels for n in ("float32", "bfloat16")}
+    edges = [((4, 4) if L <= 201 else (2, 2)) + (L, d, causal)
+             for d in BW_DIMS for L in BW_LENGTHS for causal in (True, False)]
+    path = [(B, H, L, 64, causal) for B, H, L, causal in BW_PATH_SHAPES]
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for B, H, L, d, causal in edges + path:
+            q, k, v = _qkv(B, H, L, dtype, gen, d)
+            do = _blhd_grad(B, H, L, dtype, gen, d)
+            mask = causal_mask(L, device="cuda") if causal else None
+            o, lse = fa._blockwise_attn_fwd_op(q, k, v, mask)
+            grads = fa._bw_kernel_bwd(q, k, v, o, lse, do, mask)
+            o_ref, lse_ref = fa.reference_blockwise_fwd(q, k, v, mask)
+            ref = fa.reference_blockwise_bwd(q, k, v, o, lse, do, mask)
+            torch.cuda.synchronize()
+            err_o = (o.float() - o_ref.float()).abs().max().item()
+            err_l = (lse - lse_ref).abs().max().item()
+            scale = max(r.float().abs().max().item() for r in ref)
+            errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(grads, ref)]
+            rel = [e / scale for e in errs]
+            ok = (all(np.isfinite(e) for e in (err_o, err_l, *errs))
+                  and err_o <= TOL[name]["o"] and err_l <= TOL[name]["lse"]
+                  and max(rel) <= TOL_BWD[name])
+            n_cases += 1
+            if not ok or L in (16, 201) or (B, H, L, d, causal) in path:
+                log(f"kernel blockwise {name} d={d} B={B} H={H} L={L} "
+                    f"{'causal' if causal else 'nomask'}: max|dO|={err_o:.3e} "
+                    f"max|dLSE|={err_l:.3e}; max|err|/max|ref| dQ {rel[0]:.3e} dK "
+                    f"{rel[1]:.3e} dV {rel[2]:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"FAIL: the blockwise kernels disagree with their plain "
+                                 f"versions ({name}, B={B} H={H} L={L} d={d}, causal={causal})")
+            for kern, a, r in ((fa.BW_KERNEL, max(err_o, err_l), 0.0),
+                               (fa.BW_KERNEL_DKV, max(errs[1:]), max(rel[1:])),
+                               (fa.BW_KERNEL_DQ, errs[0], rel[0])):
+                worst[kern, name][0] = max(worst[kern, name][0], a)
+                worst[kern, name][1] = max(worst[kern, name][1], r)
+            del q, k, v, do, o, lse, grads, o_ref, lse_ref, ref
+    log(f"kernel blockwise: {n_cases} cases ok (d {BW_DIMS}, L {BW_LENGTHS}, causal and "
+        f"unmasked; the IVLP step's shapes {BW_PATH_SHAPES} at d 64; fp32 and bf16)")
+
+    timings = {}
+    for label, (B, H, L, d, causal) in BW_TIMED.items():
+        q, k, v = _qkv(B, H, L, torch.bfloat16, gen, d)
+        do = _blhd_grad(B, H, L, torch.bfloat16, gen, d)
+        mask = causal_mask(L, device="cuda") if causal else None
+        o, lse = fa._blockwise_attn_fwd_op(q, k, v, mask)
+        delta = fa.attention_delta(o, do)
+        args = (q, k, v, do, lse, delta, mask)
+        fwd_ms = _time_ms(lambda: fa._blockwise_attn_fwd_op(q, k, v, mask))
+        dkv_ms = _time_ms(lambda: fa._bw_launch_dkv(*args))
+        dq_ms = _time_ms(lambda: fa._bw_launch_dq(*args))
+        plain_fwd_ms = _time_ms(lambda: fa.reference_blockwise_fwd(q, k, v, mask))
+        plain_bwd_ms = _time_ms(lambda: fa.reference_blockwise_bwd(q, k, v, o, lse, do, mask))
+        lib_fwd_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+        lib_bwd_ms = _library_bwd_ms(q, k, v, do, causal)
+        b_fwd = _bound(B, H, L, causal, "bfloat16", 2, d)
+        b_dkv = _bound_bwd(B, H, L, causal, 2, 2, 8, d)
+        b_dq = _bound_bwd(B, H, L, causal, 2, 1, 6, d)
+        timings[label] = {
+            fa.BW_KERNEL: dict(ms=fwd_ms, plain_ms=plain_fwd_ms, library_ms=lib_fwd_ms,
+                               bound_ms=b_fwd[0], bound_by=b_fwd[1]),
+            fa.BW_KERNEL_DKV: dict(ms=dkv_ms, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
+                                   bound_ms=b_dkv[0], bound_by=b_dkv[1]),
+            fa.BW_KERNEL_DQ: dict(ms=dq_ms, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
+                                  bound_ms=b_dq[0], bound_by=b_dq[1]),
+        }
+        log(f"time blockwise bf16 {label} ({B},{H},{L},{d}) {'causal' if causal else 'nomask'}: "
+            f"fwd kernel {fwd_ms:.4f} ms (bound {b_fwd[0]:.4f}, {b_fwd[1]}; plain "
+            f"{plain_fwd_ms:.4f}; sdpa {lib_fwd_ms:.4f}); dK/dV kernel {dkv_ms:.4f} ms (bound "
+            f"{b_dkv[0]:.4f}, {b_dkv[1]}); dQ kernel {dq_ms:.4f} ms (bound {b_dq[0]:.4f}, "
+            f"{b_dq[1]}); plain backward {plain_bwd_ms:.4f} ms; "
+            f"aten._scaled_dot_product_flash_attention_backward {lib_bwd_ms} ms")
+        del q, k, v, do, o, lse, delta, args
+    for (kern, name), (a, r) in worst.items():
+        log(f"kernel {kern} {name}: worst max|err| {a:.3e}"
+            + (f", worst max|err|/max|ref| {r:.3e}" if kern != fa.BW_KERNEL else ""))
+    return {k: max(worst[k, n][0] for n in ("float32", "bfloat16")) for k in kernels}, timings
 
 
 def phase_kernels():
@@ -387,6 +548,7 @@ def phase_main():
             or flips):
         raise SystemExit("FAIL: kernel and plain serving paths disagree")
     expected = pred.clip.cfg.transformer_layers + N_BATCHES * pred.clip.cfg.vision_layers
+    _others_silent(launches, "flash_attn", "the serving path")
     if launches[fa.KERNEL] != expected:
         raise SystemExit(f"FAIL: {fa.KERNEL} launched {launches[fa.KERNEL]} times on the "
                          f"serving path, expected {expected}")
@@ -462,79 +624,86 @@ def _cosine(a, b):
                                                  dim=0).item()
 
 
-def phase_train(clip):
-    """The PromptSRC ViT-B/16 train step at full width, through the kernels
-    and through the plain attention (same weights, batches, boxes, flips)."""
-    import torch
-
+def _train_cfg(trainer_key):
+    """The recipe (get_cfg_default) at the smoke run's size: SEED 0, bf16
+    frozen towers and compute, DEVICE_AUG, batch TRAIN_BATCH, TRAIN_EPOCHS
+    epochs (a depth cut of the recipe's 20)."""
     from fsvlm_tpu_torch.config import get_cfg_default
-    from fsvlm_tpu_torch.ops import flash_attention as fa
-    from fsvlm_tpu_torch.ops.preprocess import (
-        crop_resize_flip_normalize, sample_crop_boxes, sample_flips)
-    from fsvlm_tpu_torch.trainers.promptsrc import PromptSRC
 
-    cfg = get_cfg_default()  # the vit_b16_c2_ep20_batch4_4+4ctx recipe
+    cfg = get_cfg_default()
     cfg.SEED = 0
     cfg.MODEL.FROZEN_DTYPE = "bf16"
-    cfg.TRAINER.PROMPTSRC.PREC = "bf16"
+    getattr(cfg.TRAINER, trainer_key).PREC = "bf16"
     cfg.DATALOADER.DEVICE_AUG = True
     cfg.DATALOADER.TRAIN_X.BATCH_SIZE = TRAIN_BATCH
-    cfg.OPTIM.MAX_EPOCH = TRAIN_EPOCHS  # depth cut: 2 of the recipe's 20 epochs
-    classnames = [f"class {i}" for i in range(N_CLASSES)]
+    cfg.OPTIM.MAX_EPOCH = TRAIN_EPOCHS
+    return cfg
+
+
+def _train_cache():
+    import torch
+
     rng = np.random.RandomState(1234)
     cache = torch.from_numpy(rng.randint(0, 256, (TRAIN_CACHE, 224, 224, 3), dtype=np.uint8)).cuda()
     labels = torch.from_numpy(np.arange(TRAIN_CACHE) % N_CLASSES).cuda()
+    return cache, labels
 
-    fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
-    t0 = time.perf_counter()
-    kt = PromptSRC(cfg, classnames, cache, labels, clip=clip, device="cuda",
-                   steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
-    build_launches = dict(fa.LAUNCHES)
-    pt = PromptSRC(cfg, classnames, cache, labels, clip=clip, device="cuda",
-                   steps_per_epoch=TRAIN_STEPS_PER_EPOCH, attn_impl="plain")
-    log(f"train: trainers built in {time.perf_counter() - t0:.1f} s (text L="
-        f"{kt.frozen['base_embed'].shape[1]}, teacher text L=77); launches while building the "
-        f"kernel trainer {build_launches}")
-    if build_launches[fa.KERNEL] != clip.cfg.transformer_layers:
-        raise SystemExit(f"FAIL: the teacher text features launched {fa.KERNEL} "
-                         f"{build_launches[fa.KERNEL]} times, expected {clip.cfg.transformer_layers}")
-    cos_txt = torch.nn.functional.cosine_similarity(kt.frozen["zs_text"], pt.frozen["zs_text"], dim=-1)
-    if cos_txt.min().item() < MIN_COSINE:
-        raise SystemExit(f"FAIL: teacher text features disagree (min cosine {cos_txt.min().item()})")
 
-    # the first step's prompt gradients on one augmented batch (untimed; the
-    # trainers' own generators are not drawn from), through the kernels and
-    # the plain attention, in the step's bf16 and again in fp32
-    gen = torch.Generator(device="cuda").manual_seed(7)
+def _augmented_batch(cache, labels, seed):
+    """One augmented batch from a generator of its own (the trainers' are
+    not drawn from)."""
+    import torch
+
+    from fsvlm_tpu_torch.ops.preprocess import (
+        crop_resize_flip_normalize, sample_crop_boxes, sample_flips)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     images = crop_resize_flip_normalize(
         cache[:TRAIN_BATCH], sample_crop_boxes(TRAIN_BATCH, 224, 224, (0.08, 1.0), gen),
         sample_flips(TRAIN_BATCH, gen), 224)
-    batch = {"img": images, "label": labels[:TRAIN_BATCH]}
+    return {"img": images, "label": labels[:TRAIN_BATCH]}
+
+
+def _grad_agreement(label, kt, pt, node, batch):
+    """The first step's prompt gradients on one batch, through the kernels
+    and the plain attention, in the step's bf16 and again in fp32 (PREC is
+    read by both trainers' compute_dtype()).  fp32: kernel against plain at
+    MIN_GRAD_COSINE; bf16: each path's distance (1 - cosine) to the fp32
+    plain gradient is its rounding noise, and the kernel path's may be at
+    most BF16_NOISE_RATIO times the plain path's."""
+    import torch
+
     grads = {}
     for prec in ("bf16", "fp32"):
-        cfg.TRAINER.PROMPTSRC.PREC = prec  # read by both trainers' compute_dtype()
+        node.PREC = prec
         for name, t in (("kernel", kt), ("plain", pt)):
             loss, _ = t.loss_fn(t.params, t.frozen, batch)
             grads[name, prec] = dict(zip(t.params, torch.autograd.grad(loss, list(t.params.values()))))
-    cfg.TRAINER.PROMPTSRC.PREC = "bf16"
+    node.PREC = "bf16"
     cos = {pair: {k: _cosine(grads[pair[0]][k], grads[pair[1]][k]) for k in kt.params}
            for pair in ((("kernel", "fp32"), ("plain", "fp32")), (("kernel", "bf16"), ("plain", "bf16")),
                         (("kernel", "bf16"), ("plain", "fp32")), (("plain", "bf16"), ("plain", "fp32")))}
     for (a, b), c in cos.items():
-        log(f"train: first-step gradient cosine, {' '.join(a)} against {' '.join(b)}: "
+        log(f"{label}: first-step gradient cosine, {' '.join(a)} against {' '.join(b)}: "
             + ", ".join(f"{k} {v:.7f}" for k, v in c.items()))
-    # fp32: kernel against plain at MIN_GRAD_COSINE.  bf16: each path's
-    # distance (1 - cosine) to the fp32 plain gradient is its rounding noise;
-    # the kernel path's may be at most BF16_NOISE_RATIO times the plain path's
     k_vs_p32 = cos[("kernel", "fp32"), ("plain", "fp32")]
     noise_k = cos[("kernel", "bf16"), ("plain", "fp32")]
     noise_p = cos[("plain", "bf16"), ("plain", "fp32")]
     if (min(k_vs_p32.values()) < MIN_GRAD_COSINE
             or any(1 - noise_k[k] > BF16_NOISE_RATIO * (1 - noise_p[k]) + 1e-9 for k in kt.params)):
-        raise SystemExit("FAIL: kernel and plain first-step prompt gradients disagree")
-    del grads, images, batch
+        raise SystemExit(f"FAIL: {label}: kernel and plain first-step prompt gradients disagree")
 
-    # the train path through the kernels, every step timed on the host clock
+
+def _train_both(label, kt, pt, per_step, family):
+    """kt.train() through the kernels, every step timed on the host clock,
+    with the launch counts zeroed just before and read just after; then
+    pt.train() through the plain attention.  Checks the per-step losses,
+    each prompt tensor's total change and the launch counts.  Returns
+    (launches, step_ms, peak bytes)."""
+    import torch
+
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+
     init = {k: v.detach().clone() for k, v in kt.params.items()}
     step_ms = []
     run_step = kt.train_step_resident
@@ -557,7 +726,7 @@ def phase_train(clip):
     kt.train_step_resident = run_step
     p_hist = pt.train()
     if not torch.equal(kt.generator.get_state(), pt.generator.get_state()):
-        raise SystemExit("FAIL: the two runs drew differently from their generators")
+        raise SystemExit(f"FAIL: {label}: the two runs drew differently from their generators")
 
     k_loss = [m["loss"] for h in k_hist for m in h]
     p_loss = [m["loss"] for h in p_hist for m in h]
@@ -566,37 +735,80 @@ def phase_train(clip):
     delta_cos = {k: _cosine(kt.params[k].detach() - init[k], pt.params[k].detach() - init[k])
                  for k in kt.params}
     lrs = [kt.lr_schedule.lr_at_epoch(e) for e in range(TRAIN_EPOCHS)]
-    log(f"train: losses kernel {[round(x, 5) for x in k_loss]}, plain "
+    log(f"{label}: losses kernel {[round(x, 5) for x in k_loss]}, plain "
         f"{[round(x, 5) for x in p_loss]}; max |dloss|/(1+|loss|) {max(dloss):.3e} "
         f"(limit {DLOSS:g}); LR per epoch {lrs}; optimizer count {int(kt.optim.count)}")
-    log(f"train: cosine of each prompt tensor's total change (GPA swapped in) {delta_cos}")
-    per_step = {fa.KERNEL: 3 * clip.cfg.vision_layers, fa.KERNEL_DKV: 2 * clip.cfg.vision_layers,
-                fa.KERNEL_DQ: 2 * clip.cfg.vision_layers}  # text + student + teacher; text + student
-    log(f"train: launches over {n_steps} steps {launches}, expected per step {per_step}")
+    log(f"{label}: cosine of each prompt tensor's total change {delta_cos}")
+    log(f"{label}: launches over {n_steps} steps {launches}, expected per step {per_step}")
     if (len(k_loss) != n_steps or not all(np.isfinite(k_loss + p_loss))
             or max(dloss) > DLOSS or min(delta_cos.values()) < MIN_DELTA_COSINE):
-        raise SystemExit("FAIL: kernel and plain train paths disagree")
+        raise SystemExit(f"FAIL: {label}: kernel and plain train paths disagree")
+    _others_silent(launches, family, f"the {label} path")
     for kern, n in per_step.items():
         if launches[kern] != n * n_steps:
-            raise SystemExit(f"FAIL: {kern} launched {launches[kern]} times on the train path, "
+            raise SystemExit(f"FAIL: {kern} launched {launches[kern]} times on the {label} path, "
                              f"expected {n * n_steps}")
     med = float(np.median(step_ms[1:]))
-    log(f"train: step ms {[round(x, 2) for x in step_ms]}; median over steps 2-{n_steps} "
+    log(f"{label}: step ms {[round(x, 2) for x in step_ms]}; median over steps 2-{n_steps} "
         f"{med:.2f} ms, {TRAIN_BATCH / med * 1e3:.1f} images/s; peak memory "
         f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
-    # the step issues no host sync (nor does JAX's): one step with torch.cuda's
-    # sync debug mode set to raise on a synchronizing call
-    index = kt.epoch_schedule()[0][0]
+    return launches, step_ms, peak
+
+
+def _no_sync_step(label, step, *args, **kw):
+    """One step with torch.cuda's sync debug mode set to raise on a
+    synchronizing call (the JAX step issues none either)."""
+    import torch
+
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        kt.train_step_resident(index)
+        step(*args, **kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    log("train: one step under sync debug mode 'error' made no synchronizing call")
+    log(f"{label}: one step under sync debug mode 'error' made no synchronizing call")
+
+
+def phase_train(clip):
+    """The PromptSRC ViT-B/16 train step at full width, through the kernels
+    and through the plain attention (same weights, batches, boxes, flips)."""
+    import torch
+
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.trainers.promptsrc import PromptSRC
+
+    cfg = _train_cfg("PROMPTSRC")  # the vit_b16_c2_ep20_batch4_4+4ctx recipe
+    classnames = [f"class {i}" for i in range(N_CLASSES)]
+    cache, labels = _train_cache()
+
+    fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+    t0 = time.perf_counter()
+    kt = PromptSRC(cfg, classnames, cache, labels, clip=clip, device="cuda",
+                   steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+    build_launches = dict(fa.LAUNCHES)
+    pt = PromptSRC(cfg, classnames, cache, labels, clip=clip, device="cuda",
+                   steps_per_epoch=TRAIN_STEPS_PER_EPOCH, attn_impl="plain")
+    log(f"train: trainers built in {time.perf_counter() - t0:.1f} s (text L="
+        f"{kt.frozen['base_embed'].shape[1]}, teacher text L=77); launches while building the "
+        f"kernel trainer {build_launches}")
+    if build_launches[fa.KERNEL] != clip.cfg.transformer_layers:
+        raise SystemExit(f"FAIL: the teacher text features launched {fa.KERNEL} "
+                         f"{build_launches[fa.KERNEL]} times, expected {clip.cfg.transformer_layers}")
+    cos_txt = torch.nn.functional.cosine_similarity(kt.frozen["zs_text"], pt.frozen["zs_text"], dim=-1)
+    if cos_txt.min().item() < MIN_COSINE:
+        raise SystemExit(f"FAIL: teacher text features disagree (min cosine {cos_txt.min().item()})")
+
+    _grad_agreement("train", kt, pt, cfg.TRAINER.PROMPTSRC, _augmented_batch(cache, labels, 7))
+    per_step = {fa.KERNEL: 3 * clip.cfg.vision_layers, fa.KERNEL_DKV: 2 * clip.cfg.vision_layers,
+                fa.KERNEL_DQ: 2 * clip.cfg.vision_layers}  # text + student + teacher; text + student
+    launches, _, _ = _train_both("train", kt, pt, per_step, "flash_attn")
+    index = kt.epoch_schedule()[0][0]
+    _no_sync_step("train", kt.train_step_resident, index)
 
     # epochs as train() runs them (no sync between steps, one read-back at the
     # end) against epochs synced after every step, in alternating order
+    run_step = kt.train_step_resident
+
     def synced_step(*args, **kw):
         torch.cuda.synchronize()
         out = run_step(*args, **kw)
@@ -626,38 +838,159 @@ def phase_train(clip):
     return launches
 
 
+def phase_train_ivlp(clip):
+    """The IVLP ViT-B/16 KD train step at full width under
+    FSVLM_FORCE_PALLAS=1 (the caller sets it), through the blockwise kernels
+    and through their plain versions; then mixup steps on shared draws."""
+    import torch
+
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.ops.preprocess import sample_crop_boxes, sample_flips
+    from fsvlm_tpu_torch.trainers.ivlp import IVLP
+
+    cfg = _train_cfg("IVLP")  # the vit_b16_c2_ep20_batch4_4+4ctx_kd recipe
+    node = cfg.TRAINER.IVLP
+    classnames = [f"class {i}" for i in range(N_CLASSES)]
+    cache, labels = _train_cache()
+
+    fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+    t0 = time.perf_counter()
+    kt = IVLP(cfg, classnames, cache, labels, clip=clip, device="cuda",
+              steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+    build_launches = dict(fa.LAUNCHES)
+    pt = IVLP(cfg, classnames, cache, labels, clip=clip, device="cuda",
+              steps_per_epoch=TRAIN_STEPS_PER_EPOCH, attn_impl="plain")
+    log(f"ivlp: trainers built in {time.perf_counter() - t0:.1f} s (text L="
+        f"{kt.frozen['base_embed'].shape[1]}, KD teacher text L=77, fp32); launches while "
+        f"building the kernel trainer {build_launches}")
+    _others_silent(build_launches, "blockwise", "the IVLP build")
+    if build_launches[fa.BW_KERNEL] != clip.cfg.transformer_layers:
+        raise SystemExit(f"FAIL: the KD teacher text features launched {fa.BW_KERNEL} "
+                         f"{build_launches[fa.BW_KERNEL]} times, expected "
+                         f"{clip.cfg.transformer_layers}")
+    cos_txt = torch.nn.functional.cosine_similarity(kt.frozen["teacher_text"],
+                                                    pt.frozen["teacher_text"], dim=-1)
+    if cos_txt.min().item() < MIN_COSINE:
+        raise SystemExit(f"FAIL: KD teacher text features disagree (min cosine "
+                         f"{cos_txt.min().item()})")
+
+    # The recipe's KD_ALPHA 1.0 gives the KD term weight 0, so no loss or
+    # gradient below sees the teacher's image pass: hold its logits to the
+    # plain path's (phase 4's rules), and the loss at KD_ALPHA 0.5 too.
+    n = clip.cfg.vision_layers  # = transformer_layers = 12 for ViT-B/16
+    batch = _augmented_batch(cache, labels, 8)
+    fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+    t_kernel = kt.teacher_logits(kt.frozen, batch["img"])
+    teacher_launches = dict(fa.LAUNCHES)
+    t_plain = pt.teacher_logits(pt.frozen, batch["img"])
+    dlog = (t_kernel - t_plain).abs().max(dim=-1).values
+    rel = (dlog / t_plain.std(dim=-1)).max().item()
+    kt.kd_alpha = pt.kd_alpha = 0.5
+    with torch.no_grad():
+        kd_losses = [t.loss_fn(t.params, t.frozen, batch)[0].item() for t in (kt, pt)]
+    kt.kd_alpha = pt.kd_alpha = float(node.KD_ALPHA)
+    d_kd = abs(kd_losses[0] - kd_losses[1]) / (1 + abs(kd_losses[1]))
+    log(f"ivlp: KD teacher logits, kernel against plain: max |dlogit| {dlog.max().item():.4f}, "
+        f"max |dlogit|/spread {rel:.4f} (limits {MAX_DLOGIT:g}, {MAX_DLOGIT_OVER_SPREAD:g}); "
+        f"loss at KD_ALPHA 0.5 (kernel, plain) {[round(x, 5) for x in kd_losses]}, "
+        f"|dloss|/(1+|loss|) {d_kd:.3e}; launches of the teacher pass {teacher_launches}")
+    _others_silent(teacher_launches, "blockwise", "the KD teacher pass")
+    if teacher_launches[fa.BW_KERNEL] != n:
+        raise SystemExit(f"FAIL: the KD teacher image pass launched {fa.BW_KERNEL} "
+                         f"{teacher_launches[fa.BW_KERNEL]} times, expected {n}")
+    if (not torch.isfinite(t_kernel).all() or dlog.max().item() > MAX_DLOGIT
+            or rel > MAX_DLOGIT_OVER_SPREAD or not np.isfinite(kd_losses).all() or d_kd > DLOSS):
+        raise SystemExit("FAIL: ivlp: kernel and plain KD teacher passes disagree")
+
+    _grad_agreement("ivlp", kt, pt, node, batch)
+    per_step = {fa.BW_KERNEL: 3 * n, fa.BW_KERNEL_DKV: 2 * n, fa.BW_KERNEL_DQ: 2 * n}
+    launches, step_ms, peak = _train_both("ivlp", kt, pt, per_step, "blockwise")
+    index = kt.epoch_schedule()[0][0]
+    _no_sync_step("ivlp", kt.train_step_resident, index)
+
+    # epochs as train() runs them: the images/s a user sees
+    epoch_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        kt.run_epoch()
+        epoch_ms.append((time.perf_counter() - t) * 1e3 / TRAIN_STEPS_PER_EPOCH)
+    log(f"ivlp: ms per step over 2 epochs as train() runs them {[round(x, 2) for x in epoch_ms]} "
+        f"({TRAIN_BATCH / float(np.median(epoch_ms)) * 1e3:.1f} images/s)")
+
+    # mixup on (USE_MIXUP's defaults.py value): each step's perm, lam, boxes
+    # and flips drawn once and handed to both trainers
+    node.USE_MIXUP = kt.use_mixup = pt.use_mixup = True
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    lams = np.random.default_rng(9).beta(node.MIXUP_ALPHA, node.MIXUP_ALPHA, N_MIX_STEPS)
+    mix_loss = []
+    fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+    for step in range(N_MIX_STEPS):
+        idx = torch.arange(step * TRAIN_BATCH, (step + 1) * TRAIN_BATCH, device="cuda")
+        aug = (sample_crop_boxes(TRAIN_BATCH, 224, 224, (0.08, 1.0), gen), sample_flips(TRAIN_BATCH, gen))
+        mix = (torch.randperm(TRAIN_BATCH, generator=gen, device="cuda"),
+               torch.tensor(lams[step], dtype=torch.float32, device="cuda"))
+        mix_loss.append([t.train_step_resident(idx, aug=aug, mix=mix)["loss"].item()
+                         for t in (kt, pt)])
+    mix_launches = dict(fa.LAUNCHES)
+    dloss = [abs(a - b) / (1 + abs(b)) for a, b in mix_loss]
+    log(f"ivlp: {N_MIX_STEPS} mixup steps, lam {[round(float(x), 4) for x in lams]}: losses (kernel, plain) "
+        f"{[[round(x, 5) for x in p] for p in mix_loss]}; max |dloss|/(1+|loss|) {max(dloss):.3e}; "
+        f"launches {mix_launches}")
+    if not all(np.isfinite(mix_loss).flatten()) or max(dloss) > DLOSS:
+        raise SystemExit("FAIL: ivlp: kernel and plain mixup steps disagree")
+    _others_silent(mix_launches, "blockwise", "the IVLP mixup steps")
+    for kern, k in per_step.items():  # the plain trainer launches none
+        if mix_launches[kern] != k * N_MIX_STEPS:
+            raise SystemExit(f"FAIL: {kern} launched {mix_launches[kern]} times over the mixup "
+                             f"steps, expected {k * N_MIX_STEPS}")
+    kt.draw_epoch_lams()  # as run_epoch does at an epoch's start: one copy to the device
+    _no_sync_step("ivlp (mixup on the trainer's own draws)", kt.train_step_resident, index)
+    _profile(f"one IVLP KD train step, batch {TRAIN_BATCH}", lambda: kt.train_step_resident(index),
+             top=30)
+    return launches, step_ms, peak
+
+
 def main():
     phase_device()
     phase_build()
     worst, timings = phase_kernels()
     worst_bwd, timings_bwd = phase_kernels_bwd()
-    pred, batch = phase_main()
-    phase_profile(pred, batch)
-    launches = phase_train(pred.clip)
+    worst_bw, timings_bw = phase_kernels_blockwise()
+    with force_pallas(None):  # the default route: the d = 64 kernels
+        pred, batch = phase_main()
+        phase_profile(pred, batch)
+        launches = phase_train(pred.clip)
+    with force_pallas("1"):  # every attention through the blockwise kernels
+        launches_bw, _, _ = phase_train_ivlp(pred.clip)
 
     import torch
 
     from fsvlm_tpu_torch.ops import flash_attention as fa
 
     src = "fsvlm_tpu_torch/ops/kernels/"
-    rows = [(fa.KERNEL, "flash_attn_fwd.cu", 544, worst, timings["vision"]),
+    rows = [(fa.KERNEL, "flash_attn_fwd.cu", 544, worst, timings["vision"], launches),
             (fa.KERNEL_DKV, "flash_attn_bwd.cu", 599, worst_bwd[fa.KERNEL_DKV],
-             timings_bwd["vision"][fa.KERNEL_DKV]),
+             timings_bwd["vision"][fa.KERNEL_DKV], launches),
             (fa.KERNEL_DQ, "flash_attn_bwd.cu", 648, worst_bwd[fa.KERNEL_DQ],
-             timings_bwd["vision"][fa.KERNEL_DQ])]
+             timings_bwd["vision"][fa.KERNEL_DQ], launches)]
+    rows += [(name, source, line, worst_bw[name], timings_bw["vision"][name], launches_bw)
+             for name, source, line in ((fa.BW_KERNEL, "blockwise_attn_fwd.cu", 232),
+                                        (fa.BW_KERNEL_DKV, "blockwise_attn_bwd.cu", 324),
+                                        (fa.BW_KERNEL_DQ, "blockwise_attn_bwd.cu", 372))]
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": src + source,
         "replaces": f"fsvlm_tpu/ops/flash_attention.py:{line}",
-        "launches": launches[name],
+        "launches": counts[name],
         "max_abs_err": err,
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
-    } for name, source, line, err, t in rows]}))
+    } for name, source, line, err, t, counts in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,12 @@
-"""The config keys that the PromptSRC train slice reads (counterpart of
+"""The config keys that the ported train slices read (counterpart of
 fsvlm_tpu.config.defaults, without the yacs tree and without yaml loading).
 
-Defaults are fsvlm_tpu/config/defaults.py's, overlaid with
-configs/trainers/PromptSRC/vit_b16_c2_ep20_batch4_4+4ctx.yaml, so that
-``get_cfg_default()`` is that recipe.  The nodes are plain mutable
+Defaults are fsvlm_tpu/config/defaults.py's, overlaid with the ViT-B/16
+recipes: configs/trainers/PromptSRC/vit_b16_c2_ep20_batch4_4+4ctx.yaml
+(OPTIM, INPUT, MODEL, DATALOADER and TRAINER.PROMPTSRC) and
+configs/trainers/IVLP/vit_b16_c2_ep20_batch4_4+4ctx_kd.yaml (TRAINER.IVLP;
+its other sections equal the PromptSRC recipe's), so that
+``get_cfg_default()`` is either recipe.  The nodes are plain mutable
 dataclasses with the yacs names (``cfg.OPTIM.LR``,
 ``cfg.TRAINER.PROMPTSRC.N_CTX_TEXT``); set fields to override.
 """
@@ -60,8 +63,28 @@ class PromptSRCConfig:
 
 
 @dataclasses.dataclass
+class IVLPConfig:
+    N_CTX_VISION: int = 4  # _kd yaml (defaults.py: 2)
+    N_CTX_TEXT: int = 4  # _kd yaml (defaults.py: 2)
+    CTX_INIT: str = "a photo of a"
+    PREC: str = "bf16"  # _kd yaml (defaults.py: fp16)
+    PROMPT_DEPTH_VISION: int = 9
+    PROMPT_DEPTH_TEXT: int = 9
+    USE_FOCAL_LOSS: bool = False
+    SIMCLR_ALPHA: float = 0.0
+    USE_MIXUP: bool = False  # _kd yaml (defaults.py: True)
+    MIXUP_ALPHA: float = 1.0
+    USE_KD: bool = True
+    KD_TEACHER_MODEL: str = "resnet50"  # read by no trainer: the teacher is zero-shot CLIP
+    KD_ALPHA: float = 1.0
+    KD_T: float = 4.0
+    INT8_TEACHER: bool = False
+
+
+@dataclasses.dataclass
 class TrainerConfig:
     PROMPTSRC: PromptSRCConfig = field(default_factory=PromptSRCConfig)
+    IVLP: IVLPConfig = field(default_factory=IVLPConfig)
 
 
 @dataclasses.dataclass
@@ -90,6 +113,7 @@ class DataLoaderConfig:
 
 @dataclasses.dataclass
 class DatasetConfig:
+    NAME: str = ""  # picks the KD teacher's template (trainers/templates.py)
     PER_CLASS_SHOTS: List[int] = field(default_factory=list)
 
 
@@ -105,5 +129,6 @@ class Config:
 
 
 def get_cfg_default():
-    """A fresh config: defaults.py overlaid with the PromptSRC ViT-B/16 recipe."""
+    """A fresh config: defaults.py overlaid with the PromptSRC and IVLP
+    ViT-B/16 recipes."""
     return Config()

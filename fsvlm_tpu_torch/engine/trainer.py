@@ -4,14 +4,19 @@
 The trainer takes the class names, a uint8 image cache (N, P, P, 3) and its
 labels, both moved to ``device`` (default cuda), and keeps its state there:
 the prompt tensors (fp32 leaves), the optimizer, and a ``torch.Generator``
-that draws the epoch permutation and, under DATALOADER.DEVICE_AUG, the crop
-boxes and flips.  A step launches its work and returns its metrics as
-device tensors, with no host sync; ``run_epoch`` reads them back once, at
-the epoch's end.
+that draws the epoch permutation, under DATALOADER.DEVICE_AUG the crop
+boxes and flips, and under mixup each step's batch permutation.  Mixup's
+lam ~ Beta(alpha, alpha) has no device sampler that takes a generator: the
+epoch's lams are drawn on the host from a ``numpy.random.Generator`` seeded
+from SEED and moved to the device once per epoch, beside the epoch
+schedule.  A step launches its work and returns its metrics as device
+tensors, with no host sync; ``run_epoch`` reads them back once, at the
+epoch's end.
 
-- ``train_step(batch)``: a batch that carries its images ("img": float,
-  already normalized, or uint8 under DEVICE_AUG), "label" and optionally
-  "valid" / "img2";
+- ``train_step(batch, aug, mix)``: a batch that carries its images ("img":
+  float, already normalized, or uint8 under DEVICE_AUG), "label" and
+  optionally "valid" / "img2"; ``aug`` = (boxes, flips) and ``mix`` =
+  (perm, lam) hand in the step's draws (tests inject the JAX package's);
 - ``train_step_resident(index, valid)``: indices into the cache, gathered on
   the device, as the JAX package's train_step_resident;
 - ``forward_backward(batch)``: either, by whether the batch carries "img";
@@ -19,13 +24,15 @@ the epoch's end.
   ``before_epoch`` / ``after_epoch``.
 
 Subclasses implement ``build_model(clip)``, which sets ``params`` (dict of
-fp32 tensors), ``frozen`` and ``loss_fn(params, frozen, batch) -> (loss,
-aux)``.  Checkpoint save and resume, ``test()`` and best-val selection are
+fp32 tensors), ``frozen``, ``use_mixup`` / ``mixup_alpha`` where they mix,
+and ``loss_fn(params, frozen, batch) -> (loss, aux)``; under ``use_mixup``
+the batch carries its draws as "perm" and "lam".  Checkpoint save and resume, ``test()`` and best-val selection are
 not ported.
 """
 
 import math
 
+import numpy as np
 import torch
 
 from .. import resolve_device
@@ -39,6 +46,8 @@ from .optim import build_optimizer
 
 class SimpleTrainer:
     model_name = None
+    use_mixup = False  # set by build_model: every step then draws (perm, lam)
+    mixup_alpha = 1.0
 
     def __init__(self, cfg, classnames, images=None, labels=None, clip=None, device=None,
                  steps_per_epoch=None, attn_impl=None):
@@ -58,6 +67,8 @@ class SimpleTrainer:
         self.start_epoch = self.epoch = self.batch_idx = 0
         self.max_epoch = cfg.OPTIM.MAX_EPOCH
         self.generator = torch.Generator(device=self.device).manual_seed(max(cfg.SEED, 0))
+        self.mix_rng = np.random.default_rng(max(cfg.SEED, 0))  # the epochs' mixup lams
+        self.epoch_lams = None
         # on the device once: copying them at every step would sync the host
         self.pixel_stats = [torch.tensor(v, dtype=torch.float32, device=self.device)
                             for v in (cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD)]
@@ -112,7 +123,26 @@ class SimpleTrainer:
         boxes, flips = aug
         return crop_resize_flip_normalize(images, boxes, flips, inp.SIZE[0], *self.pixel_stats)
 
-    def train_step(self, batch, aug=None):
+    def draw_epoch_lams(self):
+        """This epoch's mixup lams, one per step, ~ Beta(alpha, alpha) (1 when
+        alpha <= 0, as mixup_batch), drawn on the host and moved to the
+        device in one copy."""
+        n = self.steps_per_epoch
+        a = self.mixup_alpha
+        lams = self.mix_rng.beta(a, a, n) if a > 0 else np.ones(n)
+        self.epoch_lams = torch.from_numpy(lams.astype(np.float32)).to(self.device)
+
+    def mixup_draws(self, batch_size):
+        """This step's (perm, lam) on the device, with no host sync: a
+        permutation of the batch from the generator, and the epoch's lam at
+        this step (a view of the device tensor: indexing it by a Python int
+        reads nothing back)."""
+        if self.epoch_lams is None:
+            self.draw_epoch_lams()
+        perm = torch.randperm(batch_size, generator=self.generator, device=self.device)
+        return perm, self.epoch_lams[self.batch_idx % len(self.epoch_lams)]
+
+    def train_step(self, batch, aug=None, mix=None):
         """One optimizer step on a batch that carries its images.  Returns
         the metrics (loss and the loss function's aux) as device tensors."""
         batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()
@@ -122,6 +152,10 @@ class SimpleTrainer:
             batch["img"] = self.augment(batch["img"], aug)
         elif batch["img"].dtype == torch.uint8:
             batch["img"] = normalize_only(batch["img"], *self.pixel_stats)
+        if self.use_mixup:
+            perm, lam = self.mixup_draws(len(batch["label"])) if mix is None else mix
+            batch["perm"] = torch.as_tensor(perm, device=self.device).long()
+            batch["lam"] = torch.as_tensor(lam, dtype=torch.float32, device=self.device)
         params = list(self.params.values())
         loss, aux = self.loss_fn(self.params, self.frozen, batch)
         grads = torch.autograd.grad(loss, params)
@@ -130,18 +164,18 @@ class SimpleTrainer:
         metrics["loss"] = loss.detach()
         return metrics
 
-    def train_step_resident(self, index, valid=None, aug=None):
+    def train_step_resident(self, index, valid=None, aug=None, mix=None):
         """One step on cache rows ``index`` (gathered on the device)."""
         index = torch.as_tensor(index, device=self.device).long()
         batch = {"img": self.cache[index], "label": self.labels[index]}
         if valid is not None:
             batch["valid"] = valid
-        return self.train_step(batch, aug)
+        return self.train_step(batch, aug, mix)
 
-    def forward_backward(self, batch, aug=None):
+    def forward_backward(self, batch, aug=None, mix=None):
         if "img" not in batch:  # index-only batch -> resident gather
-            return self.train_step_resident(batch["index"], batch.get("valid"), aug)
-        return self.train_step(batch, aug)
+            return self.train_step_resident(batch["index"], batch.get("valid"), aug, mix)
+        return self.train_step(batch, aug, mix)
 
     # ------------------------------------------------------------------- loop
     def epoch_schedule(self):
@@ -165,6 +199,8 @@ class SimpleTrainer:
         """``steps_per_epoch`` resident steps; the metrics are read back once,
         at the end.  Returns them as a list of {name: float}."""
         index, valid = self.epoch_schedule()
+        if self.use_mixup:
+            self.draw_epoch_lams()
         pending = []
         for self.batch_idx in range(self.steps_per_epoch):
             pending.append(self.train_step_resident(index[self.batch_idx], valid[self.batch_idx]))
@@ -195,4 +231,5 @@ class SimpleTrainer:
     def extra_state(self):
         """Trainer state beyond params and optimizer that a resume would
         restore (checkpoint save and resume are not ported)."""
-        return {"rng_state": self.generator.get_state()}
+        return {"rng_state": self.generator.get_state(),
+                "mix_rng_state": self.mix_rng.bit_generator.state}

@@ -3,22 +3,25 @@ deltas yet).
 
 One fused QKV projection with the JAX layout ``w_qkv`` (D, 3D), q|k|v along
 the output axis; heads are split as strided views (no copies) and handed to
-``flash_attention.attention_fwd``, the hand-written Hopper kernel on CUDA
-tensors and its plain version on CPU tensors.
+``flash_attention.attention_dispatch``, which picks a family of hand-written
+Hopper kernels per ``FSVLM_FORCE_PALLAS`` and head dim (the d = 64 kernels
+by default, the blockwise ones under ``=1`` or at another head dim) on CUDA
+tensors, and its plain version on CPU tensors.
 """
 
 import torch
 from torch import nn
 
 from .. import resolve_device
-from .flash_attention import attention_fwd
+from .flash_attention import attention_dispatch
 from .layers import frozen_param, linear
 
 
 def mha(x, w_qkv, b_qkv, w_out, b_out, n_heads, mask=None, impl=None):
     """x: (B, L, D); mask: optional (L, L) additive fp32.  Returns (B, L, D).
 
-    ``impl="plain"`` forces the plain attention (for comparisons only)."""
+    ``impl="plain"`` forces the plain version of the routed attention (for
+    comparisons only)."""
     B, L, D = x.shape
     head_dim = D // n_heads
     qkv = linear(x, w_qkv, b_qkv)  # (B, L, 3D)
@@ -27,7 +30,7 @@ def mha(x, w_qkv, b_qkv, w_out, b_out, n_heads, mask=None, impl=None):
         return t.view(B, L, n_heads, head_dim).transpose(1, 2)
 
     q, k, v = qkv.split(D, dim=-1)
-    out, _ = attention_fwd(heads(q), heads(k), heads(v), mask, impl=impl)
+    out = attention_dispatch(heads(q), heads(k), heads(v), mask, impl=impl)
     ctx = out.transpose(1, 2).reshape(B, L, D)
     return linear(ctx, w_out, b_out)
 

@@ -1,27 +1,36 @@
-"""Flash attention at head dim 64, forward and backward: the hand-written
-Hopper kernels (``kernels/flash_attn_fwd.cu``, ``kernels/flash_attn_bwd.cu``)
-and their plain PyTorch versions.
+"""Flash attention, forward and backward: the hand-written Hopper kernels
+and their plain PyTorch versions, in two families, and the dispatch between
+them.
 
-Counterpart of fsvlm_tpu.ops.flash_attention's head-packed attention
-(``packed_attention`` :753-844): the forward ``_hp_fwd_kernel`` (:544) gives
-O and the per-head logsumexp; the backward ``_hp_vjp_bwd`` (:768) computes
-delta = rowsum(dO * O) outside any kernel and runs ``_hp_bwd_dkv_kernel``
-(:599) and ``_hp_bwd_dq_kernel`` (:648).  The TPU's two-heads-per-128-lanes
-packing is not carried over.
+- Head dim 64 (``kernels/flash_attn_fwd.cu``, ``kernels/flash_attn_bwd.cu``):
+  counterpart of fsvlm_tpu.ops.flash_attention's head-packed attention
+  (``packed_attention`` :753-844): the forward ``_hp_fwd_kernel`` (:544)
+  gives O and the per-head logsumexp; the backward ``_hp_vjp_bwd`` (:768)
+  computes delta = rowsum(dO * O) outside any kernel and runs
+  ``_hp_bwd_dkv_kernel`` (:599) and ``_hp_bwd_dq_kernel`` (:648).  The TPU's
+  two-heads-per-128-lanes packing is not carried over.  Entry:
+  ``attention_fwd``.
+- Blockwise, any head dim up to 128 (``kernels/blockwise_attn_fwd.cu``,
+  ``kernels/blockwise_attn_bwd.cu``): counterpart of ``blockwise_attention``
+  (:413-516): ``_blockwise_fwd_kernel`` (:232), ``_blockwise_dkv_kernel``
+  (:324) and ``_blockwise_dq_kernel`` (:372).  Entry: ``blockwise_attention``.
+- ``attention_dispatch`` (:863-889) picks the family per call from
+  ``FSVLM_FORCE_PALLAS``; mha calls it.
 
-``attention_fwd`` is differentiable with respect to q, k and v: one
-``torch.autograd.Function`` launches the forward kernel and, in the
-backward, the two backward kernels for CUDA tensors, and runs the plain
-versions (``reference_attention_fwd`` / ``reference_attention_bwd``) for CPU
-tensors or under ``impl="plain"``, which only comparisons pass.  A build or
-launch error propagates: there is no fallback.  The kernels are the
-operators ``torch.ops.fsvlm.flash_attn_fwd_d64`` and
-``torch.ops.fsvlm.flash_attn_bwd_d64`` (CUDA only, with fake implementations
-for shape propagation); their libraries are built and loaded at the first
-launch, not at import.
+Each entry is one ``torch.autograd.Function``, differentiable with respect
+to q, k and v: for CUDA tensors it launches the family's forward kernel and,
+in the backward, its two backward kernels; for CPU tensors, or under
+``impl="plain"``, which only comparisons pass, it runs the plain versions.
+A build or launch error propagates: there is no fallback.  The kernels are
+the operators ``torch.ops.fsvlm.flash_attn_fwd_d64``,
+``torch.ops.fsvlm.flash_attn_bwd_d64``, ``torch.ops.fsvlm.blockwise_attn_fwd``
+and ``torch.ops.fsvlm.blockwise_attn_bwd`` (CUDA only, with fake
+implementations for shape propagation); their libraries are built and
+loaded at the first launch, not at import.
 """
 
 import ctypes
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -36,9 +45,18 @@ _L_MIN = 1e-30
 KERNEL = "flash_attn_fwd_d64"
 KERNEL_DKV = "flash_attn_bwd_dkv_d64"
 KERNEL_DQ = "flash_attn_bwd_dq_d64"
+BW_KERNEL = "blockwise_attn_fwd"
+BW_KERNEL_DKV = "blockwise_attn_bwd_dkv"
+BW_KERNEL_DQ = "blockwise_attn_bwd_dq"
 # launches of each kernel, counted where the wrapper launches it (and nowhere
 # else) so that a run can show its main path went through the kernel
-LAUNCHES = {KERNEL: 0, KERNEL_DKV: 0, KERNEL_DQ: 0}
+LAUNCHES = {name: 0 for name in (KERNEL, KERNEL_DKV, KERNEL_DQ,
+                                 BW_KERNEL, BW_KERNEL_DKV, BW_KERNEL_DQ)}
+
+# the blockwise kernels' head-dim instantiations and, per instantiation, the
+# forward's key tile and the backward's own tile (keys for dK/dV, queries
+# for dQ), as blockwise_attn_{fwd,bwd}.cu's FwdTile / BwdTile give them
+BW_TILES = {32: (64, 64), 64: (64, 64), 128: (32, 32)}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -50,10 +68,33 @@ def _acc_dtype(dtype):
 
 
 def reference_attention_fwd(q, k, v, mask=None):
-    """Plain PyTorch version of the forward kernel, step by step: key tiles
-    of BLOCK_K, online softmax with fp32 scores / running max (from -1e30) /
-    running sum, P rounded to the input dtype before P.V, fp32 accumulation,
-    l clamped to 1e-30.  Returns (O in q's dtype, LSE fp32 (B, H, L))."""
+    """Plain PyTorch version of the d = 64 forward kernel, step by step:
+    key tiles of BLOCK_K, online softmax with fp32 scores / running max
+    (from -1e30) / running sum, P rounded to the input dtype before P.V,
+    fp32 accumulation, l clamped to 1e-30.  Returns (O in q's dtype, LSE
+    fp32 (B, H, L))."""
+    return _tiled_fwd(q, k, v, mask, BLOCK_K)
+
+
+def _bw_tiles(d):
+    """The blockwise kernels' (forward key tile, backward own tile) for head
+    dim d; ValueError past the largest instantiation."""
+    for dp, tiles in sorted(BW_TILES.items()):
+        if 1 <= d <= dp:
+            return tiles
+    raise ValueError(f"the blockwise kernels take head dims 1..{max(BW_TILES)}, got {d} "
+                     f"(a larger head dim is open in ROADMAP B3)")
+
+
+def reference_blockwise_fwd(q, k, v, mask=None):
+    """Plain PyTorch version of the blockwise forward kernel (TPU kernel
+    :245-271) at any head dim up to 128, scale d^-1/2: the arithmetic of
+    ``reference_attention_fwd`` over the kernel's own key tiles.  Returns
+    (O in q's dtype, LSE fp32 (B, H, L))."""
+    return _tiled_fwd(q, k, v, mask, _bw_tiles(q.shape[-1])[0])
+
+
+def _tiled_fwd(q, k, v, mask, block_k):
     B, H, L, d = q.shape
     scale = d ** -0.5
     acc_t = _acc_dtype(q.dtype)
@@ -61,8 +102,8 @@ def reference_attention_fwd(q, k, v, mask=None):
     m = torch.full((B, H, L, 1), _M_INIT, dtype=acc_t, device=q.device)
     l = torch.zeros((B, H, L, 1), dtype=acc_t, device=q.device)
     acc = torch.zeros((B, H, L, d), dtype=acc_t, device=q.device)
-    for k0 in range(0, L, BLOCK_K):
-        k1 = min(L, k0 + BLOCK_K)
+    for k0 in range(0, L, block_k):
+        k1 = min(L, k0 + block_k)
         s = (qf @ kf[:, :, k0:k1].transpose(-1, -2)) * scale
         if mask is not None:
             s = s + mask[:, k0:k1].to(acc_t)
@@ -84,12 +125,24 @@ def attention_delta(o, do):
 
 
 def reference_attention_bwd(q, k, v, o, lse, do, mask=None):
-    """Plain PyTorch version of the two backward kernels, step by step over
-    their tiles (key tiles of BLOCK_K, query tiles of BLOCK_Q), with their
-    arithmetic: S = q k^T * scale + mask and P = exp(S - LSE) in fp32 (P not
-    rounded), dO/V/Q/K upcast to fp32, dV += P^T dO, dP = dO V^T,
+    """Plain PyTorch version of the two d = 64 backward kernels, step by step
+    over their tiles (key tiles of BLOCK_K, query tiles of BLOCK_Q), with
+    their arithmetic: S = q k^T * scale + mask and P = exp(S - LSE) in fp32
+    (P not rounded), dO/V/Q/K upcast to fp32, dV += P^T dO, dP = dO V^T,
     dS = P (dP - delta), dK += dS^T Q * scale, dQ += dS K * scale, one cast to
     the input dtype at the end.  Returns (dq, dk, dv)."""
+    return _tiled_bwd(q, k, v, o, lse, do, mask, BLOCK_Q, BLOCK_K)
+
+
+def reference_blockwise_bwd(q, k, v, o, lse, do, mask=None):
+    """Plain PyTorch version of the two blockwise backward kernels (TPU
+    kernels :334-406) at any head dim up to 128, scale d^-1/2: the arithmetic
+    of ``reference_attention_bwd``, over key tiles of the dK/dV kernel's own
+    tile and query tiles of 64.  Returns (dq, dk, dv)."""
+    return _tiled_bwd(q, k, v, o, lse, do, mask, 64, _bw_tiles(q.shape[-1])[1])
+
+
+def _tiled_bwd(q, k, v, o, lse, do, mask, block_q, block_k):
     B, H, L, d = q.shape
     scale = d ** -0.5
     acc_t = _acc_dtype(q.dtype)
@@ -97,11 +150,11 @@ def reference_attention_bwd(q, k, v, o, lse, do, mask=None):
     delta = attention_delta(o, do).unsqueeze(-1)
     lse = lse.to(acc_t).unsqueeze(-1)
     dq, dk, dv = (torch.zeros((B, H, L, d), dtype=acc_t, device=q.device) for _ in range(3))
-    for k0 in range(0, L, BLOCK_K):
-        k1 = min(L, k0 + BLOCK_K)
+    for k0 in range(0, L, block_k):
+        k1 = min(L, k0 + block_k)
         kt, vt = kf[:, :, k0:k1], vf[:, :, k0:k1]
-        for q0 in range(0, L, BLOCK_Q):
-            q1 = min(L, q0 + BLOCK_Q)
+        for q0 in range(0, L, block_q):
+            q1 = min(L, q0 + block_q)
             qt, gt = qf[:, :, q0:q1], gf[:, :, q0:q1]
             s = (qt @ kt.transpose(-1, -2)) * scale
             if mask is not None:
@@ -115,13 +168,18 @@ def reference_attention_bwd(q, k, v, o, lse, do, mask=None):
 
 
 # ------------------------------------------------------------------ kernels
-_ARGTYPES = {  # C entry point -> ctypes argument types
-    # dtype, q, k, v, mask, o, lse, B, H, L, strides, stream
-    "fsvlm_flash_attn_fwd_d64": [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3,
-    # dtype, q, k, v, dO, lse, delta, mask, dk, dv, B, H, L, strides, stream
-    "fsvlm_flash_attn_bwd_dkv_d64": [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3,
-    # dtype, q, k, v, dO, lse, delta, mask, dq, B, H, L, strides, stream
-    "fsvlm_flash_attn_bwd_dq_d64": [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3,
+_INT, _PTR = ctypes.c_int, ctypes.c_void_p
+_ARGTYPES = {  # C entry point -> ctypes argument types before (strides, stream)
+    # dtype, q, k, v, mask, o, lse, B, H, L
+    "fsvlm_flash_attn_fwd_d64": [_INT] + [_PTR] * 6 + [_INT] * 3,
+    # dtype, q, k, v, dO, lse, delta, mask, dk, dv, B, H, L
+    "fsvlm_flash_attn_bwd_dkv_d64": [_INT] + [_PTR] * 9 + [_INT] * 3,
+    # dtype, q, k, v, dO, lse, delta, mask, dq, B, H, L
+    "fsvlm_flash_attn_bwd_dq_d64": [_INT] + [_PTR] * 8 + [_INT] * 3,
+    # the blockwise entries: the head dim after the dtype, the scale after L
+    "fsvlm_blockwise_attn_fwd": [_INT] * 2 + [_PTR] * 6 + [_INT] * 3 + [ctypes.c_float],
+    "fsvlm_blockwise_attn_bwd_dkv": [_INT] * 2 + [_PTR] * 9 + [_INT] * 3 + [ctypes.c_float],
+    "fsvlm_blockwise_attn_bwd_dq": [_INT] * 2 + [_PTR] * 8 + [_INT] * 3 + [ctypes.c_float],
 }
 
 
@@ -163,19 +221,25 @@ def _strides(*tensors):
 def _blhd(q):
     """An uninitialized (B, H, L, d) tensor laid out (B, L, H, d) in memory,
     so that mha's merge of the heads (and of their gradients) is a view."""
-    B, H, L, _ = q.shape
-    return torch.empty((B, L, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    B, H, L, d = q.shape
+    return torch.empty((B, L, H, d), dtype=q.dtype, device=q.device).transpose(1, 2)
 
 
-def _check_inputs(q, k, v, mask):
+def _check_inputs(q, k, v, mask, blockwise=False):
+    """Raise on what the kernels do not take: the d = 64 family needs head
+    dim 64, the blockwise one 1..128."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("q, k, v must lie on one CUDA device")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share a dtype in {list(_DTYPE_CODES)}, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or q.shape[-1] != D or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must be (B, H, L, {D}) of one shape, got "
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must be (B, H, L, d) of one shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if blockwise:
+        _bw_tiles(q.shape[-1])
+    elif q.shape[-1] != D:
+        raise ValueError(f"this kernel takes head dim {D}, got {q.shape[-1]}")
     if min(t.stride(-1) for t in (q, k, v)) != 1 or max(t.stride(-1) for t in (q, k, v)) != 1:
         raise ValueError("q, k, v need a unit stride along the head dim")
     L = q.shape[2]
@@ -184,8 +248,8 @@ def _check_inputs(q, k, v, mask):
                          f"{tuple(mask.shape)} on {mask.device}")
 
 
-def _check_bwd_inputs(q, k, v, do, lse, delta, mask):
-    _check_inputs(q, k, v, mask)
+def _check_bwd_inputs(q, k, v, do, lse, delta, mask, blockwise=False):
+    _check_inputs(q, k, v, mask, blockwise)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device or do.stride(-1) != 1:
         raise ValueError(f"dO must be {tuple(q.shape)} {q.dtype} on {q.device} with a unit "
                          f"head-dim stride, got {tuple(do.shape)} {do.dtype} on {do.device}")
@@ -199,7 +263,8 @@ def _check_bwd_inputs(q, k, v, do, lse, delta, mask):
 
 
 def _launch(q, k, v, mask):
-    """Launch the forward kernel on checked inputs (mask: (L, L) fp32 contiguous)."""
+    """Launch the d = 64 forward kernel on checked inputs (mask: (L, L) fp32
+    contiguous)."""
     B, H, L, _ = q.shape
     o = _blhd(q)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
@@ -210,50 +275,96 @@ def _launch(q, k, v, mask):
 
 
 def _bwd_args(q, k, v, do, lse, delta, mask):
-    return (_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), _ptr(mask))
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), _ptr(mask))
 
 
 def _launch_dkv(q, k, v, do, lse, delta, mask):
-    """Launch the dK/dV kernel on checked inputs; returns (dk, dv)."""
+    """Launch the d = 64 dK/dV kernel on checked inputs; returns (dk, dv)."""
     B, H, L, _ = q.shape
     dk, dv = _blhd(q), _blhd(q)
     _call(KERNEL_DKV, "flash_attn_bwd", "fsvlm_flash_attn_bwd_dkv_d64", q.device,
-          *_bwd_args(q, k, v, do, lse, delta, mask), dk.data_ptr(), dv.data_ptr(), B, H, L,
-          _strides(q, k, v, do, dk, dv))
+          _DTYPE_CODES[q.dtype], *_bwd_args(q, k, v, do, lse, delta, mask), dk.data_ptr(),
+          dv.data_ptr(), B, H, L, _strides(q, k, v, do, dk, dv))
     return dk, dv
 
 
 def _launch_dq(q, k, v, do, lse, delta, mask):
-    """Launch the dQ kernel on checked inputs; returns dq."""
+    """Launch the d = 64 dQ kernel on checked inputs; returns dq."""
     B, H, L, _ = q.shape
     dq = _blhd(q)
     _call(KERNEL_DQ, "flash_attn_bwd", "fsvlm_flash_attn_bwd_dq_d64", q.device,
-          *_bwd_args(q, k, v, do, lse, delta, mask), dq.data_ptr(), B, H, L,
-          _strides(q, k, v, do, dq, dq))
+          _DTYPE_CODES[q.dtype], *_bwd_args(q, k, v, do, lse, delta, mask), dq.data_ptr(),
+          B, H, L, _strides(q, k, v, do, dq, dq))
+    return dq
+
+
+def _bw_launch(q, k, v, mask):
+    """Launch the blockwise forward kernel on checked inputs (mask: (L, L)
+    fp32 contiguous); returns (o, lse)."""
+    B, H, L, d = q.shape
+    o = _blhd(q)
+    lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+    _call(BW_KERNEL, "blockwise_attn_fwd", "fsvlm_blockwise_attn_fwd", q.device,
+          _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+          o.data_ptr(), lse.data_ptr(), B, H, L, d ** -0.5, _strides(q, k, v, o))
+    return o, lse
+
+
+def _bw_launch_dkv(q, k, v, do, lse, delta, mask):
+    """Launch the blockwise dK/dV kernel on checked inputs; returns (dk, dv)."""
+    B, H, L, d = q.shape
+    dk, dv = _blhd(q), _blhd(q)
+    _call(BW_KERNEL_DKV, "blockwise_attn_bwd", "fsvlm_blockwise_attn_bwd_dkv", q.device,
+          _DTYPE_CODES[q.dtype], d, *_bwd_args(q, k, v, do, lse, delta, mask), dk.data_ptr(),
+          dv.data_ptr(), B, H, L, d ** -0.5, _strides(q, k, v, do, dk, dv))
+    return dk, dv
+
+
+def _bw_launch_dq(q, k, v, do, lse, delta, mask):
+    """Launch the blockwise dQ kernel on checked inputs; returns dq."""
+    B, H, L, d = q.shape
+    dq = _blhd(q)
+    _call(BW_KERNEL_DQ, "blockwise_attn_bwd", "fsvlm_blockwise_attn_bwd_dq", q.device,
+          _DTYPE_CODES[q.dtype], d, *_bwd_args(q, k, v, do, lse, delta, mask), dq.data_ptr(),
+          B, H, L, d ** -0.5, _strides(q, k, v, do, dq))
     return dq
 
 
 @torch.library.custom_op("fsvlm::flash_attn_fwd_d64", mutates_args=(), device_types="cuda")
 def _flash_attn_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        mask: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel as a PyTorch operator
+    """The d = 64 forward kernel as a PyTorch operator
     (``torch.ops.fsvlm.flash_attn_fwd_d64``); inputs are checked by
     ``_kernel_fwd``."""
     return _launch(q, k, v, mask)
 
 
-@_flash_attn_fwd_op.register_fake
-def _(q, k, v, mask):
+@torch.library.custom_op("fsvlm::blockwise_attn_fwd", mutates_args=(), device_types="cuda")
+def _blockwise_attn_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           mask: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The blockwise forward kernel as a PyTorch operator
+    (``torch.ops.fsvlm.blockwise_attn_fwd``); inputs are checked here."""
+    _check_inputs(q, k, v, mask, blockwise=True)
+    if mask is not None and (mask.dtype != torch.float32 or not mask.is_contiguous()):
+        raise ValueError("mask must be a contiguous float32 (L, L)")
+    return _bw_launch(q, k, v, mask)
+
+
+def _fwd_fake(q, k, v, mask):
     B, H, L, _ = q.shape
     return _blhd(q), q.new_empty((B, H, L), dtype=torch.float32)
+
+
+_flash_attn_fwd_op.register_fake(_fwd_fake)
+_blockwise_attn_fwd_op.register_fake(_fwd_fake)
 
 
 @torch.library.custom_op("fsvlm::flash_attn_bwd_d64", mutates_args=(), device_types="cuda")
 def _flash_attn_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
                        lse: torch.Tensor, delta: torch.Tensor, mask: Optional[torch.Tensor]
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The two backward kernels as one PyTorch operator
+    """The two d = 64 backward kernels as one PyTorch operator
     (``torch.ops.fsvlm.flash_attn_bwd_d64``): (dq, dk, dv), each laid out
     (B, L, H, d) in memory.  Inputs are checked here."""
     _check_bwd_inputs(q, k, v, do, lse, delta, mask)
@@ -261,9 +372,24 @@ def _flash_attn_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: to
     return _launch_dq(q, k, v, do, lse, delta, mask), dk, dv
 
 
-@_flash_attn_bwd_op.register_fake
-def _(q, k, v, do, lse, delta, mask):
+@torch.library.custom_op("fsvlm::blockwise_attn_bwd", mutates_args=(), device_types="cuda")
+def _blockwise_attn_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                           lse: torch.Tensor, delta: torch.Tensor, mask: Optional[torch.Tensor]
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The two blockwise backward kernels as one PyTorch operator
+    (``torch.ops.fsvlm.blockwise_attn_bwd``): (dq, dk, dv), each laid out
+    (B, L, H, d) in memory.  Inputs are checked here."""
+    _check_bwd_inputs(q, k, v, do, lse, delta, mask, blockwise=True)
+    dk, dv = _bw_launch_dkv(q, k, v, do, lse, delta, mask)
+    return _bw_launch_dq(q, k, v, do, lse, delta, mask), dk, dv
+
+
+def _bwd_fake(q, k, v, do, lse, delta, mask):
     return _blhd(q), _blhd(q), _blhd(q)
+
+
+_flash_attn_bwd_op.register_fake(_bwd_fake)
+_blockwise_attn_bwd_op.register_fake(_bwd_fake)
 
 
 def _kernel_fwd(q, k, v, mask):
@@ -271,25 +397,40 @@ def _kernel_fwd(q, k, v, mask):
     return _flash_attn_fwd_op(q, k, v, mask)
 
 
-def _kernel_bwd(q, k, v, o, lse, do, mask):
+def _kernel_bwd(q, k, v, o, lse, do, mask, op=_flash_attn_bwd_op):
+    """The delta pre-pass, then backward operator ``op``: (dq, dk, dv)."""
     if do.stride(-1) != 1:  # e.g. the expanded gradient of a sum
         do = do.contiguous()
-    return _flash_attn_bwd_op(q, k, v, do, lse, attention_delta(o, do), mask)
+    return op(q, k, v, do, lse, attention_delta(o, do), mask)
+
+
+def _bw_kernel_bwd(q, k, v, o, lse, do, mask):
+    return _kernel_bwd(q, k, v, o, lse, do, mask, op=_blockwise_attn_bwd_op)
+
+
+# family -> (plain forward, plain backward, kernel forward, kernel backward)
+_FAMILIES = {
+    "packed": (reference_attention_fwd, reference_attention_bwd, _kernel_fwd, _kernel_bwd),
+    "blockwise": (reference_blockwise_fwd, reference_blockwise_bwd, _blockwise_attn_fwd_op,
+                  _bw_kernel_bwd),
+}
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Attention with the kernels' backward (``plain``: the plain versions).
-    Saves q, k, v, O and LSE; LSE and the mask take no gradient."""
+    """Attention through one kernel family, forward and backward (``plain``:
+    its plain versions).  Saves q, k, v, the mask, O and LSE; LSE and the
+    mask take no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, plain):
+    def forward(ctx, q, k, v, mask, family, plain):
+        ref_fwd, _, kernel_fwd, _ = _FAMILIES[family]
         if plain:
-            o, lse = reference_attention_fwd(q, k, v, mask)
+            o, lse = ref_fwd(q, k, v, mask)
         else:
             if mask is not None:  # the kernels read an fp32 (L, L) row-major mask
                 mask = mask.to(torch.float32).contiguous()
-            o, lse = _kernel_fwd(q, k, v, mask)
-        ctx.plain = plain
+            o, lse = kernel_fwd(q, k, v, mask)
+        ctx.family, ctx.plain = family, plain
         ctx.save_for_backward(q, k, v, mask, o, lse)
         ctx.mark_non_differentiable(lse)
         return o, lse
@@ -298,21 +439,86 @@ class _FlashAttention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, do, _dlse):
         q, k, v, mask, o, lse = ctx.saved_tensors
-        bwd = reference_attention_bwd if ctx.plain else _kernel_bwd
-        dq, dk, dv = bwd(q, k, v, o, lse, do, mask)
-        return dq, dk, dv, None, None
+        _, ref_bwd, _, kernel_bwd = _FAMILIES[ctx.family]
+        dq, dk, dv = (ref_bwd if ctx.plain else kernel_bwd)(q, k, v, o, lse, do, mask)
+        return dq, dk, dv, None, None, None
+
+
+def _plain(impl, q):
+    if impl not in (None, "plain"):
+        raise ValueError(f"impl must be None or 'plain', got {impl!r}")
+    return impl == "plain" or q.device.type == "cpu"
 
 
 def attention_fwd(q, k, v, mask=None, impl=None):
     """softmax(q k^T / sqrt(d) + mask) v and its logsumexp, differentiable
-    with respect to q, k and v.
+    with respect to q, k and v, through the d = 64 kernels (#6-#8).
 
     q, k, v: (B, H, L, 64) float32 or bfloat16; mask: optional (L, L)
     additive, shared over batch and heads.  Returns (O (B, H, L, 64) in q's
     dtype, LSE (B, H, L) float32).  CUDA tensors go through the hand-written
     kernels, forward and backward; CPU tensors, or ``impl="plain"``, through
     the plain versions."""
-    if impl not in (None, "plain"):
-        raise ValueError(f"impl must be None or 'plain', got {impl!r}")
-    plain = impl == "plain" or q.device.type == "cpu"
-    return _FlashAttention.apply(q, k, v, mask, plain)
+    return _FlashAttention.apply(q, k, v, mask, "packed", _plain(impl, q))
+
+
+def blockwise_attention(q, k, v, mask=None, block_q=256, block_k=512, impl=None):
+    """softmax(q k^T * d^-1/2 + mask) v through the blockwise kernels
+    (#3-#5), differentiable (first order) with respect to q, k and v; the
+    counterpart of the JAX package's ``blockwise_attention``.
+
+    q, k, v: (B, H, L, d), d in 1..128 (ValueError past it), float32 or
+    bfloat16; mask: optional (L, L) additive, shared over batch and heads.
+    Returns O (B, H, L, d) in q's dtype; its LSE and O are saved for the
+    backward.  ``block_q`` / ``block_k`` are the JAX signature's tile sizes,
+    validated and otherwise unused: the card's tiles are the kernels' own
+    (64 queries; 64 keys, 32 at d > 64), which gives the same function up to
+    the order of fp32 sums.  CUDA tensors go through the kernels; CPU
+    tensors, or ``impl="plain"``, through the plain versions."""
+    for name, b in (("block_q", block_q), ("block_k", block_k)):
+        if not isinstance(b, int) or b < 1:
+            raise ValueError(f"{name} must be a positive int, got {b!r}")
+    _bw_tiles(q.shape[-1])
+    return _FlashAttention.apply(q, k, v, mask, "blockwise", _plain(impl, q))[0]
+
+
+def attention_route(head_dim, mask=None):
+    """The kernel family ``attention_dispatch`` takes for this head dim and
+    mask under the current ``FSVLM_FORCE_PALLAS``: "packed" (the d = 64
+    kernels #6-#8) or "blockwise" (#3-#5).
+
+    - unset, ``packed`` or any other value: "packed" at d = 64 with a shared
+      (L, L) mask or none, else "blockwise" (JAX falls through at :879);
+    - ``1``: "blockwise";
+    - ``legacy``, or a per-example broadcast mask where "blockwise" would be
+      taken: NotImplementedError, since JAX takes the whole-sequence kernels
+      #1-#2 there (``fused_attention``), which are not ported (ROADMAP B4)."""
+    force = os.environ.get("FSVLM_FORCE_PALLAS")
+    if force == "legacy":
+        raise NotImplementedError(
+            "FSVLM_FORCE_PALLAS=legacy takes the whole-sequence kernels #1-#2 "
+            "(fused_attention), which are not ported yet (ROADMAP B4)")
+    shared = mask is None or mask.dim() == 2
+    if force != "1" and head_dim == D and shared:
+        return "packed"
+    if not shared:
+        raise NotImplementedError(
+            "a per-example broadcast mask takes the whole-sequence kernels #1-#2 "
+            "(fused_attention), which are not ported yet (ROADMAP B4)")
+    return "blockwise"
+
+
+def attention_dispatch(q, k, v, mask=None, impl=None):
+    """softmax(q k^T * d^-1/2 + mask) v through the kernel family that
+    ``attention_route`` picks, reading ``FSVLM_FORCE_PALLAS`` at each call
+    as the JAX package reads it at each trace (:863-889).  Returns O
+    (B, H, L, d) in q's dtype, differentiable with respect to q, k and v.
+
+    The JAX package's unset default is XLA's attention; the port's default
+    stays its d = 64 kernels until an H100 ledger line chooses otherwise
+    (ROADMAP B5).  ``FSVLM_ATTN_REMAT``, ``FSVLM_ATTN_BF16`` and
+    ``layout="blhd"`` are not ported.  ``impl="plain"``, or CPU tensors, take
+    the plain version of the family the route picks."""
+    if attention_route(q.shape[-1], mask) == "packed":
+        return attention_fwd(q, k, v, mask, impl=impl)[0]
+    return blockwise_attention(q, k, v, mask, impl=impl)

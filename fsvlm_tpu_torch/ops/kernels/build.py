@@ -6,7 +6,9 @@ Each ``.cu`` file here exposes a plain C interface and is compiled by
 module registers it as a ``torch.library`` operator.  Libraries go to
 ``fsvlm_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash of
 source and flags, so an edited source is rebuilt and an unchanged one is
-reused.  Nothing is built or loaded at import time.
+reused.  The hash covers every header (``*.cuh``) in this directory too, since
+a source may include one: an edited header rebuilds the libraries.  Nothing
+is built or loaded at import time.
 
 ``nvcc`` is ``$CUDA_HOME/bin/nvcc``, else the one on ``PATH``, else the
 toolkit's default location.
@@ -26,6 +28,8 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(KERNEL_DIR)), "_build")
 SOURCES = {
     "flash_attn_fwd": "flash_attn_fwd.cu",
     "flash_attn_bwd": "flash_attn_bwd.cu",
+    "blockwise_attn_fwd": "blockwise_attn_fwd.cu",
+    "blockwise_attn_bwd": "blockwise_attn_bwd.cu",
 }
 
 NVCC_FLAGS = [
@@ -49,10 +53,12 @@ def find_nvcc():
 
 
 def library_path(name):
-    src = os.path.join(KERNEL_DIR, SOURCES[name])
+    headers = sorted(f for f in os.listdir(KERNEL_DIR) if f.endswith(".cuh"))
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for f in [SOURCES[name], *headers]:
+        h.update(f.encode())
+        with open(os.path.join(KERNEL_DIR, f), "rb") as fh:
+            h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

@@ -1,11 +1,16 @@
-"""Loss functions PromptSRC reaches (counterpart of fsvlm_tpu.trainers.losses).
+"""Loss functions of the prompt-learning trainers (counterpart of
+fsvlm_tpu.trainers.losses, all 11 functions).
 
-Parity targets (reference, PromptSRC/trainers/coop.py and simclr_utils.py):
+Parity targets (reference, PromptSRC/trainers/coop.py, simclr_utils.py and
+independentVL.py):
 - MultiClassFocalLoss (coop.py:131-163): alpha[target] * (1-pt)^gamma * CE,
   alpha the inverse-frequency weights of DATASET.PER_CLASS_SHOTS
   (coop.py:326-346);
 - NT-Xent over L2-normalized rows, temperature 0.07 (coop.py:66-128,
-  simclr_utils.py:62-86).
+  simclr_utils.py:62-86);
+- mixup (independentVL.py:12-29) and KD (independentVL.py:32-44).  The
+  mixup draws are handed in: the trainer draws them on the device, and tests
+  inject the JAX package's threefry draws.
 
 Every batch-reduced loss takes an optional ``valid`` (B,) bool mask: padded
 rows of a short final batch repeat the last item and must not weigh in.
@@ -81,6 +86,35 @@ def nt_xent(z1, z2, temperature=0.07, valid=None):
         per_row = torch.where(v2, per_row, torch.zeros_like(per_row))
         return per_row.sum() / v2.float().sum().clamp_min(1.0)
     return per_row.mean()
+
+
+def mixup_batch(images, perm, lam):
+    """(lam * images + (1 - lam) * images[perm], perm, lam): mixup_data's
+    semantics (independentVL.py:12-21) on draws handed in, ``perm`` a (B,)
+    permutation and ``lam`` a scalar (a 0-dim tensor keeps it on the
+    device)."""
+    mixed = lam * images + (1.0 - lam) * images[perm]
+    return mixed, perm, lam
+
+
+def mixup_criterion(loss_fn, logits, labels_a, labels_b, lam):
+    return lam * loss_fn(logits, labels_a) + (1.0 - lam) * loss_fn(logits, labels_b)
+
+
+def kl_logits(student_logits, teacher_logits, T=1.0, valid=None):
+    """KL(softmax(teacher/T) || softmax(student/T)) per row, over valid rows,
+    times T^2; the teacher's probabilities are clipped at 1e-12 inside the
+    log."""
+    s = F.log_softmax(student_logits.float() / T, dim=1)
+    t = F.softmax(teacher_logits.float() / T, dim=1)
+    per_row = (t * (torch.log(t.clamp_min(1e-12)) - s)).sum(dim=1)
+    return masked_mean(per_row, valid) * (T * T)
+
+
+def kd_loss(student_logits, teacher_logits, T=4.0, valid=None):
+    """Knowledge distillation (independentVL.py:32-44): ``kl_logits`` at the
+    KD temperature."""
+    return kl_logits(student_logits, teacher_logits, T=T, valid=valid)
 
 
 def l1_loss(a, b, valid=None):

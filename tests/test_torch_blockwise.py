@@ -1,0 +1,237 @@
+"""The port's blockwise attention (kernels #3-#5) and the attention dispatch,
+against the JAX package, on the CPU.
+
+The plain versions of the blockwise Hopper kernels run here (CPU tensors);
+the JAX side is ``fsvlm_tpu.ops.flash_attention.blockwise_attention`` with
+``interpret=True``, whose forward and custom-VJP backward run the Pallas
+kernels ``_blockwise_fwd_kernel``, ``_blockwise_dkv_kernel`` and
+``_blockwise_dq_kernel`` in interpret mode, as the JAX package's own tests
+run them.  Inputs come from numpy seeds; fp32, at the tolerances of
+tests/test_flash_attention.py: forward rtol 2e-4 / atol 2e-5, gradients
+rtol 2e-4 / atol 2e-4.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fsvlm_tpu.ops import attention as jax_attention
+from fsvlm_tpu.ops.flash_attention import blockwise_attention as jax_blockwise
+from fsvlm_tpu_torch.ops import attention, flash_attention
+
+
+def _inputs(B, H, L, d, seed, n=3):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(B, H, L, d).astype(np.float32) for _ in range(n)]
+
+
+@pytest.mark.parametrize("L,d,with_mask,bq,bk", [
+    (77, 64, True, 256, 512),    # the four cases of tests/test_flash_attention.py:51-58
+    (201, 64, False, 256, 512),
+    (300, 32, True, 128, 128),
+    (513, 64, True, 256, 128),
+    (77, 128, True, 256, 512),   # the largest instantiation
+    (130, 80, True, 128, 128),   # zero-padded to the 128 instantiation
+], ids=["text77", "vision201", "d32_L300", "L513", "d128", "d80"])
+def test_blockwise_forward_matches_jax_pallas(L, d, with_mask, bq, bk):
+    q, k, v = _inputs(2, 2, L, d, seed=5)
+    mask_j = jax_attention.causal_mask(L) if with_mask else None
+    ref = jax.jit(lambda a, b, c: jax_blockwise(a, b, c, mask_j, bq, bk, True))(q, k, v)
+    mask_t = attention.causal_mask(L, device="cpu") if with_mask else None
+    got = flash_attention.blockwise_attention(*map(torch.from_numpy, (q, k, v)), mask_t, bq, bk)
+    assert got.shape == (2, 2, L, d) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("L,d,bq,bk", [
+    (77, 32, 256, 512),   # tests/test_flash_attention.py:73-94's two cases
+    (300, 32, 128, 128),
+    (77, 80, 256, 512),   # a padded head dim
+])
+def test_blockwise_gradients_match_jax_pallas(L, d, bq, bk):
+    q, k, v, w = _inputs(1, 2, L, d, seed=6, n=4)
+    mask_j = jax_attention.causal_mask(L)
+
+    @jax.jit
+    def grads(q_, k_, v_):
+        return jax.grad(lambda a, b, c: (jax_blockwise(a, b, c, mask_j, bq, bk, True) * w).sum(),
+                        argnums=(0, 1, 2))(q_, k_, v_)
+
+    ref = grads(q, k, v)
+    qkv = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
+    o = flash_attention.blockwise_attention(*qkv, attention.causal_mask(L, device="cpu"), bq, bk)
+    got = torch.autograd.grad(o, qkv, torch.from_numpy(w))
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4, atol=2e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "nomask"])
+def test_mha_under_force_pallas_matches_jax(causal, monkeypatch):
+    """mha and d(mha)/dx with FSVLM_FORCE_PALLAS=1 in both packages, at head
+    dim 64, where the variable moves the port off its d = 64 kernels: the
+    port's blockwise plain versions against JAX's blockwise Pallas kernels in
+    interpret mode (rtol 1e-4 / atol 1e-5)."""
+    monkeypatch.setenv("FSVLM_FORCE_PALLAS", "1")
+    rng = np.random.RandomState(2)
+    B, L, D, H = 2, 13, 256, 4
+    assert flash_attention.attention_route(D // H) == "blockwise"
+    x = rng.randn(B, L, D).astype(np.float32)
+    w_qkv = (rng.randn(D, 3 * D) * D ** -0.5).astype(np.float32)
+    b_qkv = (0.1 * rng.randn(3 * D)).astype(np.float32)
+    w_out = (rng.randn(D, D) * D ** -0.5).astype(np.float32)
+    b_out = (0.1 * rng.randn(D)).astype(np.float32)
+    g = rng.randn(B, L, D).astype(np.float32)
+    mask_j = jax_attention.causal_mask(L) if causal else None
+
+    def f(x_):
+        return jax_attention.mha(x_, w_qkv, b_qkv, w_out, b_out, H, mask=mask_j)
+
+    ref_out, vjp = jax.vjp(f, x)
+    ref_dx, = vjp(jnp.asarray(g))
+    t = torch.from_numpy
+    xt = t(x).requires_grad_()
+    out = attention.mha(xt, t(w_qkv), t(b_qkv), t(w_out), t(b_out), H,
+                        mask=attention.causal_mask(L, device="cpu") if causal else None)
+    dx, = torch.autograd.grad(out, xt, t(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_out), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(ref_dx), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "nomask"])
+def test_blockwise_plain_gradcheck_float64(causal):
+    """The plain blockwise backward is the derivative of the plain forward:
+    float64, L = 70 (two key tiles), head dim 8 (padded to 32 on the card)."""
+    rng = np.random.RandomState(5)
+    q, k, v = [torch.from_numpy(rng.randn(1, 2, 70, 8)).requires_grad_() for _ in range(3)]
+    mask = attention.causal_mask(70, dtype=torch.float64, device="cpu") if causal else None
+    assert torch.autograd.gradcheck(
+        lambda q_, k_, v_: flash_attention.blockwise_attention(q_, k_, v_, mask), (q, k, v),
+        fast_mode=True)
+
+
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
+def test_blockwise_plain_versions_walk_the_kernel_tiles_like_plain_autograd(d):
+    """reference_blockwise_fwd / _bwd against autograd through a one-shot
+    softmax attention (independent of the tiling), with a fully masked row:
+    its O and gradients are 0."""
+    fa = flash_attention
+    q, k, v, do = [torch.from_numpy(t) for t in _inputs(2, 2, 130, d, seed=3, n=4)]
+    mask = torch.from_numpy(np.random.RandomState(4).randn(130, 130).astype(np.float32))
+    mask[7] = float("-inf")
+    o, lse = fa.reference_blockwise_fwd(q, k, v, mask)
+    dq, dk, dv = fa.reference_blockwise_bwd(q, k, v, o, lse, do, mask)
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    s = qkv[0] @ qkv[1].transpose(-1, -2) * d ** -0.5 + mask
+    p = torch.softmax(s.masked_fill(torch.isinf(mask), -1e30), dim=-1).masked_fill(
+        torch.isinf(mask), 0.0)
+    out = p @ qkv[2]
+    ref = torch.autograd.grad(out, qkv, do)
+    torch.testing.assert_close(o, out.detach(), rtol=1e-4, atol=1e-5)
+    for got, want in zip((dq, dk, dv), ref):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert o[:, :, 7].abs().max().item() == 0.0 and dq[:, :, 7].abs().max().item() == 0.0
+
+
+# ------------------------------------------------------------------ dispatch
+_BCAST = "bcast"  # a per-example (B, 1, 1, L) key-bias mask
+
+
+@pytest.mark.parametrize("force,d,mask,want", [
+    (None, 64, None, "packed"), (None, 64, "2d", "packed"), (None, 32, "2d", "blockwise"),
+    (None, 80, None, "blockwise"), (None, 64, _BCAST, NotImplementedError),
+    ("packed", 64, "2d", "packed"), ("packed", 128, None, "blockwise"),
+    ("packed", 64, _BCAST, NotImplementedError),
+    ("1", 64, None, "blockwise"), ("1", 64, "2d", "blockwise"), ("1", 32, "2d", "blockwise"),
+    ("1", 64, _BCAST, NotImplementedError),
+    ("legacy", 64, None, NotImplementedError), ("legacy", 32, "2d", NotImplementedError),
+    ("0", 64, "2d", "packed"), ("0", 128, None, "blockwise"), ("anything", 64, None, "packed"),
+])
+def test_dispatch_routes_by_force_pallas_and_head_dim(force, d, mask, want, monkeypatch):
+    """attention_dispatch reads FSVLM_FORCE_PALLAS at each call and runs the
+    family attention_route names (a stub per family marks which ran);
+    ``legacy`` and a broadcast mask where the blockwise kernels would run
+    raise NotImplementedError naming ROADMAP B4."""
+    fa = flash_attention
+    if force is None:
+        monkeypatch.delenv("FSVLM_FORCE_PALLAS", raising=False)
+    else:
+        monkeypatch.setenv("FSVLM_FORCE_PALLAS", force)
+    ran = []
+
+    def stub(family):
+        def fwd(q, k, v, m):
+            ran.append(family)
+            return q.clone(), q.new_zeros(q.shape[:3])
+        return fwd
+
+    monkeypatch.setattr(fa, "_FAMILIES", {f: (stub(f),) + t[1:] for f, t in fa._FAMILIES.items()})
+    q = torch.zeros(2, 3, 8, d)
+    m = {None: None, "2d": torch.zeros(8, 8), _BCAST: torch.zeros(2, 1, 1, 8)}[mask]
+    if isinstance(want, type):
+        with pytest.raises(want, match="B4"):
+            fa.attention_route(d, m)
+        with pytest.raises(want, match="B4"):
+            fa.attention_dispatch(q, q, q, m)
+        assert ran == []
+        return
+    assert fa.attention_route(d, m) == want
+    o = fa.attention_dispatch(q, q, q, m)
+    assert ran == [want] and o.shape == q.shape
+
+
+def test_blockwise_rejects_what_it_does_not_take():
+    q = torch.zeros(1, 2, 8, 136)
+    with pytest.raises(ValueError, match="B3"):
+        flash_attention.blockwise_attention(q, q, q)
+    q = torch.zeros(1, 2, 8, 32)
+    for bad in ({"block_q": 0}, {"block_k": 1.5}):
+        with pytest.raises(ValueError):
+            flash_attention.blockwise_attention(q, q, q, **bad)
+    with pytest.raises(ValueError):
+        flash_attention.blockwise_attention(q, q, q, impl="kernel")
+
+
+def test_blockwise_operators_fake_implementation_and_cpu_path():
+    """``torch.ops.fsvlm.blockwise_attn_fwd`` / ``blockwise_attn_bwd`` are
+    CUDA-only operators with fake implementations: O and the gradients in
+    q's shape and dtype, laid out (B, L, H, d), LSE (B, H, L) fp32.  CPU
+    tensors take the plain versions and count no launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    fa = flash_attention
+    with FakeTensorMode():
+        q = torch.empty(2, 3, 10, 80, dtype=torch.bfloat16)
+        o, lse = torch.ops.fsvlm.blockwise_attn_fwd(q, q, q, None)
+        grads = torch.ops.fsvlm.blockwise_attn_bwd(q, q, q, q, lse, lse, None)
+    assert lse.shape == (2, 3, 10) and lse.dtype == torch.float32
+    for t in (o, *grads):
+        assert t.shape == (2, 3, 10, 80) and t.dtype == torch.bfloat16
+        assert t.transpose(1, 2).is_contiguous()
+    q = torch.zeros(1, 2, 4, 32)
+    with pytest.raises(NotImplementedError):  # no CPU kernel
+        torch.ops.fsvlm.blockwise_attn_fwd(q, q, q, None)
+    before = dict(fa.LAUNCHES)
+    qg = q.clone().requires_grad_()
+    fa.blockwise_attention(qg, q, q).sum().backward()
+    assert qg.grad is not None and fa.LAUNCHES == before
+
+
+def test_library_path_hashes_sources_and_headers(tmp_path, monkeypatch):
+    """A library's name hashes its source, every header in the kernel
+    directory and the flags: editing a header the sources include names a
+    new library, so a stale one is never reused."""
+    from fsvlm_tpu_torch.ops.kernels import build
+
+    assert {"blockwise_attn_fwd", "blockwise_attn_bwd"} <= set(build.SOURCES)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "KERNEL_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "SOURCES", {"k": "k.cu"})
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    second = build.library_path("k")
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert len({first, second, build.library_path("k")}) == 3

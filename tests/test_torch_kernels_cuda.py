@@ -35,12 +35,12 @@ def card():
     return torch.device("cuda")
 
 
-def _qkv_views(B, H, L, dtype, seed):
-    """q, k, v as mha makes them: strided (B, H, L, 64) views of one
-    (B, L, 3*H*64) projection."""
-    qkv = np.random.RandomState(seed).randn(B, L, 3 * H * 64).astype(np.float32)
+def _qkv_views(B, H, L, dtype, seed, d=64):
+    """q, k, v as mha makes them: strided (B, H, L, d) views of one
+    (B, L, 3*H*d) projection."""
+    qkv = np.random.RandomState(seed).randn(B, L, 3 * H * d).astype(np.float32)
     qkv = torch.from_numpy(qkv).cuda().to(dtype)
-    return [t.view(B, L, H, 64).transpose(1, 2) for t in qkv.split(H * 64, dim=-1)]
+    return [t.view(B, L, H, d).transpose(1, 2) for t in qkv.split(H * d, dim=-1)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -123,10 +123,10 @@ def _rel_errs(got, want):
     return [(g.float() - w.float()).abs().max().item() / scale for g, w in zip(got, want)]
 
 
-def _blhd_view(B, H, L, dtype, seed):
-    """A (B, H, L, 64) view of (B, L, H, 64) memory: the layout in which dO
+def _blhd_view(B, H, L, dtype, seed, d=64):
+    """A (B, H, L, d) view of (B, L, H, d) memory: the layout in which dO
     reaches the attention from mha's merge of the heads."""
-    g = np.random.RandomState(seed).randn(B, L, H, 64).astype(np.float32)
+    g = np.random.RandomState(seed).randn(B, L, H, d).astype(np.float32)
     return torch.from_numpy(g).cuda().to(dtype).transpose(1, 2)
 
 
@@ -234,3 +234,115 @@ def test_mha_backward_through_the_kernels_matches_the_plain_path(card, causal):
         out = attention.mha(x, w["w_qkv"], b_qkv, w["w_out"], b_out, H, mask=mask, impl=impl)
         grads[impl], = torch.autograd.grad(out, x, g)
     assert max(_rel_errs([grads[None]], [grads["plain"]])) <= 1e-5
+
+
+# ---------------------------------------------------- blockwise kernels #3-#5
+_BW_SHAPES = [  # (B, H, L, causal): the IVLP step's vision and text shapes, edges of L
+    (6, 12, 201, False), (10, 8, 16, True), (3, 2, 1, False), (4, 8, 8, True),
+    (2, 8, 77, True), (2, 4, 300, False), (2, 4, 513, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,H,L,causal", _BW_SHAPES)
+@pytest.mark.parametrize("d", [32, 64, 128, 80])
+def test_blockwise_fwd_and_bwd_match_plain(card, d, B, H, L, causal, dtype):
+    """Kernels #3-#5 on mha's strided views and a (B, L, H, d) dO, against
+    the plain versions on the same inputs; outputs written (B, L, H, d)."""
+    fa = flash_attention
+    q, k, v = _qkv_views(B, H, L, dtype, seed=L + d, d=d)
+    do = _blhd_view(B, H, L, dtype, seed=L + d + 1, d=d)
+    mask = attention.causal_mask(L, device=card) if causal else None
+    before = dict(fa.LAUNCHES)
+    o, lse = torch.ops.fsvlm.blockwise_attn_fwd(q, k, v, mask)
+    grads = fa._bw_kernel_bwd(q, k, v, o, lse, do, mask)
+    o_ref, lse_ref = fa.reference_blockwise_fwd(q, k, v, mask)
+    ref = fa.reference_blockwise_bwd(q, k, v, o, lse, do, mask)
+    torch.cuda.synchronize()
+    assert {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES} == {
+        n: int(n.startswith("blockwise")) for n in fa.LAUNCHES}
+    tol_o, tol_lse = TOL[dtype]
+    assert o.shape == (B, H, L, d) and o.transpose(1, 2).is_contiguous()
+    assert (o.float() - o_ref.float()).abs().max().item() <= tol_o
+    assert (lse - lse_ref).abs().max().item() <= tol_lse
+    for name, got in zip(("dq", "dk", "dv"), grads):
+        assert got.dtype == dtype and got.shape == (B, H, L, d), name
+        assert got.transpose(1, 2).is_contiguous() and torch.isfinite(got).all(), name
+    assert max(_rel_errs(grads, ref)) <= TOL_BWD[dtype]
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_blockwise_general_mask_and_fully_masked_rows(card, d):
+    """A row with every key masked: O = 0 and zero gradients, no NaN; a key
+    masked for every query: zero dK and dV rows."""
+    fa = flash_attention
+    q, k, v = _qkv_views(2, 4, 70, torch.float32, seed=9, d=d)
+    do = _blhd_view(2, 4, 70, torch.float32, seed=10, d=d)
+    mask = torch.from_numpy(np.random.RandomState(11).randn(70, 70).astype(np.float32)).cuda()
+    mask[3] = float("-inf")
+    mask[66] = float("-inf")  # in the second query tile
+    mask[:, 5] = float("-inf")
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = fa.blockwise_attention(*qkv, mask)
+    grads = torch.autograd.grad(o, qkv, do)
+    o_ref, lse_ref = fa.reference_blockwise_fwd(q, k, v, mask)
+    ref = fa.reference_blockwise_bwd(q, k, v, o_ref, lse_ref, do, mask)
+    assert torch.isfinite(o).all() and all(torch.isfinite(g).all() for g in grads)
+    assert (o - o_ref).abs().max().item() <= TOL[torch.float32][0]
+    assert max(_rel_errs(grads, ref)) <= TOL_BWD[torch.float32]
+    dq, dk, dv = grads
+    for row in (3, 66):
+        assert o[:, :, row].abs().max().item() == 0.0 and dq[:, :, row].abs().max().item() == 0.0
+    assert dk[:, :, 5].abs().max().item() == 0.0 and dv[:, :, 5].abs().max().item() == 0.0
+
+
+def test_blockwise_rejects_what_it_does_not_take(card):
+    fa = flash_attention
+    q, k, v = _qkv_views(2, 2, 16, torch.bfloat16, seed=1, d=32)
+    before = dict(fa.LAUNCHES)
+    bad = [
+        ((q.half(), k.half(), v.half(), None), TypeError),  # fp16
+        ((q, k.float(), v, None), TypeError),  # mixed dtypes
+        ((q, k[:, :, :8], v[:, :, :8], None), ValueError),  # ragged L
+        ((q, k, v, torch.zeros(8, 8, device=card)), ValueError),  # mask shape
+        ((q, k, v, torch.zeros(16, 16, dtype=torch.bfloat16, device=card)), ValueError),
+        ((q, k.cpu(), v, None), ValueError),  # mixed devices
+    ]
+    for args, err in bad:
+        with pytest.raises(err):
+            torch.ops.fsvlm.blockwise_attn_fwd(*args)
+    big = torch.zeros(1, 2, 8, 136, device=card)
+    with pytest.raises(ValueError, match="B3"):
+        fa.blockwise_attention(big, big, big)
+    assert fa.LAUNCHES == before
+
+
+@pytest.mark.parametrize("force,launched", [(None, "flash_attn"), ("1", "blockwise")],
+                         ids=["default", "force_pallas"])
+def test_mha_launches_the_routed_family(card, force, launched, monkeypatch):
+    """mha at head dim 64: the d = 64 kernels by default, the blockwise ones
+    (and no other) under FSVLM_FORCE_PALLAS=1; each agrees with the plain
+    path, forward and backward."""
+    fa = flash_attention
+    if force is None:
+        monkeypatch.delenv("FSVLM_FORCE_PALLAS", raising=False)
+    else:
+        monkeypatch.setenv("FSVLM_FORCE_PALLAS", force)
+    rng = np.random.RandomState(3)
+    B, L, D, H = 3, 37, 256, 4
+    x0 = torch.from_numpy(rng.randn(B, L, D).astype(np.float32)).cuda()
+    w = {n: torch.from_numpy((rng.randn(*s) * s[0] ** -0.5).astype(np.float32)).cuda()
+         for n, s in (("w_qkv", (D, 3 * D)), ("w_out", (D, D)))}
+    b_qkv, b_out = torch.zeros(3 * D, device=card), torch.zeros(D, device=card)
+    g = torch.from_numpy(rng.randn(B, L, D).astype(np.float32)).cuda()
+    mask = attention.causal_mask(L, device=card)
+    outs = {}
+    for impl in (None, "plain"):
+        before = dict(fa.LAUNCHES)
+        x = x0.clone().requires_grad_()
+        out = attention.mha(x, w["w_qkv"], b_qkv, w["w_out"], b_out, H, mask=mask, impl=impl)
+        outs[impl] = (out.detach(), *torch.autograd.grad(out, x, g))
+        delta = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES}
+        assert delta == {n: int(impl is None and n.startswith(launched)) for n in fa.LAUNCHES}
+    assert (outs[None][0] - outs["plain"][0]).abs().max().item() <= 1e-4
+    assert max(_rel_errs([outs[None][1]], [outs["plain"][1]])) <= 1e-5

@@ -156,7 +156,10 @@ import fsvlm_tpu_torch.serve as serve
 import fsvlm_tpu_torch.config, fsvlm_tpu_torch.engine.optim, fsvlm_tpu_torch.engine.trainer
 import fsvlm_tpu_torch.ops.preprocess, fsvlm_tpu_torch.ops.kernels.build
 import fsvlm_tpu_torch.trainers.ivlp, fsvlm_tpu_torch.trainers.losses
+import fsvlm_tpu_torch.trainers.templates
+from fsvlm_tpu_torch.ops.flash_attention import attention_dispatch, blockwise_attention
 from fsvlm_tpu_torch.trainers.backbone import load_clip_backbone
+from fsvlm_tpu_torch.trainers.ivlp import IVLP
 from fsvlm_tpu_torch.trainers.promptsrc import PromptSRC
 clip = load_clip_backbone("test-tiny", device="cpu")
 pred = serve.PromptSRCPredictor(["cat", "dog"], clip=clip, device="cpu")
@@ -167,6 +170,13 @@ cfg.INPUT.SIZE, cfg.DATALOADER.DEVICE_AUG, cfg.OPTIM.MAX_EPOCH = (32, 32), True,
 trainer = PromptSRC(cfg, ["cat", "dog"], np.zeros((4, 40, 40, 3), np.uint8), np.zeros(4),
                     clip=clip, device="cpu")
 assert np.isfinite(trainer.train()[0][0]["loss"])
+cfg.TRAINER.IVLP.USE_MIXUP = True
+trainer = IVLP(cfg, ["cat", "dog"], np.zeros((4, 40, 40, 3), np.uint8), np.zeros(4),
+               clip=clip, device="cpu")
+assert np.isfinite(trainer.train()[0][0]["loss"])
+import torch
+q = torch.zeros(1, 2, 5, 48)
+assert blockwise_attention(q, q, q).shape == attention_dispatch(q, q, q).shape == q.shape
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "fsvlm_tpu", "regex", "yaml", "PIL"))
 print("FORBIDDEN", bad)
@@ -175,8 +185,9 @@ sys.exit(1 if bad else 0)
 
 
 def test_serving_path_imports_no_jax_regex_yaml_or_pil():
-    """Serving and a train epoch on the CPU, with every module of the port
-    imported, load nothing of JAX, the JAX package, regex, yaml or PIL."""
+    """Serving, a PromptSRC and an IVLP (KD, mixup) train epoch and the
+    blockwise attention on the CPU, with every module of the port imported,
+    load nothing of JAX, the JAX package, regex, yaml or PIL."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _BOUNDARY.format(repo=REPO)], cwd=REPO,
                           env=env, capture_output=True, text=True, timeout=300)
