@@ -16,7 +16,9 @@ Phases; each passes or raises, and any failure exits non-zero:
    version's three); the d = 64 kernels #6-#8, then the blockwise kernels
    #3-#5 at head dims 32, 64, 128 and 80 (zero-padded to 128).  Then time
    kernels, plain versions and the one PyTorch library call that computes the
-   same function (a yardstick only), with each kernel's bound.
+   same function (a yardstick only), with each kernel's bound.  Then the
+   whole-sequence kernels #1-#2 at head dims 32, 64, 80 and 128, L from 1 to
+   1024, and CoOp's and CoCoOp's own shapes.
 4. serving: PromptSRC ViT-B/16 at full width (random weights from seed 0,
    bf16 frozen towers, bf16 compute, 100 classes): text features once, then
    3 batches of 100 uint8 224x224 images, through the kernel and again with
@@ -51,13 +53,29 @@ Phases; each passes or raises, and any failure exits non-zero:
    synchronizing call (and one with the trainer's own mixup draws), and one
    profiled step.  The variable is set for the phase and restored after it;
    phases 4-6 run with it unset, on the d = 64 kernels.
+8. CoOp and CoCoOp: under FSVLM_FORCE_PALLAS=legacy, so that every
+   attention takes the whole-sequence kernels #1-#2 (phase 3 holds them to
+   their plain versions at d 32/64/80/128, ten lengths and the steps' own
+   shapes).  CoOp from configs/trainers/CoOp/vit_b16_ep50.yaml (16 ctx,
+   batch 32; the image tower without gradient): phase 6's run and agreement
+   rules, one step checked to make no synchronizing call, one profiled
+   step, then test() on 200 cache images through both paths (text features
+   once; |dlogit| at most 0.1, and the kernel path's distance to an fp32
+   plain evaluation at most 4x the plain bf16 path's; top-1 agreement past
+   twice the largest |dlogit|).  CoCoOp from configs/trainers/CoCoOp/vit_b16_c4_ep10_batch1.yaml
+   (4 ctx, batch 1: 100 text sequences per step): the same run and rules;
+   then 2 steps at batch 48 with TRAIN.REMAT, past BATCHED_TEXT_LIMIT, so
+   class blocks of 85 (2 blocks, one padded) with every block and text
+   layer rematerialized, against the plain path, with its peak memory.
 
-Phases 4, 6 and 7 zero the launch counts just before their main path and
-read them just after: each kernel of the path must have launched its
-expected count, and the other family none.
+Phases 4, 6, 7 and 8 zero the launch counts just before each main path
+and read them just after: each kernel of the path must have launched its
+expected count (derived from the code: a rematerialized layer runs its
+forward kernel again), and the other families none.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is ``{"kernels": [...]}`` (one row per TPU kernel;
+#2's row lists its three CUDA kernels as ``parts``); the last line is
+``{"ok": true, "device": {...}}``, and the script exits 0.
 """
 
 import json
@@ -111,6 +129,17 @@ BW_PATH_SHAPES = [  # (B, H, L, causal) at d = 64: the IVLP step's student visio
 BW_TIMED = {"vision": (48, 12, 201, 64, False), "vision_d32": (48, 24, 201, 32, False),
             "vision_d128": (48, 6, 201, 128, False), "text": (100, 8, 16, 64, True)}
 N_MIX_STEPS = 2  # IVLP steps with mixup on, after the 6 without
+# whole-sequence kernels #1-#2: head dims (80 runs the 128 instantiation),
+# lengths (the text 16 and 24, vision 197 and 201, edges of L), the CoOp and
+# CoCoOp steps' own shapes at d = 64 (their vision pass without prompts; text
+# at CoOp's 16 ctx, at CoCoOp's batch 1 and one class block of its chunked
+# batch-48 step: 48 x 85 prompts), and the timed shapes
+FUSED_DIMS, FUSED_LENGTHS = (32, 64, 80, 128), (1, 8, 16, 24, 77, 197, 201, 300, 513, 1024)
+FUSED_PATH_SHAPES = [  # (B, H, L, causal) at d = 64
+    (32, 12, 197, False), (100, 8, 24, True), (100, 8, 16, True), (48, 12, 197, False),
+    (4080, 8, 16, True),
+]
+FUSED_TIMED = {"vision": (32, 12, 197, False), "text": (100, 8, 24, True)}
 
 
 def log(msg):
@@ -202,22 +231,27 @@ def _time_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def _bound(B, H, L, causal, dtype_name, elsize, d=64):
+def _bound(B, H, L, causal, dtype_name, elsize, d=64, lse=True):
+    """Least time of one forward: q, k, v read, O (and LSE) written, the mask
+    read when there is one; 4 operations per (query, key) pair and head dim
+    this data needs."""
     pairs = L * (L + 1) // 2 if causal else L * L  # score entries this data needs
-    nbytes = 4 * B * H * L * d * elsize + B * H * L * 4 + (L * L * 4 if causal else 0)
+    nbytes = (4 * B * H * L * d * elsize + (B * H * L * 4 if lse else 0)
+              + (L * L * 4 if causal else 0))
     flops = 4 * B * H * pairs * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _bound_bwd(B, H, L, causal, elsize, n_out, flops_per_pair, d=64):
+def _bound_bwd(B, H, L, causal, elsize, n_out, flops_per_pair, d=64, stats=True):
     """Least time of one backward kernel at bf16 peak: q, k, v, dO read, LSE
-    and delta read, ``n_out`` gradients written, the mask read when there is
-    one; ``flops_per_pair`` operations per (query, key) pair and head dim
-    this data needs."""
+    and delta read (``stats``), ``n_out`` gradients written, the mask read
+    when there is one; ``flops_per_pair`` operations per (query, key) pair
+    and head dim this data needs."""
     pairs = L * (L + 1) // 2 if causal else L * L
-    nbytes = (4 + n_out) * B * H * L * d * elsize + 2 * B * H * L * 4 + (L * L * 4 if causal else 0)
+    nbytes = ((4 + n_out) * B * H * L * d * elsize + (2 * B * H * L * 4 if stats else 0)
+              + (L * L * 4 if causal else 0))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops_per_pair * B * H * pairs * d / PEAK_FLOPS["bfloat16"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -408,6 +442,105 @@ def phase_kernels_blockwise():
         log(f"kernel {kern} {name}: worst max|err| {a:.3e}"
             + (f", worst max|err|/max|ref| {r:.3e}" if kern != fa.BW_KERNEL else ""))
     return {k: max(worst[k, n][0] for n in ("float32", "bfloat16")) for k in kernels}, timings
+
+
+def phase_kernels_fused():
+    """The whole-sequence kernels #1-#2 against their plain versions at every
+    head dim and edge of L, causal and unmasked, and at the CoOp and CoCoOp
+    steps' own shapes (FUSED_PATH_SHAPES), fp32 and bf16; then times at
+    FUSED_TIMED in bf16, with bounds, plain and library times."""
+    import torch
+    import torch.nn.functional as F
+
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.ops.attention import causal_mask
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bwd_kernels = (fa.FUSED_KERNEL_STATS, fa.FUSED_KERNEL_DKV, fa.FUSED_KERNEL_DQ)
+    worst = {(k, n): [0.0, 0.0] for k in (fa.FUSED_KERNEL, "bwd") for n in ("float32", "bfloat16")}
+    edges = [((4, 4) if L <= 201 else (2, 2)) + (L, d, causal)
+             for d in FUSED_DIMS for L in FUSED_LENGTHS for causal in (True, False)]
+    path = [(B, H, L, 64, causal) for B, H, L, causal in FUSED_PATH_SHAPES]
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for B, H, L, d, causal in edges + path:
+            q, k, v = _qkv(B, H, L, dtype, gen, d)
+            do = _blhd_grad(B, H, L, dtype, gen, d)
+            mask = causal_mask(L, device="cuda") if causal else None
+            before = dict(fa.LAUNCHES)
+            o = fa._fused_attn_fwd_op(q, k, v, mask)
+            grads = fa._fused_attn_bwd_op(q, k, v, do, mask)
+            launched = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES if fa.LAUNCHES[n] != before[n]}
+            o_ref = fa.reference_fused_fwd(q, k, v, mask)
+            ref = fa.reference_fused_bwd(q, k, v, do, mask)
+            torch.cuda.synchronize()
+            err_o = (o.float() - o_ref.float()).abs().max().item()
+            scale = max(r.float().abs().max().item() for r in ref)
+            errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(grads, ref)]
+            rel = [e / scale for e in errs]
+            ok = (all(np.isfinite(e) for e in (err_o, *errs)) and err_o <= TOL[name]["o"]
+                  and max(rel) <= TOL_BWD[name]
+                  and launched == dict.fromkeys((fa.FUSED_KERNEL,) + bwd_kernels, 1))
+            n_cases += 1
+            if not ok or L in (16, 197) or (B, H, L, d, causal) in path:
+                log(f"kernel fused {name} d={d} B={B} H={H} L={L} "
+                    f"{'causal' if causal else 'nomask'}: max|dO|={err_o:.3e}; max|err|/max|ref| "
+                    f"dQ {rel[0]:.3e} dK {rel[1]:.3e} dV {rel[2]:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"FAIL: the whole-sequence kernels disagree with their plain "
+                                 f"versions or launched {launched} ({name}, B={B} H={H} L={L} "
+                                 f"d={d}, causal={causal})")
+            for kern, a, r in ((fa.FUSED_KERNEL, err_o, 0.0), ("bwd", max(errs), max(rel))):
+                worst[kern, name][0] = max(worst[kern, name][0], a)
+                worst[kern, name][1] = max(worst[kern, name][1], r)
+            del q, k, v, do, o, grads, o_ref, ref
+    log(f"kernel fused: {n_cases} cases ok (d {FUSED_DIMS}, L {FUSED_LENGTHS}, causal and "
+        f"unmasked; the CoOp/CoCoOp steps' shapes {FUSED_PATH_SHAPES} at d 64; fp32 and bf16)")
+
+    timings = {}
+    for label, (B, H, L, causal) in FUSED_TIMED.items():
+        q, k, v = _qkv(B, H, L, torch.bfloat16, gen)
+        do = _blhd_grad(B, H, L, torch.bfloat16, gen)
+        mask = causal_mask(L, device="cuda") if causal else None
+        stats = fa._fused_launch_stats(q, k, v, do, mask)
+        fwd_ms = _time_ms(lambda: fa._fused_launch(q, k, v, mask))
+        part_ms = {
+            fa.FUSED_KERNEL_STATS: _time_ms(lambda: fa._fused_launch_stats(q, k, v, do, mask)),
+            fa.FUSED_KERNEL_DKV: _time_ms(lambda: fa._fused_launch_dkv(q, k, v, do, stats, mask)),
+            fa.FUSED_KERNEL_DQ: _time_ms(lambda: fa._fused_launch_dq(q, k, v, do, stats, mask)),
+        }
+
+        def launches_bwd():
+            st = fa._fused_launch_stats(q, k, v, do, mask)
+            fa._fused_launch_dkv(q, k, v, do, st, mask)
+            fa._fused_launch_dq(q, k, v, do, st, mask)
+
+        bwd_ms = _time_ms(launches_bwd)
+        plain_fwd_ms = _time_ms(lambda: fa.reference_fused_fwd(q, k, v, mask))
+        plain_bwd_ms = _time_ms(lambda: fa.reference_fused_bwd(q, k, v, do, mask))
+        lib_fwd_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+        lib_bwd_ms = _library_bwd_ms(q, k, v, do, causal)
+        b_fwd = _bound(B, H, L, causal, "bfloat16", 2, lse=False)
+        b_bwd = _bound_bwd(B, H, L, causal, 2, 3, 10, stats=False)
+        timings[label] = {
+            fa.FUSED_KERNEL: dict(ms=fwd_ms, plain_ms=plain_fwd_ms, library_ms=lib_fwd_ms,
+                                  bound_ms=b_fwd[0], bound_by=b_fwd[1]),
+            "bwd": dict(ms=bwd_ms, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
+                        bound_ms=b_bwd[0], bound_by=b_bwd[1], parts=part_ms),
+        }
+        log(f"time fused bf16 {label} ({B},{H},{L},64) {'causal' if causal else 'nomask'}: "
+            f"fwd kernel {fwd_ms:.4f} ms (bound {b_fwd[0]:.4f}, {b_fwd[1]}; plain "
+            f"{plain_fwd_ms:.4f}; sdpa {lib_fwd_ms:.4f}); backward {bwd_ms:.4f} ms = stats "
+            f"{part_ms[fa.FUSED_KERNEL_STATS]:.4f} + dK/dV {part_ms[fa.FUSED_KERNEL_DKV]:.4f} + dQ "
+            f"{part_ms[fa.FUSED_KERNEL_DQ]:.4f} timed apart (bound {b_bwd[0]:.4f}, {b_bwd[1]}); "
+            f"plain backward {plain_bwd_ms:.4f} ms; "
+            f"aten._scaled_dot_product_flash_attention_backward {lib_bwd_ms} ms")
+        del q, k, v, do, stats
+    for (kern, name), (a, r) in worst.items():
+        log(f"kernel fused {kern} {name}: worst max|err| {a:.3e}"
+            + (f", worst max|err|/max|ref| {r:.3e}" if kern != fa.FUSED_KERNEL else ""))
+    return {k: max(worst[k, n][0] for n in ("float32", "bfloat16")) for k in (fa.FUSED_KERNEL, "bwd")}, timings
 
 
 def phase_kernels():
@@ -649,9 +782,9 @@ def _train_cache():
     return cache, labels
 
 
-def _augmented_batch(cache, labels, seed):
-    """One augmented batch from a generator of its own (the trainers' are
-    not drawn from)."""
+def _augmented_batch(cache, labels, seed, batch=TRAIN_BATCH):
+    """One augmented batch of ``batch`` cache images from a generator of its
+    own (the trainers' are not drawn from)."""
     import torch
 
     from fsvlm_tpu_torch.ops.preprocess import (
@@ -659,9 +792,9 @@ def _augmented_batch(cache, labels, seed):
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     images = crop_resize_flip_normalize(
-        cache[:TRAIN_BATCH], sample_crop_boxes(TRAIN_BATCH, 224, 224, (0.08, 1.0), gen),
-        sample_flips(TRAIN_BATCH, gen), 224)
-    return {"img": images, "label": labels[:TRAIN_BATCH]}
+        cache[:batch], sample_crop_boxes(batch, 224, 224, (0.08, 1.0), gen),
+        sample_flips(batch, gen), 224)
+    return {"img": images, "label": labels[:batch]}
 
 
 def _grad_agreement(label, kt, pt, node, batch):
@@ -694,7 +827,7 @@ def _grad_agreement(label, kt, pt, node, batch):
         raise SystemExit(f"FAIL: {label}: kernel and plain first-step prompt gradients disagree")
 
 
-def _train_both(label, kt, pt, per_step, family):
+def _train_both(label, kt, pt, per_step, family, batch=TRAIN_BATCH):
     """kt.train() through the kernels, every step timed on the host clock,
     with the launch counts zeroed just before and read just after; then
     pt.train() through the plain attention.  Checks the per-step losses,
@@ -750,7 +883,7 @@ def _train_both(label, kt, pt, per_step, family):
                              f"expected {n * n_steps}")
     med = float(np.median(step_ms[1:]))
     log(f"{label}: step ms {[round(x, 2) for x in step_ms]}; median over steps 2-{n_steps} "
-        f"{med:.2f} ms, {TRAIN_BATCH / med * 1e3:.1f} images/s; peak memory "
+        f"{med:.2f} ms, {batch / med * 1e3:.1f} images/s; peak memory "
         f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
     return launches, step_ms, peak
 
@@ -951,18 +1084,242 @@ def phase_train_ivlp(clip):
     return launches, step_ms, peak
 
 
+COOP_RECIPE = "configs/trainers/CoOp/vit_b16_ep50.yaml"
+COCOOP_RECIPE = "configs/trainers/CoCoOp/vit_b16_c4_ep10_batch1.yaml"
+N_TEST = 200  # test() images (the first of the train cache; labels from seed 1234)
+REMAT_BATCH, N_REMAT_STEPS = 48, 2  # CoCoOp's class-chunked steps under TRAIN.REMAT
+
+
+def _recipe_cfg(recipe):
+    """A recipe's override list on get_cfg_default() at the smoke run's
+    size: SEED 0, bf16 frozen towers (PREC bf16 is the recipe's), DEVICE_AUG,
+    TRAIN_EPOCHS epochs (a depth cut of the recipes' 50 and 10)."""
+    from fsvlm_tpu_torch.config import RECIPES, get_cfg_default
+
+    cfg = get_cfg_default()
+    cfg.merge_from_list(RECIPES[recipe])
+    cfg.merge_from_list(["SEED", 0, "MODEL.FROZEN_DTYPE", "bf16", "DATALOADER.DEVICE_AUG", True,
+                         "OPTIM.MAX_EPOCH", TRAIN_EPOCHS])
+    return cfg
+
+
+def _fused_per_step(clip_cfg, text_passes, text_recomputes=0):
+    """Launches per train step of the whole-sequence kernels, derived from
+    the code: the image tower's forward (no gradient: the ViT's layers once)
+    and ``text_passes`` text-tower passes, forward and backward, each text
+    layer's forward run 1 + ``text_recomputes`` times (checkpointing
+    recomputes through the same kernel)."""
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+
+    n_text = clip_cfg.transformer_layers * text_passes
+    return {fa.FUSED_KERNEL: clip_cfg.vision_layers + n_text * (1 + text_recomputes),
+            fa.FUSED_KERNEL_STATS: n_text, fa.FUSED_KERNEL_DKV: n_text, fa.FUSED_KERNEL_DQ: n_text}
+
+
+def _coop_test(kt, pt, cache):
+    """test() on N_TEST uint8 images at TEST batch 100 through both paths on
+    the kernel path's trained ctx (copied into the plain trainer), and once
+    more on the plain path in fp32: the text features once; max |dlogit| at
+    most MAX_DLOGIT, and the kernel path's distance to the fp32 logits at
+    most BF16_NOISE_RATIO times the plain bf16 path's (phase 6's noise rule:
+    CoOp's 100 prompts share their 16 context tokens, so the logit spread
+    between classes, phase 4's yardstick, is about a tenth of serving's);
+    top-1 agreement on every image whose top-1/top-2 margin exceeds twice
+    the largest |dlogit|."""
+    import torch
+
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+
+    with torch.no_grad():
+        for k in pt.params:
+            pt.params[k].copy_(kt.params[k])
+    labels = np.random.RandomState(1234).randint(0, N_CLASSES, N_TEST)
+    node = kt.cfg.TRAINER.COOP  # read by both trainers' compute_dtype()
+    runs = {}
+    for name, t, prec in (("kernel", kt, "bf16"), ("plain", pt, "bf16"), ("plain fp32", pt, "fp32")):
+        seen = {"text": [], "logits": []}
+        text_fn, image_fn = t.text_features_fn, t.image_logits_fn
+        t.text_features_fn = lambda *a, f=text_fn, c=seen: c["text"].append(f(*a)) or c["text"][-1]
+        t.image_logits_fn = lambda *a, f=image_fn, c=seen: c["logits"].append(f(*a)) or c["logits"][-1]
+        node.PREC = prec
+        torch.cuda.synchronize()
+        fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        t0 = time.perf_counter()
+        acc = t.test(cache[:N_TEST], labels)
+        torch.cuda.synchronize()
+        runs[name] = (acc, seen, dict(fa.LAUNCHES), (time.perf_counter() - t0) * 1e3)
+        del t.text_features_fn, t.image_logits_fn  # the trainer's own methods again
+    node.PREC = "bf16"
+    (k_acc, k_seen, launches, k_ms), (p_acc, p_seen, _, p_ms) = runs["kernel"], runs["plain"]
+    n_batches = -(-N_TEST // kt.cfg.DATALOADER.TEST.BATCH_SIZE)
+    k_log, p_log, f_log = (torch.cat(runs[n][1]["logits"]).float()
+                           for n in ("kernel", "plain", "plain fp32"))
+    cos_txt = torch.nn.functional.cosine_similarity(k_seen["text"][0].float(),
+                                                    p_seen["text"][0].float(), dim=-1)
+    dlog = (k_log - p_log).abs().amax(dim=-1)
+    noise_k, noise_p = ((x - f_log).abs().max().item() for x in (k_log, p_log))
+    spread = p_log.std(dim=-1)
+    top2 = p_log.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * dlog.max()
+    flips = int((decided & (k_log.argmax(-1) != p_log.argmax(-1))).sum())
+    want = {fa.FUSED_KERNEL: kt.clip.cfg.transformer_layers + n_batches * kt.clip.cfg.vision_layers}
+    log(f"coop test(): {N_TEST} images in {n_batches} batches; accuracy kernel {k_acc:.1f}%, plain "
+        f"{p_acc:.1f}%, plain fp32 {runs['plain fp32'][0]:.1f}%; {k_ms:.1f} / {p_ms:.1f} ms; text "
+        f"feature passes {len(k_seen['text'])}; min text cosine {cos_txt.min().item():.6f}; max "
+        f"|dlogit| {dlog.max().item():.4f}; max |dlogit| to the fp32 logits: kernel {noise_k:.4f}, "
+        f"plain bf16 {noise_p:.4f}; logit spread between classes {spread.min().item():.4f}-"
+        f"{spread.max().item():.4f} (max |dlogit|/spread {(dlog / spread).max().item():.4f}); images "
+        f"past the 2 x max|dlogit| margin {int(decided.sum())}, near ties {int((~decided).sum())}, "
+        f"top-1 flips past the margin {flips}; launches {launches}")
+    _others_silent(launches, "fused_attn", "coop test()")
+    if ({k: n for k, n in launches.items() if n} != want or len(k_seen["text"]) != 1
+            or len(k_seen["logits"]) != n_batches or k_log.shape != (N_TEST, N_CLASSES)
+            or not torch.isfinite(k_log).all() or cos_txt.min().item() < MIN_COSINE
+            or dlog.max().item() > MAX_DLOGIT or noise_k > BF16_NOISE_RATIO * noise_p or flips):
+        raise SystemExit(f"FAIL: coop test(): kernel and plain paths disagree, or the launches "
+                         f"are not {want}")
+
+
+def _cocoop_remat(clip, cache, labels):
+    """CoCoOp at batch REMAT_BATCH under TRAIN.REMAT: B * n_cls past
+    BATCHED_TEXT_LIMIT, so the class-chunked path with every block and text
+    layer rematerialized; the first-step gradients and N_REMAT_STEPS steps
+    against the plain attention on shared boxes and flips.  Each tensor's
+    total change must reach MIN_DELTA_COSINE against the plain path's, or,
+    where bf16 rounding alone takes it below that, stay within phase 6's
+    noise rule: its distance (1 - cosine) to a third run's, the plain path
+    in fp32, at most BF16_NOISE_RATIO times the plain bf16 path's."""
+    import torch
+
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.ops.preprocess import sample_crop_boxes, sample_flips
+    from fsvlm_tpu_torch.trainers import cocoop
+
+    cfg = _recipe_cfg(COCOOP_RECIPE)
+    cfg.merge_from_list(["DATALOADER.TRAIN_X.BATCH_SIZE", REMAT_BATCH, "TRAIN.REMAT", True])
+    classnames = [f"class {i}" for i in range(N_CLASSES)]
+    kt = cocoop.CoCoOp(cfg, classnames, cache, labels, clip=clip, device="cuda",
+                       steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+    pt = cocoop.CoCoOp(cfg, classnames, cache, labels, clip=clip, device="cuda",
+                       steps_per_epoch=TRAIN_STEPS_PER_EPOCH, attn_impl="plain")
+    cfg32 = _recipe_cfg(COCOOP_RECIPE)
+    cfg32.merge_from_list(["DATALOADER.TRAIN_X.BATCH_SIZE", REMAT_BATCH, "TRAIN.REMAT", True,
+                           "TRAINER.COCOOP.PREC", "fp32"])
+    ft = cocoop.CoCoOp(cfg32, classnames, cache, labels, clip=clip, device="cuda",
+                       steps_per_epoch=TRAIN_STEPS_PER_EPOCH, attn_impl="plain")
+    chunk = kt.class_chunk_for(REMAT_BATCH)
+    n_blocks = -(-N_CLASSES // chunk)
+    log(f"cocoop remat: batch {REMAT_BATCH} x {N_CLASSES} classes = {REMAT_BATCH * N_CLASSES} text "
+        f"sequences > BATCHED_TEXT_LIMIT {cocoop.BATCHED_TEXT_LIMIT}: {n_blocks} blocks of {chunk} "
+        f"classes ({n_blocks * chunk - N_CLASSES} padded), each a ({REMAT_BATCH * chunk}, 8, "
+        f"{kt.frozen['base_embed'].shape[1]}) text pass")
+    if not (REMAT_BATCH * N_CLASSES > cocoop.BATCHED_TEXT_LIMIT and 1 < n_blocks and kt.remat):
+        raise SystemExit("FAIL: cocoop remat: the step is not on the class-chunked remat path")
+    _grad_agreement("cocoop remat", kt, pt, cfg.TRAINER.COCOOP,
+                    _augmented_batch(cache, labels, 12, REMAT_BATCH))
+    per_step = _fused_per_step(clip.cfg, n_blocks, text_recomputes=2)
+    init = {k: v.detach().clone() for k, v in kt.params.items()}
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    losses, step_ms, peak = [], [], 0
+    fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+    for step in range(N_REMAT_STEPS):
+        idx = torch.arange(step * REMAT_BATCH, (step + 1) * REMAT_BATCH, device="cuda")
+        aug = (sample_crop_boxes(REMAT_BATCH, 224, 224, (0.08, 1.0), gen), sample_flips(REMAT_BATCH, gen))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        k_loss = kt.train_step_resident(idx, aug=aug)["loss"].item()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        losses.append((k_loss, pt.train_step_resident(idx, aug=aug)["loss"].item()))
+        ft.train_step_resident(idx, aug=aug)
+    launches = dict(fa.LAUNCHES)
+    dloss = [abs(a - b) / (1 + abs(b)) for a, b in losses]
+    change = {name: {k: t.params[k].detach() - init[k] for k in init}
+              for name, t in (("kernel", kt), ("plain", pt), ("fp32", ft))}
+    cos = {pair: {k: _cosine(change[pair[0]][k], change[pair[1]][k]) for k in init}
+           for pair in (("kernel", "plain"), ("kernel", "fp32"), ("plain", "fp32"))}
+    delta_ok = all(cos["kernel", "plain"][k] >= MIN_DELTA_COSINE
+                   or 1 - cos["kernel", "fp32"][k] <= BF16_NOISE_RATIO * (1 - cos["plain", "fp32"][k])
+                   for k in init)
+    log(f"cocoop remat: losses (kernel, plain) {[[round(x, 5) for x in p] for p in losses]}; max "
+        f"|dloss|/(1+|loss|) {max(dloss):.3e}; step ms (kernel) {[round(x, 1) for x in step_ms]}; "
+        f"peak memory of a kernel step {peak / 2**30:.2f} GiB; launches over {N_REMAT_STEPS} steps "
+        f"{launches}, expected per step {per_step}")
+    for (a, b), c in cos.items():
+        log(f"cocoop remat: cosine of each tensor's total change, {a} against {b}: "
+            + ", ".join(f"{k} {v:.7f}" for k, v in c.items()))
+    _others_silent(launches, "fused_attn", "the cocoop remat path")
+    if (not np.isfinite(losses).all() or max(dloss) > DLOSS or not delta_ok
+            or any(launches[k] != n * N_REMAT_STEPS for k, n in per_step.items())):
+        raise SystemExit("FAIL: cocoop remat: kernel and plain paths disagree, or the launches "
+                         "are not the derived counts")
+    _profile(f"one CoCoOp step under TRAIN.REMAT, batch {REMAT_BATCH}",
+             lambda: kt.train_step_resident(torch.arange(REMAT_BATCH, device="cuda")), top=12)
+
+
+def phase_coop_cocoop(clip):
+    """Phase 8, under FSVLM_FORCE_PALLAS=legacy (the caller sets it): CoOp
+    and CoCoOp ViT-B/16 from their recipes through the whole-sequence
+    kernels #1-#2 and through their plain versions; CoOp's test()."""
+    import torch
+
+    from fsvlm_tpu_torch.trainers.cocoop import CoCoOp
+    from fsvlm_tpu_torch.trainers.coop import CoOp
+
+    classnames = [f"class {i}" for i in range(N_CLASSES)]
+    cache, labels = _train_cache()
+
+    cfg = _recipe_cfg(COOP_RECIPE)
+    batch = cfg.DATALOADER.TRAIN_X.BATCH_SIZE
+    kt = CoOp(cfg, classnames, cache, labels, clip=clip, device="cuda",
+              steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+    pt = CoOp(cfg, classnames, cache, labels, clip=clip, device="cuda",
+              steps_per_epoch=TRAIN_STEPS_PER_EPOCH, attn_impl="plain")
+    log(f"coop: {COOP_RECIPE}: N_CTX {cfg.TRAINER.COOP.N_CTX}, batch {batch}, LR {cfg.OPTIM.LR}, "
+        f"text L={kt.frozen['base_embed'].shape[1]}")
+    _grad_agreement("coop", kt, pt, cfg.TRAINER.COOP, _augmented_batch(cache, labels, 10, batch))
+    launches, _, _ = _train_both("coop", kt, pt, _fused_per_step(clip.cfg, 1), "fused_attn", batch)
+    index = kt.epoch_schedule()[0][0]
+    _no_sync_step("coop", kt.train_step_resident, index)
+    _profile(f"one CoOp train step, batch {batch}", lambda: kt.train_step_resident(index), top=20)
+    _coop_test(kt, pt, cache)
+    del kt, pt
+
+    cfg = _recipe_cfg(COCOOP_RECIPE)
+    batch = cfg.DATALOADER.TRAIN_X.BATCH_SIZE
+    kt = CoCoOp(cfg, classnames, cache, labels, clip=clip, device="cuda",
+                steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+    pt = CoCoOp(cfg, classnames, cache, labels, clip=clip, device="cuda",
+                steps_per_epoch=TRAIN_STEPS_PER_EPOCH, attn_impl="plain")
+    log(f"cocoop: {COCOOP_RECIPE}: N_CTX {cfg.TRAINER.COCOOP.N_CTX}, batch {batch} "
+        f"(the batched path: {batch * N_CLASSES} text sequences), text "
+        f"L={kt.frozen['base_embed'].shape[1]}")
+    _grad_agreement("cocoop", kt, pt, cfg.TRAINER.COCOOP, _augmented_batch(cache, labels, 11, batch))
+    _train_both("cocoop", kt, pt, _fused_per_step(clip.cfg, 1), "fused_attn", batch)
+    index = kt.epoch_schedule()[0][0]
+    _profile(f"one CoCoOp train step, batch {batch}", lambda: kt.train_step_resident(index), top=12)
+    del kt, pt
+    torch.cuda.empty_cache()
+    _cocoop_remat(clip, cache, labels)
+    return launches
+
+
 def main():
     phase_device()
     phase_build()
     worst, timings = phase_kernels()
     worst_bwd, timings_bwd = phase_kernels_bwd()
     worst_bw, timings_bw = phase_kernels_blockwise()
+    worst_fused, timings_fused = phase_kernels_fused()
     with force_pallas(None):  # the default route: the d = 64 kernels
         pred, batch = phase_main()
         phase_profile(pred, batch)
         launches = phase_train(pred.clip)
     with force_pallas("1"):  # every attention through the blockwise kernels
         launches_bw, _, _ = phase_train_ivlp(pred.clip)
+    with force_pallas("legacy"):  # every attention through the whole-sequence kernels
+        launches_fused = phase_coop_cocoop(pred.clip)
 
     import torch
 
@@ -978,7 +1335,9 @@ def main():
              for name, source, line in ((fa.BW_KERNEL, "blockwise_attn_fwd.cu", 232),
                                         (fa.BW_KERNEL_DKV, "blockwise_attn_bwd.cu", 324),
                                         (fa.BW_KERNEL_DQ, "blockwise_attn_bwd.cu", 372))]
-    print(json.dumps({"kernels": [{
+    rows.append((fa.FUSED_KERNEL, "fused_attn_fwd.cu", 32, worst_fused[fa.FUSED_KERNEL],
+                 timings_fused["vision"][fa.FUSED_KERNEL], launches_fused))
+    kernels = [{
         "name": name,
         "route": "cuda",
         "source": src + source,
@@ -990,7 +1349,23 @@ def main():
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
-    } for name, source, line, err, t, counts in rows]}))
+    } for name, source, line, err, t, counts in rows]
+    # #2 is three CUDA kernels (row pre-pass, dK/dV, dQ), each launched once
+    # per backward: one row, its time the three launches in a row, its parts
+    # with their own launch counts and times
+    bwd = timings_fused["vision"]["bwd"]
+    parts = (fa.FUSED_KERNEL_STATS, fa.FUSED_KERNEL_DKV, fa.FUSED_KERNEL_DQ)
+    if len({launches_fused[k] for k in parts}) != 1:
+        raise SystemExit(f"FAIL: #2's kernels launched unequal counts: {launches_fused}")
+    kernels.append({
+        "name": "fused_attn_bwd", "route": "cuda", "source": src + "fused_attn_bwd.cu",
+        "replaces": "fsvlm_tpu/ops/flash_attention.py:116",
+        "launches": launches_fused[fa.FUSED_KERNEL_DQ], "max_abs_err": worst_fused["bwd"],
+        "ms": bwd["ms"], "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"],
+        "parts": [{"name": k, "launches": launches_fused[k], "ms": bwd["parts"][k]} for k in parts],
+    })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
-"""The training loop core (counterpart of fsvlm_tpu.engine.trainer.SimpleTrainer,
-:97-142, :159-180, :212-252, :570-607), without DataManager.
+"""The training loop core and test() (counterpart of
+fsvlm_tpu.engine.trainer.SimpleTrainer, :97-142, :159-180, :212-252,
+:262-270, :570-607, :677-715), without DataManager.
 
 The trainer takes the class names, a uint8 image cache (N, P, P, 3) and its
 labels, both moved to ``device`` (default cuda), and keeps its state there:
@@ -21,13 +22,20 @@ epoch's end.
   the device, as the JAX package's train_step_resident;
 - ``forward_backward(batch)``: either, by whether the batch carries "img";
 - ``train()``: epochs of ``steps_per_epoch`` resident steps, each framed by
-  ``before_epoch`` / ``after_epoch``.
+  ``before_epoch`` / ``after_epoch``;
+- ``test(images, labels)``: top-1 accuracy on a uint8 test cache, text
+  features once where the trainer splits its eval.
 
-Subclasses implement ``build_model(clip)``, which sets ``params`` (dict of
-fp32 tensors), ``frozen``, ``use_mixup`` / ``mixup_alpha`` where they mix,
-and ``loss_fn(params, frozen, batch) -> (loss, aux)``; under ``use_mixup``
-the batch carries its draws as "perm" and "lam".  Checkpoint save and resume, ``test()`` and best-val selection are
-not ported.
+Subclasses name their config node (``trainer_cfg_key``:
+``cfg.TRAINER.<key>``, whose PREC sets the compute dtype) and implement
+``build_model(clip)``, which sets ``params`` (dict of fp32 tensors),
+``frozen``, ``use_mixup`` / ``mixup_alpha`` where they mix, and
+``loss_fn(params, frozen, batch) -> (loss, aux)``; under ``use_mixup`` the
+batch carries its draws as "perm" and "lam"; for ``test()``, either
+``text_features_fn(params, frozen)`` and ``image_logits_fn(params, frozen,
+images, txf)`` (split eval) or ``logits_fn(params, frozen, images)``.
+Checkpoint save and resume, best-val selection and the DataManager's
+loaders are not ported.
 """
 
 import math
@@ -41,11 +49,13 @@ from ..ops.preprocess import (
     normalize_only,
     random_resized_crop_flip_normalize,
 )
+from .evaluator import Classification
 from .optim import build_optimizer
 
 
 class SimpleTrainer:
     model_name = None
+    trainer_cfg_key = None  # the trainer's node of cfg.TRAINER
     use_mixup = False  # set by build_model: every step then draws (perm, lam)
     mixup_alpha = 1.0
 
@@ -79,8 +89,20 @@ class SimpleTrainer:
         self._build_optimizer(steps_per_epoch)
 
     # ------------------------------------------------------------------ setup
+    @property
+    def node(self):
+        return getattr(self.cfg.TRAINER, self.trainer_cfg_key)
+
     def check_cfg(self, cfg):
-        pass
+        if self.node.PREC not in ("fp16", "fp32", "amp", "bf16"):
+            raise ValueError(f"Unknown PREC: {self.node.PREC}")
+
+    def compute_dtype(self):
+        """bf16 on the card unless PREC is fp32 (fp16 and amp included, as
+        the JAX package computes them in bf16 on the TPU); fp32 on the CPU."""
+        if self.node.PREC == "fp32" or self.device.type == "cpu":
+            return torch.float32
+        return torch.bfloat16
 
     def build_model(self, clip):
         raise NotImplementedError
@@ -224,6 +246,41 @@ class SimpleTrainer:
             history.append(self.run_epoch())
             self.after_epoch()
         return history
+
+    # ------------------------------------------------------------------- test
+    @torch.no_grad()
+    def test(self, images, labels, return_pred=False):
+        """Evaluate on a uint8 (N, P, P, 3) test cache and its (N,) labels in
+        batches of DATALOADER.TEST.BATCH_SIZE, each normalized only (no
+        augmentation), as the test loader gives them.  With
+        ``text_features_fn`` the class text features are computed once, then
+        ``image_logits_fn`` per batch (trainer.py:262-270, 688-704); else
+        ``logits_fn`` per batch.  Prints the evaluator's result block and
+        returns the top-1 accuracy (%), or (y_true, y_pred) with
+        ``return_pred``."""
+        images = torch.as_tensor(images)
+        labels = np.asarray(labels)
+        if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[-1] != 3:
+            raise ValueError(f"images must be uint8 (N, P, P, 3), got {images.dtype} "
+                             f"{tuple(images.shape)}")
+        if labels.shape != tuple(images.shape[:1]):
+            raise ValueError(f"need one label per image, got {labels.shape}")
+        self.evaluator = Classification(self.cfg, dict(enumerate(self.classnames)))
+        print(f"Evaluate on the *{self.cfg.TEST.SPLIT}* set")
+        split = getattr(self, "text_features_fn", None) is not None
+        txf = self.text_features_fn(self.params, self.frozen) if split else None
+        B = self.cfg.DATALOADER.TEST.BATCH_SIZE
+        for i in range(0, len(images), B):
+            x = normalize_only(images[i:i + B].to(self.device), *self.pixel_stats)
+            if split:
+                logits = self.image_logits_fn(self.params, self.frozen, x, txf)
+            else:
+                logits = self.logits_fn(self.params, self.frozen, x)
+            self.evaluator.process(logits.float().cpu().numpy(), labels[i:i + B])
+        results = self.evaluator.evaluate()
+        if return_pred:
+            return self.evaluator.y_true, self.evaluator.y_pred
+        return results["accuracy"]
 
     def get_current_lr(self):
         return self.lr_schedule.lr_at_epoch(self.epoch)

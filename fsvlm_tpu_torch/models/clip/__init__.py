@@ -10,6 +10,7 @@ from .model import (
     VisionPrompts,
     clip_logits,
     embed_tokens,
+    encode_image,
     encode_image_vit,
     encode_text_embeds,
     encode_text_ids,

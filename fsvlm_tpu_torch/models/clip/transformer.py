@@ -12,6 +12,7 @@ Splicing semantics (parity with the reference, PromptSRC/clip/model.py:229-256):
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import Attention
 from ...ops.layers import LayerNorm, frozen_param, linear, quick_gelu
@@ -60,15 +61,30 @@ def _splice_vision(x, prompt):
 
 
 def transformer(blocks, x, *, mask=None, deep_prompts=None, splice_flags=None,
-                splice_kind="text", attn_impl=None):
+                splice_kind="text", attn_impl=None, remat=False):
     """Run ``blocks`` (an nn.ModuleList of ResidualAttentionBlock) over x (B, L, D).
 
     deep_prompts: optional (n_layers, n_ctx, D); row i replaces the prompt
     tokens before layer i wherever ``splice_flags[i]`` (a sequence of bools).
+    remat: checkpoint each layer (its splice and block), as the JAX
+    package's ``jax.checkpoint`` of the scan body (:148-149): the backward
+    recomputes the layer's forward, through the same attention kernels,
+    instead of keeping its activations.  The blocks draw no random numbers,
+    so no RNG state is stashed.
     """
     splice = _splice_text if splice_kind == "text" else _splice_vision
+
+    def layer(block, h, prompt):
+        if prompt is not None:
+            h = splice(h, prompt)
+        return block(h, mask=mask, attn_impl=attn_impl)
+
     for i, block in enumerate(blocks):
+        prompt = None
         if deep_prompts is not None and deep_prompts.shape[1] > 0 and splice_flags[i]:
-            x = splice(x, deep_prompts[i])
-        x = block(x, mask=mask, attn_impl=attn_impl)
+            prompt = deep_prompts[i]
+        if remat:
+            x = checkpoint(layer, block, x, prompt, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = layer(block, x, prompt)
     return x

@@ -1,5 +1,5 @@
-"""Flash attention, forward and backward: the hand-written Hopper kernels
-and their plain PyTorch versions, in two families, and the dispatch between
+"""Attention, forward and backward: the hand-written Hopper kernels and
+their plain PyTorch versions, in three families, and the dispatch between
 them.
 
 - Head dim 64 (``kernels/flash_attn_fwd.cu``, ``kernels/flash_attn_bwd.cu``):
@@ -14,17 +14,25 @@ them.
   ``kernels/blockwise_attn_bwd.cu``): counterpart of ``blockwise_attention``
   (:413-516): ``_blockwise_fwd_kernel`` (:232), ``_blockwise_dkv_kernel``
   (:324) and ``_blockwise_dq_kernel`` (:372).  Entry: ``blockwise_attention``.
+- Whole-sequence, any head dim up to 128 (``kernels/fused_attn_fwd.cu``,
+  ``kernels/fused_attn_bwd.cu``): counterpart of ``fused_attention``
+  (:72-203): ``_attn_kernel`` (:32), a softmax normalized over the whole row
+  before P is rounded, and ``_attn_bwd_kernel`` (:116), which recomputes
+  that P from q, k and the mask (no logsumexp is saved) and takes delta from
+  it; on the card a row pre-pass and two backward kernels.  Entry:
+  ``fused_attention``.
 - ``attention_dispatch`` (:863-889) picks the family per call from
   ``FSVLM_FORCE_PALLAS``; mha calls it.
 
 Each entry is one ``torch.autograd.Function``, differentiable with respect
 to q, k and v: for CUDA tensors it launches the family's forward kernel and,
-in the backward, its two backward kernels; for CPU tensors, or under
+in the backward, its backward kernels; for CPU tensors, or under
 ``impl="plain"``, which only comparisons pass, it runs the plain versions.
 A build or launch error propagates: there is no fallback.  The kernels are
 the operators ``torch.ops.fsvlm.flash_attn_fwd_d64``,
-``torch.ops.fsvlm.flash_attn_bwd_d64``, ``torch.ops.fsvlm.blockwise_attn_fwd``
-and ``torch.ops.fsvlm.blockwise_attn_bwd`` (CUDA only, with fake
+``torch.ops.fsvlm.flash_attn_bwd_d64``, ``torch.ops.fsvlm.blockwise_attn_fwd``,
+``torch.ops.fsvlm.blockwise_attn_bwd``, ``torch.ops.fsvlm.fused_attn_fwd``
+and ``torch.ops.fsvlm.fused_attn_bwd`` (CUDA only, with fake
 implementations for shape propagation); their libraries are built and
 loaded at the first launch, not at import.
 """
@@ -48,10 +56,16 @@ KERNEL_DQ = "flash_attn_bwd_dq_d64"
 BW_KERNEL = "blockwise_attn_fwd"
 BW_KERNEL_DKV = "blockwise_attn_bwd_dkv"
 BW_KERNEL_DQ = "blockwise_attn_bwd_dq"
+FUSED_KERNEL = "fused_attn_fwd"
+FUSED_KERNEL_STATS = "fused_attn_bwd_stats"  # the backward's row pre-pass
+FUSED_KERNEL_DKV = "fused_attn_bwd_dkv"
+FUSED_KERNEL_DQ = "fused_attn_bwd_dq"
 # launches of each kernel, counted where the wrapper launches it (and nowhere
 # else) so that a run can show its main path went through the kernel
 LAUNCHES = {name: 0 for name in (KERNEL, KERNEL_DKV, KERNEL_DQ,
-                                 BW_KERNEL, BW_KERNEL_DKV, BW_KERNEL_DQ)}
+                                 BW_KERNEL, BW_KERNEL_DKV, BW_KERNEL_DQ,
+                                 FUSED_KERNEL, FUSED_KERNEL_STATS, FUSED_KERNEL_DKV,
+                                 FUSED_KERNEL_DQ)}
 
 # the blockwise kernels' head-dim instantiations and, per instantiation, the
 # forward's key tile and the backward's own tile (keys for dK/dV, queries
@@ -167,6 +181,53 @@ def _tiled_bwd(q, k, v, o, lse, do, mask, block_q, block_k):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _fused_dim(d):
+    """ValueError unless the whole-sequence kernels take head dim d."""
+    if not 1 <= d <= max(BW_TILES):
+        raise ValueError(f"the whole-sequence kernels take head dims 1..{max(BW_TILES)}, got {d} "
+                         f"(a larger head dim is open in ROADMAP B6)")
+
+
+def _whole_row_probs(q, k, mask, acc_t):
+    """P = softmax(q k^T * d^-1/2 + mask) over the whole row, in the order of
+    the TPU kernels (:36-45, :123-130): fp32 scores, minus the row max, exp,
+    divided by the row sum; an all -inf row gives NaN."""
+    s = (q.to(acc_t) @ k.to(acc_t).transpose(-1, -2)) * q.shape[-1] ** -0.5
+    if mask is not None:
+        s = s + mask.to(acc_t)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def reference_fused_fwd(q, k, v, mask=None):
+    """Plain PyTorch version of the whole-sequence forward kernel (#1,
+    ``_attn_kernel`` :32-48), step by step: P over the whole row in fp32,
+    normalized, THEN rounded to v's dtype; P.V accumulated in fp32; O in q's
+    dtype.  No logsumexp."""
+    acc_t = _acc_dtype(q.dtype)
+    p = _whole_row_probs(q, k, mask, acc_t)
+    return (p.to(v.dtype).to(acc_t) @ v.to(acc_t)).to(q.dtype)
+
+
+def reference_fused_bwd(q, k, v, do, mask=None):
+    """Plain PyTorch version of the whole-sequence backward (#2,
+    ``_attn_bwd_kernel`` :116-156), step by step: P recomputed in fp32 and
+    not rounded; dO and V widened to fp32; dV = P^T dO; dP = dO V^T;
+    delta = rowsum(dP * P) from that unrounded P (not rowsum(dO * O));
+    dS = P (dP - delta); dQ = dS K * scale, dK = dS^T Q * scale with Q and K
+    widened; each cast to its input's dtype.  Returns (dq, dk, dv)."""
+    acc_t = _acc_dtype(q.dtype)
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, gf = (t.to(acc_t) for t in (q, k, v, do))
+    p = _whole_row_probs(qf, kf, mask, acc_t)
+    dv = p.transpose(-1, -2) @ gf
+    dp = gf @ vf.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(-1, -2) @ qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ------------------------------------------------------------------ kernels
 _INT, _PTR = ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = {  # C entry point -> ctypes argument types before (strides, stream)
@@ -180,6 +241,14 @@ _ARGTYPES = {  # C entry point -> ctypes argument types before (strides, stream)
     "fsvlm_blockwise_attn_fwd": [_INT] * 2 + [_PTR] * 6 + [_INT] * 3 + [ctypes.c_float],
     "fsvlm_blockwise_attn_bwd_dkv": [_INT] * 2 + [_PTR] * 9 + [_INT] * 3 + [ctypes.c_float],
     "fsvlm_blockwise_attn_bwd_dq": [_INT] * 2 + [_PTR] * 8 + [_INT] * 3 + [ctypes.c_float],
+    # the whole-sequence entries: dtype, d, q, k, v, mask, o, B, H, L, scale
+    "fsvlm_fused_attn_fwd": [_INT] * 2 + [_PTR] * 5 + [_INT] * 3 + [ctypes.c_float],
+    # dtype, d, q, k, v, dO, mask, row max, row sum, delta, B, H, L, scale
+    "fsvlm_fused_attn_bwd_stats": [_INT] * 2 + [_PTR] * 8 + [_INT] * 3 + [ctypes.c_float],
+    # dtype, d, q, k, v, dO, row max, row sum, delta, mask, dk, dv, B, H, L, scale
+    "fsvlm_fused_attn_bwd_dkv": [_INT] * 2 + [_PTR] * 10 + [_INT] * 3 + [ctypes.c_float],
+    # dtype, d, q, k, v, dO, row max, row sum, delta, mask, dq, B, H, L, scale
+    "fsvlm_fused_attn_bwd_dq": [_INT] * 2 + [_PTR] * 9 + [_INT] * 3 + [ctypes.c_float],
 }
 
 
@@ -225,9 +294,9 @@ def _blhd(q):
     return torch.empty((B, L, H, d), dtype=q.dtype, device=q.device).transpose(1, 2)
 
 
-def _check_inputs(q, k, v, mask, blockwise=False):
-    """Raise on what the kernels do not take: the d = 64 family needs head
-    dim 64, the blockwise one 1..128."""
+def _check_inputs(q, k, v, mask, family="packed"):
+    """Raise on what the kernels of ``family`` do not take: the d = 64 family
+    needs head dim 64, the blockwise and whole-sequence ones 1..128."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("q, k, v must lie on one CUDA device")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -236,8 +305,10 @@ def _check_inputs(q, k, v, mask, blockwise=False):
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be (B, H, L, d) of one shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if blockwise:
+    if family == "blockwise":
         _bw_tiles(q.shape[-1])
+    elif family == "fused":
+        _fused_dim(q.shape[-1])
     elif q.shape[-1] != D:
         raise ValueError(f"this kernel takes head dim {D}, got {q.shape[-1]}")
     if min(t.stride(-1) for t in (q, k, v)) != 1 or max(t.stride(-1) for t in (q, k, v)) != 1:
@@ -248,18 +319,26 @@ def _check_inputs(q, k, v, mask, blockwise=False):
                          f"{tuple(mask.shape)} on {mask.device}")
 
 
-def _check_bwd_inputs(q, k, v, do, lse, delta, mask, blockwise=False):
-    _check_inputs(q, k, v, mask, blockwise)
+def _check_mask(mask):
+    if mask is not None and (mask.dtype != torch.float32 or not mask.is_contiguous()):
+        raise ValueError("mask must be a contiguous float32 (L, L)")
+
+
+def _check_do(q, do):
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device or do.stride(-1) != 1:
         raise ValueError(f"dO must be {tuple(q.shape)} {q.dtype} on {q.device} with a unit "
                          f"head-dim stride, got {tuple(do.shape)} {do.dtype} on {do.device}")
+
+
+def _check_bwd_inputs(q, k, v, do, lse, delta, mask, family="packed"):
+    _check_inputs(q, k, v, mask, family)
+    _check_do(q, do)
     for name, t in (("lse", lse), ("delta", delta)):
         if (t.shape != q.shape[:3] or t.dtype != torch.float32 or t.device != q.device
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous float32 {tuple(q.shape[:3])} on "
                              f"{q.device}")
-    if mask is not None and (mask.dtype != torch.float32 or not mask.is_contiguous()):
-        raise ValueError("mask must be a contiguous float32 (L, L)")
+    _check_mask(mask)
 
 
 def _launch(q, k, v, mask):
@@ -331,6 +410,50 @@ def _bw_launch_dq(q, k, v, do, lse, delta, mask):
     return dq
 
 
+def _fused_launch(q, k, v, mask):
+    """Launch the whole-sequence forward kernel on checked inputs; returns o."""
+    B, H, L, d = q.shape
+    o = _blhd(q)
+    _call(FUSED_KERNEL, "fused_attn_fwd", "fsvlm_fused_attn_fwd", q.device,
+          _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+          o.data_ptr(), B, H, L, d ** -0.5, _strides(q, k, v, o))
+    return o
+
+
+def _fused_launch_stats(q, k, v, do, mask):
+    """Launch the whole-sequence backward's row pre-pass on checked inputs;
+    returns (row max, row sum, delta), each (B, H, L) fp32 contiguous."""
+    B, H, L, d = q.shape
+    row_max, row_sum, delta = torch.empty((3, B, H, L), dtype=torch.float32, device=q.device)
+    _call(FUSED_KERNEL_STATS, "fused_attn_bwd", "fsvlm_fused_attn_bwd_stats", q.device,
+          _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+          _ptr(mask), row_max.data_ptr(), row_sum.data_ptr(), delta.data_ptr(), B, H, L,
+          d ** -0.5, _strides(q, k, v, do))
+    return row_max, row_sum, delta
+
+
+def _fused_launch_dkv(q, k, v, do, stats, mask):
+    """Launch the whole-sequence dK/dV kernel on checked inputs; returns (dk, dv)."""
+    B, H, L, d = q.shape
+    dk, dv = _blhd(q), _blhd(q)
+    _call(FUSED_KERNEL_DKV, "fused_attn_bwd", "fsvlm_fused_attn_bwd_dkv", q.device,
+          _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+          *(t.data_ptr() for t in stats), _ptr(mask), dk.data_ptr(), dv.data_ptr(), B, H, L,
+          d ** -0.5, _strides(q, k, v, do, dk, dv))
+    return dk, dv
+
+
+def _fused_launch_dq(q, k, v, do, stats, mask):
+    """Launch the whole-sequence dQ kernel on checked inputs; returns dq."""
+    B, H, L, d = q.shape
+    dq = _blhd(q)
+    _call(FUSED_KERNEL_DQ, "fused_attn_bwd", "fsvlm_fused_attn_bwd_dq", q.device,
+          _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+          *(t.data_ptr() for t in stats), _ptr(mask), dq.data_ptr(), B, H, L, d ** -0.5,
+          _strides(q, k, v, do, dq))
+    return dq
+
+
 @torch.library.custom_op("fsvlm::flash_attn_fwd_d64", mutates_args=(), device_types="cuda")
 def _flash_attn_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        mask: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -345,9 +468,8 @@ def _blockwise_attn_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            mask: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """The blockwise forward kernel as a PyTorch operator
     (``torch.ops.fsvlm.blockwise_attn_fwd``); inputs are checked here."""
-    _check_inputs(q, k, v, mask, blockwise=True)
-    if mask is not None and (mask.dtype != torch.float32 or not mask.is_contiguous()):
-        raise ValueError("mask must be a contiguous float32 (L, L)")
+    _check_inputs(q, k, v, mask, "blockwise")
+    _check_mask(mask)
     return _bw_launch(q, k, v, mask)
 
 
@@ -379,7 +501,7 @@ def _blockwise_attn_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do
     """The two blockwise backward kernels as one PyTorch operator
     (``torch.ops.fsvlm.blockwise_attn_bwd``): (dq, dk, dv), each laid out
     (B, L, H, d) in memory.  Inputs are checked here."""
-    _check_bwd_inputs(q, k, v, do, lse, delta, mask, blockwise=True)
+    _check_bwd_inputs(q, k, v, do, lse, delta, mask, "blockwise")
     dk, dv = _bw_launch_dkv(q, k, v, do, lse, delta, mask)
     return _bw_launch_dq(q, k, v, do, lse, delta, mask), dk, dv
 
@@ -390,6 +512,37 @@ def _bwd_fake(q, k, v, do, lse, delta, mask):
 
 _flash_attn_bwd_op.register_fake(_bwd_fake)
 _blockwise_attn_bwd_op.register_fake(_bwd_fake)
+
+
+@torch.library.custom_op("fsvlm::fused_attn_fwd", mutates_args=(), device_types="cuda")
+def _fused_attn_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The whole-sequence forward kernel as a PyTorch operator
+    (``torch.ops.fsvlm.fused_attn_fwd``): O laid out (B, L, H, d) in
+    memory.  Inputs are checked here."""
+    _check_inputs(q, k, v, mask, "fused")
+    _check_mask(mask)
+    return _fused_launch(q, k, v, mask)
+
+
+@torch.library.custom_op("fsvlm::fused_attn_bwd", mutates_args=(), device_types="cuda")
+def _fused_attn_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                       mask: Optional[torch.Tensor]
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The whole-sequence backward as one PyTorch operator
+    (``torch.ops.fsvlm.fused_attn_bwd``): the row pre-pass (row max, row
+    sum, delta), then the dK/dV and dQ kernels; (dq, dk, dv), each laid out
+    (B, L, H, d) in memory.  Inputs are checked here."""
+    _check_inputs(q, k, v, mask, "fused")
+    _check_do(q, do)
+    _check_mask(mask)
+    stats = _fused_launch_stats(q, k, v, do, mask)
+    dk, dv = _fused_launch_dkv(q, k, v, do, stats, mask)
+    return _fused_launch_dq(q, k, v, do, stats, mask), dk, dv
+
+
+_fused_attn_fwd_op.register_fake(lambda q, k, v, mask: _blhd(q))
+_fused_attn_bwd_op.register_fake(lambda q, k, v, do, mask: (_blhd(q), _blhd(q), _blhd(q)))
 
 
 def _kernel_fwd(q, k, v, mask):
@@ -408,16 +561,31 @@ def _bw_kernel_bwd(q, k, v, o, lse, do, mask):
     return _kernel_bwd(q, k, v, o, lse, do, mask, op=_blockwise_attn_bwd_op)
 
 
-# family -> (plain forward, plain backward, kernel forward, kernel backward)
+def _fused_kernel_bwd(q, k, v, do, mask):
+    if do.stride(-1) != 1:  # e.g. the expanded gradient of a sum
+        do = do.contiguous()
+    return _fused_attn_bwd_op(q, k, v, do, mask)
+
+
+# family -> (plain forward, plain backward, kernel forward, kernel backward);
+# the flash families' forwards give (O, LSE) and their backwards take
+# (q, k, v, O, LSE, dO, mask); the whole-sequence ("fused") forward gives O
+# and its backward takes (q, k, v, dO, mask)
 _FAMILIES = {
     "packed": (reference_attention_fwd, reference_attention_bwd, _kernel_fwd, _kernel_bwd),
     "blockwise": (reference_blockwise_fwd, reference_blockwise_bwd, _blockwise_attn_fwd_op,
                   _bw_kernel_bwd),
+    "fused": (reference_fused_fwd, reference_fused_bwd, _fused_attn_fwd_op, _fused_kernel_bwd),
 }
 
 
+def _kernel_mask(mask):
+    """The mask as the kernels read it: fp32 (L, L) row-major."""
+    return None if mask is None else mask.to(torch.float32).contiguous()
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Attention through one kernel family, forward and backward (``plain``:
+    """Attention through one flash family, forward and backward (``plain``:
     its plain versions).  Saves q, k, v, the mask, O and LSE; LSE and the
     mask take no gradient."""
 
@@ -427,8 +595,7 @@ class _FlashAttention(torch.autograd.Function):
         if plain:
             o, lse = ref_fwd(q, k, v, mask)
         else:
-            if mask is not None:  # the kernels read an fp32 (L, L) row-major mask
-                mask = mask.to(torch.float32).contiguous()
+            mask = _kernel_mask(mask)
             o, lse = kernel_fwd(q, k, v, mask)
         ctx.family, ctx.plain = family, plain
         ctx.save_for_backward(q, k, v, mask, o, lse)
@@ -442,6 +609,33 @@ class _FlashAttention(torch.autograd.Function):
         _, ref_bwd, _, kernel_bwd = _FAMILIES[ctx.family]
         dq, dk, dv = (ref_bwd if ctx.plain else kernel_bwd)(q, k, v, o, lse, do, mask)
         return dq, dk, dv, None, None, None
+
+
+class _FusedAttention(torch.autograd.Function):
+    """Whole-sequence attention, forward and backward (``plain``: the plain
+    versions).  Saves q, k, v and the mask only, as the JAX custom VJP's
+    residuals (:159-160): the backward recomputes P.  The mask takes no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, plain):
+        ref_fwd, _, kernel_fwd, _ = _FAMILIES["fused"]
+        if plain:
+            o = ref_fwd(q, k, v, mask)
+        else:
+            mask = _kernel_mask(mask)
+            o = kernel_fwd(q, k, v, mask)
+        ctx.plain = plain
+        ctx.save_for_backward(q, k, v, mask)
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, mask = ctx.saved_tensors
+        _, ref_bwd, _, kernel_bwd = _FAMILIES["fused"]
+        dq, dk, dv = (ref_bwd if ctx.plain else kernel_bwd)(q, k, v, do, mask)
+        return dq, dk, dv, None, None
 
 
 def _plain(impl, q):
@@ -482,29 +676,59 @@ def blockwise_attention(q, k, v, mask=None, block_q=256, block_k=512, impl=None)
     return _FlashAttention.apply(q, k, v, mask, "blockwise", _plain(impl, q))[0]
 
 
+def fused_attention(q, k, v, mask=None, impl=None):
+    """softmax(q k^T * d^-1/2 + mask) v through the whole-sequence kernels
+    (#1-#2), differentiable (first order) with respect to q, k and v; the
+    counterpart of the JAX package's ``fused_attention``.
+
+    q, k, v: (B, H, L, d), d in 1..128 (ValueError past it, ROADMAP B6; JAX
+    takes any d), float32 or bfloat16; mask: optional (L, L) additive,
+    shared over batch and heads.  Any other mask shape raises ValueError, as
+    JAX's ``full_mask.at[:L, :L].add(mask)`` (:90, :175) does.  Returns O
+    (B, H, L, d) in q's dtype; only q, k, v and the mask are saved for the
+    backward.  CUDA tensors go through the kernels; CPU tensors, or
+    ``impl="plain"``, through the plain versions."""
+    _fused_dim(q.shape[-1])
+    L = q.shape[2]
+    if mask is not None and tuple(mask.shape) != (L, L):
+        raise ValueError(f"fused_attention takes an (L, L) = ({L}, {L}) mask, got "
+                         f"{tuple(mask.shape)}")
+    return _FusedAttention.apply(q, k, v, mask, _plain(impl, q))
+
+
 def attention_route(head_dim, mask=None):
     """The kernel family ``attention_dispatch`` takes for this head dim and
     mask under the current ``FSVLM_FORCE_PALLAS``: "packed" (the d = 64
-    kernels #6-#8) or "blockwise" (#3-#5).
+    kernels #6-#8), "blockwise" (#3-#5) or "fused" (#1-#2), as JAX's
+    :871-889 reads the variable.
 
-    - unset, ``packed`` or any other value: "packed" at d = 64 with a shared
-      (L, L) mask or none, else "blockwise" (JAX falls through at :879);
+    - ``legacy``: "fused" (the whole-sequence kernels take an (L, L) mask or
+      none; ``fused_attention`` raises past head dim 128, ROADMAP B6);
     - ``1``: "blockwise";
-    - ``legacy``, or a per-example broadcast mask where "blockwise" would be
-      taken: NotImplementedError, since JAX takes the whole-sequence kernels
-      #1-#2 there (``fused_attention``), which are not ported (ROADMAP B4)."""
+    - ``packed``: "packed" at d = 64, else "blockwise" (JAX falls through at
+      :879);
+    - under ``legacy``, ``1`` and ``packed``, a mask that is not 2-D (a
+      per-example (B, 1, 1, L) key bias) raises ValueError: JAX sends it to
+      ``fused_attention``, whose (L, L) mask cannot take it, and raises;
+    - unset or any other value: JAX takes XLA's attention; the port keeps its
+      own default (ROADMAP B5), "packed" at d = 64, else "blockwise", with an
+      (L, L) mask or none.  A broadcast mask there raises
+      NotImplementedError: XLA's path (``_reference_attention``) is not
+      ported (ROADMAP A3)."""
     force = os.environ.get("FSVLM_FORCE_PALLAS")
-    if force == "legacy":
-        raise NotImplementedError(
-            "FSVLM_FORCE_PALLAS=legacy takes the whole-sequence kernels #1-#2 "
-            "(fused_attention), which are not ported yet (ROADMAP B4)")
     shared = mask is None or mask.dim() == 2
-    if force != "1" and head_dim == D and shared:
-        return "packed"
+    if force in ("legacy", "1", "packed") and not shared:
+        raise ValueError(
+            f"FSVLM_FORCE_PALLAS={force} sends a {mask.dim()}-D mask to the whole-sequence "
+            f"kernels, whose (L, L) mask cannot take it (JAX raises there too)")
+    if force == "legacy":
+        return "fused"
     if not shared:
         raise NotImplementedError(
-            "a per-example broadcast mask takes the whole-sequence kernels #1-#2 "
-            "(fused_attention), which are not ported yet (ROADMAP B4)")
+            "a per-example broadcast mask takes XLA's attention in the JAX package "
+            "(_reference_attention), which is not ported (ROADMAP A3)")
+    if force != "1" and head_dim == D:
+        return "packed"
     return "blockwise"
 
 
@@ -519,6 +743,9 @@ def attention_dispatch(q, k, v, mask=None, impl=None):
     (ROADMAP B5).  ``FSVLM_ATTN_REMAT``, ``FSVLM_ATTN_BF16`` and
     ``layout="blhd"`` are not ported.  ``impl="plain"``, or CPU tensors, take
     the plain version of the family the route picks."""
-    if attention_route(q.shape[-1], mask) == "packed":
+    route = attention_route(q.shape[-1], mask)
+    if route == "packed":
         return attention_fwd(q, k, v, mask, impl=impl)[0]
+    if route == "fused":
+        return fused_attention(q, k, v, mask, impl=impl)
     return blockwise_attention(q, k, v, mask, impl=impl)

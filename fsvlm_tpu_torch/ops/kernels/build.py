@@ -30,6 +30,8 @@ SOURCES = {
     "flash_attn_bwd": "flash_attn_bwd.cu",
     "blockwise_attn_fwd": "blockwise_attn_fwd.cu",
     "blockwise_attn_bwd": "blockwise_attn_bwd.cu",
+    "fused_attn_fwd": "fused_attn_fwd.cu",
+    "fused_attn_bwd": "fused_attn_bwd.cu",
 }
 
 NVCC_FLAGS = [

@@ -55,6 +55,18 @@ def clip_from_params(params_np, cfg, dtype=torch.float32, device=None):
     return clip.requires_grad_(False).eval()
 
 
+def clip_for_trainer(cfg, clip, device):
+    """The frozen CLIP a trainer runs: ``clip``, which must lie on
+    ``device``, else the backbone of MODEL.BACKBONE (FROZEN_DTYPE, random
+    weights from SEED unless PRETRAINED) on ``device``."""
+    if clip is None:
+        clip = load_clip_backbone(cfg.MODEL.BACKBONE.NAME, cfg.MODEL.BACKBONE.PRETRAINED,
+                                  cfg.MODEL.FROZEN_DTYPE, cfg.SEED, device)
+    if clip.logit_scale.device != device:
+        raise ValueError(f"clip lies on {clip.logit_scale.device}, not {device}")
+    return clip
+
+
 def load_clip_backbone(name="ViT-B/16", pretrained=False, frozen="fp32", seed=0,
                        device=None):
     """Returns a frozen CLIP module for architecture ``name`` on ``device``

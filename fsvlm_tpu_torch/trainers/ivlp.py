@@ -25,7 +25,7 @@ import torch
 from ..engine.trainer import SimpleTrainer
 from ..models.clip import encode_text_ids, l2_normalize
 from ..models.clip.tokenizer import tokenize
-from .backbone import load_clip_backbone
+from .backbone import clip_for_trainer
 from .ivlp_family import build_vlp_frozen, init_vlp_params, vlp_image_features, vlp_text_features
 from .losses import (
     cross_entropy,
@@ -44,28 +44,9 @@ class IVLP(SimpleTrainer):
     model_name = "VLPromptLearner"
     trainer_cfg_key = "IVLP"
 
-    @property
-    def node(self):
-        return getattr(self.cfg.TRAINER, self.trainer_cfg_key)
-
-    def check_cfg(self, cfg):
-        if self.node.PREC not in ("fp16", "fp32", "amp", "bf16"):
-            raise ValueError(f"Unknown PREC: {self.node.PREC}")
-
-    def compute_dtype(self):
-        """bf16 on the card unless PREC is fp32; fp32 on the CPU."""
-        if self.node.PREC == "fp32" or self.device.type == "cpu":
-            return torch.float32
-        return torch.bfloat16
-
     def build_model(self, clip):
         cfg, node = self.cfg, self.node
-        if clip is None:
-            clip = load_clip_backbone(cfg.MODEL.BACKBONE.NAME, cfg.MODEL.BACKBONE.PRETRAINED,
-                                      cfg.MODEL.FROZEN_DTYPE, cfg.SEED, self.device)
-        if clip.logit_scale.device != self.device:
-            raise ValueError(f"clip lies on {clip.logit_scale.device}, not {self.device}")
-        self.clip = clip
+        self.clip = clip = clip_for_trainer(cfg, clip, self.device)
         self.frozen, pc = build_vlp_frozen(node, clip, self.classnames, cfg.SEED,
                                            cfg.MODEL.TEXT_TRUNCATE)
         init = init_vlp_params(node, clip.cfg, pc, np.random.RandomState(max(cfg.SEED, 0)))

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..models.clip import VisionPrompts, encode_image_vit, encode_text_embeds
-from .prompts import assemble_prompts, build_prompt_context
+from .prompts import assemble_prompts, build_prompt_context, prompt_tensors
 
 
 def init_vlp_params(cfg_node, clip_cfg, prompt_ctx, rng):
@@ -96,10 +96,4 @@ def build_vlp_frozen(cfg_node, clip, classnames, seed, text_truncate):
         init_keep_n_ctx=True,
         truncate=bool(text_truncate),
     )
-    frozen = {
-        "clip": clip,
-        "base_embed": torch.from_numpy(pc["base_embed"]).to(device),
-        "ctx_scatter": torch.from_numpy(pc["ctx_scatter"]).to(device),
-        "eot_idx": torch.from_numpy(pc["eot_idx"]).long().to(device),
-    }
-    return frozen, pc
+    return {"clip": clip, **prompt_tensors(pc, device)}, pc

@@ -120,6 +120,16 @@ def build_prompt_context(
     }
 
 
+def prompt_tensors(pc, device):
+    """A ``build_prompt_context`` result's frozen arrays as tensors on
+    ``device``: base_embed, ctx_scatter (fp32) and eot_idx (int64)."""
+    return {
+        "base_embed": torch.from_numpy(pc["base_embed"]).to(device),
+        "ctx_scatter": torch.from_numpy(pc["ctx_scatter"]).to(device),
+        "eot_idx": torch.from_numpy(pc["eot_idx"]).long().to(device),
+    }
+
+
 def assemble_prompts(ctx, base_embed, ctx_scatter):
     """prompts = base + scatter @ ctx (unified or class-specific ctx)."""
     ctx = ctx.to(base_embed.dtype)

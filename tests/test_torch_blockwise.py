@@ -136,23 +136,29 @@ def test_blockwise_plain_versions_walk_the_kernel_tiles_like_plain_autograd(d):
 
 # ------------------------------------------------------------------ dispatch
 _BCAST = "bcast"  # a per-example (B, 1, 1, L) key-bias mask
+# NotImplementedError: the port's default route has no XLA attention (A3);
+# ValueError: the mask reaches the whole-sequence family, as in JAX, which raises
+_RAISES = {NotImplementedError: "A3", ValueError: "cannot take it"}
 
 
 @pytest.mark.parametrize("force,d,mask,want", [
     (None, 64, None, "packed"), (None, 64, "2d", "packed"), (None, 32, "2d", "blockwise"),
     (None, 80, None, "blockwise"), (None, 64, _BCAST, NotImplementedError),
     ("packed", 64, "2d", "packed"), ("packed", 128, None, "blockwise"),
-    ("packed", 64, _BCAST, NotImplementedError),
+    ("packed", 64, _BCAST, ValueError),
     ("1", 64, None, "blockwise"), ("1", 64, "2d", "blockwise"), ("1", 32, "2d", "blockwise"),
-    ("1", 64, _BCAST, NotImplementedError),
-    ("legacy", 64, None, NotImplementedError), ("legacy", 32, "2d", NotImplementedError),
+    ("1", 64, _BCAST, ValueError),
+    ("legacy", 64, None, "fused"), ("legacy", 32, "2d", "fused"), ("legacy", 64, _BCAST, ValueError),
+    ("legacy", 80, "2d", "fused"),
     ("0", 64, "2d", "packed"), ("0", 128, None, "blockwise"), ("anything", 64, None, "packed"),
 ])
 def test_dispatch_routes_by_force_pallas_and_head_dim(force, d, mask, want, monkeypatch):
     """attention_dispatch reads FSVLM_FORCE_PALLAS at each call and runs the
-    family attention_route names (a stub per family marks which ran);
-    ``legacy`` and a broadcast mask where the blockwise kernels would run
-    raise NotImplementedError naming ROADMAP B4."""
+    family attention_route names (a stub per family marks which ran):
+    ``legacy`` takes the whole-sequence family; a broadcast mask raises
+    ValueError under ``1``, ``packed`` and ``legacy`` (as JAX's
+    fused_attention does), and NotImplementedError naming ROADMAP A3 on the
+    port's default route."""
     fa = flash_attention
     if force is None:
         monkeypatch.delenv("FSVLM_FORCE_PALLAS", raising=False)
@@ -163,16 +169,16 @@ def test_dispatch_routes_by_force_pallas_and_head_dim(force, d, mask, want, monk
     def stub(family):
         def fwd(q, k, v, m):
             ran.append(family)
-            return q.clone(), q.new_zeros(q.shape[:3])
+            return q.clone() if family == "fused" else (q.clone(), q.new_zeros(q.shape[:3]))
         return fwd
 
     monkeypatch.setattr(fa, "_FAMILIES", {f: (stub(f),) + t[1:] for f, t in fa._FAMILIES.items()})
     q = torch.zeros(2, 3, 8, d)
     m = {None: None, "2d": torch.zeros(8, 8), _BCAST: torch.zeros(2, 1, 1, 8)}[mask]
-    if isinstance(want, type):
-        with pytest.raises(want, match="B4"):
+    if want in _RAISES:
+        with pytest.raises(want, match=_RAISES[want]):
             fa.attention_route(d, m)
-        with pytest.raises(want, match="B4"):
+        with pytest.raises(want, match=_RAISES[want]):
             fa.attention_dispatch(q, q, q, m)
         assert ran == []
         return

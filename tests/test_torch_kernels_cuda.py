@@ -346,3 +346,140 @@ def test_mha_launches_the_routed_family(card, force, launched, monkeypatch):
         assert delta == {n: int(impl is None and n.startswith(launched)) for n in fa.LAUNCHES}
     assert (outs[None][0] - outs["plain"][0]).abs().max().item() <= 1e-4
     assert max(_rel_errs([outs[None][1]], [outs["plain"][1]])) <= 1e-5
+
+
+# ----------------------------------------------- whole-sequence kernels #1-#2
+_FUSED_SHAPES = [  # (B, H, L, causal): the CoOp/CoCoOp vision and text shapes, edges of L
+    (6, 12, 197, False), (10, 8, 24, True), (10, 8, 16, True), (3, 2, 1, False), (4, 8, 8, True),
+    (2, 8, 77, True), (2, 4, 300, False), (2, 4, 513, True), (2, 2, 1024, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,H,L,causal", _FUSED_SHAPES)
+@pytest.mark.parametrize("d", [32, 64, 128, 80])
+def test_fused_fwd_and_bwd_match_plain(card, d, B, H, L, causal, dtype):
+    """Kernels #1-#2 on mha's strided views and a (B, L, H, d) dO, against
+    the plain versions on the same inputs; one launch of the forward and of
+    each backward kernel, outputs written (B, L, H, d)."""
+    fa = flash_attention
+    q, k, v = _qkv_views(B, H, L, dtype, seed=L + d + 7, d=d)
+    do = _blhd_view(B, H, L, dtype, seed=L + d + 8, d=d)
+    mask = attention.causal_mask(L, device=card) if causal else None
+    before = dict(fa.LAUNCHES)
+    o = torch.ops.fsvlm.fused_attn_fwd(q, k, v, mask)
+    grads = torch.ops.fsvlm.fused_attn_bwd(q, k, v, do, mask)
+    o_ref = fa.reference_fused_fwd(q, k, v, mask)
+    ref = fa.reference_fused_bwd(q, k, v, do, mask)
+    torch.cuda.synchronize()
+    assert {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES} == {
+        n: int(n.startswith("fused_attn")) for n in fa.LAUNCHES}
+    assert o.shape == (B, H, L, d) and o.dtype == dtype and o.transpose(1, 2).is_contiguous()
+    assert (o.float() - o_ref.float()).abs().max().item() <= TOL[dtype][0]
+    for name, got in zip(("dq", "dk", "dv"), grads):
+        assert got.dtype == dtype and got.shape == (B, H, L, d), name
+        assert got.transpose(1, 2).is_contiguous() and torch.isfinite(got).all(), name
+    assert max(_rel_errs(grads, ref)) <= TOL_BWD[dtype]
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_fused_general_mask_and_a_fully_masked_row(card, d):
+    """A general additive mask through fused_attention's autograd against
+    the plain versions; a row with every key at -inf gives NaN in the kernel
+    as in the plain version (and in JAX at L a multiple of 128)."""
+    fa = flash_attention
+    q, k, v = _qkv_views(2, 4, 70, torch.float32, seed=19, d=d)
+    do = _blhd_view(2, 4, 70, torch.float32, seed=20, d=d)
+    mask = torch.from_numpy(np.random.RandomState(21).randn(70, 70).astype(np.float32)).cuda()
+    mask[:, 5] = float("-inf")
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = fa.fused_attention(*qkv, mask)
+    grads = torch.autograd.grad(o, qkv, do)
+    assert (o - fa.reference_fused_fwd(q, k, v, mask)).abs().max().item() <= TOL[torch.float32][0]
+    assert max(_rel_errs(grads, fa.reference_fused_bwd(q, k, v, do, mask))) <= TOL_BWD[torch.float32]
+    assert grads[1][:, :, 5].abs().max().item() == 0.0 and grads[2][:, :, 5].abs().max().item() == 0.0
+    mask[3] = float("-inf")
+    o = fa.fused_attention(q, k, v, mask)
+    assert torch.isnan(o[:, :, 3]).all() and torch.isnan(fa.reference_fused_fwd(q, k, v, mask)[:, :, 3]).all()
+    assert torch.isfinite(o[:, :, 4:]).all()
+
+
+def test_fused_rejects_what_it_does_not_take(card, monkeypatch):
+    fa = flash_attention
+    q, k, v = _qkv_views(2, 2, 16, torch.bfloat16, seed=1, d=32)
+    before = dict(fa.LAUNCHES)
+    bad = [
+        ((q.half(), k.half(), v.half(), None), TypeError),  # fp16
+        ((q, k.float(), v, None), TypeError),  # mixed dtypes
+        ((q, k[:, :, :8], v[:, :, :8], None), ValueError),  # ragged L
+        ((q, k, v, torch.zeros(2, 1, 1, 16, device=card)), ValueError),  # a broadcast mask
+        ((q, k, v, torch.zeros(16, 16, dtype=torch.bfloat16, device=card)), ValueError),
+        ((q, k.cpu(), v, None), ValueError),  # mixed devices
+    ]
+    for args, err in bad:
+        with pytest.raises(err):
+            torch.ops.fsvlm.fused_attn_fwd(*args)
+    big = torch.zeros(1, 2, 8, 136, device=card)
+    with pytest.raises(ValueError, match="B6"):
+        fa.fused_attention(big, big, big)
+    monkeypatch.setenv("FSVLM_FORCE_PALLAS", "legacy")
+    with pytest.raises(ValueError, match="cannot take it"):
+        fa.attention_dispatch(q, k, v, torch.zeros(2, 1, 1, 16, device=card))
+    assert fa.LAUNCHES == before
+
+
+def test_fused_build_and_launch_errors_propagate(card, monkeypatch):
+    """A wrapper never gives way to the plain version: a failed build and a
+    launch that returns a CUDA error both raise, and count no launch."""
+    from fsvlm_tpu_torch.ops.kernels import build
+
+    fa = flash_attention
+    q, k, v = _qkv_views(2, 2, 16, torch.float32, seed=2, d=64)
+    before = dict(fa.LAUNCHES)
+
+    def failed_build(name):
+        raise RuntimeError(f"nvcc failed for {build.SOURCES[name]} (rc 1)")
+
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(build, "build", failed_build)
+    with pytest.raises(RuntimeError, match="nvcc failed for fused_attn_fwd.cu"):
+        fa.fused_attention(q, k, v)
+    monkeypatch.undo()
+
+    real = fa._kernel_fn
+
+    def failing_launch(library, entry):
+        lib, _ = real(library, entry)
+        return lib, lambda *args: 98  # cudaErrorInvalidDeviceFunction
+
+    monkeypatch.setattr(fa, "_kernel_fn", failing_launch)
+    with pytest.raises(RuntimeError, match="fused_attn_fwd launch failed"):
+        fa.fused_attention(q, k, v)
+    assert fa.LAUNCHES == before
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "nomask"])
+def test_mha_under_legacy_launches_the_whole_sequence_kernels(card, causal, monkeypatch):
+    """mha at head dim 64 under FSVLM_FORCE_PALLAS=legacy: one launch of #1
+    forward and of each of #2's three kernels, no other family; it agrees
+    with the plain path, forward and backward."""
+    fa = flash_attention
+    monkeypatch.setenv("FSVLM_FORCE_PALLAS", "legacy")
+    rng = np.random.RandomState(4)
+    B, L, D, H = 3, 37, 256, 4
+    x0 = torch.from_numpy(rng.randn(B, L, D).astype(np.float32)).cuda()
+    w = {n: torch.from_numpy((rng.randn(*s) * s[0] ** -0.5).astype(np.float32)).cuda()
+         for n, s in (("w_qkv", (D, 3 * D)), ("w_out", (D, D)))}
+    b_qkv, b_out = torch.zeros(3 * D, device=card), torch.zeros(D, device=card)
+    g = torch.from_numpy(rng.randn(B, L, D).astype(np.float32)).cuda()
+    mask = attention.causal_mask(L, device=card) if causal else None
+    outs = {}
+    for impl in (None, "plain"):
+        before = dict(fa.LAUNCHES)
+        x = x0.clone().requires_grad_()
+        out = attention.mha(x, w["w_qkv"], b_qkv, w["w_out"], b_out, H, mask=mask, impl=impl)
+        outs[impl] = (out.detach(), *torch.autograd.grad(out, x, g))
+        delta = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES}
+        assert delta == {n: int(impl is None and n.startswith("fused_attn")) for n in fa.LAUNCHES}
+    assert (outs[None][0] - outs["plain"][0]).abs().max().item() <= 1e-4
+    assert max(_rel_errs([outs[None][1]], [outs["plain"][1]])) <= 1e-5

@@ -121,7 +121,7 @@ def test_predictor_requires_a_card_for_cuda():
 
 
 @pytest.mark.parametrize("entry", ["load_clip_backbone", "clip_from_params", "CLIP", "causal_mask",
-                                   "PromptSRC", "make_lr_schedule"])
+                                   "PromptSRC", "make_lr_schedule", "CoOp", "CoCoOp"])
 def test_entry_points_default_to_the_card(entry):
     """With no device given, every entry point asks for cuda, and raises on
     a box without one instead of falling back to the CPU."""
@@ -132,6 +132,8 @@ def test_entry_points_default_to_the_card(entry):
     from fsvlm_tpu_torch.models.clip import CLIP
     from fsvlm_tpu_torch.ops.attention import causal_mask
     from fsvlm_tpu_torch.trainers.backbone import load_clip_backbone
+    from fsvlm_tpu_torch.trainers.cocoop import CoCoOp
+    from fsvlm_tpu_torch.trainers.coop import CoOp
     from fsvlm_tpu_torch.trainers.promptsrc import PromptSRC
 
     calls = {
@@ -143,6 +145,8 @@ def test_entry_points_default_to_the_card(entry):
         "PromptSRC": lambda: PromptSRC(get_cfg_default(), ["cat", "dog"],
                                        np.zeros((4, 32, 32, 3), np.uint8), np.zeros(4)),
         "make_lr_schedule": lambda: make_lr_schedule(get_cfg_default(), 10),
+        "CoOp": lambda: CoOp(get_cfg_default(), ["cat", "dog"]),
+        "CoCoOp": lambda: CoCoOp(get_cfg_default(), ["cat", "dog"]),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
@@ -174,9 +178,18 @@ cfg.TRAINER.IVLP.USE_MIXUP = True
 trainer = IVLP(cfg, ["cat", "dog"], np.zeros((4, 40, 40, 3), np.uint8), np.zeros(4),
                clip=clip, device="cpu")
 assert np.isfinite(trainer.train()[0][0]["loss"])
+from fsvlm_tpu_torch.trainers.cocoop import CoCoOp
+from fsvlm_tpu_torch.trainers.coop import CoOp
+for cls in (CoOp, CoCoOp):
+    trainer = cls(cfg, ["cat", "dog"], np.zeros((4, 40, 40, 3), np.uint8), np.zeros(4), clip=clip,
+                  device="cpu")
+    assert np.isfinite(trainer.train()[0][0]["loss"])
+    assert 0 <= trainer.test(np.zeros((3, 32, 32, 3), np.uint8), np.zeros(3)) <= 100
 import torch
+from fsvlm_tpu_torch.ops.flash_attention import fused_attention
 q = torch.zeros(1, 2, 5, 48)
 assert blockwise_attention(q, q, q).shape == attention_dispatch(q, q, q).shape == q.shape
+assert fused_attention(q, q, q).shape == q.shape
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "fsvlm_tpu", "regex", "yaml", "PIL"))
 print("FORBIDDEN", bad)
@@ -185,9 +198,10 @@ sys.exit(1 if bad else 0)
 
 
 def test_serving_path_imports_no_jax_regex_yaml_or_pil():
-    """Serving, a PromptSRC and an IVLP (KD, mixup) train epoch and the
-    blockwise attention on the CPU, with every module of the port imported,
-    load nothing of JAX, the JAX package, regex, yaml or PIL."""
+    """Serving, a PromptSRC, an IVLP (KD, mixup), a CoOp and a CoCoOp train
+    epoch, CoOp's and CoCoOp's test(), and the blockwise and whole-sequence
+    attention on the CPU, with every module of the port imported, load
+    nothing of JAX, the JAX package, regex, yaml or PIL."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _BOUNDARY.format(repo=REPO)], cwd=REPO,
                           env=env, capture_output=True, text=True, timeout=300)
