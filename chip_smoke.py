@@ -18,7 +18,12 @@ Phases; each passes or raises, and any failure exits non-zero:
    kernels, plain versions and the one PyTorch library call that computes the
    same function (a yardstick only), with each kernel's bound.  Then the
    whole-sequence kernels #1-#2 at head dims 32, 64, 80 and 128, L from 1 to
-   1024, and CoOp's and CoCoOp's own shapes.
+   1024 (with the edges of the bf16 kernels' tiles and short-L packing),
+   B*H not a multiple of 4, and CoOp's and CoCoOp's own shapes; their times
+   by CUDA events as above and, beside them, the device time alone
+   (torch.profiler), which at small shapes leaves out the host's launch
+   time.  Phase 2 prints the registers and spills of every bf16
+   tensor-core kernel of #1-#2.
 4. serving: PromptSRC ViT-B/16 at full width (random weights from seed 0,
    bf16 frozen towers, bf16 compute, 100 classes): text features once, then
    3 batches of 100 uint8 224x224 images, through the kernel and again with
@@ -80,6 +85,7 @@ The line before the last is ``{"kernels": [...]}`` (one row per TPU kernel;
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -130,16 +136,21 @@ BW_TIMED = {"vision": (48, 12, 201, 64, False), "vision_d32": (48, 24, 201, 32, 
             "vision_d128": (48, 6, 201, 128, False), "text": (100, 8, 16, 64, True)}
 N_MIX_STEPS = 2  # IVLP steps with mixup on, after the 6 without
 # whole-sequence kernels #1-#2: head dims (80 runs the 128 instantiation),
-# lengths (the text 16 and 24, vision 197 and 201, edges of L), the CoOp and
-# CoCoOp steps' own shapes at d = 64 (their vision pass without prompts; text
-# at CoOp's 16 ctx, at CoCoOp's batch 1 and one class block of its chunked
-# batch-48 step: 48 x 85 prompts), and the timed shapes
-FUSED_DIMS, FUSED_LENGTHS = (32, 64, 80, 128), (1, 8, 16, 24, 77, 197, 201, 300, 513, 1024)
+# lengths (the text 16 and 24, vision 197 and 201, edges of L: the bf16
+# kernels pack a whole (b*h) per warp at L <= 16 and <= 32, and walk 64-row
+# tiles past 32), the CoOp and CoCoOp steps' own shapes at d = 64 (their
+# vision pass without prompts; text at CoOp's 16 ctx, at CoCoOp's batch 1
+# and one class block of its chunked batch-48 step: 48 x 85 prompts), B*H
+# not a multiple of the 4 heads of a packed CTA, and the timed shapes
+FUSED_DIMS = (32, 64, 80, 128)
+FUSED_LENGTHS = (1, 8, 15, 16, 17, 24, 31, 32, 33, 63, 64, 65, 77, 197, 201, 300, 513, 1024)
 FUSED_PATH_SHAPES = [  # (B, H, L, causal) at d = 64
     (32, 12, 197, False), (100, 8, 24, True), (100, 8, 16, True), (48, 12, 197, False),
     (4080, 8, 16, True),
 ]
-FUSED_TIMED = {"vision": (32, 12, 197, False), "text": (100, 8, 24, True)}
+FUSED_RAGGED = [(3, 1, 16, True), (5, 1, 24, True), (3, 3, 33, False)]  # (B, H, L, causal), each d
+FUSED_TIMED = {"vision": (32, 12, 197, False), "text": (100, 8, 24, True),
+               "cocoop_block": (4080, 8, 16, True)}
 
 
 def log(msg):
@@ -195,17 +206,29 @@ def phase_build():
     from fsvlm_tpu_torch.ops.kernels.build import build_all
 
     t0 = time.perf_counter()
+    tc = {}  # the bf16 tensor-core kernels of #1-#2: "name<D[,R]>" -> [registers, spill bytes]
     for name, info in build_all().items():
         log(f"build {name}: nvcc {info['seconds']:.1f} s")
         # ptxas prints, per kernel instantiation, "Compiling entry function
         # '<mangled name>'", then its spills, then its registers
-        entry = ""
+        entry, short = "", None
         for ln in info["log"].splitlines():
             if "Compiling entry function" in ln:
                 mangled = ln.split("'")[1]
                 entry = mangled.split("_cu_")[-1][:60] if "_cu_" in mangled else mangled[:60]
+                m = re.search(r"((?:fwd|stats|dkv|dq)_(?:tiled|packed))_kernelILi(\d+)E(?:Li(\d+)E)?",
+                              mangled)
+                short = m and f"{m[1]}<{m[2]}{',' + m[3] if m[3] else ''}>"
             elif "registers" in ln or "spill" in ln:
                 log(f"build   {entry}: {ln.split(':', 1)[-1].strip()}")
+                if short:
+                    got = tc.setdefault(short, [0, 0])
+                    if "registers" in ln:
+                        got[0] = int(re.search(r"Used (\d+) registers", ln)[1])
+                    else:
+                        got[1] = int(re.search(r"(\d+) bytes spill stores", ln)[1])
+    log("build: bf16 tensor-core kernels of #1-#2, registers/spill bytes: "
+        + ", ".join(f"{k} {r}/{sp}" for k, (r, sp) in sorted(tc.items())))
     log(f"build: {time.perf_counter() - t0:.1f} s in all")
 
 
@@ -229,6 +252,26 @@ def _time_ms(fn, iters=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters=20):
+    """Device time of one call of ``fn``: the kernels' own device time
+    (torch.profiler) over ``iters`` calls, over ``iters``.  Unlike
+    ``_time_ms`` it leaves out the host time between launches, which at
+    small shapes exceeds the kernels' own."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / iters
 
 
 def _bound(B, H, L, causal, dtype_name, elsize, d=64, lse=True):
@@ -265,17 +308,17 @@ def _blhd_grad(B, H, L, dtype, gen, d=64):
     return torch.randn((B, L, H, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
 
 
-def _library_bwd_ms(q, k, v, do, causal):
-    """Time of the one PyTorch call that computes dQ, dK and dV for these
-    inputs, aten's flash-attention backward (after its own forward,
-    untimed); None where it does not take them."""
+def _library_bwd_ms(q, k, v, do, causal, timer=_time_ms):
+    """Time (by ``timer``) of the one PyTorch call that computes dQ, dK and
+    dV for these inputs, aten's flash-attention backward (after its own
+    forward, untimed); None where it does not take them."""
     import torch
 
     aten = torch.ops.aten
     try:
         o, lse, cq, ck, mq, mk, seed, off = aten._scaled_dot_product_flash_attention(
             q, k, v, 0.0, causal, False)[:8]
-        return _time_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
+        return timer(lambda: aten._scaled_dot_product_flash_attention_backward(
             do, q, k, v, o, lse, cq, ck, mq, mk, 0.0, causal, seed, off))
     except (RuntimeError, TypeError) as e:
         log(f"library: the flash backward does not take these inputs ({str(e).splitlines()[0]})")
@@ -460,6 +503,7 @@ def phase_kernels_fused():
     worst = {(k, n): [0.0, 0.0] for k in (fa.FUSED_KERNEL, "bwd") for n in ("float32", "bfloat16")}
     edges = [((4, 4) if L <= 201 else (2, 2)) + (L, d, causal)
              for d in FUSED_DIMS for L in FUSED_LENGTHS for causal in (True, False)]
+    edges += [(B, H, L, d, causal) for d in FUSED_DIMS for B, H, L, causal in FUSED_RAGGED]
     path = [(B, H, L, 64, causal) for B, H, L, causal in FUSED_PATH_SHAPES]
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -496,7 +540,8 @@ def phase_kernels_fused():
                 worst[kern, name][1] = max(worst[kern, name][1], r)
             del q, k, v, do, o, grads, o_ref, ref
     log(f"kernel fused: {n_cases} cases ok (d {FUSED_DIMS}, L {FUSED_LENGTHS}, causal and "
-        f"unmasked; the CoOp/CoCoOp steps' shapes {FUSED_PATH_SHAPES} at d 64; fp32 and bf16)")
+        f"unmasked; ragged B*H {FUSED_RAGGED}; the CoOp/CoCoOp steps' shapes "
+        f"{FUSED_PATH_SHAPES} at d 64; fp32 and bf16)")
 
     timings = {}
     for label, (B, H, L, causal) in FUSED_TIMED.items():
@@ -519,15 +564,22 @@ def phase_kernels_fused():
         bwd_ms = _time_ms(launches_bwd)
         plain_fwd_ms = _time_ms(lambda: fa.reference_fused_fwd(q, k, v, mask))
         plain_bwd_ms = _time_ms(lambda: fa.reference_fused_bwd(q, k, v, do, mask))
-        lib_fwd_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
+        lib_fwd_ms = _time_ms(sdpa)
         lib_bwd_ms = _library_bwd_ms(q, k, v, do, causal)
+        # device time alone (profiler): the kernels', the three of #2 and the library calls'
+        dev = {"fwd": _device_ms(lambda: fa._fused_launch(q, k, v, mask)),
+               "bwd": _device_ms(launches_bwd), "sdpa": _device_ms(sdpa),
+               "aten_bwd": _library_bwd_ms(q, k, v, do, causal, timer=_device_ms)}
         b_fwd = _bound(B, H, L, causal, "bfloat16", 2, lse=False)
         b_bwd = _bound_bwd(B, H, L, causal, 2, 3, 10, stats=False)
         timings[label] = {
             fa.FUSED_KERNEL: dict(ms=fwd_ms, plain_ms=plain_fwd_ms, library_ms=lib_fwd_ms,
-                                  bound_ms=b_fwd[0], bound_by=b_fwd[1]),
+                                  bound_ms=b_fwd[0], bound_by=b_fwd[1], device_ms=dev["fwd"],
+                                  library_device_ms=dev["sdpa"]),
             "bwd": dict(ms=bwd_ms, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
-                        bound_ms=b_bwd[0], bound_by=b_bwd[1], parts=part_ms),
+                        bound_ms=b_bwd[0], bound_by=b_bwd[1], parts=part_ms,
+                        device_ms=dev["bwd"], library_device_ms=dev["aten_bwd"]),
         }
         log(f"time fused bf16 {label} ({B},{H},{L},64) {'causal' if causal else 'nomask'}: "
             f"fwd kernel {fwd_ms:.4f} ms (bound {b_fwd[0]:.4f}, {b_fwd[1]}; plain "
@@ -536,6 +588,9 @@ def phase_kernels_fused():
             f"{part_ms[fa.FUSED_KERNEL_DQ]:.4f} timed apart (bound {b_bwd[0]:.4f}, {b_bwd[1]}); "
             f"plain backward {plain_bwd_ms:.4f} ms; "
             f"aten._scaled_dot_product_flash_attention_backward {lib_bwd_ms} ms")
+        log(f"time fused bf16 {label}: device time (profiler): fwd kernel {dev['fwd']:.4f} ms, "
+            f"sdpa {dev['sdpa']:.4f} ms; backward's three kernels {dev['bwd']:.4f} ms, aten "
+            f"backward {dev['aten_bwd']} ms")
         del q, k, v, do, stats
     for (kern, name), (a, r) in worst.items():
         log(f"kernel fused {kern} {name}: worst max|err| {a:.3e}"
@@ -688,10 +743,19 @@ def phase_main():
     return pred, batches[0]
 
 
-def _profile(label, fn, top=12):
+# kernel-name fragments of the whole-sequence kernels #1 and #2 (bf16 and fp32),
+# summed by _profile where a step runs them
+FUSED_GROUPS = {"#1": ("fwd_tiled_kernel", "fwd_packed_kernel", "fused_attn_fwd_kernel"),
+                "#2": ("stats_tiled_kernel", "stats_packed_kernel", "fused_attn_bwd_stats_kernel",
+                       "mma_attn::dkv_", "mma_attn::dq_", "kernel<float, 32, true>",
+                       "kernel<float, 64, true>", "kernel<float, 128, true>")}
+
+
+def _profile(label, fn, top=12, groups=None):
     """Run ``fn`` once under torch.profiler; print its wall time, the device's
-    busy time (kernels' self device time) and idle share, and the top
-    kernels by device time."""
+    busy time (kernels' self device time) and idle share, the top kernels by
+    device time and, per group of ``groups`` ({label: name fragments}), the
+    device time and launches of the kernels whose names hold a fragment."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -715,6 +779,11 @@ def _profile(label, fn, top=12):
     for e in rows[:top]:
         log(f"profile:   {dev_us(e) / 1e3:9.3f} ms  {100 * dev_us(e) / busy:5.1f}%  "
             f"x{e.count:<4d} {e.key[:100]}")
+    for name, frags in (groups or {}).items():
+        hit = [e for e in rows if any(f in e.key for f in frags)]
+        us = sum(dev_us(e) for e in hit)
+        log(f"profile:   {name}: {us / 1e3:.3f} ms, {100 * us / busy:.1f}% of busy, "
+            f"{sum(e.count for e in hit)} launches")
 
 
 def phase_profile(pred, batch):
@@ -1255,7 +1324,8 @@ def _cocoop_remat(clip, cache, labels):
         raise SystemExit("FAIL: cocoop remat: kernel and plain paths disagree, or the launches "
                          "are not the derived counts")
     _profile(f"one CoCoOp step under TRAIN.REMAT, batch {REMAT_BATCH}",
-             lambda: kt.train_step_resident(torch.arange(REMAT_BATCH, device="cuda")), top=12)
+             lambda: kt.train_step_resident(torch.arange(REMAT_BATCH, device="cuda")), top=12,
+             groups=FUSED_GROUPS)
 
 
 def phase_coop_cocoop(clip):
@@ -1282,7 +1352,8 @@ def phase_coop_cocoop(clip):
     launches, _, _ = _train_both("coop", kt, pt, _fused_per_step(clip.cfg, 1), "fused_attn", batch)
     index = kt.epoch_schedule()[0][0]
     _no_sync_step("coop", kt.train_step_resident, index)
-    _profile(f"one CoOp train step, batch {batch}", lambda: kt.train_step_resident(index), top=20)
+    _profile(f"one CoOp train step, batch {batch}", lambda: kt.train_step_resident(index), top=20,
+             groups=FUSED_GROUPS)
     _coop_test(kt, pt, cache)
     del kt, pt
 
@@ -1298,7 +1369,8 @@ def phase_coop_cocoop(clip):
     _grad_agreement("cocoop", kt, pt, cfg.TRAINER.COCOOP, _augmented_batch(cache, labels, 11, batch))
     _train_both("cocoop", kt, pt, _fused_per_step(clip.cfg, 1), "fused_attn", batch)
     index = kt.epoch_schedule()[0][0]
-    _profile(f"one CoCoOp train step, batch {batch}", lambda: kt.train_step_resident(index), top=12)
+    _profile(f"one CoCoOp train step, batch {batch}", lambda: kt.train_step_resident(index), top=12,
+             groups=FUSED_GROUPS)
     del kt, pt
     torch.cuda.empty_cache()
     _cocoop_remat(clip, cache, labels)
@@ -1357,6 +1429,8 @@ def main():
     parts = (fa.FUSED_KERNEL_STATS, fa.FUSED_KERNEL_DKV, fa.FUSED_KERNEL_DQ)
     if len({launches_fused[k] for k in parts}) != 1:
         raise SystemExit(f"FAIL: #2's kernels launched unequal counts: {launches_fused}")
+    fwd = timings_fused["vision"][fa.FUSED_KERNEL]
+    kernels[-1].update(device_ms=fwd["device_ms"], library_device_ms=fwd["library_device_ms"])
     kernels.append({
         "name": "fused_attn_bwd", "route": "cuda", "source": src + "fused_attn_bwd.cu",
         "replaces": "fsvlm_tpu/ops/flash_attention.py:116",
@@ -1364,6 +1438,7 @@ def main():
         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
         "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"],
         "parts": [{"name": k, "launches": launches_fused[k], "ms": bwd["parts"][k]} for k in parts],
+        "device_ms": bwd["device_ms"], "library_device_ms": bwd["library_device_ms"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

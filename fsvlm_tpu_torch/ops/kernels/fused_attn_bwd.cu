@@ -24,21 +24,202 @@
 //          S and dP, and folds them into each row's max m, sum l and
 //          u = sum exp(S - m) dP (online, as the forward's pass 1); it writes
 //          m, l and delta = u / l, (B, H, L) fp32 each;
-//   dK/dV, dQ: attn_bwd_dkv_kernel / attn_bwd_dq_kernel of blockwise_attn.cuh
-//          at kWholeRow = true, which recompute P = exp(S - m) / l from
-//          those statistics (the blockwise backward's tiles and loops).
+//   dK/dV, dQ: recompute P = exp(S - m) / l from those statistics; dK/dV
+//          one CTA per (b*h, key tile) walking the query tiles, dQ one per
+//          (b*h, query tile) walking the key tiles.
 // Templated on D in {32, 64, 128}; d <= D is zero-padded in shared memory.
 //
+// bf16: every product is mma.sync m16n8k16 bf16 -> fp32 (mma_attn.cuh), on
+// bf16 tiles copied into shared memory by cp.async, with the forward's work
+// layout (fused_attn_fwd.cu): one warp per 16 own rows, CTAs of 64 rows
+// sharing double-buffered 64-row streamed tiles at L > 32, and one whole
+// (b*h) per warp at L <= 32.  The stats pre-pass is below; dK/dV (one warp
+// per 16 keys, on S^T = K Q^T and dP^T = V dO^T) and dQ (one warp per 16
+// queries) are mma_attn.cuh's dkv/dq kernels.  P and dS, fp32 on the TPU,
+// enter dV = P^T dO, dK = dS^T Q and dQ = dS K from their accumulator
+// registers split into bf16 hi + lo parts, two products each.
+// float32: the FMA tiles, the pre-pass below and attn_bwd_dkv_kernel /
+// attn_bwd_dq_kernel of blockwise_attn.cuh at kWholeRow = true.
+//
 // What bounds it on this card: at CLIP's shapes (L <= 201) the bytes (q, k,
-// v, dO read, dq, dk, dv written), against 10 * B*H*L^2*d operations.  This
-// first version does every product with fp32 FMAs on the CUDA cores (no
-// tensor cores, no TMA), recomputing S three times and dP twice, so it is
-// bound by those FMAs.
+// v, dO read, dq, dk, dv written), against 10 * B*H*L^2*d operations (16
+// with the hi/lo products): at most about 1.6 * 10 L / 8 operations per
+// byte, under the H100's ridge of about 295 bf16 operations per byte at
+// L <= 147 and near it at 201, so mma.sync fed by async copies suffices.
+// The three kernels recompute S three times and dP twice; at these
+// lengths those products are cheap on the tensor cores.
 
 #include "blockwise_attn.cuh"
+#include "mma_attn.cuh"
 
 namespace {
 
+// ------------------------------------------------------------- bf16: mma.sync
+using mma_attn::bf16;
+
+#define FSVLM_STATS_PARAMS                                                                     \
+  const bf16 *__restrict__ q, const bf16 *__restrict__ k, const bf16 *__restrict__ v,         \
+      const bf16 *__restrict__ g, const float *__restrict__ mask, float *__restrict__ row_max, \
+      float *__restrict__ row_sum, float *__restrict__ delta, int BH, int H, int L, int d,     \
+      float scale, blockwise::Strides st, int vec
+
+// Fold a key tile (rows 0 .. 8 * NT - 1 of Ks and Vs, keys key0 ..) into one
+// warp's running m, l and u = sum exp(S - m) dP, 16 keys at a time.
+template <int D, int NT>
+__device__ __forceinline__ void stats_tile(const uint32_t qa[D / 16][4],
+                                           const uint32_t ga[D / 16][4], const bf16* Ks,
+                                           const bf16* Vs, int row0, int key0, int L, float scale,
+                                           const float* __restrict__ mask, float m[2], float l[2],
+                                           float u[2], int lane) {
+  using namespace mma_attn;
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    if (key0 + 16 * kk >= L) break;
+    float s[2][4], dp[2][4];
+    mma_abt<D, 2>(s, qa, Ks, 16 * kk, lane);   // S = Q K^T
+    mma_abt<D, 2>(dp, ga, Vs, 16 * kk, lane);  // dP = dO V^T
+    scores_log2<2>(s, row0, key0 + 16 * kk, L, scale * kLog2e, mask, lane);
+    fold<2, true>(s, dp, m, l, u);
+  }
+}
+
+// After merge_quad: m, l and delta = u / l of rows row0 + g, + 8 (lane t = 0).
+__device__ __forceinline__ void write_stats(float* row_max, float* row_sum, float* delta,
+                                            long long at, int row0, int L, const float m[2],
+                                            const float l[2], const float u[2], int lane) {
+  if ((lane & 3) != 0) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + (lane >> 2) + 8 * r;
+    if (row < L) {
+      row_max[at + row] = m[r] * mma_attn::kLn2;  // natural units
+      row_sum[at + row] = l[r];
+      delta[at + row] = u[r] / l[r];
+    }
+  }
+}
+
+// L > 32: one CTA per (b*h, 64-query tile), warp w owning rows 16w ..; the
+// K and V tiles double-buffered.
+template <int D>
+__global__ void __launch_bounds__(mma_attn::kThreads) stats_tiled_kernel(FSVLM_STATS_PARAMS) {
+  using namespace mma_attn;
+  constexpr int kT = kTile * Tile<D>::kS;
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);  // own Q            [query][d]
+  bf16* Gs = Qs + kT;                         // own dO           [query][d]
+  bf16* Ks = Gs + kT;                         // 2 x streamed K   [key][d]
+  bf16* Vs = Ks + 2 * kT;                     // 2 x streamed V   [key][d]
+  int q0;
+  const int bh = tiled_head(L, q0), b = bh / H, h = bh - b * H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bf16* kp = k + b * st.s[1][0] + h * st.s[1][1];
+  const bf16* vp = v + b * st.s[2][0] + h * st.s[2][1];
+  load_tile<kTile, D>(Qs, q + b * st.s[0][0] + h * st.s[0][1], st.s[0][2], q0, L, d, tid, kThreads, vec);
+  load_tile<kTile, D>(Gs, g + b * st.s[3][0] + h * st.s[3][1], st.s[3][2], q0, L, d, tid, kThreads, vec);
+  auto prefetch = [&](int s) {
+    load_tile<kTile, D>(Ks + (s & 1) * kT, kp, st.s[1][2], s * kTile, L, d, tid, kThreads, vec);
+    load_tile<kTile, D>(Vs + (s & 1) * kT, vp, st.s[2][2], s * kTile, L, d, tid, kThreads, vec);
+    cp_async_commit();
+  };
+  prefetch(0);
+  const int own = 16 * warp, row0 = q0 + own;
+  const bool active = row0 < L;
+  uint32_t qa[D / 16][4], ga[D / 16][4];
+  float m[2] = {kMInit, kMInit}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
+  const int n = (L + kTile - 1) / kTile;
+  for (int s = 0; s < n; ++s) {
+    if (s + 1 < n) prefetch(s + 1);
+    else cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (active) {
+      if (s == 0) {
+        load_a<D>(qa, Qs, own, lane);
+        load_a<D>(ga, Gs, own, lane);
+      }
+      stats_tile<D, kTile / 8>(qa, ga, Ks + (s & 1) * kT, Vs + (s & 1) * kT, row0, s * kTile, L,
+                               scale, mask, m, l, u, lane);
+    }
+    __syncthreads();
+  }
+  if (active) {
+    merge_quad<true>(m, l, u);
+    write_stats(row_max, row_sum, delta, (long long)bh * L, row0, L, m, l, u, lane);
+  }
+}
+
+// L <= R (16 or 32): every warp one whole (b*h), its Q, dO, K and V in tiles
+// of R rows.
+template <int D, int R>
+__global__ void __launch_bounds__(mma_attn::kThreads) stats_packed_kernel(FSVLM_STATS_PARAMS) {
+  using namespace mma_attn;
+  constexpr int kT = R * Tile<D>::kS;
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.x * (kThreads / 32) + warp;
+  if (bh >= BH) return;
+  const int b = bh / H, h = bh - b * H;
+  bf16* Qs = reinterpret_cast<bf16*>(smem4) + warp * 4 * kT;
+  bf16* Gs = Qs + kT;
+  bf16* Ks = Gs + kT;
+  bf16* Vs = Ks + kT;
+  load_tile<R, D>(Qs, q + b * st.s[0][0] + h * st.s[0][1], st.s[0][2], 0, L, d, lane, 32, vec);
+  load_tile<R, D>(Gs, g + b * st.s[3][0] + h * st.s[3][1], st.s[3][2], 0, L, d, lane, 32, vec);
+  load_tile<R, D>(Ks, k + b * st.s[1][0] + h * st.s[1][1], st.s[1][2], 0, L, d, lane, 32, vec);
+  load_tile<R, D>(Vs, v + b * st.s[2][0] + h * st.s[2][1], st.s[2][2], 0, L, d, lane, 32, vec);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+#pragma unroll 1
+  for (int mt = 0; mt < R / 16; ++mt) {
+    if (16 * mt >= L) break;
+    uint32_t qa[D / 16][4], ga[D / 16][4];
+    load_a<D>(qa, Qs, 16 * mt, lane);
+    load_a<D>(ga, Gs, 16 * mt, lane);
+    float m[2] = {kMInit, kMInit}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
+    stats_tile<D, R / 8>(qa, ga, Ks, Vs, 16 * mt, 0, L, scale, mask, m, l, u, lane);
+    merge_quad<true>(m, l, u);
+    write_stats(row_max, row_sum, delta, (long long)bh * L, 16 * mt, L, m, l, u, lane);
+  }
+}
+
+template <int D>
+int launch_stats_bf16(const void* q, const void* k, const void* v, const void* g,
+                      const void* mask, void* row_max, void* row_sum, void* delta, int B, int H,
+                      int L, int d, float scale, const long long* strides, cudaStream_t stream) {
+  using namespace mma_attn;
+  const void* ptrs[4] = {q, k, v, g};
+  const int vec = vec_ok(ptrs, 4, strides, 12);
+  const int BH = B * H;
+  auto run = [&](auto kernel, dim3 grid, int smem) {
+    return mma_attn::launch(kernel, grid, smem, stream, static_cast<const bf16*>(q),
+                            static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                            static_cast<const bf16*>(g), static_cast<const float*>(mask),
+                            static_cast<float*>(row_max), static_cast<float*>(row_sum),
+                            static_cast<float*>(delta), BH, H, L, d, scale,
+                            blockwise::unpack(strides, 4), vec);
+  };
+  const dim3 packed((BH + kThreads / 32 - 1) / (kThreads / 32));
+  switch (pack_rows(L)) {
+    case 16: return run(stats_packed_kernel<D, 16>, packed, packed_smem<D, 16>(4));
+    case 32: return run(stats_packed_kernel<D, 32>, packed, packed_smem<D, 32>(4));
+    default: return run(stats_tiled_kernel<D>, tiled_grid(BH, L), 6 * Tile<D>::kRowsBytes);
+  }
+}
+
+int stats_bf16_dim(const void* q, const void* k, const void* v, const void* g, const void* mask,
+                   void* row_max, void* row_sum, void* delta, int B, int H, int L, int d,
+                   float scale, const long long* st, cudaStream_t s) {
+  switch (blockwise::padded_dim(d)) {
+    case 32: return launch_stats_bf16<32>(q, k, v, g, mask, row_max, row_sum, delta, B, H, L, d, scale, st, s);
+    case 64: return launch_stats_bf16<64>(q, k, v, g, mask, row_max, row_sum, delta, B, H, L, d, scale, st, s);
+    case 128: return launch_stats_bf16<128>(q, k, v, g, mask, row_max, row_sum, delta, B, H, L, d, scale, st, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------- float32: FMA tiles
 using namespace blockwise;
 
 template <int D>
@@ -137,6 +318,24 @@ int stats_dim(const void* q, const void* k, const void* v, const void* g, const 
   }
 }
 
+// The dK/dV (kDkv) or dQ kernel over the dtype code: float32 on the FMA
+// tiles (blockwise_attn.cuh, kWholeRow), bfloat16 on mma.sync (mma_attn.cuh).
+template <bool kDkv>
+int whole_row_bwd(int dtype, int d, const void* q, const void* k, const void* v, const void* g,
+                  const void* row_max, const void* row_sum, const void* delta, const void* mask,
+                  void* out0, void* out1, int B, int H, int L, float scale,
+                  const long long* strides, void* stream) {
+  if (B < 1 || H < 1 || L < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return blockwise::bwd_dim<float, true, kDkv>(q, k, v, g, row_max, row_sum, delta, mask, out0,
+                                                 out1, B, H, L, d, scale, strides, s);
+  if (dtype == 1)
+    return mma_attn::bwd_entry<kDkv>(d, q, k, v, g, row_max, row_sum, delta, mask, out0, out1, B,
+                                     H, L, scale, strides, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -157,8 +356,8 @@ int fsvlm_fused_attn_bwd_stats(int dtype, int d, const void* q, const void* k, c
     return stats_dim<float>(q, k, v, g, mask, row_max, row_sum, delta, B, H, L, d, scale,
                             strides, s);
   if (dtype == 1)
-    return stats_dim<__nv_bfloat16>(q, k, v, g, mask, row_max, row_sum, delta, B, H, L, d,
-                                    scale, strides, s);
+    return stats_bf16_dim(q, k, v, g, mask, row_max, row_sum, delta, B, H, L, d, scale, strides,
+                          s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -168,8 +367,8 @@ int fsvlm_fused_attn_bwd_dkv(int dtype, int d, const void* q, const void* k, con
                              const void* g, const void* row_max, const void* row_sum,
                              const void* delta, const void* mask, void* dk, void* dv, int B,
                              int H, int L, float scale, const long long* strides, void* stream) {
-  return blockwise::bwd_entry<true, true>(dtype, d, q, k, v, g, row_max, row_sum, delta, mask,
-                                          dk, dv, B, H, L, scale, strides, stream);
+  return whole_row_bwd<true>(dtype, d, q, k, v, g, row_max, row_sum, delta, mask, dk, dv, B, H, L,
+                             scale, strides, stream);
 }
 
 // As above, with one output: strides are the 15 of q, k, v, dO and dQ.
@@ -177,8 +376,8 @@ int fsvlm_fused_attn_bwd_dq(int dtype, int d, const void* q, const void* k, cons
                             const void* g, const void* row_max, const void* row_sum,
                             const void* delta, const void* mask, void* dq, int B, int H, int L,
                             float scale, const long long* strides, void* stream) {
-  return blockwise::bwd_entry<true, false>(dtype, d, q, k, v, g, row_max, row_sum, delta, mask,
-                                           dq, nullptr, B, H, L, scale, strides, stream);
+  return whole_row_bwd<false>(dtype, d, q, k, v, g, row_max, row_sum, delta, mask, dq, nullptr, B,
+                              H, L, scale, strides, stream);
 }
 
 const char* fsvlm_cuda_error_string(int err) {

@@ -19,27 +19,175 @@
 //
 // Design.  The TPU keeps one (Lp, Lp) fp32 score tile per (b*h) in VMEM
 // (:99-111); on an SM that does not carry over (L = 201: 170 KB; L = 1024:
-// 4 MB, over the 227 KB of shared memory).  So one CTA of 128 threads per
-// (b*h, query tile) walks the key tiles twice: pass 1 folds each tile into
-// every row's running max m and sum l (online, per thread, then merged over
-// the lanes that share a row); pass 2 recomputes S, forms
-// P = exp(S - m) / l, rounds it to the input dtype and accumulates P V.
-// That is the same function at any L, up to the order of fp32 sums, and no
-// tile is sized by L.  The tiles are the backward's (Bwd<D> in
-// blockwise_attn.cuh: 64 query rows and 64-key tiles at D = 32 and 64;
-// 32 query rows at D = 128), templated on D in {32, 64, 128} with d <= D
-// zero-padded in shared memory.
+// 4 MB, over the 227 KB of shared memory).  So the keys are walked twice:
+// pass 1 folds each key tile into every row's running max m and sum l
+// (online, per thread, then merged over the lanes that share a row); pass 2
+// recomputes S, forms P = exp(S - m) / l, rounds it to the input dtype and
+// accumulates P V.  That is the same function at any L, up to the order of
+// fp32 sums, and no tile is sized by L.  Head dims are instantiated at D in
+// {32, 64, 128}, d <= D zero-padded in shared memory.
+//
+// bf16 (mma_attn.cuh): one warp owns 16 query rows.  S = Q K^T and O += P V
+// are mma.sync m16n8k16 products with fp32 accumulators; P goes from S's
+// accumulator registers straight into the A fragment of P V.  Tiles are
+// bf16 in shared memory, copied by cp.async.
+//   L > 32: a CTA of 4 warps takes 64 rows of one (b*h) and shares 64-key
+//     K/V tiles, double-buffered so that the next tile loads while the
+//     current one is multiplied; at L <= 64 S is one tile, computed once
+//     and reused by pass 2.
+//   L <= 32 (CoOp's text 24, CoCoOp's 16): every warp takes one whole
+//     (b*h), one or two 16-row tiles, against that head's whole K and V,
+//     which it loads itself; no 64-row tile is padded out of 16 rows.
+// float32 keeps the FMA tiles of blockwise_attn.cuh (Bwd<D>: 64 query rows,
+// 64-key tiles; 32 rows at D = 128): the agreement checks' fp32 limits are
+// tighter than TF32 tensor cores can meet.
 //
 // What bounds it on this card: at CLIP's shapes (L <= 201) the bytes,
 // 4*B*H*L*d elements (q, k, v read once, o written once) against
-// 4*B*H*L^2*d operations.  This first version does its products with fp32
-// FMAs on the CUDA cores (no tensor cores, no TMA), computing S twice, so it
-// is bound by those FMAs; it keeps S and P on chip.
+// 4*B*H*L^2*d operations: about L/2 operations per byte, under the H100's
+// ridge of about 295 bf16 operations per byte, so mma.sync fed by async
+// copies suffices and wgmma/TMA would buy nothing at these lengths.  The
+// fp32 version is bound by its FMAs.
 
 #include "blockwise_attn.cuh"
+#include "mma_attn.cuh"
 
 namespace {
 
+// ------------------------------------------------------------- bf16: mma.sync
+using mma_attn::bf16;
+
+#define FSVLM_FWD_PARAMS                                                                     \
+  const bf16 *__restrict__ q, const bf16 *__restrict__ k, const bf16 *__restrict__ v,         \
+      const float *__restrict__ mask, bf16 *__restrict__ o, int BH, int H, int L, int d,     \
+      float scale, blockwise::Strides st, int vec
+
+// L > 32: one CTA per (b*h, 64-query tile); warp w owns rows 16w .. 16w + 15.
+// Steps: pass 1 over the key tiles (K only), then pass 2 (K and V); at
+// L <= 64 one step does both.  Step s + 1's tiles load while step s computes.
+template <int D>
+__global__ void __launch_bounds__(mma_attn::kThreads) fwd_tiled_kernel(FSVLM_FWD_PARAMS) {
+  using namespace mma_attn;
+  constexpr int kT = kTile * Tile<D>::kS, NT = kTile / 8;
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);  // own Q            [query][d]
+  bf16* Ks = Qs + kT;                         // 2 x streamed K   [key][d]
+  bf16* Vs = Ks + 2 * kT;                     // 2 x streamed V   [key][d]
+  int q0;
+  const int bh = tiled_head(L, q0), b = bh / H, h = bh - b * H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bf16* kp = k + b * st.s[1][0] + h * st.s[1][1];
+  const bf16* vp = v + b * st.s[2][0] + h * st.s[2][1];
+  const int n = (L + kTile - 1) / kTile;
+  const bool single = n == 1;
+  const int steps = single ? 1 : 2 * n;
+  auto prefetch = [&](int s) {
+    const int k0 = (s % n) * kTile;
+    load_tile<kTile, D>(Ks + (s & 1) * kT, kp, st.s[1][2], k0, L, d, tid, kThreads, vec);
+    if (single || s >= n)
+      load_tile<kTile, D>(Vs + (s & 1) * kT, vp, st.s[2][2], k0, L, d, tid, kThreads, vec);
+    cp_async_commit();
+  };
+  load_tile<kTile, D>(Qs, q + b * st.s[0][0] + h * st.s[0][1], st.s[0][2], q0, L, d, tid, kThreads, vec);
+  prefetch(0);
+  const int own = 16 * warp, row0 = q0 + own;
+  const bool active = row0 < L;
+  uint32_t qa[D / 16][4];
+  float m[2] = {kMInit, kMInit}, l[2] = {0.f, 0.f}, acc[D / 8][4];
+  zero_acc<D>(acc);
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) prefetch(s + 1);
+    else cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (active) {
+      if (s == 0) load_a<D>(qa, Qs, own, lane);
+      const int k0 = (s % n) * kTile;
+      float x[NT][4];
+      mma_abt<D, NT>(x, qa, Ks + (s & 1) * kT, 0, lane);
+      scores_log2<NT>(x, row0, k0, L, scale * kLog2e, mask, lane);
+      if (s < n) {
+        fold<NT, false>(x, x, m, l, nullptr);
+        if (s == n - 1) merge_quad<false>(m, l, nullptr);
+      }
+      if (single || s >= n) pv<D, NT>(acc, x, m, l, Vs + (s & 1) * kT, k0, L, lane);
+    }
+    __syncthreads();
+  }
+  if (active)
+    store_acc<D>(o + b * st.s[3][0] + h * st.s[3][1], st.s[3][2], row0, L, d, acc, 1.f, lane, vec);
+}
+
+// L <= R (16 or 32): every warp one whole (b*h): its Q, K and V in tiles of R
+// rows, S of each 16-row tile computed once.  (At least one CTA per SM: with
+// the default register budget D = 32, R = 32 spilled.)
+template <int D, int R>
+__global__ void __launch_bounds__(mma_attn::kThreads, 1) fwd_packed_kernel(FSVLM_FWD_PARAMS) {
+  using namespace mma_attn;
+  constexpr int kT = R * Tile<D>::kS, NT = R / 8;
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.x * (kThreads / 32) + warp;
+  if (bh >= BH) return;
+  const int b = bh / H, h = bh - b * H;
+  bf16* Qs = reinterpret_cast<bf16*>(smem4) + warp * 3 * kT;
+  bf16* Ks = Qs + kT;
+  bf16* Vs = Ks + kT;
+  load_tile<R, D>(Qs, q + b * st.s[0][0] + h * st.s[0][1], st.s[0][2], 0, L, d, lane, 32, vec);
+  load_tile<R, D>(Ks, k + b * st.s[1][0] + h * st.s[1][1], st.s[1][2], 0, L, d, lane, 32, vec);
+  load_tile<R, D>(Vs, v + b * st.s[2][0] + h * st.s[2][1], st.s[2][2], 0, L, d, lane, 32, vec);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+#pragma unroll 1
+  for (int mt = 0; mt < R / 16; ++mt) {
+    if (16 * mt >= L) break;
+    uint32_t qa[D / 16][4];
+    load_a<D>(qa, Qs, 16 * mt, lane);
+    float x[NT][4];
+    mma_abt<D, NT>(x, qa, Ks, 0, lane);
+    scores_log2<NT>(x, 16 * mt, 0, L, scale * kLog2e, mask, lane);
+    float m[2] = {kMInit, kMInit}, l[2] = {0.f, 0.f}, acc[D / 8][4];
+    fold<NT, false>(x, x, m, l, nullptr);
+    merge_quad<false>(m, l, nullptr);
+    zero_acc<D>(acc);
+    pv<D, NT>(acc, x, m, l, Vs, 0, L, lane);
+    store_acc<D>(o + b * st.s[3][0] + h * st.s[3][1], st.s[3][2], 16 * mt, L, d, acc, 1.f, lane, vec);
+  }
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, const void* mask, void* o, int B,
+                int H, int L, int d, float scale, const long long* strides, cudaStream_t stream) {
+  using namespace mma_attn;
+  const void* ptrs[4] = {q, k, v, o};
+  const int vec = vec_ok(ptrs, 4, strides, 12);
+  const int BH = B * H;
+  auto run = [&](auto kernel, dim3 grid, int smem) {
+    return mma_attn::launch(kernel, grid, smem, stream, static_cast<const bf16*>(q),
+                  static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                  static_cast<const float*>(mask), static_cast<bf16*>(o), BH, H, L, d, scale,
+                  blockwise::unpack(strides, 4), vec);
+  };
+  const dim3 packed((BH + kThreads / 32 - 1) / (kThreads / 32));
+  switch (pack_rows(L)) {
+    case 16: return run(fwd_packed_kernel<D, 16>, packed, packed_smem<D, 16>(3));
+    case 32: return run(fwd_packed_kernel<D, 32>, packed, packed_smem<D, 32>(3));
+    default: return run(fwd_tiled_kernel<D>, tiled_grid(BH, L), 5 * Tile<D>::kRowsBytes);
+  }
+}
+
+int launch_bf16_dim(const void* q, const void* k, const void* v, const void* mask, void* o, int B,
+                    int H, int L, int d, float scale, const long long* strides, cudaStream_t s) {
+  switch (blockwise::padded_dim(d)) {
+    case 32: return launch_bf16<32>(q, k, v, mask, o, B, H, L, d, scale, strides, s);
+    case 64: return launch_bf16<64>(q, k, v, mask, o, B, H, L, d, scale, strides, s);
+    case 128: return launch_bf16<128>(q, k, v, mask, o, B, H, L, d, scale, strides, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------- float32: FMA tiles
 using namespace blockwise;
 
 template <int D>
@@ -158,8 +306,7 @@ int fsvlm_fused_attn_fwd(int dtype, int d, const void* q, const void* k, const v
   if (B < 1 || H < 1 || L < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_dim<float>(q, k, v, mask, o, B, H, L, d, scale, strides, s);
-  if (dtype == 1)
-    return launch_dim<__nv_bfloat16>(q, k, v, mask, o, B, H, L, d, scale, strides, s);
+  if (dtype == 1) return launch_bf16_dim(q, k, v, mask, o, B, H, L, d, scale, strides, s);
   return (int)cudaErrorInvalidValue;
 }
 

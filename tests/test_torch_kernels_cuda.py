@@ -352,6 +352,10 @@ def test_mha_launches_the_routed_family(card, force, launched, monkeypatch):
 _FUSED_SHAPES = [  # (B, H, L, causal): the CoOp/CoCoOp vision and text shapes, edges of L
     (6, 12, 197, False), (10, 8, 24, True), (10, 8, 16, True), (3, 2, 1, False), (4, 8, 8, True),
     (2, 8, 77, True), (2, 4, 300, False), (2, 4, 513, True), (2, 2, 1024, True),
+    # the bf16 kernels' edges: a whole (b*h) per warp at L <= 16 and <= 32, 64-row tiles past
+    # 32, S in one tile up to 64; and B*H not a multiple of a packed CTA's 4 heads
+    (2, 2, 15, True), (2, 2, 17, False), (2, 2, 31, True), (2, 2, 32, False), (2, 2, 33, True),
+    (2, 2, 63, False), (2, 2, 64, True), (2, 2, 65, False), (3, 1, 16, True), (5, 1, 24, True),
 ]
 
 
@@ -402,6 +406,60 @@ def test_fused_general_mask_and_a_fully_masked_row(card, d):
     o = fa.fused_attention(q, k, v, mask)
     assert torch.isnan(o[:, :, 3]).all() and torch.isnan(fa.reference_fused_fwd(q, k, v, mask)[:, :, 3]).all()
     assert torch.isfinite(o[:, :, 4:]).all()
+
+
+def _blhd_tensors(B, H, L, d, dtype, seed, n):
+    """n (B, H, L, d) views of (B, L, H, d) memory: the layout in which the
+    kernels write O and the gradients (``_blhd``), and so in which a layer
+    may take them in."""
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(B, L, H, d).astype(np.float32)).cuda().to(dtype).transpose(1, 2)
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("layout,d", [("blhd", 64), ("blhd", 128), ("unaligned", 36),
+                                      ("unaligned", 100)])
+@pytest.mark.parametrize("L", [16, 24, 77])
+def test_fused_strided_and_unaligned_layouts(card, layout, d, L, dtype):
+    """#1-#2 on (B, H, L, d) views of (B, L, H, d) memory, and on contiguous
+    tensors whose row stride (d = 36, 100) is not a multiple of 8 elements,
+    which the bf16 kernels copy element by element instead of by 16-byte
+    cp.async; against the plain versions."""
+    fa = flash_attention
+    B, H = 3, 5
+    if layout == "blhd":
+        q, k, v, do = _blhd_tensors(B, H, L, d, dtype, seed=L + d, n=4)
+    else:
+        q, k, v, do = [t.contiguous() for t in _blhd_tensors(B, H, L, d, dtype, seed=L + d, n=4)]
+    mask = attention.causal_mask(L, device=card)
+    o = torch.ops.fsvlm.fused_attn_fwd(q, k, v, mask)
+    grads = torch.ops.fsvlm.fused_attn_bwd(q, k, v, do, mask)
+    torch.cuda.synchronize()
+    assert (o.float() - fa.reference_fused_fwd(q, k, v, mask).float()).abs().max().item() <= TOL[dtype][0]
+    assert max(_rel_errs(grads, fa.reference_fused_bwd(q, k, v, do, mask))) <= TOL_BWD[dtype]
+
+
+@pytest.mark.parametrize("B,H,L,causal", [(4, 12, 197, False), (10, 8, 16, True),
+                                          (6, 8, 24, True), (4, 4, 77, True)])
+def test_fused_bf16_backward_keeps_p_and_ds_in_fp32(card, B, H, L, causal):
+    """The bf16 backward feeds P and dS to the tensor cores as bf16 hi + lo
+    parts, as the TPU's fp32 operands: against an fp32 plain backward on the
+    same bf16-valued inputs, each of its gradients lies no farther than the
+    bf16 plain version's (which rounds only its outputs) plus one output
+    ulp, 2^-8 of the largest gradient."""
+    fa = flash_attention
+    q, k, v = _qkv_views(B, H, L, torch.bfloat16, seed=L + 31)
+    do = _blhd_view(B, H, L, torch.bfloat16, seed=L + 32)
+    mask = attention.causal_mask(L, device=card) if causal else None
+    got = torch.ops.fsvlm.fused_attn_bwd(q, k, v, do, mask)
+    plain = fa.reference_fused_bwd(q, k, v, do, mask)
+    exact = fa.reference_fused_bwd(*(t.float() for t in (q, k, v, do)), mask)
+    scale = max(e.abs().max().item() for e in exact)
+    for name, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+        err_kernel = (g.float() - e).abs().max().item()
+        err_plain = (p.float() - e).abs().max().item()
+        assert err_kernel <= err_plain + 2 ** -8 * scale, (name, err_kernel, err_plain, scale)
 
 
 def test_fused_rejects_what_it_does_not_take(card, monkeypatch):
