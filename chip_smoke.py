@@ -18,12 +18,13 @@ Phases; each passes or raises, and any failure exits non-zero:
    kernels, plain versions and the one PyTorch library call that computes the
    same function (a yardstick only), with each kernel's bound.  Then the
    whole-sequence kernels #1-#2 at head dims 32, 64, 80 and 128, L from 1 to
-   1024 (with the edges of the bf16 kernels' tiles and short-L packing),
-   B*H not a multiple of 4, and CoOp's and CoCoOp's own shapes; their times
-   by CUDA events as above and, beside them, the device time alone
+   1024, B*H not a multiple of 4, and CoOp's and CoCoOp's own shapes.  The
+   forwards #6, #3 and #1 are checked at the edges of the bf16 kernels'
+   tiles and short-L packing (L 15-17, 31-33, 63-65), and timed by CUDA
+   events as above and, beside them, by the device time alone
    (torch.profiler), which at small shapes leaves out the host's launch
-   time.  Phase 2 prints the registers and spills of every bf16
-   tensor-core kernel of #1-#2.
+   time (#2 too).  Phase 2 prints the registers and spills of every bf16
+   tensor-core kernel (#1-#2, and the flash forward behind #3 and #6).
 4. serving: PromptSRC ViT-B/16 at full width (random weights from seed 0,
    bf16 frozen towers, bf16 compute, 100 classes): text features once, then
    3 batches of 100 uint8 224x224 images, through the kernel and again with
@@ -111,6 +112,11 @@ KERNEL_SHAPES = [  # (B, H, L, causal): vision, text at its truncated lengths, e
     (100, 12, 201, False),
     (100, 8, 8, True), (100, 8, 16, True), (100, 8, 24, True), (100, 8, 77, True),
     (2, 4, 513, True), (3, 2, 1, False), (2, 4, 1024, True),
+    # the bf16 forward's edges (a whole (b*h) per warp at L <= 16 and <= 32, 64-row
+    # CTAs and 64-key tiles past 32), B*H = 6; then B*H not a multiple of 4
+    (2, 3, 15, True), (2, 3, 16, False), (2, 3, 17, True), (2, 3, 31, False), (2, 3, 32, True),
+    (2, 3, 33, False), (2, 3, 63, True), (2, 3, 64, False), (2, 3, 65, True),
+    (3, 1, 16, True), (5, 1, 24, True), (3, 3, 33, False),
 ]
 N_CLASSES, N_BATCHES, BATCH = 100, 3, 100
 # main-path agreement, kernel against plain attention: cosine of the image and
@@ -127,7 +133,8 @@ N_EPOCH_PAIRS = 4  # epochs timed synced after every step and as train() runs th
 # blockwise kernels #3-#5: head dims (80 is zero-padded to the 128 instantiation),
 # lengths (the IVLP step's text 16 and vision 201, edges of L), and the timed
 # shapes: the train vision shape and two of the same D * H at other head dims
-BW_DIMS, BW_LENGTHS = (32, 64, 128, 80), (1, 8, 16, 77, 201, 300, 513)
+BW_DIMS = (32, 64, 128, 80)
+BW_LENGTHS = (1, 8, 15, 16, 17, 31, 32, 33, 63, 64, 65, 77, 201, 300, 513)
 BW_PATH_SHAPES = [  # (B, H, L, causal) at d = 64: the IVLP step's student vision,
     # KD-teacher vision (no prompts), student text and the build's teacher text
     (48, 12, 201, False), (48, 12, 197, False), (100, 8, 16, True), (100, 8, 77, True),
@@ -206,7 +213,7 @@ def phase_build():
     from fsvlm_tpu_torch.ops.kernels.build import build_all
 
     t0 = time.perf_counter()
-    tc = {}  # the bf16 tensor-core kernels of #1-#2: "name<D[,R]>" -> [registers, spill bytes]
+    tc = {}  # the bf16 tensor-core kernels: "library:name<D[,R]>" -> [registers, spill bytes]
     for name, info in build_all().items():
         log(f"build {name}: nvcc {info['seconds']:.1f} s")
         # ptxas prints, per kernel instantiation, "Compiling entry function
@@ -216,9 +223,9 @@ def phase_build():
             if "Compiling entry function" in ln:
                 mangled = ln.split("'")[1]
                 entry = mangled.split("_cu_")[-1][:60] if "_cu_" in mangled else mangled[:60]
-                m = re.search(r"((?:fwd|stats|dkv|dq)_(?:tiled|packed))_kernelILi(\d+)E(?:Li(\d+)E)?",
-                              mangled)
-                short = m and f"{m[1]}<{m[2]}{',' + m[3] if m[3] else ''}>"
+                m = re.search(r"((?:flash|fwd|stats|dkv|dq)_(?:tiled|packed))_kernelILi(\d+)E"
+                              r"(?:Li(\d+)E)?", mangled)
+                short = m and f"{name}:{m[1]}<{m[2]}{',' + m[3] if m[3] else ''}>"
             elif "registers" in ln or "spill" in ln:
                 log(f"build   {entry}: {ln.split(':', 1)[-1].strip()}")
                 if short:
@@ -227,7 +234,7 @@ def phase_build():
                         got[0] = int(re.search(r"Used (\d+) registers", ln)[1])
                     else:
                         got[1] = int(re.search(r"(\d+) bytes spill stores", ln)[1])
-    log("build: bf16 tensor-core kernels of #1-#2, registers/spill bytes: "
+    log("build: bf16 tensor-core kernels (#1-#2; #3 and #6: flash_*), registers/spill bytes: "
         + ", ".join(f"{k} {r}/{sp}" for k, (r, sp) in sorted(tc.items())))
     log(f"build: {time.perf_counter() - t0:.1f} s in all")
 
@@ -256,9 +263,10 @@ def _time_ms(fn, iters=20):
 
 def _device_ms(fn, iters=20):
     """Device time of one call of ``fn``: the kernels' own device time
-    (torch.profiler) over ``iters`` calls, over ``iters``.  Unlike
-    ``_time_ms`` it leaves out the host time between launches, which at
-    small shapes exceeds the kernels' own."""
+    (torch.profiler) over ``iters`` calls, over ``iters``; None when the
+    profiler recorded no device time.  Unlike ``_time_ms`` it leaves out the
+    host time between launches, which at small shapes exceeds the kernels'
+    own."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -271,7 +279,11 @@ def _device_ms(fn, iters=20):
         torch.cuda.synchronize()
     us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
              for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / iters
+    return us / 1e3 / iters if us > 0 else None
+
+
+def _ms(t):
+    return "not measured" if t is None else f"{t:.4f} ms"
 
 
 def _bound(B, H, L, causal, dtype_name, elsize, d=64, lse=True):
@@ -457,29 +469,38 @@ def phase_kernels_blockwise():
         delta = fa.attention_delta(o, do)
         args = (q, k, v, do, lse, delta, mask)
         fwd_ms = _time_ms(lambda: fa._blockwise_attn_fwd_op(q, k, v, mask))
+        # the same launch without the checks and the torch.library dispatch
+        direct_ms = _time_ms(lambda: fa._bw_launch(q, k, v, mask))
         dkv_ms = _time_ms(lambda: fa._bw_launch_dkv(*args))
         dq_ms = _time_ms(lambda: fa._bw_launch_dq(*args))
         plain_fwd_ms = _time_ms(lambda: fa.reference_blockwise_fwd(q, k, v, mask))
         plain_bwd_ms = _time_ms(lambda: fa.reference_blockwise_bwd(q, k, v, o, lse, do, mask))
-        lib_fwd_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
+        lib_fwd_ms = _time_ms(sdpa)
         lib_bwd_ms = _library_bwd_ms(q, k, v, do, causal)
+        dev_ms = _device_ms(lambda: fa._blockwise_attn_fwd_op(q, k, v, mask))
+        lib_dev_ms = _device_ms(sdpa)
         b_fwd = _bound(B, H, L, causal, "bfloat16", 2, d)
         b_dkv = _bound_bwd(B, H, L, causal, 2, 2, 8, d)
         b_dq = _bound_bwd(B, H, L, causal, 2, 1, 6, d)
         timings[label] = {
             fa.BW_KERNEL: dict(ms=fwd_ms, plain_ms=plain_fwd_ms, library_ms=lib_fwd_ms,
-                               bound_ms=b_fwd[0], bound_by=b_fwd[1]),
+                               bound_ms=b_fwd[0], bound_by=b_fwd[1], device_ms=dev_ms,
+                               library_device_ms=lib_dev_ms),
             fa.BW_KERNEL_DKV: dict(ms=dkv_ms, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
                                    bound_ms=b_dkv[0], bound_by=b_dkv[1]),
             fa.BW_KERNEL_DQ: dict(ms=dq_ms, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
                                   bound_ms=b_dq[0], bound_by=b_dq[1]),
         }
         log(f"time blockwise bf16 {label} ({B},{H},{L},{d}) {'causal' if causal else 'nomask'}: "
-            f"fwd kernel {fwd_ms:.4f} ms (bound {b_fwd[0]:.4f}, {b_fwd[1]}; plain "
+            f"fwd kernel {fwd_ms:.4f} ms (launched directly {direct_ms:.4f} ms; bound "
+            f"{b_fwd[0]:.4f}, {b_fwd[1]}; plain "
             f"{plain_fwd_ms:.4f}; sdpa {lib_fwd_ms:.4f}); dK/dV kernel {dkv_ms:.4f} ms (bound "
             f"{b_dkv[0]:.4f}, {b_dkv[1]}); dQ kernel {dq_ms:.4f} ms (bound {b_dq[0]:.4f}, "
             f"{b_dq[1]}); plain backward {plain_bwd_ms:.4f} ms; "
             f"aten._scaled_dot_product_flash_attention_backward {lib_bwd_ms} ms")
+        log(f"time blockwise bf16 {label}: device time (profiler): fwd kernel {_ms(dev_ms)}, "
+            f"sdpa {_ms(lib_dev_ms)}")
         del q, k, v, do, o, lse, delta, args
     for (kern, name), (a, r) in worst.items():
         log(f"kernel {kern} {name}: worst max|err| {a:.3e}"
@@ -588,9 +609,9 @@ def phase_kernels_fused():
             f"{part_ms[fa.FUSED_KERNEL_DQ]:.4f} timed apart (bound {b_bwd[0]:.4f}, {b_bwd[1]}); "
             f"plain backward {plain_bwd_ms:.4f} ms; "
             f"aten._scaled_dot_product_flash_attention_backward {lib_bwd_ms} ms")
-        log(f"time fused bf16 {label}: device time (profiler): fwd kernel {dev['fwd']:.4f} ms, "
-            f"sdpa {dev['sdpa']:.4f} ms; backward's three kernels {dev['bwd']:.4f} ms, aten "
-            f"backward {dev['aten_bwd']} ms")
+        log(f"time fused bf16 {label}: device time (profiler): fwd kernel {_ms(dev['fwd'])}, "
+            f"sdpa {_ms(dev['sdpa'])}; backward's three kernels {_ms(dev['bwd'])}, aten "
+            f"backward {_ms(dev['aten_bwd'])}")
         del q, k, v, do, stats
     for (kern, name), (a, r) in worst.items():
         log(f"kernel fused {kern} {name}: worst max|err| {a:.3e}"
@@ -639,14 +660,18 @@ def phase_kernels():
         # the same launch without the checks and the torch.library dispatch
         direct_ms = _time_ms(lambda: _launch(q, k, v, mask))
         plain_ms = _time_ms(lambda: reference_attention_fwd(q, k, v, mask))
-        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
+        lib_ms = _time_ms(sdpa)
+        dev_ms, lib_dev_ms = _device_ms(lambda: _launch(q, k, v, mask)), _device_ms(sdpa)
         bound_ms, bound_by = _bound(B, H, L, causal, "bfloat16", 2)
         timings[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                              bound_ms=bound_ms, bound_by=bound_by)
+                              bound_ms=bound_ms, bound_by=bound_by, device_ms=dev_ms,
+                              library_device_ms=lib_dev_ms)
         log(f"time flash_attn_fwd_d64 bf16 {label} ({B},{H},{L},64) "
             f"{'causal' if causal else 'nomask'}: kernel {ms:.4f} ms (launched directly "
             f"{direct_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-            f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); device time "
+            f"(profiler): kernel {_ms(dev_ms)}, sdpa {_ms(lib_dev_ms)}")
     return worst, timings
 
 
@@ -1429,8 +1454,10 @@ def main():
     parts = (fa.FUSED_KERNEL_STATS, fa.FUSED_KERNEL_DKV, fa.FUSED_KERNEL_DQ)
     if len({launches_fused[k] for k in parts}) != 1:
         raise SystemExit(f"FAIL: #2's kernels launched unequal counts: {launches_fused}")
-    fwd = timings_fused["vision"][fa.FUSED_KERNEL]
-    kernels[-1].update(device_ms=fwd["device_ms"], library_device_ms=fwd["library_device_ms"])
+    # the forwards' device times (profiler) beside their event times
+    for row, t in ((kernels[0], timings["vision"]), (kernels[3], timings_bw["vision"][fa.BW_KERNEL]),
+                   (kernels[-1], timings_fused["vision"][fa.FUSED_KERNEL])):
+        row.update(device_ms=t["device_ms"], library_device_ms=t["library_device_ms"])
     kernels.append({
         "name": "fused_attn_bwd", "route": "cuda", "source": src + "fused_attn_bwd.cu",
         "replaces": "fsvlm_tpu/ops/flash_attention.py:116",

@@ -69,8 +69,11 @@ LAUNCHES = {name: 0 for name in (KERNEL, KERNEL_DKV, KERNEL_DQ,
 
 # the blockwise kernels' head-dim instantiations and, per instantiation, the
 # forward's key tile and the backward's own tile (keys for dK/dV, queries
-# for dQ), as blockwise_attn_{fwd,bwd}.cu's FwdTile / BwdTile give them
-BW_TILES = {32: (64, 64), 64: (64, 64), 128: (32, 32)}
+# for dQ): the bf16 forward (mma_flash_fwd.cuh) walks 64-key tiles at every
+# D, and in bf16 the key tile decides how P is rounded; the backward's are
+# blockwise_attn.cuh's BwdTile.  (The fp32 forward walks 32-key tiles at
+# D = 128, which in fp32 changes only the order of sums.)
+BW_TILES = {32: (64, 64), 64: (64, 64), 128: (64, 32)}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -666,9 +669,10 @@ def blockwise_attention(q, k, v, mask=None, block_q=256, block_k=512, impl=None)
     Returns O (B, H, L, d) in q's dtype; its LSE and O are saved for the
     backward.  ``block_q`` / ``block_k`` are the JAX signature's tile sizes,
     validated and otherwise unused: the card's tiles are the kernels' own
-    (64 queries; 64 keys, 32 at d > 64), which gives the same function up to
-    the order of fp32 sums.  CUDA tensors go through the kernels; CPU
-    tensors, or ``impl="plain"``, through the plain versions."""
+    (64 keys in the forward, which the plain version walks too), which
+    gives the same function up to the order of fp32 sums.  CUDA tensors go
+    through the kernels; CPU tensors, or ``impl="plain"``, through the plain
+    versions."""
     for name, b in (("block_q", block_q), ("block_k", block_k)):
         if not isinstance(b, int) or b < 1:
             raise ValueError(f"{name} must be a positive int, got {b!r}")
@@ -696,17 +700,18 @@ def fused_attention(q, k, v, mask=None, impl=None):
     return _FusedAttention.apply(q, k, v, mask, _plain(impl, q))
 
 
-def attention_route(head_dim, mask=None):
-    """The kernel family ``attention_dispatch`` takes for this head dim and
-    mask under the current ``FSVLM_FORCE_PALLAS``: "packed" (the d = 64
-    kernels #6-#8), "blockwise" (#3-#5) or "fused" (#1-#2), as JAX's
-    :871-889 reads the variable.
+def attention_route(head_dim, mask=None, heads=None):
+    """The kernel family ``attention_dispatch`` takes for this head dim,
+    mask and head count under the current ``FSVLM_FORCE_PALLAS``: "packed"
+    (the d = 64 kernels #6-#8), "blockwise" (#3-#5) or "fused" (#1-#2), as
+    JAX's :871-889 reads the variable.
 
     - ``legacy``: "fused" (the whole-sequence kernels take an (L, L) mask or
       none; ``fused_attention`` raises past head dim 128, ROADMAP B6);
     - ``1``: "blockwise";
-    - ``packed``: "packed" at d = 64, else "blockwise" (JAX falls through at
-      :879);
+    - ``packed``: "packed" at d = 64 with an even head count (or ``heads``
+      not given), else "blockwise": JAX packs two heads per 128 lanes and
+      falls through at :874-879 otherwise;
     - under ``legacy``, ``1`` and ``packed``, a mask that is not 2-D (a
       per-example (B, 1, 1, L) key bias) raises ValueError: JAX sends it to
       ``fused_attention``, whose (L, L) mask cannot take it, and raises;
@@ -727,6 +732,8 @@ def attention_route(head_dim, mask=None):
         raise NotImplementedError(
             "a per-example broadcast mask takes XLA's attention in the JAX package "
             "(_reference_attention), which is not ported (ROADMAP A3)")
+    if force == "packed" and heads is not None and heads % 2:
+        return "blockwise"
     if force != "1" and head_dim == D:
         return "packed"
     return "blockwise"
@@ -743,7 +750,7 @@ def attention_dispatch(q, k, v, mask=None, impl=None):
     (ROADMAP B5).  ``FSVLM_ATTN_REMAT``, ``FSVLM_ATTN_BF16`` and
     ``layout="blhd"`` are not ported.  ``impl="plain"``, or CPU tensors, take
     the plain version of the family the route picks."""
-    route = attention_route(q.shape[-1], mask)
+    route = attention_route(q.shape[-1], mask, heads=q.shape[1])
     if route == "packed":
         return attention_fwd(q, k, v, mask, impl=impl)[0]
     if route == "fused":

@@ -17,26 +17,31 @@
 // dtype before the P.V product while l sums the unrounded P;
 // O = acc / max(l, 1e-30) and LSE = m + log(max(l, 1e-30)).  Keys past L are
 // excluded (the TPU pads them with -1e30); query rows past L are computed
-// but not stored.
+// but not stored.  Templated on the head dim D in {32, 64, 128}; d <= D is
+// zero-padded in shared memory.
 //
-// Templated on the head dim D in {32, 64, 128}; d <= D is zero-padded in
-// shared memory.  One CTA of 128 threads per (b*h, 64-query tile) walks the
-// key tiles (the TPU's sequential kv grid axis becomes this loop).  Tile
-// traits per D: 8 column groups and 64-key tiles at D = 32 and 64; 32-key
-// tiles at D = 128, which keeps the fp32 tiles at 77 KiB (two CTAs per SM)
-// and a thread's accumulator at 4 x 16.
+// bfloat16 takes the tensor-core forward of mma_flash_fwd.cuh (the same
+// kernel as #6's bf16 entry in flash_attn_fwd.cu, here at D = 32, 64 and
+// 128): one pass over 64-key tiles at every D, mma.sync on cp.async tiles,
+// and below L = 33 a whole (b*h) per warp.  It is bound by the bytes at
+// CLIP's shapes (L <= 201: about L / 2 operations per byte, under the
+// H100's ridge of about 295).
 //
-// What bounds it on this card: at CLIP's shapes (L <= 201) the bytes,
-// 4*B*H*L*d elements (q, k, v read once, o written once) against
-// 4*B*H*L^2*d operations, about 100 per byte in bf16, under the H100's
-// ~295.  This first version does both products with fp32 FMAs on the CUDA
-// cores (no tensor cores, no TMA), so it is bound by those FMAs; its design
-// keeps every intermediate on chip: Q and K transposed (Q broadcast and K
-// read as consecutive 16-byte vectors in the S loop), V and P row-major.
+// float32 keeps this file's first version, fp32 FMAs on the CUDA cores (the
+// agreement checks' fp32 limits are tighter than TF32 tensor cores can
+// meet), bound by those FMAs.  One CTA of 128 threads per (b*h, 64-query
+// tile) walks the key tiles (the TPU's sequential kv grid axis becomes this
+// loop).  Tile traits per D: 8 column groups and 64-key tiles at D = 32 and
+// 64; 32-key tiles at D = 128, which keeps the fp32 tiles at 77 KiB (two
+// CTAs per SM) and a thread's accumulator at 4 x 16: in fp32 the tile walk
+// changes only the order of sums, not a rounding.  Q and K are transposed
+// (Q broadcast and K read as consecutive 16-byte vectors in the S loop), V
+// and P row-major.
 
 #include <math.h>
 
 #include "blockwise_attn.cuh"
+#include "mma_flash_fwd.cuh"
 
 namespace {
 
@@ -242,6 +247,18 @@ int launch_dim(const void* q, const void* k, const void* v, const void* mask, vo
   }
 }
 
+int launch_bf16_dim(const void* q, const void* k, const void* v, const void* mask, void* o,
+                    void* lse, int B, int H, int L, int d, float scale, const long long* strides,
+                    cudaStream_t stream) {
+  using mma_attn::launch_flash;
+  switch (padded_dim(d)) {
+    case 32: return launch_flash<32>(q, k, v, mask, o, lse, B, H, L, d, scale, strides, stream);
+    case 64: return launch_flash<64>(q, k, v, mask, o, lse, B, H, L, d, scale, strides, stream);
+    case 128: return launch_flash<128>(q, k, v, mask, o, lse, B, H, L, d, scale, strides, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -257,8 +274,7 @@ int fsvlm_blockwise_attn_fwd(int dtype, int d, const void* q, const void* k, con
   if (B < 1 || H < 1 || L < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_dim<float>(q, k, v, mask, o, lse, B, H, L, d, scale, strides, s);
-  if (dtype == 1)
-    return launch_dim<__nv_bfloat16>(q, k, v, mask, o, lse, B, H, L, d, scale, strides, s);
+  if (dtype == 1) return launch_bf16_dim(q, k, v, mask, o, lse, B, H, L, d, scale, strides, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -15,22 +15,26 @@
 // exp(-inf + inf) = NaN; P is rounded to the input dtype before the P.V
 // product, l sums the unrounded P, and l is clamped to 1e-30 at the end.
 // Keys past L are excluded; query rows past L are computed but not stored.
+// No head packing: two heads per 128 lanes was a TPU lane-width device.
 //
-// What bounds it on this card: at CLIP's shapes (d = 64, L <= 201) the
-// bytes, about 4*B*H*L*64*2 for bf16 (q, k, v read once, o written once);
-// the operations (4*B*H*L^2*64) are ~100 per byte, under the H100's ~295
-// for bf16 tensor cores.  This first version does both products with fp32
-// FMAs on the CUDA cores (no tensor cores, no TMA), so it is bound by those
-// FMAs; its design only keeps every intermediate on chip: one CTA of 128
-// threads per (b*h, 64-query tile) walks the key tiles of 64 with an online
-// softmax, Q/K/V/P tiles in shared memory (fp32, Q/K/P transposed and padded
-// so the inner loops read 16-byte vectors without bank conflicts), each
-// thread owning a 4x8 block of S and of the output accumulator.  No head
-// packing: two heads per 128 lanes was a TPU lane-width device.
+// bfloat16 takes the tensor-core forward of mma_flash_fwd.cuh at D = 64,
+// scale 1/8 (the same kernel as #3's bf16 entry in blockwise_attn_fwd.cu):
+// one pass over 64-key tiles, mma.sync on cp.async tiles, and below L = 33
+// a whole (b*h) per warp.  It is bound by the bytes at CLIP's shapes.
+//
+// float32 keeps this file's first version, fp32 FMAs on the CUDA cores (the
+// agreement checks' fp32 limits are tighter than TF32 tensor cores can
+// meet), bound by those FMAs: one CTA of 128 threads per (b*h, 64-query
+// tile) walks the key tiles of 64 with an online softmax, Q/K/V/P tiles in
+// shared memory (Q/K/P transposed and padded so the inner loops read
+// 16-byte vectors without bank conflicts), each thread owning a 4x8 block
+// of S and of the output accumulator.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "mma_flash_fwd.cuh"
 
 namespace {
 
@@ -45,17 +49,10 @@ constexpr int kKS = kBK + 4;   // row stride of the transposed K tile
 constexpr int kSmemFloats = kD * kQS + kD * kKS + kBK * kD + kBK * kQS;
 constexpr int kSmemBytes = kSmemFloats * (int)sizeof(float);
 constexpr float kScale = 0.125f;  // 64 ** -0.5
-constexpr float kMInit = -1e30f;
-constexpr float kLMin = 1e-30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+using blockwise::from_f;
+using blockwise::kLMin;
+using blockwise::kMInit;
+using blockwise::to_f;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -236,7 +233,8 @@ int fsvlm_flash_attn_fwd_d64(int dtype, const void* q, const void* k, const void
   if (B < 1 || H < 1 || L < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(q, k, v, mask, o, lse, B, H, L, strides, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, mask, o, lse, B, H, L, strides, s);
+  if (dtype == 1)
+    return mma_attn::launch_flash<kD>(q, k, v, mask, o, lse, B, H, L, kD, kScale, strides, s);
   return (int)cudaErrorInvalidValue;
 }
 

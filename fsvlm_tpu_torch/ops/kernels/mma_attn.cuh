@@ -1,8 +1,8 @@
 // Tensor-core building blocks for the bf16 attention kernels, and the
 // whole-sequence backward's dK/dV and dQ kernels built from them
 // (fused_attn_fwd.cu and fused_attn_bwd.cu hold the forward and the
-// backward's row pre-pass).  fp32 inputs keep the FMA tiles of
-// blockwise_attn.cuh.
+// backward's row pre-pass; mma_flash_fwd.cuh the flash forward behind #3
+// and #6).  fp32 inputs keep the FMA tiles.
 //
 // Tiles live in shared memory as bf16 rows of D + 8 elements: the 16-byte
 // pad puts the 8 rows that one ldmatrix reads on 8 distinct groups of 4
@@ -343,26 +343,36 @@ inline bool vec_ok(const void* const* ptrs, int n_ptrs, const long long* strides
 // (b*h), 64-row streamed tiles double-buffered).
 inline int pack_rows(int L) { return L <= 16 ? 16 : L <= 32 ? 32 : 0; }
 
-// The (b*h, 64-row tile) of a tiled CTA: blockIdx.x = bh * tiles + tile, so
-// that the tiles of one head run side by side (their K and V stay in L2) and
-// a head's short last tile shares each wave with full ones.
-__device__ __forceinline__ int tiled_head(int L, int& row0) {
-  const int tiles = (L + kTile - 1) / kTile;
+// The (b*h, tile of `rows` rows) of a tiled CTA: blockIdx.x = bh * tiles +
+// tile, so that the tiles of one head run side by side (their K and V stay
+// in L2) and a head's short last tile shares each wave with full ones.
+__device__ __forceinline__ int tiled_head(int L, int& row0, int rows = kTile) {
+  const int tiles = (L + rows - 1) / rows;
   const int bh = blockIdx.x / tiles;
-  row0 = (blockIdx.x - bh * tiles) * kTile;
+  row0 = (blockIdx.x - bh * tiles) * rows;
   return bh;
 }
 
-inline dim3 tiled_grid(int BH, int L) { return dim3(BH * ((L + kTile - 1) / kTile)); }
+inline dim3 tiled_grid(int BH, int L, int rows = kTile) {
+  return dim3(BH * ((L + rows - 1) / rows));
+}
 
-// Launch kernel on checked arguments, with its dynamic shared memory.
+// Launch kernel on checked arguments, `threads` threads per CTA, with its
+// dynamic shared memory.
 template <typename... KArgs, typename... Args>
-int launch(void (*kernel)(KArgs...), dim3 grid, int smem, cudaStream_t stream, Args... args) {
+int launch_threads(void (*kernel)(KArgs...), dim3 grid, int threads, int smem,
+                   cudaStream_t stream, Args... args) {
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// ... with kThreads threads per CTA.
+template <typename... KArgs, typename... Args>
+int launch(void (*kernel)(KArgs...), dim3 grid, int smem, cudaStream_t stream, Args... args) {
+  return launch_threads(kernel, grid, kThreads, smem, stream, args...);
 }
 
 // ------------------------------------------- whole-sequence backward, bf16

@@ -144,7 +144,7 @@ _RAISES = {NotImplementedError: "A3", ValueError: "cannot take it"}
 @pytest.mark.parametrize("force,d,mask,want", [
     (None, 64, None, "packed"), (None, 64, "2d", "packed"), (None, 32, "2d", "blockwise"),
     (None, 80, None, "blockwise"), (None, 64, _BCAST, NotImplementedError),
-    ("packed", 64, "2d", "packed"), ("packed", 128, None, "blockwise"),
+    ("packed", 64, "2d", "blockwise"), ("packed", 128, None, "blockwise"),
     ("packed", 64, _BCAST, ValueError),
     ("1", 64, None, "blockwise"), ("1", 64, "2d", "blockwise"), ("1", 32, "2d", "blockwise"),
     ("1", 64, _BCAST, ValueError),
@@ -155,7 +155,8 @@ _RAISES = {NotImplementedError: "A3", ValueError: "cannot take it"}
 def test_dispatch_routes_by_force_pallas_and_head_dim(force, d, mask, want, monkeypatch):
     """attention_dispatch reads FSVLM_FORCE_PALLAS at each call and runs the
     family attention_route names (a stub per family marks which ran):
-    ``legacy`` takes the whole-sequence family; a broadcast mask raises
+    ``legacy`` takes the whole-sequence family; ``packed`` the blockwise one
+    at this q's odd head count (3), as JAX does; a broadcast mask raises
     ValueError under ``1``, ``packed`` and ``legacy`` (as JAX's
     fused_attention does), and NotImplementedError naming ROADMAP A3 on the
     port's default route."""
@@ -177,14 +178,54 @@ def test_dispatch_routes_by_force_pallas_and_head_dim(force, d, mask, want, monk
     m = {None: None, "2d": torch.zeros(8, 8), _BCAST: torch.zeros(2, 1, 1, 8)}[mask]
     if want in _RAISES:
         with pytest.raises(want, match=_RAISES[want]):
-            fa.attention_route(d, m)
+            fa.attention_route(d, m, heads=q.shape[1])
         with pytest.raises(want, match=_RAISES[want]):
             fa.attention_dispatch(q, q, q, m)
         assert ran == []
         return
-    assert fa.attention_route(d, m) == want
+    assert fa.attention_route(d, m, heads=q.shape[1]) == want
     o = fa.attention_dispatch(q, q, q, m)
     assert ran == [want] and o.shape == q.shape
+
+
+@pytest.mark.parametrize("H,want", [(3, "blockwise"), (1, "blockwise"), (2, "packed"),
+                                    (12, "packed")])
+def test_packed_route_follows_the_head_count_as_jax(H, want, monkeypatch):
+    """Under FSVLM_FORCE_PALLAS=packed, at d = 64, both packages take the
+    head-packed kernels only at an even head count and the blockwise ones at
+    an odd one (JAX :872-879): JAX's attention_dispatch, with its two entries
+    wrapped at run time to record which one ran, the port's route and the
+    family its dispatch runs agree, and so do the outputs (fp32: the port's
+    plain version against JAX's Pallas kernel in interpret mode, rtol 2e-4 /
+    atol 2e-5)."""
+    import fsvlm_tpu.ops.flash_attention as jax_fa
+
+    fa = flash_attention
+    monkeypatch.setenv("FSVLM_FORCE_PALLAS", "packed")
+    ran = {"jax": [], "port": []}
+    for name in ("blockwise_attention", "packed_attention"):
+        def record(*args, _real=getattr(jax_fa, name), _family=name.split("_")[0]):
+            ran["jax"].append(_family)
+            return _real(*args)
+
+        monkeypatch.setattr(jax_fa, name, record)
+
+    def recorded(family, plain_fwd):
+        def fwd(*args):
+            ran["port"].append(family)
+            return plain_fwd(*args)
+        return fwd
+
+    monkeypatch.setattr(fa, "_FAMILIES", {f: (recorded(f, t[0]),) + t[1:]
+                                          for f, t in fa._FAMILIES.items()})
+    L = 13
+    q, k, v = _inputs(1, H, L, 64, seed=20 + H)
+    ref = jax_fa.attention_dispatch(q, k, v, jax_attention.causal_mask(L))
+    mask = attention.causal_mask(L, device="cpu")
+    assert fa.attention_route(64, mask, heads=H) == want
+    got = fa.attention_dispatch(*map(torch.from_numpy, (q, k, v)), mask)
+    assert ran == {"jax": [want], "port": [want]}
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-4, atol=2e-5)
 
 
 def test_blockwise_rejects_what_it_does_not_take():

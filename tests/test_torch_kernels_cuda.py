@@ -348,6 +348,101 @@ def test_mha_launches_the_routed_family(card, force, launched, monkeypatch):
     assert max(_rel_errs([outs[None][1]], [outs["plain"][1]])) <= 1e-5
 
 
+# ------------------------------ the bf16 tensor-core flash forward of #6 and #3
+# one kernel (mma_flash_fwd.cuh) behind both entries: lengths at the edges of
+# its layouts (a whole (b*h) per warp at L <= 16 and <= 32, 64-row CTAs and
+# 64-key tiles past 32, one key tile up to 64) and the main paths' lengths
+_FLASH_LENGTHS = (1, 8, 15, 16, 17, 24, 31, 32, 33, 63, 64, 65, 77, 197, 201, 513, 1024)
+_FLASH_ENTRIES = [("packed", 64), ("blockwise", 32), ("blockwise", 64), ("blockwise", 80),
+                  ("blockwise", 128)]
+
+
+def _flash_fwd(entry, q, k, v, mask):
+    """Forward entry "packed" (#6, attention_fwd) or "blockwise" (#3, its
+    operator) on the kernel and on the plain version: ((O, LSE), (O, LSE)
+    plain, the kernel's launch name)."""
+    fa = flash_attention
+    if entry == "packed":
+        return fa.attention_fwd(q, k, v, mask), fa.attention_fwd(q, k, v, mask, impl="plain"), fa.KERNEL
+    return (torch.ops.fsvlm.blockwise_attn_fwd(q, k, v, mask),
+            fa.reference_blockwise_fwd(q, k, v, mask), fa.BW_KERNEL)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "nomask"])
+@pytest.mark.parametrize("L", _FLASH_LENGTHS)
+@pytest.mark.parametrize("entry,d", _FLASH_ENTRIES)
+def test_flash_fwd_bf16_tensor_cores_match_plain(card, entry, d, L, causal):
+    """#6 and #3 in bf16 on mha's strided views, B*H = 6 (not a multiple of
+    a packed CTA's 4 heads), against the plain version, which walks the same
+    64-key tiles: one launch of the entry's kernel, O written (B, L, H, d),
+    LSE (B, H, L) contiguous."""
+    fa = flash_attention
+    B, H = 2, 3
+    q, k, v = _qkv_views(B, H, L, torch.bfloat16, seed=L + d + 40, d=d)
+    mask = attention.causal_mask(L, device=card) if causal else None
+    before = dict(fa.LAUNCHES)
+    (o, lse), (o_ref, lse_ref), name = _flash_fwd(entry, q, k, v, mask)
+    torch.cuda.synchronize()
+    assert {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES} == {
+        n: int(n == name) for n in fa.LAUNCHES}
+    assert o.dtype == torch.bfloat16 and o.shape == (B, H, L, d) and o.transpose(1, 2).is_contiguous()
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, L) and lse.is_contiguous()
+    tol_o, tol_lse = TOL[torch.bfloat16]
+    assert (o.float() - o_ref.float()).abs().max().item() <= tol_o
+    assert (lse - lse_ref).abs().max().item() <= tol_lse
+
+
+@pytest.mark.parametrize("L", [16, 24, 77, 201])
+@pytest.mark.parametrize("entry,layout,d", [("packed", "blhd", 64), ("packed", "unaligned", 64),
+                                            ("blockwise", "blhd", 128),
+                                            ("blockwise", "unaligned", 36)])
+def test_flash_fwd_bf16_strided_and_unaligned_layouts(card, entry, layout, d, L):
+    """#6 and #3 in bf16 on (B, H, L, d) views of (B, L, H, d) memory, and on
+    views whose bases and row strides are not 16-byte aligned (rows of
+    d + 1 elements, the first dropped), which the kernel copies element by
+    element instead of by 16-byte cp.async; against the plain version."""
+    B, H = 3, 5
+    if layout == "blhd":
+        q, k, v = _blhd_tensors(B, H, L, d, torch.bfloat16, seed=L + d + 50, n=3)
+    else:
+        q, k, v = [t.contiguous()[..., 1:] for t in
+                   _blhd_tensors(B, H, L, d + 1, torch.bfloat16, seed=L + d + 50, n=3)]
+    mask = attention.causal_mask(L, device=card)
+    (o, lse), (o_ref, lse_ref), _ = _flash_fwd(entry, q, k, v, mask)
+    torch.cuda.synchronize()
+    tol_o, tol_lse = TOL[torch.bfloat16]
+    assert (o.float() - o_ref.float()).abs().max().item() <= tol_o
+    assert (lse - lse_ref).abs().max().item() <= tol_lse
+
+
+@pytest.mark.parametrize("L", [24, 70])
+@pytest.mark.parametrize("entry,d", [("packed", 64), ("blockwise", 32), ("blockwise", 128)])
+def test_flash_fwd_bf16_fully_masked_rows(card, entry, d, L):
+    """bf16, a general mask with rows whose every key is -inf (at L = 70 one
+    in each query tile): O = 0 there and LSE equal to the plain version's
+    -1e30 + log(1e-30), the rest within tolerance; the backward kernels read
+    that LSE and give those rows dQ = 0, with no NaN anywhere."""
+    fa = flash_attention
+    q, k, v = _qkv_views(2, 4, L, torch.bfloat16, seed=L + d + 60, d=d)
+    mask = torch.from_numpy(np.random.RandomState(L).randn(L, L).astype(np.float32)).cuda()
+    rows = [3, L - 4]
+    mask[rows] = float("-inf")
+    (o, lse), (o_ref, lse_ref), _ = _flash_fwd(entry, q, k, v, mask)
+    tol_o, tol_lse = TOL[torch.bfloat16]
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert (o.float() - o_ref.float()).abs().max().item() <= tol_o
+    assert (lse - lse_ref).abs().max().item() <= tol_lse
+    for r in rows:
+        assert o[:, :, r].abs().max().item() == 0.0
+        assert torch.equal(lse[:, :, r], lse_ref[:, :, r])
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fa.attention_fwd(*qkv, mask)[0] if entry == "packed" else fa.blockwise_attention(*qkv, mask)
+    grads = torch.autograd.grad(out, qkv, torch.ones_like(out))
+    assert all(torch.isfinite(g).all() for g in grads)
+    for r in rows:
+        assert grads[0][:, :, r].abs().max().item() == 0.0
+
+
 # ----------------------------------------------- whole-sequence kernels #1-#2
 _FUSED_SHAPES = [  # (B, H, L, causal): the CoOp/CoCoOp vision and text shapes, edges of L
     (6, 12, 197, False), (10, 8, 24, True), (10, 8, 16, True), (3, 2, 1, False), (4, 8, 8, True),
