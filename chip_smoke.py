@@ -19,12 +19,14 @@ Phases; each passes or raises, and any failure exits non-zero:
    same function (a yardstick only), with each kernel's bound.  Then the
    whole-sequence kernels #1-#2 at head dims 32, 64, 80 and 128, L from 1 to
    1024, B*H not a multiple of 4, and CoOp's and CoCoOp's own shapes.  The
-   forwards #6, #3 and #1 are checked at the edges of the bf16 kernels'
-   tiles and short-L packing (L 15-17, 31-33, 63-65), and timed by CUDA
-   events as above and, beside them, by the device time alone
-   (torch.profiler), which at small shapes leaves out the host's launch
-   time (#2 too).  Phase 2 prints the registers and spills of every bf16
-   tensor-core kernel (#1-#2, and the flash forward behind #3 and #6).
+   forwards #6, #3 and #1 and the backward #7/#8 are checked at the edges of
+   the bf16 kernels' tiles and short-L packing (L 15-17, 31-33, 63-65; the
+   backward also 127-129), and timed by CUDA events as above and, beside
+   them, by the device time alone (torch.profiler), which at small shapes
+   leaves out the host's launch time (#2 too; #7/#8 also at the text shapes
+   (100, 8, 16) and (100, 8, 24) causal).  Phase 2 prints the registers and
+   spills of every bf16 tensor-core kernel (#1-#2, the flash forward behind
+   #3 and #6, and #7/#8).
 4. serving: PromptSRC ViT-B/16 at full width (random weights from seed 0,
    bf16 frozen towers, bf16 compute, 100 classes): text features once, then
    3 batches of 100 uint8 224x224 images, through the kernel and again with
@@ -104,10 +106,15 @@ TOL = {"float32": {"o": 1e-4, "lse": 1e-4}, "bfloat16": {"o": 2e-2, "lse": 1e-2}
 # version's three (bf16: an output ulp is 2^-8 relative)
 TOL_BWD = {"float32": 1e-5, "bfloat16": 1e-2}
 BWD_SHAPES = [  # (B, H, L, causal): the train step's vision and text shapes, edges of L
-    (48, 12, 201, False), (100, 8, 16, True),
+    (48, 12, 201, False), (100, 8, 16, True), (100, 8, 24, True),
     (3, 2, 1, False), (4, 8, 8, True), (4, 8, 24, True), (2, 8, 77, True),
     (2, 4, 513, True), (2, 4, 1024, True),
+    # the bf16 kernels' edges (a whole (b*h) per warp at L <= 16 and <= 32, then
+    # CTAs of 64 or 128 own rows over 64-row tiles), B*H = 6, causal and unmasked
+    *((2, 3, L, causal) for L in (15, 17, 31, 33, 63, 65, 127, 129) for causal in (True, False)),
 ]
+BWD_TIMED = {"vision": (48, 12, 201, False), "text": (100, 8, 16, True),
+             "text24": (100, 8, 24, True)}
 KERNEL_SHAPES = [  # (B, H, L, causal): vision, text at its truncated lengths, edges of L
     (100, 12, 201, False),
     (100, 8, 8, True), (100, 8, 16, True), (100, 8, 24, True), (100, 8, 77, True),
@@ -223,9 +230,12 @@ def phase_build():
             if "Compiling entry function" in ln:
                 mangled = ln.split("'")[1]
                 entry = mangled.split("_cu_")[-1][:60] if "_cu_" in mangled else mangled[:60]
-                m = re.search(r"((?:flash|fwd|stats|dkv|dq)_(?:tiled|packed))_kernelILi(\d+)E"
-                              r"(?:Li(\d+)E)?", mangled)
-                short = m and f"{name}:{m[1]}<{m[2]}{',' + m[3] if m[3] else ''}>"
+                # template arguments: Li<int>E, Lb<0|1>E (bool)
+                m = re.search(r"((?:flash|fwd|stats|dkv|dq)_(?:tiled|packed))_kernelI"
+                              r"((?:L[ib]\d+E)+)E", mangled)
+                short = m and f"{name}:{m[1]}<" + ",".join(
+                    v if t == "i" else ("false", "true")[int(v)]
+                    for t, v in re.findall(r"L([ib])(\d+)E", m[2])) + ">"
             elif "registers" in ln or "spill" in ln:
                 log(f"build   {entry}: {ln.split(':', 1)[-1].strip()}")
                 if short:
@@ -234,7 +244,8 @@ def phase_build():
                         got[0] = int(re.search(r"Used (\d+) registers", ln)[1])
                     else:
                         got[1] = int(re.search(r"(\d+) bytes spill stores", ln)[1])
-    log("build: bf16 tensor-core kernels (#1-#2; #3 and #6: flash_*), registers/spill bytes: "
+    log("build: bf16 tensor-core kernels (#1-#2; #3 and #6: flash_*; #7/#8: flash_attn_bwd), "
+        "registers/spill bytes: "
         + ", ".join(f"{k} {r}/{sp}" for k, (r, sp) in sorted(tc.items())))
     log(f"build: {time.perf_counter() - t0:.1f} s in all")
 
@@ -373,33 +384,43 @@ def phase_kernels_bwd():
             del q, k, v, do, o, lse, dq, dk, dv, ref
 
     timings = {}
-    for label, (B, H, L, causal) in (("vision", (48, 12, 201, False)),
-                                     ("text", (100, 8, 16, True))):
+    for label, (B, H, L, causal) in BWD_TIMED.items():
         q, k, v = _qkv(B, H, L, torch.bfloat16, gen)
         do = _blhd_grad(B, H, L, torch.bfloat16, gen)
         mask = causal_mask(L, device="cuda") if causal else None
         o, lse = fa._kernel_fwd(q, k, v, mask)
         delta = fa.attention_delta(o, do)
         args = (q, k, v, do, lse, delta, mask)
-        dkv_ms = _time_ms(lambda: fa._launch_dkv(*args))
-        dq_ms = _time_ms(lambda: fa._launch_dq(*args))
-        bwd_ms = _time_ms(lambda: fa._kernel_bwd(q, k, v, o, lse, do, mask))
+        dkv = lambda: fa._launch_dkv(*args)  # noqa: E731
+        dq = lambda: fa._launch_dq(*args)  # noqa: E731
+        bwd = lambda: fa._kernel_bwd(q, k, v, o, lse, do, mask)  # noqa: E731
+        dkv_ms, dq_ms, bwd_ms = _time_ms(dkv), _time_ms(dq), _time_ms(bwd)
         plain_ms = _time_ms(lambda: fa.reference_attention_bwd(q, k, v, o, lse, do, mask))
         lib_ms = _library_bwd_ms(q, k, v, do, causal)
+        # device time alone (profiler): each kernel, the whole backward (the
+        # delta pre-pass and both kernels) and aten's
+        dev = {"dkv": _device_ms(dkv), "dq": _device_ms(dq), "bwd": _device_ms(bwd),
+               "aten": _library_bwd_ms(q, k, v, do, causal, timer=_device_ms)}
         b_dkv = _bound_bwd(B, H, L, causal, 2, 2, 8)
         b_dq = _bound_bwd(B, H, L, causal, 2, 1, 6)
         timings[label] = {
             fa.KERNEL_DKV: dict(ms=dkv_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                bound_ms=b_dkv[0], bound_by=b_dkv[1]),
+                                bound_ms=b_dkv[0], bound_by=b_dkv[1], device_ms=dev["dkv"],
+                                library_device_ms=dev["aten"]),
             fa.KERNEL_DQ: dict(ms=dq_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=b_dq[0], bound_by=b_dq[1]),
+                               bound_ms=b_dq[0], bound_by=b_dq[1], device_ms=dev["dq"],
+                               library_device_ms=dev["aten"]),
         }
         log(f"time flash_attn_bwd bf16 {label} ({B},{H},{L},64) "
             f"{'causal' if causal else 'nomask'}: dK/dV kernel {dkv_ms:.4f} ms (bound "
             f"{b_dkv[0]:.4f} ms, {b_dkv[1]}), dQ kernel {dq_ms:.4f} ms (bound {b_dq[0]:.4f} ms, "
             f"{b_dq[1]}), whole backward with the delta pre-pass {bwd_ms:.4f} ms; "
             f"plain backward {plain_ms:.4f} ms; aten._scaled_dot_product_flash_attention_backward "
-            f"{lib_ms} ms")
+            f"{_ms(lib_ms)}")
+        log(f"time flash_attn_bwd bf16 {label}: device time (profiler): dK/dV kernel "
+            f"{_ms(dev['dkv'])}, dQ kernel {_ms(dev['dq'])}, whole backward with the delta "
+            f"pre-pass {_ms(dev['bwd'])}, aten backward {_ms(dev['aten'])}")
+        del q, k, v, do, o, lse, delta, args
     for kern, (a, r) in worst.items():
         log(f"kernel {kern}: worst max|err| {a:.3e}, worst max|err|/max|ref| {r:.3e}")
     return {k: v[0] for k, v in worst.items()}, timings
@@ -768,12 +789,25 @@ def phase_main():
     return pred, batches[0]
 
 
-# kernel-name fragments of the whole-sequence kernels #1 and #2 (bf16 and fp32),
+# kernel-name fragments (bf16, as the profiler demangles them) of #6-#8 on
+# the PromptSRC step, of #3-#5 on the IVLP step (#3 and #6 launch one
+# forward), and of the whole-sequence kernels #1 and #2 (bf16 and fp32),
 # summed by _profile where a step runs them
+FLASH_FWD = ("flash_tiled_kernel<64>", "flash_packed_kernel<64, ")
+FLASH_GROUPS = {"#6": FLASH_FWD,
+                "#7": ("dkv_tiled_kernel<64, true", "dkv_packed_kernel<64, 16, true",
+                       "dkv_packed_kernel<64, 32, true"),
+                "#8": ("dq_tiled_kernel<64, true", "dq_packed_kernel<64, 16, true",
+                       "dq_packed_kernel<64, 32, true")}
+BW_GROUPS = {"#3": FLASH_FWD, "#4": ("attn_bwd_dkv_kernel",), "#5": ("attn_bwd_dq_kernel",)}
 FUSED_GROUPS = {"#1": ("fwd_tiled_kernel", "fwd_packed_kernel", "fused_attn_fwd_kernel"),
                 "#2": ("stats_tiled_kernel", "stats_packed_kernel", "fused_attn_bwd_stats_kernel",
-                       "mma_attn::dkv_", "mma_attn::dq_", "kernel<float, 32, true>",
-                       "kernel<float, 64, true>", "kernel<float, 128, true>")}
+                       *(f"{kind}_tiled_kernel<{D}, false" for kind in ("dkv", "dq")
+                         for D in (32, 64, 128)),
+                       *(f"{kind}_packed_kernel<{D}, {R}, false" for kind in ("dkv", "dq")
+                         for D in (32, 64, 128) for R in (16, 32)),
+                       "kernel<float, 32, true>", "kernel<float, 64, true>",
+                       "kernel<float, 128, true>")}
 
 
 def _profile(label, fn, top=12, groups=None):
@@ -1061,7 +1095,8 @@ def phase_train(clip):
         f"(median {epoch_med['synced']:.2f}), as train() runs them "
         f"{[round(x, 2) for x in epochs['pipelined']]} (median {epoch_med['pipelined']:.2f}, "
         f"{TRAIN_BATCH / epoch_med['pipelined'] * 1e3:.1f} images/s)")
-    _profile(f"one train step, batch {TRAIN_BATCH}", lambda: kt.train_step_resident(index), top=30)
+    _profile(f"one train step, batch {TRAIN_BATCH}", lambda: kt.train_step_resident(index), top=30,
+             groups=FLASH_GROUPS)
     return launches
 
 
@@ -1174,7 +1209,7 @@ def phase_train_ivlp(clip):
     kt.draw_epoch_lams()  # as run_epoch does at an epoch's start: one copy to the device
     _no_sync_step("ivlp (mixup on the trainer's own draws)", kt.train_step_resident, index)
     _profile(f"one IVLP KD train step, batch {TRAIN_BATCH}", lambda: kt.train_step_resident(index),
-             top=30)
+             top=30, groups=BW_GROUPS)
     return launches, step_ms, peak
 
 
@@ -1454,8 +1489,11 @@ def main():
     parts = (fa.FUSED_KERNEL_STATS, fa.FUSED_KERNEL_DKV, fa.FUSED_KERNEL_DQ)
     if len({launches_fused[k] for k in parts}) != 1:
         raise SystemExit(f"FAIL: #2's kernels launched unequal counts: {launches_fused}")
-    # the forwards' device times (profiler) beside their event times
-    for row, t in ((kernels[0], timings["vision"]), (kernels[3], timings_bw["vision"][fa.BW_KERNEL]),
+    # device times (profiler) beside the event times: the forwards' and #7/#8's
+    for row, t in ((kernels[0], timings["vision"]),
+                   (kernels[1], timings_bwd["vision"][fa.KERNEL_DKV]),
+                   (kernels[2], timings_bwd["vision"][fa.KERNEL_DQ]),
+                   (kernels[3], timings_bw["vision"][fa.BW_KERNEL]),
                    (kernels[-1], timings_fused["vision"][fa.FUSED_KERNEL])):
         row.update(device_ms=t["device_ms"], library_device_ms=t["library_device_ms"])
     kernels.append({

@@ -24,6 +24,13 @@ them.
 - ``attention_dispatch`` (:863-889) picks the family per call from
   ``FSVLM_FORCE_PALLAS``; mha calls it.
 
+In bf16 the kernels run on the tensor cores (``mma.sync``;
+``kernels/mma_attn.cuh``, ``kernels/mma_flash_fwd.cuh``): the three forwards,
+the whole-sequence backward, and the d = 64 backward, whose dK/dV and dQ
+kernels are the whole-sequence backward's reading the forward's LSE instead
+of a row max and sum.  The blockwise backward is still FMA tiles (ROADMAP
+B2), as is every kernel in fp32.
+
 Each entry is one ``torch.autograd.Function``, differentiable with respect
 to q, k and v: for CUDA tensors it launches the family's forward kernel and,
 in the backward, its backward kernels; for CPU tensors, or under
@@ -147,7 +154,9 @@ def reference_attention_bwd(q, k, v, o, lse, do, mask=None):
     their arithmetic: S = q k^T * scale + mask and P = exp(S - LSE) in fp32
     (P not rounded), dO/V/Q/K upcast to fp32, dV += P^T dO, dP = dO V^T,
     dS = P (dP - delta), dK += dS^T Q * scale, dQ += dS K * scale, one cast to
-    the input dtype at the end.  Returns (dq, dk, dv)."""
+    the input dtype at the end.  P is not rounded, so the tiles order only
+    fp32 sums: the bf16 kernels' own (64 or 128 own rows over 64-row tiles) give
+    the same function.  Returns (dq, dk, dv)."""
     return _tiled_bwd(q, k, v, o, lse, do, mask, BLOCK_Q, BLOCK_K)
 
 

@@ -13,39 +13,52 @@
 //   lse, delta     : (B, H, L) float32, contiguous
 //   mask           : optional (L, L) float32 additive, shared by batch and heads
 //   dq, dk, dv     : (B, H, L, 64) in q's dtype, any b/h/l strides
-// Inputs are upcast to fp32, every product accumulates in fp32, and each
-// output is cast to the input dtype once, at the end (TPU kernel :609-685).
-// Keys and queries at or past L are excluded (P = 0) instead of padded in
-// memory (the TPU's -1e30 key padding, _hp_block_mask :703-710).  A -inf
-// mask entry gives P = exp(-inf) = 0 and so dS = 0; a row whose keys are
-// all masked has LSE ~ -1e30 from the forward and gets zero gradients.
+// Every product accumulates in fp32, and each output is cast to the input
+// dtype once, at the end (TPU kernel :609-685).  Keys and queries at or
+// past L are excluded (P = 0) instead of padded in memory (the TPU's -1e30
+// key padding, _hp_block_mask :703-710).  A -inf mask entry gives P = 0 and
+// so dS = 0; a row whose keys are all masked has LSE ~ -1e30 from the
+// forward and gets zero gradients.
 //
 // Grid.  The TPU kernel carried dK/dV (and dQ) in scratch across a
 // sequential grid axis (grid=(G, n_kv, n_q), :793, :604-607); Hopper runs
 // blocks in no order, so that axis is a loop inside the CTA:
-//   dK/dV: one CTA per (b*h, 64-key tile) keeps its K and V tile and its
-//          fp32 dK and dV accumulators on chip and walks the query tiles;
-//   dQ:    one CTA per (b*h, 64-query tile) walks the key tiles.
+//   dK/dV: one CTA per (b*h, key tile) keeps its K and V tile and its fp32
+//          dK and dV accumulators on chip and walks the query tiles;
+//   dQ:    one CTA per (b*h, query tile) walks the key tiles.
 // Every output element is written by exactly one CTA: no atomics, and the
 // result is deterministic.
 //
-// What bounds it on this card: at CLIP's shapes (d = 64, L <= 201) the
-// bytes (q, k, v, dO read, outputs written: ~89.8 MB for dK/dV at the
-// vision train shape in bf16, 26.8 us at 3.35 TB/s, against 11.9 GFLOP, 12.0
-// us on bf16 tensor cores).  This first version does every product with
-// fp32 FMAs on the CUDA cores (no tensor cores, no TMA), so it is bound by
-// those FMAs; its design only keeps S, P, dP and dS on chip.  128 threads
-// per CTA; every tile lives in shared memory as fp32 rows of 64 padded to
-// 68 floats (85.5 KiB with LSE and delta: two CTAs per SM).  Thread
-// (rg, cg) = (tid / 8, tid % 8) owns rows rg*4..rg*4+3 of the CTA's own
-// tile; against the streamed tile
-// it owns the rows cg + 8j (j < 8), and of the head dims cg*4..cg*4+3 and
+// bfloat16 takes the tensor-core kernels of mma_attn.cuh at D = 64, scale
+// 1/8, reading the LSE (kLse; the same kernels serve #2 from its row max
+// and sum): mma.sync m16n8k16 on bf16 tiles copied by cp.async, one warp
+// per 16 own rows.  S and dP take the bf16 inputs, whose products the fp32
+// accumulator holds exactly; P and dS, fp32 operands on the TPU (:621-640,
+// :668-681), go to the tensor cores from their accumulator registers split
+// into bf16 hi + lo parts, two products each.  L > 32: CTAs of
+// kDkvWarps (4) / kDqWarps (8) warps, 16 own rows each, walk 64-row tiles
+// of the other side, double-buffered; L <= 32 (the text passes): every warp
+// one whole (b*h).  What bounds it on this card: at CLIP's shapes (L <= 201)
+// the bytes, q, k, v, dO read and the outputs written, against 8 (dK/dV)
+// and 6 (dQ) L^2 d operations per head, 1.6x that with the hi/lo products:
+// under the H100's ridge of about 295 bf16 operations per byte.
+//
+// float32 keeps this file's first version, fp32 FMAs on the CUDA cores (the
+// agreement checks' fp32 limit of 1e-5 is tighter than TF32 tensor cores
+// can meet), bound by those FMAs; its design only keeps S, P, dP and dS on
+// chip.  128 threads per CTA of 64 rows; every tile lives in shared memory
+// as fp32 rows of 64 padded to 68 floats (85.5 KiB with LSE and delta: two
+// CTAs per SM).  Thread (rg, cg) = (tid / 8, tid % 8) owns rows
+// rg*4..rg*4+3 of the CTA's own tile; against the streamed tile it owns
+// the rows cg + 8j (j < 8), and of the head dims cg*4..cg*4+3 and
 // 32+cg*4..32+cg*4+3, so that the eight threads of a quarter warp read
 // 16-byte vectors from distinct banks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "mma_attn.cuh"
 
 namespace {
 
@@ -59,33 +72,26 @@ constexpr int kTile = kBlock * kS;
 constexpr int kSmemFloats = 5 * kTile + 2 * kBlock;  // five tiles, LSE, delta
 constexpr int kSmemBytes = kSmemFloats * (int)sizeof(float);
 constexpr float kScale = 0.125f;  // 64 ** -0.5
+// warps per CTA of the bf16 tiled kernels (L > 32), 16 own rows each: the
+// faster of 4 and 8 at the vision shape (compare_bwd_ctas.py times both)
+constexpr int kDkvWarps = 4, kDqWarps = 8;
 
 // strides (in elements) of the (b, h, l) axes of q, k, v, dO and the outputs
 struct Strides {
   long long q[3], k[3], v[3], g[3], o1[3], o2[3];
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 // head dim of this thread's c-th output column (c < 8)
 __device__ __forceinline__ int dim_of(int cg, int c) { return (c < 4 ? 0 : 28) + cg * 4 + c; }
 
 // rows row0 .. row0+63 of one (b, h) slice of src into dst (fp32, stride kS);
 // rows at or past L read as zeros
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long stride_l,
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long stride_l,
                                           int row0, int L) {
   for (int i = threadIdx.x; i < kBlock * kD; i += kThreads) {
     const int r = i / kD, d = i % kD;
     const int row = row0 + r;
-    dst[r * kS + d] = row < L ? to_f(src[(long long)row * stride_l + d]) : 0.f;
+    dst[r * kS + d] = row < L ? src[(long long)row * stride_l + d] : 0.f;
   }
 }
 
@@ -173,28 +179,26 @@ __device__ __forceinline__ void store_transposed(float* dst, const float v[kRows
         make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
 }
 
-template <typename T>
-__device__ __forceinline__ void store_rows(T* out, long long sb, long long sh, long long sl, int b,
+__device__ __forceinline__ void store_rows(float* out, long long sb, long long sh, long long sl, int b,
                                            int h, int row0, int rg, int cg, int L,
                                            const float acc[kRows][kCols], float mult) {
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int row = row0 + rg * kRows + i;
     if (row < L) {
-      T* dst = out + b * sb + h * sh + row * sl;
+      float* dst = out + b * sb + h * sh + row * sl;
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) dst[dim_of(cg, c)] = from_f<T>(acc[i][c] * mult);
+      for (int c = 0; c < kCols; ++c) dst[dim_of(cg, c)] = acc[i][c] * mult;
     }
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_attn_bwd_dkv_d64_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                              const T* __restrict__ v, const T* __restrict__ g,
+flash_attn_bwd_dkv_d64_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ g,
                               const float* __restrict__ lse, const float* __restrict__ delta,
-                              const float* __restrict__ mask, T* __restrict__ dk,
-                              T* __restrict__ dv, int H, int L, Strides st) {
+                              const float* __restrict__ mask, float* __restrict__ dk,
+                              float* __restrict__ dv, int H, int L, Strides st) {
   extern __shared__ float4 smem4[];  // float4: 16-byte aligned base
   float* Ks = reinterpret_cast<float*>(smem4);  // this CTA's K tile   [key][d]
   float* Vs = Ks + kTile;                       // this CTA's V tile   [key][d]
@@ -212,8 +216,8 @@ flash_attn_bwd_dkv_d64_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int rg = tid >> 3;
   const int cg = tid & 7;
 
-  const T* qp = q + b * st.q[0] + h * st.q[1];
-  const T* gp = g + b * st.g[0] + h * st.g[1];
+  const float* qp = q + b * st.q[0] + h * st.q[1];
+  const float* gp = g + b * st.g[0] + h * st.g[1];
   load_tile(Ks, k + b * st.k[0] + h * st.k[1], st.k[2], k0, L);
   load_tile(Vs, v + b * st.v[0] + h * st.v[1], st.v[2], k0, L);
 
@@ -252,12 +256,11 @@ flash_attn_bwd_dkv_d64_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows(dv, st.o2[0], st.o2[1], st.o2[2], b, h, k0, rg, cg, L, dv_acc, 1.f);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_attn_bwd_dq_d64_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v, const T* __restrict__ g,
+flash_attn_bwd_dq_d64_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ g,
                              const float* __restrict__ lse, const float* __restrict__ delta,
-                             const float* __restrict__ mask, T* __restrict__ dq, int H, int L,
+                             const float* __restrict__ mask, float* __restrict__ dq, int H, int L,
                              Strides st) {
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // this CTA's Q tile   [query][d]
@@ -276,8 +279,8 @@ flash_attn_bwd_dq_d64_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int rg = tid >> 3;
   const int cg = tid & 7;
 
-  const T* kp = k + b * st.k[0] + h * st.k[1];
-  const T* vp = v + b * st.v[0] + h * st.v[1];
+  const float* kp = k + b * st.k[0] + h * st.k[1];
+  const float* vp = v + b * st.v[0] + h * st.v[1];
   load_tile(Qs, q + b * st.q[0] + h * st.q[1], st.q[2], q0, L);
   load_tile(Gs, g + b * st.g[0] + h * st.g[1], st.g[2], q0, L);
   if (tid < kBlock) {
@@ -324,36 +327,35 @@ Strides unpack(const long long* s) {
   return st;
 }
 
-template <typename T>
 int launch_dkv(const void* q, const void* k, const void* v, const void* g, const void* lse,
                const void* delta, const void* mask, void* dk, void* dv, int B, int H, int L,
                const long long* strides, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_attn_bwd_dkv_d64_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attn_bwd_dkv_d64_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (L + kBlock - 1) / kBlock);
-  flash_attn_bwd_dkv_d64_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(g), static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const float*>(mask), static_cast<T*>(dk), static_cast<T*>(dv), H, L,
-      unpack(strides));
+  flash_attn_bwd_dkv_d64_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const float*>(mask), static_cast<float*>(dk),
+      static_cast<float*>(dv), H, L, unpack(strides));
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* g, const void* lse,
               const void* delta, const void* mask, void* dq, int B, int H, int L,
               const long long* strides, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_attn_bwd_dq_d64_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attn_bwd_dq_d64_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (L + kBlock - 1) / kBlock);
-  flash_attn_bwd_dq_d64_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(g), static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const float*>(mask), static_cast<T*>(dq), H, L, unpack(strides));
+  flash_attn_bwd_dq_d64_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const float*>(mask), static_cast<float*>(dq),
+      H, L, unpack(strides));
   return (int)cudaGetLastError();
 }
 
@@ -373,9 +375,10 @@ int fsvlm_flash_attn_bwd_dkv_d64(int dtype, const void* q, const void* k, const 
   if (B < 1 || H < 1 || L < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_dkv<float>(q, k, v, g, lse, delta, mask, dk, dv, B, H, L, strides, s);
+    return launch_dkv(q, k, v, g, lse, delta, mask, dk, dv, B, H, L, strides, s);
   if (dtype == 1)
-    return launch_dkv<__nv_bfloat16>(q, k, v, g, lse, delta, mask, dk, dv, B, H, L, strides, s);
+    return mma_attn::launch_bwd<kD, true, true, kDkvWarps>(q, k, v, g, lse, nullptr, delta, mask,
+                                                           dk, dv, B, H, L, kD, kScale, strides, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -387,9 +390,11 @@ int fsvlm_flash_attn_bwd_dq_d64(int dtype, const void* q, const void* k, const v
                                 const long long* strides, void* stream) {
   if (B < 1 || H < 1 || L < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dq<float>(q, k, v, g, lse, delta, mask, dq, B, H, L, strides, s);
+  if (dtype == 0) return launch_dq(q, k, v, g, lse, delta, mask, dq, B, H, L, strides, s);
   if (dtype == 1)
-    return launch_dq<__nv_bfloat16>(q, k, v, g, lse, delta, mask, dq, B, H, L, strides, s);
+    return mma_attn::launch_bwd<kD, false, true, kDqWarps>(q, k, v, g, lse, nullptr, delta, mask,
+                                                           dq, nullptr, B, H, L, kD, kScale,
+                                                           strides, s);
   return (int)cudaErrorInvalidValue;
 }
 

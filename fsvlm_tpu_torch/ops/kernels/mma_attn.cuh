@@ -1,8 +1,10 @@
-// Tensor-core building blocks for the bf16 attention kernels, and the
-// whole-sequence backward's dK/dV and dQ kernels built from them
-// (fused_attn_fwd.cu and fused_attn_bwd.cu hold the forward and the
-// backward's row pre-pass; mma_flash_fwd.cuh the flash forward behind #3
-// and #6).  fp32 inputs keep the FMA tiles.
+// Tensor-core building blocks for the bf16 attention kernels, and the bf16
+// backward's dK/dV and dQ kernels built from them, which serve two
+// backwards: the whole-sequence one (#2, fused_attn_bwd.cu, from its row
+// pre-pass's max and sum) and the flash one at d = 64 (#7/#8,
+// flash_attn_bwd.cu, from the forward's LSE).  fused_attn_fwd.cu holds the
+// whole-sequence forward and the pre-pass; mma_flash_fwd.cuh the flash
+// forward behind #3 and #6.  fp32 inputs keep the FMA tiles.
 //
 // Tiles live in shared memory as bf16 rows of D + 8 elements: the 16-byte
 // pad puts the 8 rows that one ldmatrix reads on 8 distinct groups of 4
@@ -23,8 +25,8 @@
 // products the fp32 accumulator holds exactly, so they are not split.
 // Scores are kept in log2 units, (S * scale + mask) * log2 e, so that each
 // exponential is one ex2.approx (about 1e-6 relative at these arguments, far
-// below a bf16 output's 2^-8); the row max leaves the pre-pass in natural
-// units.
+// below a bf16 output's 2^-8); the pre-pass's row max and the forward's
+// LSE arrive in natural units.
 //
 // Why mma.sync and not wgmma/TMA: at CLIP's lengths these kernels do about
 // L/2 (forward) to 1.6 * 10 L / 8 (backward) operations per byte read,
@@ -375,22 +377,34 @@ int launch(void (*kernel)(KArgs...), dim3 grid, int smem, cudaStream_t stream, A
   return launch_threads(kernel, grid, kThreads, smem, stream, args...);
 }
 
-// ------------------------------------------- whole-sequence backward, bf16
-// P = exp(S * scale + mask - m) / l from the pre-pass's row max m and row
-// sum l (fused_attn_bwd.cu), dS = P (dP - delta), as _attn_bwd_kernel
-// (the exponential as 2^((S * scale + mask - m) * log2 e))
-// (flash_attention.py:128-156).  Every kernel below takes
-//   (q, k, v, dO, row max, row sum, delta, mask, out0, out1, B*H, H, L, d,
-//    scale, strides, vec)
-// with out0/out1 = dK/dV or dQ/unused, and strides the (b, h, l) strides of
-// q, k, v, dO, out0 (and out1).
+// ------------------------------------------------------- backward, bf16
+// Two functions, one set of kernels, told apart by kLse:
+//   false, the whole-sequence backward (#2, _attn_bwd_kernel,
+//     flash_attention.py:128-156): P = exp(S * scale + mask - m) / l from the
+//     pre-pass's row max m and row sum l (fused_attn_bwd.cu);
+//   true, the flash backward (#7/#8, _hp_bwd_dkv_kernel / _hp_bwd_dq_kernel,
+//     :609-685; flash_attn_bwd.cu): P = exp(S * scale + mask - LSE) from the
+//     forward's logsumexp, whose row sum is 1: no row sum is read, and the
+//     multiply by 1 / l is by the constant 1, which the compiler drops.
+// Then dS = P (dP - delta), the exponential as 2^((S * scale + mask) * log2 e
+// - m * log2 e): a row that the flash forward saw with no finite score has
+// LSE = -1e30 + log(1e-30), which rounds to -1e30, and with a -inf mask
+// P = 2^-inf = 0; with a finite -1e30 mask the score (fmaf(mask, log2 e,
+// S * scale * log2 e)) and LSE * log2 e round alike, so P = 1 as in the plain
+// version's exp(-1e30 - (-1e30)).  Every kernel below takes
+//   (q, k, v, dO, m, l, delta, mask, out0, out1, B*H, H, L, d, scale,
+//    strides, vec)
+// with m = row max or LSE, l = row sum (not read under kLse), out0/out1 =
+// dK/dV or dQ/unused, and strides the (b, h, l) strides of q, k, v, dO, out0
+// (and out1).
 
 // dK, dV of 16 own keys (own_r: their first row in the own K/V tiles, key0:
 // its global index) += one 16-query chunk (qr: its first row in the Q/dO
 // tiles, qry0: its global index).  Works on S^T = K Q^T and dP^T = V dO^T,
 // so that P^T and dS^T are the A fragments of dV += P^T dO and
-// dK += dS^T Q.  rm, rs, dl: this (b*h)'s row max, row sum and delta.
-template <int D>
+// dK += dS^T Q.  rm, rs, dl: this (b*h)'s row max (or LSE), row sum (not
+// read under kLse) and delta.
+template <int D, bool kLse>
 __device__ __forceinline__ void dkv_chunk(float dk[D / 8][4], float dv[D / 8][4], const bf16* Ks,
                                           const bf16* Vs, int own_r, int key0, const bf16* Qs,
                                           const bf16* Gs, int qr, int qry0,
@@ -417,7 +431,7 @@ __device__ __forceinline__ void dkv_chunk(float dk[D / 8][4], float dv[D / 8][4]
       const int qry = qry0 + 8 * j + 2 * t + c;
       const bool ok_q = qry < L;
       const float mq = ok_q ? rm[qry] * kLog2e : 0.f;
-      const float iq = ok_q ? 1.f / rs[qry] : 0.f;
+      const float iq = kLse ? 1.f : ok_q ? 1.f / rs[qry] : 0.f;
       const float dq = ok_q ? dl[qry] : 0.f;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -443,8 +457,9 @@ __device__ __forceinline__ void dkv_chunk(float dk[D / 8][4], float dv[D / 8][4]
 
 // dQ of 16 own queries (own_r in the own Q/dO tiles, row0 global) += one
 // 16-key chunk (kr in the K/V tiles, key0 global); m, il, dl: the own rows'
-// max (log2 units), 1 / sum and delta (rows g and g + 8)
-template <int D>
+// max or LSE (log2 units), 1 / sum (not read under kLse) and delta (rows g
+// and g + 8)
+template <int D, bool kLse>
 __device__ __forceinline__ void dq_chunk(float dq[D / 8][4], const bf16* Qs, const bf16* Gs,
                                          int own_r, int row0, const bf16* Ks, const bf16* Vs,
                                          int kr, int key0, const float m[2], const float il[2],
@@ -493,26 +508,34 @@ __device__ __forceinline__ void zero_acc(float acc[D / 8][4]) {
       const float *__restrict__ dl, const float *__restrict__ mask, bf16 *__restrict__ out0,     \
       bf16 *__restrict__ out1, int BH, int H, int L, int d, float scale, Strides st, int vec
 
-// dK/dV, L > 32: one CTA per (b*h, 64-key tile), warp w owning keys
-// 16w .. 16w + 15 of it, walks 64-query tiles of Q and dO, double-buffered.
-template <int D>
-__global__ void __launch_bounds__(kThreads) dkv_tiled_kernel(FSVLM_BWD_PARAMS) {
-  constexpr int kT = kTile * Tile<D>::kS;
+// shared memory of a tiled CTA of W warps: its two own tiles of 16 W rows and
+// two double-buffered streamed tiles of kTile rows
+template <int D, int W>
+constexpr int tiled_smem() {
+  return (2 * 16 * W + 4 * kTile) * Tile<D>::kS * (int)sizeof(bf16);
+}
+
+// dK/dV, L > 32: one CTA of W warps per (b*h, 16 W-key tile), warp w owning
+// keys 16w .. 16w + 15 of it, walks 64-query tiles of Q and dO,
+// double-buffered.
+template <int D, bool kLse, int W>
+__global__ void __launch_bounds__(32 * W) dkv_tiled_kernel(FSVLM_BWD_PARAMS) {
+  constexpr int kT = kTile * Tile<D>::kS, kOwn = 16 * W, kN = 32 * W;
   extern __shared__ float4 smem4[];
   bf16* Ks = reinterpret_cast<bf16*>(smem4);  // own K   [key][d]
-  bf16* Vs = Ks + kT;                         // own V   [key][d]
-  bf16* Qs = Vs + kT;                         // 2 x streamed Q   [query][d]
+  bf16* Vs = Ks + kOwn * Tile<D>::kS;         // own V   [key][d]
+  bf16* Qs = Vs + kOwn * Tile<D>::kS;         // 2 x streamed Q   [query][d]
   bf16* Gs = Qs + 2 * kT;                     // 2 x streamed dO  [query][d]
   int k0;
-  const int bh = tiled_head(L, k0), b = bh / H, h = bh - b * H;
+  const int bh = tiled_head(L, k0, kOwn), b = bh / H, h = bh - b * H;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const bf16* qp = q + b * st.s[0][0] + h * st.s[0][1];
   const bf16* gp = g + b * st.s[3][0] + h * st.s[3][1];
-  load_tile<kTile, D>(Ks, k + b * st.s[1][0] + h * st.s[1][1], st.s[1][2], k0, L, d, tid, kThreads, vec);
-  load_tile<kTile, D>(Vs, v + b * st.s[2][0] + h * st.s[2][1], st.s[2][2], k0, L, d, tid, kThreads, vec);
+  load_tile<kOwn, D>(Ks, k + b * st.s[1][0] + h * st.s[1][1], st.s[1][2], k0, L, d, tid, kN, vec);
+  load_tile<kOwn, D>(Vs, v + b * st.s[2][0] + h * st.s[2][1], st.s[2][2], k0, L, d, tid, kN, vec);
   auto prefetch = [&](int s) {
-    load_tile<kTile, D>(Qs + (s & 1) * kT, qp, st.s[0][2], s * kTile, L, d, tid, kThreads, vec);
-    load_tile<kTile, D>(Gs + (s & 1) * kT, gp, st.s[3][2], s * kTile, L, d, tid, kThreads, vec);
+    load_tile<kTile, D>(Qs + (s & 1) * kT, qp, st.s[0][2], s * kTile, L, d, tid, kN, vec);
+    load_tile<kTile, D>(Gs + (s & 1) * kT, gp, st.s[3][2], s * kTile, L, d, tid, kN, vec);
     cp_async_commit();
   };
   prefetch(0);
@@ -533,8 +556,8 @@ __global__ void __launch_bounds__(kThreads) dkv_tiled_kernel(FSVLM_BWD_PARAMS) {
       const bf16* Gb = Gs + (s & 1) * kT;
       for (int kk = 0; kk < kTile / 16; ++kk) {
         if (s * kTile + 16 * kk >= L) break;
-        dkv_chunk<D>(dk_acc, dv_acc, Ks, Vs, own, k0 + own, Qb, Gb, 16 * kk, s * kTile + 16 * kk,
-                     rm + at, rs + at, dl + at, mask, L, scale, lane);
+        dkv_chunk<D, kLse>(dk_acc, dv_acc, Ks, Vs, own, k0 + own, Qb, Gb, 16 * kk,
+                           s * kTile + 16 * kk, rm + at, rs + at, dl + at, mask, L, scale, lane);
       }
     }
     __syncthreads();
@@ -576,7 +599,7 @@ __device__ __forceinline__ bool load_head(bf16*& Qs, bf16*& Ks, bf16*& Vs, bf16*
 #define FSVLM_BWD_ARGS q, k, v, g, rm, rs, dl, mask, out0, out1, BH, H, L, d, scale, st, vec
 
 // dK/dV, L <= R (16 or 32): every warp one whole (b*h)
-template <int D, int R>
+template <int D, int R, bool kLse>
 __global__ void __launch_bounds__(kThreads) dkv_packed_kernel(FSVLM_BWD_PARAMS) {
   bf16 *Qs, *Ks, *Vs, *Gs;
   int b, h, bh;
@@ -591,8 +614,8 @@ __global__ void __launch_bounds__(kThreads) dkv_packed_kernel(FSVLM_BWD_PARAMS) 
     zero_acc<D>(dv_acc);
     for (int kc = 0; kc < R / 16; ++kc) {
       if (16 * kc >= L) break;
-      dkv_chunk<D>(dk_acc, dv_acc, Ks, Vs, 16 * mt, 16 * mt, Qs, Gs, 16 * kc, 16 * kc, rm + at,
-                   rs + at, dl + at, mask, L, scale, lane);
+      dkv_chunk<D, kLse>(dk_acc, dv_acc, Ks, Vs, 16 * mt, 16 * mt, Qs, Gs, 16 * kc, 16 * kc,
+                         rm + at, rs + at, dl + at, mask, L, scale, lane);
     }
     store_acc<D>(out0 + b * st.s[4][0] + h * st.s[4][1], st.s[4][2], 16 * mt, L, d, dk_acc, scale,
                  lane, vec);
@@ -601,8 +624,9 @@ __global__ void __launch_bounds__(kThreads) dkv_packed_kernel(FSVLM_BWD_PARAMS) 
   }
 }
 
-// the own rows' statistics: max (log2 units), 1 / sum and delta of rows
-// row0 + g, + 8
+// the own rows' statistics: max or LSE (log2 units), 1 / sum (not under
+// kLse) and delta of rows row0 + g, + 8
+template <bool kLse>
 __device__ __forceinline__ void row_stats(float m[2], float il[2], float dd[2],
                                           const float* __restrict__ rm,
                                           const float* __restrict__ rs,
@@ -612,31 +636,32 @@ __device__ __forceinline__ void row_stats(float m[2], float il[2], float dd[2],
     const int row = row0 + (lane >> 2) + 8 * r;
     const bool ok = row < L;
     m[r] = ok ? rm[row] * kLog2e : 0.f;
-    il[r] = ok ? 1.f / rs[row] : 0.f;
+    il[r] = kLse ? 1.f : ok ? 1.f / rs[row] : 0.f;
     dd[r] = ok ? dl[row] : 0.f;
   }
 }
 
-// dQ, L > 32: one CTA per (b*h, 64-query tile), warp w owning queries
-// 16w .. 16w + 15 of it, walks 64-key tiles of K and V, double-buffered.
-template <int D>
-__global__ void __launch_bounds__(kThreads) dq_tiled_kernel(FSVLM_BWD_PARAMS) {
-  constexpr int kT = kTile * Tile<D>::kS;
+// dQ, L > 32: one CTA of W warps per (b*h, 16 W-query tile), warp w owning
+// queries 16w .. 16w + 15 of it, walks 64-key tiles of K and V,
+// double-buffered.
+template <int D, bool kLse, int W>
+__global__ void __launch_bounds__(32 * W) dq_tiled_kernel(FSVLM_BWD_PARAMS) {
+  constexpr int kT = kTile * Tile<D>::kS, kOwn = 16 * W, kN = 32 * W;
   extern __shared__ float4 smem4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem4);  // own Q   [query][d]
-  bf16* Gs = Qs + kT;                         // own dO  [query][d]
-  bf16* Ks = Gs + kT;                         // 2 x streamed K  [key][d]
+  bf16* Gs = Qs + kOwn * Tile<D>::kS;         // own dO  [query][d]
+  bf16* Ks = Gs + kOwn * Tile<D>::kS;         // 2 x streamed K  [key][d]
   bf16* Vs = Ks + 2 * kT;                     // 2 x streamed V  [key][d]
   int q0;
-  const int bh = tiled_head(L, q0), b = bh / H, h = bh - b * H;
+  const int bh = tiled_head(L, q0, kOwn), b = bh / H, h = bh - b * H;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const bf16* kp = k + b * st.s[1][0] + h * st.s[1][1];
   const bf16* vp = v + b * st.s[2][0] + h * st.s[2][1];
-  load_tile<kTile, D>(Qs, q + b * st.s[0][0] + h * st.s[0][1], st.s[0][2], q0, L, d, tid, kThreads, vec);
-  load_tile<kTile, D>(Gs, g + b * st.s[3][0] + h * st.s[3][1], st.s[3][2], q0, L, d, tid, kThreads, vec);
+  load_tile<kOwn, D>(Qs, q + b * st.s[0][0] + h * st.s[0][1], st.s[0][2], q0, L, d, tid, kN, vec);
+  load_tile<kOwn, D>(Gs, g + b * st.s[3][0] + h * st.s[3][1], st.s[3][2], q0, L, d, tid, kN, vec);
   auto prefetch = [&](int s) {
-    load_tile<kTile, D>(Ks + (s & 1) * kT, kp, st.s[1][2], s * kTile, L, d, tid, kThreads, vec);
-    load_tile<kTile, D>(Vs + (s & 1) * kT, vp, st.s[2][2], s * kTile, L, d, tid, kThreads, vec);
+    load_tile<kTile, D>(Ks + (s & 1) * kT, kp, st.s[1][2], s * kTile, L, d, tid, kN, vec);
+    load_tile<kTile, D>(Vs + (s & 1) * kT, vp, st.s[2][2], s * kTile, L, d, tid, kN, vec);
     cp_async_commit();
   };
   prefetch(0);
@@ -644,7 +669,7 @@ __global__ void __launch_bounds__(kThreads) dq_tiled_kernel(FSVLM_BWD_PARAMS) {
   const int own = 16 * warp;
   const bool active = q0 + own < L;
   float m[2], il[2], dd[2];
-  row_stats(m, il, dd, rm + at, rs + at, dl + at, q0 + own, L, lane);
+  row_stats<kLse>(m, il, dd, rm + at, rs + at, dl + at, q0 + own, L, lane);
   float dq_acc[D / 8][4];
   zero_acc<D>(dq_acc);
   const int n = (L + kTile - 1) / kTile;
@@ -658,8 +683,8 @@ __global__ void __launch_bounds__(kThreads) dq_tiled_kernel(FSVLM_BWD_PARAMS) {
       const bf16* Vb = Vs + (s & 1) * kT;
       for (int kk = 0; kk < kTile / 16; ++kk) {
         if (s * kTile + 16 * kk >= L) break;
-        dq_chunk<D>(dq_acc, Qs, Gs, own, q0 + own, Kb, Vb, 16 * kk, s * kTile + 16 * kk, m, il, dd,
-                    mask, L, scale, lane);
+        dq_chunk<D, kLse>(dq_acc, Qs, Gs, own, q0 + own, Kb, Vb, 16 * kk, s * kTile + 16 * kk, m,
+                          il, dd, mask, L, scale, lane);
       }
     }
     __syncthreads();
@@ -672,7 +697,7 @@ __global__ void __launch_bounds__(kThreads) dq_tiled_kernel(FSVLM_BWD_PARAMS) {
 // dQ, L <= R (16 or 32): every warp one whole (b*h)
 // (one CTA per SM at the least: at D = 128, R = 32 the default register
 // budget spilled)
-template <int D, int R>
+template <int D, int R, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1) dq_packed_kernel(FSVLM_BWD_PARAMS) {
   bf16 *Qs, *Ks, *Vs, *Gs;
   int b, h, bh;
@@ -683,13 +708,13 @@ __global__ void __launch_bounds__(kThreads, 1) dq_packed_kernel(FSVLM_BWD_PARAMS
   for (int mt = 0; mt < R / 16; ++mt) {
     if (16 * mt >= L) break;
     float m[2], il[2], dd[2];
-    row_stats(m, il, dd, rm + at, rs + at, dl + at, 16 * mt, L, lane);
+    row_stats<kLse>(m, il, dd, rm + at, rs + at, dl + at, 16 * mt, L, lane);
     float dq_acc[D / 8][4];
     zero_acc<D>(dq_acc);
     for (int kc = 0; kc < R / 16; ++kc) {
       if (16 * kc >= L) break;
-      dq_chunk<D>(dq_acc, Qs, Gs, 16 * mt, 16 * mt, Ks, Vs, 16 * kc, 16 * kc, m, il, dd, mask, L,
-                  scale, lane);
+      dq_chunk<D, kLse>(dq_acc, Qs, Gs, 16 * mt, 16 * mt, Ks, Vs, 16 * kc, 16 * kc, m, il, dd,
+                        mask, L, scale, lane);
     }
     store_acc<D>(out0 + b * st.s[4][0] + h * st.s[4][1], st.s[4][2], 16 * mt, L, d, dq_acc, scale,
                  lane, vec);
@@ -702,8 +727,9 @@ constexpr int packed_smem(int kTiles) {
   return (kThreads / 32) * kTiles * R * Tile<D>::kS * (int)sizeof(bf16);
 }
 
-// The dK/dV (kDkv) or dQ kernel for bf16 at head-dim instantiation D.
-template <int D, bool kDkv>
+// The dK/dV (kDkv) or dQ kernel for bf16 at head-dim instantiation D, from
+// the row max and sum or (kLse) the LSE; W warps per tiled CTA (L > 32).
+template <int D, bool kDkv, bool kLse = false, int W = 4>
 int launch_bwd(const void* q, const void* k, const void* v, const void* g, const void* rm,
                const void* rs, const void* dl, const void* mask, void* out0, void* out1, int B,
                int H, int L, int d, float scale, const long long* strides, cudaStream_t stream) {
@@ -712,25 +738,25 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g, const
   const int vec = vec_ok(ptrs, n_t, strides, 3 * n_t);
   const int BH = B * H;
   const dim3 packed((BH + kThreads / 32 - 1) / (kThreads / 32));
-  const dim3 tiled = tiled_grid(BH, L);
+  const dim3 tiled = tiled_grid(BH, L, 16 * W);
   const int R = pack_rows(L);
-  auto run = [&](auto kernel, dim3 grid, int smem) {
-    return launch(kernel, grid, smem, stream, static_cast<const bf16*>(q),
-                  static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                  static_cast<const bf16*>(g), static_cast<const float*>(rm),
-                  static_cast<const float*>(rs), static_cast<const float*>(dl),
-                  static_cast<const float*>(mask), static_cast<bf16*>(out0),
-                  static_cast<bf16*>(out1), BH, H, L, d, scale, blockwise::unpack(strides, n_t),
-                  vec);
+  auto run = [&](auto kernel, dim3 grid, int threads, int smem) {
+    return launch_threads(kernel, grid, threads, smem, stream, static_cast<const bf16*>(q),
+                          static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                          static_cast<const bf16*>(g), static_cast<const float*>(rm),
+                          static_cast<const float*>(rs), static_cast<const float*>(dl),
+                          static_cast<const float*>(mask), static_cast<bf16*>(out0),
+                          static_cast<bf16*>(out1), BH, H, L, d, scale,
+                          blockwise::unpack(strides, n_t), vec);
   };
   if constexpr (kDkv) {
-    if (R == 16) return run(dkv_packed_kernel<D, 16>, packed, packed_smem<D, 16>(4));
-    if (R == 32) return run(dkv_packed_kernel<D, 32>, packed, packed_smem<D, 32>(4));
-    return run(dkv_tiled_kernel<D>, tiled, 6 * Tile<D>::kRowsBytes);
+    if (R == 16) return run(dkv_packed_kernel<D, 16, kLse>, packed, kThreads, packed_smem<D, 16>(4));
+    if (R == 32) return run(dkv_packed_kernel<D, 32, kLse>, packed, kThreads, packed_smem<D, 32>(4));
+    return run(dkv_tiled_kernel<D, kLse, W>, tiled, 32 * W, tiled_smem<D, W>());
   } else {
-    if (R == 16) return run(dq_packed_kernel<D, 16>, packed, packed_smem<D, 16>(4));
-    if (R == 32) return run(dq_packed_kernel<D, 32>, packed, packed_smem<D, 32>(4));
-    return run(dq_tiled_kernel<D>, tiled, 6 * Tile<D>::kRowsBytes);
+    if (R == 16) return run(dq_packed_kernel<D, 16, kLse>, packed, kThreads, packed_smem<D, 16>(4));
+    if (R == 32) return run(dq_packed_kernel<D, 32, kLse>, packed, kThreads, packed_smem<D, 32>(4));
+    return run(dq_tiled_kernel<D, kLse, W>, tiled, 32 * W, tiled_smem<D, W>());
   }
 }
 

@@ -6,7 +6,9 @@ JAX side is ``packed_attention``'s custom VJP, whose backward runs the
 head-packed Pallas kernels ``_hp_bwd_dkv_kernel`` / ``_hp_bwd_dq_kernel`` in
 interpret mode, as the JAX package's own tests run them.  Inputs and dO come
 from numpy seeds; fp32, at the tolerance of tests/test_flash_attention.py's
-packed-gradient test (rtol 2e-4, atol 2e-4).
+packed-gradient test (rtol 2e-4, atol 2e-4); bf16, the same draws rounded to
+bf16, within chip_smoke.py's bf16 backward limit (1e-2 of the largest
+gradient: an output ulp is 2^-8 relative).
 """
 
 import jax
@@ -27,13 +29,16 @@ def _inputs(B, H, L, d, seed):
 
 
 def _port_grads(q, k, v, do, mask, impl=None):
-    qkv = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
+    qkv = [t.requires_grad_() for t in (q, k, v)]
     o, _ = flash_attention.attention_fwd(*qkv, mask, impl=impl)
-    return o, torch.autograd.grad(o, qkv, torch.from_numpy(do))
+    return o, torch.autograd.grad(o, qkv, do)
 
 
-def _check_against_packed(B, H, L, causal, bq, bk, seed):
-    q, k, v, do = _inputs(B, H, L, 64, seed)
+def _check_against_packed(B, H, L, causal, bq, bk, seed, dtype=torch.float32):
+    """fp32: O and each gradient within the packed-gradient test's rtol and
+    atol.  bf16 (the same draws rounded): each gradient's max abs error
+    within 1e-2 of JAX's largest gradient, and the port's in bf16."""
+    q, k, v, do = [torch.from_numpy(t).to(dtype) for t in _inputs(B, H, L, 64, seed)]
     mask_j = jax_attention.causal_mask(L) if causal else None
 
     @jax.jit  # one XLA program: a third of the eager interpret-mode time
@@ -42,13 +47,22 @@ def _check_against_packed(B, H, L, causal, bq, bk, seed):
                            q_, k_, v_)
         return out, vjp(do_)
 
-    out, ref = fwd_bwd(*[jnp.asarray(t) for t in (q, k, v, do)])
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    out, ref = fwd_bwd(*[jnp.asarray(t.float().numpy(), jdt) for t in (q, k, v, do)])
     mask_t = attention.causal_mask(L, device="cpu") if causal else None
     o, grads = _port_grads(q, k, v, do, mask_t)
-    np.testing.assert_allclose(o.detach().numpy(), np.asarray(out), rtol=2e-4, atol=2e-5)
-    for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4,
-                                   err_msg=name)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(o.detach().numpy(), np.asarray(out), rtol=2e-4, atol=2e-5)
+        for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4,
+                                       err_msg=name)
+        return
+    want = [np.asarray(r.astype(jnp.float32)) for r in ref]
+    scale = max(np.abs(w).max() for w in want)
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+        assert got.dtype == dtype, name
+        err = np.abs(got.float().numpy() - w).max() / scale
+        assert err <= 1e-2, (name, err)
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "nomask"])
@@ -56,6 +70,16 @@ def _check_against_packed(B, H, L, causal, bq, bk, seed):
 @pytest.mark.parametrize("H", [2, 4])
 def test_attention_grads_match_packed_pallas_backward(H, L, causal):
     _check_against_packed(2, H, L, causal, DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K, seed=L + H)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "nomask"])
+@pytest.mark.parametrize("L", [8, 16, 24, 77, 201])
+def test_attention_grads_match_packed_pallas_backward_bf16(L, causal):
+    """bf16 inputs and dO through the plain forward and backward, the
+    versions that the card holds kernels #6-#8 to, against JAX's packed
+    forward and Pallas backward in bf16."""
+    _check_against_packed(2, 2, L, causal, DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K, seed=L + 40,
+                          dtype=torch.bfloat16)
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "nomask"])

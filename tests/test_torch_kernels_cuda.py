@@ -123,6 +123,28 @@ def _rel_errs(got, want):
     return [(g.float() - w.float()).abs().max().item() / scale for g, w in zip(got, want)]
 
 
+def _assert_p_and_ds_kept_in_fp32(got, plain, exact):
+    """A bf16 backward's gradients ``got`` against an fp32 plain backward on
+    the same bf16-valued inputs (``exact``), beside the bf16 plain version
+    (``plain``), which keeps P and dS in fp32 and rounds only its outputs.
+    Rounding P or dS to bf16 once adds an error about as large as the
+    outputs' own rounding, so about sqrt(2) times the plain version's
+    distance to ``exact`` in the Frobenius norm; their hi + lo parts leave
+    it where the plain version's is.  So each
+    gradient's distance is at most 1.1 times the plain version's, and its
+    max abs error at most the plain version's plus one output ulp, 2^-8 of
+    the largest gradient.  Prints both readings."""
+    scale = max(e.abs().max().item() for e in exact)
+    for name, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+        g, p = g.float(), p.float()
+        err_kernel, err_plain = (g - e).abs().max().item(), (p - e).abs().max().item()
+        ratio = (g - e).norm().item() / (p - e).norm().item()
+        print(f"{name}: norm ratio {ratio:.4f}, max|err| {err_kernel / scale:.3e} "
+              f"(plain {err_plain / scale:.3e}) of the largest gradient")
+        assert ratio <= 1.1, (name, ratio)
+        assert err_kernel <= err_plain + 2 ** -8 * scale, (name, err_kernel, err_plain, scale)
+
+
 def _blhd_view(B, H, L, dtype, seed, d=64):
     """A (B, H, L, d) view of (B, L, H, d) memory: the layout in which dO
     reaches the attention from mha's merge of the heads."""
@@ -130,21 +152,32 @@ def _blhd_view(B, H, L, dtype, seed, d=64):
     return torch.from_numpy(g).cuda().to(dtype).transpose(1, 2)
 
 
+# lengths at the edges of the bf16 tensor-core backward's layouts (a whole
+# (b*h) per warp at L <= 16 and <= 32, then CTAs of 64 (dK/dV) and 128 (dQ)
+# own rows over 64-row tiles of the other side) and the main paths' lengths
+_FLASH_BWD_LENGTHS = (1, 8, 15, 16, 17, 24, 31, 32, 33, 63, 64, 65, 77, 127, 128, 129, 201)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("B,H,L,causal", [
     (48, 12, 201, False), (100, 8, 16, True),  # the train step's vision and text shapes
     (3, 2, 1, False), (4, 8, 8, True), (4, 8, 24, True), (2, 8, 77, True),
     (2, 4, 513, True), (2, 2, 1024, True),
+    # B*H = 6, not a multiple of a packed CTA's 4 heads, at every edge length
+    *((2, 3, L, causal) for L in _FLASH_BWD_LENGTHS for causal in (True, False)),
 ])
 def test_flash_attn_bwd_matches_plain(card, dtype, B, H, L, causal):
+    """One launch of each backward kernel and of no other, outputs written
+    (B, L, H, d), against the plain backward."""
     fa = flash_attention
     q, k, v = _qkv_views(B, H, L, dtype, seed=L + H)
     do = _blhd_view(B, H, L, dtype, seed=L + H + 1)
     mask = attention.causal_mask(L, device=card) if causal else None
     o, lse = fa.attention_fwd(q, k, v, mask)
-    before = (fa.LAUNCHES[fa.KERNEL_DKV], fa.LAUNCHES[fa.KERNEL_DQ])
+    before = dict(fa.LAUNCHES)
     dq, dk, dv = fa._kernel_bwd(q, k, v, o, lse, do, mask)
-    assert (fa.LAUNCHES[fa.KERNEL_DKV], fa.LAUNCHES[fa.KERNEL_DQ]) == (before[0] + 1, before[1] + 1)
+    assert {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES} == {
+        n: int(n in (fa.KERNEL_DKV, fa.KERNEL_DQ)) for n in fa.LAUNCHES}
     ref = fa.reference_attention_bwd(q, k, v, o, lse, do, mask)
     torch.cuda.synchronize()
     for name, got in zip(("dq", "dk", "dv"), (dq, dk, dv)):
@@ -234,6 +267,90 @@ def test_mha_backward_through_the_kernels_matches_the_plain_path(card, causal):
         out = attention.mha(x, w["w_qkv"], b_qkv, w["w_out"], b_out, H, mask=mask, impl=impl)
         grads[impl], = torch.autograd.grad(out, x, g)
     assert max(_rel_errs([grads[None]], [grads["plain"]])) <= 1e-5
+
+
+# ------------------------------------- the bf16 tensor-core flash backward #7/#8
+def _flash_bwd_case(q, k, v, do, mask):
+    """The d = 64 backward through the kernels and through the plain version
+    on the kernel forward's O and LSE: (kernel grads, plain grads, launches
+    of each kernel)."""
+    fa = flash_attention
+    o, lse = fa.attention_fwd(q, k, v, mask)
+    before = dict(fa.LAUNCHES)
+    grads = fa._kernel_bwd(q, k, v, o, lse, do, mask)
+    launched = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES}
+    ref = fa.reference_attention_bwd(q, k, v, o, lse, do, mask)
+    torch.cuda.synchronize()
+    return grads, ref, launched
+
+
+@pytest.mark.parametrize("L", [16, 24, 77, 201])
+@pytest.mark.parametrize("layout", ["qkv", "blhd", "contiguous", "unaligned"])
+def test_flash_bwd_bf16_strided_contiguous_and_unaligned_layouts(card, layout, L):
+    """#7/#8 in bf16 on mha's strided views of one QKV buffer, on (B, L, H, d)
+    views, on contiguous (B, H, L, d) tensors (all of which take the 16-byte
+    cp.async copies) and on views whose bases and row strides are not
+    16-byte aligned (rows of 65 elements, the first dropped), which the
+    kernels copy element by element; against the plain backward."""
+    B, H = 3, 5
+    if layout == "qkv":
+        q, k, v = _qkv_views(B, H, L, torch.bfloat16, seed=L + 80)
+        do = _blhd_view(B, H, L, torch.bfloat16, seed=L + 81)
+    elif layout == "unaligned":
+        q, k, v, do = [t.contiguous()[..., 1:] for t in
+                       _blhd_tensors(B, H, L, 65, torch.bfloat16, seed=L + 80, n=4)]
+    else:
+        q, k, v, do = _blhd_tensors(B, H, L, 64, torch.bfloat16, seed=L + 80, n=4)
+        if layout == "contiguous":
+            q, k, v, do = [t.contiguous() for t in (q, k, v, do)]
+    mask = attention.causal_mask(L, device=card)
+    grads, ref, _ = _flash_bwd_case(q, k, v, do, mask)
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert max(_rel_errs(grads, ref)) <= TOL_BWD[torch.bfloat16]
+
+
+@pytest.mark.parametrize("L", [24, 70, 201])
+def test_flash_bwd_bf16_fully_masked_rows(card, L):
+    """bf16, a general mask with rows whose every key is -inf and rows whose
+    every key is a finite -1e30 (one of each in the first and in the last
+    query tile).  The forward writes LSE = -1e30 for both, as the plain
+    version does.  A -inf row gets P = 0: dQ = 0 there.  A -1e30 row gets
+    P = exp(-1e30 - (-1e30)) = 1 on every key in the plain version, and so
+    in the kernels, whose scores and LSE round alike in log2 units.  No NaN,
+    and the kernels within tolerance of the plain backward."""
+    q, k, v = _qkv_views(2, 4, L, torch.bfloat16, seed=L + 90)
+    do = _blhd_view(2, 4, L, torch.bfloat16, seed=L + 91)
+    mask = torch.from_numpy(np.random.RandomState(L + 92).randn(L, L).astype(np.float32)).cuda()
+    inf_rows, fin_rows = [2, L - 3], [5, L - 1]
+    mask[inf_rows] = float("-inf")
+    mask[fin_rows] = -1e30
+    o, lse = flash_attention.attention_fwd(q, k, v, mask)
+    _, lse_ref = flash_attention.attention_fwd(q, k, v, mask, impl="plain")
+    for r in inf_rows + fin_rows:
+        assert torch.equal(lse[:, :, r], lse_ref[:, :, r])
+    grads, ref, _ = _flash_bwd_case(q, k, v, do, mask)
+    assert all(torch.isfinite(g).all() for g in grads + ref)
+    assert max(_rel_errs(grads, ref)) <= TOL_BWD[torch.bfloat16]
+    for r in inf_rows:
+        assert grads[0][:, :, r].abs().max().item() == 0.0
+    for r in fin_rows:  # P = 1 on every key: a gradient of the same order as the plain one
+        assert grads[0][:, :, r].abs().max().item() > 0.0
+
+
+@pytest.mark.parametrize("B,H,L,causal", [(4, 12, 201, False), (10, 8, 16, True),
+                                          (6, 8, 24, True), (4, 4, 77, True)])
+def test_flash_bwd_bf16_keeps_p_and_ds_in_fp32(card, B, H, L, causal):
+    """#7/#8 in bf16 feed P and dS to the tensor cores as bf16 hi + lo
+    parts, as the TPU's fp32 operands (see _assert_p_and_ds_kept_in_fp32)."""
+    fa = flash_attention
+    q, k, v = _qkv_views(B, H, L, torch.bfloat16, seed=L + 33)
+    do = _blhd_view(B, H, L, torch.bfloat16, seed=L + 34)
+    mask = attention.causal_mask(L, device=card) if causal else None
+    o, lse = fa.attention_fwd(q, k, v, mask)
+    got = fa._kernel_bwd(q, k, v, o, lse, do, mask)
+    plain = fa.reference_attention_bwd(q, k, v, o, lse, do, mask)
+    exact = fa.reference_attention_bwd(*(t.float() for t in (q, k, v, o)), lse, do.float(), mask)
+    _assert_p_and_ds_kept_in_fp32(got, plain, exact)
 
 
 # ---------------------------------------------------- blockwise kernels #3-#5
@@ -539,10 +656,7 @@ def test_fused_strided_and_unaligned_layouts(card, layout, d, L, dtype):
                                           (6, 8, 24, True), (4, 4, 77, True)])
 def test_fused_bf16_backward_keeps_p_and_ds_in_fp32(card, B, H, L, causal):
     """The bf16 backward feeds P and dS to the tensor cores as bf16 hi + lo
-    parts, as the TPU's fp32 operands: against an fp32 plain backward on the
-    same bf16-valued inputs, each of its gradients lies no farther than the
-    bf16 plain version's (which rounds only its outputs) plus one output
-    ulp, 2^-8 of the largest gradient."""
+    parts, as the TPU's fp32 operands (see _assert_p_and_ds_kept_in_fp32)."""
     fa = flash_attention
     q, k, v = _qkv_views(B, H, L, torch.bfloat16, seed=L + 31)
     do = _blhd_view(B, H, L, torch.bfloat16, seed=L + 32)
@@ -550,11 +664,7 @@ def test_fused_bf16_backward_keeps_p_and_ds_in_fp32(card, B, H, L, causal):
     got = torch.ops.fsvlm.fused_attn_bwd(q, k, v, do, mask)
     plain = fa.reference_fused_bwd(q, k, v, do, mask)
     exact = fa.reference_fused_bwd(*(t.float() for t in (q, k, v, do)), mask)
-    scale = max(e.abs().max().item() for e in exact)
-    for name, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
-        err_kernel = (g.float() - e).abs().max().item()
-        err_plain = (p.float() - e).abs().max().item()
-        assert err_kernel <= err_plain + 2 ** -8 * scale, (name, err_kernel, err_plain, scale)
+    _assert_p_and_ds_kept_in_fp32(got, plain, exact)
 
 
 def test_fused_rejects_what_it_does_not_take(card, monkeypatch):
