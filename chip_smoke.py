@@ -19,14 +19,14 @@ Phases; each passes or raises, and any failure exits non-zero:
    same function (a yardstick only), with each kernel's bound.  Then the
    whole-sequence kernels #1-#2 at head dims 32, 64, 80 and 128, L from 1 to
    1024, B*H not a multiple of 4, and CoOp's and CoCoOp's own shapes.  The
-   forwards #6, #3 and #1 and the backward #7/#8 are checked at the edges of
-   the bf16 kernels' tiles and short-L packing (L 15-17, 31-33, 63-65; the
-   backward also 127-129), and timed by CUDA events as above and, beside
+   forwards #6, #3 and #1 and the backwards #7/#8 and #4/#5 are checked at
+   the edges of the bf16 kernels' tiles and short-L packing (L 15-17, 31-33,
+   63-65; #7/#8 also 127-129), and timed by CUDA events as above and, beside
    them, by the device time alone (torch.profiler), which at small shapes
    leaves out the host's launch time (#2 too; #7/#8 also at the text shapes
-   (100, 8, 16) and (100, 8, 24) causal).  Phase 2 prints the registers and
-   spills of every bf16 tensor-core kernel (#1-#2, the flash forward behind
-   #3 and #6, and #7/#8).
+   (100, 8, 16) and (100, 8, 24) causal; #3-#5 at head dims 32, 64 and 128).
+   Phase 2 prints the registers and spills of every bf16 tensor-core kernel
+   (#1-#2, the flash forward behind #3 and #6, #7/#8 and #4/#5).
 4. serving: PromptSRC ViT-B/16 at full width (random weights from seed 0,
    bf16 frozen towers, bf16 compute, 100 classes): text features once, then
    3 batches of 100 uint8 224x224 images, through the kernel and again with
@@ -244,8 +244,8 @@ def phase_build():
                         got[0] = int(re.search(r"Used (\d+) registers", ln)[1])
                     else:
                         got[1] = int(re.search(r"(\d+) bytes spill stores", ln)[1])
-    log("build: bf16 tensor-core kernels (#1-#2; #3 and #6: flash_*; #7/#8: flash_attn_bwd), "
-        "registers/spill bytes: "
+    log("build: bf16 tensor-core kernels (#1-#2; #3 and #6: flash_*; #7/#8: flash_attn_bwd; "
+        "#4/#5: blockwise_attn_bwd), registers/spill bytes: "
         + ", ".join(f"{k} {r}/{sp}" for k, (r, sp) in sorted(tc.items())))
     log(f"build: {time.perf_counter() - t0:.1f} s in all")
 
@@ -492,8 +492,10 @@ def phase_kernels_blockwise():
         fwd_ms = _time_ms(lambda: fa._blockwise_attn_fwd_op(q, k, v, mask))
         # the same launch without the checks and the torch.library dispatch
         direct_ms = _time_ms(lambda: fa._bw_launch(q, k, v, mask))
-        dkv_ms = _time_ms(lambda: fa._bw_launch_dkv(*args))
-        dq_ms = _time_ms(lambda: fa._bw_launch_dq(*args))
+        dkv = lambda: fa._bw_launch_dkv(*args)  # noqa: E731
+        dq = lambda: fa._bw_launch_dq(*args)  # noqa: E731
+        bwd = lambda: fa._bw_kernel_bwd(q, k, v, o, lse, do, mask)  # noqa: E731
+        dkv_ms, dq_ms, bwd_ms = _time_ms(dkv), _time_ms(dq), _time_ms(bwd)
         plain_fwd_ms = _time_ms(lambda: fa.reference_blockwise_fwd(q, k, v, mask))
         plain_bwd_ms = _time_ms(lambda: fa.reference_blockwise_bwd(q, k, v, o, lse, do, mask))
         sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
@@ -501,6 +503,10 @@ def phase_kernels_blockwise():
         lib_bwd_ms = _library_bwd_ms(q, k, v, do, causal)
         dev_ms = _device_ms(lambda: fa._blockwise_attn_fwd_op(q, k, v, mask))
         lib_dev_ms = _device_ms(sdpa)
+        # device time alone (profiler) of each backward kernel, the whole
+        # backward (the delta pre-pass and both kernels) and aten's
+        dev = {"dkv": _device_ms(dkv), "dq": _device_ms(dq), "bwd": _device_ms(bwd),
+               "aten": _library_bwd_ms(q, k, v, do, causal, timer=_device_ms)}
         b_fwd = _bound(B, H, L, causal, "bfloat16", 2, d)
         b_dkv = _bound_bwd(B, H, L, causal, 2, 2, 8, d)
         b_dq = _bound_bwd(B, H, L, causal, 2, 1, 6, d)
@@ -509,19 +515,24 @@ def phase_kernels_blockwise():
                                bound_ms=b_fwd[0], bound_by=b_fwd[1], device_ms=dev_ms,
                                library_device_ms=lib_dev_ms),
             fa.BW_KERNEL_DKV: dict(ms=dkv_ms, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
-                                   bound_ms=b_dkv[0], bound_by=b_dkv[1]),
+                                   bound_ms=b_dkv[0], bound_by=b_dkv[1], device_ms=dev["dkv"],
+                                   library_device_ms=dev["aten"]),
             fa.BW_KERNEL_DQ: dict(ms=dq_ms, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
-                                  bound_ms=b_dq[0], bound_by=b_dq[1]),
+                                  bound_ms=b_dq[0], bound_by=b_dq[1], device_ms=dev["dq"],
+                                  library_device_ms=dev["aten"]),
         }
         log(f"time blockwise bf16 {label} ({B},{H},{L},{d}) {'causal' if causal else 'nomask'}: "
             f"fwd kernel {fwd_ms:.4f} ms (launched directly {direct_ms:.4f} ms; bound "
             f"{b_fwd[0]:.4f}, {b_fwd[1]}; plain "
             f"{plain_fwd_ms:.4f}; sdpa {lib_fwd_ms:.4f}); dK/dV kernel {dkv_ms:.4f} ms (bound "
             f"{b_dkv[0]:.4f}, {b_dkv[1]}); dQ kernel {dq_ms:.4f} ms (bound {b_dq[0]:.4f}, "
-            f"{b_dq[1]}); plain backward {plain_bwd_ms:.4f} ms; "
-            f"aten._scaled_dot_product_flash_attention_backward {lib_bwd_ms} ms")
+            f"{b_dq[1]}); whole backward with the delta pre-pass {bwd_ms:.4f} ms; plain backward "
+            f"{plain_bwd_ms:.4f} ms; aten._scaled_dot_product_flash_attention_backward "
+            f"{_ms(lib_bwd_ms)}")
         log(f"time blockwise bf16 {label}: device time (profiler): fwd kernel {_ms(dev_ms)}, "
-            f"sdpa {_ms(lib_dev_ms)}")
+            f"sdpa {_ms(lib_dev_ms)}; dK/dV kernel {_ms(dev['dkv'])}, dQ kernel {_ms(dev['dq'])}, "
+            f"whole backward with the delta pre-pass {_ms(dev['bwd'])}, aten backward "
+            f"{_ms(dev['aten'])}")
         del q, k, v, do, o, lse, delta, args
     for (kern, name), (a, r) in worst.items():
         log(f"kernel {kern} {name}: worst max|err| {a:.3e}"
@@ -790,16 +801,19 @@ def phase_main():
 
 
 # kernel-name fragments (bf16, as the profiler demangles them) of #6-#8 on
-# the PromptSRC step, of #3-#5 on the IVLP step (#3 and #6 launch one
-# forward), and of the whole-sequence kernels #1 and #2 (bf16 and fp32),
-# summed by _profile where a step runs them
+# the PromptSRC step, of #3-#5 on the IVLP step, and of the whole-sequence
+# kernels #1 and #2 (bf16 and fp32), summed by _profile where a step runs
+# them.  #3 and #6 launch one forward; at d = 64 #4/#5 and #7/#8 launch the
+# same mma_attn.cuh kernels from the LSE (one instantiation each at #7/#8's
+# warp counts, from two libraries), matched by their template arguments.
+# Each cell runs one family, so each cell's groups are unambiguous.
 FLASH_FWD = ("flash_tiled_kernel<64>", "flash_packed_kernel<64, ")
-FLASH_GROUPS = {"#6": FLASH_FWD,
-                "#7": ("dkv_tiled_kernel<64, true", "dkv_packed_kernel<64, 16, true",
-                       "dkv_packed_kernel<64, 32, true"),
-                "#8": ("dq_tiled_kernel<64, true", "dq_packed_kernel<64, 16, true",
-                       "dq_packed_kernel<64, 32, true")}
-BW_GROUPS = {"#3": FLASH_FWD, "#4": ("attn_bwd_dkv_kernel",), "#5": ("attn_bwd_dq_kernel",)}
+LSE_DKV = ("dkv_tiled_kernel<64, true", "dkv_packed_kernel<64, 16, true",
+           "dkv_packed_kernel<64, 32, true")
+LSE_DQ = ("dq_tiled_kernel<64, true", "dq_packed_kernel<64, 16, true",
+          "dq_packed_kernel<64, 32, true")
+FLASH_GROUPS = {"#6": FLASH_FWD, "#7": LSE_DKV, "#8": LSE_DQ}
+BW_GROUPS = {"#3": FLASH_FWD, "#4": LSE_DKV, "#5": LSE_DQ}
 FUSED_GROUPS = {"#1": ("fwd_tiled_kernel", "fwd_packed_kernel", "fused_attn_fwd_kernel"),
                 "#2": ("stats_tiled_kernel", "stats_packed_kernel", "fused_attn_bwd_stats_kernel",
                        *(f"{kind}_tiled_kernel<{D}, false" for kind in ("dkv", "dq")
@@ -1489,11 +1503,14 @@ def main():
     parts = (fa.FUSED_KERNEL_STATS, fa.FUSED_KERNEL_DKV, fa.FUSED_KERNEL_DQ)
     if len({launches_fused[k] for k in parts}) != 1:
         raise SystemExit(f"FAIL: #2's kernels launched unequal counts: {launches_fused}")
-    # device times (profiler) beside the event times: the forwards' and #7/#8's
+    # device times (profiler) beside the event times: the forwards', #7/#8's
+    # and #4/#5's
     for row, t in ((kernels[0], timings["vision"]),
                    (kernels[1], timings_bwd["vision"][fa.KERNEL_DKV]),
                    (kernels[2], timings_bwd["vision"][fa.KERNEL_DQ]),
                    (kernels[3], timings_bw["vision"][fa.BW_KERNEL]),
+                   (kernels[4], timings_bw["vision"][fa.BW_KERNEL_DKV]),
+                   (kernels[5], timings_bw["vision"][fa.BW_KERNEL_DQ]),
                    (kernels[-1], timings_fused["vision"][fa.FUSED_KERNEL])):
         row.update(device_ms=t["device_ms"], library_device_ms=t["library_device_ms"])
     kernels.append({

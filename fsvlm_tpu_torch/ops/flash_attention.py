@@ -24,12 +24,12 @@ them.
 - ``attention_dispatch`` (:863-889) picks the family per call from
   ``FSVLM_FORCE_PALLAS``; mha calls it.
 
-In bf16 the kernels run on the tensor cores (``mma.sync``;
+In bf16 every kernel runs on the tensor cores (``mma.sync``;
 ``kernels/mma_attn.cuh``, ``kernels/mma_flash_fwd.cuh``): the three forwards,
-the whole-sequence backward, and the d = 64 backward, whose dK/dV and dQ
-kernels are the whole-sequence backward's reading the forward's LSE instead
-of a row max and sum.  The blockwise backward is still FMA tiles (ROADMAP
-B2), as is every kernel in fp32.
+the whole-sequence backward, and the d = 64 and blockwise backwards, whose
+dK/dV and dQ kernels are the whole-sequence backward's reading the
+forward's LSE instead of a row max and sum.  In fp32 every kernel is FMA
+tiles.
 
 Each entry is one ``torch.autograd.Function``, differentiable with respect
 to q, k and v: for CUDA tensors it launches the family's forward kernel and,
@@ -78,8 +78,9 @@ LAUNCHES = {name: 0 for name in (KERNEL, KERNEL_DKV, KERNEL_DQ,
 # forward's key tile and the backward's own tile (keys for dK/dV, queries
 # for dQ): the bf16 forward (mma_flash_fwd.cuh) walks 64-key tiles at every
 # D, and in bf16 the key tile decides how P is rounded; the backward's are
-# blockwise_attn.cuh's BwdTile.  (The fp32 forward walks 32-key tiles at
-# D = 128, which in fp32 changes only the order of sums.)
+# the fp32 kernels' (blockwise_attn.cuh's BwdTile).  (The fp32 forward walks
+# 32-key tiles at D = 128, which in fp32 changes only the order of sums; so
+# do the bf16 backward's tiles (mma_attn.cuh), since no backward rounds P.)
 BW_TILES = {32: (64, 64), 64: (64, 64), 128: (64, 32)}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -163,8 +164,9 @@ def reference_attention_bwd(q, k, v, o, lse, do, mask=None):
 def reference_blockwise_bwd(q, k, v, o, lse, do, mask=None):
     """Plain PyTorch version of the two blockwise backward kernels (TPU
     kernels :334-406) at any head dim up to 128, scale d^-1/2: the arithmetic
-    of ``reference_attention_bwd``, over key tiles of the dK/dV kernel's own
-    tile and query tiles of 64.  Returns (dq, dk, dv)."""
+    of ``reference_attention_bwd``, over key tiles of the fp32 dK/dV
+    kernel's own tile and query tiles of 64 (P is not rounded, so the bf16
+    kernels' tiles give the same function).  Returns (dq, dk, dv)."""
     return _tiled_bwd(q, k, v, o, lse, do, mask, 64, _bw_tiles(q.shape[-1])[1])
 
 

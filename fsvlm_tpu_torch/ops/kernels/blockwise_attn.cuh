@@ -13,12 +13,13 @@
 // memory (the TPU pads to 128 lanes the same way); only dims below d are
 // stored.
 //
-// The second half holds the backward's tiles (Bwd<D>) and its dK/dV and dQ
-// kernels, templated on kWholeRow: false for the blockwise backward, which
-// recomputes P = exp(S - LSE) from the forward's logsumexp; true for the
-// whole-sequence backward, which recomputes P = exp(S - m) / l from the
+// The second half holds the fp32 backward's tiles (Bwd<D>) and its dK/dV
+// and dQ kernels, templated on kWholeRow: false for the blockwise backward,
+// which recomputes P = exp(S - LSE) from the forward's logsumexp; true for
+// the whole-sequence backward, which recomputes P = exp(S - m) / l from the
 // row max m and row sum l of its own pre-pass (fused_attn_bwd.cu), as the
 // TPU kernel _attn_bwd_kernel normalizes P (flash_attention.py:128-130).
+// bf16 backwards take the tensor-core kernels of mma_attn.cuh instead.
 
 #pragma once
 
@@ -423,23 +424,6 @@ int bwd_dim(const void* q, const void* k, const void* v, const void* g, const vo
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FSVLM_BWD_CASE
-}
-
-// bwd_dim over the dtype code (0 = float32, 1 = bfloat16)
-template <bool kWholeRow, bool kDkv>
-int bwd_entry(int dtype, int d, const void* q, const void* k, const void* v, const void* g,
-              const void* stat0, const void* stat1, const void* delta, const void* mask,
-              void* out0, void* out1, int B, int H, int L, float scale, const long long* strides,
-              void* stream) {
-  if (B < 1 || H < 1 || L < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return bwd_dim<float, kWholeRow, kDkv>(q, k, v, g, stat0, stat1, delta, mask, out0, out1, B,
-                                           H, L, d, scale, strides, s);
-  if (dtype == 1)
-    return bwd_dim<__nv_bfloat16, kWholeRow, kDkv>(q, k, v, g, stat0, stat1, delta, mask, out0,
-                                                   out1, B, H, L, d, scale, strides, s);
-  return (int)cudaErrorInvalidValue;
 }
 
 // ------------------------------------------------------ whole-row statistics

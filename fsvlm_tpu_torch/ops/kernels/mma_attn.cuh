@@ -1,8 +1,10 @@
 // Tensor-core building blocks for the bf16 attention kernels, and the bf16
-// backward's dK/dV and dQ kernels built from them, which serve two
+// backward's dK/dV and dQ kernels built from them, which serve three
 // backwards: the whole-sequence one (#2, fused_attn_bwd.cu, from its row
-// pre-pass's max and sum) and the flash one at d = 64 (#7/#8,
-// flash_attn_bwd.cu, from the forward's LSE).  fused_attn_fwd.cu holds the
+// pre-pass's max and sum), and from the forward's LSE the flash one at
+// d = 64 (#7/#8, flash_attn_bwd.cu) and the blockwise one at D = 32, 64 and
+// 128 (#4/#5, blockwise_attn_bwd.cu, warp counts per D; at D = 64 the same
+// instantiations as #7/#8).  fused_attn_fwd.cu holds the
 // whole-sequence forward and the pre-pass; mma_flash_fwd.cuh the flash
 // forward behind #3 and #6.  fp32 inputs keep the FMA tiles.
 //
@@ -382,8 +384,10 @@ int launch(void (*kernel)(KArgs...), dim3 grid, int smem, cudaStream_t stream, A
 //   false, the whole-sequence backward (#2, _attn_bwd_kernel,
 //     flash_attention.py:128-156): P = exp(S * scale + mask - m) / l from the
 //     pre-pass's row max m and row sum l (fused_attn_bwd.cu);
-//   true, the flash backward (#7/#8, _hp_bwd_dkv_kernel / _hp_bwd_dq_kernel,
-//     :609-685; flash_attn_bwd.cu): P = exp(S * scale + mask - LSE) from the
+//   true, the flash backwards (#7/#8, _hp_bwd_dkv_kernel / _hp_bwd_dq_kernel,
+//     :609-685, flash_attn_bwd.cu; #4/#5, _blockwise_dkv_kernel /
+//     _blockwise_dq_kernel, :324-406, blockwise_attn_bwd.cu):
+//     P = exp(S * scale + mask - LSE) from the
 //     forward's logsumexp, whose row sum is 1: no row sum is read, and the
 //     multiply by 1 / l is by the constant 1, which the compiler drops.
 // Then dS = P (dP - delta), the exponential as 2^((S * scale + mask) * log2 e

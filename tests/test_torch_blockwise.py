@@ -68,6 +68,39 @@ def test_blockwise_gradients_match_jax_pallas(L, d, bq, bk):
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "nomask"])
+@pytest.mark.parametrize("L", [77, 201])
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
+def test_blockwise_gradients_match_jax_pallas_bf16(d, L, causal):
+    """bf16: the same numpy draws rounded to bf16 through the port's plain
+    blockwise forward and backward (the versions that the card holds
+    kernels #3-#5 to) and through JAX's blockwise forward and Pallas
+    backward in interpret mode, each in bf16.  Each gradient's max abs
+    error within 1e-2 of JAX's largest gradient (chip_smoke.py's bf16
+    backward limit: an output ulp is 2^-8 relative)."""
+    q, k, v, do = [torch.from_numpy(t).bfloat16()
+                   for t in _inputs(1, 2, L, d, seed=L + d + 7 * causal, n=4)]
+    mask_j = jax_attention.causal_mask(L) if causal else None
+
+    @jax.jit
+    def grads(q_, k_, v_, do_):
+        _, vjp = jax.vjp(lambda a, b, c: jax_blockwise(a, b, c, mask_j, 256, 512, True),
+                         q_, k_, v_)
+        return vjp(do_)
+
+    ref = grads(*[jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v, do)])
+    want = [np.asarray(r.astype(jnp.float32)) for r in ref]
+    qkv = [t.requires_grad_() for t in (q, k, v)]
+    mask_t = attention.causal_mask(L, device="cpu") if causal else None
+    o = flash_attention.blockwise_attention(*qkv, mask_t)
+    got = torch.autograd.grad(o, qkv, do)
+    scale = max(np.abs(w).max() for w in want)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16, name
+        err = np.abs(g.float().numpy() - w).max() / scale
+        assert err <= 1e-2, (name, err)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "nomask"])
 def test_mha_under_force_pallas_matches_jax(causal, monkeypatch):
     """mha and d(mha)/dx with FSVLM_FORCE_PALLAS=1 in both packages, at head
     dim 64, where the variable moves the port off its d = 64 kernels: the

@@ -269,66 +269,88 @@ def test_mha_backward_through_the_kernels_matches_the_plain_path(card, causal):
     assert max(_rel_errs([grads[None]], [grads["plain"]])) <= 1e-5
 
 
-# ------------------------------------- the bf16 tensor-core flash backward #7/#8
-def _flash_bwd_case(q, k, v, do, mask):
-    """The d = 64 backward through the kernels and through the plain version
-    on the kernel forward's O and LSE: (kernel grads, plain grads, launches
-    of each kernel)."""
+# ---------------------- the bf16 tensor-core flash backwards #7/#8 and #4/#5
+# mma_attn.cuh's dK/dV and dQ kernels from the LSE: behind the d = 64 entry
+# ("packed", #7/#8) and behind the blockwise one (#4/#5) at its
+# instantiations D = 32, 64 and 128
+_BWD_ENTRIES = [("packed", 64), ("blockwise", 32), ("blockwise", 64), ("blockwise", 128)]
+
+
+def _bwd_fns(entry):
+    """(kernel forward, kernel backward with its delta pre-pass, plain
+    backward) of the d = 64 family ("packed") or the blockwise one."""
     fa = flash_attention
-    o, lse = fa.attention_fwd(q, k, v, mask)
+    if entry == "packed":
+        return fa.attention_fwd, fa._kernel_bwd, fa.reference_attention_bwd
+    return torch.ops.fsvlm.blockwise_attn_fwd, fa._bw_kernel_bwd, fa.reference_blockwise_bwd
+
+
+def _flash_bwd_case(q, k, v, do, mask, entry):
+    """The entry's backward through the kernels and through the plain
+    version on the kernel forward's O and LSE: (kernel grads, plain grads,
+    whether it launched each of its two backward kernels once and no other
+    kernel)."""
+    fa = flash_attention
+    fwd, bwd, plain_bwd = _bwd_fns(entry)
+    o, lse = fwd(q, k, v, mask)
     before = dict(fa.LAUNCHES)
-    grads = fa._kernel_bwd(q, k, v, o, lse, do, mask)
-    launched = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES}
-    ref = fa.reference_attention_bwd(q, k, v, o, lse, do, mask)
+    grads = bwd(q, k, v, o, lse, do, mask)
+    own = (fa.KERNEL_DKV, fa.KERNEL_DQ) if entry == "packed" else (fa.BW_KERNEL_DKV, fa.BW_KERNEL_DQ)
+    launched_own = all(fa.LAUNCHES[n] - before[n] == int(n in own) for n in fa.LAUNCHES)
+    ref = plain_bwd(q, k, v, o, lse, do, mask)
     torch.cuda.synchronize()
-    return grads, ref, launched
+    return grads, ref, launched_own
 
 
 @pytest.mark.parametrize("L", [16, 24, 77, 201])
 @pytest.mark.parametrize("layout", ["qkv", "blhd", "contiguous", "unaligned"])
-def test_flash_bwd_bf16_strided_contiguous_and_unaligned_layouts(card, layout, L):
-    """#7/#8 in bf16 on mha's strided views of one QKV buffer, on (B, L, H, d)
-    views, on contiguous (B, H, L, d) tensors (all of which take the 16-byte
-    cp.async copies) and on views whose bases and row strides are not
-    16-byte aligned (rows of 65 elements, the first dropped), which the
-    kernels copy element by element; against the plain backward."""
+@pytest.mark.parametrize("entry,d", _BWD_ENTRIES)
+def test_flash_bwd_bf16_strided_contiguous_and_unaligned_layouts(card, entry, d, layout, L):
+    """#7/#8 and #4/#5 in bf16 on mha's strided views of one QKV buffer, on
+    (B, L, H, d) views, on contiguous (B, H, L, d) tensors (all of which take
+    the 16-byte cp.async copies) and on views whose bases and row strides are
+    not 16-byte aligned (rows of d + 1 elements, the first dropped), which
+    the kernels copy element by element; one launch of each of the entry's
+    backward kernels, against the plain backward."""
     B, H = 3, 5
     if layout == "qkv":
-        q, k, v = _qkv_views(B, H, L, torch.bfloat16, seed=L + 80)
-        do = _blhd_view(B, H, L, torch.bfloat16, seed=L + 81)
+        q, k, v = _qkv_views(B, H, L, torch.bfloat16, seed=L + 80, d=d)
+        do = _blhd_view(B, H, L, torch.bfloat16, seed=L + 81, d=d)
     elif layout == "unaligned":
         q, k, v, do = [t.contiguous()[..., 1:] for t in
-                       _blhd_tensors(B, H, L, 65, torch.bfloat16, seed=L + 80, n=4)]
+                       _blhd_tensors(B, H, L, d + 1, torch.bfloat16, seed=L + 80, n=4)]
     else:
-        q, k, v, do = _blhd_tensors(B, H, L, 64, torch.bfloat16, seed=L + 80, n=4)
+        q, k, v, do = _blhd_tensors(B, H, L, d, torch.bfloat16, seed=L + 80, n=4)
         if layout == "contiguous":
             q, k, v, do = [t.contiguous() for t in (q, k, v, do)]
     mask = attention.causal_mask(L, device=card)
-    grads, ref, _ = _flash_bwd_case(q, k, v, do, mask)
+    grads, ref, launched_own = _flash_bwd_case(q, k, v, do, mask, entry)
+    assert launched_own
     assert all(torch.isfinite(g).all() for g in grads)
     assert max(_rel_errs(grads, ref)) <= TOL_BWD[torch.bfloat16]
 
 
 @pytest.mark.parametrize("L", [24, 70, 201])
-def test_flash_bwd_bf16_fully_masked_rows(card, L):
-    """bf16, a general mask with rows whose every key is -inf and rows whose
-    every key is a finite -1e30 (one of each in the first and in the last
-    query tile).  The forward writes LSE = -1e30 for both, as the plain
-    version does.  A -inf row gets P = 0: dQ = 0 there.  A -1e30 row gets
-    P = exp(-1e30 - (-1e30)) = 1 on every key in the plain version, and so
-    in the kernels, whose scores and LSE round alike in log2 units.  No NaN,
-    and the kernels within tolerance of the plain backward."""
-    q, k, v = _qkv_views(2, 4, L, torch.bfloat16, seed=L + 90)
-    do = _blhd_view(2, 4, L, torch.bfloat16, seed=L + 91)
+@pytest.mark.parametrize("entry,d", _BWD_ENTRIES)
+def test_flash_bwd_bf16_fully_masked_rows(card, entry, d, L):
+    """#7/#8 and #4/#5 in bf16, a general mask with rows whose every key is
+    -inf and rows whose every key is a finite -1e30 (one of each in the
+    first and in the last query tile).  The forward writes LSE = -1e30 for
+    both, as the plain version does.  A -inf row gets P = 0: dQ = 0 there.
+    A -1e30 row gets P = exp(-1e30 - (-1e30)) = 1 on every key in the plain
+    version, and so in the kernels, whose scores and LSE round alike in log2
+    units.  No NaN, and the kernels within tolerance of the plain backward."""
+    q, k, v = _qkv_views(2, 4, L, torch.bfloat16, seed=L + 90, d=d)
+    do = _blhd_view(2, 4, L, torch.bfloat16, seed=L + 91, d=d)
     mask = torch.from_numpy(np.random.RandomState(L + 92).randn(L, L).astype(np.float32)).cuda()
     inf_rows, fin_rows = [2, L - 3], [5, L - 1]
     mask[inf_rows] = float("-inf")
     mask[fin_rows] = -1e30
-    o, lse = flash_attention.attention_fwd(q, k, v, mask)
-    _, lse_ref = flash_attention.attention_fwd(q, k, v, mask, impl="plain")
+    (_, lse), (_, lse_ref), _ = _flash_fwd(entry, q, k, v, mask)
     for r in inf_rows + fin_rows:
         assert torch.equal(lse[:, :, r], lse_ref[:, :, r])
-    grads, ref, _ = _flash_bwd_case(q, k, v, do, mask)
+    grads, ref, launched_own = _flash_bwd_case(q, k, v, do, mask, entry)
+    assert launched_own
     assert all(torch.isfinite(g).all() for g in grads + ref)
     assert max(_rel_errs(grads, ref)) <= TOL_BWD[torch.bfloat16]
     for r in inf_rows:
@@ -337,20 +359,56 @@ def test_flash_bwd_bf16_fully_masked_rows(card, L):
         assert grads[0][:, :, r].abs().max().item() > 0.0
 
 
-@pytest.mark.parametrize("B,H,L,causal", [(4, 12, 201, False), (10, 8, 16, True),
+@pytest.mark.parametrize("B,H,L,causal", [(4, None, 201, False), (10, 8, 16, True),
                                           (6, 8, 24, True), (4, 4, 77, True)])
-def test_flash_bwd_bf16_keeps_p_and_ds_in_fp32(card, B, H, L, causal):
-    """#7/#8 in bf16 feed P and dS to the tensor cores as bf16 hi + lo
-    parts, as the TPU's fp32 operands (see _assert_p_and_ds_kept_in_fp32)."""
-    fa = flash_attention
-    q, k, v = _qkv_views(B, H, L, torch.bfloat16, seed=L + 33)
-    do = _blhd_view(B, H, L, torch.bfloat16, seed=L + 34)
+@pytest.mark.parametrize("entry,d", _BWD_ENTRIES)
+def test_flash_bwd_bf16_keeps_p_and_ds_in_fp32(card, entry, d, B, H, L, causal):
+    """#7/#8 and #4/#5 in bf16 feed P and dS to the tensor cores as bf16
+    hi + lo parts, as the TPU's fp32 operands (see
+    _assert_p_and_ds_kept_in_fp32); the vision shape at H d = 768, as in
+    CLIP."""
+    H = H or 768 // d
+    q, k, v = _qkv_views(B, H, L, torch.bfloat16, seed=L + 33, d=d)
+    do = _blhd_view(B, H, L, torch.bfloat16, seed=L + 34, d=d)
     mask = attention.causal_mask(L, device=card) if causal else None
-    o, lse = fa.attention_fwd(q, k, v, mask)
-    got = fa._kernel_bwd(q, k, v, o, lse, do, mask)
-    plain = fa.reference_attention_bwd(q, k, v, o, lse, do, mask)
-    exact = fa.reference_attention_bwd(*(t.float() for t in (q, k, v, o)), lse, do.float(), mask)
+    fwd, bwd, plain_bwd = _bwd_fns(entry)
+    o, lse = fwd(q, k, v, mask)
+    got = bwd(q, k, v, o, lse, do, mask)
+    plain = plain_bwd(q, k, v, o, lse, do, mask)
+    exact = plain_bwd(*(t.float() for t in (q, k, v, o)), lse, do.float(), mask)
     _assert_p_and_ds_kept_in_fp32(got, plain, exact)
+
+
+@pytest.mark.parametrize("L", [16, 201])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_blockwise_bwd_launches_the_tensor_core_kernels_in_bf16(card, dtype, d, L):
+    """The device kernels that torch.ops.fsvlm.blockwise_attn_bwd launches
+    (torch.profiler): in bf16 exactly mma_attn.cuh's dK/dV and dQ kernels
+    at instantiation d, reading the LSE (kLse = true; packed at L <= 32,
+    tiled past it), and no FMA tile; in fp32 the FMA tiles."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fa = flash_attention
+    q, k, v = _qkv_views(2, 4, L, dtype, seed=L + d + 70, d=d)
+    do = _blhd_view(2, 4, L, dtype, seed=L + d + 71, d=d)
+    o, lse = torch.ops.fsvlm.blockwise_attn_fwd(q, k, v, None)
+    delta = fa.attention_delta(o, do)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.ops.fsvlm.blockwise_attn_bwd(q, k, v, do, lse, delta, None)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and "attn" in e.key})
+    if dtype == torch.bfloat16:
+        layout, rows = ("tiled", "") if L > 32 else ("packed", "16, ")
+        want = [f"mma_attn::{kind}_{layout}_kernel<{d}, {rows}true" for kind in ("dkv", "dq")]
+    else:
+        want = [f"blockwise::attn_bwd_{kind}_kernel<float, {d}, false>" for kind in ("dkv", "dq")]
+    assert len(names) == 2, names
+    for frag in want:
+        assert sum(frag in n for n in names) == 1, (frag, names)
 
 
 # ---------------------------------------------------- blockwise kernels #3-#5
