@@ -76,7 +76,28 @@ Phases; each passes or raises, and any failure exits non-zero:
    class blocks of 85 (2 blocks, one padded) with every block and text
    layer rematerialized, against the plain path, with its peak memory.
 
-Phases 4, 6, 7 and 8 zero the launch counts just before each main path
+9. cli: ``fsvlm_tpu_torch.train.main``, the port's CLI, on the card with
+   FSVLM_FORCE_PALLAS unset (the d = 64 kernels #6-#8): PromptSRC from
+   configs/trainers/PromptSRC/vit_b16_c2_ep20_batch4_4+4ctx.yaml on
+   configs/datasets/synthetic.yaml at ViT-B/16 (phase 4's bf16 towers,
+   random from seed 0), bf16, ``--seed 1``, the imbalanced protocol
+   (PER_CLASS_SHOTS [16, 16, 16, 8, 8, 4, 2, 1], WeightedClassSampler),
+   DEVICE_AUG, CACHED_TEACHER, best-val selection, a checkpoint every
+   epoch, 2 epochs.  The log contract (log.txt, which parse_test_res.py
+   parses; the checkpoint pointer, model.pkl-1/-2, model-best.pkl), the
+   launches of #6-#8 (the teacher cache pass, steps without a teacher pass,
+   the val and test passes: counts derived from the code), the teacher
+   cache against a plain-attention cache (cosine), a rerun that resumes
+   from a copy whose pointer names model.pkl-1 (start epoch, prompts,
+   momentum, step count, generator and GPA accumulator restored exactly;
+   epoch 2 trained) and ``--eval-only --load-epoch 2`` (the epoch-2
+   model's test predictions exactly) must hold.  The CLI's own output goes
+   to its log files, not to this script's.  Then the teacher cache build
+   time, the epoch time and images/s, and phase 6's PromptSRC step at batch
+   48 with and without CACHED_TEACHER, in turns: step ms synced, launches,
+   device busy, peak memory.
+
+Phases 4, 6, 7, 8 and 9 zero the launch counts just before each main path
 and read them just after: each kernel of the path must have launched its
 expected count (derived from the code: a rematerialized layer runs its
 forward kernel again), and the other families none.
@@ -86,11 +107,16 @@ The line before the last is ``{"kernels": [...]}`` (one row per TPU kernel;
 ``{"ok": true, "device": {...}}``, and the script exits 0.
 """
 
+import contextlib
+import io
 import json
 import os
+import pickle
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -857,6 +883,7 @@ def _profile(label, fn, top=12, groups=None):
         us = sum(dev_us(e) for e in hit)
         log(f"profile:   {name}: {us / 1e3:.3f} ms, {100 * us / busy:.1f}% of busy, "
             f"{sum(e.count for e in hit)} launches")
+    return wall_us / 1e3, busy / 1e3
 
 
 def phase_profile(pred, batch):
@@ -1451,6 +1478,287 @@ def phase_coop_cocoop(clip):
     return launches
 
 
+CLI_RECIPE = "configs/trainers/PromptSRC/vit_b16_c2_ep20_batch4_4+4ctx.yaml"
+CLI_PER_CLASS_SHOTS = [16, 16, 16, 8, 8, 4, 2, 1]
+CLI_EPOCHS = 2
+CACHED_STEPS = 10  # timed batch-48 steps per side, in turns
+
+
+def _cli(clip, out_dir, *flags):
+    """Run the port's CLI (phase 9's configuration) on ``clip`` into
+    ``out_dir``; its output goes to its log.txt only.  Returns the
+    trainer."""
+    from fsvlm_tpu_torch.train import build_argparser, main
+
+    args = build_argparser().parse_args([
+        "--trainer", "PromptSRC", "--seed", "1", "--device", "cuda",
+        "--dataset-config-file", "configs/datasets/synthetic.yaml", "--config-file", CLI_RECIPE,
+        "--output-dir", out_dir, *flags,
+        "MODEL.FROZEN_DTYPE", "bf16", "TRAINER.PROMPTSRC.PREC", "bf16",
+        "DATASET.NUM_SHOTS", "-1", "DATASET.PER_CLASS_SHOTS", str(CLI_PER_CLASS_SHOTS),
+        "DATALOADER.TRAIN_X.SAMPLER", "WeightedClassSampler", "DATALOADER.DEVICE_AUG", "True",
+        "TRAINER.PROMPTSRC.CACHED_TEACHER", "True", "TEST.FINAL_MODEL", "best_val",
+        "TRAIN.CHECKPOINT_FREQ", "1", "OPTIM.MAX_EPOCH", str(CLI_EPOCHS)])
+    console = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(console):
+            return main(args, clip=clip)
+    except BaseException:
+        print(console.getvalue()[-4000:], flush=True)
+        raise
+
+
+def _read(path):
+    with open(path) as f:
+        return f.read()
+
+
+def _max_abs(a, b):
+    import torch
+
+    a, b = (torch.as_tensor(np.asarray(x, np.float64)) for x in (a, b))
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def _cli_expected_launches(t, clip_cfg):
+    """#6-#8 over the CLI run, from the code: the teacher text features
+    (PromptSRC.build_model) and the teacher cache pass (one vision pass per
+    batch of min(64, N)); per step the student text and vision towers
+    forward and backward (no teacher pass under CACHED_TEACHER); per test()
+    one text pass and one vision pass per batch: the val set after each
+    epoch (best_val), then the test set twice (after_train, and the CLI's
+    report)."""
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+
+    Lt, Lv = clip_cfg.transformer_layers, clip_cfg.vision_layers
+    ds = t.dm.dataset
+    n_train, B_test = len(ds.train_x), t.cfg.DATALOADER.TEST.BATCH_SIZE
+    cache_batches = -(-n_train // min(64, n_train))
+    steps = t.steps_per_epoch * CLI_EPOCHS
+
+    def test_pass(n):
+        return Lt + -(-n // B_test) * Lv
+
+    fwd = (Lt + cache_batches * Lv + steps * (Lt + Lv) + CLI_EPOCHS * test_pass(len(ds.val))
+           + 2 * test_pass(len(ds.test)))
+    return {fa.KERNEL: fwd, fa.KERNEL_DKV: steps * (Lt + Lv), fa.KERNEL_DQ: steps * (Lt + Lv)}
+
+
+def _cached_teacher_steps(clip):
+    """Phase 6's PromptSRC step (batch 48, 100 classes, DEVICE_AUG) with and
+    without CACHED_TEACHER, stepped in turns: launches of one step, step ms
+    synced (median), device busy of one profiled step, peak memory of one
+    step (both trainers resident)."""
+    import torch
+
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.trainers.promptsrc import PromptSRC
+
+    cache, labels = _train_cache()
+    classnames = [f"class {i}" for i in range(N_CLASSES)]
+    trainers, out = {}, {}
+    for cached in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t = PromptSRC(_train_cfg("PROMPTSRC"), classnames, cache, labels, clip=clip,
+                      device="cuda", steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+        if cached:
+            # the tensor-fed trainer has no DataManager: its teacher cache is
+            # built here, from the eval view of the 224-pixel cache at INPUT.SIZE
+            # 224 (the image itself), in eval_view_batches' batches of 64
+            n, views = len(cache), cache.cpu().numpy()
+            t.frozen["zs_img_cache"] = t.build_teacher_cache(n, (
+                {"img": views[i:i + 64], "index": np.arange(i, min(i + 64, n)),
+                 "valid": np.ones(min(64, n - i), bool)} for i in range(0, n, 64)))
+            t.cached_teacher = True
+        torch.cuda.synchronize()
+        trainers[cached] = (t, t.epoch_schedule()[0][0])
+        out[cached] = {"build_s": time.perf_counter() - t0, "ms": []}
+        t.train_step_resident(trainers[cached][1])  # warm-up
+    Lt, Lv = clip.cfg.transformer_layers, clip.cfg.vision_layers
+    for cached, (t, index) in trainers.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        t.train_step_resident(index)
+        torch.cuda.synchronize()
+        out[cached]["peak"] = torch.cuda.max_memory_allocated()
+        got = {k: n for k, n in fa.LAUNCHES.items() if n}
+        want = {fa.KERNEL: Lt + Lv + (0 if cached else Lv), fa.KERNEL_DKV: Lt + Lv,
+                fa.KERNEL_DQ: Lt + Lv}
+        if got != want:
+            raise SystemExit(f"FAIL: cli: one PromptSRC step (CACHED_TEACHER {cached}) launched "
+                             f"{got}, expected {want}")
+        out[cached]["launches"] = got
+    for i in range(CACHED_STEPS):
+        for cached in ((False, True) if i % 2 == 0 else (True, False)):
+            t, index = trainers[cached]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.train_step_resident(index)
+            torch.cuda.synchronize()
+            out[cached]["ms"].append((time.perf_counter() - t0) * 1e3)
+    for cached, (t, index) in trainers.items():
+        out[cached]["wall"], out[cached]["busy"] = _profile(
+            f"one PromptSRC train step, batch {TRAIN_BATCH}, CACHED_TEACHER {cached}",
+            lambda: t.train_step_resident(index), top=8, groups=FLASH_GROUPS)
+    for cached in (False, True):
+        o = out[cached]
+        med = float(np.median(o["ms"]))
+        log(f"cli: PromptSRC step batch {TRAIN_BATCH}, CACHED_TEACHER {cached}: step ms synced "
+            f"{[round(x, 2) for x in o['ms']]} (median {med:.2f}, {TRAIN_BATCH / med * 1e3:.1f} "
+            f"images/s); device busy {o['busy']:.3f} ms of {o['wall']:.3f} ms profiled (idle "
+            f"{max(0.0, 1 - o['busy'] / o['wall']):.3f}); peak memory {o['peak'] / 2**30:.2f} GiB; "
+            f"launches per step {o['launches']}; trainer built in {o['build_s']:.2f} s")
+
+
+def phase_cli(clip):
+    """The port's CLI end to end on the card (module docstring, phase 9)."""
+    import torch
+
+    from fsvlm_tpu_torch.engine.checkpoint import flatten
+    from fsvlm_tpu_torch.engine.trainer import SimpleTrainer
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        out = os.path.join(work, "run")
+        torch.cuda.synchronize()
+        fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        t0 = time.perf_counter()
+        t = _cli(clip, out)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        ds = t.dm.dataset
+        log(f"cli: {CLI_RECIPE} on Synthetic: train_x {len(ds.train_x)} (per class "
+            f"{CLI_PER_CLASS_SHOTS}), val {len(ds.val)}, test {len(ds.test)}; "
+            f"{t.steps_per_epoch} steps of {t.batch_size} per epoch, {CLI_EPOCHS} epochs; "
+            f"run {run_s:.1f} s; launches {launches}")
+
+        # the log contract
+        text = _read(os.path.join(out, "log.txt"))
+        for needle in ("=> result", "* accuracy:", "Classification Report", "Finish training",
+                       "Deploy the model with the best val performance",
+                       "[PromptSRC] cached teacher image features",
+                       "* device-resident train set", "Using GPA model for final inference"):
+            if needle not in text:
+                raise SystemExit(f"FAIL: cli: log.txt lacks {needle!r}")
+        mdir = os.path.join(out, "VLPromptLearner")
+        files = set(os.listdir(mdir))
+        want = {"checkpoint", "model-best.pkl", "model.pkl-1", "model.pkl-2"}
+        if not want <= files or _read(os.path.join(mdir, "checkpoint")).strip() != "model.pkl-2":
+            raise SystemExit(f"FAIL: cli: checkpoint files {sorted(files)}")
+        seed_dir = os.path.join(work, "agg", "seed1")
+        os.makedirs(seed_dir)
+        shutil.copy(os.path.join(out, "log.txt"), seed_dir)
+        agg = subprocess.run([sys.executable, "parse_test_res.py", os.path.dirname(seed_dir)],
+                             capture_output=True, text=True, timeout=120)
+        if agg.returncode != 0 or "* accuracy:" not in agg.stdout:
+            raise SystemExit(f"FAIL: cli: parse_test_res.py: {agg.stdout}{agg.stderr}")
+        accs = [float(x) for x in re.findall(r"\* accuracy: ([\d.]+)%", text)]
+        log(f"cli: log contract holds; accuracies in log.txt (val, val, test, test) {accs}; "
+            f"parse_test_res.py: {agg.stdout.strip().splitlines()[-1]}")
+
+        # launches of #6-#8, from the code
+        expected = _cli_expected_launches(t, clip.cfg)
+        _others_silent(launches, "flash_attn", "the CLI run")
+        if any(launches[k] != n for k, n in expected.items()):
+            raise SystemExit(f"FAIL: cli: launches {launches}, expected {expected}")
+        log(f"cli: #6-#8 launched the expected {expected}")
+
+        # the teacher cache against the plain attention; its build time
+        kernel_cache = t.frozen["zs_img_cache"]
+        t.attn_impl = "plain"
+        plain_cache = t.build_teacher_cache(*t.eval_view_batches())
+        t.attn_impl = None
+        cos = torch.nn.functional.cosine_similarity(kernel_cache, plain_cache, dim=-1).min().item()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.build_teacher_cache(*t.eval_view_batches())
+        torch.cuda.synchronize()
+        cache_ms = (time.perf_counter() - t0) * 1e3
+        epoch_ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                t.run_epoch()
+            torch.cuda.synchronize()
+            epoch_ms.append((time.perf_counter() - t0) * 1e3)
+        n_img = t.steps_per_epoch * t.batch_size
+        log(f"cli: teacher cache ({tuple(kernel_cache.shape)}) min cosine to the plain-attention "
+            f"cache {cos:.6f} (limit {MIN_COSINE}); build {cache_ms:.1f} ms; epoch ms "
+            f"{[round(x, 1) for x in epoch_ms]} ({n_img} images, "
+            f"{n_img / min(epoch_ms) * 1e3:.1f} images/s)")
+        if cos < MIN_COSINE:
+            raise SystemExit("FAIL: cli: the teacher cache disagrees with the plain attention")
+
+        # resume from a copy whose pointer names model.pkl-1
+        resumed = os.path.join(work, "resumed")
+        shutil.copytree(out, resumed)
+        with open(os.path.join(resumed, "VLPromptLearner", "checkpoint"), "w") as f:
+            f.write("model.pkl-1")
+        with open(os.path.join(resumed, "VLPromptLearner", "model.pkl-1"), "rb") as f:
+            saved = pickle.load(f)
+        restored = {}
+        resume = SimpleTrainer.resume_model_if_exist
+
+        def spy(self, directory):
+            start = resume(self, directory)
+            restored.update(
+                start=start, params={k: v.detach().cpu().clone() for k, v in self.params.items()},
+                trace={k: x.cpu().clone() for k, x in zip(self.params, self.optim.trace)},
+                count=int(self.optim.count), generator=self.generator.get_state().numpy(),
+                gpa={k: v.cpu().clone() for k, v in (self.gpa_params or {}).items()})
+            return start
+
+        SimpleTrainer.resume_model_if_exist = spy
+        try:
+            t2 = _cli(clip, resumed)
+        finally:
+            SimpleTrainer.resume_model_if_exist = resume
+        sd, opt, extra = flatten(saved["state_dict"]), saved["optimizer"], saved["extra"]
+        diffs = {
+            "prompts": max(_max_abs(restored["params"][k], sd[k]) for k in sd),
+            "momentum": max(_max_abs(restored["trace"][k], opt["trace"][k]) for k in opt["trace"]),
+            "step count": abs(restored["count"] - int(opt["count"])),
+            "generator": _max_abs(restored["generator"], extra["rng_state"]),
+            "GPA": max(_max_abs(restored["gpa"][k], v) for k, v in extra["gpa_params"].items()),
+        }
+        rtext = "".join(_read(os.path.join(resumed, f)) for f in os.listdir(resumed)
+                        if f.startswith("log.txt-"))
+        log(f"cli: resumed from model.pkl-1 at epoch {restored['start']}; max abs difference to "
+            f"the checkpoint: {diffs}; the rerun trained {t2.epoch + 1 - restored['start']} "
+            f"epoch(s)")
+        if (restored["start"] != 1 or any(diffs.values()) or t2.epoch != CLI_EPOCHS - 1
+                or f"epoch [{CLI_EPOCHS}/{CLI_EPOCHS}]" not in rtext or "epoch [1/" in rtext
+                or "Finish training" not in rtext):
+            raise SystemExit("FAIL: cli: the resumed run did not restore the checkpoint exactly "
+                             "or did not finish")
+
+        # --eval-only --load-epoch 2 against the epoch-2 model's test()
+        t.load_model(out, epoch=CLI_EPOCHS)
+        with contextlib.redirect_stdout(io.StringIO()):
+            want_true, want_pred = t.test(return_pred=True)
+        t3 = _cli(clip, os.path.join(work, "eval"), "--eval-only", "--model-dir", out,
+                  "--load-epoch", str(CLI_EPOCHS))
+        acc = [float(x) for x in re.findall(r"\* accuracy: ([\d.]+)%",
+                                            _read(os.path.join(work, "eval", "log.txt")))]
+        want_acc = 100.0 * float(np.mean(np.asarray(want_true) == np.asarray(want_pred)))
+        log(f"cli: --eval-only --load-epoch {CLI_EPOCHS}: accuracy {acc} against the epoch-"
+            f"{CLI_EPOCHS} model's {want_acc:.4f}%; predictions equal "
+            f"{t3.evaluator.y_pred == want_pred}")
+        if t3.evaluator.y_pred != want_pred or t3.evaluator.y_true != want_true:
+            raise SystemExit("FAIL: cli: --eval-only did not reproduce the epoch-2 predictions")
+        del t, t2, t3
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _cached_teacher_steps(clip)
+    return launches
+
+
 def main():
     phase_device()
     phase_build()
@@ -1466,6 +1774,8 @@ def main():
         launches_bw, _, _ = phase_train_ivlp(pred.clip)
     with force_pallas("legacy"):  # every attention through the whole-sequence kernels
         launches_fused = phase_coop_cocoop(pred.clip)
+    with force_pallas(None):  # the CLI on the default route: the d = 64 kernels
+        phase_cli(pred.clip)
 
     import torch
 

@@ -8,14 +8,26 @@ configs/trainers/IVLP/vit_b16_c2_ep20_batch4_4+4ctx_kd.yaml (TRAINER.IVLP;
 its other sections equal the PromptSRC recipe's), so that
 ``get_cfg_default()`` is either recipe.  TRAINER.COOP and TRAINER.COCOOP
 keep defaults.py's values; their recipes are the override lists in
-``RECIPES``, applied with ``cfg.merge_from_list`` (the port reads no yaml).
+``RECIPES``, applied with ``cfg.merge_from_list``, or the yaml files
+themselves, read with ``cfg.merge_from_file``.  ``get_cfg_base()`` is
+defaults.py alone (the JAX package's ``get_cfg_default()``); the CLI
+starts from it.
 The nodes are plain mutable dataclasses with the yacs names
 (``cfg.OPTIM.LR``, ``cfg.TRAINER.PROMPTSRC.N_CTX_TEXT``); set fields, or
-merge a list, to override.
+merge a list or a file, to override.
+
+``merge_from_file`` reads the yaml subset that the files under configs/ use,
+without pyyaml (the card's machine has none): nested block maps, plain,
+single- and double-quoted scalars typed as PyYAML's safe loader types them
+(YAML 1.1: ints, floats with a dot, true/false/yes/no/on/off, null and ~),
+inline ``[...]`` lists of scalars and ``#`` comments.  Anything else (block
+lists, anchors, tags, flow maps, multi-line scalars, documents) raises
+ValueError.
 """
 
 import ast
 import dataclasses
+import re
 from dataclasses import field
 from typing import List, Tuple
 
@@ -43,6 +55,9 @@ class OptimConfig:
 @dataclasses.dataclass
 class InputConfig:
     SIZE: Tuple[int, int] = (224, 224)
+    INTERPOLATION: str = "bicubic"  # yaml (defaults.py: bilinear)
+    TRANSFORMS: Tuple[str, ...] = ("random_resized_crop", "random_flip", "normalize")  # yaml
+    NO_TRANSFORM: bool = False
     RRCROP_SCALE: Tuple[float, float] = (0.08, 1.0)
     PIXEL_MEAN: List[float] = field(default_factory=lambda: list(CLIP_PIXEL_MEAN))  # yaml
     PIXEL_STD: List[float] = field(default_factory=lambda: list(CLIP_PIXEL_STD))  # yaml
@@ -64,6 +79,9 @@ class PromptSRCConfig:
     SIMCLR_ALPHA: float = 0.0
     USE_GPA: bool = True
     LOGITS_LOSS_WEIGHT: float = 1.0
+    # the frozen teacher's image features precomputed once over the eval view
+    # of every train item, read per step instead of the teacher image pass
+    CACHED_TEACHER: bool = False
 
 
 @dataclasses.dataclass
@@ -109,6 +127,7 @@ class CoCoOpConfig:
 
 @dataclasses.dataclass
 class TrainerConfig:
+    NAME: str = ""
     PROMPTSRC: PromptSRCConfig = field(default_factory=PromptSRCConfig)
     IVLP: IVLPConfig = field(default_factory=IVLPConfig)
     COOP: CoOpConfig = field(default_factory=CoOpConfig)
@@ -123,6 +142,7 @@ class BackboneConfig:
 
 @dataclasses.dataclass
 class ModelConfig:
+    INIT_WEIGHTS: str = ""  # a checkpoint whose state_dict initializes the prompts
     BACKBONE: BackboneConfig = field(default_factory=BackboneConfig)
     FROZEN_DTYPE: str = "fp32"
     TEXT_TRUNCATE: bool = True
@@ -130,23 +150,45 @@ class ModelConfig:
 
 @dataclasses.dataclass
 class TrainXConfig:
+    SAMPLER: str = "RandomSampler"
     BATCH_SIZE: int = 4  # yaml
+    N_DOMAIN: int = 0
+    N_INS: int = 16
+
+
+@dataclasses.dataclass
+class TrainUConfig:
+    SAME_AS_X: bool = True
+    SAMPLER: str = "RandomSampler"
+    BATCH_SIZE: int = 32
+    N_DOMAIN: int = 0
+    N_INS: int = 16
 
 
 @dataclasses.dataclass
 class TestLoaderConfig:
+    SAMPLER: str = "SequentialSampler"
     BATCH_SIZE: int = 100  # yaml (defaults.py: 32)
 
 
 @dataclasses.dataclass
 class DataLoaderConfig:
+    NUM_WORKERS: int = 8  # yaml (defaults.py: 4); host decode threads
     TRAIN_X: TrainXConfig = field(default_factory=TrainXConfig)
+    TRAIN_U: TrainUConfig = field(default_factory=TrainUConfig)
     TEST: TestLoaderConfig = field(default_factory=TestLoaderConfig)
     DEVICE_AUG: bool = False
+    PRE_SIZE: int = 256  # the train cache's image size under DEVICE_AUG
+    # the train set as one uint8 cache on the device: auto (when it fits the
+    # budget), on (required), off (uint8 batches from the loader every step)
+    DEVICE_RESIDENT: str = "auto"
+    DEVICE_RESIDENT_BUDGET_MB: int = 2048
 
 
 @dataclasses.dataclass
 class TrainConfig:
+    CHECKPOINT_FREQ: int = 0  # also save every this many epochs (the last always)
+    PRINT_FREQ: int = 20  # yaml (defaults.py: 10)
     # checkpoint each transformer layer in the backward (CoCoOp's text passes)
     REMAT: bool = False
 
@@ -157,17 +199,27 @@ class TestConfig:
     COMPUTE_CMAT: bool = False  # kept on the evaluator as ``cmat`` (no OUTPUT_DIR here)
     NO_TEST: bool = False
     SPLIT: str = "test"
+    FINAL_MODEL: str = "last_step"  # or best_val
 
 
 @dataclasses.dataclass
 class DatasetConfig:
-    NAME: str = ""  # picks the KD teacher's template (trainers/templates.py)
-    PER_CLASS_SHOTS: List[int] = field(default_factory=list)
+    ROOT: str = ""
+    NAME: str = ""  # the dataset, and the KD teacher's template (trainers/templates.py)
+    SOURCE_DOMAINS: Tuple[str, ...] = ()
+    TARGET_DOMAINS: Tuple[str, ...] = ()
+    NUM_SHOTS: int = -1
+    VAL_PERCENT: float = 0.1
+    SUBSAMPLE_CLASSES: str = "all"  # all, base or new
+    PER_CLASS_SHOTS: List[int] = field(default_factory=list)  # when NUM_SHOTS < 0
 
 
 @dataclasses.dataclass
 class Config:
+    OUTPUT_DIR: str = "./output"
+    RESUME: str = ""
     SEED: int = -1
+    VERBOSE: bool = True
     OPTIM: OptimConfig = field(default_factory=OptimConfig)
     INPUT: InputConfig = field(default_factory=InputConfig)
     TRAINER: TrainerConfig = field(default_factory=TrainerConfig)
@@ -176,6 +228,18 @@ class Config:
     DATASET: DatasetConfig = field(default_factory=DatasetConfig)
     TRAIN: TrainConfig = field(default_factory=TrainConfig)
     TEST: TestConfig = field(default_factory=TestConfig)
+
+    def __str__(self):
+        """The yacs tree print (cfgnode.py:124-137): keys sorted, nodes
+        indented."""
+        return _node_str(self)
+
+    def merge_from_file(self, path):
+        """Merge a yaml file of the subset described above; an unknown key
+        raises KeyError, as ``merge_from_list`` does."""
+        with open(path) as f:
+            tree = parse_yaml(f.read(), path)
+        self.merge_from_list([v for kv in _flatten(tree) for v in kv])
 
     def merge_from_list(self, opts):
         """yacs' ``merge_from_list`` (fsvlm_tpu/config/cfgnode.py:93-111) on
@@ -199,6 +263,190 @@ class Config:
             if dataclasses.is_dataclass(getattr(node, leaf)):
                 raise KeyError(f"{full_key} is a config node, not a key")
             setattr(node, leaf, _coerce(getattr(node, leaf), _decode(value), full_key))
+
+
+def _node_str(node):
+    lines = []
+    for name in sorted(f.name for f in dataclasses.fields(node)):
+        value = getattr(node, name)
+        if dataclasses.is_dataclass(value):
+            lines.append(f"{name}:")
+            lines.extend("  " + ln for ln in _node_str(value).split("\n"))
+        else:
+            lines.append(f"{name}: {value}")
+    return "\n".join(lines)
+
+
+def _flatten(tree, prefix=""):
+    """(dotted key, value) for every leaf of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+# ------------------------------------------------------------- yaml subset
+# PyYAML's implicit resolvers for plain scalars (yaml/resolver.py,
+# constructor.py), less the sexagesimal forms, which raise
+_YAML_BOOL = {"yes": True, "true": True, "on": True, "no": False, "false": False, "off": False}
+_YAML_NULL = ("", "~", "null", "Null", "NULL")
+_YAML_INT = re.compile(r"[-+]?(0|[1-9][0-9_]*)")
+_YAML_INT_BASE = re.compile(r"[-+]?0(b[0-1_]+|x[0-9a-fA-F_]+|[0-7_]+)")
+_YAML_FLOAT = re.compile(r"[-+]?[0-9][0-9_]*\.[0-9_]*([eE][-+][0-9]+)?|\.[0-9][0-9_]*([eE][-+][0-9]+)?")
+_YAML_INF = re.compile(r"([-+]?)\.(inf|Inf|INF)")
+_YAML_NAN = re.compile(r"\.(nan|NaN|NAN)")
+_YAML_SEXAGESIMAL = re.compile(r"[-+]?[0-9][0-9_]*(:[0-5]?[0-9])+(\.[0-9_]*)?")
+
+
+def _yaml_error(path, lineno, msg):
+    return ValueError(f"{path}:{lineno}: {msg} (not in the yaml subset that merge_from_file reads)")
+
+
+def _plain_scalar(text, path, lineno):
+    if text in _YAML_NULL:
+        return None
+    if text.lower() in _YAML_BOOL and text in (text.lower(), text.capitalize(), text.upper()):
+        return _YAML_BOOL[text.lower()]
+    sign = -1 if text.startswith("-") else 1
+    if _YAML_INT.fullmatch(text):
+        return int(text.replace("_", ""))
+    if _YAML_INT_BASE.fullmatch(text):
+        body = text.replace("_", "").lstrip("+-")
+        base = {"b": 2, "x": 16}.get(body[1], 8)
+        return sign * int(body if base == 8 else body[2:], base)
+    if _YAML_FLOAT.fullmatch(text):
+        return float(text.replace("_", ""))
+    m = _YAML_INF.fullmatch(text)
+    if m:
+        return float(m.group(1) + "inf")
+    if _YAML_NAN.fullmatch(text):
+        return float("nan")
+    if _YAML_SEXAGESIMAL.fullmatch(text):
+        raise _yaml_error(path, lineno, f"sexagesimal number {text!r}")
+    if text[0] in "&*!|>%@`{}[],#'\"" or text.startswith(("- ", "? ")) or text == "-" \
+            or ": " in text or text.endswith(":") or " #" in text:
+        raise _yaml_error(path, lineno, f"unsupported scalar {text!r}")
+    return text
+
+
+def _quoted(text, i, path, lineno):
+    """The quoted scalar starting at text[i]; returns (value, end index)."""
+    q, out, i = text[i], [], i + 1
+    escapes = {"n": "\n", "t": "\t", '"': '"', "\\": "\\", "/": "/", "0": "\0"}
+    while i < len(text):
+        c = text[i]
+        if q == "'" and c == "'":
+            if text[i + 1:i + 2] == "'":
+                out.append("'")
+                i += 2
+                continue
+            return "".join(out), i + 1
+        if q == '"' and c == "\\":
+            if text[i + 1:i + 2] not in escapes:
+                raise _yaml_error(path, lineno, f"escape {text[i:i + 2]!r}")
+            out.append(escapes[text[i + 1]])
+            i += 2
+            continue
+        if q == '"' and c == '"':
+            return "".join(out), i + 1
+        out.append(c)
+        i += 1
+    raise _yaml_error(path, lineno, "unterminated or multi-line quoted scalar")
+
+
+def _strip_comment(text, path, lineno):
+    """``text`` without a trailing ``#`` comment (one outside quotes)."""
+    i, in_q = 0, None
+    while i < len(text):
+        c = text[i]
+        if in_q is None and c in "'\"" and (i == 0 or text[i - 1] in " [,:"):
+            _, i = _quoted(text, i, path, lineno)
+            continue
+        if c == "#" and (i == 0 or text[i - 1] in " \t"):
+            return text[:i].rstrip()
+        i += 1
+    return text.rstrip()
+
+
+def _value(text, path, lineno):
+    """A scalar or an inline list of scalars."""
+    if text[:1] in "'\"":
+        value, end = _quoted(text, 0, path, lineno)
+        if text[end:].strip():
+            raise _yaml_error(path, lineno, f"text after a quoted scalar: {text!r}")
+        return value
+    if text.startswith("["):
+        if not text.endswith("]"):
+            raise _yaml_error(path, lineno, f"multi-line or unterminated list {text!r}")
+        items, body, i = [], text[1:-1], 0
+        while i < len(body):
+            while i < len(body) and body[i] == " ":
+                i += 1
+            if i == len(body):
+                break
+            if body[i] in "'\"":
+                value, i = _quoted(body, i, path, lineno)
+            elif body[i] in "[{":
+                raise _yaml_error(path, lineno, "nested flow collection")
+            else:
+                j = body.find(",", i)
+                j = len(body) if j < 0 else j
+                value, i = _plain_scalar(body[i:j].strip(), path, lineno), j
+            items.append(value)
+            while i < len(body) and body[i] == " ":
+                i += 1
+            if i < len(body):
+                if body[i] != ",":
+                    raise _yaml_error(path, lineno, f"bad list {text!r}")
+                i += 1
+        return items
+    return _plain_scalar(text, path, lineno)
+
+
+def parse_yaml(text, path="<string>"):
+    """The nested dict that ``yaml.safe_load`` gives for ``text``, for the
+    subset described in the module docstring ({} for an empty document,
+    where PyYAML gives None)."""
+    root = {}
+    stack = [[None, root]]  # [indent, mapping] from the root down
+    pending = None  # (indent, key, mapping) of a key with no value on its line
+    for lineno, raw in enumerate(text.splitlines(), 1):
+        line = _strip_comment(raw, path, lineno)
+        if not line.strip():
+            continue
+        body = line.lstrip(" ")
+        indent = len(line) - len(body)
+        if body[0] == "\t":
+            raise _yaml_error(path, lineno, "tab indentation")
+        if body.startswith(("---", "...", "%")):
+            raise _yaml_error(path, lineno, f"document marker {body!r}")
+        if body.startswith("- ") or body == "-":
+            raise _yaml_error(path, lineno, "block list")
+        m = re.fullmatch(r"([^\s:'\"#]+):(?:\s+(.*))?", body)
+        if m is None:
+            raise _yaml_error(path, lineno, f"not a 'KEY: value' line: {body!r}")
+        key = _plain_scalar(m.group(1), path, lineno)
+        if not isinstance(key, str):
+            raise _yaml_error(path, lineno, f"key {m.group(1)!r} is not a string")
+        if pending is not None and indent > pending[0]:
+            pending[2][pending[1]] = {}
+            stack.append([indent, pending[2][pending[1]]])
+        pending = None
+        if stack[0][0] is None:
+            stack[0][0] = indent
+        while len(stack) > 1 and indent < stack[-1][0]:
+            stack.pop()
+        if indent != stack[-1][0]:
+            raise _yaml_error(path, lineno, "inconsistent indentation")
+        parent = stack[-1][1]
+        if key in parent:
+            raise _yaml_error(path, lineno, f"duplicate key {key!r}")
+        rest = (m.group(2) or "").strip()
+        parent[key] = _value(rest, path, lineno) if rest else None
+        if not rest:
+            pending = (indent, key, parent)
+    return root
 
 
 def _decode(value):
@@ -236,6 +484,41 @@ def get_cfg_default():
     """A fresh config: defaults.py overlaid with the PromptSRC and IVLP
     ViT-B/16 recipes."""
     return Config()
+
+
+# defaults.py's values of the keys that the recipe overlay above sets
+_DEFAULTS_PY = [
+    "OPTIM.NAME", "adam",
+    "OPTIM.LR", 0.0003,
+    "OPTIM.LR_SCHEDULER", "single_step",
+    "OPTIM.MAX_EPOCH", 10,
+    "OPTIM.WARMUP_EPOCH", -1,
+    "OPTIM.WARMUP_TYPE", "linear",
+    "INPUT.INTERPOLATION", "bilinear",
+    "INPUT.TRANSFORMS", (),
+    "INPUT.PIXEL_MEAN", [0.485, 0.456, 0.406],
+    "INPUT.PIXEL_STD", [0.229, 0.224, 0.225],
+    "TRAINER.PROMPTSRC.PREC", "fp16",
+    "TRAINER.IVLP.N_CTX_VISION", 2,
+    "TRAINER.IVLP.N_CTX_TEXT", 2,
+    "TRAINER.IVLP.PREC", "fp16",
+    "TRAINER.IVLP.USE_MIXUP", True,
+    "MODEL.BACKBONE.NAME", "",
+    "DATALOADER.NUM_WORKERS", 4,
+    "DATALOADER.TRAIN_X.BATCH_SIZE", 32,
+    "DATALOADER.TEST.BATCH_SIZE", 32,
+    "TRAIN.PRINT_FREQ", 10,
+]
+
+
+def get_cfg_base():
+    """A fresh config equal to defaults.py, without the recipe overlay: the
+    JAX package's ``get_cfg_default()``.  The CLI starts from it, as the JAX
+    package's train.py does, so that a yaml file that leaves a key unset
+    gives the same config in both packages."""
+    cfg = Config()
+    cfg.merge_from_list(_DEFAULTS_PY)
+    return cfg
 
 
 # The CoOp and CoCoOp ViT-B/16 recipes as override lists, key for key the

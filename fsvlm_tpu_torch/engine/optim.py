@@ -29,6 +29,7 @@ device (torch.where), so a step needs no host sync.
 
 import math
 
+import numpy as np
 import torch
 
 from .. import resolve_device
@@ -118,6 +119,24 @@ class SGD:
                 t.copy_(torch.where(apply, new_t, t))
             p.copy_(torch.where(apply, p + neg_lr * u, p))
         self.count = torch.where(apply, self.count + 1, self.count)
+
+    def state_dict(self, names):
+        """The state as numpy: the step counts, and the momentum buffers keyed
+        by ``names`` (the parameters' names, in order)."""
+        def copy(t):
+            return t.detach().cpu().numpy().copy()
+
+        return {"count": copy(self.count), "notfinite_count": copy(self.notfinite_count),
+                "trace": {n: copy(t) for n, t in zip(names, self.trace)}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state, names):
+        """Restore what ``state_dict`` saved, exactly."""
+        dev = self.count.device
+        self.count = torch.as_tensor(state["count"], dtype=torch.int64).to(dev)
+        self.notfinite_count = torch.as_tensor(state["notfinite_count"], dtype=torch.int64).to(dev)
+        for n, t in zip(names, self.trace):
+            t.copy_(torch.from_numpy(np.array(state["trace"][n], dtype=np.float32)))
 
 
 def build_optimizer(cfg, params, steps_per_epoch):

@@ -1,56 +1,103 @@
-"""The training loop core and test() (counterpart of
-fsvlm_tpu.engine.trainer.SimpleTrainer, :97-142, :159-180, :212-252,
-:262-270, :570-607, :677-715), without DataManager.
+"""The training loop, test(), checkpoints and the trainer registry
+(counterpart of fsvlm_tpu.engine.trainer.SimpleTrainer).
 
-The trainer takes the class names, a uint8 image cache (N, P, P, 3) and its
-labels, both moved to ``device`` (default cuda), and keeps its state there:
-the prompt tensors (fp32 leaves), the optimizer, and a ``torch.Generator``
-that draws the epoch permutation, under DATALOADER.DEVICE_AUG the crop
-boxes and flips, and under mixup each step's batch permutation.  Mixup's
-lam ~ Beta(alpha, alpha) has no device sampler that takes a generator: the
-epoch's lams are drawn on the host from a ``numpy.random.Generator`` seeded
-from SEED and moved to the device once per epoch, beside the epoch
-schedule.  A step launches its work and returns its metrics as device
-tensors, with no host sync; ``run_epoch`` reads them back once, at the
-epoch's end.
+A trainer is fed one of two ways:
+
+- ``SimpleTrainer(cfg)``, as the JAX package's: the DataManager
+  (``data/``) builds the dataset of DATASET.NAME with its few-shot
+  subsets, the train loader (DATALOADER.DEVICE_AUG's uint8 images, the
+  sampler of DATALOADER.TRAIN_X.SAMPLER) and the val and test loaders.
+  Under DATALOADER.DEVICE_RESIDENT (auto: when the set fits
+  DEVICE_RESIDENT_BUDGET_MB) the whole train set goes to the device once
+  (``RawDatasetWrapper.materialize``) and each step gathers its batch there
+  by index; each epoch's index batches come from the sampler, as the JAX
+  package's host schedule (trainer.py:442-568).  Otherwise each step's
+  uint8 batch comes from the loader.  ``train()`` then runs the JAX
+  package's lifecycle: resume from the output directory (or cfg.RESUME),
+  best-val selection and checkpoints at each epoch's end (TEST.FINAL_MODEL,
+  TRAIN.CHECKPOINT_FREQ, the last epoch always), and after the last epoch
+  the best model's (or the last) test().
+- ``SimpleTrainer(cfg, classnames, images, labels)``: the class names, a
+  uint8 image cache (N, P, P, 3) and its labels, moved to the device; each
+  epoch is a permutation drawn on the device.  No data layer, no
+  checkpoints: ``train()`` runs the epochs only.
+
+The trainer keeps its state on ``device`` (default cuda): the prompt
+tensors (fp32 leaves), the optimizer, and a ``torch.Generator`` that draws
+the device-side permutation, under DEVICE_AUG the crop boxes and flips,
+and under mixup each step's batch permutation.  Mixup's lam ~ Beta(alpha,
+alpha) has no device sampler that takes a generator: the epoch's lams are
+drawn on the host from a ``numpy.random.Generator`` seeded from SEED and
+moved to the device once per epoch.  A step launches its work and returns
+its metrics as device tensors, with no host sync; ``run_epoch`` reads them
+back once, at the epoch's end, and prints the JAX package's train lines.
 
 - ``train_step(batch, aug, mix)``: a batch that carries its images ("img":
   float, already normalized, or uint8 under DEVICE_AUG), "label" and
-  optionally "valid" / "img2"; ``aug`` = (boxes, flips) and ``mix`` =
-  (perm, lam) hand in the step's draws (tests inject the JAX package's);
+  optionally "valid" / "index" / "img2"; ``aug`` = (boxes, flips) and
+  ``mix`` = (perm, lam) hand in the step's draws (tests inject the JAX
+  package's);
 - ``train_step_resident(index, valid)``: indices into the cache, gathered on
   the device, as the JAX package's train_step_resident;
-- ``forward_backward(batch)``: either, by whether the batch carries "img";
-- ``train()``: epochs of ``steps_per_epoch`` resident steps, each framed by
-  ``before_epoch`` / ``after_epoch``;
-- ``test(images, labels)``: top-1 accuracy on a uint8 test cache, text
-  features once where the trainer splits its eval.
+- ``test(split=...)`` on the loaders, or ``test(images, labels)`` on a
+  uint8 cache: top-1 accuracy, text features once where the trainer
+  splits its eval;
+- ``save_model`` / ``resume_model_if_exist`` / ``load_model``: the JAX
+  package's checkpoint files (``engine/checkpoint.py``); a resume restores
+  the prompts, the optimizer's momentum and step count, the generator, the
+  mixup rng and the best val result.  As in the JAX package the samplers
+  are not part of it: they restart from SEED.
 
-Subclasses name their config node (``trainer_cfg_key``:
-``cfg.TRAINER.<key>``, whose PREC sets the compute dtype) and implement
-``build_model(clip)``, which sets ``params`` (dict of fp32 tensors),
-``frozen``, ``use_mixup`` / ``mixup_alpha`` where they mix, and
-``loss_fn(params, frozen, batch) -> (loss, aux)``; under ``use_mixup`` the
-batch carries its draws as "perm" and "lam"; for ``test()``, either
+Subclasses register with ``TRAINER_REGISTRY``, name their config node
+(``trainer_cfg_key``: ``cfg.TRAINER.<key>``, whose PREC sets the compute
+dtype) and implement ``build_model(clip)``, which sets ``params`` (dict of
+fp32 tensors), ``frozen``, ``use_mixup`` / ``mixup_alpha`` where they mix,
+and ``loss_fn(params, frozen, batch) -> (loss, aux)``; under ``use_mixup``
+the batch carries its draws as "perm" and "lam"; for ``test()``, either
 ``text_features_fn(params, frozen)`` and ``image_logits_fn(params, frozen,
 images, txf)`` (split eval) or ``logits_fn(params, frozen, images)``.
-Checkpoint save and resume, best-val selection and the DataManager's
-loaders are not ported.
 """
 
+import datetime
 import math
+import os
+import time
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..data import DataManager
 from ..ops.preprocess import (
     crop_resize_flip_normalize,
     normalize_only,
     random_resized_crop_flip_normalize,
 )
+from ..utils import AverageMeter, MetricMeter, mkdir_if_missing
+from ..utils.registry import Registry
+from .checkpoint import (
+    coerce_prompt_params,
+    load_checkpoint,
+    nest,
+    resume_from_checkpoint,
+    save_checkpoint,
+)
 from .evaluator import Classification
 from .optim import build_optimizer
+
+TRAINER_REGISTRY = Registry("TRAINER")
+
+
+def build_trainer(cfg, **kwargs):
+    """The trainer of TRAINER.NAME, fed by the DataManager; ``kwargs`` go to
+    its constructor (``device``, ``clip``, ``attn_impl``)."""
+    from .. import trainers  # noqa: F401  (registers the ported trainers)
+
+    name = cfg.TRAINER.NAME
+    if name not in TRAINER_REGISTRY:
+        raise KeyError(f"Trainer {name!r} is not ported (ROADMAP A6); ported: "
+                       f"{TRAINER_REGISTRY.registered_names()}")
+    return TRAINER_REGISTRY.get(name)(cfg, **kwargs)
 
 
 class SimpleTrainer:
@@ -59,33 +106,47 @@ class SimpleTrainer:
     use_mixup = False  # set by build_model: every step then draws (perm, lam)
     mixup_alpha = 1.0
 
-    def __init__(self, cfg, classnames, images=None, labels=None, clip=None, device=None,
+    def __init__(self, cfg, classnames=None, images=None, labels=None, clip=None, device=None,
                  steps_per_epoch=None, attn_impl=None):
-        """cfg: ``fsvlm_tpu_torch.config.Config``.  images/labels: the train
-        set as a uint8 (N, P, P, 3) cache and (N,) integer labels.  clip: an
-        already built CLIP module on ``device`` (else one is loaded for
-        MODEL.BACKBONE.NAME).  steps_per_epoch: default N // batch size (1
-        when N is smaller than a batch), as the JAX package's drop-last
-        train loader.  attn_impl: None (the hand-written kernels on CUDA) or
-        "plain", for comparisons only."""
+        """cfg: ``fsvlm_tpu_torch.config.Config``.  classnames: None to build
+        the DataManager from cfg; else the label space, with images/labels
+        the train set as a uint8 (N, P, P, 3) cache and (N,) integer labels.
+        clip: an already built CLIP module on ``device`` (else one is loaded
+        for MODEL.BACKBONE.NAME).  steps_per_epoch: default the train
+        loader's length, or N // batch size (1 when N is smaller than a
+        batch), as the JAX package's drop-last train loader.  attn_impl:
+        None (the hand-written kernels on CUDA) or "plain", for comparisons
+        only."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.check_cfg(cfg)
-        self.classnames = list(classnames)
-        self.num_classes = len(self.classnames)
         self.attn_impl = attn_impl
         self.start_epoch = self.epoch = self.batch_idx = 0
         self.max_epoch = cfg.OPTIM.MAX_EPOCH
+        self.output_dir = cfg.OUTPUT_DIR
+        self.best_result = -np.inf
         self.generator = torch.Generator(device=self.device).manual_seed(max(cfg.SEED, 0))
         self.mix_rng = np.random.default_rng(max(cfg.SEED, 0))  # the epochs' mixup lams
         self.epoch_lams = None
         # on the device once: copying them at every step would sync the host
         self.pixel_stats = [torch.tensor(v, dtype=torch.float32, device=self.device)
                             for v in (cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD)]
+        self.dm = None
+        self.train_loader_x = self.val_loader = self.test_loader = None
         self.cache = self.labels = None
+        self._resident_off = False
+        if classnames is None:
+            self.build_data_loader()
+        else:
+            self.classnames = list(classnames)
+            self.lab2cname = dict(enumerate(self.classnames))
+        self.num_classes = len(self.classnames)
         if images is not None:
             self.set_train_data(images, labels)
         self.build_model(clip)
+        if cfg.MODEL.INIT_WEIGHTS:  # dassl's load_pretrained_weights (trainer.py:64-72)
+            self.load_params(load_checkpoint(cfg.MODEL.INIT_WEIGHTS)["state_dict"])
+            print(f'Initialized params from "{cfg.MODEL.INIT_WEIGHTS}"')
         self._build_optimizer(steps_per_epoch)
 
     # ------------------------------------------------------------------ setup
@@ -104,6 +165,13 @@ class SimpleTrainer:
             return torch.float32
         return torch.bfloat16
 
+    def build_data_loader(self):
+        self.dm = dm = DataManager(self.cfg)
+        self.train_loader_x, self.val_loader, self.test_loader = (
+            dm.train_loader_x, dm.val_loader, dm.test_loader)
+        self.classnames = dm.dataset.classnames
+        self.lab2cname = dm.lab2cname
+
     def build_model(self, clip):
         raise NotImplementedError
 
@@ -121,6 +189,8 @@ class SimpleTrainer:
         self.labels = labels.to(self.device, torch.long)
 
     def _build_optimizer(self, steps_per_epoch):
+        if steps_per_epoch is None and self.dm is not None:
+            steps_per_epoch = len(self.train_loader_x) if self.train_loader_x else 1
         if steps_per_epoch is None:
             n, B = (len(self.cache) if self.cache is not None else 0), self.batch_size
             steps_per_epoch = n // B if n >= B else 1
@@ -133,6 +203,30 @@ class SimpleTrainer:
     def batch_size(self):
         return self.cfg.DATALOADER.TRAIN_X.BATCH_SIZE
 
+    def _maybe_device_cache(self):
+        """The device-resident uint8 train set, built on first use when
+        DATALOADER.DEVICE_RESIDENT allows and the set fits its budget (or
+        is forced on); else None (trainer.py:308-372)."""
+        if self.cache is not None or self.dm is None or self._resident_off:
+            return self.cache
+        mode = str(self.cfg.DATALOADER.DEVICE_RESIDENT).lower()
+        if mode in ("false", "off", "0", "no"):
+            return None
+        wrapper = self.train_loader_x.wrapper
+        n = len(wrapper)
+        nbytes = n * wrapper.pre_size * wrapper.pre_size * 3
+        budget = int(self.cfg.DATALOADER.DEVICE_RESIDENT_BUDGET_MB) << 20
+        if nbytes > budget and mode not in ("true", "on", "1", "yes"):
+            print(f"* device-resident train set disabled: {nbytes >> 20} MB "
+                  f"> budget {self.cfg.DATALOADER.DEVICE_RESIDENT_BUDGET_MB} MB")
+            self._resident_off = True
+            return None
+        images = wrapper.materialize(num_threads=max(1, self.cfg.DATALOADER.NUM_WORKERS))
+        self.set_train_data(images, np.asarray([it.label for it in wrapper.data_source]))
+        print(f"* device-resident train set: {n} images x {wrapper.pre_size}^2 "
+              f"({nbytes >> 20} MB) on {self.device}; per-step H2D is indices only")
+        return self.cache
+
     # ------------------------------------------------------------------- steps
     def augment(self, images, aug=None):
         """DEVICE_AUG's random-resized-crop + flip + normalize of uint8
@@ -144,6 +238,14 @@ class SimpleTrainer:
                                                       inp.RRCROP_SCALE, *self.pixel_stats)
         boxes, flips = aug
         return crop_resize_flip_normalize(images, boxes, flips, inp.SIZE[0], *self.pixel_stats)
+
+    def eval_images(self, images):
+        """uint8 eval views on the device -> the float images the towers
+        take: normalized, as the JAX package's TestTransform, when
+        "normalize" is in INPUT.TRANSFORMS, else x / 255."""
+        if "normalize" in self.cfg.INPUT.TRANSFORMS:
+            return normalize_only(images, *self.pixel_stats)
+        return images.to(torch.float32) / 255.0
 
     def draw_epoch_lams(self):
         """This epoch's mixup lams, one per step, ~ Beta(alpha, alpha) (1 when
@@ -168,8 +270,10 @@ class SimpleTrainer:
         """One optimizer step on a batch that carries its images.  Returns
         the metrics (loss and the loss function's aux) as device tensors."""
         batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()
-                 if k in ("img", "img2", "label", "valid")}
+                 if k in ("img", "img2", "label", "valid", "index")}
         batch["label"] = batch["label"].long()
+        if "index" in batch:
+            batch["index"] = batch["index"].long()
         if self.cfg.DATALOADER.DEVICE_AUG:
             batch["img"] = self.augment(batch["img"], aug)
         elif batch["img"].dtype == torch.uint8:
@@ -189,7 +293,7 @@ class SimpleTrainer:
     def train_step_resident(self, index, valid=None, aug=None, mix=None):
         """One step on cache rows ``index`` (gathered on the device)."""
         index = torch.as_tensor(index, device=self.device).long()
-        batch = {"img": self.cache[index], "label": self.labels[index]}
+        batch = {"img": self.cache[index], "label": self.labels[index], "index": index}
         if valid is not None:
             batch["valid"] = valid
         return self.train_step(batch, aug, mix)
@@ -201,10 +305,16 @@ class SimpleTrainer:
 
     # ------------------------------------------------------------------- loop
     def epoch_schedule(self):
-        """This epoch's (index, valid), each (steps_per_epoch, B): a
-        permutation of the cache drawn from the generator, padded with its
-        last element (valid False) when the epoch needs more than N items
-        (parity: build_schedule, trainer.py:226-252)."""
+        """This epoch's (index, valid), each (steps, B) on the device: the
+        train loader's sampler order (its index batches, as the JAX
+        package's host schedule), or without a loader a permutation of the
+        cache drawn from the generator, padded with its last element (valid
+        False) when the epoch needs more than N items (build_schedule,
+        trainer.py:226-252)."""
+        if self.dm is not None:
+            batches = list(self.train_loader_x.iter_index_batches())
+            return tuple(torch.from_numpy(np.stack([b[k] for b in batches])).to(self.device)
+                         for k in ("index", "valid"))
         n, B, steps = len(self.cache), self.batch_size, self.steps_per_epoch
         perm = torch.randperm(n, generator=self.generator, device=self.device)
         total = steps * B
@@ -214,69 +324,157 @@ class SimpleTrainer:
         valid = (torch.arange(total, device=self.device) < n).reshape(steps, B)
         return index, valid
 
+    def before_train(self):
+        """With the DataManager: resume from cfg.RESUME, else from the output
+        directory, then make it."""
+        if self.dm is None:
+            return
+        self.resume_model_if_exist(self.cfg.RESUME or self.output_dir)
+        mkdir_if_missing(self.output_dir)
+
     def before_epoch(self):
         pass
 
     def run_epoch(self):
-        """``steps_per_epoch`` resident steps; the metrics are read back once,
-        at the end.  Returns them as a list of {name: float}."""
-        index, valid = self.epoch_schedule()
+        """The epoch's steps, resident where the train set is on the device,
+        else on the loader's uint8 batches; the metrics are read back once,
+        at the end, and printed as the JAX package's train lines.  Returns
+        them as a list of {name: float}."""
+        t0 = time.time()
+        if self._maybe_device_cache() is not None:
+            index, valid = self.epoch_schedule()
+            steps = zip(index, valid)
+        else:
+            steps = iter(self.train_loader_x)
+        data_time = time.time() - t0
         if self.use_mixup:
             self.draw_epoch_lams()
         pending = []
-        for self.batch_idx in range(self.steps_per_epoch):
-            pending.append(self.train_step_resident(index[self.batch_idx], valid[self.batch_idx]))
+        for self.batch_idx, step in enumerate(steps):
+            if isinstance(step, dict):
+                pending.append(self.train_step(step))
+            else:
+                pending.append(self.train_step_resident(*step))
         host = [{k: float(v) for k, v in m.items()} for m in pending]
         for bi, m in enumerate(host):
             if not math.isfinite(m["loss"]):
                 raise FloatingPointError(f"Loss is infinite or NaN at epoch {self.epoch} "
                                          f"step {bi}: {m}")
+        self._print_train_lines(host, time.time() - t0, data_time)
         return host
 
+    def _print_train_lines(self, host, seconds, data_time):
+        """The per-step lines of the JAX package's fused epoch
+        (trainer.py:417-430, :558-568), every TRAIN.PRINT_FREQ steps and at
+        the last: the epoch's time spread over its steps."""
+        losses, batch_time, data = MetricMeter(), AverageMeter(), AverageMeter()
+        data.update(data_time)
+        n = len(host)
+        per_step = max(seconds - data_time, 0.0) / max(n, 1)
+        for bi, m in enumerate(host):
+            batch_time.update(per_step + (data_time if bi == 0 else 0.0))
+            losses.update(m)
+            if (bi + 1) % self.cfg.TRAIN.PRINT_FREQ == 0 or bi + 1 == n:
+                remain = (n - bi - 1) + (self.max_epoch - self.epoch - 1) * n
+                eta = datetime.timedelta(seconds=int(batch_time.avg * remain))
+                print(f"epoch [{self.epoch + 1}/{self.max_epoch}][{bi + 1}/{n}]\t"
+                      f"time {batch_time.val:.3f} ({batch_time.avg:.3f})\t"
+                      f"data {data.val:.3f} ({data.avg:.3f})\t{losses}\t"
+                      f"lr {self.get_current_lr():.4e}\teta {eta}")
+
     def after_epoch(self):
-        pass
+        """With the DataManager: the val test and the best-val save under
+        TEST.FINAL_MODEL best_val; a checkpoint every CHECKPOINT_FREQ epochs
+        and after the last (trainer.py:590-607)."""
+        if self.dm is None:
+            return
+        cfg = self.cfg
+        last_epoch = (self.epoch + 1) == self.max_epoch
+        meet_freq = (cfg.TRAIN.CHECKPOINT_FREQ > 0
+                     and (self.epoch + 1) % cfg.TRAIN.CHECKPOINT_FREQ == 0)
+        if not cfg.TEST.NO_TEST and cfg.TEST.FINAL_MODEL == "best_val" and self.val_loader:
+            curr_result = self.test(split="val")
+            if curr_result > self.best_result:
+                self.best_result = curr_result
+                self.save_model(self.epoch, self.output_dir, val_result=curr_result,
+                                model_name="model-best.pkl")
+        if meet_freq or last_epoch:
+            self.save_model(self.epoch, self.output_dir)
+
+    def after_train(self):
+        """With the DataManager: deploy the best-val model (or keep the last)
+        and test it (trainer.py:609-625)."""
+        if self.dm is None:
+            return None
+        print("Finish training")
+        result = None
+        if not self.cfg.TEST.NO_TEST:
+            if self.cfg.TEST.FINAL_MODEL == "best_val":
+                print("Deploy the model with the best val performance")
+                self.load_model(self.output_dir)
+            result = self.test()
+        elapsed = round(time.time() - self.time_start)
+        print(f"Elapsed: {datetime.timedelta(seconds=elapsed)}")
+        return result
 
     def train(self, start_epoch=None, max_epoch=None):
-        """Run the epochs; returns each epoch's run_epoch() metrics."""
+        """Run the lifecycle; returns each epoch's run_epoch() metrics."""
         self.start_epoch = start_epoch if start_epoch is not None else self.start_epoch
         self.max_epoch = max_epoch if max_epoch is not None else self.max_epoch
+        self.time_start = time.time()
+        self.before_train()
         history = []
         for self.epoch in range(self.start_epoch, self.max_epoch):
             self.before_epoch()
             history.append(self.run_epoch())
             self.after_epoch()
+        self.after_train()
         return history
 
     # ------------------------------------------------------------------- test
     @torch.no_grad()
-    def test(self, images, labels, return_pred=False):
-        """Evaluate on a uint8 (N, P, P, 3) test cache and its (N,) labels in
-        batches of DATALOADER.TEST.BATCH_SIZE, each normalized only (no
-        augmentation), as the test loader gives them.  With
-        ``text_features_fn`` the class text features are computed once, then
-        ``image_logits_fn`` per batch (trainer.py:262-270, 688-704); else
-        ``logits_fn`` per batch.  Prints the evaluator's result block and
-        returns the top-1 accuracy (%), or (y_true, y_pred) with
-        ``return_pred``."""
-        images = torch.as_tensor(images)
-        labels = np.asarray(labels)
-        if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[-1] != 3:
-            raise ValueError(f"images must be uint8 (N, P, P, 3), got {images.dtype} "
-                             f"{tuple(images.shape)}")
-        if labels.shape != tuple(images.shape[:1]):
-            raise ValueError(f"need one label per image, got {labels.shape}")
-        self.evaluator = Classification(self.cfg, dict(enumerate(self.classnames)))
-        print(f"Evaluate on the *{self.cfg.TEST.SPLIT}* set")
-        split = getattr(self, "text_features_fn", None) is not None
-        txf = self.text_features_fn(self.params, self.frozen) if split else None
-        B = self.cfg.DATALOADER.TEST.BATCH_SIZE
-        for i in range(0, len(images), B):
-            x = normalize_only(images[i:i + B].to(self.device), *self.pixel_stats)
-            if split:
+    def test(self, images=None, labels=None, split=None, return_pred=False):
+        """Top-1 accuracy (%) on the ``split`` loader (TEST.SPLIT by default;
+        "val" falls back to test without a val set), or on a uint8 (N, P, P,
+        3) cache ``images`` and its (N,) ``labels`` in batches of
+        DATALOADER.TEST.BATCH_SIZE.  Each batch is normalized only (no
+        augmentation).  With ``text_features_fn`` the class text features
+        are computed once, then ``image_logits_fn`` per batch
+        (trainer.py:262-270, 688-704); else ``logits_fn`` per batch.  Prints
+        the evaluator's result block; returns the accuracy, or (y_true,
+        y_pred) with ``return_pred``."""
+        if images is not None:
+            images = torch.as_tensor(images)
+            labels = np.asarray(labels)
+            if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[-1] != 3:
+                raise ValueError(f"images must be uint8 (N, P, P, 3), got {images.dtype} "
+                                 f"{tuple(images.shape)}")
+            if labels.shape != tuple(images.shape[:1]):
+                raise ValueError(f"need one label per image, got {labels.shape}")
+            split = self.cfg.TEST.SPLIT
+            B = self.cfg.DATALOADER.TEST.BATCH_SIZE
+            batches = ((images[i:i + B], labels[i:i + B], None) for i in range(0, len(images), B))
+        else:
+            split = split or self.cfg.TEST.SPLIT
+            if split == "val" and self.val_loader is not None:
+                loader = self.val_loader
+            else:
+                split, loader = "test", self.test_loader
+            batches = ((torch.from_numpy(b["img"]), b["label"], b["valid"]) for b in loader)
+        self.evaluator = Classification(self.cfg, self.lab2cname)
+        print(f"Evaluate on the *{split}* set")
+        split_eval = getattr(self, "text_features_fn", None) is not None
+        txf = self.text_features_fn(self.params, self.frozen) if split_eval else None
+        for x, y, valid in batches:
+            x = self.eval_images(x.to(self.device))
+            if split_eval:
                 logits = self.image_logits_fn(self.params, self.frozen, x, txf)
             else:
                 logits = self.logits_fn(self.params, self.frozen, x)
-            self.evaluator.process(logits.float().cpu().numpy(), labels[i:i + B])
+            logits = logits.float().cpu().numpy()
+            if valid is not None:
+                logits, y = logits[valid], y[valid]
+            self.evaluator.process(logits, y)
         results = self.evaluator.evaluate()
         if return_pred:
             return self.evaluator.y_true, self.evaluator.y_pred
@@ -285,8 +483,72 @@ class SimpleTrainer:
     def get_current_lr(self):
         return self.lr_schedule.lr_at_epoch(self.epoch)
 
+    # ------------------------------------------------------------ checkpoints
     def extra_state(self):
-        """Trainer state beyond params and optimizer that a resume would
-        restore (checkpoint save and resume are not ported)."""
-        return {"rng_state": self.generator.get_state(),
-                "mix_rng_state": self.mix_rng.bit_generator.state}
+        """Trainer state beyond params and optimizer that a resume restores,
+        as numpy and builtins."""
+        return {"rng_state": self.generator.get_state().numpy(),
+                "mix_rng_state": self.mix_rng.bit_generator.state,
+                "best_result": float(self.best_result)}
+
+    def load_extra_state(self, state):
+        if state.get("rng_state") is not None:
+            self.generator.set_state(torch.from_numpy(np.array(state["rng_state"], np.uint8)))
+        if state.get("mix_rng_state") is not None:
+            self.mix_rng.bit_generator.state = state["mix_rng_state"]
+        if state.get("best_result") is not None:
+            self.best_result = float(state["best_result"])
+
+    @torch.no_grad()
+    def load_params(self, loaded):
+        """Copy a checkpoint's state_dict into the live prompt tensors (in
+        place: the optimizer holds them), name by name where the shape
+        fits (trainer.py:768-806)."""
+        for name, value in coerce_prompt_params(self.params, loaded).items():
+            if value is not self.params[name]:
+                self.params[name].copy_(value)
+
+    def save_model(self, epoch, directory, val_result=None, model_name=""):
+        save_checkpoint({
+            "state_dict": nest(self.params),
+            "epoch": epoch + 1,
+            "optimizer": self.optim.state_dict(list(self.params)),
+            "val_result": val_result,
+            "extra": self.extra_state(),
+        }, os.path.join(directory, self.model_name), model_name=model_name)
+
+    def resume_model_if_exist(self, directory):
+        ckpt = resume_from_checkpoint(os.path.join(directory, self.model_name))
+        if ckpt is None:
+            print(f'No checkpoint found in "{directory}", train from scratch')
+            return 0
+        self.load_params(ckpt["state_dict"])
+        optim_state = ckpt.get("optimizer")
+        if isinstance(optim_state, dict) and "trace" in optim_state:
+            self.optim.load_state_dict(optim_state, list(self.params))
+        else:
+            print("Warning: the checkpoint holds no optimizer state of this package (a JAX "
+                  "package checkpoint?); the momentum and the schedule's step count restart")
+        self.start_epoch = ckpt["epoch"]
+        self.load_extra_state(ckpt.get("extra") or {})
+        print(f"Resumed from epoch {self.start_epoch}")
+        return self.start_epoch
+
+    def load_model(self, directory, epoch=None):
+        """Load ``<directory>/<model_name>/model-best.pkl`` (or
+        ``model.pkl-<epoch>``; the ``checkpoint`` pointer when there is no
+        best file)."""
+        if not directory:
+            print("Skip load_model (no pretrained path given)")
+            return
+        name = "model-best.pkl" if epoch is None else f"model.pkl-{epoch}"
+        path = os.path.join(directory, self.model_name, name)
+        if not os.path.exists(path) and epoch is None:
+            ckpt = resume_from_checkpoint(os.path.join(directory, self.model_name))
+        else:
+            ckpt = load_checkpoint(path)
+        if ckpt is None:
+            raise FileNotFoundError(f"No checkpoint under {directory}")
+        print(f'Load model from "{directory}" (epoch {ckpt["epoch"]}, '
+              f'val_result {ckpt.get("val_result")})')
+        self.load_params(ckpt["state_dict"])

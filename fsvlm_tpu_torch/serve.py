@@ -4,10 +4,10 @@ uint8 images -> normalize -> image tower -> logits -> top-k.
 Counterpart of the JAX package's serving path: ``IVLP.text_features_fn`` /
 ``image_logits_fn`` (trainers/ivlp.py:188-196; PromptSRC inherits them),
 ``SimpleTrainer.test``'s split eval (engine/trainer.py:688-708),
-``tools/predict.py::predict`` (:52-93) and the checkpoint layout that
-``SimpleTrainer.load_model`` reads (engine/checkpoint.py:56-75,
-engine/trainer.py:808-825).  No yaml, no PIL and no ``regex``: the config is
-a dataclass, images arrive as uint8 arrays.
+``tools/predict.py::predict`` (:52-93) and the checkpoints that
+``SimpleTrainer.load_model`` reads (``engine/checkpoint.py``).  No yaml, no
+PIL and no ``regex``: the config is a dataclass, images arrive as uint8
+arrays.
 
     pred = PromptSRCPredictor(classnames)            # cuda, random ViT-B/16
     pred.load_model("output/run1")                   # JAX-written prompts
@@ -16,12 +16,12 @@ a dataclass, images arrive as uint8 arrays.
 
 import dataclasses
 import os
-import pickle
 
 import numpy as np
 import torch
 
 from . import resolve_device
+from .engine.checkpoint import coerce_prompt_params, load_checkpoint, resume_from_checkpoint
 from .models.clip import l2_normalize
 from .ops.preprocess import normalize_only
 from .trainers.backbone import load_clip_backbone
@@ -48,69 +48,6 @@ class PromptSRCServeConfig:
     PREC: str = "bf16"
     TEXT_TRUNCATE: bool = True
     FROZEN_DTYPE: str = "fp32"
-
-
-# ----------------------------------------------------------------- checkpoints
-# A JAX-written checkpoint pickles {"state_dict": numpy pytree, "epoch",
-# "optimizer", "val_result", "extra"}; the optimizer state holds optax
-# classes.  Unpickle numpy and builtins as they are and any other class as an
-# inert stand-in, so that loading needs neither JAX nor optax.
-
-_PICKLE_MODULES = ("builtins", "collections", "copyreg", "_codecs")
-
-
-class _Opaque:
-    """Stand-in for a class the port does not import (optimizer states)."""
-
-    def __init__(self, *args, **kwargs):
-        self.args, self.kwargs = args, kwargs
-
-    def __setstate__(self, state):
-        self.state = state
-
-
-class _CheckpointUnpickler(pickle.Unpickler):
-    def find_class(self, module, name):
-        if module.split(".")[0] == "numpy" or module in _PICKLE_MODULES:
-            return super().find_class(module, name)
-        return type(name, (_Opaque,), {"__module__": module})
-
-
-def load_checkpoint(fpath):
-    if fpath is None or not os.path.exists(fpath):
-        raise FileNotFoundError(f'File is not found at "{fpath}"')
-    with open(fpath, "rb") as f:
-        return _CheckpointUnpickler(f).load()
-
-
-def resume_from_checkpoint(fdir):
-    """The checkpoint that ``<fdir>/checkpoint`` names, or None."""
-    pointer = os.path.join(fdir, "checkpoint")
-    if not os.path.exists(pointer):
-        return None
-    with open(pointer) as f:
-        fpath = os.path.join(fdir, f.read().strip())
-    return load_checkpoint(fpath) if os.path.exists(fpath) else None
-
-
-def coerce_prompt_params(live, loaded):
-    """Take each live prompt tensor's value from ``loaded`` where the name is
-    there and the shape fits; keep the live value otherwise (parity:
-    SimpleTrainer._coerce_params)."""
-    out = {}
-    for name, value in live.items():
-        if name not in loaded:
-            print(f"Warning: /{name} missing from checkpoint; keeping init")
-            out[name] = value
-            continue
-        arr = np.asarray(loaded[name], np.float32)
-        if arr.shape != tuple(value.shape):
-            print(f"Warning: shape mismatch at /{name} ({arr.shape} vs "
-                  f"{tuple(value.shape)}); keeping init")
-            out[name] = value
-            continue
-        out[name] = torch.from_numpy(arr.copy()).to(value.device)
-    return out
 
 
 # ------------------------------------------------------------------ predictor

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..engine.trainer import SimpleTrainer
+from ..engine.trainer import TRAINER_REGISTRY, SimpleTrainer
 from ..models.clip import encode_image, encode_text_embeds, l2_normalize
 from .backbone import clip_for_trainer
 from .losses import cross_entropy, focal_alpha_from_shots, focal_loss, masked_acc
@@ -61,6 +61,7 @@ def meta_net_from_torch(state):
             "meta_net.w2": t("linear2.weight").T.contiguous(), "meta_net.b2": t("linear2.bias")}
 
 
+@TRAINER_REGISTRY.register()
 class CoCoOp(SimpleTrainer):
     model_name = "prompt_learner"
     trainer_cfg_key = "COCOOP"

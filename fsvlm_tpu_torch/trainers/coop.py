@@ -14,13 +14,14 @@ batch (``image_logits_fn``).
 import numpy as np
 import torch
 
-from ..engine.trainer import SimpleTrainer
+from ..engine.trainer import TRAINER_REGISTRY, SimpleTrainer
 from ..models.clip import clip_logits, encode_image, encode_text_embeds, l2_normalize
 from .backbone import clip_for_trainer
 from .losses import cross_entropy, focal_alpha_from_shots, focal_loss, masked_acc, nt_xent
 from .prompts import assemble_prompts, build_prompt_context, prompt_tensors
 
 
+@TRAINER_REGISTRY.register()
 class CoOp(SimpleTrainer):
     model_name = "prompt_learner"
     trainer_cfg_key = "COOP"

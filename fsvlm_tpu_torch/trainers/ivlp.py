@@ -22,7 +22,7 @@ A10), which raises instead of being ignored.
 import numpy as np
 import torch
 
-from ..engine.trainer import SimpleTrainer
+from ..engine.trainer import TRAINER_REGISTRY, SimpleTrainer
 from ..models.clip import encode_text_ids, l2_normalize
 from ..models.clip.tokenizer import tokenize
 from .backbone import clip_for_trainer
@@ -40,6 +40,7 @@ from .losses import (
 from .templates import CUSTOM_TEMPLATES
 
 
+@TRAINER_REGISTRY.register()
 class IVLP(SimpleTrainer):
     model_name = "VLPromptLearner"
     trainer_cfg_key = "IVLP"

@@ -190,6 +190,20 @@ from fsvlm_tpu_torch.ops.flash_attention import fused_attention
 q = torch.zeros(1, 2, 5, 48)
 assert blockwise_attention(q, q, q).shape == attention_dispatch(q, q, q).shape == q.shape
 assert fused_attention(q, q, q).shape == q.shape
+import fsvlm_tpu_torch.data, fsvlm_tpu_torch.data.imageops, fsvlm_tpu_torch.engine.checkpoint
+import fsvlm_tpu_torch.train, fsvlm_tpu_torch.trainers, fsvlm_tpu_torch.utils
+import os, tempfile
+out = tempfile.mkdtemp()
+os.chdir({repo!r})
+args = fsvlm_tpu_torch.train.build_argparser().parse_args([
+    "--trainer", "PromptSRC", "--seed", "1", "--device", "cpu", "--output-dir", out,
+    "--dataset-config-file", "configs/datasets/synthetic.yaml",
+    "--config-file", "configs/trainers/tests/synthetic_tiny.yaml", "OPTIM.MAX_EPOCH", "1",
+    "DATALOADER.DEVICE_AUG", "True", "TRAINER.PROMPTSRC.CACHED_TEACHER", "True",
+    "TEST.FINAL_MODEL", "best_val"])
+trainer = fsvlm_tpu_torch.train.main(args)
+assert os.path.exists(os.path.join(out, "VLPromptLearner", "model-best.pkl"))
+assert "* accuracy:" in open(os.path.join(out, "log.txt")).read()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "fsvlm_tpu", "regex", "yaml", "PIL"))
 print("FORBIDDEN", bad)
@@ -199,9 +213,11 @@ sys.exit(1 if bad else 0)
 
 def test_serving_path_imports_no_jax_regex_yaml_or_pil():
     """Serving, a PromptSRC, an IVLP (KD, mixup), a CoOp and a CoCoOp train
-    epoch, CoOp's and CoCoOp's test(), and the blockwise and whole-sequence
-    attention on the CPU, with every module of the port imported, load
-    nothing of JAX, the JAX package, regex, yaml or PIL."""
+    epoch, CoOp's and CoCoOp's test(), the blockwise and whole-sequence
+    attention, and one CLI run (PromptSRC on the synthetic dataset, one
+    epoch, CACHED_TEACHER, best-val) on the CPU, with every module of the
+    port imported, load nothing of JAX, the JAX package, regex, yaml or
+    PIL."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _BOUNDARY.format(repo=REPO)], cwd=REPO,
                           env=env, capture_output=True, text=True, timeout=300)
