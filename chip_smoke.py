@@ -97,13 +97,31 @@ Phases; each passes or raises, and any failure exits non-zero:
    48 with and without CACHED_TEACHER, in turns: step ms synced, launches,
    device busy, peak memory.
 
-Phases 4, 6, 7, 8 and 9 zero the launch counts just before each main path
+10. CLIP-path trainers, with FSVLM_FORCE_PALLAS unset (the d = 64
+   kernels #6-#8): the CLIP-LoRA ViT-B/16 train step from
+   configs/trainers/LoRA/vit_b16_ep10_batch32.yaml (batch 32, q/k/v factors
+   at r 2, alpha 1 on all 12 + 12 layers, DROPOUT_RATE 0.25, both towers
+   rematerialized, bf16) on phase 6's cache: the first-step gradients on a
+   random nonzero B (at the init B = 0 and A's gradient is 0), 6 steps
+   against the plain attention on the same weights, boxes, flips and
+   dropout masks (phase 6's rules), #6 48 and #7/#8 24 launches per step, no
+   synchronizing call, step time, images/s, peak memory and a profiled
+   step.  Then MaPLe from configs/trainers/MaPLe/vit_b16_c2_ep5_batch4_2ctx.yaml
+   at batch 48 (vision L = 199, no remat: 24 launches each), the same way;
+   LinearProbeCLIP (batch 32, #6 only); ZeroshotCLIP and ZeroshotCLIP2
+   test() on 200 cache images against the plain path (phase 8's eval
+   rules); and ``--trainer LoRA`` through the CLI on Synthetic for 2
+   epochs (lora/best.pkl and last.pkl, derived launches, ``--eval-only``
+   reproducing the predictions).
+
+Phases 4, 6, 7, 8, 9 and 10 zero the launch counts just before each main path
 and read them just after: each kernel of the path must have launched its
 expected count (derived from the code: a rematerialized layer runs its
 forward kernel again), and the other families none.
 
 The line before the last is ``{"kernels": [...]}`` (one row per TPU kernel;
-#2's row lists its three CUDA kernels as ``parts``); the last line is
+#2's row lists its three CUDA kernels as ``parts``; #6-#8's rows their
+launches on each path that runs them, ``launches_by_path``); the last line is
 ``{"ok": true, "device": {...}}``, and the script exits 0.
 """
 
@@ -133,6 +151,7 @@ TOL = {"float32": {"o": 1e-4, "lse": 1e-4}, "bfloat16": {"o": 2e-2, "lse": 1e-2}
 TOL_BWD = {"float32": 1e-5, "bfloat16": 1e-2}
 BWD_SHAPES = [  # (B, H, L, causal): the train step's vision and text shapes, edges of L
     (48, 12, 201, False), (100, 8, 16, True), (100, 8, 24, True),
+    (32, 12, 197, False), (48, 12, 199, False),  # the LoRA and MaPLe steps' vision
     (3, 2, 1, False), (4, 8, 8, True), (4, 8, 24, True), (2, 8, 77, True),
     (2, 4, 513, True), (2, 4, 1024, True),
     # the bf16 kernels' edges (a whole (b*h) per warp at L <= 16 and <= 32, then
@@ -143,6 +162,7 @@ BWD_TIMED = {"vision": (48, 12, 201, False), "text": (100, 8, 16, True),
              "text24": (100, 8, 24, True)}
 KERNEL_SHAPES = [  # (B, H, L, causal): vision, text at its truncated lengths, edges of L
     (100, 12, 201, False),
+    (32, 12, 197, False), (48, 12, 199, False), (100, 12, 197, False),  # LoRA, MaPLe, zero-shot
     (100, 8, 8, True), (100, 8, 16, True), (100, 8, 24, True), (100, 8, 77, True),
     (2, 4, 513, True), (3, 2, 1, False), (2, 4, 1024, True),
     # the bf16 forward's edges (a whole (b*h) per warp at L <= 16 and <= 32, 64-row
@@ -1484,13 +1504,25 @@ CLI_EPOCHS = 2
 CACHED_STEPS = 10  # timed batch-48 steps per side, in turns
 
 
-def _cli(clip, out_dir, *flags):
-    """Run the port's CLI (phase 9's configuration) on ``clip`` into
-    ``out_dir``; its output goes to its log.txt only.  Returns the
-    trainer."""
+def _run_cli(clip, argv):
+    """``fsvlm_tpu_torch.train.main`` on ``argv`` with ``clip``; its output
+    goes to its log.txt only (the end of it is printed if it raises).
+    Returns the trainer."""
     from fsvlm_tpu_torch.train import build_argparser, main
 
-    args = build_argparser().parse_args([
+    console = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(console):
+            return main(build_argparser().parse_args(argv), clip=clip)
+    except BaseException:
+        print(console.getvalue()[-4000:], flush=True)
+        raise
+
+
+def _cli(clip, out_dir, *flags):
+    """Run the port's CLI (phase 9's configuration) on ``clip`` into
+    ``out_dir``.  Returns the trainer."""
+    return _run_cli(clip, [
         "--trainer", "PromptSRC", "--seed", "1", "--device", "cuda",
         "--dataset-config-file", "configs/datasets/synthetic.yaml", "--config-file", CLI_RECIPE,
         "--output-dir", out_dir, *flags,
@@ -1499,13 +1531,6 @@ def _cli(clip, out_dir, *flags):
         "DATALOADER.TRAIN_X.SAMPLER", "WeightedClassSampler", "DATALOADER.DEVICE_AUG", "True",
         "TRAINER.PROMPTSRC.CACHED_TEACHER", "True", "TEST.FINAL_MODEL", "best_val",
         "TRAIN.CHECKPOINT_FREQ", "1", "OPTIM.MAX_EPOCH", str(CLI_EPOCHS)])
-    console = io.StringIO()
-    try:
-        with contextlib.redirect_stdout(console):
-            return main(args, clip=clip)
-    except BaseException:
-        print(console.getvalue()[-4000:], flush=True)
-        raise
 
 
 def _read(path):
@@ -1759,6 +1784,317 @@ def phase_cli(clip):
     return launches
 
 
+LORA_RECIPE = "configs/trainers/LoRA/vit_b16_ep10_batch32.yaml"
+MAPLE_RECIPE = "configs/trainers/MaPLe/vit_b16_c2_ep5_batch4_2ctx.yaml"
+LP_RECIPE = "configs/trainers/LinearProbeCLIP/vit_b16_ep50.yaml"
+MAPLE_BATCH = 48  # bench.py's batch (the recipe's 4)
+LORA_CLI_SHOTS = 16  # Synthetic: 8 classes x 16 = 128 train images, 4 steps of 32 per epoch
+
+
+def _yaml_cfg(recipe, *opts):
+    """A recipe's yaml file on defaults.py (get_cfg_base, as the CLI reads
+    it) at the smoke run's size: SEED 0, bf16 frozen towers (the recipes'
+    PREC is bf16), DEVICE_AUG, TRAIN_EPOCHS epochs; then ``opts``."""
+    from fsvlm_tpu_torch.config import get_cfg_base
+
+    cfg = get_cfg_base()
+    cfg.merge_from_file(recipe)
+    cfg.merge_from_list(["SEED", 0, "MODEL.FROZEN_DTYPE", "bf16", "DATALOADER.DEVICE_AUG", True,
+                         "OPTIM.MAX_EPOCH", TRAIN_EPOCHS, *opts])
+    return cfg
+
+
+def _step_summary(label, kt, batch, step_ms, peak):
+    """Median synced step ms (steps 2-6 of _train_both), images/s, peak
+    memory, and one profiled step's device busy and idle share."""
+    index = kt.epoch_schedule()[0][0]
+    _no_sync_step(label, kt.train_step_resident, index)
+    wall, busy = _profile(f"one {label} train step, batch {batch}",
+                          lambda: kt.train_step_resident(index), top=20, groups=FLASH_GROUPS)
+    med = float(np.median(step_ms[1:]))
+    log(f"{label}: step {med:.2f} ms median synced, {batch / med * 1e3:.1f} images/s, peak memory "
+        f"{peak / 2**30:.2f} GiB, device busy {busy:.3f} ms of {wall:.3f} ms profiled (idle "
+        f"{max(0.0, 1 - busy / wall):.3f})")
+
+
+def _lora_step(clip, cache, labels):
+    """The CLIP-LoRA ViT-B/16 train step from LORA_RECIPE (module docstring,
+    phase 10) through the kernels and through the plain attention."""
+    import torch
+
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.trainers.lora import DropoutDraws, LoRA
+
+    cfg = _yaml_cfg(LORA_RECIPE)
+    node, batch = cfg.TRAINER.LORA, cfg.DATALOADER.TRAIN_X.BATCH_SIZE
+    classnames = [f"class {i}" for i in range(N_CLASSES)]
+    kt = LoRA(cfg, classnames, cache, labels, clip=clip, device="cuda",
+              steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+    pt = LoRA(cfg, classnames, cache, labels, clip=clip, device="cuda",
+              steps_per_epoch=TRAIN_STEPS_PER_EPOCH, attn_impl="plain")
+    log(f"lora: {LORA_RECIPE}: ENCODER {node.ENCODER}, POSITION {node.POSITION}, PARAMS "
+        f"{node.PARAMS}, r {node.R}, alpha {node.ALPHA} (scale {kt.scale:.6f}), DROPOUT_RATE "
+        f"{node.DROPOUT_RATE}, SCL weights {node.TEXT_LOSS_WEIGHT}/{node.IMAGE_LOSS_WEIGHT}/"
+        f"{node.LOGITS_LOSS_WEIGHT}, batch {batch}, LR {cfg.OPTIM.LR}; text L="
+        f"{kt.frozen['fixed_prompts'].shape[1]}, vision L={clip.cfg.vision_seq_len}; remat on "
+        f"both towers")
+    if not (kt.use_dropout and set(kt.towers) == {"text", "vision"} and len(kt.params) == 12):
+        raise SystemExit("FAIL: lora: the recipe's factors or dropout are not on the path")
+    # at LoRA's own init B = 0, so A's first-step gradient is exactly 0: the
+    # first-step check runs on a random nonzero B (the same in both), then B = 0
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    with torch.no_grad():
+        for k in kt.params:
+            if k.endswith(".1"):
+                b = 0.02 * torch.randn(kt.params[k].shape, generator=gen, device="cuda")
+                kt.params[k].copy_(b)
+                pt.params[k].copy_(b)
+    first = _augmented_batch(cache, labels, 20, batch)
+    first["drop"] = DropoutDraws(node.DROPOUT_RATE, kt.proj_names,
+                                 torch.Generator(device="cuda").manual_seed(22))
+    _grad_agreement("lora", kt, pt, node, first)
+    with torch.no_grad():
+        for k in kt.params:
+            if k.endswith(".1"):
+                kt.params[k].zero_()
+                pt.params[k].zero_()
+    Lt, Lv = clip.cfg.transformer_layers, clip.cfg.vision_layers
+    # both towers rematerialized: each layer's forward again in the backward
+    per_step = {fa.KERNEL: 2 * (Lt + Lv), fa.KERNEL_DKV: Lt + Lv, fa.KERNEL_DQ: Lt + Lv}
+    launches, step_ms, peak = _train_both("lora", kt, pt, per_step, "flash_attn", batch)
+    _step_summary("lora", kt, batch, step_ms, peak)
+    return launches
+
+
+def _maple_step(clip, cache, labels):
+    """The MaPLe ViT-B/16 train step from MAPLE_RECIPE at batch MAPLE_BATCH
+    through the kernels and through the plain attention."""
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.trainers.maple import MaPLe
+
+    cfg = _yaml_cfg(MAPLE_RECIPE, "DATALOADER.TRAIN_X.BATCH_SIZE", MAPLE_BATCH)
+    classnames = [f"class {i}" for i in range(N_CLASSES)]
+    kt = MaPLe(cfg, classnames, cache, labels, clip=clip, device="cuda",
+               steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+    pt = MaPLe(cfg, classnames, cache, labels, clip=clip, device="cuda",
+               steps_per_epoch=TRAIN_STEPS_PER_EPOCH, attn_impl="plain")
+    node = cfg.TRAINER.MAPLE
+    log(f"maple: {MAPLE_RECIPE}: N_CTX {node.N_CTX}, PROMPT_DEPTH {node.PROMPT_DEPTH}, batch "
+        f"{MAPLE_BATCH} (the recipe's {4}), LR {cfg.OPTIM.LR}; text L="
+        f"{kt.frozen['base_embed'].shape[1]}, vision L="
+        f"{clip.cfg.vision_seq_len + node.N_CTX}; params "
+        f"{ {k: tuple(v.shape) for k, v in kt.params.items()} }")
+    _grad_agreement("maple", kt, pt, node, _augmented_batch(cache, labels, 23, MAPLE_BATCH))
+    Lt, Lv = clip.cfg.transformer_layers, clip.cfg.vision_layers
+    per_step = {fa.KERNEL: Lt + Lv, fa.KERNEL_DKV: Lt + Lv, fa.KERNEL_DQ: Lt + Lv}  # no remat
+    launches, step_ms, peak = _train_both("maple", kt, pt, per_step, "flash_attn", MAPLE_BATCH)
+    _step_summary("maple", kt, MAPLE_BATCH, step_ms, peak)
+    return launches
+
+
+def _linear_probe_steps(clip, cache, labels):
+    """LinearProbeCLIP from LP_RECIPE (batch 32): the head's first-step
+    gradients kernel against plain attention in bf16 (the tower runs without
+    gradient, so only its features' rounding reaches the head: cosine at
+    least MIN_GRAD_COSINE), then phase 6's run and rules; #6 only."""
+    import torch
+
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.trainers.linear_probe import LinearProbeCLIP
+
+    cfg = _yaml_cfg(LP_RECIPE)
+    batch = cfg.DATALOADER.TRAIN_X.BATCH_SIZE
+    classnames = [f"class {i}" for i in range(N_CLASSES)]
+    kt = LinearProbeCLIP(cfg, classnames, cache, labels, clip=clip, device="cuda",
+                         steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+    pt = LinearProbeCLIP(cfg, classnames, cache, labels, clip=clip, device="cuda",
+                         steps_per_epoch=TRAIN_STEPS_PER_EPOCH, attn_impl="plain")
+    first = _augmented_batch(cache, labels, 24, batch)
+    grads = []
+    for t in (kt, pt):
+        loss, _ = t.loss_fn(t.params, t.frozen, first)
+        grads.append(dict(zip(t.params, torch.autograd.grad(loss, list(t.params.values())))))
+    cos = {k: _cosine(grads[0][k], grads[1][k]) for k in kt.params}
+    log(f"linear probe: {LP_RECIPE}: batch {batch}, USE_BIAS {cfg.TRAINER.LINEAR_PROBE.USE_BIAS}; "
+        f"first-step gradient cosine, kernel against plain (bf16): {cos}")
+    if min(cos.values()) < MIN_GRAD_COSINE:
+        raise SystemExit("FAIL: linear probe: kernel and plain first-step gradients disagree")
+    per_step = {fa.KERNEL: clip.cfg.vision_layers, fa.KERNEL_DKV: 0, fa.KERNEL_DQ: 0}
+    launches, step_ms, peak = _train_both("linear probe", kt, pt, per_step, "flash_attn", batch)
+    _step_summary("linear probe", kt, batch, step_ms, peak)
+    return launches
+
+
+def _zeroshot_test(clip, cache):
+    """ZeroshotCLIP and ZeroshotCLIP2 test() on N_TEST cache images at TEST
+    batch 100 (LP_RECIPE's INPUT and TEST settings), through the kernels,
+    the plain attention and the plain attention in fp32: the class text
+    features (built once, at construction: one template, or the 7 of the
+    select set plus the dataset's) at cosine MIN_COSINE; then phase 8's eval
+    rules on the logits.  Launches: the text passes at build, then the
+    vision tower once per test batch."""
+    import torch
+
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.trainers.zsclip import ZeroshotCLIP, ZeroshotCLIP2
+
+    labels = np.random.RandomState(1234).randint(0, N_CLASSES, N_TEST)
+    classnames = [f"class {i}" for i in range(N_CLASSES)]
+    Lt, Lv = clip.cfg.transformer_layers, clip.cfg.vision_layers
+    for cls in (ZeroshotCLIP, ZeroshotCLIP2):
+        class _Fp32(cls):
+            def compute_dtype(self):
+                return torch.float32
+
+        cfg = _yaml_cfg(LP_RECIPE)
+        n_batches = -(-N_TEST // cfg.DATALOADER.TEST.BATCH_SIZE)
+        runs = {}
+        for name, klass, impl in (("kernel", cls, None), ("plain", cls, "plain"),
+                                  ("plain fp32", _Fp32, "plain")):
+            torch.cuda.synchronize()
+            fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+            t0 = time.perf_counter()
+            t = klass(cfg, classnames, clip=clip, device="cuda", steps_per_epoch=1, attn_impl=impl)
+            torch.cuda.synchronize()
+            build = (dict(fa.LAUNCHES), (time.perf_counter() - t0) * 1e3)
+            seen = []
+            fn = t.logits_fn
+            t.logits_fn = lambda *a, f=fn: seen.append(f(*a)) or seen[-1]
+            fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                acc = t.test(cache[:N_TEST], labels)
+            torch.cuda.synchronize()
+            runs[name] = (t, torch.cat(seen).float(), build, dict(fa.LAUNCHES), acc,
+                          (time.perf_counter() - t0) * 1e3)
+        (kt, k_log, k_build, k_test, k_acc, k_ms), (pt, p_log, *_) = runs["kernel"], runs["plain"]
+        f_log = runs["plain fp32"][1]
+        n_templates = len(kt.templates_for(cfg))
+        cos_txt = torch.nn.functional.cosine_similarity(kt.frozen["text_features"],
+                                                        pt.frozen["text_features"], dim=-1)
+        dlog = (k_log - p_log).abs().amax(dim=-1)
+        noise_k, noise_p = ((x - f_log).abs().max().item() for x in (k_log, p_log))
+        top2 = p_log.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 2 * dlog.max()
+        flips = int((decided & (k_log.argmax(-1) != p_log.argmax(-1))).sum())
+        want_build, want_test = {fa.KERNEL: n_templates * Lt}, {fa.KERNEL: n_batches * Lv}
+        label = cls.__name__
+        log(f"{label}: {n_templates} template(s); text features built in {k_build[1]:.1f} ms, "
+            f"min cosine to the plain path's {cos_txt.min().item():.6f}; test() on {N_TEST} images "
+            f"in {n_batches} batches {k_ms:.1f} ms, accuracy kernel {k_acc:.1f}%, plain "
+            f"{runs['plain'][4]:.1f}%, fp32 {runs['plain fp32'][4]:.1f}%; max |dlogit| "
+            f"{dlog.max().item():.4f}; to the fp32 logits: kernel {noise_k:.4f}, plain bf16 "
+            f"{noise_p:.4f}; images past the margin {int(decided.sum())}, top-1 flips there "
+            f"{flips}; launches at build {k_build[0]}, in test() {k_test}")
+        got_build = {k: n for k, n in k_build[0].items() if n}
+        got_test = {k: n for k, n in k_test.items() if n}
+        if (got_build != want_build or got_test != want_test or k_log.shape != (N_TEST, N_CLASSES)
+                or not torch.isfinite(k_log).all() or cos_txt.min().item() < MIN_COSINE
+                or dlog.max().item() > MAX_DLOGIT or noise_k > BF16_NOISE_RATIO * noise_p
+                or flips):
+            raise SystemExit(f"FAIL: {label}: kernel and plain paths disagree, or the launches "
+                             f"are not {want_build} at build and {want_test} in test()")
+        del runs, kt, pt
+
+
+def _lora_cli(clip):
+    """``python -m fsvlm_tpu_torch.train --trainer LoRA`` (LORA_RECIPE) on
+    Synthetic with DATASET.NUM_SHOTS LORA_CLI_SHOTS, bf16, best-val, 2
+    epochs: lora/best.pkl and last.pkl written, the launches of #6-#8 as
+    derived from the code, and an ``--eval-only`` rerun that loads best.pkl
+    and gives the run's final test predictions exactly."""
+    import torch
+
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_lora_")
+
+    def argv(out, *flags):
+        return ["--trainer", "LoRA", "--seed", "1", "--device", "cuda",
+                "--dataset-config-file", "configs/datasets/synthetic.yaml",
+                "--config-file", LORA_RECIPE, "--output-dir", out, *flags,
+                "MODEL.FROZEN_DTYPE", "bf16", "DATASET.NUM_SHOTS", str(LORA_CLI_SHOTS),
+                "DATALOADER.DEVICE_AUG", "True", "TEST.FINAL_MODEL", "best_val",
+                "OPTIM.MAX_EPOCH", str(CLI_EPOCHS)]
+
+    try:
+        out = os.path.join(work, "run")
+        torch.cuda.synchronize()
+        fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        t0 = time.perf_counter()
+        t = _run_cli(clip, argv(out))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        ds, Lt, Lv = t.dm.dataset, clip.cfg.transformer_layers, clip.cfg.vision_layers
+        steps = t.steps_per_epoch * CLI_EPOCHS
+
+        def test_pass(n):  # split eval: the text once, the vision tower per batch
+            return Lt + -(-n // t.cfg.DATALOADER.TEST.BATCH_SIZE) * Lv
+
+        # per step both towers forward, again in the backward (remat), and
+        # backward; a val test() after each epoch (best-val), then the test
+        # set twice (after_train with best.pkl deployed, and the CLI's report)
+        want = {fa.KERNEL: steps * 2 * (Lt + Lv) + CLI_EPOCHS * test_pass(len(ds.val))
+                + 2 * test_pass(len(ds.test)),
+                fa.KERNEL_DKV: steps * (Lt + Lv), fa.KERNEL_DQ: steps * (Lt + Lv)}
+        lora_dir = os.path.join(out, "Synthetic", "ViT-B-16", "lora")
+        files = sorted(os.listdir(lora_dir)) if os.path.isdir(lora_dir) else []
+        text = _read(os.path.join(out, "log.txt"))
+        log(f"lora cli: {LORA_RECIPE} on Synthetic: train_x {len(ds.train_x)}, val {len(ds.val)}, "
+            f"test {len(ds.test)}; {t.steps_per_epoch} steps of {t.batch_size} per epoch, "
+            f"{CLI_EPOCHS} epochs; run {run_s:.1f} s; accuracies in log.txt "
+            f"{[float(x) for x in re.findall(r'[*] accuracy: ([0-9.]+)%', text)]}; {lora_dir} "
+            f"holds {files}; launches {launches}, expected {want}")
+        _others_silent(launches, "flash_attn", "the LoRA CLI run")
+        for needle in ("=> result", "Finish training", "LoRA checkpoint saved to",
+                       "Deploy the model with the best val performance", "Loaded LoRA weights"):
+            if needle not in text:
+                raise SystemExit(f"FAIL: lora cli: log.txt lacks {needle!r}")
+        if files != ["best.pkl", "last.pkl"] or any(launches[k] != n for k, n in want.items()):
+            raise SystemExit("FAIL: lora cli: checkpoint files or launches are not as expected")
+        epoch_ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                t.run_epoch()
+            torch.cuda.synchronize()
+            epoch_ms.append((time.perf_counter() - t0) * 1e3)
+        n_img = t.steps_per_epoch * t.batch_size
+        t2 = _run_cli(clip, argv(os.path.join(work, "eval"), "--eval-only", "--model-dir", out))
+        same = (t2.evaluator.y_pred == t.evaluator.y_pred
+                and t2.evaluator.y_true == t.evaluator.y_true)
+        log(f"lora cli: epoch ms {[round(x, 1) for x in epoch_ms]} ({n_img} images, "
+            f"{n_img / min(epoch_ms) * 1e3:.1f} images/s); --eval-only on the run's directory "
+            f"reproduced its final test predictions: {same}")
+        if not same:
+            raise SystemExit("FAIL: lora cli: --eval-only did not reproduce the predictions")
+        del t, t2
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def phase_clip_trainers(clip):
+    """Phase 10 (module docstring): the CLIP-LoRA, MaPLe, linear-probe and
+    zero-shot paths on the d = 64 kernels, FSVLM_FORCE_PALLAS unset (the
+    caller sets it).  Returns each train path's launches."""
+    import torch
+
+    cache, labels = _train_cache()
+    out = {"lora": _lora_step(clip, cache, labels)}
+    torch.cuda.empty_cache()
+    out["maple"] = _maple_step(clip, cache, labels)
+    torch.cuda.empty_cache()
+    out["linear_probe"] = _linear_probe_steps(clip, cache, labels)
+    _zeroshot_test(clip, cache)
+    torch.cuda.empty_cache()
+    out["lora_cli"] = _lora_cli(clip)
+    return out
+
+
 def main():
     phase_device()
     phase_build()
@@ -1775,7 +2111,9 @@ def main():
     with force_pallas("legacy"):  # every attention through the whole-sequence kernels
         launches_fused = phase_coop_cocoop(pred.clip)
     with force_pallas(None):  # the CLI on the default route: the d = 64 kernels
-        phase_cli(pred.clip)
+        launches_cli = phase_cli(pred.clip)
+    with force_pallas(None):  # the CLIP-path trainers on the d = 64 kernels
+        launches_clip = phase_clip_trainers(pred.clip)
 
     import torch
 
@@ -1813,6 +2151,10 @@ def main():
     parts = (fa.FUSED_KERNEL_STATS, fa.FUSED_KERNEL_DKV, fa.FUSED_KERNEL_DQ)
     if len({launches_fused[k] for k in parts}) != 1:
         raise SystemExit(f"FAIL: #2's kernels launched unequal counts: {launches_fused}")
+    # #6-#8's launches on every path that runs them (``launches``: phase 6's)
+    by_path = {"promptsrc": launches, "promptsrc_cli": launches_cli, **launches_clip}
+    for row in kernels[:3]:
+        row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
     # device times (profiler) beside the event times: the forwards', #7/#8's
     # and #4/#5's
     for row, t in ((kernels[0], timings["vision"]),

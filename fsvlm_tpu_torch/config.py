@@ -6,8 +6,9 @@ recipes: configs/trainers/PromptSRC/vit_b16_c2_ep20_batch4_4+4ctx.yaml
 (OPTIM, INPUT, MODEL, DATALOADER and TRAINER.PROMPTSRC) and
 configs/trainers/IVLP/vit_b16_c2_ep20_batch4_4+4ctx_kd.yaml (TRAINER.IVLP;
 its other sections equal the PromptSRC recipe's), so that
-``get_cfg_default()`` is either recipe.  TRAINER.COOP and TRAINER.COCOOP
-keep defaults.py's values; their recipes are the override lists in
+``get_cfg_default()`` is either recipe.  TRAINER.COOP, TRAINER.COCOOP,
+TRAINER.MAPLE, TRAINER.LINEAR_PROBE and TRAINER.LORA keep defaults.py's
+values; their recipes are the override lists in
 ``RECIPES``, applied with ``cfg.merge_from_list``, or the yaml files
 themselves, read with ``cfg.merge_from_file``.  ``get_cfg_base()`` is
 defaults.py alone (the JAX package's ``get_cfg_default()``); the CLI
@@ -126,12 +127,49 @@ class CoCoOpConfig:
 
 
 @dataclasses.dataclass
+class MaPLeConfig:
+    N_CTX: int = 2
+    CTX_INIT: str = "a photo of a"
+    PREC: str = "fp16"
+    PROMPT_DEPTH: int = 9
+    USE_FOCAL_LOSS: bool = False
+
+
+@dataclasses.dataclass
+class LinearProbeConfig:
+    LOSS_TYPE: str = "ce"  # ce or focal
+    USE_BIAS: bool = True
+
+
+@dataclasses.dataclass
+class LoRAConfig:
+    N_CTX_VISION: int = 2
+    N_CTX_TEXT: int = 2  # the fixed text prompts' context length
+    CTX_INIT: str = "a photo of a"
+    PREC: str = "fp16"
+    PROMPT_DEPTH_VISION: int = 9
+    PROMPT_DEPTH_TEXT: int = 9
+    ENCODER: str = "both"  # text / vision / both
+    POSITION: str = "all"  # bottom/mid/up/half-up/half-bottom/all/top3 (trainers/lora.py)
+    PARAMS: List[str] = field(default_factory=lambda: ["q", "k", "v"])
+    R: int = 2
+    ALPHA: int = 1
+    DROPOUT_RATE: float = 0.25
+    TEXT_LOSS_WEIGHT: float = 25.0
+    IMAGE_LOSS_WEIGHT: float = 10.0
+    LOGITS_LOSS_WEIGHT: float = 1.0
+
+
+@dataclasses.dataclass
 class TrainerConfig:
     NAME: str = ""
     PROMPTSRC: PromptSRCConfig = field(default_factory=PromptSRCConfig)
     IVLP: IVLPConfig = field(default_factory=IVLPConfig)
     COOP: CoOpConfig = field(default_factory=CoOpConfig)
     COCOOP: CoCoOpConfig = field(default_factory=CoCoOpConfig)
+    MAPLE: MaPLeConfig = field(default_factory=MaPLeConfig)
+    LINEAR_PROBE: LinearProbeConfig = field(default_factory=LinearProbeConfig)
+    LORA: LoRAConfig = field(default_factory=LoRAConfig)
 
 
 @dataclasses.dataclass

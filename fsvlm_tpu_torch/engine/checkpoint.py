@@ -55,10 +55,12 @@ def nest(flat):
 
 
 def flatten(tree, prefix=""):
-    """The inverse of ``nest``."""
+    """The inverse of ``nest``; a tuple or list node's items are named by
+    their index ({"q": (A, B)} -> "q.0", "q.1")."""
     out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, tuple, list)):
             out.update(flatten(v, f"{prefix}{k}."))
         else:
             out[f"{prefix}{k}"] = v

@@ -32,10 +32,11 @@ moved to the device once per epoch.  A step launches its work and returns
 its metrics as device tensors, with no host sync; ``run_epoch`` reads them
 back once, at the epoch's end, and prints the JAX package's train lines.
 
-- ``train_step(batch, aug, mix)``: a batch that carries its images ("img":
-  float, already normalized, or uint8 under DEVICE_AUG), "label" and
-  optionally "valid" / "index" / "img2"; ``aug`` = (boxes, flips) and
-  ``mix`` = (perm, lam) hand in the step's draws (tests inject the JAX
+- ``train_step(batch, aug, mix, drop)``: a batch that carries its images
+  ("img": float, already normalized, or uint8 under DEVICE_AUG), "label"
+  and optionally "valid" / "index" / "img2"; ``aug`` = (boxes, flips),
+  ``mix`` = (perm, lam) and ``drop`` (a trainer's dropout masks, see
+  ``use_dropout``) hand in the step's draws (tests inject the JAX
   package's);
 - ``train_step_resident(index, valid)``: indices into the cache, gathered on
   the device, as the JAX package's train_step_resident;
@@ -51,9 +52,14 @@ back once, at the epoch's end, and prints the JAX package's train lines.
 Subclasses register with ``TRAINER_REGISTRY``, name their config node
 (``trainer_cfg_key``: ``cfg.TRAINER.<key>``, whose PREC sets the compute
 dtype) and implement ``build_model(clip)``, which sets ``params`` (dict of
-fp32 tensors), ``frozen``, ``use_mixup`` / ``mixup_alpha`` where they mix,
-and ``loss_fn(params, frozen, batch) -> (loss, aux)``; under ``use_mixup``
-the batch carries its draws as "perm" and "lam"; for ``test()``, either
+fp32 tensors, possibly none: a trainer with nothing to train steps its loss
+without a gradient; a nested tree is flat under dotted names, "text.q.0"
+for the JAX tree's {"text": {"q": (A, B)}}), ``frozen``, ``use_mixup`` /
+``mixup_alpha`` where they mix, ``use_dropout`` where a step draws dropout
+masks (from ``dropout_draws()``, on the device from the generator), and
+``loss_fn(params, frozen, batch) -> (loss, aux)``; under ``use_mixup`` the
+batch carries its draws as "perm" and "lam", under ``use_dropout`` as
+"drop"; for ``test()``, either
 ``text_features_fn(params, frozen)`` and ``image_logits_fn(params, frozen,
 images, txf)`` (split eval) or ``logits_fn(params, frozen, images)``.
 """
@@ -83,7 +89,7 @@ from .checkpoint import (
     save_checkpoint,
 )
 from .evaluator import Classification
-from .optim import build_optimizer
+from .optim import build_optimizer, make_lr_schedule
 
 TRAINER_REGISTRY = Registry("TRAINER")
 
@@ -105,6 +111,7 @@ class SimpleTrainer:
     trainer_cfg_key = None  # the trainer's node of cfg.TRAINER
     use_mixup = False  # set by build_model: every step then draws (perm, lam)
     mixup_alpha = 1.0
+    use_dropout = False  # set by build_model: every step then draws dropout masks
 
     def __init__(self, cfg, classnames=None, images=None, labels=None, clip=None, device=None,
                  steps_per_epoch=None, attn_impl=None):
@@ -195,8 +202,12 @@ class SimpleTrainer:
             n, B = (len(self.cache) if self.cache is not None else 0), self.batch_size
             steps_per_epoch = n // B if n >= B else 1
         self.steps_per_epoch = steps_per_epoch
-        self.optim, self.lr_schedule = build_optimizer(self.cfg, self.params.values(),
-                                                       steps_per_epoch)
+        if self.params:
+            self.optim, self.lr_schedule = build_optimizer(self.cfg, self.params.values(),
+                                                           steps_per_epoch)
+        else:  # nothing to train (zero-shot): the schedule only prints its LR
+            self.optim = None
+            self.lr_schedule = make_lr_schedule(self.cfg, steps_per_epoch, self.device)
         print(f"# params to be updated: {sum(p.numel() for p in self.params.values()):,}")
 
     @property
@@ -266,9 +277,15 @@ class SimpleTrainer:
         perm = torch.randperm(batch_size, generator=self.generator, device=self.device)
         return perm, self.epoch_lams[self.batch_idx % len(self.epoch_lams)]
 
-    def train_step(self, batch, aug=None, mix=None):
-        """One optimizer step on a batch that carries its images.  Returns
-        the metrics (loss and the loss function's aux) as device tensors."""
+    def dropout_draws(self):
+        """This step's dropout draw source, on the device from the generator
+        (trainers that set ``use_dropout``)."""
+        raise NotImplementedError
+
+    def train_step(self, batch, aug=None, mix=None, drop=None):
+        """One optimizer step on a batch that carries its images (with no
+        parameters, the loss alone, without a gradient).  Returns the
+        metrics (loss and the loss function's aux) as device tensors."""
         batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()
                  if k in ("img", "img2", "label", "valid", "index")}
         batch["label"] = batch["label"].long()
@@ -282,26 +299,29 @@ class SimpleTrainer:
             perm, lam = self.mixup_draws(len(batch["label"])) if mix is None else mix
             batch["perm"] = torch.as_tensor(perm, device=self.device).long()
             batch["lam"] = torch.as_tensor(lam, dtype=torch.float32, device=self.device)
+        if self.use_dropout:
+            batch["drop"] = self.dropout_draws() if drop is None else drop
         params = list(self.params.values())
-        loss, aux = self.loss_fn(self.params, self.frozen, batch)
-        grads = torch.autograd.grad(loss, params)
-        self.optim.step(grads)
+        with torch.set_grad_enabled(bool(params)):
+            loss, aux = self.loss_fn(self.params, self.frozen, batch)
+        if params:
+            self.optim.step(torch.autograd.grad(loss, params))
         metrics = {k: v.detach() for k, v in aux.items()}
         metrics["loss"] = loss.detach()
         return metrics
 
-    def train_step_resident(self, index, valid=None, aug=None, mix=None):
+    def train_step_resident(self, index, valid=None, aug=None, mix=None, drop=None):
         """One step on cache rows ``index`` (gathered on the device)."""
         index = torch.as_tensor(index, device=self.device).long()
         batch = {"img": self.cache[index], "label": self.labels[index], "index": index}
         if valid is not None:
             batch["valid"] = valid
-        return self.train_step(batch, aug, mix)
+        return self.train_step(batch, aug, mix, drop)
 
-    def forward_backward(self, batch, aug=None, mix=None):
+    def forward_backward(self, batch, aug=None, mix=None, drop=None):
         if "img" not in batch:  # index-only batch -> resident gather
-            return self.train_step_resident(batch["index"], batch.get("valid"), aug, mix)
-        return self.train_step(batch, aug, mix)
+            return self.train_step_resident(batch["index"], batch.get("valid"), aug, mix, drop)
+        return self.train_step(batch, aug, mix, drop)
 
     # ------------------------------------------------------------------- loop
     def epoch_schedule(self):

@@ -91,7 +91,7 @@ def clip_params_from_state_dict(sd, cfg=None):
     if cfg is None:
         cfg = config_from_state_dict_shapes(sd)
     if not cfg.is_vit:
-        raise NotImplementedError("ModifiedResNet towers are not ported yet")
+        raise NotImplementedError("ModifiedResNet towers are not ported yet (ROADMAP A6)")
 
     params = {
         "visual": {
@@ -150,7 +150,7 @@ def random_clip_params(cfg: CLIPConfig, seed=0):
     (clip/model.py:567-591), drawn in the same RandomState order as the JAX
     package, so one seed gives the same weights in both."""
     if not cfg.is_vit:
-        raise NotImplementedError("ModifiedResNet towers are not ported yet")
+        raise NotImplementedError("ModifiedResNet towers are not ported yet (ROADMAP A6)")
     rng = np.random.RandomState(seed)
 
     def normal(shape, std):

@@ -69,7 +69,7 @@ class CLIP(nn.Module):
     def __init__(self, cfg: CLIPConfig, dtype=torch.float32, device=None):
         super().__init__()
         if not cfg.is_vit:
-            raise NotImplementedError("ModifiedResNet towers are not ported yet")
+            raise NotImplementedError("ModifiedResNet towers are not ported yet (ROADMAP A6)")
         device = resolve_device(device)
         self.cfg = cfg
         self.visual = VisionTower(cfg, dtype, device)
@@ -90,10 +90,10 @@ def patch_embed(images, kernel):
 
 
 def encode_image_vit(clip, images, prompts: Optional[VisionPrompts] = None,
-                     compute_dtype=torch.float32, attn_impl=None, remat=False):
+                     compute_dtype=torch.float32, attn_impl=None, remat=False, lora=None):
     """ViT image tower. images: (B, H, W, 3) already CLIP-normalized.
-    ``remat`` checkpoints each layer (``transformer``).  Returns
-    (B, embed_dim) fp32 features."""
+    ``remat`` checkpoints each layer and ``lora`` adds the stacked LoRA
+    deltas (``transformer``).  Returns (B, embed_dim) fp32 features."""
     v = clip.visual
     x = patch_embed(images.to(compute_dtype), v.patch_embed)
     B, _, W = x.shape
@@ -110,7 +110,7 @@ def encode_image_vit(clip, images, prompts: Optional[VisionPrompts] = None,
     x = transformer(
         v.blocks, x,
         deep_prompts=None if deep is None else deep.to(compute_dtype),
-        splice_flags=flags, splice_kind="vision", attn_impl=attn_impl, remat=remat)
+        splice_flags=flags, splice_kind="vision", attn_impl=attn_impl, remat=remat, lora=lora)
     x = v.ln_post(x[:, 0, :])
     return x.float() @ v.proj.float()
 
@@ -118,10 +118,10 @@ def encode_image_vit(clip, images, prompts: Optional[VisionPrompts] = None,
 def encode_image(clip, images, **kw):
     """The image tower of ``clip`` (counterpart of the JAX package's
     ``encode_image``, model.py:161-170): the ViT's ``encode_image_vit``.
-    The ModifiedResNet towers are not ported (ROADMAP A9)."""
+    The ModifiedResNet towers are not ported (ROADMAP A6)."""
     if not clip.cfg.is_vit:
         raise NotImplementedError("the ModifiedResNet image towers are not ported yet "
-                                  "(ROADMAP A9)")
+                                  "(ROADMAP A6)")
     return encode_image_vit(clip, images, **kw)
 
 
@@ -131,20 +131,22 @@ def embed_tokens(clip, token_ids, compute_dtype=torch.float32):
 
 
 def encode_text_embeds(clip, embeds, eot_idx, deep_prompts=None, splice_flags=None,
-                       compute_dtype=torch.float32, attn_impl=None, remat=False):
+                       compute_dtype=torch.float32, attn_impl=None, remat=False, lora=None):
     """Text tower over pre-built embeddings (prompt-learner path).
 
     embeds: (B, L, D), L <= context_length (EOT-truncated: with the causal
     mask, positions past the last EOT cannot reach a gathered feature);
-    eot_idx: (B,) EOT positions; ``remat`` checkpoints each layer
-    (``transformer``).  Returns (B, embed_dim) fp32 features."""
+    eot_idx: (B,) EOT positions; ``remat`` checkpoints each layer and
+    ``lora`` adds the stacked LoRA deltas (``transformer``).  Returns
+    (B, embed_dim) fp32 features."""
     t = clip.text
     L = embeds.shape[1]
     x = embeds.to(compute_dtype) + t.positional_embedding[:L].to(compute_dtype)
     x = transformer(
         t.blocks, x, mask=causal_mask(L, device=x.device),
         deep_prompts=None if deep_prompts is None else deep_prompts.to(compute_dtype),
-        splice_flags=splice_flags, splice_kind="text", attn_impl=attn_impl, remat=remat)
+        splice_flags=splice_flags, splice_kind="text", attn_impl=attn_impl, remat=remat,
+        lora=lora)
     x = t.ln_final(x)
     x = x[torch.arange(x.shape[0], device=x.device), eot_idx]
     return x.float() @ t.text_projection.float()

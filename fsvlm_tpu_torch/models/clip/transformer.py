@@ -41,8 +41,8 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_2 = LayerNorm(width, dtype, device)
         self.mlp = MLP(width, dtype, device)
 
-    def forward(self, x, mask=None, attn_impl=None):
-        x = x + self.attn(self.ln_1(x), mask=mask, impl=attn_impl)
+    def forward(self, x, mask=None, attn_impl=None, lora_delta=None):
+        x = x + self.attn(self.ln_1(x), mask=mask, impl=attn_impl, lora_delta=lora_delta)
         return x + self.mlp(self.ln_2(x))
 
 
@@ -61,30 +61,50 @@ def _splice_vision(x, prompt):
 
 
 def transformer(blocks, x, *, mask=None, deep_prompts=None, splice_flags=None,
-                splice_kind="text", attn_impl=None, remat=False):
+                splice_kind="text", attn_impl=None, remat=False, lora=None):
     """Run ``blocks`` (an nn.ModuleList of ResidualAttentionBlock) over x (B, L, D).
 
     deep_prompts: optional (n_layers, n_ctx, D); row i replaces the prompt
     tokens before layer i wherever ``splice_flags[i]`` (a sequence of bools).
+    lora: optional {"proj": {name: (A (n_layers, D, r), B (n_layers, r, D))},
+    "scale": float, "mask": n_layers 0/1 floats, "dropout": None or
+    (draw, rate)}: layer i adds the deltas of A[i], B[i] at scale * mask[i]
+    (JAX :156-164; a layer outside the mask computes its delta at scale 0,
+    so its factors get a gradient of exactly 0).  ``draw(i, shape)`` gives
+    layer i's keep masks {name: bool tensor of ``shape``}, one per
+    projection.
     remat: checkpoint each layer (its splice and block), as the JAX
     package's ``jax.checkpoint`` of the scan body (:148-149): the backward
     recomputes the layer's forward, through the same attention kernels,
-    instead of keeping its activations.  The blocks draw no random numbers,
-    so no RNG state is stashed.
+    instead of keeping its activations.  The blocks draw no random numbers:
+    each layer's dropout masks are drawn before the layer, outside the
+    checkpoint, and handed in, as JAX threads per-layer keys through its
+    scan (:124-135), so the recomputation sees the same masks.
+    ``torch.utils.checkpoint`` would not restore an explicit generator.
     """
     splice = _splice_text if splice_kind == "text" else _splice_vision
+    if lora is not None:  # the factors in x's dtype once, not per layer and pass
+        proj = {name: (a.to(x.dtype), b.to(x.dtype)) for name, (a, b) in lora["proj"].items()}
 
-    def layer(block, h, prompt):
+    def layer(block, h, prompt, delta):
         if prompt is not None:
             h = splice(h, prompt)
-        return block(h, mask=mask, attn_impl=attn_impl)
+        return block(h, mask=mask, attn_impl=attn_impl, lora_delta=delta)
 
     for i, block in enumerate(blocks):
         prompt = None
         if deep_prompts is not None and deep_prompts.shape[1] > 0 and splice_flags[i]:
             prompt = deep_prompts[i]
+        delta = None
+        if lora is not None:
+            s = lora["scale"] * lora["mask"][i]
+            delta = {name: (a[i], b[i], s) for name, (a, b) in proj.items()}
+            if lora.get("dropout") is not None:
+                draw, rate = lora["dropout"]
+                delta.update(keep=draw(i, x.shape), rate=rate)
         if remat:
-            x = checkpoint(layer, block, x, prompt, use_reentrant=False, preserve_rng_state=False)
+            x = checkpoint(layer, block, x, prompt, delta, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
-            x = layer(block, x, prompt)
+            x = layer(block, x, prompt, delta)
     return x

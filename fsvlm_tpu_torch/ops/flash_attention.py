@@ -21,8 +21,12 @@ them.
   that P from q, k and the mask (no logsumexp is saved) and takes delta from
   it; on the card a row pre-pass and two backward kernels.  Entry:
   ``fused_attention``.
-- ``attention_dispatch`` (:863-889) picks the family per call from
-  ``FSVLM_FORCE_PALLAS``; mha calls it.
+- ``attention_dispatch`` (:863-904) picks the family per call from
+  ``FSVLM_FORCE_PALLAS``; mha calls it.  Where JAX takes XLA's attention
+  (the variable unset) and a kernel of the port computes the same
+  function, the port takes the kernel; it takes ``reference_attention``,
+  the port of XLA's path (``_reference_attention`` :51-69), only where no
+  kernel can: a per-example (B, 1, 1, L) broadcast mask.
 
 In bf16 every kernel runs on the tensor cores (``mma.sync``;
 ``kernels/mma_attn.cuh``, ``kernels/mma_flash_fwd.cuh``): the three forwards,
@@ -50,6 +54,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
+from torch.utils.checkpoint import checkpoint
 
 D = 64
 BLOCK_Q = 64  # query tile of the kernels; the plain versions walk the same tiles
@@ -108,7 +113,7 @@ def _bw_tiles(d):
         if 1 <= d <= dp:
             return tiles
     raise ValueError(f"the blockwise kernels take head dims 1..{max(BW_TILES)}, got {d} "
-                     f"(a larger head dim is open in ROADMAP B3)")
+                     f"(a larger head dim is open in ROADMAP B6)")
 
 
 def reference_blockwise_fwd(q, k, v, mask=None):
@@ -240,6 +245,46 @@ def reference_fused_bwd(q, k, v, do, mask=None):
     dq = (ds @ kf) * scale
     dk = (ds.transpose(-1, -2) @ qf) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ------------------------------------------------------- XLA's attention path
+def _low_precision(q):
+    """JAX's ``FSVLM_ATTN_BF16`` rule (:54-59): with bf16 inputs, and the
+    variable not "0", S and P stay bf16; otherwise they are fp32."""
+    return q.dtype == torch.bfloat16 and os.environ.get("FSVLM_ATTN_BF16") != "0"
+
+
+def _reference(q, k, v, mask, scale, s_eq, o_eq):
+    low = _low_precision(q)
+    acc_t = q.dtype if low else _acc_dtype(q.dtype)
+    s = torch.einsum(s_eq, q.to(acc_t), k.to(acc_t)) * scale
+    if mask is not None:
+        s = s + mask.to(acc_t)
+    if low:  # jax.nn.softmax op by op, each rounded to bf16
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = e / e.sum(dim=-1, keepdim=True)
+    else:
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum(o_eq, p, v)
+
+
+def reference_attention(q, k, v, mask=None, scale=None):
+    """The port of JAX's ``_reference_attention`` (:51-69), XLA's attention:
+    softmax(q k^T * scale + mask) v in plain PyTorch ops, so twice
+    differentiable by autograd.  q, k, v: (B, H, L, d); mask: None, (L, L),
+    or any shape that broadcasts to (B, H, L, L), e.g. a per-example (B, 1,
+    1, L) key bias; scale: default d^-1/2.  S and P in fp32, softmax in
+    fp32, P rounded to q's dtype before P.V; with bf16 inputs and
+    ``FSVLM_ATTN_BF16`` not "0", S and P stay bf16 (JAX's default)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return _reference(q, k, v, mask, scale, "bhqd,bhkd->bhqk", "bhqk,bhkd->bhqd")
+
+
+def reference_attention_blhd(q, k, v, mask=None, scale=None):
+    """``reference_attention`` on head-minor (B, L, H, d) tensors, returning
+    (B, L, H, d): the port of ``_reference_attention_blhd`` (:847-862)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return _reference(q, k, v, mask, scale, "bqhd,bkhd->bhqk", "bhqk,bkhd->bqhd")
 
 
 # ------------------------------------------------------------------ kernels
@@ -712,10 +757,11 @@ def fused_attention(q, k, v, mask=None, impl=None):
 
 
 def attention_route(head_dim, mask=None, heads=None):
-    """The kernel family ``attention_dispatch`` takes for this head dim,
-    mask and head count under the current ``FSVLM_FORCE_PALLAS``: "packed"
-    (the d = 64 kernels #6-#8), "blockwise" (#3-#5) or "fused" (#1-#2), as
-    JAX's :871-889 reads the variable.
+    """The family ``attention_dispatch`` takes for this head dim, mask and
+    head count under the current ``FSVLM_FORCE_PALLAS``: "packed" (the d =
+    64 kernels #6-#8), "blockwise" (#3-#5), "fused" (#1-#2) or "reference"
+    (``reference_attention``, XLA's path), as JAX's :863-904 reads the
+    variable.
 
     - ``legacy``: "fused" (the whole-sequence kernels take an (L, L) mask or
       none; ``fused_attention`` raises past head dim 128, ROADMAP B6);
@@ -726,11 +772,11 @@ def attention_route(head_dim, mask=None, heads=None):
     - under ``legacy``, ``1`` and ``packed``, a mask that is not 2-D (a
       per-example (B, 1, 1, L) key bias) raises ValueError: JAX sends it to
       ``fused_attention``, whose (L, L) mask cannot take it, and raises;
-    - unset or any other value: JAX takes XLA's attention; the port keeps its
-      own default (ROADMAP B5), "packed" at d = 64, else "blockwise", with an
-      (L, L) mask or none.  A broadcast mask there raises
-      NotImplementedError: XLA's path (``_reference_attention``) is not
-      ported (ROADMAP A3)."""
+    - unset or any other value: JAX takes XLA's attention.  The one rule:
+      where a kernel of the port computes the same function, the port takes
+      the kernel (its own default, ROADMAP B4): "packed" at d = 64, else
+      "blockwise", with an (L, L) mask or none.  A broadcast mask, which no
+      kernel takes, goes to "reference"."""
     force = os.environ.get("FSVLM_FORCE_PALLAS")
     shared = mask is None or mask.dim() == 2
     if force in ("legacy", "1", "packed") and not shared:
@@ -740,9 +786,7 @@ def attention_route(head_dim, mask=None, heads=None):
     if force == "legacy":
         return "fused"
     if not shared:
-        raise NotImplementedError(
-            "a per-example broadcast mask takes XLA's attention in the JAX package "
-            "(_reference_attention), which is not ported (ROADMAP A3)")
+        return "reference"
     if force == "packed" and heads is not None and heads % 2:
         return "blockwise"
     if force != "1" and head_dim == D:
@@ -751,19 +795,26 @@ def attention_route(head_dim, mask=None, heads=None):
 
 
 def attention_dispatch(q, k, v, mask=None, impl=None):
-    """softmax(q k^T * d^-1/2 + mask) v through the kernel family that
+    """softmax(q k^T * d^-1/2 + mask) v through the family that
     ``attention_route`` picks, reading ``FSVLM_FORCE_PALLAS`` at each call
-    as the JAX package reads it at each trace (:863-889).  Returns O
+    as the JAX package reads it at each trace (:863-904).  Returns O
     (B, H, L, d) in q's dtype, differentiable with respect to q, k and v.
 
     The JAX package's unset default is XLA's attention; the port's default
-    stays its d = 64 kernels until an H100 ledger line chooses otherwise
-    (ROADMAP B5).  ``FSVLM_ATTN_REMAT``, ``FSVLM_ATTN_BF16`` and
-    ``layout="blhd"`` are not ported.  ``impl="plain"``, or CPU tensors, take
-    the plain version of the family the route picks."""
+    stays its kernels wherever one computes the same function (ROADMAP B4),
+    and ``reference_attention`` takes what no kernel can, a broadcast mask.
+    On that route, as JAX's :891-903, ``FSVLM_ATTN_REMAT=1`` recomputes the
+    scores and softmax in the backward (``torch.utils.checkpoint``) instead
+    of keeping P, and ``FSVLM_ATTN_BF16`` sets its precision.  ``impl="plain"``,
+    or CPU tensors, take the plain version of the kernel family the route
+    picks."""
     route = attention_route(q.shape[-1], mask, heads=q.shape[1])
     if route == "packed":
         return attention_fwd(q, k, v, mask, impl=impl)[0]
     if route == "fused":
         return fused_attention(q, k, v, mask, impl=impl)
+    if route == "reference":
+        if os.environ.get("FSVLM_ATTN_REMAT") == "1":
+            return checkpoint(reference_attention, q, k, v, mask, use_reentrant=False)
+        return reference_attention(q, k, v, mask)
     return blockwise_attention(q, k, v, mask, impl=impl)

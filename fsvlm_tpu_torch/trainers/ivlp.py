@@ -16,7 +16,7 @@ PromptSRC inherits (counterpart of fsvlm_tpu.trainers.ivlp, :51-196).
 
 Subclasses whose config node lacks a key get the JAX package's ``.get``
 default (PromptSRC: no mixup, no KD).  Not ported: INT8_TEACHER (ROADMAP
-A10), which raises instead of being ignored.
+A7), which raises instead of being ignored.
 """
 
 import numpy as np
@@ -66,7 +66,7 @@ class IVLP(SimpleTrainer):
         self.kd_T = float(getattr(node, "KD_T", 4.0))
         if self.use_kd and bool(getattr(node, "INT8_TEACHER", False)):
             raise NotImplementedError("INT8_TEACHER (the int8 KD teacher tower) is not ported "
-                                      "yet (ROADMAP A10)")
+                                      "yet (ROADMAP A7)")
         if self.use_kd:
             # zero-shot CLIP teacher text features, fp32 (encode_text_ids' default)
             template = CUSTOM_TEMPLATES.get(cfg.DATASET.NAME, "a photo of a {}.")

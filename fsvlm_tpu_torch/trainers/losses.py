@@ -118,8 +118,12 @@ def kd_loss(student_logits, teacher_logits, T=4.0, valid=None):
 
 
 def l1_loss(a, b, valid=None):
-    """Elementwise-mean L1; with ``valid``, rows (axis 0) are masked."""
-    d = (a.float() - b.float()).abs()
+    """Elementwise-mean L1; with ``valid``, rows (axis 0) are masked.  Where
+    a equals b the gradient is +1, JAX's rule for abs (torch's is 0): at
+    LoRA's init (B = 0) the student's image features equal the teacher's
+    exactly, and the first step's gradients must be JAX's."""
+    x = a.float() - b.float()
+    d = torch.where(x >= 0, x, -x)
     if valid is None:
         return d.mean()
     return masked_mean(d.reshape(d.shape[0], -1).mean(dim=1), valid)

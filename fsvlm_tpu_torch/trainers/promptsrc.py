@@ -25,7 +25,7 @@ fsvlm_tpu.trainers.promptsrc, :47-183 and :222-253).
 
 Features, logits, softmaxes and losses are fp32; the logit scale is
 exponentiated in the frozen towers' dtype, as in the JAX package.  Not
-ported: INT8_TEACHER (ROADMAP A10; the config node has no such key).
+ported: INT8_TEACHER (ROADMAP A7; the config node has no such key).
 """
 
 import numpy as np

@@ -1,7 +1,8 @@
-"""Per-dataset prompt templates (the port's own copy of
-fsvlm_tpu.trainers.templates.CUSTOM_TEMPLATES, :10-27: the reference's
-trainers/zsclip.py CUSTOM_TEMPLATES, public OpenAI CLIP data).  IVLP's KD
-teacher reads its text features through DATASET.NAME's template.
+"""Prompt templates (the port's own copy of fsvlm_tpu.trainers.templates'
+CUSTOM_TEMPLATES, :10-27, the reference's trainers/zsclip.py per-dataset
+templates, and IMAGENET_TEMPLATES_SELECT, :29-40, the 7-template ensembling
+subset; public OpenAI CLIP data).  IVLP's KD teacher and ZeroshotCLIP read
+DATASET.NAME's template; ZeroshotCLIP2 ensembles the select set with it.
 """
 
 CUSTOM_TEMPLATES = {
@@ -22,3 +23,14 @@ CUSTOM_TEMPLATES = {
     "ImageNetR": "a photo of a {}.",
     "Synthetic": "a photo of a {}.",
 }
+
+# the 7-template ensembling subset (imagenet_templates.py IMAGENET_TEMPLATES_SELECT)
+IMAGENET_TEMPLATES_SELECT = [
+    "itap of a {}.",
+    "a bad photo of the {}.",
+    "a origami {}.",
+    "a photo of the large {}.",
+    "a {} in a video game.",
+    "art of the {}.",
+    "a photo of the small {}.",
+]

@@ -131,3 +131,104 @@ def test_kernel_is_a_torch_operator_with_a_fake_implementation():
     before = flash_attention.LAUNCHES[flash_attention.KERNEL]
     flash_attention.attention_fwd(q, q, q)
     assert flash_attention.LAUNCHES[flash_attention.KERNEL] == before
+
+
+# ------------------------------------------------ XLA's path (reference_attention)
+def _ref_inputs(layout, mask, seed=4, B=2, H=3, L=19, d=32):
+    rng = np.random.RandomState(seed)
+    shape = (B, H, L, d) if layout == "bhld" else (B, L, H, d)
+    q, k, v = (rng.randn(*shape).astype(np.float32) for _ in range(3))
+    m = {None: None,
+         "causal": np.triu(np.full((L, L), -np.inf, np.float32), 1),
+         "bcast": np.where(rng.rand(B, 1, 1, L) < 0.3, -1e9, 0.0).astype(np.float32)}[mask]
+    return q, k, v, m
+
+
+@pytest.mark.parametrize("bf16_env", [None, "0"], ids=["unset", "off"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask", [None, "causal", "bcast"], ids=["nomask", "causal", "bcast"])
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+def test_reference_attention_matches_jax_xla_path(layout, mask, dtype, bf16_env, monkeypatch):
+    """reference_attention / reference_attention_blhd against JAX's
+    _reference_attention / _reference_attention_blhd on the same inputs,
+    with FSVLM_ATTN_BF16 unset (bf16: S and P stay bf16) and "0" (fp32 S and
+    softmax): fp32 at rtol 1e-5 / atol 1e-6; bf16 at atol 2^-7 of the largest
+    |O| (one bf16 ulp is 2^-8 relative; the two softmaxes round apart)."""
+    import fsvlm_tpu.ops.flash_attention as jax_fa
+
+    if bf16_env is None:
+        monkeypatch.delenv("FSVLM_ATTN_BF16", raising=False)
+    else:
+        monkeypatch.setenv("FSVLM_ATTN_BF16", bf16_env)
+    q, k, v, m = _ref_inputs(layout, mask)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jax_fn, fn = ((jax_fa._reference_attention, flash_attention.reference_attention)
+                  if layout == "bhld" else
+                  (jax_fa._reference_attention_blhd, flash_attention.reference_attention_blhd))
+    ref = jax_fn(*(jnp.asarray(t, jdt) for t in (q, k, v)),
+                 None if m is None else jnp.asarray(m), q.shape[-1] ** -0.5)
+    tdt = getattr(torch, dtype)
+    out = fn(*(torch.from_numpy(t).to(tdt) for t in (q, k, v)),
+             None if m is None else torch.from_numpy(m))
+    assert out.dtype == tdt and out.shape == q.shape
+    ref = np.asarray(ref.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-6)
+    else:
+        np.testing.assert_allclose(out.float().numpy(), ref, rtol=0,
+                                   atol=2 ** -7 * np.abs(ref).max())
+
+
+def test_broadcast_mask_takes_xla_path_on_the_unset_route(monkeypatch):
+    """With FSVLM_FORCE_PALLAS unset, a (B, 1, 1, L) key-bias mask routes to
+    "reference" (no kernel takes it), and attention_dispatch gives JAX's
+    attention_dispatch result (rtol 1e-5 / atol 1e-6) and launches nothing."""
+    import fsvlm_tpu.ops.flash_attention as jax_fa
+
+    monkeypatch.delenv("FSVLM_FORCE_PALLAS", raising=False)
+    q, k, v, m = _ref_inputs("bhld", "bcast", d=64)
+    assert flash_attention.attention_route(64, torch.from_numpy(m), heads=3) == "reference"
+    before = dict(flash_attention.LAUNCHES)
+    out = flash_attention.attention_dispatch(*(torch.from_numpy(t) for t in (q, k, v, m)))
+    ref = jax_fa.attention_dispatch(*(jnp.asarray(t) for t in (q, k, v, m)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+    assert flash_attention.LAUNCHES == before
+
+
+@pytest.mark.parametrize("remat", [None, "1"], ids=["kept", "remat"])
+def test_reference_route_gradients_match_jax(remat, monkeypatch):
+    """First and second derivatives through the broadcast-mask route, with
+    FSVLM_ATTN_REMAT unset and "1" (checkpointed: the backward recomputes
+    S and P), against jax.grad of JAX's attention_dispatch under the same
+    variable (fp32, rtol 1e-4 / atol 1e-6 of the largest entry).  The second
+    derivative (d/dq of <dL/dk, w>, what PLIP's grad mode needs) is held
+    against JAX's the same way."""
+    import jax
+
+    import fsvlm_tpu.ops.flash_attention as jax_fa
+
+    monkeypatch.delenv("FSVLM_FORCE_PALLAS", raising=False)
+    if remat is None:
+        monkeypatch.delenv("FSVLM_ATTN_REMAT", raising=False)
+    else:
+        monkeypatch.setenv("FSVLM_ATTN_REMAT", remat)
+    q, k, v, m = _ref_inputs("bhld", "bcast", d=64)
+    rng = np.random.RandomState(7)
+    g, w = rng.randn(*q.shape).astype(np.float32), rng.randn(*q.shape).astype(np.float32)
+
+    def jax_loss(q_, k_, v_):
+        return jnp.sum(jax_fa.attention_dispatch(q_, k_, v_, jnp.asarray(m)) * g)
+
+    jq, jk, jv = (jnp.asarray(t) for t in (q, k, v))
+    ref = jax.grad(jax_loss, argnums=(0, 1, 2))(jq, jk, jv)
+    ref2 = jax.grad(lambda q_: jnp.sum(jax.grad(jax_loss, argnums=1)(q_, jk, jv) * w))(jq)
+
+    tq, tk, tv = (torch.from_numpy(t).requires_grad_() for t in (q, k, v))
+    out = flash_attention.attention_dispatch(tq, tk, tv, torch.from_numpy(m))
+    grads = torch.autograd.grad((out * torch.from_numpy(g)).sum(), (tq, tk, tv),
+                                create_graph=True)
+    (second,) = torch.autograd.grad((grads[1] * torch.from_numpy(w)).sum(), tq)
+    for got, want in zip(grads + (second,), ref + (ref2,)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-4,
+                                   atol=1e-6 * np.abs(want).max())

@@ -169,14 +169,13 @@ def test_blockwise_plain_versions_walk_the_kernel_tiles_like_plain_autograd(d):
 
 # ------------------------------------------------------------------ dispatch
 _BCAST = "bcast"  # a per-example (B, 1, 1, L) key-bias mask
-# NotImplementedError: the port's default route has no XLA attention (A3);
 # ValueError: the mask reaches the whole-sequence family, as in JAX, which raises
-_RAISES = {NotImplementedError: "A3", ValueError: "cannot take it"}
+_RAISES = {ValueError: "cannot take it"}
 
 
 @pytest.mark.parametrize("force,d,mask,want", [
     (None, 64, None, "packed"), (None, 64, "2d", "packed"), (None, 32, "2d", "blockwise"),
-    (None, 80, None, "blockwise"), (None, 64, _BCAST, NotImplementedError),
+    (None, 80, None, "blockwise"), (None, 64, _BCAST, "reference"),
     ("packed", 64, "2d", "blockwise"), ("packed", 128, None, "blockwise"),
     ("packed", 64, _BCAST, ValueError),
     ("1", 64, None, "blockwise"), ("1", 64, "2d", "blockwise"), ("1", 32, "2d", "blockwise"),
@@ -191,8 +190,8 @@ def test_dispatch_routes_by_force_pallas_and_head_dim(force, d, mask, want, monk
     ``legacy`` takes the whole-sequence family; ``packed`` the blockwise one
     at this q's odd head count (3), as JAX does; a broadcast mask raises
     ValueError under ``1``, ``packed`` and ``legacy`` (as JAX's
-    fused_attention does), and NotImplementedError naming ROADMAP A3 on the
-    port's default route."""
+    fused_attention does), and takes XLA's path (``reference_attention``,
+    no kernel family) on the port's default route."""
     fa = flash_attention
     if force is None:
         monkeypatch.delenv("FSVLM_FORCE_PALLAS", raising=False)
@@ -218,7 +217,9 @@ def test_dispatch_routes_by_force_pallas_and_head_dim(force, d, mask, want, monk
         return
     assert fa.attention_route(d, m, heads=q.shape[1]) == want
     o = fa.attention_dispatch(q, q, q, m)
-    assert ran == [want] and o.shape == q.shape
+    assert ran == ([] if want == "reference" else [want]) and o.shape == q.shape
+    if want == "reference":
+        torch.testing.assert_close(o, fa.reference_attention(q, q, q, m), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("H,want", [(3, "blockwise"), (1, "blockwise"), (2, "packed"),
@@ -263,7 +264,7 @@ def test_packed_route_follows_the_head_count_as_jax(H, want, monkeypatch):
 
 def test_blockwise_rejects_what_it_does_not_take():
     q = torch.zeros(1, 2, 8, 136)
-    with pytest.raises(ValueError, match="B3"):
+    with pytest.raises(ValueError, match="B6"):
         flash_attention.blockwise_attention(q, q, q)
     q = torch.zeros(1, 2, 8, 32)
     for bad in ({"block_q": 0}, {"block_k": 1.5}):

@@ -295,7 +295,7 @@ def test_init_weights_load_the_checkpoint_prompts(tmp_path):
 
 
 def test_unported_trainer_names_the_roadmap_item(tmp_path):
-    _, pcfg = _cfgs(tmp_path, "MaPLe")
+    _, pcfg = _cfgs(tmp_path, "PLIP")
     with pytest.raises(KeyError, match="ROADMAP A6"):
         build_trainer(pcfg, device="cpu")
 

@@ -179,6 +179,42 @@ def test_cli_trains_each_ported_trainer(tmp_path, monkeypatch, trainer, opts):
     assert "epoch [1/1]" in log and len(_accuracies(log)) == 2
 
 
+@pytest.mark.parametrize("trainer,opts", [
+    ("LoRA", ["TRAINER.LORA.PREC", "fp32", "TEST.FINAL_MODEL", "best_val", "OPTIM.MAX_EPOCH", "2"]),
+    ("MaPLe", ["TRAINER.MAPLE.PREC", "fp32", "TRAINER.MAPLE.PROMPT_DEPTH", "2",
+               "OPTIM.MAX_EPOCH", "1"]),
+    ("ZeroshotCLIP", ["OPTIM.MAX_EPOCH", "1"]),
+    ("ZeroshotCLIP2", ["OPTIM.MAX_EPOCH", "1"]),
+    ("LinearProbeCLIP", ["OPTIM.MAX_EPOCH", "1"]),
+])
+def test_cli_trains_the_clip_path_trainers(tmp_path, monkeypatch, trainer, opts):
+    """``--trainer LoRA|MaPLe|ZeroshotCLIP|ZeroshotCLIP2|LinearProbeCLIP`` on
+    the synthetic dataset: the run trains, tests and writes its checkpoints
+    (LoRA: lora/best.pkl from the best-val save and last.pkl; the zero-shot
+    trainers none); ``--eval-only`` on the run's directory reproduces the
+    final test predictions exactly."""
+    monkeypatch.chdir(ROOT)
+    out = tmp_path / "run"
+    args = cli.build_argparser().parse_args(
+        ["--trainer", trainer] + BASE_ARGS[2:] + ["--output-dir", str(out)] + TINY_OPTS + opts)
+    t = cli.main(args)
+    assert type(t).__name__ == trainer
+    log = (out / "log.txt").read_text()
+    assert f"epoch [{t.max_epoch}/{t.max_epoch}]" in log and "=> result" in log
+    want = t.evaluator.y_pred
+    files = sorted(str(p.relative_to(out)) for p in out.rglob("*") if ".pkl" in p.name)
+    lora = "Synthetic/test-tiny/lora/"
+    assert files == {"LoRA": [lora + "best.pkl", lora + "last.pkl"],
+                     "MaPLe": ["MultiModalPromptLearner/model.pkl-1"],
+                     "LinearProbeCLIP": ["linear_head/model.pkl-1"]}.get(trainer, [])
+    args = cli.build_argparser().parse_args(
+        ["--trainer", trainer] + BASE_ARGS[2:] + ["--output-dir", str(tmp_path / "eval"),
+                                                  "--eval-only", "--model-dir", str(out)]
+        + TINY_OPTS + opts)
+    t2 = cli.main(args)
+    assert t2.evaluator.y_pred == want
+
+
 def test_cli_and_build_trainer_default_to_the_card(tmp_path, monkeypatch):
     """Without --device the CLI (and build_trainer without a device) asks for
     cuda and raises on a box without one, instead of falling back."""

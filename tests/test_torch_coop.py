@@ -325,7 +325,7 @@ def test_encode_image_takes_the_vit_and_names_a9_for_the_resnet_towers(tiny_para
     x = torch.from_numpy(np.random.RandomState(2).randn(2, 32, 32, 3).astype(np.float32))
     torch.testing.assert_close(encode_image(clip, x), encode_image_vit(clip, x), rtol=0, atol=0)
     resnet = types.SimpleNamespace(cfg=types.SimpleNamespace(is_vit=False))
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A6"):
         encode_image(resnet, x)
 
 

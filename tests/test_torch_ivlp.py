@@ -296,7 +296,7 @@ def test_ivlp_trainer_draws_its_own_mixup():
 
 def test_ivlp_without_kd_and_the_int8_teacher(tiny_params):
     """USE_KD off: no teacher text features and no teacher pass; the loss is
-    the CE alone.  INT8_TEACHER under KD raises (ROADMAP A10)."""
+    the CE alone.  INT8_TEACHER under KD raises (ROADMAP A7)."""
     _, pcfg = _ivlp_cfgs(TRAINER__IVLP__USE_KD=False)
     pt = _port_ivlp(pcfg, tiny_params, CLASSNAMES, steps_per_epoch=1)
     assert "teacher_text" not in pt.frozen and not pt.use_kd
@@ -304,5 +304,5 @@ def test_ivlp_without_kd_and_the_int8_teacher(tiny_params):
                                                 "label": torch.tensor([0, 1])})
     assert torch.isfinite(loss)
     _, pcfg = _ivlp_cfgs(TRAINER__IVLP__INT8_TEACHER=True)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A7"):
         _port_ivlp(pcfg, tiny_params, CLASSNAMES, steps_per_epoch=1)

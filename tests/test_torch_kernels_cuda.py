@@ -487,7 +487,7 @@ def test_blockwise_rejects_what_it_does_not_take(card):
         with pytest.raises(err):
             torch.ops.fsvlm.blockwise_attn_fwd(*args)
     big = torch.zeros(1, 2, 8, 136, device=card)
-    with pytest.raises(ValueError, match="B3"):
+    with pytest.raises(ValueError, match="B6"):
         fa.blockwise_attention(big, big, big)
     assert fa.LAUNCHES == before
 

@@ -121,7 +121,8 @@ def test_predictor_requires_a_card_for_cuda():
 
 
 @pytest.mark.parametrize("entry", ["load_clip_backbone", "clip_from_params", "CLIP", "causal_mask",
-                                   "PromptSRC", "make_lr_schedule", "CoOp", "CoCoOp"])
+                                   "PromptSRC", "make_lr_schedule", "CoOp", "CoCoOp", "LoRA",
+                                   "MaPLe", "ZeroshotCLIP", "ZeroshotCLIP2", "LinearProbeCLIP"])
 def test_entry_points_default_to_the_card(entry):
     """With no device given, every entry point asks for cuda, and raises on
     a box without one instead of falling back to the CPU."""
@@ -148,6 +149,11 @@ def test_entry_points_default_to_the_card(entry):
         "CoOp": lambda: CoOp(get_cfg_default(), ["cat", "dog"]),
         "CoCoOp": lambda: CoCoOp(get_cfg_default(), ["cat", "dog"]),
     }
+    from fsvlm_tpu_torch.trainers import linear_probe, lora, maple, zsclip
+
+    for cls in (lora.LoRA, maple.MaPLe, zsclip.ZeroshotCLIP, zsclip.ZeroshotCLIP2,
+                linear_probe.LinearProbeCLIP):
+        calls[cls.__name__] = lambda cls=cls: cls(get_cfg_default(), ["cat", "dog"])
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
 
@@ -185,6 +191,15 @@ for cls in (CoOp, CoCoOp):
                   device="cpu")
     assert np.isfinite(trainer.train()[0][0]["loss"])
     assert 0 <= trainer.test(np.zeros((3, 32, 32, 3), np.uint8), np.zeros(3)) <= 100
+from fsvlm_tpu_torch.trainers.linear_probe import LinearProbeCLIP
+from fsvlm_tpu_torch.trainers.lora import LoRA
+from fsvlm_tpu_torch.trainers.maple import MaPLe
+from fsvlm_tpu_torch.trainers.zsclip import ZeroshotCLIP, ZeroshotCLIP2
+for cls in (LoRA, MaPLe, ZeroshotCLIP, ZeroshotCLIP2, LinearProbeCLIP):
+    trainer = cls(cfg, ["cat", "dog"], np.zeros((4, 40, 40, 3), np.uint8), np.zeros(4), clip=clip,
+                  device="cpu")
+    assert np.isfinite(trainer.train()[0][0]["loss"])
+    assert 0 <= trainer.test(np.zeros((3, 32, 32, 3), np.uint8), np.zeros(3)) <= 100
 import torch
 from fsvlm_tpu_torch.ops.flash_attention import fused_attention
 q = torch.zeros(1, 2, 5, 48)
@@ -215,7 +230,8 @@ def test_serving_path_imports_no_jax_regex_yaml_or_pil():
     """Serving, a PromptSRC, an IVLP (KD, mixup), a CoOp and a CoCoOp train
     epoch, CoOp's and CoCoOp's test(), the blockwise and whole-sequence
     attention, and one CLI run (PromptSRC on the synthetic dataset, one
-    epoch, CACHED_TEACHER, best-val) on the CPU, with every module of the
+    epoch, CACHED_TEACHER, best-val), a LoRA, a MaPLe, a zero-shot (both)
+    and a linear-probe epoch and test() on the CPU, with every module of the
     port imported, load nothing of JAX, the JAX package, regex, yaml or
     PIL."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
