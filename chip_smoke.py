@@ -114,7 +114,30 @@ Phases; each passes or raises, and any failure exits non-zero:
    epochs (lora/best.pkl and last.pkl, derived launches, ``--eval-only``
    reproducing the predictions).
 
-Phases 4, 6, 7, 8, 9 and 10 zero the launch counts just before each main path
+11. PLIP and the ModifiedResNet towers, with FSVLM_FORCE_PALLAS unset.
+   PLIP ViT-B/16 from configs/trainers/PLIP/vit_b16_c4_ep10_batch4.yaml on
+   phase 4's towers (4 ctx "a photo of a", REG_TYPE grad, REG_COEFF 0.01,
+   K 1, bf16, batch 48, the recipe's 4): the gradient penalty
+   differentiates the text tower twice, so the text tower takes the
+   reference attention (no kernel) and the image tower #6 only (12 per
+   step, #7/#8 none).  Phase 6's first-step gradient rules, the penalty's
+   own gradient in fp32 against a central difference, 6 steps against the
+   plain attention (losses and penalties), no synchronizing call, step
+   time and a profiled step, then test() on 200 images under phase 8's
+   eval rules.  Then one step each of REG_TYPE svd and spectral_norm (the
+   text tower on #6-#8: 24/12/12 per step).  Then CoOp from
+   configs/trainers/CoOp/rn50.yaml (16 ctx, batch 32, bf16) on an RN50
+   tower (random weights from seed 0, every BN perturbed so that the
+   residual branches speak): phase 6's run and rules with #6-#8 12 each per
+   step from the text tower and none from the RN tower (cuDNN convs and a
+   plain attention pool), test() under phase 8's rules, and ZeroshotCLIP's
+   test() on the same tower; the RN50 tower in fp32 (TF32 off) against the
+   frozen reference activations of tests/golden_pack/rn50_full_shape.npz
+   at its replay's tolerances; and ``--trainer PLIP`` through the CLI on
+   Synthetic with phase 9's data settings for 2 epochs, then
+   ``--eval-only`` reproducing its predictions.
+
+Phases 4, 6, 7, 8, 9, 10 and 11 zero the launch counts just before each main path
 and read them just after: each kernel of the path must have launched its
 expected count (derived from the code: a rematerialized layer runs its
 forward kernel again), and the other families none.
@@ -1016,12 +1039,13 @@ def _grad_agreement(label, kt, pt, node, batch):
         raise SystemExit(f"FAIL: {label}: kernel and plain first-step prompt gradients disagree")
 
 
-def _train_both(label, kt, pt, per_step, family, batch=TRAIN_BATCH):
+def _train_both(label, kt, pt, per_step, family, batch=TRAIN_BATCH, aux=()):
     """kt.train() through the kernels, every step timed on the host clock,
     with the launch counts zeroed just before and read just after; then
-    pt.train() through the plain attention.  Checks the per-step losses,
-    each prompt tensor's total change and the launch counts.  Returns
-    (launches, step_ms, peak bytes)."""
+    pt.train() through the plain attention.  Checks the per-step losses
+    (and the step metrics named in ``aux``, by the same rule), each prompt
+    tensor's total change and the launch counts.  Returns (launches,
+    step_ms, peak bytes)."""
     import torch
 
     from fsvlm_tpu_torch.ops import flash_attention as fa
@@ -1054,6 +1078,15 @@ def _train_both(label, kt, pt, per_step, family, batch=TRAIN_BATCH):
     p_loss = [m["loss"] for h in p_hist for m in h]
     n_steps = TRAIN_EPOCHS * TRAIN_STEPS_PER_EPOCH
     dloss = [abs(a - b) / (1 + abs(b)) for a, b in zip(k_loss, p_loss)]
+    aux_ok = True
+    for key in aux:
+        k_aux = [m[key] for h in k_hist for m in h]
+        p_aux = [m[key] for h in p_hist for m in h]
+        d_aux = [abs(a - b) / (1 + abs(b)) for a, b in zip(k_aux, p_aux)]
+        log(f"{label}: {key} kernel {[round(x, 6) for x in k_aux]}, plain "
+            f"{[round(x, 6) for x in p_aux]}; max |d{key}|/(1+|{key}|) {max(d_aux):.3e} "
+            f"(limit {DLOSS:g})")
+        aux_ok &= all(np.isfinite(k_aux + p_aux)) and max(d_aux) <= DLOSS
     delta_cos = {k: _cosine(kt.params[k].detach() - init[k], pt.params[k].detach() - init[k])
                  for k in kt.params}
     lrs = [kt.lr_schedule.lr_at_epoch(e) for e in range(TRAIN_EPOCHS)]
@@ -1063,7 +1096,7 @@ def _train_both(label, kt, pt, per_step, family, batch=TRAIN_BATCH):
     log(f"{label}: cosine of each prompt tensor's total change {delta_cos}")
     log(f"{label}: launches over {n_steps} steps {launches}, expected per step {per_step}")
     if (len(k_loss) != n_steps or not all(np.isfinite(k_loss + p_loss))
-            or max(dloss) > DLOSS or min(delta_cos.values()) < MIN_DELTA_COSINE):
+            or max(dloss) > DLOSS or min(delta_cos.values()) < MIN_DELTA_COSINE or not aux_ok):
         raise SystemExit(f"FAIL: {label}: kernel and plain train paths disagree")
     _others_silent(launches, family, f"the {label} path")
     for kern, n in per_step.items():
@@ -1316,6 +1349,17 @@ def _coop_test(kt, pt, cache):
     between classes, phase 4's yardstick, is about a tenth of serving's);
     top-1 agreement on every image whose top-1/top-2 margin exceeds twice
     the largest |dlogit|."""
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+
+    n_batches = -(-N_TEST // kt.cfg.DATALOADER.TEST.BATCH_SIZE)
+    want = {fa.FUSED_KERNEL: kt.clip.cfg.transformer_layers + n_batches * kt.clip.cfg.vision_layers}
+    return _split_eval_test("coop test()", kt, pt, cache, kt.cfg.TRAINER.COOP, want, "fused_attn")
+
+
+def _split_eval_test(label, kt, pt, cache, node, want, family):
+    """_coop_test's run and rules for any trainer with a split eval whose
+    PREC lies in ``node``: the nonzero launches of the kernel run must be
+    ``want``, and kernels outside ``family`` must not launch."""
     import torch
 
     from fsvlm_tpu_torch.ops import flash_attention as fa
@@ -1324,8 +1368,7 @@ def _coop_test(kt, pt, cache):
         for k in pt.params:
             pt.params[k].copy_(kt.params[k])
     labels = np.random.RandomState(1234).randint(0, N_CLASSES, N_TEST)
-    node = kt.cfg.TRAINER.COOP  # read by both trainers' compute_dtype()
-    runs = {}
+    runs = {}  # node.PREC is read by both trainers' compute_dtype()
     for name, t, prec in (("kernel", kt, "bf16"), ("plain", pt, "bf16"), ("plain fp32", pt, "fp32")):
         seen = {"text": [], "logits": []}
         text_fn, image_fn = t.text_features_fn, t.image_logits_fn
@@ -1352,8 +1395,7 @@ def _coop_test(kt, pt, cache):
     top2 = p_log.topk(2, dim=-1).values
     decided = (top2[:, 0] - top2[:, 1]) > 2 * dlog.max()
     flips = int((decided & (k_log.argmax(-1) != p_log.argmax(-1))).sum())
-    want = {fa.FUSED_KERNEL: kt.clip.cfg.transformer_layers + n_batches * kt.clip.cfg.vision_layers}
-    log(f"coop test(): {N_TEST} images in {n_batches} batches; accuracy kernel {k_acc:.1f}%, plain "
+    log(f"{label}: {N_TEST} images in {n_batches} batches; accuracy kernel {k_acc:.1f}%, plain "
         f"{p_acc:.1f}%, plain fp32 {runs['plain fp32'][0]:.1f}%; {k_ms:.1f} / {p_ms:.1f} ms; text "
         f"feature passes {len(k_seen['text'])}; min text cosine {cos_txt.min().item():.6f}; max "
         f"|dlogit| {dlog.max().item():.4f}; max |dlogit| to the fp32 logits: kernel {noise_k:.4f}, "
@@ -1361,13 +1403,14 @@ def _coop_test(kt, pt, cache):
         f"{spread.max().item():.4f} (max |dlogit|/spread {(dlog / spread).max().item():.4f}); images "
         f"past the 2 x max|dlogit| margin {int(decided.sum())}, near ties {int((~decided).sum())}, "
         f"top-1 flips past the margin {flips}; launches {launches}")
-    _others_silent(launches, "fused_attn", "coop test()")
+    _others_silent(launches, family, label)
     if ({k: n for k, n in launches.items() if n} != want or len(k_seen["text"]) != 1
             or len(k_seen["logits"]) != n_batches or k_log.shape != (N_TEST, N_CLASSES)
             or not torch.isfinite(k_log).all() or cos_txt.min().item() < MIN_COSINE
             or dlog.max().item() > MAX_DLOGIT or noise_k > BF16_NOISE_RATIO * noise_p or flips):
-        raise SystemExit(f"FAIL: coop test(): kernel and plain paths disagree, or the launches "
+        raise SystemExit(f"FAIL: {label}: kernel and plain paths disagree, or the launches "
                          f"are not {want}")
+    return k_ms
 
 
 def _cocoop_remat(clip, cache, labels):
@@ -1925,14 +1968,16 @@ def _linear_probe_steps(clip, cache, labels):
     return launches
 
 
-def _zeroshot_test(clip, cache):
+def _zeroshot_test(clip, cache, classes=None, tag=""):
     """ZeroshotCLIP and ZeroshotCLIP2 test() on N_TEST cache images at TEST
     batch 100 (LP_RECIPE's INPUT and TEST settings), through the kernels,
     the plain attention and the plain attention in fp32: the class text
     features (built once, at construction: one template, or the 7 of the
     select set plus the dataset's) at cosine MIN_COSINE; then phase 8's eval
     rules on the logits.  Launches: the text passes at build, then the
-    vision tower once per test batch."""
+    vision tower once per test batch (a ViT's; a ModifiedResNet launches
+    none).  ``classes``: the trainers (default both); ``tag`` follows each
+    one's name in the log."""
     import torch
 
     from fsvlm_tpu_torch.ops import flash_attention as fa
@@ -1941,7 +1986,7 @@ def _zeroshot_test(clip, cache):
     labels = np.random.RandomState(1234).randint(0, N_CLASSES, N_TEST)
     classnames = [f"class {i}" for i in range(N_CLASSES)]
     Lt, Lv = clip.cfg.transformer_layers, clip.cfg.vision_layers
-    for cls in (ZeroshotCLIP, ZeroshotCLIP2):
+    for cls in classes or (ZeroshotCLIP, ZeroshotCLIP2):
         class _Fp32(cls):
             def compute_dtype(self):
                 return torch.float32
@@ -1977,8 +2022,9 @@ def _zeroshot_test(clip, cache):
         top2 = p_log.topk(2, dim=-1).values
         decided = (top2[:, 0] - top2[:, 1]) > 2 * dlog.max()
         flips = int((decided & (k_log.argmax(-1) != p_log.argmax(-1))).sum())
-        want_build, want_test = {fa.KERNEL: n_templates * Lt}, {fa.KERNEL: n_batches * Lv}
-        label = cls.__name__
+        want_build = {fa.KERNEL: n_templates * Lt}
+        want_test = {fa.KERNEL: n_batches * Lv} if clip.cfg.is_vit else {}
+        label = cls.__name__ + tag
         log(f"{label}: {n_templates} template(s); text features built in {k_build[1]:.1f} ms, "
             f"min cosine to the plain path's {cos_txt.min().item():.6f}; test() on {N_TEST} images "
             f"in {n_batches} batches {k_ms:.1f} ms, accuracy kernel {k_acc:.1f}%, plain "
@@ -2094,6 +2140,349 @@ def phase_clip_trainers(clip):
     out["lora_cli"] = _lora_cli(clip)
     return out
 
+PLIP_RECIPE = "configs/trainers/PLIP/vit_b16_c4_ep10_batch4.yaml"
+COOP_RN_RECIPE = "configs/trainers/CoOp/rn50.yaml"
+RN50_GOLDEN = "tests/golden_pack/rn50_full_shape.npz"  # read as data; nothing of tests/ is imported
+RN_WEIGHTS_SEED, RN_PERTURB_SEED = 0, 1  # the CoOp RN50 and zero-shot RN50 tower
+# the golden's weights (seed 50, BN perturbed with seed 51) and images (seed 13)
+GOLDEN_RN_SEEDS = (50, 51, 13)
+FD_RTOL = 1e-2  # the penalty's gradient against its central difference
+FD_EPS = 1e-3  # the difference's step, as a share of |ctx|
+
+
+def _perturb_bn(params, seed):
+    """Every BN of the RN tower random (scale U(0.5, 1.5), bias N(0, 0.05),
+    mean N(0, 0.1), var U(0.5, 1.5)), drawn in tests/golden_pack_common.py's
+    order: the stem's bn1-3, then each block's bn1-3 and its downsample's.
+    The reference init zeroes every bn3 scale, which silences the residual
+    branches and would hide a conv2/conv3 fault."""
+    rng = np.random.RandomState(seed)
+
+    def perturb(bn):
+        c = bn["scale"].shape[0]
+        bn["scale"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        bn["bias"] = rng.normal(0, 0.05, c).astype(np.float32)
+        bn["mean"] = rng.normal(0, 0.1, c).astype(np.float32)
+        bn["var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+
+    stem = params["visual"]["stem"]
+    for i in (1, 2, 3):
+        perturb(stem[f"bn{i}"])
+    for stage in params["visual"]["layers"]:
+        for block in stage:
+            for name in ("bn1", "bn2", "bn3"):
+                perturb(block[name])
+            if "downsample" in block:
+                perturb(block["downsample"]["bn"])
+    return params
+
+
+def _rn50_clip(seed, perturb_seed, dtype):
+    """RN50 CLIP on the card: random weights from ``seed``, BN perturbed."""
+    from fsvlm_tpu_torch.models.clip import ARCHS, random_clip_params
+    from fsvlm_tpu_torch.trainers.backbone import clip_from_params
+
+    params = _perturb_bn(random_clip_params(ARCHS["RN50"], seed=seed), perturb_seed)
+    return clip_from_params(params, ARCHS["RN50"], dtype, "cuda")
+
+
+def _plip_penalty_fd(kt, batch):
+    """In fp32 on the kernel path: the gradient penalty's own ctx gradient
+    (autograd through the double backward) is nonzero, and along its unit
+    direction equals a central difference of the penalty (step FD_EPS *
+    |ctx|) within FD_RTOL; along a fixed random unit direction the two are
+    printed beside each other."""
+    import torch
+
+    node, ctx = kt.node, kt.params["ctx"]
+    node.PREC = "fp32"
+
+    def penalty(c):
+        return kt.loss_fn({"ctx": c}, kt.frozen, batch)[1]["penalty"]
+
+    try:
+        grad, = torch.autograd.grad(penalty(ctx), ctx)
+        eps = FD_EPS * ctx.detach().norm().item()
+        gen = torch.Generator(device="cuda").manual_seed(31)
+        out = {}
+        for name, d in (("gradient", grad), ("random", torch.randn(ctx.shape, generator=gen,
+                                                                  device="cuda"))):
+            d = d / d.norm()
+            with torch.no_grad():
+                plus, minus = ctx + eps * d, ctx - eps * d
+            fd = (penalty(plus.requires_grad_()).item()
+                  - penalty(minus.requires_grad_()).item()) / (2 * eps)
+            out[name] = ((grad * d).sum().item(), fd)
+    finally:
+        node.PREC = "bf16"
+    (analytic, fd), (r_analytic, r_fd) = out["gradient"], out["random"]
+    log(f"plip grad: penalty gradient in fp32, max |g| {grad.abs().max().item():.4e}; along its "
+        f"unit direction autograd {analytic:.6e}, central difference (step {eps:.3e}) {fd:.6e}, "
+        f"relative difference {abs(analytic - fd) / abs(fd):.3e} (limit {FD_RTOL:g}); along a "
+        f"random unit direction autograd {r_analytic:.6e}, central difference {r_fd:.6e}")
+    if not (grad.abs().max().item() > 0 and abs(analytic - fd) <= FD_RTOL * abs(fd)):
+        raise SystemExit("FAIL: plip grad: the penalty's gradient is not its finite difference")
+
+
+def _plip_grad(clip, cache, labels):
+    """The PLIP ViT-B/16 grad-mode step from PLIP_RECIPE at batch
+    TRAIN_BATCH (module docstring, phase 11): the text tower on the
+    reference route (no kernel), the image tower on #6."""
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.trainers.plip import PLIP
+
+    cfg = _yaml_cfg(PLIP_RECIPE, "DATALOADER.TRAIN_X.BATCH_SIZE", TRAIN_BATCH)
+    node = cfg.TRAINER.PLIP
+    classnames = [f"class {i}" for i in range(N_CLASSES)]
+    kt = PLIP(cfg, classnames, cache, labels, clip=clip, device="cuda",
+              steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+    pt = PLIP(cfg, classnames, cache, labels, clip=clip, device="cuda",
+              steps_per_epoch=TRAIN_STEPS_PER_EPOCH, attn_impl="plain")
+    log(f"plip: {PLIP_RECIPE}: REG_TYPE {node.REG_TYPE}, N_CTX_TEXT {node.N_CTX_TEXT} "
+        f"({node.CTX_INIT!r}), K {node.K}, REG_COEFF {node.REG_COEFF}, batch {TRAIN_BATCH} (the "
+        f"recipe's 4), LR {cfg.OPTIM.LR}; text L={kt.frozen['base_embed'].shape[1]} x "
+        f"{N_CLASSES} prompts on the reference route, vision L={clip.cfg.vision_seq_len}")
+    first = _augmented_batch(cache, labels, 30)
+    _grad_agreement("plip grad", kt, pt, node, first)
+    _plip_penalty_fd(kt, first)
+    Lt, Lv = clip.cfg.transformer_layers, clip.cfg.vision_layers
+    per_step = {fa.KERNEL: Lv, fa.KERNEL_DKV: 0, fa.KERNEL_DQ: 0}  # the text tower: no kernel
+    launches, step_ms, peak = _train_both("plip grad", kt, pt, per_step, "flash_attn",
+                                          aux=("penalty",))
+    _step_summary("plip grad", kt, TRAIN_BATCH, step_ms, peak)
+    n_batches = -(-N_TEST // cfg.DATALOADER.TEST.BATCH_SIZE)
+    ms = _split_eval_test("plip test()", kt, pt, cache, node, {fa.KERNEL: Lt + n_batches * Lv},
+                          "flash_attn")
+    log(f"plip test(): {N_TEST} images in {ms:.1f} ms (text features once, on the kernels)")
+    return launches
+
+
+def _plip_one_step(clip, cache, labels, reg_type):
+    """One PLIP step under ``reg_type`` (svd or spectral_norm; the text
+    tower on the kernels) through the kernels and the plain attention:
+    phase 6's first-step gradient rules (spectral_norm with one start vector
+    handed to both), then one resident step each on the same index, boxes,
+    flips and start-vector draw: loss and penalty within DLOSS, the update's
+    cosine at least MIN_DELTA_COSINE, the launches as derived, no
+    synchronizing call."""
+    import torch
+
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.trainers.plip import PLIP
+
+    label = f"plip {reg_type}"
+    cfg = _yaml_cfg(PLIP_RECIPE, "DATALOADER.TRAIN_X.BATCH_SIZE", TRAIN_BATCH,
+                    "TRAINER.PLIP.REG_TYPE", reg_type)
+    classnames = [f"class {i}" for i in range(N_CLASSES)]
+    kt, pt = (PLIP(cfg, classnames, cache, labels, clip=clip, device="cuda",
+                   steps_per_epoch=TRAIN_STEPS_PER_EPOCH, attn_impl=impl) for impl in (None, "plain"))
+    first = _augmented_batch(cache, labels, 32)
+    if reg_type == "spectral_norm":
+        gen = torch.Generator(device="cuda").manual_seed(33)
+        first["v0"] = torch.randn(clip.cfg.transformer_width, generator=gen, device="cuda")
+    _grad_agreement(label, kt, pt, cfg.TRAINER.PLIP, first)
+    init = {k: v.detach().clone() for k, v in kt.params.items()}
+    index = kt.epoch_schedule()[0][0]
+    pt.epoch_schedule()
+    torch.cuda.synchronize()
+    fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+    km = kt.train_step_resident(index)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    pm = pt.train_step_resident(index)
+    d = {k: abs(km[k].item() - pm[k].item()) / (1 + abs(pm[k].item())) for k in ("loss", "penalty")}
+    cos = {k: _cosine(kt.params[k].detach() - init[k], pt.params[k].detach() - init[k])
+           for k in kt.params}
+    Lt, Lv = clip.cfg.transformer_layers, clip.cfg.vision_layers
+    want = {fa.KERNEL: Lt + Lv, fa.KERNEL_DKV: Lt, fa.KERNEL_DQ: Lt}
+    log(f"{label}: one step: loss kernel {km['loss'].item():.6f} plain {pm['loss'].item():.6f}, "
+        f"penalty kernel {km['penalty'].item():.6f} plain {pm['penalty'].item():.6f}; "
+        f"|d|/(1+|x|) {d} (limit {DLOSS:g}); update cosine {cos}; params "
+        f"{ {k: tuple(v.shape) for k, v in kt.params.items()} }; launches {launches}, "
+        f"expected {want}")
+    _others_silent(launches, "flash_attn", f"the {label} step")
+    if (max(d.values()) > DLOSS or min(cos.values()) < MIN_DELTA_COSINE
+            or not torch.equal(kt.generator.get_state(), pt.generator.get_state())
+            or any(launches[k] != n for k, n in want.items())):
+        raise SystemExit(f"FAIL: {label}: kernel and plain steps disagree, or the launches are "
+                         f"not {want}")
+    _no_sync_step(label, kt.train_step_resident, index)
+    return launches
+
+
+def _coop_rn50(rn, cache, labels):
+    """CoOp from COOP_RN_RECIPE (16 ctx, batch 32, bf16) on the RN50 tower
+    (module docstring, phase 11): phase 6's run and rules, #6-#8 in the
+    text tower only, then test() under phase 8's eval rules."""
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.trainers.coop import CoOp
+
+    cfg = _yaml_cfg(COOP_RN_RECIPE)
+    node, batch = cfg.TRAINER.COOP, cfg.DATALOADER.TRAIN_X.BATCH_SIZE
+    classnames = [f"class {i}" for i in range(N_CLASSES)]
+    kt, pt = (CoOp(cfg, classnames, cache, labels, clip=rn, device="cuda",
+                   steps_per_epoch=TRAIN_STEPS_PER_EPOCH, attn_impl=impl) for impl in (None, "plain"))
+    log(f"coop rn50: {COOP_RN_RECIPE}: N_CTX {node.N_CTX}, batch {batch}, LR {cfg.OPTIM.LR}; "
+        f"text L={kt.frozen['base_embed'].shape[1]} x {N_CLASSES} prompts; the RN50 tower "
+        f"(layers {rn.cfg.vision_layers}, width {rn.cfg.vision_width}, pool heads "
+        f"{rn.cfg.vision_heads}) through cuDNN without gradient")
+    _grad_agreement("coop rn50", kt, pt, node, _augmented_batch(cache, labels, 34, batch))
+    Lt = rn.cfg.transformer_layers
+    per_step = {fa.KERNEL: Lt, fa.KERNEL_DKV: Lt, fa.KERNEL_DQ: Lt}  # the vision tower: none
+    launches, step_ms, peak = _train_both("coop rn50", kt, pt, per_step, "flash_attn", batch)
+    _step_summary("coop rn50", kt, batch, step_ms, peak)
+    ms = _split_eval_test("coop rn50 test()", kt, pt, cache, node, {fa.KERNEL: Lt}, "flash_attn")
+    log(f"coop rn50 test(): {N_TEST} images in {ms:.1f} ms")
+    return launches
+
+
+def _check_subsampled(pack, name, ours, rtol):
+    """tests/golden_pack_common.py's check_subsampled (the port's own copy):
+    the stored positions and the mean and std within rtol of the tensor's
+    scale (its largest |moment|) plus 2e-3.  Returns the worst error over
+    its limit."""
+    ours = np.asarray(ours, np.float32)
+    if ours.shape != tuple(pack[f"{name}.shape"]):
+        raise SystemExit(f"FAIL: rn50 golden: {name} has shape {ours.shape}")
+    moments = pack[f"{name}.moments"]
+    atol = rtol * max(abs(float(moments[2])), abs(float(moments[3])), 1e-6) + 2e-3
+    err = max(np.abs(ours.ravel()[pack[f"{name}.idx"]] - pack[f"{name}.val"].astype(np.float32)).max(),
+              np.abs(np.array([ours.mean(), ours.std()]) - moments[:2]).max())
+    return err / atol
+
+
+def _rn50_golden():
+    """The RN50 tower in fp32 on the card (TF32 off since phase 1) against
+    the frozen reference activations of RN50_GOLDEN: the seed-50 weights
+    with BN perturbed by seed 51, 2 images from seed 13; the four stages at
+    their sub-sampled positions and moments (rtol 2e-3), the features at
+    5e-3 of their largest entry (tests/test_golden_pack_full_shape.py)."""
+    import torch
+
+    from fsvlm_tpu_torch.models.clip import encode_image
+
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("FAIL: rn50 golden: TF32 is on")
+    w_seed, p_seed, img_seed = GOLDEN_RN_SEEDS
+    clip = _rn50_clip(w_seed, p_seed, torch.float32)
+    images = torch.from_numpy(np.random.RandomState(img_seed).randn(2, 224, 224, 3)
+                              .astype(np.float32)).cuda()
+    with torch.no_grad():
+        feat, stages = encode_image(clip, images, collect_stages=True)
+    torch.cuda.synchronize()
+    pack = dict(np.load(RN50_GOLDEN, allow_pickle=False))
+    ratios = {f"stage{i}": _check_subsampled(pack, f"stage{i}", st.cpu().numpy(), 2e-3)
+              for i, st in enumerate(stages, start=1)}
+    ref = pack["image_features"]
+    ratios["features"] = float(np.abs(feat.cpu().numpy() - ref).max() / (5e-3 * np.abs(ref).max()))
+    log(f"rn50 golden: fp32 on the card against {RN50_GOLDEN}: stage shapes "
+        f"{[tuple(st.shape) for st in stages]}; worst error over its limit "
+        f"{ {k: round(v, 4) for k, v in ratios.items()} }")
+    if max(ratios.values()) > 1 or not torch.isfinite(feat).all():
+        raise SystemExit("FAIL: rn50 golden: the card's RN50 tower left the reference")
+    del clip
+
+
+def _plip_cli(clip):
+    """``--trainer PLIP`` through the CLI on Synthetic with phase 9's
+    configuration (PER_CLASS_SHOTS, WeightedClassSampler, DEVICE_AUG,
+    best_val, a checkpoint every epoch, 2 epochs) on PLIP_RECIPE: the log
+    contract, the checkpoint files, #6's launches as derived (the text
+    tower trains on the reference route: #7/#8 none), and ``--eval-only``
+    reproducing the run's final test predictions."""
+    import torch
+
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_plip_")
+
+    def argv(out, *flags):
+        return ["--trainer", "PLIP", "--seed", "1", "--device", "cuda",
+                "--dataset-config-file", "configs/datasets/synthetic.yaml",
+                "--config-file", PLIP_RECIPE, "--output-dir", out, *flags,
+                "MODEL.FROZEN_DTYPE", "bf16", "DATASET.NUM_SHOTS", "-1",
+                "DATASET.PER_CLASS_SHOTS", str(CLI_PER_CLASS_SHOTS),
+                "DATALOADER.TRAIN_X.SAMPLER", "WeightedClassSampler",
+                "DATALOADER.DEVICE_AUG", "True", "TEST.FINAL_MODEL", "best_val",
+                "TRAIN.CHECKPOINT_FREQ", "1", "OPTIM.MAX_EPOCH", str(CLI_EPOCHS)]
+
+    try:
+        out = os.path.join(work, "run")
+        torch.cuda.synchronize()
+        fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        t0 = time.perf_counter()
+        t = _run_cli(clip, argv(out))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        ds, Lt, Lv = t.dm.dataset, clip.cfg.transformer_layers, clip.cfg.vision_layers
+        steps = t.steps_per_epoch * CLI_EPOCHS
+
+        def test_pass(n):  # split eval: the text once, the vision tower per batch
+            return Lt + -(-n // t.cfg.DATALOADER.TEST.BATCH_SIZE) * Lv
+
+        # per step the vision tower forward; a val test() after each epoch,
+        # then the test set twice (after_train, and the CLI's report)
+        want = {fa.KERNEL: steps * Lv + CLI_EPOCHS * test_pass(len(ds.val))
+                + 2 * test_pass(len(ds.test)), fa.KERNEL_DKV: 0, fa.KERNEL_DQ: 0}
+        mdir = os.path.join(out, "prompt_learner")
+        files = sorted(os.listdir(mdir)) if os.path.isdir(mdir) else []
+        text = _read(os.path.join(out, "log.txt"))
+        log(f"plip cli: {PLIP_RECIPE} on Synthetic: train_x {len(ds.train_x)}, val {len(ds.val)}, "
+            f"test {len(ds.test)}; {t.steps_per_epoch} steps of {t.batch_size} per epoch, "
+            f"{CLI_EPOCHS} epochs; run {run_s:.1f} s; accuracies in log.txt "
+            f"{[float(x) for x in re.findall(r'[*] accuracy: ([0-9.]+)%', text)]}; {mdir} holds "
+            f"{files}; launches {launches}, expected {want}")
+        _others_silent(launches, "flash_attn", "the PLIP CLI run")
+        for needle in ("=> result", "Finish training", "REG_COEFF: 0.01",
+                       "Deploy the model with the best val performance"):
+            if needle not in text:
+                raise SystemExit(f"FAIL: plip cli: log.txt lacks {needle!r}")
+        if (not {"checkpoint", "model-best.pkl", "model.pkl-1", "model.pkl-2"} <= set(files)
+                or any(launches[k] != n for k, n in want.items())):
+            raise SystemExit("FAIL: plip cli: checkpoint files or launches are not as expected")
+        t2 = _run_cli(clip, argv(os.path.join(work, "eval"), "--eval-only", "--model-dir", out))
+        same = (t2.evaluator.y_pred == t.evaluator.y_pred
+                and t2.evaluator.y_true == t.evaluator.y_true)
+        log(f"plip cli: --eval-only on the run's directory reproduced its final test "
+            f"predictions: {same}")
+        if not same:
+            raise SystemExit("FAIL: plip cli: --eval-only did not reproduce the predictions")
+        del t, t2
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def phase_plip_resnet(clip):
+    """Phase 11 (module docstring): PLIP on ``clip`` (ViT-B/16) in its three
+    REG_TYPEs, CoOp and ZeroshotCLIP on an RN50 tower, the RN50 golden in
+    fp32, and the PLIP CLI; FSVLM_FORCE_PALLAS unset (the caller sets it).
+    Returns each path's launches."""
+    import torch
+
+    from fsvlm_tpu_torch.trainers.zsclip import ZeroshotCLIP
+
+    cache, labels = _train_cache()
+    out = {"plip_grad": _plip_grad(clip, cache, labels)}
+    for reg_type in ("svd", "spectral_norm"):
+        torch.cuda.empty_cache()
+        out[f"plip_{reg_type}"] = _plip_one_step(clip, cache, labels, reg_type)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rn = _rn50_clip(RN_WEIGHTS_SEED, RN_PERTURB_SEED, torch.bfloat16)
+    log(f"rn50: random weights from seed {RN_WEIGHTS_SEED}, BN perturbed with seed "
+        f"{RN_PERTURB_SEED}, bf16 on the card in {time.perf_counter() - t0:.1f} s")
+    out["coop_rn50"] = _coop_rn50(rn, cache, labels)
+    _zeroshot_test(rn, cache, classes=(ZeroshotCLIP,), tag=" RN50")
+    del rn
+    torch.cuda.empty_cache()
+    _rn50_golden()
+    torch.cuda.empty_cache()
+    out["plip_cli"] = _plip_cli(clip)
+    return out
+
 
 def main():
     phase_device()
@@ -2114,6 +2503,8 @@ def main():
         launches_cli = phase_cli(pred.clip)
     with force_pallas(None):  # the CLIP-path trainers on the d = 64 kernels
         launches_clip = phase_clip_trainers(pred.clip)
+    with force_pallas(None):  # PLIP and the RN towers on the d = 64 kernels
+        launches_plip = phase_plip_resnet(pred.clip)
 
     import torch
 
@@ -2152,7 +2543,8 @@ def main():
     if len({launches_fused[k] for k in parts}) != 1:
         raise SystemExit(f"FAIL: #2's kernels launched unequal counts: {launches_fused}")
     # #6-#8's launches on every path that runs them (``launches``: phase 6's)
-    by_path = {"promptsrc": launches, "promptsrc_cli": launches_cli, **launches_clip}
+    by_path = {"promptsrc": launches, "promptsrc_cli": launches_cli, **launches_clip,
+               **launches_plip}
     for row in kernels[:3]:
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
     # device times (profiler) beside the event times: the forwards', #7/#8's

@@ -7,7 +7,7 @@ recipes: configs/trainers/PromptSRC/vit_b16_c2_ep20_batch4_4+4ctx.yaml
 configs/trainers/IVLP/vit_b16_c2_ep20_batch4_4+4ctx_kd.yaml (TRAINER.IVLP;
 its other sections equal the PromptSRC recipe's), so that
 ``get_cfg_default()`` is either recipe.  TRAINER.COOP, TRAINER.COCOOP,
-TRAINER.MAPLE, TRAINER.LINEAR_PROBE and TRAINER.LORA keep defaults.py's
+TRAINER.MAPLE, TRAINER.LINEAR_PROBE, TRAINER.PLIP and TRAINER.LORA keep defaults.py's
 values; their recipes are the override lists in
 ``RECIPES``, applied with ``cfg.merge_from_list``, or the yaml files
 themselves, read with ``cfg.merge_from_file``.  ``get_cfg_base()`` is
@@ -142,6 +142,19 @@ class LinearProbeConfig:
 
 
 @dataclasses.dataclass
+class PLIPConfig:
+    N_CTX_VISION: int = 0  # read by no trainer, as in the JAX package
+    N_CTX_TEXT: int = 4
+    CTX_INIT: str = "a photo of a"
+    PREC: str = "fp16"
+    PROMPT_DEPTH_VISION: int = 0  # read by no trainer
+    PROMPT_DEPTH_TEXT: int = 0  # read by no trainer
+    REG_COEFF: float = 0.01
+    K: int = 1  # the gradient norm each ctx token is pulled toward (grad)
+    REG_TYPE: str = "grad"  # grad / svd / spectral_norm
+
+
+@dataclasses.dataclass
 class LoRAConfig:
     N_CTX_VISION: int = 2
     N_CTX_TEXT: int = 2  # the fixed text prompts' context length
@@ -169,6 +182,7 @@ class TrainerConfig:
     COCOOP: CoCoOpConfig = field(default_factory=CoCoOpConfig)
     MAPLE: MaPLeConfig = field(default_factory=MaPLeConfig)
     LINEAR_PROBE: LinearProbeConfig = field(default_factory=LinearProbeConfig)
+    PLIP: PLIPConfig = field(default_factory=PLIPConfig)
     LORA: LoRAConfig = field(default_factory=LoRAConfig)
 
 

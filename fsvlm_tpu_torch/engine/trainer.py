@@ -93,16 +93,28 @@ from .optim import build_optimizer, make_lr_schedule
 
 TRAINER_REGISTRY = Registry("TRAINER")
 
+# the JAX package's Dassl zoo trainers (fsvlm_tpu/trainers/zoo/): domain
+# adaptation, semi-supervised learning and domain generalization; not ported
+ZOO_TRAINERS = (
+    "SourceOnly", "DANN", "ADDA", "AdaBN", "MCD", "MME", "SE", "M3SDA", "CDAC", "DAEL",
+    "SupBaseline", "EntMin", "MeanTeacher", "MixMatch", "FixMatch",
+    "Vanilla", "CrossGrad", "DDAIG", "DomainMix", "DAELDG",
+)
+
 
 def build_trainer(cfg, **kwargs):
     """The trainer of TRAINER.NAME, fed by the DataManager; ``kwargs`` go to
-    its constructor (``device``, ``clip``, ``attn_impl``)."""
+    its constructor (``device``, ``clip``, ``attn_impl``).  A name of the
+    JAX package's zoo raises KeyError naming ROADMAP A9; any other unknown
+    name raises KeyError listing the ported trainers."""
     from .. import trainers  # noqa: F401  (registers the ported trainers)
 
     name = cfg.TRAINER.NAME
+    if name in ZOO_TRAINERS:
+        raise KeyError(f"Trainer {name!r} is one of the Dassl zoo trainers, not ported yet "
+                       f"(ROADMAP A9)")
     if name not in TRAINER_REGISTRY:
-        raise KeyError(f"Trainer {name!r} is not ported (ROADMAP A6); ported: "
-                       f"{TRAINER_REGISTRY.registered_names()}")
+        raise KeyError(f"No trainer {name!r}; ported: {TRAINER_REGISTRY.registered_names()}")
     return TRAINER_REGISTRY.get(name)(cfg, **kwargs)
 
 

@@ -16,4 +16,5 @@ from .model import (
     encode_text_ids,
     l2_normalize,
 )
+from .resnet import ModifiedResNet, encode_image_resnet
 from .tokenizer import get_tokenizer, tokenize

@@ -1,5 +1,5 @@
-"""CLIP forward passes, ViT image tower + text transformer (counterpart of
-fsvlm_tpu.models.clip.model).
+"""CLIP forward passes, the ViT or ModifiedResNet image tower + the text
+transformer (counterpart of fsvlm_tpu.models.clip.model).
 
 Parity targets (reference, PromptSRC/clip/model.py):
 - VisionTransformer.forward  :401-431 (+ VPT shallow append :413-415)
@@ -21,6 +21,7 @@ from ... import resolve_device
 from ...ops.attention import causal_mask
 from ...ops.layers import LayerNorm, frozen_param
 from .config import CLIPConfig
+from .resnet import ModifiedResNet, encode_image_resnet
 from .transformer import ResidualAttentionBlock, transformer
 
 
@@ -63,16 +64,19 @@ class TextTower(nn.Module):
 
 
 class CLIP(nn.Module):
-    """Frozen CLIP (ViT) weights on ``device`` (default cuda); fill with
+    """Frozen CLIP weights on ``device`` (default cuda), a ViT or a
+    ModifiedResNet image tower as ``cfg`` says; fill with
     convert.load_jax_params."""
 
     def __init__(self, cfg: CLIPConfig, dtype=torch.float32, device=None):
         super().__init__()
-        if not cfg.is_vit:
-            raise NotImplementedError("ModifiedResNet towers are not ported yet (ROADMAP A6)")
         device = resolve_device(device)
         self.cfg = cfg
-        self.visual = VisionTower(cfg, dtype, device)
+        if cfg.is_vit:
+            self.visual = VisionTower(cfg, dtype, device)
+        else:
+            self.visual = ModifiedResNet(cfg.vision_layers, cfg.vision_width, cfg.vision_heads,
+                                         cfg.image_resolution, cfg.embed_dim, dtype, device)
         self.text = TextTower(cfg, dtype, device)
         self.logit_scale = frozen_param((), dtype, device)
 
@@ -117,12 +121,14 @@ def encode_image_vit(clip, images, prompts: Optional[VisionPrompts] = None,
 
 def encode_image(clip, images, **kw):
     """The image tower of ``clip`` (counterpart of the JAX package's
-    ``encode_image``, model.py:161-170): the ViT's ``encode_image_vit``.
-    The ModifiedResNet towers are not ported (ROADMAP A6)."""
-    if not clip.cfg.is_vit:
-        raise NotImplementedError("the ModifiedResNet image towers are not ported yet "
-                                  "(ROADMAP A6)")
-    return encode_image_vit(clip, images, **kw)
+    ``encode_image``, model.py:161-170): the ViT's ``encode_image_vit``, or
+    ``encode_image_resnet``, which takes no prompts, LoRA, remat or
+    attention route (those keywords are dropped, as JAX drops them)."""
+    if clip.cfg.is_vit:
+        return encode_image_vit(clip, images, **kw)
+    for name in ("prompts", "lora", "remat", "attn_impl"):
+        kw.pop(name, None)
+    return encode_image_resnet(clip, images, **kw)
 
 
 def embed_tokens(clip, token_ids, compute_dtype=torch.float32):

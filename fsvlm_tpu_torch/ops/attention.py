@@ -51,7 +51,8 @@ def mha(x, w_qkv, b_qkv, w_out, b_out, n_heads, mask=None, impl=None, lora_delta
     generator or handed in (torch cannot draw JAX's threefry bits).
 
     ``impl="plain"`` forces the plain version of the routed attention (for
-    comparisons only)."""
+    comparisons only); ``impl="reference"`` takes ``reference_attention``,
+    which autograd differentiates twice."""
     B, L, D = x.shape
     head_dim = D // n_heads
     deltas = lora_delta or {}

@@ -807,8 +807,13 @@ def attention_dispatch(q, k, v, mask=None, impl=None):
     scores and softmax in the backward (``torch.utils.checkpoint``) instead
     of keeping P, and ``FSVLM_ATTN_BF16`` sets its precision.  ``impl="plain"``,
     or CPU tensors, take the plain version of the kernel family the route
-    picks."""
-    route = attention_route(q.shape[-1], mask, heads=q.shape[1])
+    picks.  ``impl="reference"`` takes ``reference_attention`` whatever the
+    variable says: JAX's unset default, for a caller that differentiates
+    the attention twice (the kernels' backwards are first order only)."""
+    if impl == "reference":
+        route = "reference"
+    else:
+        route = attention_route(q.shape[-1], mask, heads=q.shape[1])
     if route == "packed":
         return attention_fwd(q, k, v, mask, impl=impl)[0]
     if route == "fused":

@@ -6,14 +6,16 @@ CLIP's LayerNorm computes in fp32 whatever the activation dtype
 (model.py:162-164).  Both are ``torch.autograd.Function``s with the
 memory-lean backward of the JAX package's custom VJPs (:23-84): LayerNorm
 saves x in its own dtype plus the fp32 mean and rstd and recomputes x-hat,
-QuickGELU saves only x and recomputes the sigmoid.  Linear weights are
+QuickGELU saves only x and recomputes the sigmoid.  Both backwards are
+torch ops, so a backward under ``create_graph`` (PLIP's gradient penalty)
+differentiates them again, as JAX's reverse-over-reverse differentiates
+its custom VJPs.  Linear weights are
 stored (in_features, out_features), the JAX package's layout, so the
 forward is ``x @ w``.
 """
 
 import torch
 from torch import nn
-from torch.autograd.function import once_differentiable
 
 from .. import resolve_device
 
@@ -24,12 +26,21 @@ class _LayerNorm(torch.autograd.Function):
         y, mean, rstd = torch.native_layer_norm(x.float(), (x.shape[-1],), scale.float(),
                                                 bias.float(), eps)
         ctx.save_for_backward(x, scale, mean, rstd)
+        ctx.eps = eps
         return y.to(x.dtype)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
         x, scale, mean, rstd = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            # a backward that is itself differentiated: the saved statistics
+            # were computed without a graph, so recompute them from x, as
+            # _layer_norm_fwd_math (JAX :13-20), whose residuals JAX
+            # differentiates too
+            x32 = x.float()
+            mean = x32.mean(dim=-1, keepdim=True)
+            var = x32.var(dim=-1, unbiased=False, keepdim=True)
+            rstd = torch.reciprocal(torch.sqrt(var + ctx.eps))
         xhat = (x.float() - mean) * rstd
         g32 = g.float()
         dx = dscale = dbias = None
@@ -63,7 +74,6 @@ class _QuickGELU(torch.autograd.Function):
         return x * _sigmoid_1702(x)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
         x, = ctx.saved_tensors
         s = _sigmoid_1702(x)

@@ -20,6 +20,10 @@ from ..models.clip.convert import load_openai_checkpoint, random_clip_params
 _FILENAMES = {
     "ViT-B/16": "ViT-B-16.pt",
     "ViT-B/32": "ViT-B-32.pt",
+    "RN50": "RN50.pt",
+    "RN101": "RN101.pt",
+    "RN50x4": "RN50x4.pt",
+    "RN50x16": "RN50x16.pt",
 }
 
 FROZEN_DTYPES = {"fp32": torch.float32, "float32": torch.float32, "": torch.float32,

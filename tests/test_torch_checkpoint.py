@@ -294,9 +294,18 @@ def test_init_weights_load_the_checkpoint_prompts(tmp_path):
     assert t2.optim.params[0] is t2.params["ctx"]  # loaded in place, under the optimizer
 
 
-def test_unported_trainer_names_the_roadmap_item(tmp_path):
-    _, pcfg = _cfgs(tmp_path, "PLIP")
-    with pytest.raises(KeyError, match="ROADMAP A6"):
+@pytest.mark.parametrize("name,match", [
+    ("DANN", "Dassl zoo trainers, not ported yet [(]ROADMAP A9[)]"),
+    ("FixMatch", "ROADMAP A9"),
+    ("DAELDG", "ROADMAP A9"),
+    ("SourceOnly", "ROADMAP A9"),
+    ("NoSuchTrainer", "No trainer 'NoSuchTrainer'; ported: .*'PLIP'"),
+])
+def test_unported_trainer_names_the_roadmap_item(tmp_path, name, match):
+    """A name of the JAX package's Dassl zoo names ROADMAP A9; any other
+    unknown name lists the ported trainers (PLIP among them)."""
+    _, pcfg = _cfgs(tmp_path, name)
+    with pytest.raises(KeyError, match=match):
         build_trainer(pcfg, device="cpu")
 
 

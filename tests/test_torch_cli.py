@@ -186,13 +186,17 @@ def test_cli_trains_each_ported_trainer(tmp_path, monkeypatch, trainer, opts):
     ("ZeroshotCLIP", ["OPTIM.MAX_EPOCH", "1"]),
     ("ZeroshotCLIP2", ["OPTIM.MAX_EPOCH", "1"]),
     ("LinearProbeCLIP", ["OPTIM.MAX_EPOCH", "1"]),
+    ("PLIP", ["TRAINER.PLIP.PREC", "fp32", "OPTIM.MAX_EPOCH", "1"]),
+    pytest.param("CoOp", ["MODEL.BACKBONE.NAME", "test-tiny-rn", "INPUT.SIZE", "[64, 64]",
+                          "OPTIM.MAX_EPOCH", "1"], id="CoOp-test-tiny-rn"),
 ])
 def test_cli_trains_the_clip_path_trainers(tmp_path, monkeypatch, trainer, opts):
-    """``--trainer LoRA|MaPLe|ZeroshotCLIP|ZeroshotCLIP2|LinearProbeCLIP`` on
-    the synthetic dataset: the run trains, tests and writes its checkpoints
-    (LoRA: lora/best.pkl from the best-val save and last.pkl; the zero-shot
-    trainers none); ``--eval-only`` on the run's directory reproduces the
-    final test predictions exactly."""
+    """``--trainer LoRA|MaPLe|ZeroshotCLIP|ZeroshotCLIP2|LinearProbeCLIP|PLIP``
+    and CoOp on the ModifiedResNet test-tiny-rn, on the synthetic dataset:
+    the run trains, tests and writes its checkpoints (LoRA: lora/best.pkl
+    from the best-val save and last.pkl; the zero-shot trainers none);
+    ``--eval-only`` on the run's directory reproduces the final test
+    predictions exactly."""
     monkeypatch.chdir(ROOT)
     out = tmp_path / "run"
     args = cli.build_argparser().parse_args(
@@ -206,7 +210,10 @@ def test_cli_trains_the_clip_path_trainers(tmp_path, monkeypatch, trainer, opts)
     lora = "Synthetic/test-tiny/lora/"
     assert files == {"LoRA": [lora + "best.pkl", lora + "last.pkl"],
                      "MaPLe": ["MultiModalPromptLearner/model.pkl-1"],
-                     "LinearProbeCLIP": ["linear_head/model.pkl-1"]}.get(trainer, [])
+                     "LinearProbeCLIP": ["linear_head/model.pkl-1"],
+                     "PLIP": ["prompt_learner/model.pkl-1"],
+                     "CoOp": ["prompt_learner/model.pkl-1"]}.get(trainer, [])
+    assert t.clip.cfg.is_vit == ("test-tiny-rn" not in opts)
     args = cli.build_argparser().parse_args(
         ["--trainer", trainer] + BASE_ARGS[2:] + ["--output-dir", str(tmp_path / "eval"),
                                                   "--eval-only", "--model-dir", str(out)]

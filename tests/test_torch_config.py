@@ -4,7 +4,7 @@
   configs/, and raises on what lies outside its subset;
 - ``get_cfg_base()`` is the JAX package's ``get_cfg_default()`` (defaults.py),
   and ``merge_from_file`` on it of the PromptSRC, IVLP, CoOp, CoCoOp,
-  LoRA, MaPLe and LinearProbeCLIP recipes, the test recipe, the dataset
+  LoRA, MaPLe, LinearProbeCLIP and PLIP recipes, the test recipe, the dataset
   files and the synthetic + tiny pair gives, on every key of the port, the value (and type) of the JAX package's
   ``get_cfg_default().merge_from_file`` of the same files;
 - the CLI's ``setup_cfg`` gives the JAX train.py's config for the same
@@ -28,7 +28,7 @@ ALL_FILES = sorted(os.path.relpath(f, ROOT)
                    for f in glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"), recursive=True))
 RECIPES = [f for f in ALL_FILES if f.split(os.sep)[2:3] in (
     ["PromptSRC"], ["IVLP"], ["CoOp"], ["CoCoOp"], ["tests"], ["LoRA"], ["MaPLe"],
-    ["LinearProbeCLIP"])]
+    ["LinearProbeCLIP"], ["PLIP"])]
 DATASETS = [f for f in ALL_FILES if f.startswith(os.path.join("configs", "datasets"))
             and os.sep + "zoo" + os.sep not in f]
 PROMPTSRC = "configs/trainers/PromptSRC/vit_b16_c2_ep20_batch4_4+4ctx.yaml"
@@ -36,7 +36,7 @@ IVLP_KD = "configs/trainers/IVLP/vit_b16_c2_ep20_batch4_4+4ctx_kd.yaml"
 
 
 def test_the_survey_of_files_is_complete():
-    assert len(ALL_FILES) == 71 and len(RECIPES) == 37 and len(DATASETS) == 16
+    assert len(ALL_FILES) == 71 and len(RECIPES) == 39 and len(DATASETS) == 16
 
 
 @pytest.mark.parametrize("path", ALL_FILES)
@@ -114,6 +114,8 @@ def test_merge_from_file_matches_jax(paths):
     ("MaPLe", "configs/trainers/MaPLe/vit_b16_c2_ep5_batch4_2ctx.yaml"),
     ("LinearProbeCLIP", "configs/trainers/LinearProbeCLIP/vit_b16_ep50.yaml"),
     ("ZeroshotCLIP2", "configs/trainers/tests/synthetic_tiny.yaml"),
+    ("PLIP", "configs/trainers/PLIP/vit_b16_c4_ep10_batch4.yaml"),
+    ("CoOp", "configs/trainers/CoOp/rn50.yaml"),
 ])
 def test_setup_cfg_matches_jax(trainer, config_file, monkeypatch):
     """The same command line gives the same config in both CLIs: both start

@@ -319,14 +319,21 @@ def test_remat_gives_the_same_outputs_and_gradients(tiny_params, tower, monkeypa
 
 
 def test_encode_image_takes_the_vit_and_names_a9_for_the_resnet_towers(tiny_params):
-    from fsvlm_tpu_torch.models.clip import encode_image
+    """encode_image takes the ViT's tower, and (ported since the RN towers
+    landed) a ModifiedResNet's, dropping the ViT-only keywords as JAX
+    does."""
+    from fsvlm_tpu_torch.models.clip import ARCHS, encode_image, encode_image_resnet
 
     clip = clip_from_params(tiny_params, CLIPConfig(*TINY), device="cpu")
     x = torch.from_numpy(np.random.RandomState(2).randn(2, 32, 32, 3).astype(np.float32))
     torch.testing.assert_close(encode_image(clip, x), encode_image_vit(clip, x), rtol=0, atol=0)
-    resnet = types.SimpleNamespace(cfg=types.SimpleNamespace(is_vit=False))
-    with pytest.raises(NotImplementedError, match="A6"):
-        encode_image(resnet, x)
+    rn_cfg = ARCHS["test-tiny-rn"]
+    resnet = clip_from_params(random_clip_params(rn_cfg, seed=3), rn_cfg, device="cpu")
+    x = torch.from_numpy(np.random.RandomState(2).randn(2, 64, 64, 3).astype(np.float32))
+    want = encode_image_resnet(resnet, x)
+    assert want.shape == (2, rn_cfg.embed_dim)
+    torch.testing.assert_close(encode_image(resnet, x, attn_impl="plain", remat=True), want,
+                               rtol=0, atol=0)
 
 
 # -------------------------------------------------------------------- test()

@@ -804,3 +804,86 @@ def test_mha_under_legacy_launches_the_whole_sequence_kernels(card, causal, monk
         assert delta == {n: int(impl is None and n.startswith("fused_attn")) for n in fa.LAUNCHES}
     assert (outs[None][0] - outs["plain"][0]).abs().max().item() <= 1e-4
     assert max(_rel_errs([outs[None][1]], [outs["plain"][1]])) <= 1e-5
+
+
+# ------------------------------------------------ PLIP and the RN towers
+def _tiny_clip(card, dtype=torch.bfloat16):
+    """A random CLIP with d = 64 in both towers (2 layers each)."""
+    from fsvlm_tpu_torch.models.clip import CLIPConfig, random_clip_params
+    from fsvlm_tpu_torch.trainers.backbone import clip_from_params
+
+    cfg = CLIPConfig(64, 32, 2, 128, 16, 77, 49408, 128, 2, 2)
+    return clip_from_params(random_clip_params(cfg, seed=3), cfg, dtype, card)
+
+
+@pytest.mark.parametrize("reg_type", ["grad", "svd", "spectral_norm"])
+def test_plip_step_launches(card, reg_type, monkeypatch):
+    """One PLIP train step in bf16: under grad the text tower, which the
+    penalty differentiates twice, takes the reference attention, so only
+    the image tower's forward launches (#6 once per vision layer, #7/#8
+    none); under svd and spectral_norm the text tower adds its forward
+    and backward (#6-#8 once per text layer)."""
+    from fsvlm_tpu_torch.config import get_cfg_default
+    from fsvlm_tpu_torch.trainers.plip import PLIP
+
+    monkeypatch.delenv("FSVLM_FORCE_PALLAS", raising=False)
+    fa = flash_attention
+    cfg = get_cfg_default()
+    cfg.INPUT.SIZE, cfg.TRAINER.PLIP.PREC, cfg.TRAINER.PLIP.REG_TYPE = (32, 32), "bf16", reg_type
+    clip = _tiny_clip(card)
+    t = PLIP(cfg, ["cat", "dog", "sea"], clip=clip, device=card, steps_per_epoch=1)
+    rng = np.random.RandomState(0)
+    batch = {"img": rng.randn(4, 32, 32, 3).astype(np.float32), "label": np.array([0, 1, 2, 1])}
+    before = dict(fa.LAUNCHES)
+    metrics = t.train_step(batch)
+    torch.cuda.synchronize()
+    got = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+    Lt, Lv = clip.cfg.transformer_layers, clip.cfg.vision_layers
+    text = 0 if reg_type == "grad" else Lt
+    assert got[fa.KERNEL] == Lv + text and got[fa.KERNEL_DKV] == got[fa.KERNEL_DQ] == text
+    assert sum(got.values()) == Lv + 3 * text
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["penalty"])
+
+
+def test_rn50_fp32_tower_on_the_card_matches_the_cpu(card):
+    """The RN50 tower in fp32 (TF32 off for the convs and matmuls) on the
+    card against the same tower on the CPU, every BN perturbed: each stage
+    and the features within 1e-3 of the CPU tensor's largest entry
+    (cuDNN's and the CPU's convolutions sum in other orders)."""
+    from fsvlm_tpu_torch.models.clip import ARCHS, encode_image, random_clip_params
+    from fsvlm_tpu_torch.trainers.backbone import clip_from_params
+
+    params = random_clip_params(ARCHS["RN50"], seed=50)
+    rng = np.random.RandomState(51)
+    for node in _bn_nodes(params["visual"]):
+        c = node["scale"].shape[0]
+        node["scale"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        node["bias"] = rng.normal(0, 0.05, c).astype(np.float32)
+        node["mean"] = rng.normal(0, 0.1, c).astype(np.float32)
+        node["var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    images = torch.from_numpy(np.random.RandomState(13).randn(2, 224, 224, 3).astype(np.float32))
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs = []
+        for device in ("cpu", card):
+            clip = clip_from_params(params, ARCHS["RN50"], torch.float32, device)
+            with torch.no_grad():
+                feat, stages = encode_image(clip, images.to(device), collect_stages=True)
+            outs.append([t.float().cpu() for t in [feat] + stages])
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    for ref, got in zip(*outs):
+        assert got.shape == ref.shape
+        assert (got - ref).abs().max().item() <= 1e-3 * ref.abs().max().item()
+
+
+def _bn_nodes(tree):
+    if isinstance(tree, dict) and set(tree) == {"scale", "bias", "mean", "var"}:
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _bn_nodes(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _bn_nodes(v)

@@ -200,6 +200,19 @@ for cls in (LoRA, MaPLe, ZeroshotCLIP, ZeroshotCLIP2, LinearProbeCLIP):
                   device="cpu")
     assert np.isfinite(trainer.train()[0][0]["loss"])
     assert 0 <= trainer.test(np.zeros((3, 32, 32, 3), np.uint8), np.zeros(3)) <= 100
+from fsvlm_tpu_torch.trainers.plip import PLIP
+for reg_type in ("grad", "svd", "spectral_norm"):
+    cfg.TRAINER.PLIP.REG_TYPE = reg_type
+    trainer = PLIP(cfg, ["cat", "dog"], np.zeros((4, 40, 40, 3), np.uint8), np.zeros(4), clip=clip,
+                   device="cpu")
+    assert np.isfinite(trainer.train()[0][0]["loss"])
+rn = load_clip_backbone("test-tiny-rn", device="cpu")
+cfg.INPUT.SIZE = (64, 64)
+trainer = CoOp(cfg, ["cat", "dog"], np.zeros((4, 72, 72, 3), np.uint8), np.zeros(4), clip=rn,
+               device="cpu")
+assert np.isfinite(trainer.train()[0][0]["loss"])
+assert 0 <= trainer.test(np.zeros((3, 64, 64, 3), np.uint8), np.zeros(3)) <= 100
+cfg.INPUT.SIZE = (32, 32)
 import torch
 from fsvlm_tpu_torch.ops.flash_attention import fused_attention
 q = torch.zeros(1, 2, 5, 48)
@@ -231,9 +244,10 @@ def test_serving_path_imports_no_jax_regex_yaml_or_pil():
     epoch, CoOp's and CoCoOp's test(), the blockwise and whole-sequence
     attention, and one CLI run (PromptSRC on the synthetic dataset, one
     epoch, CACHED_TEACHER, best-val), a LoRA, a MaPLe, a zero-shot (both)
-    and a linear-probe epoch and test() on the CPU, with every module of the
-    port imported, load nothing of JAX, the JAX package, regex, yaml or
-    PIL."""
+    and a linear-probe epoch and test(), a PLIP epoch in each REG_TYPE, and
+    a CoOp epoch and test() on the ModifiedResNet test-tiny-rn on the CPU,
+    with every module of the port imported, load nothing of JAX, the JAX
+    package, regex, yaml or PIL."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _BOUNDARY.format(repo=REPO)], cwd=REPO,
                           env=env, capture_output=True, text=True, timeout=300)
