@@ -137,7 +137,28 @@ Phases; each passes or raises, and any failure exits non-zero:
    Synthetic with phase 9's data settings for 2 epochs, then
    ``--eval-only`` reproducing its predictions.
 
-Phases 4, 6, 7, 8, 9, 10 and 11 zero the launch counts just before each main path
+12. recognition, with FSVLM_FORCE_PALLAS unset (the d = 64 kernels #6-#8):
+   the port's JPEG decoder (fsvlm_tpu_torch/csrc/jpeg_decoder.cpp, built by
+   g++; this machine's libjpeg header and library, which it does not use,
+   are reported) on the committed fixtures of tests/torch_fixtures/jpeg:
+   the full decode, ``decode_file`` at 256, the loader's cache view and the
+   eval view, each byte-equal to the digests of expected.json (made from
+   Pillow and the JAX package's libjpeg build).  Then PromptSRC ViT-B/16
+   through the CLI (``--root``, configs/datasets/caltech101.yaml, phase 9's
+   recipe and bf16 towers) on a temporary Caltech101-layout tree of 100
+   class folders (hard links to the fixtures, split_zhou_Caltech101.json of
+   Caltech101's sizes: 4100 / 1650 / 2465) under Setting A at tail 4
+   (PER_CLASS_SHOTS 50 x 16 then 50 x 4: 1000 train images, 400 val),
+   WeightedClassSampler, DEVICE_AUG, CACHED_TEACHER, best-val, 1 epoch (the
+   recipe's 20, cut): the log contract with the base/new report, finite
+   losses, #6-#8 launched exactly the counts derived from the code, and
+   ``--eval-only`` from model-best.pkl giving the run's final test
+   predictions.  Then the decode rates at DATALOADER.NUM_WORKERS threads,
+   the train cache's materialize, one more epoch, a cached test(), the cold
+   ``--eval-only`` time, the eval cache's bytes and the peak RSS, printed as
+   one ``{"recognition": ...}`` line.
+
+Phases 4, 6, 7, 8, 9, 10, 11 and 12 zero the launch counts just before each main path
 and read them just after: each kernel of the path must have launched its
 expected count (derived from the code: a rematerialized layer runs its
 forward kernel again), and the other families none.
@@ -1588,7 +1609,7 @@ def _max_abs(a, b):
     return float((a - b).abs().max()) if a.numel() else 0.0
 
 
-def _cli_expected_launches(t, clip_cfg):
+def _cli_expected_launches(t, clip_cfg, epochs=CLI_EPOCHS):
     """#6-#8 over the CLI run, from the code: the teacher text features
     (PromptSRC.build_model) and the teacher cache pass (one vision pass per
     batch of min(64, N)); per step the student text and vision towers
@@ -1602,12 +1623,12 @@ def _cli_expected_launches(t, clip_cfg):
     ds = t.dm.dataset
     n_train, B_test = len(ds.train_x), t.cfg.DATALOADER.TEST.BATCH_SIZE
     cache_batches = -(-n_train // min(64, n_train))
-    steps = t.steps_per_epoch * CLI_EPOCHS
+    steps = t.steps_per_epoch * epochs
 
     def test_pass(n):
         return Lt + -(-n // B_test) * Lv
 
-    fwd = (Lt + cache_batches * Lv + steps * (Lt + Lv) + CLI_EPOCHS * test_pass(len(ds.val))
+    fwd = (Lt + cache_batches * Lv + steps * (Lt + Lv) + epochs * test_pass(len(ds.val))
            + 2 * test_pass(len(ds.test)))
     return {fa.KERNEL: fwd, fa.KERNEL_DKV: steps * (Lt + Lv), fa.KERNEL_DQ: steps * (Lt + Lv)}
 
@@ -2484,6 +2505,240 @@ def phase_plip_resnet(clip):
     return out
 
 
+FIXTURE_DIR = os.path.join("tests", "torch_fixtures", "jpeg")
+RECOG_CLASSES = 100
+RECOG_SHOTS = [16] * 50 + [4] * 50  # Setting A at tail 4: 1000 train images
+RECOG_EPOCHS = 1  # the recipe's 20, cut to 1
+
+
+def _digest(a):
+    import hashlib
+
+    a = np.ascontiguousarray(a, np.uint8)
+    return {"shape": list(a.shape), "sha256": hashlib.sha256(a.tobytes()).hexdigest(),
+            "sum": int(a.sum(dtype=np.int64))}
+
+
+def _libjpeg_finding():
+    """Whether this machine has libjpeg's header and library (route A needs
+    both; the port takes route B, its own decoder, either way)."""
+    import glob
+
+    headers = [h for h in ["/usr/include/jpeglib.h", *glob.glob("/usr/include/*/jconfig.h")]
+               if os.path.isfile(h)]
+    try:
+        ldconfig = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True,
+                                  timeout=60).stdout
+    except OSError:
+        ldconfig = ""
+    libs = sorted({ln.split("=>")[-1].strip() for ln in ldconfig.splitlines()
+                   if re.search(r"libjpeg\.so", ln)})
+    return {"headers": headers, "libjpeg": libs}
+
+
+def _check_fixtures():
+    """(a) Every committed fixture decoded by the port against the digests
+    computed from the JAX package's means (make_fixtures.py): the full
+    decode (Pillow's), decode_file at 256 (the libjpeg build's), the loader's
+    cache view and the eval view before normalizing."""
+    from fsvlm_tpu_torch import native
+    from fsvlm_tpu_torch.data import imageops
+    from fsvlm_tpu_torch.data.base_dataset import Datum
+    from fsvlm_tpu_torch.data.loader import RawDatasetWrapper
+
+    with open(os.path.join(FIXTURE_DIR, "expected.json")) as f:
+        expected = json.load(f)
+    bad = []
+    for name, want in sorted(expected.items()):
+        path = os.path.join(FIXTURE_DIR, name)
+        full = native.read_image(path)
+        raw = native.decode_file(path, 256)
+        got = {"full": _digest(full), "raw256": None if raw is None else _digest(raw),
+               "cache256": _digest(RawDatasetWrapper([Datum(impath=path)], 256)[0]["img"]),
+               "eval224": _digest(imageops.resize_center_crop(full, (224, 224), "bicubic"))}
+        bad += [f"{name} {k}: got {got[k]}, expected {want[k]}" for k in want if got[k] != want[k]]
+    log(f"recognition: {len(expected)} committed JPEG fixtures x 4 views (full decode, "
+        f"decode_file 256, cache view, eval view 224) against their digests: "
+        f"{4 * len(expected) - len(bad)} equal, {len(bad)} differ")
+    if bad:
+        raise SystemExit("FAIL: recognition: decoded bytes differ from the fixtures' digests:\n"
+                         + "\n".join(bad))
+    return sorted(expected)
+
+
+def _caltech_tree(root, fixtures):
+    """A Caltech101-layout tree (docs/DATASETS.md) of 100 class folders whose
+    files are hard links to the fixtures, and a split_zhou_Caltech101.json
+    of Caltech101's split sizes: 41 train per class (4100), 16-17 val
+    (1650), 24-25 test (2465)."""
+    image_dir = os.path.join(root, "caltech-101", "101_ObjectCategories")
+    split = {"train": [], "val": [], "test": []}
+    k = 0
+    for c in range(RECOG_CLASSES):
+        cname = f"category_{c:03d}"
+        os.makedirs(os.path.join(image_dir, cname))
+        counts = {"train": 41, "val": 17 if c < 50 else 16, "test": 25 if c < 65 else 24}
+        for part, n in counts.items():
+            for j in range(n):
+                rel = f"{cname}/image_{part}_{j:04d}.jpg"
+                src = os.path.abspath(os.path.join(FIXTURE_DIR, fixtures[k % len(fixtures)]))
+                try:
+                    os.link(src, os.path.join(image_dir, rel))
+                except OSError:
+                    shutil.copy(src, os.path.join(image_dir, rel))
+                split[part].append([rel, c, cname.replace("_", " ")])
+                k += 1
+    with open(os.path.join(root, "caltech-101", "split_zhou_Caltech101.json"), "w") as f:
+        json.dump(split, f)
+    return {part: len(v) for part, v in split.items()}
+
+
+def _decode_rates(paths, threads):
+    """Images/s of the full decode and of decode_file at 256 over ``paths``
+    in a pool of ``threads``, and the device-aug cache's materialize ms."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fsvlm_tpu_torch import native
+
+    out = {}
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        for name, fn in (("full", native.read_image),
+                         ("decode_file", lambda p: native.decode_file(p, 256))):
+            t0 = time.perf_counter()
+            list(pool.map(fn, paths))
+            out[name] = len(paths) / (time.perf_counter() - t0)
+    return out
+
+
+def phase_recognition(clip):
+    """Phase 12 (module docstring): the decoder's fixtures, then PromptSRC
+    ViT-B/16 through the CLI on a 100-class Caltech101-layout JPEG tree;
+    FSVLM_FORCE_PALLAS unset (the caller sets it).  Returns the run's
+    launches."""
+    import resource
+
+    import torch
+
+    from fsvlm_tpu_torch import native
+    from fsvlm_tpu_torch.data.loader import RawDatasetWrapper
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+
+    finding = _libjpeg_finding()
+    info = native.build_info()
+    log(f"recognition: libjpeg on this machine: headers {finding['headers']}, libraries "
+        f"{finding['libjpeg']}; the decoder takes route {info['route']} (the repo's own "
+        f"{info['source']}, no library), built by g++ in {info['seconds']:.2f} s")
+    fixtures = _check_fixtures()
+    work = tempfile.mkdtemp(prefix="chip_smoke_recognition_")
+
+    def argv(out, *flags):
+        return ["--trainer", "PromptSRC", "--seed", "1", "--device", "cuda", "--root", work,
+                "--dataset-config-file", "configs/datasets/caltech101.yaml",
+                "--config-file", CLI_RECIPE, "--output-dir", out, *flags,
+                "MODEL.FROZEN_DTYPE", "bf16", "TRAINER.PROMPTSRC.PREC", "bf16",
+                "DATASET.NUM_SHOTS", "-1", "DATASET.PER_CLASS_SHOTS", str(RECOG_SHOTS),
+                "DATALOADER.TRAIN_X.SAMPLER", "WeightedClassSampler",
+                "DATALOADER.DEVICE_AUG", "True", "TRAINER.PROMPTSRC.CACHED_TEACHER", "True",
+                "TEST.FINAL_MODEL", "best_val", "OPTIM.MAX_EPOCH", str(RECOG_EPOCHS)]
+
+    try:
+        sizes = _caltech_tree(work, fixtures)
+        out = os.path.join(work, "run")
+        torch.cuda.synchronize()
+        fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        t0 = time.perf_counter()
+        t = _run_cli(clip, argv(out))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        ds = t.dm.dataset
+        text = _read(os.path.join(out, "log.txt"))
+        losses = [float(x) for x in re.findall(r"\bloss ([-+.\deE]+|nan|inf)", text)]
+        log(f"recognition: {CLI_RECIPE} on a Caltech101-layout tree (split {sizes}): train_x "
+            f"{len(ds.train_x)} (50 x 16 + 50 x 4), val {len(ds.val)}, test {len(ds.test)}; "
+            f"{t.steps_per_epoch} steps of {t.batch_size}, {RECOG_EPOCHS} epoch; run "
+            f"{run_s:.1f} s; losses logged {losses}; accuracies in log.txt "
+            f"{[float(x) for x in re.findall(r'[*] accuracy: ([0-9.]+)%', text)]}")
+        for needle in ("=> result", "* accuracy:", "Classification Report", "Finish training",
+                       "Base class accuracy", "New  class accuracy",
+                       "[PromptSRC] cached teacher image features",
+                       "* device-resident train set: 1000 images"):
+            if needle not in text:
+                raise SystemExit(f"FAIL: recognition: log.txt lacks {needle!r}")
+        if (len(ds.train_x), len(ds.val), len(ds.test)) != (1000, 400, sizes["test"]):
+            raise SystemExit("FAIL: recognition: the split sizes are not the protocol's")
+        # (c) the loss is finite
+        if not losses or not all(np.isfinite(losses)):
+            raise SystemExit(f"FAIL: recognition: non-finite or no loss in log.txt: {losses}")
+        # (b) #6-#8 at the counts derived from the code
+        expected = _cli_expected_launches(t, clip.cfg, epochs=RECOG_EPOCHS)
+        _others_silent(launches, "flash_attn", "the recognition CLI run")
+        log(f"recognition: launches {launches}, expected {expected}")
+        if any(launches[k] != n for k, n in expected.items()):
+            raise SystemExit("FAIL: recognition: #6-#8 launches differ from the derived counts")
+
+        # (c) --eval-only from the run's best model: the run's own final
+        # test() predictions; its wall time is a cold test() (decode, eval
+        # view, model) on the test set
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t2 = _run_cli(clip, argv(os.path.join(work, "eval"), "--eval-only", "--model-dir", out))
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        same = (t2.evaluator.y_pred == t.evaluator.y_pred
+                and t2.evaluator.y_true == t.evaluator.y_true)
+        cache = t2.dm.test_loader.wrapper
+        peak_rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss << 10
+        log(f"recognition: --eval-only from model-best.pkl reproduced the run's final test "
+            f"predictions: {same} ({len(t2.evaluator.y_pred)} images)")
+        if not same:
+            raise SystemExit("FAIL: recognition: --eval-only did not reproduce the predictions")
+
+        # the host's numbers: decode rates, the cache build, epoch and test()
+        threads = t.cfg.DATALOADER.NUM_WORKERS
+        train_paths = [d.impath for d in ds.train_x]
+        rates = _decode_rates(train_paths, threads)
+        t0 = time.perf_counter()
+        RawDatasetWrapper(ds.train_x, pre_size=t.cfg.DATALOADER.PRE_SIZE).materialize(threads)
+        materialize_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            metrics = t.run_epoch()
+        torch.cuda.synchronize()
+        epoch_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            t.test()
+        torch.cuda.synchronize()
+        test_ms = (time.perf_counter() - t0) * 1e3
+        if not metrics or not all(np.isfinite(m["loss"]) for m in metrics):
+            raise SystemExit("FAIL: recognition: no loss or a non-finite loss in the timed epoch")
+        n_img = t.steps_per_epoch * t.batch_size
+        result = {
+            "route": info["route"], "decoder": info["source"], "libjpeg": finding,
+            "threads": threads, "full_decode_images_per_s": rates["full"],
+            "decode_file_images_per_s": rates["decode_file"], "decode_images": len(train_paths),
+            "materialize_ms": materialize_ms, "materialize_images": len(ds.train_x),
+            "epoch_ms": epoch_ms, "epoch_images": n_img, "run_s": run_s,
+            "test_ms_cached": test_ms, "eval_only_s": eval_s, "test_images": len(ds.test),
+            "eval_cache_bytes": cache.cached_bytes, "peak_rss_bytes": peak_rss,
+        }
+        log(f"recognition: decode over {len(train_paths)} tree files at {threads} threads: full "
+            f"{rates['full']:.1f} images/s, decode_file(256) {rates['decode_file']:.1f} images/s; "
+            f"materialize {len(ds.train_x)} images {materialize_ms:.1f} ms; epoch "
+            f"{epoch_ms:.1f} ms ({n_img} images, {n_img / epoch_ms * 1e3:.1f} images/s); test() "
+            f"on {len(ds.test)} cached eval views {test_ms:.1f} ms; --eval-only run (cold: "
+            f"decode, eval view, model) {eval_s:.1f} s; eval cache {cache.cached_bytes / 2**20:.1f}"
+            f" MiB; process peak RSS {peak_rss / 2**30:.2f} GiB")
+        print(json.dumps({"recognition": result}), flush=True)
+        del t, t2
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main():
     phase_device()
     phase_build()
@@ -2505,6 +2760,8 @@ def main():
         launches_clip = phase_clip_trainers(pred.clip)
     with force_pallas(None):  # PLIP and the RN towers on the d = 64 kernels
         launches_plip = phase_plip_resnet(pred.clip)
+    with force_pallas(None):  # the CLI on a JPEG tree, on the d = 64 kernels
+        launches_recognition = phase_recognition(pred.clip)
 
     import torch
 
@@ -2544,7 +2801,7 @@ def main():
         raise SystemExit(f"FAIL: #2's kernels launched unequal counts: {launches_fused}")
     # #6-#8's launches on every path that runs them (``launches``: phase 6's)
     by_path = {"promptsrc": launches, "promptsrc_cli": launches_cli, **launches_clip,
-               **launches_plip}
+               **launches_plip, "recognition_cli": launches_recognition}
     for row in kernels[:3]:
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
     # device times (profiler) beside the event times: the forwards', #7/#8's

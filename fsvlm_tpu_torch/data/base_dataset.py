@@ -177,8 +177,9 @@ def read_and_split_data(image_dir, p_trn=0.5, p_val=0.2, ignored=(), new_cnames=
 
 
 class _FewshotUnpickler(pickle.Unpickler):
-    """Reads a few-shot cache written by either package: a ``Datum`` of the
-    JAX package's is read as this module's (importing nothing of it)."""
+    """Reads a few-shot cache (or ImageNet's ``preprocessed.pkl``) written by
+    either package: a ``Datum`` of the JAX package's is read as this
+    module's (importing nothing of it)."""
 
     def find_class(self, module, name):
         if name == "Datum" and module.endswith("data.base_dataset"):

@@ -1,7 +1,9 @@
 """DataManager: the dataset and its loaders (counterpart of
 fsvlm_tpu.data.data_manager, :16-153).
 
-Builds the dataset named by DATASET.NAME, then the loaders: train_x as
+Builds the dataset named by DATASET.NAME (Synthetic, the 11 recognition
+datasets and the 4 ImageNet shifts; the Dassl DA/DG/SSL sets are ROADMAP
+A13), then the loaders: train_x as
 uint8 ``pre_size`` batches for the device-side augmentation
 (DATALOADER.DEVICE_AUG; the host train transforms are not ported, ROADMAP
 A12), dropping the last short batch when the set holds at least one
@@ -21,8 +23,9 @@ DATASET_REGISTRY = Registry("DATASET")
 def build_dataset(cfg):
     if cfg.DATASET.NAME not in DATASET_REGISTRY:
         raise KeyError(
-            f"Dataset {cfg.DATASET.NAME!r} is not ported: the recognition datasets need the "
-            "image decode (ROADMAP A11); ported: "
+            f"Dataset {cfg.DATASET.NAME!r} is not ported: the Dassl domain-adaptation, "
+            "domain-generalization and semi-supervised sets (data/datasets/legacy.py) are "
+            "ROADMAP A13; ported: "
             f"{DATASET_REGISTRY.registered_names()}")
     return DATASET_REGISTRY.get(cfg.DATASET.NAME)(cfg)
 

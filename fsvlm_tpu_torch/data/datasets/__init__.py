@@ -1,1 +1,1 @@
-from . import synthetic  # noqa: F401  (registers the datasets)
+from . import recognition, synthetic  # noqa: F401  (registers the datasets)

@@ -2,7 +2,7 @@
 
 The JAX package's data layer resizes with PIL (``Image.resize``, then
 ``crop``: fsvlm_tpu/data/transforms.py:192-225, data/loader.py:170-183).
-The card's machine has no Pillow, so these functions reproduce its 8-bit
+The port does not depend on Pillow, so these functions reproduce its 8-bit
 arithmetic on (H, W, 3) uint8 numpy arrays, byte for byte:
 
 - bilinear and bicubic (a = -0.5) are two separable passes, horizontal
@@ -14,6 +14,10 @@ arithmetic on (H, W, 3) uint8 numpy arrays, byte for byte:
 - nearest takes the source pixel under ``(i + 0.5) * in / out``, the
   positions accumulated in float64 as Pillow's affine scaler does;
 - a resize to the same size returns a copy (Pillow's shortcut).
+
+The taps are computed here in numpy; each pass's sums run in C++
+(``fsvlm_tpu_torch.native.resample_pass``, ``csrc/resample.cpp``, built by
+g++ at first use), with the GIL released.
 """
 
 import math
@@ -62,15 +66,10 @@ def _coefficients(in_size, out_size, filt, support):
 
 def _pass(img, out_size, filt, support, axis):
     """One separable pass along ``axis`` (1: horizontal, 0: vertical)."""
-    in_size = img.shape[axis]
-    xmin, kk = _coefficients(in_size, out_size, filt, support)
-    src = np.moveaxis(img, axis, 0).astype(np.int64)  # (in, other, 3)
-    acc = np.full((out_size,) + src.shape[1:], 1 << (PRECISION_BITS - 1), np.int64)
-    for t in range(kk.shape[1]):
-        idx = np.minimum(xmin + t, in_size - 1)  # a tap past the window weighs 0
-        acc += src[idx] * kk[:, t][:, None, None]
-    out = np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
-    return np.moveaxis(out, 0, axis)
+    from ..native import resample_pass
+
+    xmin, kk = _coefficients(img.shape[axis], out_size, filt, support)
+    return resample_pass(img, out_size, xmin, kk, axis)
 
 
 def _nearest_index(in_size, out_size):

@@ -1,0 +1,211 @@
+"""The port's host image code in C++ (counterpart of fsvlm_tpu.native and of
+the PIL calls of the JAX package's data layer), through ctypes.
+
+The card's machine has neither libjpeg's header nor its library, so the
+decoder is the port's own C++ (``csrc/jpeg_decoder.cpp``: baseline and
+progressive Huffman JPEG, no library); ``csrc/resample.cpp`` is the inner
+loop of ``data/imageops.py``'s Pillow-exact resampling.  Both are compiled
+with ``g++`` at first use into one library in ``fsvlm_tpu_torch/_build/``
+(listed in ``.gitignore``), named by a hash of sources and flags, and
+loaded once.  A failed build raises with the compiler's output; nothing
+falls back to another decoder.
+
+- ``read_image(path)``: the full-resolution RGB image as an (H, W, 3)
+  uint8 array, byte-equal to Pillow's ``Image.open(path).convert("RGB")``
+  (grayscale replicated, CMYK and YCCK through Pillow's CMYK->RGB);
+- ``decode_file(path, pre_size)``: the (P, P, 3) uint8 device-aug cache
+  view, byte-equal to ``fsvlm_tpu.native.decode_file`` (DCT-domain
+  downscale, float bilinear resize of the shorter edge, centre crop), or
+  None for a CMYK or YCCK JPEG, for which libjpeg has no RGB output either.
+
+Both release the GIL for the decode, so a thread pool decodes in parallel.
+A missing file raises ``IOError``; a file that is not a JPEG (by its magic
+bytes, whatever its extension) and a JPEG variant the decoder does not read
+raise ``NotImplementedError`` naming ROADMAP A16; corrupt or truncated data
+raises ``ValueError``.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import numpy as np
+
+ROUTE = "B"  # the repo's own decoder; route A would link the machine's libjpeg
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+SOURCES = [os.path.join(CSRC, f) for f in ("jpeg_decoder.cpp", "resample.cpp")]
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off", "-Wall"]
+
+_lib = None
+_build_info = None
+_lock = threading.Lock()
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_I64P = ctypes.POINTER(ctypes.c_int64)
+
+# the decoder's return codes (jpeg_decoder.cpp Status; its 4, no SOI, is
+# caught here first by the magic bytes)
+NO_RGB, CORRUPT, UNSUPPORTED, NO_MEMORY, TOO_LARGE = 1, 2, 3, 5, 6
+
+_MAGIC = [(b"\x89PNG\r\n\x1a\n", "PNG"), (b"GIF8", "GIF"), (b"BM", "BMP"),
+          (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF")]
+
+
+def find_cxx():
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError("g++ not found: the port's host C++ is built from "
+                           f"{CSRC} at first use (set CXX or put g++ on PATH)")
+    return cxx
+
+
+def library_path():
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(CXX_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"libfsvlm_host-{h.hexdigest()[:16]}.so")
+
+
+def build():
+    """Compile the library unless it is built already.  Returns {"path",
+    "seconds", "log"}; raises with the compiler's output if it fails."""
+    out = library_path()
+    if os.path.isfile(out):
+        return {"path": out, "seconds": 0.0, "log": ""}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run([find_cxx(), *CXX_FLAGS, "-o", tmp, *SOURCES], capture_output=True,
+                          text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed for {SOURCES} (rc {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+    return {"path": out, "seconds": time.perf_counter() - t0, "log": log}
+
+
+def load():
+    """The library's ctypes handle, built and loaded on the first call."""
+    global _lib, _build_info
+    with _lock:
+        if _lib is None:
+            _build_info = build()
+            lib = ctypes.CDLL(_build_info["path"])
+            lib.fsvlm_jpeg_size.argtypes = [_U8P, ctypes.c_long, ctypes.POINTER(ctypes.c_int),
+                                            ctypes.POINTER(ctypes.c_int)]
+            lib.fsvlm_jpeg_decode_full.argtypes = [_U8P, ctypes.c_long, ctypes.c_int,
+                                                   ctypes.c_int, _U8P]
+            lib.fsvlm_jpeg_file_resize_crop.argtypes = [ctypes.c_char_p, ctypes.c_int, _U8P]
+            lib.fsvlm_resample_pass.argtypes = [
+                _U8P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, _I64P, _I64P,
+                ctypes.c_int64, ctypes.c_int64, _U8P]
+            for fn in (lib.fsvlm_jpeg_size, lib.fsvlm_jpeg_decode_full,
+                       lib.fsvlm_jpeg_file_resize_crop, lib.fsvlm_resample_pass):
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def build_info():
+    """The route and the build: {"route", "source", "path", "seconds"}."""
+    load()
+    return {"route": ROUTE, "source": os.path.relpath(SOURCES[0], os.path.dirname(BUILD_DIR)),
+            "path": _build_info["path"], "seconds": _build_info["seconds"]}
+
+
+def _read_jpeg(path, head=None):
+    """The file's bytes (its first ``head`` bytes if given); raises unless
+    it is a JPEG (by its magic bytes)."""
+    if not os.path.exists(path):
+        raise IOError(f'No file exists at "{path}"')
+    with open(path, "rb") as f:
+        data = f.read(head) if head else f.read()
+    if data[:2] != b"\xff\xd8":
+        kind = next((k for m, k in _MAGIC if data.startswith(m)), None)
+        if kind is None and data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+            kind = "WebP"
+        raise NotImplementedError(
+            f'"{path}" is {"a " + kind + " file" if kind else "not a JPEG file"}: the port '
+            "decodes JPEG only (image formats other than JPEG: ROADMAP A16)")
+    return data
+
+
+def _check(rc, path):
+    if rc == CORRUPT:
+        raise ValueError(f'corrupt or truncated JPEG data in "{path}"')
+    if rc == UNSUPPORTED:
+        raise NotImplementedError(
+            f'"{path}" is a JPEG variant the port\'s decoder does not read (arithmetic '
+            "coding, lossless, hierarchical, 12-bit samples, or progressive scans that leave "
+            "coefficients unrefined): ROADMAP A16")
+    if rc == TOO_LARGE:
+        raise ValueError(f'"{path}" has more pixels than twice Pillow\'s MAX_IMAGE_PIXELS, '
+                         "which Pillow refuses as a decompression bomb")
+    if rc == NO_MEMORY:
+        raise MemoryError(f'decoding "{path}" ran out of memory')
+    if rc in (10, 11):
+        raise IOError(f'Cannot read "{path}"')
+    if rc != 0:
+        raise ValueError(f'cannot decode "{path}" (decoder code {rc})')
+
+
+def read_image(path):
+    """The full-resolution RGB image of a JPEG file: uint8 (H, W, 3)."""
+    data = _read_jpeg(path)
+    lib = load()
+    buf = np.frombuffer(data, np.uint8)
+    w, h = ctypes.c_int(), ctypes.c_int()
+    _check(lib.fsvlm_jpeg_size(buf.ctypes.data_as(_U8P), len(data), ctypes.byref(w),
+                               ctypes.byref(h)), path)
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    _check(lib.fsvlm_jpeg_decode_full(buf.ctypes.data_as(_U8P), len(data), w.value, h.value,
+                                      out.ctypes.data_as(_U8P)), path)
+    return out
+
+
+def decode_file(path, pre_size):
+    """The (pre_size, pre_size, 3) uint8 cache view of a JPEG file, or None
+    for a CMYK or YCCK JPEG (no RGB output at a DCT scale, as libjpeg)."""
+    _read_jpeg(path, head=12)
+    lib = load()
+    out = np.empty((pre_size, pre_size, 3), np.uint8)
+    rc = lib.fsvlm_jpeg_file_resize_crop(os.fsencode(path), pre_size, out.ctypes.data_as(_U8P))
+    if rc == NO_RGB:
+        return None
+    _check(rc, path)
+    return out
+
+
+def resample_pass(img, out_size, xmin, taps, axis):
+    """One separable pass of Pillow's 8-bit resampling over a uint8 (H, W, C)
+    array along ``axis`` (1: horizontal, 0: vertical) to ``out_size``:
+    ``xmin`` (out,) int64 first source indices, ``taps`` (out, ksize) int64
+    fixed-point weights (``imageops._coefficients``)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    xmin = np.ascontiguousarray(xmin, np.int64)
+    taps = np.ascontiguousarray(taps, np.int64)
+    if img.ndim != 3 or axis not in (0, 1):
+        raise ValueError(f"resample_pass takes (H, W, C) uint8 and axis 0 or 1, got "
+                         f"{img.shape}, axis {axis}")
+    in_size = img.shape[axis]
+    if (xmin.shape != (out_size,) or taps.ndim != 2 or taps.shape[0] != out_size
+            or (out_size and (xmin.min() < 0 or xmin.max() >= in_size))):
+        raise ValueError(f"resample_pass: taps {taps.shape} and first indices {xmin.shape} "
+                         f"do not fit {out_size} outputs from {in_size} inputs")
+    h, w, c = img.shape
+    shape = (h, out_size, c) if axis == 1 else (out_size, w, c)
+    out = np.empty(shape, np.uint8)
+    rc = load().fsvlm_resample_pass(
+        img.ctypes.data_as(_U8P), in_size, img.shape[1 - axis], c, axis,
+        xmin.ctypes.data_as(_I64P), taps.ctypes.data_as(_I64P), taps.shape[1], out_size,
+        out.ctypes.data_as(_U8P))
+    if rc != 0:
+        raise ValueError(f"resample_pass: the library refused axis {axis}")
+    return out

@@ -6,6 +6,8 @@ flags and flow, on the card unless ``--device cpu``.
         --config-file configs/trainers/PromptSRC/vit_b16_c2_ep20_batch4_4+4ctx.yaml \\
         --output-dir output/run1 DATALOADER.DEVICE_AUG True [opts...]
     python -m fsvlm_tpu_torch.train ... --eval-only --model-dir output/run1 --load-epoch 20
+    python -m fsvlm_tpu_torch.train --trainer PromptSRC --seed 1 --root <data root> \\
+        --dataset-config-file configs/datasets/caltech101.yaml ...   # a docs/DATASETS.md tree
 
 Config: defaults.py's values (``get_cfg_base``), then the dataset and
 trainer yaml files, then the named flags, then the trailing KEY VALUE

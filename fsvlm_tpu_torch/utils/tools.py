@@ -35,6 +35,16 @@ def write_json(obj, fpath):
         json.dump(obj, f, indent=4, separators=(",", ": "))
 
 
+def read_image(path):
+    """The RGB image of a file as uint8 (H, W, 3), as the JAX package's
+    ``Image.open(path).convert("RGB")`` gives it, through the port's JPEG
+    decoder (``fsvlm_tpu_torch.native``); raises IOError for a missing file
+    and NotImplementedError (ROADMAP A16) for a file that is not a JPEG."""
+    from ..native import read_image as decode
+
+    return decode(path)
+
+
 def listdir_nohidden(path, sort=False):
     items = [f for f in os.listdir(path) if not f.startswith(".")]
     if sort:

@@ -107,7 +107,7 @@ def test_extra_opts_env_applies_last(tmp_path, monkeypatch, capsys):
     (["TRAINER.PROMPTSRC.SIMCLR_ALPHA", "0.5"], NotImplementedError, "ROADMAP A14"),
     (["TRAINER.COOP.LOSS_TYPE", "simclr"], NotImplementedError, "ROADMAP A14"),
     (["DATALOADER.DEVICE_AUG", "False"], NotImplementedError, "ROADMAP A12"),
-    (["DATASET.NAME", "Caltech101"], KeyError, "ROADMAP A11"),
+    (["DATASET.NAME", "Office31"], KeyError, "ROADMAP A13"),
 ])
 def test_unported_paths_raise_naming_their_roadmap_item(tmp_path, monkeypatch, opts, error, match):
     monkeypatch.chdir(ROOT)
@@ -236,3 +236,69 @@ def test_cli_and_build_trainer_default_to_the_card(tmp_path, monkeypatch):
     cfg = cli.setup_cfg(args)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_trainer(cfg)
+
+
+def _caltech_tree(root, n_classes=60, per_class=4):
+    """A Caltech101-layout tree of small JPEGs (docs/DATASETS.md): one class
+    folder per class, plus the two folders the plugin ignores and the ones it
+    renames; every kind of JPEG the loaders read, CMYK among them."""
+    import io
+
+    from PIL import Image
+
+    kinds = [("RGB", dict(quality=90, subsampling=2)), ("L", dict(quality=85)),
+             ("RGB", dict(quality=85, subsampling=0, progressive=True)),
+             ("CMYK", dict(quality=85))]
+    image_dir = os.path.join(root, "caltech-101", "101_ObjectCategories")
+    names = ["BACKGROUND_Google", "Faces_easy", "Faces", "airplanes"] + [
+        f"category_{c:02d}" for c in range(n_classes - 2)]
+    rng = np.random.RandomState(0)
+    for c, name in enumerate(names):
+        os.makedirs(os.path.join(image_dir, name))
+        for j in range(per_class):
+            mode, opts = kinds[(c + j) % len(kinds)]
+            arr = rng.randint(0, 256, (36, 44, {"L": 1, "RGB": 3, "CMYK": 4}[mode]))
+            arr = (arr // 4 + 40 * (c % 5)).astype(np.uint8)
+            buf = io.BytesIO()
+            Image.fromarray(arr[..., 0] if mode == "L" else arr, mode).save(buf, "JPEG", **opts)
+            with open(os.path.join(image_dir, name, f"image_{j:04d}.jpg"), "wb") as f:
+                f.write(buf.getvalue())
+
+
+def test_cli_promptsrc_on_a_caltech101_tree(tmp_path, monkeypatch):
+    """PromptSRC through the CLI on a real-layout JPEG tree, through --root and
+    configs/datasets/caltech101.yaml: the split json and few-shot files, the
+    log contract, and the base/new report (Caltech101's 50 base classes of
+    60), whose counts follow the run's own predictions; --eval-only
+    reproduces them."""
+    _caltech_tree(str(tmp_path / "data"))
+    monkeypatch.chdir(ROOT)
+    out = tmp_path / "run"
+    argv = ["--trainer", "PromptSRC", "--seed", "1", "--root", str(tmp_path / "data"),
+            "--dataset-config-file", "configs/datasets/caltech101.yaml",
+            "--config-file", "configs/trainers/tests/synthetic_tiny.yaml", "--device", "cpu"]
+    opts = TINY_OPTS + ["DATASET.NUM_SHOTS", "1", "OPTIM.MAX_EPOCH", "1",
+                        "TEST.FINAL_MODEL", "best_val", "TRAINER.PROMPTSRC.CACHED_TEACHER", "True",
+                        "DATALOADER.PRE_SIZE", "48"]
+    t = cli.main(cli.build_argparser().parse_args(argv + ["--output-dir", str(out)] + opts))
+    ds = t.dm.dataset
+    assert (t.num_classes, len(ds.train_x), len(ds.val), len(ds.test)) == (60, 60, 60, 60)
+    assert "airplane" in ds.classnames and "face" in ds.classnames
+    ddir = tmp_path / "data" / "caltech-101"
+    assert (ddir / "split_zhou_Caltech101.json").is_file()
+    assert os.listdir(ddir / "split_fewshot") == ["shot_1-seed_1.pkl"]
+    log = (out / "log.txt").read_text()
+    for needle in ("=> result", "* accuracy:", "Classification Report", "Finish training",
+                   "Deploy the model with the best val performance",
+                   "[PromptSRC] cached teacher image features: (60, 64)",
+                   "* device-resident train set: 60 images"):
+        assert needle in log, needle
+    y_true, y_pred = np.asarray(t.evaluator.y_true), np.asarray(t.evaluator.y_pred)
+    for name, mask in (("Base", y_true < 50), ("New ", y_true >= 50)):
+        line = (f"{name} class accuracy: {100.0 * (y_pred[mask] == y_true[mask]).mean():.2f}% "
+                f"({int((y_pred[mask] == y_true[mask]).sum())}/{int(mask.sum())})")
+        assert line in log, line
+    t2 = cli.main(cli.build_argparser().parse_args(
+        argv + ["--output-dir", str(tmp_path / "eval"), "--eval-only", "--model-dir", str(out)]
+        + opts))
+    assert t2.evaluator.y_pred == t.evaluator.y_pred

@@ -150,10 +150,20 @@ def test_device_aug_cache_matches_jax_bytes(pre_size):
     np.testing.assert_array_equal(got, ref)
 
 
-def test_a_file_path_raises_instead_of_falling_back():
-    item = base_dataset.Datum(impath="/nonexistent/img.jpg", label=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+def test_a_file_path_raises_instead_of_falling_back(tmp_path):
+    """A file that is not a JPEG raises naming ROADMAP A16 on both views,
+    whatever its extension; a missing file raises IOError.  Nothing falls
+    back to another decoder."""
+    png = tmp_path / "img.jpg"  # a PNG under a JPEG name
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(png, format="PNG")
+    item = base_dataset.Datum(impath=str(png), label=0)
+    with pytest.raises(NotImplementedError, match="PNG file.*ROADMAP A16"):
         loader.RawDatasetWrapper([item]).materialize(num_threads=1)
+    with pytest.raises(NotImplementedError, match="PNG file.*ROADMAP A16"):
+        loader.DatasetWrapper([item], lambda img: img)[0]
+    missing = base_dataset.Datum(impath=str(tmp_path / "none.jpg"), label=0)
+    with pytest.raises(IOError, match="No file exists"):
+        loader.RawDatasetWrapper([missing]).materialize(num_threads=1)
 
 
 # ---------------------------------------------------------------- samplers
@@ -238,8 +248,8 @@ def test_train_loader_batches_carry_the_cache_images():
 
 
 def test_unported_dataset_names_the_roadmap_item():
-    _, pcfg = _cfgs(DATASET__NAME="OxfordPets")
-    with pytest.raises(KeyError, match="ROADMAP A11"):
+    _, pcfg = _cfgs(DATASET__NAME="Office31")  # a Dassl DA set
+    with pytest.raises(KeyError, match="ROADMAP A13"):
         DataManager(pcfg)
 
 
