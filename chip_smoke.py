@@ -158,7 +158,36 @@ Phases; each passes or raises, and any failure exits non-zero:
    ``--eval-only`` time, the eval cache's bytes and the peak RSS, printed as
    one ``{"recognition": ...}`` line.
 
-Phases 4, 6, 7, 8, 9, 10, 11 and 12 zero the launch counts just before each main path
+13. host_aug, with FSVLM_FORCE_PALLAS unset (the d = 64 kernels #6-#8): the
+   host train transforms (fsvlm_tpu_torch/data/transforms.py,
+   autoaugment.py, imageops.py over csrc/imaging.cpp, built by g++) on the
+   committed JPEG fixtures for every pipeline of
+   tests/torch_fixtures/transforms/expected.json (the recipes' list at
+   bicubic and bilinear, SimCLR's six, colorjitter, the three AutoAugment
+   policies, the three RandAugment variants with cutout, random_translation,
+   random_crop, center_crop, NO_TRANSFORM, gaussian_noise, instance_norm) at
+   its seeds, against the digests of the JAX package's Pillow outputs:
+   byte-equal, gaussian_noise and instance_norm within 1e-6.  Then phase
+   12's PromptSRC command on a fresh tree without DATALOADER.DEVICE_AUG
+   True (the scripts' default: the host pipeline, uint8 views normalized
+   in the step): the log contract, finite losses, #6-#8 exactly as derived
+   (phase 12's counts: only the augmentation moved), ``--eval-only``
+   exact.  Then CoOp with LOSS_TYPE simclr through the CLI
+   (scripts/coop/train.sh's options with SUB=all, configs/trainers/CoOp/
+   vit_b16_ep50.yaml, batch 32, 1 epoch): the override line, "img2" in
+   every step's batch and unlike "img", finite NT-Xent losses, #6-#8 as
+   derived (two text passes and two frozen vision passes per step), the
+   ValueError under DEVICE_AUG, and its step time.  Then PromptSRC with
+   SIMCLR_ALPHA 0.1 on the two-view loader at batch 48: 3 steps, the first
+   under sync debug mode 'error', launches as derived.  Then views/s of
+   the recipes' and SimCLR's lists at NUM_WORKERS threads over the 1000
+   train files, the host-aug epoch beside phase 12's DEVICE_AUG epoch, the
+   ms per step of 60 steps fed from batches built beforehand against 60
+   fed by the loader as it runs (in turns: the loader's own share), and the
+   device's idle share over 5 profiled host-aug steps in the loader's
+   steady state, printed as one ``{"host_aug": ...}`` line.
+
+Phases 4, 6, 7, 8, 9, 10, 11, 12 and 13 zero the launch counts just before each main path
 and read them just after: each kernel of the path must have launched its
 expected count (derived from the code: a rematerialized layer runs its
 forward kernel again), and the other families none.
@@ -2614,7 +2643,8 @@ def phase_recognition(clip):
     """Phase 12 (module docstring): the decoder's fixtures, then PromptSRC
     ViT-B/16 through the CLI on a 100-class Caltech101-layout JPEG tree;
     FSVLM_FORCE_PALLAS unset (the caller sets it).  Returns the run's
-    launches."""
+    launches and its ``{"recognition": ...}`` numbers (the epoch's
+    "epoch_ms", its "launches")."""
     import resource
 
     import torch
@@ -2736,7 +2766,381 @@ def phase_recognition(clip):
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return launches, dict(result, launches=launches)
+
+
+TRANSFORM_FIXTURES = os.path.join("tests", "torch_fixtures", "transforms", "expected.json")
+COOP_SIMCLR_EPOCHS = 1
+SIMCLR_STEPS, SIMCLR_BATCH = 3, 48  # PromptSRC with SIMCLR_ALPHA: steps at bench.py's batch
+HOST_PROFILE_STEPS = 5
+LOADER_STEPS = 60  # steps per side of the loader's-share comparison
+
+
+def _check_transform_fixtures():
+    """(1) The port's TrainTransform (or, under INPUT.NO_TRANSFORM, the eval
+    view normalized as the trainer normalizes it) on the committed JPEG
+    fixtures for every pipeline of the transforms' expected.json, at its
+    seeds, against the digests of the JAX package's outputs: sha256 for
+    the exact pipelines, the samples and the sum within 1e-6 for
+    gaussian_noise and instance_norm."""
+    import hashlib
+    import random
+
+    from fsvlm_tpu_torch import native
+    from fsvlm_tpu_torch.config import get_cfg_base
+    from fsvlm_tpu_torch.data.transforms import CLIP_PIXEL_MEAN, CLIP_PIXEL_STD, build_transform
+
+    with open(TRANSFORM_FIXTURES) as f:
+        expected = json.load(f)
+    bad, n, worst = [], 0, 0.0
+    for name, spec in sorted(expected["pipelines"].items()):
+        cfg = get_cfg_base()
+        cfg.INPUT.TRANSFORMS = tuple(spec["transforms"])
+        cfg.INPUT.INTERPOLATION = spec["interpolation"]
+        cfg.INPUT.SIZE = tuple(spec["size"])
+        cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD = list(CLIP_PIXEL_MEAN), list(CLIP_PIXEL_STD)
+        cfg.INPUT.NO_TRANSFORM = spec["no_transform"]
+        tfm = build_transform(cfg, is_train=True)
+        mean, std = np.float32(CLIP_PIXEL_MEAN), np.float32(CLIP_PIXEL_STD)
+        for i, (fixture, want) in enumerate(sorted(expected["digests"][name].items())):
+            img = native.read_image(os.path.join(FIXTURE_DIR, fixture))
+            if spec["no_transform"]:
+                x = ((tfm(img).astype(np.float32) / 255.0 - mean) / std).astype(np.float32)
+            else:
+                x = tfm(img, rng=random.Random(spec["seed"] + i))
+            n += 1
+            if list(x.shape) != want["shape"]:
+                bad.append(f"{name} {fixture}: shape {x.shape}, expected {want['shape']}")
+            elif spec["exact"]:
+                if hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest() != want["sha256"]:
+                    bad.append(f"{name} {fixture}: bytes differ")
+            else:
+                err = float(np.abs(x.ravel()[::expected["sample_stride"]]
+                                   - np.float32(want["sample"])).max())
+                dsum = abs(float(x.sum(dtype=np.float64)) - want["sum"])
+                worst = max(worst, err)
+                if err > 1e-6 or dsum > 1e-6 * x.size:
+                    bad.append(f"{name} {fixture}: samples off by {err:.3g}, sum by {dsum:.3g}")
+    log(f"host_aug: {len(expected['pipelines'])} pipelines x {n // len(expected['pipelines'])} "
+        f"committed JPEG fixtures through the port's TrainTransform against the JAX package's "
+        f"digests: {n - len(bad)} equal, {len(bad)} differ (gaussian_noise / instance_norm "
+        f"samples within {worst:.3g})")
+    if bad:
+        raise SystemExit("FAIL: host_aug: transform outputs differ from the fixtures' digests:\n"
+                         + "\n".join(bad))
+    return n
+
+
+def _host_launches(t, clip_cfg, per_step, epochs):
+    """#6-#8 over a CLI run of a trainer without a build-time tower pass,
+    from the code: ``per_step`` = (#6, #7/#8) per step; per test() one text
+    pass and one vision pass per batch: the val set after each epoch under
+    best_val, then the test set twice (after_train, and the CLI's report)."""
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+
+    Lt, Lv = clip_cfg.transformer_layers, clip_cfg.vision_layers
+    ds, cfg = t.dm.dataset, t.cfg
+    B = cfg.DATALOADER.TEST.BATCH_SIZE
+    steps = t.steps_per_epoch * epochs
+    vals = epochs if cfg.TEST.FINAL_MODEL == "best_val" and ds.val else 0
+    fwd = (steps * per_step[0] + vals * (Lt + -(-len(ds.val) // B) * Lv)
+           + 2 * (Lt + -(-len(ds.test) // B) * Lv))
+    return {fa.KERNEL: fwd, fa.KERNEL_DKV: steps * per_step[1], fa.KERNEL_DQ: steps * per_step[1]}
+
+
+def _views_per_s(wrapper, threads):
+    """Train views per second of ``wrapper`` over its whole set in a pool of
+    ``threads`` (its decoded-image cache warmed first)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    idx = list(range(len(wrapper)))
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        list(pool.map(wrapper.image, idx))
+        t0 = time.perf_counter()
+        items = list(pool.map(wrapper.__getitem__, idx))
+        seconds = time.perf_counter() - t0
+    return len(items) * (2 if "img2" in items[0] else 1) / seconds
+
+
+def phase_host_aug(clip, recognition):
+    """Phase 13 (module docstring): the host train transforms' fixtures,
+    then PromptSRC and CoOp SimCLR through the CLI without DEVICE_AUG on a
+    Caltech101-layout tree, and PromptSRC's SIMCLR_ALPHA step;
+    FSVLM_FORCE_PALLAS unset (the caller sets it).  ``recognition``: phase
+    12's numbers.  Returns each path's launches."""
+    import torch
+
+    from fsvlm_tpu_torch.config import get_cfg_base
+    from fsvlm_tpu_torch.data.loader import DatasetWrapper
+    from fsvlm_tpu_torch.data.transforms import TrainTransform
+    from fsvlm_tpu_torch.engine.trainer import SimpleTrainer, build_trainer
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.train import maybe_override_simclr_loader
+    from fsvlm_tpu_torch.trainers.simclr_utils import make_simclr_loader
+
+    n_fixture_views = _check_transform_fixtures()
+    fixtures = sorted(f for f in os.listdir(FIXTURE_DIR) if f.endswith(".jpg"))
+    work = tempfile.mkdtemp(prefix="chip_smoke_host_aug_")
+    data = ["--root", work, "--dataset-config-file", "configs/datasets/caltech101.yaml",
+            "MODEL.FROZEN_DTYPE", "bf16", "DATASET.NUM_SHOTS", "-1",
+            "DATASET.PER_CLASS_SHOTS", str(RECOG_SHOTS)]
+    launches = {}
+    try:
+        sizes = _caltech_tree(work, fixtures)
+
+        # (2) PromptSRC through the CLI on the host pipeline (phase 12's
+        # command without DATALOADER.DEVICE_AUG True)
+        def promptsrc_argv(out, *flags):
+            return ["--trainer", "PromptSRC", "--seed", "1", "--device", "cuda", *data[:4],
+                    "--config-file", CLI_RECIPE, "--output-dir", out, *flags, *data[4:],
+                    "TRAINER.PROMPTSRC.PREC", "bf16", "DATALOADER.TRAIN_X.SAMPLER",
+                    "WeightedClassSampler", "TRAINER.PROMPTSRC.CACHED_TEACHER", "True",
+                    "TEST.FINAL_MODEL", "best_val", "OPTIM.MAX_EPOCH", str(RECOG_EPOCHS)]
+
+        out = os.path.join(work, "promptsrc")
+        torch.cuda.synchronize()
+        fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        t0 = time.perf_counter()
+        t = _run_cli(clip, promptsrc_argv(out))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches["host_aug_cli"] = dict(fa.LAUNCHES)
+        text = _read(os.path.join(out, "log.txt"))
+        losses = [float(x) for x in re.findall(r"\bloss ([-+.\deE]+|nan|inf)", text)]
+        for needle in ("=> result", "* accuracy:", "Classification Report", "Finish training",
+                       "Base class accuracy", "[PromptSRC] cached teacher image features",
+                       "DEVICE_AUG: False"):
+            if needle not in text:
+                raise SystemExit(f"FAIL: host_aug: log.txt lacks {needle!r}")
+        if "device-resident train set" in text or t.cache is not None:
+            raise SystemExit("FAIL: host_aug: the host pipeline took the device-resident path")
+        if not losses or not all(np.isfinite(losses)):
+            raise SystemExit(f"FAIL: host_aug: non-finite or no loss in log.txt: {losses}")
+        if not t.train_loader_x.wrapper.uint8:
+            raise SystemExit("FAIL: host_aug: the recipe's views did not ship as uint8")
+        want = _cli_expected_launches(t, clip.cfg, epochs=RECOG_EPOCHS)
+        _others_silent(launches["host_aug_cli"], "flash_attn", "the host-aug CLI run")
+        got = {k: launches["host_aug_cli"][k] for k in want}
+        log(f"host_aug: PromptSRC {CLI_RECIPE} through the CLI without DEVICE_AUG on the tree "
+            f"(split {sizes}): {t.steps_per_epoch} steps of {t.batch_size}, run {run_s:.1f} s, "
+            f"losses {losses}; launches {got}, expected {want}; phase 12 (DEVICE_AUG) launched "
+            f"{ {k: recognition['launches'][k] for k in want} }")
+        if got != want:
+            raise SystemExit("FAIL: host_aug: #6-#8 launches differ from the derived counts")
+        t2 = _run_cli(clip, promptsrc_argv(os.path.join(work, "eval"), "--eval-only",
+                                           "--model-dir", out))
+        if (t2.evaluator.y_pred != t.evaluator.y_pred
+                or t2.evaluator.y_true != t.evaluator.y_true):
+            raise SystemExit("FAIL: host_aug: --eval-only did not reproduce the predictions")
+        log(f"host_aug: --eval-only from model-best.pkl reproduced the run's "
+            f"{len(t2.evaluator.y_pred)} test predictions")
+        del t2
+
+        # (3) CoOp with LOSS_TYPE simclr through the CLI (scripts/coop/train.sh's
+        # command with SUB=all, on the same tree), spying on each step's batch
+        out_coop = os.path.join(work, "coop")
+        seen = []
+        step = SimpleTrainer.train_step
+
+        def spy(self, batch, *a, **kw):
+            two = "img2" in batch
+            seen.append((two, (batch["img"] != batch["img2"]).flatten(1).any(1).all()
+                         if two else None))
+            return step(self, batch, *a, **kw)
+
+        coop_argv = ["--trainer", "CoOp", "--seed", "1", "--device", "cuda", *data[:4],
+                     "--config-file", COOP_RECIPE, "--output-dir", out_coop, *data[4:],
+                     "TRAINER.COOP.N_CTX", "16", "TRAINER.COOP.CSC", "False",
+                     "TRAINER.COOP.CLASS_TOKEN_POSITION", "end", "TRAINER.COOP.LOSS_TYPE",
+                     "simclr", "TRAINER.COOP.USE_FOCAL_LOSS", "False",
+                     "DATASET.SUBSAMPLE_CLASSES", "all", "TRAINER.COOP.PREC", "bf16",
+                     "OPTIM.MAX_EPOCH", str(COOP_SIMCLR_EPOCHS)]
+        torch.cuda.synchronize()
+        fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        SimpleTrainer.train_step = spy
+        try:
+            t0 = time.perf_counter()
+            tc = _run_cli(clip, coop_argv)
+            torch.cuda.synchronize()
+            coop_run_s = time.perf_counter() - t0
+        finally:
+            SimpleTrainer.train_step = step
+        launches["coop_simclr_cli"] = dict(fa.LAUNCHES)
+        text = _read(os.path.join(out_coop, "log.txt"))
+        coop_losses = [float(x) for x in re.findall(r"\bloss ([-+.\deE]+|nan|inf)", text)]
+        if ">> SimCLR objective active => overriding train_loader_x with a two-view loader!" \
+                not in text:
+            raise SystemExit("FAIL: host_aug: the CoOp SimCLR run did not print the override")
+        if len(seen) != tc.steps_per_epoch * COOP_SIMCLR_EPOCHS or not all(
+                two and bool(differ) for two, differ in seen):
+            raise SystemExit(f"FAIL: host_aug: CoOp SimCLR steps without two distinct views "
+                             f"({len(seen)} steps)")
+        if not coop_losses or not all(np.isfinite(coop_losses)):
+            raise SystemExit(f"FAIL: host_aug: CoOp NT-Xent losses {coop_losses}")
+        Lt, Lv = clip.cfg.transformer_layers, clip.cfg.vision_layers
+        want = _host_launches(tc, clip.cfg, (2 * Lt + 2 * Lv, 2 * Lt), COOP_SIMCLR_EPOCHS)
+        _others_silent(launches["coop_simclr_cli"], "flash_attn", "the CoOp SimCLR CLI run")
+        got = {k: launches["coop_simclr_cli"][k] for k in want}
+        log(f"host_aug: CoOp LOSS_TYPE simclr {COOP_RECIPE} through the CLI: "
+            f"{tc.steps_per_epoch} steps of {tc.batch_size} on the two-view loader, img2 in "
+            f"every batch and unlike img; run {coop_run_s:.1f} s; NT-Xent losses {coop_losses}; "
+            f"launches {got}, expected {want}")
+        if got != want:
+            raise SystemExit("FAIL: host_aug: CoOp SimCLR #6-#8 launches differ from the derived "
+                             "counts")
+        cfg_da = _recipe_cfg_from_argv(coop_argv + ["DATALOADER.DEVICE_AUG", "True"])
+        try:
+            maybe_override_simclr_loader(cfg_da, tc)
+        except ValueError as e:
+            log(f"host_aug: CoOp SimCLR under DATALOADER.DEVICE_AUG True raised ValueError: {e}")
+        else:
+            raise SystemExit("FAIL: host_aug: SimCLR under DEVICE_AUG did not raise")
+        # CoOp SimCLR's step: one two-view batch on the card, stepped synced
+        batch = next(iter(tc.device_batches(tc.train_loader_x)))
+        coop_ms = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tc.train_step(batch)
+            torch.cuda.synchronize()
+            coop_ms.append((time.perf_counter() - t0) * 1e3)
+        coop_step_ms = float(np.median(coop_ms[1:]))
+        coop_batch = tc.batch_size
+        del tc, batch
+
+        # (4) PromptSRC with SIMCLR_ALPHA 0.1 on the two-view loader at batch
+        # 48: no synchronizing call in a step, launches per step
+        cfg = _recipe_cfg_from_argv(promptsrc_argv(os.path.join(work, "simclr")) + [
+            "TRAINER.PROMPTSRC.SIMCLR_ALPHA", "0.1", "TRAINER.PROMPTSRC.CACHED_TEACHER", "False",
+            "DATALOADER.TRAIN_X.BATCH_SIZE", str(SIMCLR_BATCH)])
+        with contextlib.redirect_stdout(io.StringIO()):
+            ts = build_trainer(cfg, device="cuda", clip=clip)
+            maybe_override_simclr_loader(cfg, ts)
+        batches = ts.device_batches(ts.train_loader_x)
+        b = next(batches)
+        ts.train_step(b)  # warm-up
+        torch.cuda.synchronize()
+        fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        for i in range(SIMCLR_STEPS):
+            b = next(batches)
+            if i == 0:
+                _no_sync_step(f"host_aug: PromptSRC SIMCLR_ALPHA 0.1 step at batch {SIMCLR_BATCH}",
+                              ts.train_step, b)
+            else:
+                ts.train_step(b)
+        torch.cuda.synchronize()
+        batches.close()
+        launches["promptsrc_simclr"] = dict(fa.LAUNCHES)
+        per = {fa.KERNEL: Lt + 3 * Lv, fa.KERNEL_DKV: Lt + 2 * Lv, fa.KERNEL_DQ: Lt + 2 * Lv}
+        want = {k: SIMCLR_STEPS * n for k, n in per.items()}
+        got = {k: launches["promptsrc_simclr"][k] for k in want}
+        _others_silent(launches["promptsrc_simclr"], "flash_attn", "the SIMCLR_ALPHA steps")
+        log(f"host_aug: PromptSRC SIMCLR_ALPHA 0.1, {SIMCLR_STEPS} steps at batch {SIMCLR_BATCH} "
+            f"(student text, vision on img and img2, teacher vision on img): launches {got}, "
+            f"expected {want}")
+        if got != want:
+            raise SystemExit("FAIL: host_aug: SIMCLR_ALPHA launches differ from the derived counts")
+        del ts, batches, b
+
+        # (5) the host's numbers
+        threads = t.cfg.DATALOADER.NUM_WORKERS
+        train_x = t.dm.dataset.train_x
+        recipe_wrapper = DatasetWrapper(train_x, TrainTransform(t.cfg), train=True, seed=1,
+                                        uint8=True)
+        simclr_wrapper = make_simclr_loader(t.cfg, train_x).wrapper
+        recipe_vps = _views_per_s(recipe_wrapper, threads)
+        simclr_vps = _views_per_s(simclr_wrapper, threads)
+        recipe_vps_1 = _views_per_s(recipe_wrapper, 1)
+        wrapper = t.train_loader_x.wrapper
+        with contextlib.redirect_stdout(io.StringIO()):
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(threads) as pool:  # the decoded cache, warm
+                list(pool.map(wrapper.image, range(len(wrapper))))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = t.run_epoch()
+            torch.cuda.synchronize()
+            epoch_ms = (time.perf_counter() - t0) * 1e3
+        if not metrics or not all(np.isfinite(m["loss"]) for m in metrics):
+            raise SystemExit("FAIL: host_aug: no loss or a non-finite loss in the timed epoch")
+
+        # the loader's share of a step: LOADER_STEPS steps fed from batches
+        # built beforehand against as many fed by the loader as it runs, in
+        # turns (built, live, live, built)
+        it = iter(t.train_loader_x)
+        built = [next(it) for _ in range(LOADER_STEPS)]
+        it.close()
+
+        def live():
+            it = iter(t.train_loader_x)
+            try:
+                for _ in range(LOADER_STEPS):
+                    yield next(it)
+            finally:
+                it.close()
+
+        def step_ms(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in t.device_batches(batches):
+                t.train_step(b)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / LOADER_STEPS
+
+        per_step = {"built": [], "live": []}
+        for side in ("built", "live", "live", "built"):
+            per_step[side].append(step_ms(built if side == "built" else live()))
+
+        # the profiled window: steps 3-7 of an epoch's loader, in its steady
+        # state (producer thread and pool started, batches prefetched)
+        it = t.device_batches(t.train_loader_x)
+        for _, b in zip(range(2), it):
+            t.train_step(b)
+
+        def profiled_steps():
+            for _, b in zip(range(HOST_PROFILE_STEPS), it):
+                t.train_step(b)
+
+        wall, busy = _profile(f"{HOST_PROFILE_STEPS} PromptSRC steps on the host pipeline "
+                              f"(batch {t.batch_size}, loader to step, steady state)",
+                              profiled_steps, top=6, groups=FLASH_GROUPS)
+        it.close()
+        n_img = t.steps_per_epoch * t.batch_size
+        result = {
+            "threads": threads, "fixture_views_checked": n_fixture_views,
+            "recipe_views_per_s": recipe_vps, "simclr_views_per_s": simclr_vps,
+            "recipe_views_per_s_one_thread": recipe_vps_1,
+            "views_images": len(train_x), "epoch_ms": epoch_ms, "epoch_images": n_img,
+            "device_aug_epoch_ms": recognition["epoch_ms"], "run_s": run_s,
+            "coop_simclr_step_ms": coop_step_ms, "coop_simclr_step_ms_all": coop_ms,
+            "coop_simclr_batch": coop_batch, "coop_run_s": coop_run_s,
+            "profiled_steps": HOST_PROFILE_STEPS, "profiled_wall_ms": wall,
+            "profiled_busy_ms": busy, "idle_share": max(0.0, 1 - busy / wall),
+            "step_ms_prebuilt_batches": per_step["built"], "step_ms_live_loader": per_step["live"],
+        }
+        log(f"host_aug: at {threads} threads over {len(train_x)} tree files (decoded cache warm): "
+            f"recipe list {recipe_vps:.1f} views/s ({recipe_vps_1:.1f} on one thread), SimCLR "
+            f"list {simclr_vps:.1f} views/s; host-aug "
+            f"epoch {epoch_ms:.1f} ms ({n_img} images) beside phase 12's DEVICE_AUG epoch "
+            f"{recognition['epoch_ms']:.1f} ms; CoOp SimCLR step {coop_step_ms:.2f} ms (batch "
+            f"{coop_batch}, synced, {[round(x, 2) for x in coop_ms]}); device idle share over "
+            f"{HOST_PROFILE_STEPS} profiled host-aug steps {result['idle_share']:.3f}; ms per step "
+            f"over {LOADER_STEPS} steps from batches built beforehand {per_step['built']}, from "
+            f"the loader as it runs {per_step['live']}")
+        print(json.dumps({"host_aug": result}), flush=True)
+        del t
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return launches
+
+
+def _recipe_cfg_from_argv(argv):
+    """The CLI's config for ``argv`` (setup_cfg), without running it."""
+    from fsvlm_tpu_torch.train import build_argparser, setup_cfg
+
+    return setup_cfg(build_argparser().parse_args(argv))
 
 
 def main():
@@ -2761,7 +3165,9 @@ def main():
     with force_pallas(None):  # PLIP and the RN towers on the d = 64 kernels
         launches_plip = phase_plip_resnet(pred.clip)
     with force_pallas(None):  # the CLI on a JPEG tree, on the d = 64 kernels
-        launches_recognition = phase_recognition(pred.clip)
+        launches_recognition, recognition = phase_recognition(pred.clip)
+    with force_pallas(None):  # the host train transforms and SimCLR, on the d = 64 kernels
+        launches_host = phase_host_aug(pred.clip, recognition)
 
     import torch
 
@@ -2801,7 +3207,7 @@ def main():
         raise SystemExit(f"FAIL: #2's kernels launched unequal counts: {launches_fused}")
     # #6-#8's launches on every path that runs them (``launches``: phase 6's)
     by_path = {"promptsrc": launches, "promptsrc_cli": launches_cli, **launches_clip,
-               **launches_plip, "recognition_cli": launches_recognition}
+               **launches_plip, "recognition_cli": launches_recognition, **launches_host}
     for row in kernels[:3]:
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
     # device times (profiler) beside the event times: the forwards', #7/#8's

@@ -62,6 +62,21 @@ class InputConfig:
     RRCROP_SCALE: Tuple[float, float] = (0.08, 1.0)
     PIXEL_MEAN: List[float] = field(default_factory=lambda: list(CLIP_PIXEL_MEAN))  # yaml
     PIXEL_STD: List[float] = field(default_factory=lambda: list(CLIP_PIXEL_STD))  # yaml
+    # the host train transforms' settings (data/transforms.py)
+    CROP_PADDING: int = 4
+    CUTOUT_N: int = 1
+    CUTOUT_LEN: int = 16
+    GN_MEAN: float = 0.0
+    GN_STD: float = 0.15
+    RANDAUGMENT_N: int = 2
+    RANDAUGMENT_M: int = 10
+    COLORJITTER_B: float = 0.4
+    COLORJITTER_C: float = 0.4
+    COLORJITTER_S: float = 0.4
+    COLORJITTER_H: float = 0.1
+    RGS_P: float = 0.2
+    GB_P: float = 0.5
+    GB_K: int = 21
 
 
 @dataclasses.dataclass
@@ -226,6 +241,8 @@ class TestLoaderConfig:
 @dataclasses.dataclass
 class DataLoaderConfig:
     NUM_WORKERS: int = 8  # yaml (defaults.py: 4); host decode threads
+    K_TRANSFORMS: int = 1  # train views per item (stacked on a view axis past 1)
+    RETURN_IMG0: bool = False  # the eval view beside the train view, as "img0"
     TRAIN_X: TrainXConfig = field(default_factory=TrainXConfig)
     TRAIN_U: TrainUConfig = field(default_factory=TrainUConfig)
     TEST: TestLoaderConfig = field(default_factory=TestLoaderConfig)

@@ -1,5 +1,6 @@
 """The data layer (counterpart of fsvlm_tpu.data): datasets, few-shot
-subsets, samplers, the eval transform and the batch loaders, numpy only."""
+subsets, samplers, the train and eval transforms and the batch loaders,
+numpy and the port's C++ (``native``) only."""
 
 from .base_dataset import (
     DatasetBase,
@@ -15,6 +16,6 @@ from .base_dataset import (
 from .data_manager import DATASET_REGISTRY, DataManager, build_dataset
 from .loader import BatchLoader, DatasetWrapper, RawDatasetWrapper, register_synthetic_image
 from .samplers import build_sampler
-from .transforms import TestTransform, build_transform
+from .transforms import TestTransform, TrainTransform, build_transform
 
 from . import datasets  # noqa: E402,F401  (populate DATASET_REGISTRY)

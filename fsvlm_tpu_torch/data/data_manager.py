@@ -3,14 +3,22 @@ fsvlm_tpu.data.data_manager, :16-153).
 
 Builds the dataset named by DATASET.NAME (Synthetic, the 11 recognition
 datasets and the 4 ImageNet shifts; the Dassl DA/DG/SSL sets are ROADMAP
-A13), then the loaders: train_x as
-uint8 ``pre_size`` batches for the device-side augmentation
-(DATALOADER.DEVICE_AUG; the host train transforms are not ported, ROADMAP
-A12), dropping the last short batch when the set holds at least one
-batch; val and test as padded uint8 batches of the eval view.  Every sampler is seeded from SEED (unseeded when SEED < 0).  Prints
-the dataset summary table under VERBOSE.  No ported dataset has an
-unlabeled split, so there is no train_u loader.
+A13), the train and eval transforms (or ``custom_tfm_train`` /
+``custom_tfm_test``; under SEED >= 0 the train transform's shared rng is
+``random.Random(SEED)``), then the loaders.  train_x: under
+DATALOADER.DEVICE_AUG uint8 ``pre_size`` batches for the device-side
+augmentation; else the host train transform through ``dataset_wrapper``
+(default DatasetWrapper) with SEED's per-(item, visit) rngs,
+DATALOADER.K_TRANSFORMS and RETURN_IMG0, shipping uint8 where the
+transform's float stage is the trainer's normalization
+(``TrainTransform.uint8_suffices``).  It drops the last short batch when
+the set holds at least one batch.  val and test: padded uint8 batches of
+the eval view.  Every sampler is seeded from SEED (unseeded when SEED <
+0).  Prints the dataset summary table under VERBOSE.  No ported dataset
+has an unlabeled split, so there is no train_u loader.
 """
+
+import random
 
 from ..utils.registry import Registry
 from .loader import BatchLoader, DatasetWrapper, RawDatasetWrapper
@@ -31,12 +39,15 @@ def build_dataset(cfg):
 
 
 class DataManager:
-    def __init__(self, cfg):
+    def __init__(self, cfg, custom_tfm_train=None, custom_tfm_test=None, dataset_wrapper=None):
         self.cfg = cfg
         dataset = build_dataset(cfg)
         self.dataset = dataset
-        build_transform(cfg, is_train=True)  # raises unless DEVICE_AUG
-        self.tfm_test = build_transform(cfg, is_train=False)
+        tfm_train = custom_tfm_train or build_transform(cfg, is_train=True)
+        self.tfm_test = custom_tfm_test or build_transform(cfg, is_train=False)
+        if cfg.SEED >= 0 and hasattr(tfm_train, "rng"):
+            tfm_train.rng = random.Random(cfg.SEED)
+        self.tfm_train = tfm_train
         seed = cfg.SEED if cfg.SEED >= 0 else None
         threads = max(1, cfg.DATALOADER.NUM_WORKERS)
 
@@ -51,9 +62,18 @@ class DataManager:
         x = cfg.DATALOADER.TRAIN_X
         sampler = build_sampler(x.SAMPLER, dataset.train_x, batch_size=x.BATCH_SIZE,
                                 n_domain=x.N_DOMAIN, n_ins=x.N_INS, seed=seed)
+        if cfg.DATALOADER.DEVICE_AUG:
+            wrapper = RawDatasetWrapper(dataset.train_x, pre_size=cfg.DATALOADER.PRE_SIZE)
+        else:
+            uint8 = getattr(tfm_train, "uint8_suffices", lambda _: True)(cfg)
+            wrapper = (dataset_wrapper or DatasetWrapper)(
+                dataset.train_x, tfm_train, train=True,
+                k_transforms=cfg.DATALOADER.K_TRANSFORMS,
+                return_img0=cfg.DATALOADER.RETURN_IMG0, img0_transform=self.tfm_test,
+                seed=seed, uint8=uint8)
         self.train_loader_x = BatchLoader(
-            RawDatasetWrapper(dataset.train_x, pre_size=cfg.DATALOADER.PRE_SIZE), sampler,
-            x.BATCH_SIZE, drop_last=len(dataset.train_x) >= x.BATCH_SIZE, num_threads=threads)
+            wrapper, sampler, x.BATCH_SIZE, drop_last=len(dataset.train_x) >= x.BATCH_SIZE,
+            num_threads=threads)
         self.val_loader = eval_loader(dataset.val)
         self.test_loader = eval_loader(dataset.test)
 

@@ -5,14 +5,16 @@ A trainer is fed one of two ways:
 
 - ``SimpleTrainer(cfg)``, as the JAX package's: the DataManager
   (``data/``) builds the dataset of DATASET.NAME with its few-shot
-  subsets, the train loader (DATALOADER.DEVICE_AUG's uint8 images, the
-  sampler of DATALOADER.TRAIN_X.SAMPLER) and the val and test loaders.
-  Under DATALOADER.DEVICE_RESIDENT (auto: when the set fits
+  subsets, the train loader (the host train transforms' views, or
+  DATALOADER.DEVICE_AUG's uint8 images; the sampler of
+  DATALOADER.TRAIN_X.SAMPLER) and the val and test loaders.  Under
+  DEVICE_AUG and DATALOADER.DEVICE_RESIDENT (auto: when the set fits
   DEVICE_RESIDENT_BUDGET_MB) the whole train set goes to the device once
   (``RawDatasetWrapper.materialize``) and each step gathers its batch there
   by index; each epoch's index batches come from the sampler, as the JAX
   package's host schedule (trainer.py:442-568).  Otherwise each step's
-  uint8 batch comes from the loader.  ``train()`` then runs the JAX
+  batch comes from the loader, copied to the device one batch ahead
+  (``device_batches``).  ``train()`` then runs the JAX
   package's lifecycle: resume from the output directory (or cfg.RESUME),
   best-val selection and checkpoints at each epoch's end (TEST.FINAL_MODEL,
   TRAIN.CHECKPOINT_FREQ, the last epoch always), and after the last epoch
@@ -33,11 +35,12 @@ its metrics as device tensors, with no host sync; ``run_epoch`` reads them
 back once, at the epoch's end, and prints the JAX package's train lines.
 
 - ``train_step(batch, aug, mix, drop)``: a batch that carries its images
-  ("img": float, already normalized, or uint8 under DEVICE_AUG), "label"
-  and optionally "valid" / "index" / "img2"; ``aug`` = (boxes, flips),
-  ``mix`` = (perm, lam) and ``drop`` (a trainer's dropout masks, see
-  ``use_dropout``) hand in the step's draws (tests inject the JAX
-  package's);
+  ("img", and "img2" for the SimCLR objectives: float, already normalized;
+  or uint8, augmented on the device under DEVICE_AUG, and normalized as
+  ``eval_images`` normalizes), "label" and optionally "valid" / "index";
+  ``aug`` = (boxes, flips), ``mix`` = (perm, lam) and ``drop`` (a
+  trainer's dropout masks, see ``use_dropout``) hand in the step's draws
+  (tests inject the JAX package's);
 - ``train_step_resident(index, valid)``: indices into the cache, gathered on
   the device, as the JAX package's train_step_resident;
 - ``test(split=...)`` on the loaders, or ``test(images, labels)`` on a
@@ -73,7 +76,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..data import DataManager
+from ..data import DataManager, RawDatasetWrapper
 from ..ops.preprocess import (
     crop_resize_flip_normalize,
     normalize_only,
@@ -92,6 +95,7 @@ from .evaluator import Classification
 from .optim import build_optimizer, make_lr_schedule
 
 TRAINER_REGISTRY = Registry("TRAINER")
+STEP_KEYS = ("img", "img2", "label", "valid", "index")  # what a train step reads of a batch
 
 # the JAX package's Dassl zoo trainers (fsvlm_tpu/trainers/zoo/): domain
 # adaptation, semi-supervised learning and domain generalization; not ported
@@ -236,6 +240,11 @@ class SimpleTrainer:
         if mode in ("false", "off", "0", "no"):
             return None
         wrapper = self.train_loader_x.wrapper
+        if not isinstance(wrapper, RawDatasetWrapper):  # host-augmented batches
+            if mode in ("true", "on", "1", "yes"):
+                raise ValueError("DATALOADER.DEVICE_RESIDENT=on requires the device-aug "
+                                 "raw-uint8 train pipeline (DATALOADER.DEVICE_AUG=True)")
+            return None
         n = len(wrapper)
         nbytes = n * wrapper.pre_size * wrapper.pre_size * 3
         budget = int(self.cfg.DATALOADER.DEVICE_RESIDENT_BUDGET_MB) << 20
@@ -299,14 +308,15 @@ class SimpleTrainer:
         parameters, the loss alone, without a gradient).  Returns the
         metrics (loss and the loss function's aux) as device tensors."""
         batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()
-                 if k in ("img", "img2", "label", "valid", "index")}
+                 if k in STEP_KEYS}
         batch["label"] = batch["label"].long()
         if "index" in batch:
             batch["index"] = batch["index"].long()
         if self.cfg.DATALOADER.DEVICE_AUG:
             batch["img"] = self.augment(batch["img"], aug)
-        elif batch["img"].dtype == torch.uint8:
-            batch["img"] = normalize_only(batch["img"], *self.pixel_stats)
+        for k in ("img", "img2"):  # host views: uint8 normalized here, float as they are
+            if k in batch and batch[k].dtype == torch.uint8:
+                batch[k] = self.eval_images(batch[k])
         if self.use_mixup:
             perm, lam = self.mixup_draws(len(batch["label"])) if mix is None else mix
             batch["perm"] = torch.as_tensor(perm, device=self.device).long()
@@ -356,6 +366,26 @@ class SimpleTrainer:
         valid = (torch.arange(total, device=self.device) < n).reshape(steps, B)
         return index, valid
 
+    def device_batches(self, batches):
+        """The loader's batches on the device, each copied while the step
+        before it is queued (the JAX package's device_batches,
+        trainer.py:469-484): from pinned host memory, without blocking the
+        host."""
+        ahead = None
+        for batch in batches:
+            cur = {}
+            for k in STEP_KEYS:
+                if k in batch:
+                    t = torch.from_numpy(np.ascontiguousarray(batch[k]))
+                    if self.device.type == "cuda":
+                        t = t.pin_memory()
+                    cur[k] = t.to(self.device, non_blocking=True)
+            if ahead is not None:
+                yield ahead
+            ahead = cur
+        if ahead is not None:
+            yield ahead
+
     def before_train(self):
         """With the DataManager: resume from cfg.RESUME, else from the output
         directory, then make it."""
@@ -369,7 +399,7 @@ class SimpleTrainer:
 
     def run_epoch(self):
         """The epoch's steps, resident where the train set is on the device,
-        else on the loader's uint8 batches; the metrics are read back once,
+        else on the loader's batches; the metrics are read back once,
         at the end, and printed as the JAX package's train lines.  Returns
         them as a list of {name: float}."""
         t0 = time.time()
@@ -377,7 +407,7 @@ class SimpleTrainer:
             index, valid = self.epoch_schedule()
             steps = zip(index, valid)
         else:
-            steps = iter(self.train_loader_x)
+            steps = self.device_batches(self.train_loader_x)
         data_time = time.time() - t0
         if self.use_mixup:
             self.draw_epoch_lams()

@@ -3,8 +3,10 @@ the PIL calls of the JAX package's data layer), through ctypes.
 
 The card's machine has neither libjpeg's header nor its library, so the
 decoder is the port's own C++ (``csrc/jpeg_decoder.cpp``: baseline and
-progressive Huffman JPEG, no library); ``csrc/resample.cpp`` is the inner
-loop of ``data/imageops.py``'s Pillow-exact resampling.  Both are compiled
+progressive Huffman JPEG, no library); ``csrc/imaging.cpp`` holds the
+per-pixel passes of ``data/imageops.py``'s Pillow-exact image operations
+(resampling with a box, the affine transform, the Gaussian blur, HSV, the
+3x3 filter, blend, L and lookup tables).  Both are compiled
 with ``g++`` at first use into one library in ``fsvlm_tpu_torch/_build/``
 (listed in ``.gitignore``), named by a hash of sources and flags, and
 loaded once.  A failed build raises with the compiler's output; nothing
@@ -18,7 +20,8 @@ falls back to another decoder.
   downscale, float bilinear resize of the shorter edge, centre crop), or
   None for a CMYK or YCCK JPEG, for which libjpeg has no RGB output either.
 
-Both release the GIL for the decode, so a thread pool decodes in parallel.
+Both release the GIL for the decode, so a thread pool decodes in parallel;
+so does every imaging pass (ctypes drops the GIL for each foreign call).
 A missing file raises ``IOError``; a file that is not a JPEG (by its magic
 bytes, whatever its extension) and a JPEG variant the decoder does not read
 raise ``NotImplementedError`` naming ROADMAP A16; corrupt or truncated data
@@ -37,7 +40,7 @@ import numpy as np
 
 ROUTE = "B"  # the repo's own decoder; route A would link the machine's libjpeg
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = [os.path.join(CSRC, f) for f in ("jpeg_decoder.cpp", "resample.cpp")]
+SOURCES = [os.path.join(CSRC, f) for f in ("jpeg_decoder.cpp", "imaging.cpp")]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off", "-Wall"]
 
@@ -45,7 +48,22 @@ _lib = None
 _build_info = None
 _lock = threading.Lock()
 _U8P = ctypes.POINTER(ctypes.c_uint8)
-_I64P = ctypes.POINTER(ctypes.c_int64)
+_F32P = ctypes.POINTER(ctypes.c_float)
+_F64P = ctypes.POINTER(ctypes.c_double)
+_I64 = ctypes.c_int64
+# the imaging passes' C signatures (csrc/imaging.cpp)
+_IMAGING = {
+    "fsvlm_resample": [_U8P, _I64, _I64, _I64, ctypes.c_int, *[ctypes.c_float] * 4, _I64, _I64,
+                       _U8P],
+    "fsvlm_affine_nearest": [_U8P, _I64, _I64, _I64, _F64P, _I64, _I64, _U8P],
+    "fsvlm_gaussian_blur": [_U8P, _I64, _I64, _I64, ctypes.c_float, _U8P],
+    "fsvlm_rgb_to_hsv": [_U8P, _I64, _U8P],
+    "fsvlm_hsv_to_rgb": [_U8P, _I64, _U8P],
+    "fsvlm_filter3x3": [_U8P, _I64, _I64, _I64, _F32P, ctypes.c_float, _U8P],
+    "fsvlm_blend": [_U8P, _U8P, _I64, ctypes.c_float, _U8P],
+    "fsvlm_grayscale": [_U8P, _I64, ctypes.c_int, _U8P],
+    "fsvlm_lut": [_U8P, _I64, _I64, _U8P, _U8P],
+}
 
 # the decoder's return codes (jpeg_decoder.cpp Status; its 4, no SOI, is
 # caught here first by the magic bytes)
@@ -103,11 +121,10 @@ def load():
             lib.fsvlm_jpeg_decode_full.argtypes = [_U8P, ctypes.c_long, ctypes.c_int,
                                                    ctypes.c_int, _U8P]
             lib.fsvlm_jpeg_file_resize_crop.argtypes = [ctypes.c_char_p, ctypes.c_int, _U8P]
-            lib.fsvlm_resample_pass.argtypes = [
-                _U8P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, _I64P, _I64P,
-                ctypes.c_int64, ctypes.c_int64, _U8P]
+            for name, args in _IMAGING.items():
+                getattr(lib, name).argtypes = args
             for fn in (lib.fsvlm_jpeg_size, lib.fsvlm_jpeg_decode_full,
-                       lib.fsvlm_jpeg_file_resize_crop, lib.fsvlm_resample_pass):
+                       lib.fsvlm_jpeg_file_resize_crop, *(getattr(lib, n) for n in _IMAGING)):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -183,29 +200,19 @@ def decode_file(path, pre_size):
     return out
 
 
-def resample_pass(img, out_size, xmin, taps, axis):
-    """One separable pass of Pillow's 8-bit resampling over a uint8 (H, W, C)
-    array along ``axis`` (1: horizontal, 0: vertical) to ``out_size``:
-    ``xmin`` (out,) int64 first source indices, ``taps`` (out, ksize) int64
-    fixed-point weights (``imageops._coefficients``)."""
-    img = np.ascontiguousarray(img, np.uint8)
-    xmin = np.ascontiguousarray(xmin, np.int64)
-    taps = np.ascontiguousarray(taps, np.int64)
-    if img.ndim != 3 or axis not in (0, 1):
-        raise ValueError(f"resample_pass takes (H, W, C) uint8 and axis 0 or 1, got "
-                         f"{img.shape}, axis {axis}")
-    in_size = img.shape[axis]
-    if (xmin.shape != (out_size,) or taps.ndim != 2 or taps.shape[0] != out_size
-            or (out_size and (xmin.min() < 0 or xmin.max() >= in_size))):
-        raise ValueError(f"resample_pass: taps {taps.shape} and first indices {xmin.shape} "
-                         f"do not fit {out_size} outputs from {in_size} inputs")
-    h, w, c = img.shape
-    shape = (h, out_size, c) if axis == 1 else (out_size, w, c)
-    out = np.empty(shape, np.uint8)
-    rc = load().fsvlm_resample_pass(
-        img.ctypes.data_as(_U8P), in_size, img.shape[1 - axis], c, axis,
-        xmin.ctypes.data_as(_I64P), taps.ctypes.data_as(_I64P), taps.shape[1], out_size,
-        out.ctypes.data_as(_U8P))
+def imaging(name, *args):
+    """Call the imaging pass ``fsvlm_<name>`` of csrc/imaging.cpp: numpy
+    arrays go as pointers to their data (contiguous, of the pass's types:
+    the caller makes them so), other arguments as they are.  The GIL is
+    released for the call.  Raises if the pass refuses its arguments."""
+    fn = getattr(load(), f"fsvlm_{name}")
+    conv = []
+    for a, t in zip(args, fn.argtypes):
+        if isinstance(a, np.ndarray):
+            if not a.flags.c_contiguous:
+                raise ValueError(f"{name}: arrays must be contiguous")
+            a = a.ctypes.data_as(t)
+        conv.append(a)
+    rc = fn(*conv)
     if rc != 0:
-        raise ValueError(f"resample_pass: the library refused axis {axis}")
-    return out
+        raise ValueError(f"imaging pass {name} refused its arguments (code {rc})")

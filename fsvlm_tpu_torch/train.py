@@ -4,7 +4,7 @@ flags and flow, on the card unless ``--device cpu``.
     python -m fsvlm_tpu_torch.train --trainer PromptSRC --seed 1 \\
         --dataset-config-file configs/datasets/synthetic.yaml \\
         --config-file configs/trainers/PromptSRC/vit_b16_c2_ep20_batch4_4+4ctx.yaml \\
-        --output-dir output/run1 DATALOADER.DEVICE_AUG True [opts...]
+        --output-dir output/run1 [DATALOADER.DEVICE_AUG True] [opts...]
     python -m fsvlm_tpu_torch.train ... --eval-only --model-dir output/run1 --load-epoch 20
     python -m fsvlm_tpu_torch.train --trainer PromptSRC --seed 1 --root <data root> \\
         --dataset-config-file configs/datasets/caltech101.yaml ...   # a docs/DATASETS.md tree
@@ -18,9 +18,11 @@ parse_test_res.py reads), the checkpoints under
 report (per-class precision, recall, F1 and support, as scikit-learn's
 ``classification_report`` prints it) and, for a dataset of
 ``DATASET_NAME_TO_BASECOUNT`` evaluated on all its classes, the base/new
-accuracy split.  Training needs DATALOADER.DEVICE_AUG True (the host train
-transforms are ROADMAP A12); SimCLR objectives (SIMCLR_ALPHA > 0) need the
-two-view loader, ROADMAP A14.
+accuracy split.  Training augments on the host (INPUT.TRANSFORMS through
+``data.transforms.TrainTransform``, defaults.py's DATALOADER.DEVICE_AUG
+False) or, under DATALOADER.DEVICE_AUG True, on the device.  The SimCLR
+objectives (SIMCLR_ALPHA > 0, LOSS_TYPE simclr) train on the two-view
+loader (``maybe_override_simclr_loader``) and raise under DEVICE_AUG.
 """
 
 import argparse
@@ -152,14 +154,25 @@ def report(y_true, y_pred, base_label_count):
             print(f"{name} class accuracy: {acc:.2f}% ({correct}/{total})")
 
 
-def check_simclr(cfg):
-    """The SimCLR objectives need the two-view loader (the JAX package's
-    train.py:116-148), which is not ported."""
+def maybe_override_simclr_loader(cfg, trainer):
+    """The SimCLR objectives (SIMCLR_ALPHA > 0, LOSS_TYPE simclr) train on
+    the two-view loader (the JAX package's train.py:131-157): it replaces
+    the built train loader, so that the schedule keeps the built loader's
+    steps per epoch.  Under DATALOADER.DEVICE_AUG they raise, as there."""
     t = cfg.TRAINER
-    if (t.PROMPTSRC.SIMCLR_ALPHA > 0 or t.IVLP.SIMCLR_ALPHA > 0
+    if not (t.PROMPTSRC.SIMCLR_ALPHA > 0 or t.IVLP.SIMCLR_ALPHA > 0
             or "simclr" in (t.COOP.LOSS_TYPE, t.PROMPTSRC.LOSS_TYPE)):
-        raise NotImplementedError("SimCLR objectives (SIMCLR_ALPHA > 0, LOSS_TYPE simclr) need "
-                                  "the two-view loader, which is not ported yet (ROADMAP A14)")
+        return
+    if cfg.DATALOADER.DEVICE_AUG:
+        raise ValueError(
+            "SimCLR objectives require the host transform pipeline: unset "
+            "DATALOADER.DEVICE_AUG (the two-view loader feeds normalized "
+            "float views that the device-fused augment would re-normalize)"
+        )
+    from .trainers.simclr_utils import make_simclr_loader
+
+    print(">> SimCLR objective active => overriding train_loader_x with a two-view loader!")
+    trainer.train_loader_x = make_simclr_loader(cfg, trainer.dm.dataset.train_x)
 
 
 def main(args, clip=None):
@@ -180,8 +193,8 @@ def main(args, clip=None):
         base_label_count = DATASET_NAME_TO_BASECOUNT.get(cfg.DATASET.NAME, 0)
         if cfg.DATASET.SUBSAMPLE_CLASSES != "all":
             base_label_count = 0  # the split is meaningful on the full label set only
-        check_simclr(cfg)
         trainer = build_trainer(cfg, device=args.device, clip=clip)
+        maybe_override_simclr_loader(cfg, trainer)
 
         if args.eval_only:
             trainer.load_model(args.model_dir, epoch=args.load_epoch)

@@ -104,9 +104,9 @@ def test_extra_opts_env_applies_last(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("opts,error,match", [
-    (["TRAINER.PROMPTSRC.SIMCLR_ALPHA", "0.5"], NotImplementedError, "ROADMAP A14"),
-    (["TRAINER.COOP.LOSS_TYPE", "simclr"], NotImplementedError, "ROADMAP A14"),
-    (["DATALOADER.DEVICE_AUG", "False"], NotImplementedError, "ROADMAP A12"),
+    (["TRAINER.NAME", "DANN"], KeyError, "ROADMAP A9"),
+    (["TRAINER.NAME", "FixMatch"], KeyError, "ROADMAP A9"),
+    (["DATASET.NAME", "Digit5"], KeyError, "ROADMAP A13"),
     (["DATASET.NAME", "Office31"], KeyError, "ROADMAP A13"),
 ])
 def test_unported_paths_raise_naming_their_roadmap_item(tmp_path, monkeypatch, opts, error, match):

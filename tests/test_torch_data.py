@@ -103,10 +103,18 @@ def test_eval_view_matches_jax_before_normalize(shape, size, interp):
 
 
 def test_build_transform_needs_device_aug_for_training():
-    _, pcfg = _cfgs(DATALOADER__DEVICE_AUG=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        transforms.build_transform(pcfg, is_train=True)
+    """Training takes the host TrainTransform unless DEVICE_AUG (then None:
+    the step augments on the device); NO_TRANSFORM and eval take the eval
+    view, as the JAX package's build_transform."""
+    jcfg, pcfg = _cfgs(DATALOADER__DEVICE_AUG=False)
+    assert isinstance(transforms.build_transform(pcfg, is_train=True), transforms.TrainTransform)
     assert isinstance(transforms.build_transform(pcfg, is_train=False), transforms.TestTransform)
+    _, pcfg = _cfgs(DATALOADER__DEVICE_AUG=True)
+    assert transforms.build_transform(pcfg, is_train=True) is None
+    jcfg, pcfg = _cfgs(DATALOADER__DEVICE_AUG=False, INPUT__NO_TRANSFORM=True)
+    assert isinstance(transforms.build_transform(pcfg, is_train=True), transforms.TestTransform)
+    assert isinstance(jax_transforms.build_transform(jcfg, is_train=True),
+                      jax_transforms.TestTransform)
 
 
 # ---------------------------------------------------------------- datasets
