@@ -187,15 +187,55 @@ Phases; each passes or raises, and any failure exits non-zero:
    device's idle share over 5 profiled host-aug steps in the loader's
    steady state, printed as one ``{"host_aug": ...}`` line.
 
-Phases 4, 6, 7, 8, 9, 10, 11, 12 and 13 zero the launch counts just before each main path
+14. int8_tools: W8A8 int8 (fsvlm_tpu_torch/ops/quant.py; the product is
+   ``torch._int_mm``, cuBLASLt, no TPU kernel) and the tools.  The product
+   at the ViT-B/16 tower's four GEMM shapes (M = 100 x 197; (K, N) =
+   (768, 2304), (768, 768), (768, 3072), (3072, 768)), bf16, dynamic and
+   static: q8, scale, the int8 activations and the int32 accumulators
+   byte-equal to the same function on the CPU, the output within one bf16
+   ulp of the CPU's; timed by CUDA events beside the bf16 ``x @ w``, the bare
+   ``torch._int_mm`` on the stored column-major q8 and on a row-major copy,
+   and the activation quantization alone, with its bound (bytes, or int8
+   operations at 1,979 TOP/s).  Then, with FSVLM_FORCE_PALLAS unset,
+   ZeroshotCLIP ViT-B/16 test() on phase 8's 200 images under MODEL.QUANT_INT8
+   (attn + mlp dynamic, mlp only, and QUANT_INT8_STATIC calibrated over the
+   cache in 4 batches) against the bf16 tower on the same weights: image
+   features' cosine >= 0.99 (dynamic) / 0.985 (static), top-1 agreement
+   (random weights: reported), #6 24 per 200 images (and 12 per calibration
+   batch), the int8 products (``ops.quant.LAUNCHES``) 48 per batch of 100
+   (24 for mlp only), and in one profiled batch the int8 GEMM kernels by
+   name (those a lone torch._int_mm launches, and those holding "gemm_s8";
+   their count is reported: late in a long run the profiler can drop a
+   kernel record), ms per batch of 100 in turns and the GEMM weight bytes.  PromptSRC INT8_TEACHER at phase 6's settings, dynamic
+   and static (scales from 4 augmented batches: the trainer refuses static
+   scales under DEVICE_AUG, which is checked), in turns with the bf16
+   teacher on the same cache and draws: the teacher's features on one batch
+   (cosine as above), finite losses and their gap to the bf16 teacher's,
+   #6-#8 as phase 6 derived, 48 int8 products per step (the int8 GEMM
+   kernels shown by name in one profiled step), no host sync, step ms,
+   busy, idle and peak memory.  IVLP KD INT8_TEACHER under
+   FSVLM_FORCE_PALLAS=1 at KD_ALPHA 0.5: 3 steps with #3-#5 as phase 7
+   derived, the teacher's features (cosine >= 0.99) and its logits' gap to
+   the bf16 teacher's beside phase 7's rule (reported: that rule holds a
+   kernel to its plain version, not int8 to bf16).  Then on phase 12's tree
+   and model: ``python -m fsvlm_tpu_torch.tools.predict`` over 100 test
+   files (one row each, top-1 equal to phase 12's ``--eval-only``
+   predictions on the same files), again under MODEL.QUANT_INT8, and the
+   images/s of predict() in this process for both; export_torch_checkpoint,
+   ``python -m fsvlm_tpu_torch.tools.import_torch_prompts``, ``--eval-only``
+   (predictions exact); ``python -m fsvlm_tpu_torch.tools.interpret_prompt``
+   (top-4 words for every context vector).  One ``{"int8": ...}`` line, and
+   the whole script's wall time.
+
+Phases 4, 6, 7, 8, 9, 10, 11, 12, 13 and 14 zero the launch counts just before each main path
 and read them just after: each kernel of the path must have launched its
 expected count (derived from the code: a rematerialized layer runs its
 forward kernel again), and the other families none.
 
 The line before the last is ``{"kernels": [...]}`` (one row per TPU kernel;
-#2's row lists its three CUDA kernels as ``parts``; #6-#8's rows their
-launches on each path that runs them, ``launches_by_path``); the last line is
-``{"ok": true, "device": {...}}``, and the script exits 0.
+#2's row lists its three CUDA kernels as ``parts``; #6-#8's and #3-#5's
+rows their launches on each path that runs them, ``launches_by_path``); the
+last line is ``{"ok": true, "device": {...}}``, and the script exits 0.
 """
 
 import contextlib
@@ -943,11 +983,12 @@ FUSED_GROUPS = {"#1": ("fwd_tiled_kernel", "fwd_packed_kernel", "fused_attn_fwd_
                        "kernel<float, 128, true>")}
 
 
-def _profile(label, fn, top=12, groups=None):
+def _profile(label, fn, top=12, groups=None, counts=None):
     """Run ``fn`` once under torch.profiler; print its wall time, the device's
     busy time (kernels' self device time) and idle share, the top kernels by
     device time and, per group of ``groups`` ({label: name fragments}), the
-    device time and launches of the kernels whose names hold a fragment."""
+    device time and launches of the kernels whose names hold a fragment
+    (and, into the dict ``counts`` where given, {label: launches})."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -976,6 +1017,8 @@ def _profile(label, fn, top=12, groups=None):
         us = sum(dev_us(e) for e in hit)
         log(f"profile:   {name}: {us / 1e3:.3f} ms, {100 * us / busy:.1f}% of busy, "
             f"{sum(e.count for e in hit)} launches")
+        if counts is not None:
+            counts[name] = sum(e.count for e in hit)
     return wall_us / 1e3, busy / 1e3
 
 
@@ -2639,12 +2682,15 @@ def _decode_rates(paths, threads):
     return out
 
 
-def phase_recognition(clip):
+def phase_recognition(clip, keep=None):
     """Phase 12 (module docstring): the decoder's fixtures, then PromptSRC
     ViT-B/16 through the CLI on a 100-class Caltech101-layout JPEG tree;
     FSVLM_FORCE_PALLAS unset (the caller sets it).  Returns the run's
     launches and its ``{"recognition": ...}`` numbers (the epoch's
-    "epoch_ms", its "launches")."""
+    "epoch_ms", its "launches").  ``keep``: a dict that receives the tree
+    ("work"), the run's output directory ("out"), its command ("argv"), the
+    test split ("test_items", "lab2cname") and ``--eval-only``'s
+    predictions ("y_true", "y_pred"); the caller then removes the tree."""
     import resource
 
     import torch
@@ -2762,10 +2808,15 @@ def phase_recognition(clip):
             f"decode, eval view, model) {eval_s:.1f} s; eval cache {cache.cached_bytes / 2**20:.1f}"
             f" MiB; process peak RSS {peak_rss / 2**30:.2f} GiB")
         print(json.dumps({"recognition": result}), flush=True)
+        if keep is not None:
+            keep.update(work=work, out=out, argv=argv, test_items=list(ds.test),
+                        lab2cname=dict(t2.lab2cname), y_true=list(t2.evaluator.y_true),
+                        y_pred=list(t2.evaluator.y_pred))
         del t, t2
         torch.cuda.empty_cache()
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        if keep is None or "work" not in keep:  # kept only after the phase passed
+            shutil.rmtree(work, ignore_errors=True)
     return launches, dict(result, launches=launches)
 
 
@@ -3136,6 +3187,543 @@ def phase_host_aug(clip, recognition):
     return launches
 
 
+# ------------------------------------------------------------------ phase 14
+INT8_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768))  # (K, N): qkv, out, fc, proj
+INT8_M = 100 * 197  # a serving batch of 100 images at L = 197
+INT8_OPS_PER_S = 1979e12  # int8 dense tensor-core peak (H100 SXM data sheet, 700 W)
+# the image features' cosine to the bf16 tower's: tests/test_quant.py:77 (dynamic), :279 (static)
+MIN_INT8_COSINE = {"dynamic": 0.99, "static": 0.985}
+INT8_CAL_BATCHES = 4  # MODEL.QUANT_INT8_CALIB_BATCHES' default
+INT8_TIMED = 5  # timed repeats per side, in turns
+IVLP_INT8_STEPS = 3
+PREDICT_FILES = 100
+
+
+def _bf16_ulps(a, b):
+    """Largest |a - b| in units of one bf16 ulp at max(|a|, |b|)."""
+    import torch
+
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return float(((a - b).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
+
+
+# a name fragment of the int8 GEMM kernels cuBLASLt takes (CUTLASS's
+# "..._i16832gemm_s8_...", its own "..._gemm_s8s8..."), beside the names a
+# lone torch._int_mm shows the profiler
+INT8_GEMM_FRAGMENT = "gemm_s8"
+
+
+def _kernel_names(fn):
+    """The names of the CUDA kernels one call of ``fn`` launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    # three calls: late in a long run the profiler can drop a profile's only
+    # kernel record (its CPU events show the launch)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    names = {e.key for e in events if e.device_type == DeviceType.CUDA}
+    if not names:
+        log(f"profile: a lone call showed no device kernel ({len(events)} events on "
+            f"{sorted({str(e.device_type) for e in events})}: {[e.key for e in events][:8]})")
+    return names
+
+
+def _int8_product():
+    """``int8_linear`` at the ViT-B/16 tower's four GEMM shapes, M = 100 x
+    197, bf16, dynamic and static: q8 and scale, the int8 activations and the
+    int32 accumulators byte-equal to the same function on the CPU, the output
+    within one bf16 ulp of the CPU's; timed (CUDA events, in turns) beside
+    the bf16 product ``x @ w`` of the float tower, the bare ``torch._int_mm``
+    on the stored (column-major) q8 and on a row-major copy, and the dynamic
+    activation quantization alone.  Returns (rows, int8 GEMM kernel names)."""
+    import torch
+
+    from fsvlm_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows, names = [], set()
+    for K, N in INT8_SHAPES:
+        x = torch.randn((INT8_M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randn((K, N), generator=gen, device="cuda") * 0.02
+        rec, rec_c = quant.quantize_weight(w), quant.quantize_weight(w.cpu())
+        exact = {"q8": torch.equal(rec.q8.cpu(), rec_c.q8),
+                 "scale": torch.equal(rec.scale.cpu(), rec_c.scale)}
+        ulps = {}
+        xs = quant._over_127(x.float().abs().amax())
+        for mode, s in (("dynamic", None), ("static", xs)):
+            xq, _ = quant.quantize_activation(x, s)
+            xq_c, _ = quant.quantize_activation(x.cpu(), None if s is None else s.cpu())
+            exact[f"{mode} xq"] = torch.equal(xq.cpu(), xq_c)
+            exact[f"{mode} int32"] = torch.equal(torch._int_mm(xq, rec.q8).cpu(),
+                                                 torch._int_mm(xq_c, rec_c.q8))
+            rec.xs, rec_c.xs = s, None if s is None else s.cpu()
+            ulps[mode] = _bf16_ulps(quant.int8_linear(x, rec).cpu(),
+                                    quant.int8_linear(x.cpu(), rec_c))
+        rec.xs = None
+        static = quant.Int8Weight(rec.q8, rec.scale, xs)
+        xq, _ = quant.quantize_activation(x)
+        q8_rowmajor = rec.q8.contiguous()
+        w_bf16 = w.to(torch.bfloat16)
+        names |= _kernel_names(lambda: torch._int_mm(xq, rec.q8))
+        fns = {"int8_linear": lambda: quant.int8_linear(x, rec),
+               "int8_linear_static": lambda: quant.int8_linear(x, static),
+               "bf16": lambda: x @ w_bf16,
+               "int_mm": lambda: torch._int_mm(xq, rec.q8),
+               "int_mm_rowmajor": lambda: torch._int_mm(xq, q8_rowmajor),
+               "act_quant": lambda: quant.quantize_activation(x)}
+        ms = {k: [] for k in fns}
+        for _ in range(2):
+            for k, fn in fns.items():
+                ms[k].append(_time_ms(fn))
+        ms = {k: float(np.median(v)) for k, v in ms.items()}
+        ops = 2.0 * INT8_M * K * N
+        int8_bytes = INT8_M * K * 2 + K * N + N * 4 + INT8_M * N * 2
+        bf16_bytes = INT8_M * K * 2 + K * N * 2 + INT8_M * N * 2
+        row = {"shape": [INT8_M, K, N], "exact": exact, "max_ulps": ulps, "ms": ms,
+               "bound_ms": max(int8_bytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3,
+               "bound_by": ("bytes" if int8_bytes / HBM_BYTES_PER_S > ops / INT8_OPS_PER_S
+                            else "operations"),
+               "bf16_bound_ms": max(bf16_bytes / HBM_BYTES_PER_S,
+                                    ops / PEAK_FLOPS["bfloat16"]) * 1e3}
+        rows.append(row)
+        log(f"int8: product M={INT8_M} K={K} N={N}: byte-equal to the CPU {exact}; max bf16 "
+            f"ulps to the CPU {ulps}; ms int8_linear {ms['int8_linear']:.4f} (static "
+            f"{ms['int8_linear_static']:.4f}; _int_mm alone {ms['int_mm']:.4f}, with a row-major "
+            f"q8 {ms['int_mm_rowmajor']:.4f}; act quant {ms['act_quant']:.4f}), bf16 x @ w "
+            f"{ms['bf16']:.4f}; bound {row['bound_ms']:.4f} ({row['bound_by']}), bf16's "
+            f"{row['bf16_bound_ms']:.4f}")
+        if not all(exact.values()) or max(ulps.values()) > 1.0:
+            raise SystemExit(f"FAIL: int8: the product at K={K} N={N} differs from the CPU's")
+        del x, w, rec, rec_c, static, xq, q8_rowmajor, w_bf16
+    log(f"int8: the GEMM kernels of torch._int_mm: {sorted(names)}; counted with those whose "
+        f"names hold {INT8_GEMM_FRAGMENT!r}")
+    return rows, names | {INT8_GEMM_FRAGMENT}
+
+
+def _gemm_bytes(blocks):
+    """Bytes of the four GEMM weights of every block (an int8 record's q8,
+    scale and xs)."""
+    from fsvlm_tpu_torch.ops import quant
+
+    total = 0
+    for b in blocks:
+        for group, name in quant._TOWER_GEMMS:
+            w = getattr(getattr(b, group), name)
+            parts = [w.q8, w.scale, w.xs] if quant.is_quantized(w) else [w]
+            total += sum(t.numel() * t.element_size() for t in parts if t is not None)
+    return total
+
+
+def _int8_serving(clip, int8_names):
+    """ZeroshotCLIP ViT-B/16 test() on phase 8's N_TEST cache images with
+    the image tower in bf16, and in int8: attn + mlp dynamic, mlp only, and
+    static scales calibrated over the 288-image cache in 4 batches of 72
+    (its eval views, the loader's place): image features' cosine to the bf16
+    tower's, top-1 agreement, #6 exactly 12 per batch of 100 in test() (and
+    12 per calibration batch), the int8 products 12 x 4 per batch (12 x 2
+    for mlp only), the int8 GEMM kernels by name in one profiled batch, ms
+    per batch of 100 in turns, the towers' GEMM weight bytes."""
+    import torch
+
+    from fsvlm_tpu_torch.models.clip import encode_image
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.ops import quant
+    from fsvlm_tpu_torch.trainers.zsclip import ZeroshotCLIP
+
+    cache, _ = _train_cache()
+    labels = np.random.RandomState(1234).randint(0, N_CLASSES, N_TEST)
+    t = ZeroshotCLIP(_yaml_cfg(LP_RECIPE), [f"class {i}" for i in range(N_CLASSES)], clip=clip,
+                     device="cuda", steps_per_epoch=1)
+    t.test_loader = [{"img": cache[i::INT8_CAL_BATCHES].cpu().numpy()}
+                     for i in range(INT8_CAL_BATCHES)]
+    m = t.cfg.MODEL
+    Lv = clip.cfg.vision_layers
+    x = t.eval_images(cache[:N_TEST])
+    variants = {"bf16": {}, "int8 attn+mlp": {"QUANT_INT8": True},
+                "int8 mlp": {"QUANT_INT8": True, "QUANT_INT8_FAMILIES": ["mlp"]},
+                "int8 static": {"QUANT_INT8": True, "QUANT_INT8_STATIC": True}}
+    out, frozen = {}, {}
+    for name, opts in variants.items():
+        m.QUANT_INT8, m.QUANT_INT8_FAMILIES, m.QUANT_INT8_STATIC = False, ["attn", "mlp"], False
+        for k, v in opts.items():
+            setattr(m, k, v)
+        t._frozen_eval = None
+        fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        console = io.StringIO()
+        with contextlib.redirect_stdout(console):
+            fe = frozen[name] = t.frozen_eval()
+        cal = {k: n for k, n in fa.LAUNCHES.items() if n}
+        seen = []
+        inner = t.logits_fn
+        t.logits_fn = lambda *a, f=inner: seen.append(f(*a)) or seen[-1]
+        fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        quant.LAUNCHES["int8_gemm"] = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            acc = t.test(cache[:N_TEST], labels)
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in fa.LAUNCHES.items() if n}
+        int8_gemms = quant.LAUNCHES["int8_gemm"]
+        t.logits_fn = inner
+        with torch.no_grad():
+            feats = torch.cat([encode_image(fe["clip"], x[i:i + 100], compute_dtype=torch.bfloat16)
+                               for i in range(0, N_TEST, 100)]).float()
+        counts = {}
+        _profile(f"ZeroshotCLIP {name} serving batch of 100",
+                 lambda: t.logits_fn(t.params, fe, x[:100]), top=8,
+                 groups={"int8 GEMM": tuple(int8_names), "#6": FLASH_FWD}, counts=counts)
+        out[name] = {"acc": acc, "logits": torch.cat(seen).float(), "feats": feats,
+                     "launches": launches, "calibration_launches": cal, "profile": counts,
+                     "int8_gemms": int8_gemms,
+                     "gemm_bytes": _gemm_bytes(fe["clip"].visual.blocks),
+                     "log": console.getvalue().strip()}
+    ref = out["bf16"]
+    # int8 products per batch of 100 (12 layers x 4 GEMMs, or x 2 for mlp only)
+    want_gemms = {"bf16": 0, "int8 attn+mlp": 4 * Lv, "int8 mlp": 2 * Lv, "int8 static": 4 * Lv}
+    for name, r in out.items():
+        cos = torch.nn.functional.cosine_similarity(r["feats"], ref["feats"], dim=-1).min().item()
+        top1 = (r["logits"].argmax(-1) == ref["logits"].argmax(-1)).float().mean().item()
+        r.update(min_cosine=cos, top1_agreement=top1)
+        limit = MIN_INT8_COSINE["static" if "static" in name else "dynamic"]
+        want_cal = {fa.KERNEL: INT8_CAL_BATCHES * Lv} if "static" in name else {}
+        log(f"int8: ZeroshotCLIP test() {name}: {r['log'] or '(float tower)'}; accuracy "
+            f"{r['acc']:.1f}%; image features' min cosine to bf16 {cos:.6f} (limit {limit}); top-1 "
+            f"agreement with bf16 {top1:.4f} (random weights); launches in test() "
+            f"{r['launches']}, int8 products {r['int8_gemms']}, calibration "
+            f"{r['calibration_launches']}; one profiled batch's kernels: {r['profile']}; GEMM "
+            f"weight bytes {r['gemm_bytes']}")
+        if (r["launches"] != {fa.KERNEL: 2 * Lv} or r["calibration_launches"] != want_cal
+                or r["int8_gemms"] != -(-N_TEST // 100) * want_gemms[name]
+                or (r["profile"].get("int8 GEMM", 0) > 0) != (want_gemms[name] > 0)
+                or not torch.isfinite(r["logits"]).all() or (name != "bf16" and cos < limit)):
+            raise SystemExit(f"FAIL: int8: ZeroshotCLIP {name} serving disagrees with the bf16 "
+                             f"tower, or its launches are not as derived")
+    ms = {name: [] for name in out}
+    with torch.no_grad():
+        for _ in range(INT8_TIMED):
+            for name in out:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                t.logits_fn(t.params, frozen[name], x[:100])
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+    summary = {name: {"ms_per_batch_100": float(np.median(ms[name])), "accuracy": r["acc"],
+                      "min_cosine": r["min_cosine"], "top1_agreement": r["top1_agreement"],
+                      "gemm_weight_bytes": r["gemm_bytes"], "int8_gemm_launches": r["int8_gemms"],
+                      "profiled_int8_gemm_kernels": r["profile"].get("int8 GEMM"),
+                      "profiled_flash_fwd_kernels": r["profile"].get("#6")}
+               for name, r in out.items()}
+    log(f"int8: ms per batch of 100, {INT8_TIMED} each in turns: "
+        + ", ".join(f"{name} {[round(v, 3) for v in ms[name]]}" for name in ms))
+    del t, frozen, out
+    return summary, {fa.KERNEL: 2 * Lv}
+
+
+def _int8_teacher(clip, int8_names):
+    """PromptSRC at phase 6's settings with the per-step teacher in bf16,
+    in int8 dynamic and in int8 static (scales calibrated over 4 augmented
+    batches of the cache: the host path's normalized views; the trainer
+    itself refuses static scales under DEVICE_AUG, checked first): 6 steps
+    over 2 epochs each on the same cache and draws, the teacher's features
+    on one batch, #6-#8 as phase 6 derived, the int8 products 48 per step, one
+    step under sync debug mode 'error', steps timed in turns, one profiled
+    step each, peak memory."""
+    import torch
+
+    from fsvlm_tpu_torch.models.clip import encode_image
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.ops import quant
+    from fsvlm_tpu_torch.trainers.ivlp_family import vlp_image_features
+    from fsvlm_tpu_torch.trainers.promptsrc import PromptSRC
+
+    classnames = [f"class {i}" for i in range(N_CLASSES)]
+    cache, labels = _train_cache()
+    n = clip.cfg.vision_layers
+    cfg_s = _train_cfg("PROMPTSRC")
+    cfg_s.TRAINER.PROMPTSRC.INT8_TEACHER = cfg_s.MODEL.QUANT_INT8_STATIC = True
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            PromptSRC(cfg_s, classnames, cache, labels, clip=clip, device="cuda",
+                      steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+        raise SystemExit("FAIL: int8: static teacher scales under DEVICE_AUG did not raise")
+    except ValueError as e:
+        log(f"int8: static teacher scales under DEVICE_AUG raise: {e}")
+    trainers, logs = {}, {}
+    for name in ("bf16", "int8 dynamic", "int8 static"):
+        cfg = _train_cfg("PROMPTSRC")
+        cfg.TRAINER.PROMPTSRC.INT8_TEACHER = name != "bf16"
+        console = io.StringIO()
+        with contextlib.redirect_stdout(console):
+            t = PromptSRC(cfg, classnames, cache, labels, clip=clip, device="cuda",
+                          steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+        logs[name] = [ln for ln in console.getvalue().splitlines() if "int8" in ln]
+        trainers[name] = t
+    cal = [_augmented_batch(cache, labels, seed)["img"] for seed in (21, 22, 23, 24)]
+    amax = quant.calibrate_visual_amax(clip, cal)
+    trainers["int8 static"].frozen["clip_teacher"] = quant.quantize_clip(
+        clip, static_amax={"visual": amax})
+    log(f"int8: teacher towers: {logs}; static scales from 4 augmented batches, amax per layer "
+        f"(qkv, out, fc, proj) {[[round(float(v), 3) for v in row] for row in amax]}")
+
+    img = _augmented_batch(cache, labels, 7)["img"]
+    with torch.no_grad():
+        ref = vlp_image_features({}, trainers["bf16"].frozen, img, torch.bfloat16).float()
+        cos = {name: torch.nn.functional.cosine_similarity(
+            encode_image(t.frozen["clip_teacher"], img, compute_dtype=torch.bfloat16).float(), ref,
+            dim=-1).min().item() for name, t in trainers.items() if name != "bf16"}
+    per_step = {fa.KERNEL: 3 * n, fa.KERNEL_DKV: 2 * n, fa.KERNEL_DQ: 2 * n}
+    steps = TRAIN_EPOCHS * TRAIN_STEPS_PER_EPOCH
+    runs = {}
+    for name, t in trainers.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        quant.LAUNCHES["int8_gemm"] = 0
+        hist = t.train()
+        launches = dict(fa.LAUNCHES)
+        runs[name] = {"losses": [m["loss"] for h in hist for m in h], "launches": launches,
+                      "int8_gemm_launches": quant.LAUNCHES["int8_gemm"],
+                      "peak_bytes": torch.cuda.max_memory_allocated()}
+        _others_silent(launches, "flash_attn", f"the PromptSRC {name} teacher path")
+    base = runs["bf16"]["losses"]
+    for name, r in runs.items():
+        gaps = [abs(a - b) for a, b in zip(r["losses"], base)]
+        r["loss_gap_max"] = max(gaps)
+        log(f"int8: PromptSRC, {name} teacher: losses {[round(v, 5) for v in r['losses']]}; "
+            f"max |loss - bf16 teacher's| {max(gaps):.3e}; launches over {steps} steps "
+            f"{ {k: v for k, v in r['launches'].items() if v} }, int8 products "
+            f"{r['int8_gemm_launches']}; peak memory "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB"
+            + (f"; teacher features' min cosine to bf16 {cos[name]:.6f}" if name in cos else ""))
+        if (len(r["losses"]) != steps or not all(np.isfinite(r["losses"]))
+                or any(r["launches"][k] != v * steps for k, v in per_step.items())
+                or r["int8_gemm_launches"] != (0 if name == "bf16" else 4 * n * steps)
+                or (name in cos and cos[name] < MIN_INT8_COSINE[name.split()[1]])):
+            raise SystemExit(f"FAIL: int8: the PromptSRC {name} teacher steps")
+    index = trainers["bf16"].epoch_schedule()[0][0]
+    for name in ("int8 dynamic", "int8 static"):
+        _no_sync_step(f"int8: PromptSRC {name} teacher", trainers[name].train_step_resident, index)
+    ms = {name: [] for name in trainers}
+    for _ in range(INT8_TIMED):
+        for name, t in trainers.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.train_step_resident(index)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    for name, t in trainers.items():
+        counts = {}
+        wall, busy = _profile(f"one PromptSRC step, {name} teacher, batch {TRAIN_BATCH}",
+                              lambda: t.train_step_resident(index), top=10,
+                              groups={"int8 GEMM": tuple(int8_names), **FLASH_GROUPS},
+                              counts=counts)
+        runs[name].update(step_ms=float(np.median(ms[name])), wall_ms=wall, busy_ms=busy,
+                          idle=max(0.0, 1 - busy / wall),
+                          profiled_int8_gemm_kernels=counts["int8 GEMM"])
+        if (counts["int8 GEMM"] > 0) != (name != "bf16"):
+            raise SystemExit(f"FAIL: int8: the {name} teacher step's profile shows "
+                             f"{counts['int8 GEMM']} int8 GEMM kernels")
+    log(f"int8: PromptSRC step ms, {INT8_TIMED} each in turns: "
+        + ", ".join(f"{name} {[round(v, 2) for v in ms[name]]}" for name in ms))
+    out = {name: {k: r[k] for k in ("loss_gap_max", "peak_bytes", "step_ms", "busy_ms", "idle",
+                                     "int8_gemm_launches", "profiled_int8_gemm_kernels")}
+           for name, r in runs.items()}
+    for name, c in cos.items():
+        out[name]["teacher_min_cosine"] = c
+    launches = runs["int8 dynamic"]["launches"]
+    del trainers
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def _int8_teacher_ivlp(clip):
+    """Under FSVLM_FORCE_PALLAS=1 (the caller sets it): IVLP KD at KD_ALPHA
+    0.5 with the int8 KD teacher, against the bf16 teacher on one batch
+    (features' cosine; the logits' gap beside phase 7's rule, reported), then
+    IVLP_INT8_STEPS steps with #3-#5 at phase 7's counts."""
+    import torch
+
+    from fsvlm_tpu_torch.models.clip import encode_image
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.trainers.ivlp import IVLP
+    from fsvlm_tpu_torch.trainers.ivlp_family import vlp_image_features
+
+    classnames = [f"class {i}" for i in range(N_CLASSES)]
+    cache, labels = _train_cache()
+    n = clip.cfg.vision_layers
+    trainers = {}
+    for name in ("bf16", "int8"):
+        cfg = _train_cfg("IVLP")
+        cfg.TRAINER.IVLP.KD_ALPHA = 0.5
+        cfg.TRAINER.IVLP.INT8_TEACHER = name == "int8"
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainers[name] = IVLP(cfg, classnames, cache, labels, clip=clip, device="cuda",
+                                  steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+    kq, kf = trainers["int8"], trainers["bf16"]
+    img = _augmented_batch(cache, labels, 8)["img"]
+    fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+    tq = kq.teacher_logits(kq.frozen, img)
+    teacher_launches = {k: v for k, v in fa.LAUNCHES.items() if v}
+    tf = kf.teacher_logits(kf.frozen, img)
+    with torch.no_grad():
+        cos = torch.nn.functional.cosine_similarity(
+            encode_image(kq.frozen["clip_teacher"], img, compute_dtype=torch.bfloat16).float(),
+            vlp_image_features({}, kf.frozen, img, torch.bfloat16).float(), dim=-1).min().item()
+    dlog = (tq - tf).abs().amax(dim=-1)
+    rel = (dlog / tf.std(dim=-1)).max().item()
+    per_step = {fa.BW_KERNEL: 3 * n, fa.BW_KERNEL_DKV: 2 * n, fa.BW_KERNEL_DQ: 2 * n}
+    losses = []
+    torch.cuda.synchronize()
+    fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+    for step in range(IVLP_INT8_STEPS):
+        idx = torch.arange(step * TRAIN_BATCH, (step + 1) * TRAIN_BATCH, device="cuda")
+        losses.append(kq.train_step_resident(idx)["loss"])
+    losses = [v.item() for v in losses]
+    launches = dict(fa.LAUNCHES)
+    log(f"int8: IVLP KD (KD_ALPHA 0.5) int8 teacher under FSVLM_FORCE_PALLAS=1: teacher features' "
+        f"min cosine to bf16 {cos:.6f} (limit {MIN_INT8_COSINE['dynamic']}); teacher logits' max "
+        f"|dlogit| {dlog.max().item():.4f}, max |dlogit|/spread {rel:.4f} (phase 7's limits "
+        f"{MAX_DLOGIT:g}, {MAX_DLOGIT_OVER_SPREAD:g} hold the kernels to the plain attention, "
+        f"not int8 to bf16: reported); launches of the teacher pass {teacher_launches}; "
+        f"{IVLP_INT8_STEPS} steps: losses {[round(v, 5) for v in losses]}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    _others_silent(launches, "blockwise", "the IVLP int8 teacher steps")
+    if (cos < MIN_INT8_COSINE["dynamic"] or teacher_launches != {fa.BW_KERNEL: n}
+            or not all(np.isfinite(losses))
+            or any(launches[k] != v * IVLP_INT8_STEPS for k, v in per_step.items())):
+        raise SystemExit("FAIL: int8: the IVLP int8 KD teacher")
+    del trainers, kq, kf
+    return ({"teacher_min_cosine": cos, "teacher_max_dlogit": dlog.max().item(),
+             "teacher_max_dlogit_over_spread": rel, "losses": losses}, launches)
+
+
+def _run_tool(module, *args, timeout=600):
+    """``python -m fsvlm_tpu_torch.tools.<module> args`` from the checkout;
+    returns its stdout (raises with the end of its output if it fails)."""
+    proc = subprocess.run([sys.executable, "-m", f"fsvlm_tpu_torch.tools.{module}", *args],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+        raise SystemExit(f"FAIL: tools: python -m fsvlm_tpu_torch.tools.{module} exited "
+                         f"{proc.returncode}")
+    return proc.stdout
+
+
+def _tools_on_tree(clip, tree):
+    """Phase 12's tree and its PromptSRC model: ``predict`` as a subprocess
+    over the first PREDICT_FILES test files (top-1 equal to --eval-only's on
+    the same files; again under MODEL.QUANT_INT8), images/s of predict() in
+    this process for both; export_torch_checkpoint then
+    ``import_torch_prompts`` as a subprocess then ``--eval-only``
+    (predictions exact); ``interpret_prompt`` as a subprocess (every context
+    vector's line)."""
+    import torch
+
+    from fsvlm_tpu_torch.engine.checkpoint import load_checkpoint
+    from fsvlm_tpu_torch.engine.trainer import build_trainer
+    from fsvlm_tpu_torch.tools import predict
+    from fsvlm_tpu_torch.train import build_argparser, setup_cfg
+    from fsvlm_tpu_torch.trainers.import_torch import export_torch_checkpoint
+
+    work, out = tree["work"], tree["out"]
+    items = tree["test_items"][:PREDICT_FILES]
+    files = [d.impath for d in items]
+    want = [tree["lab2cname"][int(c)] for c in tree["y_pred"][:PREDICT_FILES]]
+    # phase 12's command for the model, with the clip it ran (phase 4's:
+    # random from seed 0, bf16) rebuilt from that seed; no teacher cache
+    flags = ["--root", work, "--dataset-config-file", "configs/datasets/caltech101.yaml",
+             "--config-file", CLI_RECIPE, "--trainer", "PromptSRC", "--seed", "0", "--device",
+             "cuda", "--model-dir", out]
+    opts = ["MODEL.BACKBONE.PRETRAINED", "False", "MODEL.FROZEN_DTYPE", "bf16",
+            "TRAINER.PROMPTSRC.PREC", "bf16", "DATASET.NUM_SHOTS", "-1",
+            "DATASET.PER_CLASS_SHOTS", str(RECOG_SHOTS)]
+    result = {}
+    for mode, quant_opts in (("bf16", []), ("int8", ["MODEL.QUANT_INT8", "True"])):
+        jsonl = os.path.join(work, f"predict_{mode}.jsonl")
+        t0 = time.perf_counter()
+        _run_tool("predict", *flags, "--images", *files, "--topk", "5", "--pred-batch", "100",
+                  "--out", jsonl, *opts, *quant_opts)
+        wall = time.perf_counter() - t0
+        rows = [json.loads(ln) for ln in _read(jsonl).splitlines()]
+        got = [r["topk"][0]["label"] for r in rows]
+        result[mode] = {"rows": len(rows), "subprocess_s": wall,
+                        "top1_equal_test": got == want,
+                        "top1_agreement_test": float(np.mean([a == b for a, b in zip(got, want)]))}
+        if len(rows) != PREDICT_FILES or [r["path"] for r in rows] != files or any(
+                len(r["topk"]) != 5 for r in rows):
+            raise SystemExit(f"FAIL: tools: predict ({mode}) did not give one row per file")
+        if mode == "bf16" and got != want:
+            raise SystemExit("FAIL: tools: predict's top-1 differs from --eval-only's test()")
+        # predict() in this process on the same model: images/s (decode, eval
+        # view, towers), after one untimed pass
+        cfg = setup_cfg(build_argparser().parse_args(flags + opts + quant_opts))
+        with contextlib.redirect_stdout(io.StringIO()):
+            t = build_trainer(cfg, device="cuda", clip=clip)
+            t.load_model(out)
+            list(predict.predict(t, cfg, files, pred_batch=100))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inproc = [tk[0][0] for _, tk in predict.predict(t, cfg, files, pred_batch=100)]
+            torch.cuda.synchronize()
+            result[mode]["images_per_s"] = PREDICT_FILES / (time.perf_counter() - t0)
+        result[mode]["top1_equal_subprocess"] = inproc == got
+        del t
+    log(f"tools: predict over {PREDICT_FILES} test files of phase 12's tree: {result}")
+
+    ref = os.path.join(work, "model.pth.tar-1")
+    best = os.path.join(out, "VLPromptLearner", "model-best.pkl")
+    export_torch_checkpoint(best, "PromptSRC", ref)
+    imported = os.path.join(work, "imported")
+    said = _run_tool("import_torch_prompts", ref, "--trainer", "PromptSRC", "--best",
+                     "--output-dir", imported)
+    t3 = _run_cli(clip, tree["argv"](os.path.join(work, "eval_imported"), "--eval-only",
+                                     "--model-dir", imported))
+    exact = t3.evaluator.y_pred == tree["y_pred"] and t3.evaluator.y_true == tree["y_true"]
+    log(f"tools: export -> import_torch_prompts -> --eval-only: {said.strip().splitlines()[-1]}; "
+        f"predictions on {len(t3.evaluator.y_pred)} test images equal to phase 12's: {exact}")
+    if not exact:
+        raise SystemExit("FAIL: tools: the import round trip changed the predictions")
+    del t3
+
+    said = _run_tool("interpret_prompt", best, "--backbone", "ViT-B/16", "--topk", "4")
+    lines = [ln for ln in said.splitlines() if ln.startswith("ctx[")]
+    state = load_checkpoint(best)["state_dict"]
+    n_vec = len(state["ctx"]) * (1 + len(state.get("text_deep", ())))
+    log(f"tools: interpret_prompt: {len(lines)} context vectors (expected {n_vec}); first "
+        f"{lines[:2]}")
+    if len(lines) != n_vec or any(ln.count("(") != 4 for ln in lines):
+        raise SystemExit("FAIL: tools: interpret_prompt did not print top-4 words per vector")
+    return dict(result, round_trip_exact=exact, interpret_vectors=len(lines))
+
+
+def phase_int8_tools(clip, tree):
+    """Phase 14 (module docstring).  Returns (the ``{"int8": ...}`` numbers,
+    #6-#8's launches on the int8 serving and teacher paths, #3-#5's on the
+    IVLP int8 teacher path)."""
+    t0 = time.perf_counter()
+    product, int8_names = _int8_product()
+    with force_pallas(None):
+        serving, launches_serving = _int8_serving(clip, int8_names)
+        teacher, launches_teacher = _int8_teacher(clip, int8_names)
+    with force_pallas("1"):
+        ivlp, launches_ivlp = _int8_teacher_ivlp(clip)
+    with force_pallas(None):
+        tools = _tools_on_tree(clip, tree)
+    result = {"product": product, "int8_gemm_kernels": sorted(int8_names), "serving": serving,
+              "promptsrc_teacher": teacher, "ivlp_teacher": ivlp, "tools": tools,
+              "phase_s": time.perf_counter() - t0}
+    print(json.dumps({"int8": result}), flush=True)
+    return result, launches_serving, launches_teacher, launches_ivlp
+
+
 def _recipe_cfg_from_argv(argv):
     """The CLI's config for ``argv`` (setup_cfg), without running it."""
     from fsvlm_tpu_torch.train import build_argparser, setup_cfg
@@ -3144,6 +3732,7 @@ def _recipe_cfg_from_argv(argv):
 
 
 def main():
+    t_start = time.perf_counter()
     phase_device()
     phase_build()
     worst, timings = phase_kernels()
@@ -3164,10 +3753,18 @@ def main():
         launches_clip = phase_clip_trainers(pred.clip)
     with force_pallas(None):  # PLIP and the RN towers on the d = 64 kernels
         launches_plip = phase_plip_resnet(pred.clip)
-    with force_pallas(None):  # the CLI on a JPEG tree, on the d = 64 kernels
-        launches_recognition, recognition = phase_recognition(pred.clip)
-    with force_pallas(None):  # the host train transforms and SimCLR, on the d = 64 kernels
-        launches_host = phase_host_aug(pred.clip, recognition)
+    tree = {}  # phase 12's tree and model, for phase 14's tools
+    try:
+        with force_pallas(None):  # the CLI on a JPEG tree, on the d = 64 kernels
+            launches_recognition, recognition = phase_recognition(pred.clip, keep=tree)
+        with force_pallas(None):  # the host train transforms and SimCLR, on the d = 64 kernels
+            launches_host = phase_host_aug(pred.clip, recognition)
+        # int8 serving and teachers, the tools (sets FSVLM_FORCE_PALLAS per part)
+        _, launches_int8_serving, launches_int8_teacher, launches_int8_ivlp = phase_int8_tools(
+            pred.clip, tree)
+    finally:
+        if tree:
+            shutil.rmtree(tree["work"], ignore_errors=True)
 
     import torch
 
@@ -3207,9 +3804,15 @@ def main():
         raise SystemExit(f"FAIL: #2's kernels launched unequal counts: {launches_fused}")
     # #6-#8's launches on every path that runs them (``launches``: phase 6's)
     by_path = {"promptsrc": launches, "promptsrc_cli": launches_cli, **launches_clip,
-               **launches_plip, "recognition_cli": launches_recognition, **launches_host}
+               **launches_plip, "recognition_cli": launches_recognition, **launches_host,
+               "zsclip_int8_test": launches_int8_serving,
+               "promptsrc_int8_teacher": launches_int8_teacher}
     for row in kernels[:3]:
-        row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
+        row["launches_by_path"] = {path: n.get(row["name"], 0) for path, n in by_path.items()}
+    # #3-#5's: phase 7's IVLP KD steps and phase 14's with the int8 KD teacher
+    for row in kernels[3:6]:
+        row["launches_by_path"] = {"ivlp_kd": launches_bw[row["name"]],
+                                   "ivlp_kd_int8_teacher": launches_int8_ivlp[row["name"]]}
     # device times (profiler) beside the event times: the forwards', #7/#8's
     # and #4/#5's
     for row, t in ((kernels[0], timings["vision"]),
@@ -3229,6 +3832,7 @@ def main():
         "parts": [{"name": k, "launches": launches_fused[k], "ms": bwd["parts"][k]} for k in parts],
         "device_ms": bwd["device_ms"], "library_device_ms": bwd["library_device_ms"],
     })
+    log(f"chip_smoke: all 14 phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -98,6 +98,9 @@ class PromptSRCConfig:
     # the frozen teacher's image features precomputed once over the eval view
     # of every train item, read per step instead of the teacher image pass
     CACHED_TEACHER: bool = False
+    # the per-step teacher image pass on an int8 copy of the image tower
+    # (ops/quant.py); off under CACHED_TEACHER
+    INT8_TEACHER: bool = False
 
 
 @dataclasses.dataclass
@@ -213,6 +216,13 @@ class ModelConfig:
     BACKBONE: BackboneConfig = field(default_factory=BackboneConfig)
     FROZEN_DTYPE: str = "fp32"
     TEXT_TRUNCATE: bool = True
+    # test() and serving on an int8 copy of the ViT image tower (ops/quant.py;
+    # the engine's frozen_eval): the GEMM families to quantize, and static
+    # activation scales calibrated over that many eval batches at first use
+    QUANT_INT8: bool = False
+    QUANT_INT8_FAMILIES: List[str] = field(default_factory=lambda: ["attn", "mlp"])
+    QUANT_INT8_STATIC: bool = False
+    QUANT_INT8_CALIB_BATCHES: int = 4
 
 
 @dataclasses.dataclass

@@ -45,7 +45,8 @@ back once, at the epoch's end, and prints the JAX package's train lines.
   the device, as the JAX package's train_step_resident;
 - ``test(split=...)`` on the loaders, or ``test(images, labels)`` on a
   uint8 cache: top-1 accuracy, text features once where the trainer
-  splits its eval;
+  splits its eval, the image tower from ``frozen_eval()`` (in int8 under
+  MODEL.QUANT_INT8, ``ops/quant.py``);
 - ``save_model`` / ``resume_model_if_exist`` / ``load_model``: the JAX
   package's checkpoint files (``engine/checkpoint.py``); a resume restores
   the prompts, the optimizer's momentum and step count, the generator, the
@@ -82,6 +83,7 @@ from ..ops.preprocess import (
     normalize_only,
     random_resized_crop_flip_normalize,
 )
+from ..ops.quant import calibrate_visual_amax, quantize_clip
 from ..utils import AverageMeter, MetricMeter, mkdir_if_missing
 from ..utils.registry import Registry
 from .checkpoint import (
@@ -158,6 +160,7 @@ class SimpleTrainer:
         self.train_loader_x = self.val_loader = self.test_loader = None
         self.cache = self.labels = None
         self._resident_off = False
+        self._frozen_eval = None
         if classnames is None:
             self.build_data_loader()
         else:
@@ -527,12 +530,13 @@ class SimpleTrainer:
         print(f"Evaluate on the *{split}* set")
         split_eval = getattr(self, "text_features_fn", None) is not None
         txf = self.text_features_fn(self.params, self.frozen) if split_eval else None
+        frozen = self.frozen_eval()
         for x, y, valid in batches:
             x = self.eval_images(x.to(self.device))
             if split_eval:
-                logits = self.image_logits_fn(self.params, self.frozen, x, txf)
+                logits = self.image_logits_fn(self.params, frozen, x, txf)
             else:
-                logits = self.logits_fn(self.params, self.frozen, x)
+                logits = self.logits_fn(self.params, frozen, x)
             logits = logits.float().cpu().numpy()
             if valid is not None:
                 logits, y = logits[valid], y[valid]
@@ -541,6 +545,68 @@ class SimpleTrainer:
         if return_pred:
             return self.evaluator.y_true, self.evaluator.y_pred
         return results["accuracy"]
+
+    @torch.no_grad()
+    def model_inference(self, images):
+        """Logits of float (B, H, W, 3) images (``eval_images``' output) on
+        the eval towers (``frozen_eval``): ``logits_fn``, or the split eval
+        with the class text features computed anew."""
+        frozen = self.frozen_eval()
+        if getattr(self, "text_features_fn", None) is not None:
+            txf = self.text_features_fn(self.params, self.frozen)
+            return self.image_logits_fn(self.params, frozen, images, txf)
+        return self.logits_fn(self.params, frozen, images)
+
+    # ------------------------------------------------------------------ int8
+    def frozen_eval(self):
+        """The frozen state that test() and ``model_inference`` run
+        (trainer.py:627-669): ``frozen``, or under MODEL.QUANT_INT8, built
+        once at first use, a copy whose CLIP has its ViT image tower in int8
+        (QUANT_INT8_FAMILIES; under QUANT_INT8_STATIC static activation
+        scales calibrated over the first QUANT_INT8_CALIB_BATCHES batches
+        of the test loader, or of the train loader where there is none).
+        The text tower and training stay float; a ModifiedResNet tower or a
+        trainer without a frozen CLIP is left as it is."""
+        if self._frozen_eval is not None:
+            return self._frozen_eval
+        fe = self.frozen
+        clip = fe.get("clip") if isinstance(fe, dict) else None
+        if self.cfg.MODEL.QUANT_INT8 and clip is not None and clip.cfg.is_vit:
+            families = tuple(self.cfg.MODEL.QUANT_INT8_FAMILIES or ("attn", "mlp"))
+            qclip, static = self.int8_image_tower(clip, families, self.test_loader
+                                                  or self.train_loader_x)
+            print(f"[eval] int8 image tower (MODEL.QUANT_INT8, families={','.join(families)}, "
+                  f"act={'static' if static else 'dynamic'})")
+            fe = dict(fe, clip=qclip)
+        self._frozen_eval = fe
+        return fe
+
+    def int8_image_tower(self, clip, families, loader):
+        """(CLIP with its image tower in int8, whether its activation scales
+        are static): dynamic scales, or under MODEL.QUANT_INT8_STATIC static
+        ones calibrated on the float tower over the first
+        QUANT_INT8_CALIB_BATCHES batches of ``loader`` (uint8 views
+        normalized as ``eval_images``, float views as they are).  Without a
+        loader (a trainer fed tensors) static scales raise ValueError."""
+        static_amax = None
+        m = self.cfg.MODEL
+        if m.QUANT_INT8_STATIC:
+            if loader is None:
+                raise ValueError("MODEL.QUANT_INT8_STATIC calibrates on the DataManager's loaders, "
+                                 "and this trainer was fed tensors: build it from cfg alone, or "
+                                 "unset QUANT_INT8_STATIC")
+
+            def batches():
+                for i, batch in enumerate(loader):
+                    if i >= m.QUANT_INT8_CALIB_BATCHES:
+                        break
+                    x = torch.from_numpy(np.ascontiguousarray(batch["img"])).to(self.device)
+                    yield self.eval_images(x) if x.dtype == torch.uint8 else x
+
+            static_amax = {"visual": calibrate_visual_amax(clip, batches(),
+                                                           attn_impl=self.attn_impl)}
+        return quantize_clip(clip, towers=("visual",), families=families,
+                             static_amax=static_amax), static_amax is not None
 
     def get_current_lr(self):
         return self.lr_schedule.lr_at_epoch(self.epoch)

@@ -357,8 +357,12 @@ def load_jax_params(module, params_np, _path=""):
     stages and blocks), or a subtree whose leaves carry the layer axis
     first, and gets row i in layer i.  A parameter marked ``from_hwio`` (an
     RN conv kernel, stored OIHW) takes the pytree's HWIO kernel transposed.
-    Every parameter of ``module`` must be covered and every leaf must fit,
-    or this raises.  Values are cast to each parameter's dtype and device.
+    A leaf that is the JAX package's int8 record {"q8", "scale"[, "xs"]}
+    (``fsvlm_tpu.ops.quant``) replaces the float weight by an
+    ``ops.quant.Int8Weight`` holding its bytes exactly (``q8`` put in the
+    port's column-major layout there).  Every parameter of ``module`` must
+    be covered and every leaf must fit, or this raises.  Values are cast to
+    each parameter's dtype and device.
     """
     if isinstance(module, nn.ModuleList):
         if isinstance(params_np, (list, tuple)):
@@ -376,7 +380,11 @@ def load_jax_params(module, params_np, _path=""):
         if not hasattr(module, name):
             raise KeyError(f"{path}: no such submodule or parameter")
         target = getattr(module, name)
-        if isinstance(target, nn.Module):
+        if isinstance(value, dict) and "q8" in value:
+            rec = _int8_record(value, target, path)
+            delattr(module, name)  # the float parameter the record replaces
+            setattr(module, name, rec)
+        elif isinstance(target, nn.Module):
             load_jax_params(target, value, path)
         else:
             arr = _as_f32(value)
@@ -391,6 +399,25 @@ def load_jax_params(module, params_np, _path=""):
     missing += [n for n, _ in module.named_parameters(recurse=False) if n not in seen]
     if missing:
         raise KeyError(f"{_path or '/'}: not in the pytree: {missing}")
+
+
+def _int8_record(rec, target, path):
+    """The JAX int8 record ``rec`` (numpy) as an Int8Weight on ``target``'s
+    device, shaped as the float weight it replaces."""
+    from ...ops.quant import Int8Weight
+
+    q8 = np.asarray(rec["q8"])
+    if q8.dtype != np.int8 or tuple(q8.shape) != tuple(target.shape):
+        raise ValueError(f"{path}: int8 record q8 {q8.dtype} {q8.shape} for a weight of "
+                         f"shape {tuple(target.shape)}")
+    dev = target.device
+
+    def f32(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(dev)
+
+    xs = rec.get("xs")
+    return Int8Weight(torch.from_numpy(q8.copy()).to(dev), f32(rec["scale"]),
+                      None if xs is None else f32(xs))
 
 
 def _index_tree(tree, i, n, path):

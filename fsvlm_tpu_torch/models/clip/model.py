@@ -94,10 +94,13 @@ def patch_embed(images, kernel):
 
 
 def encode_image_vit(clip, images, prompts: Optional[VisionPrompts] = None,
-                     compute_dtype=torch.float32, attn_impl=None, remat=False, lora=None):
+                     compute_dtype=torch.float32, attn_impl=None, remat=False, lora=None,
+                     collect_gemm_amax=False):
     """ViT image tower. images: (B, H, W, 3) already CLIP-normalized.
     ``remat`` checkpoints each layer and ``lora`` adds the stacked LoRA
-    deltas (``transformer``).  Returns (B, embed_dim) fp32 features."""
+    deltas (``transformer``).  Returns (B, embed_dim) fp32 features, or
+    with ``collect_gemm_amax`` (features, (n_layers, 4) maxima of the four
+    GEMM inputs), the int8 calibration hook (JAX :64-106)."""
     v = clip.visual
     x = patch_embed(images.to(compute_dtype), v.patch_embed)
     B, _, W = x.shape
@@ -114,19 +117,24 @@ def encode_image_vit(clip, images, prompts: Optional[VisionPrompts] = None,
     x = transformer(
         v.blocks, x,
         deep_prompts=None if deep is None else deep.to(compute_dtype),
-        splice_flags=flags, splice_kind="vision", attn_impl=attn_impl, remat=remat, lora=lora)
+        splice_flags=flags, splice_kind="vision", attn_impl=attn_impl, remat=remat, lora=lora,
+        collect_gemm_amax=collect_gemm_amax)
+    if collect_gemm_amax:
+        x, amax = x
     x = v.ln_post(x[:, 0, :])
-    return x.float() @ v.proj.float()
+    feats = x.float() @ v.proj.float()
+    return (feats, amax) if collect_gemm_amax else feats
 
 
 def encode_image(clip, images, **kw):
     """The image tower of ``clip`` (counterpart of the JAX package's
     ``encode_image``, model.py:161-170): the ViT's ``encode_image_vit``, or
-    ``encode_image_resnet``, which takes no prompts, LoRA, remat or
-    attention route (those keywords are dropped, as JAX drops them)."""
+    ``encode_image_resnet``, which takes no prompts, LoRA, remat,
+    attention route or int8 calibration hook (those keywords are dropped,
+    as JAX drops them)."""
     if clip.cfg.is_vit:
         return encode_image_vit(clip, images, **kw)
-    for name in ("prompts", "lora", "remat", "attn_impl"):
+    for name in ("prompts", "lora", "remat", "attn_impl", "collect_gemm_amax"):
         kw.pop(name, None)
     return encode_image_resnet(clip, images, **kw)
 

@@ -26,8 +26,14 @@ class MLP(nn.Module):
         self.w_proj = frozen_param((4 * width, width), dtype, device)
         self.b_proj = frozen_param((width,), dtype, device)
 
-    def forward(self, x):
-        return linear(quick_gelu(linear(x, self.w_fc, self.b_fc)), self.w_proj, self.b_proj)
+    def forward(self, x, collect_amax=False):
+        """With ``collect_amax`` also the fp32 maxima of |x| and of the
+        second GEMM's input."""
+        h = quick_gelu(linear(x, self.w_fc, self.b_fc))
+        y = linear(h, self.w_proj, self.b_proj)
+        if collect_amax:
+            return y, x.float().abs().amax(), h.float().abs().amax()
+        return y
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -41,9 +47,20 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_2 = LayerNorm(width, dtype, device)
         self.mlp = MLP(width, dtype, device)
 
-    def forward(self, x, mask=None, attn_impl=None, lora_delta=None):
-        x = x + self.attn(self.ln_1(x), mask=mask, impl=attn_impl, lora_delta=lora_delta)
-        return x + self.mlp(self.ln_2(x))
+    def forward(self, x, mask=None, attn_impl=None, lora_delta=None, collect_amax=False):
+        """``collect_amax``: also return the (4,) fp32 maxima of |x| at the
+        inputs of the four GEMMs, in ``ops.quant._TOWER_GEMMS`` order (qkv,
+        out-proj, fc, proj): the int8 calibration hook (JAX :54-82)."""
+        h = self.ln_1(x)
+        attn = self.attn(h, mask=mask, impl=attn_impl, lora_delta=lora_delta,
+                         return_ctx_amax=collect_amax)
+        if not collect_amax:
+            x = x + attn
+            return x + self.mlp(self.ln_2(x))
+        attn, a_out = attn
+        x = x + attn
+        y, a_fc, a_proj = self.mlp(self.ln_2(x), collect_amax=True)
+        return x + y, torch.stack([h.float().abs().amax(), a_out, a_fc, a_proj])
 
 
 def _splice_text(x, prompt):
@@ -61,7 +78,8 @@ def _splice_vision(x, prompt):
 
 
 def transformer(blocks, x, *, mask=None, deep_prompts=None, splice_flags=None,
-                splice_kind="text", attn_impl=None, remat=False, lora=None):
+                splice_kind="text", attn_impl=None, remat=False, lora=None,
+                collect_activations=False, collect_gemm_amax=False):
     """Run ``blocks`` (an nn.ModuleList of ResidualAttentionBlock) over x (B, L, D).
 
     deep_prompts: optional (n_layers, n_ctx, D); row i replaces the prompt
@@ -81,6 +99,12 @@ def transformer(blocks, x, *, mask=None, deep_prompts=None, splice_flags=None,
     checkpoint, and handed in, as JAX threads per-layer keys through its
     scan (:124-135), so the recomputation sees the same masks.
     ``torch.utils.checkpoint`` would not restore an explicit generator.
+
+    collect_gemm_amax: return (x, (n_layers, 4) fp32), each layer's maxima
+    of |x| at its four GEMM inputs (the int8 calibration hook, JAX
+    :136-141); collect_activations: return (x, (n_layers, B, L, D)), each
+    layer's output (the golden replays' hook, JAX :146).  Neither changes
+    what the layers launch.
     """
     splice = _splice_text if splice_kind == "text" else _splice_vision
     if lora is not None:  # the factors in x's dtype once, not per layer and pass
@@ -89,8 +113,10 @@ def transformer(blocks, x, *, mask=None, deep_prompts=None, splice_flags=None,
     def layer(block, h, prompt, delta):
         if prompt is not None:
             h = splice(h, prompt)
-        return block(h, mask=mask, attn_impl=attn_impl, lora_delta=delta)
+        return block(h, mask=mask, attn_impl=attn_impl, lora_delta=delta,
+                     collect_amax=collect_gemm_amax)
 
+    per_layer = []
     for i, block in enumerate(blocks):
         prompt = None
         if deep_prompts is not None and deep_prompts.shape[1] > 0 and splice_flags[i]:
@@ -107,4 +133,11 @@ def transformer(blocks, x, *, mask=None, deep_prompts=None, splice_flags=None,
                            preserve_rng_state=False)
         else:
             x = layer(block, x, prompt, delta)
+        if collect_gemm_amax:
+            x, amax = x
+            per_layer.append(amax)
+        elif collect_activations:
+            per_layer.append(x)
+    if collect_gemm_amax or collect_activations:
+        return x, torch.stack(per_layer)
     return x

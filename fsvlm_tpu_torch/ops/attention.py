@@ -13,7 +13,9 @@ the heads minor and takes XLA's head-minor attention.  The port's kernels
 already read the head-minor memory of qkv through strided views, so the
 port keeps its route and the variable changes no math.
 
-The LoRA deltas (JAX :22-112) are plain products, outside any kernel.
+The LoRA deltas (JAX :22-112) are plain products, outside any kernel.  The
+projections go through ``layers.linear``, so an int8 record (``ops.quant``)
+takes the int8 product.
 """
 
 import torch
@@ -38,7 +40,8 @@ def _lora(t, a, b, scale):
     return ((t @ a.to(t.dtype)) @ b.to(t.dtype) * scale).to(t.dtype)
 
 
-def mha(x, w_qkv, b_qkv, w_out, b_out, n_heads, mask=None, impl=None, lora_delta=None):
+def mha(x, w_qkv, b_qkv, w_out, b_out, n_heads, mask=None, impl=None, lora_delta=None,
+        return_ctx_amax=False):
     """x: (B, L, D); mask: optional (L, L) additive fp32, or a (B, 1, 1, L)
     key bias.  Returns (B, L, D).
 
@@ -52,7 +55,10 @@ def mha(x, w_qkv, b_qkv, w_out, b_out, n_heads, mask=None, impl=None, lora_delta
 
     ``impl="plain"`` forces the plain version of the routed attention (for
     comparisons only); ``impl="reference"`` takes ``reference_attention``,
-    which autograd differentiates twice."""
+    which autograd differentiates twice.
+
+    ``return_ctx_amax``: also return max |ctx| in fp32, the out-projection's
+    GEMM input (the int8 calibration hook, JAX :109-111)."""
     B, L, D = x.shape
     head_dim = D // n_heads
     deltas = lora_delta or {}
@@ -70,7 +76,10 @@ def mha(x, w_qkv, b_qkv, w_out, b_out, n_heads, mask=None, impl=None, lora_delta
     q, k, v = (add_lora(t, name, x) for name, t in zip("qkv", qkv.split(D, dim=-1)))
     out = attention_dispatch(heads(q), heads(k), heads(v), mask, impl=impl)
     ctx = out.transpose(1, 2).reshape(B, L, D)
-    return add_lora(linear(ctx, w_out, b_out), "o", ctx)
+    y = add_lora(linear(ctx, w_out, b_out), "o", ctx)
+    if return_ctx_amax:
+        return y, ctx.float().abs().amax()
+    return y
 
 
 def causal_mask(length, dtype=torch.float32, device=None):
@@ -92,6 +101,6 @@ class Attention(nn.Module):
         self.w_out = frozen_param((width, width), dtype, device)
         self.b_out = frozen_param((width,), dtype, device)
 
-    def forward(self, x, mask=None, impl=None, lora_delta=None):
-        return mha(x, self.w_qkv, self.b_qkv, self.w_out, self.b_out,
-                   self.n_heads, mask=mask, impl=impl, lora_delta=lora_delta)
+    def forward(self, x, mask=None, impl=None, lora_delta=None, return_ctx_amax=False):
+        return mha(x, self.w_qkv, self.b_qkv, self.w_out, self.b_out, self.n_heads, mask=mask,
+                   impl=impl, lora_delta=lora_delta, return_ctx_amax=return_ctx_amax)

@@ -11,13 +11,14 @@ torch ops, so a backward under ``create_graph`` (PLIP's gradient penalty)
 differentiates them again, as JAX's reverse-over-reverse differentiates
 its custom VJPs.  Linear weights are
 stored (in_features, out_features), the JAX package's layout, so the
-forward is ``x @ w``.
+forward is ``x @ w``, or ``ops.quant.int8_linear`` for an int8 record.
 """
 
 import torch
 from torch import nn
 
 from .. import resolve_device
+from .quant import Int8Weight, int8_linear
 
 
 class _LayerNorm(torch.autograd.Function):
@@ -86,7 +87,11 @@ def quick_gelu(x):
 
 
 def linear(x, w, b=None):
-    """y = x @ w + b with ``w`` stored (in, out), cast to ``x.dtype``."""
+    """y = x @ w + b with ``w`` stored (in, out), cast to ``x.dtype``; an
+    int8 record (``ops.quant.Int8Weight``) takes ``int8_linear``, as the
+    JAX package's ``linear`` dispatches on its quantization record."""
+    if isinstance(w, Int8Weight):
+        return int8_linear(x, w, b)
     y = x @ w.to(x.dtype)
     if b is not None:
         y = y + b.to(x.dtype)

@@ -14,16 +14,21 @@ PromptSRC inherits (counterpart of fsvlm_tpu.trainers.ivlp, :51-196).
   of a {}."), computed once at build in fp32; an optional SimCLR term on a
   second view ("img2").
 
+Under USE_KD and INT8_TEACHER (:95-116, :159-163) the KD teacher's image
+pass runs on an int8 copy of the image tower (``ops/quant.py``, attn and
+mlp GEMMs), built once at build: dynamic activation scales, or under
+MODEL.QUANT_INT8_STATIC static ones calibrated over the first
+QUANT_INT8_CALIB_BATCHES train batches (``int8_teacher_tower``).
+
 Subclasses whose config node lacks a key get the JAX package's ``.get``
-default (PromptSRC: no mixup, no KD).  Not ported: INT8_TEACHER (ROADMAP
-A7), which raises instead of being ignored.
+default (PromptSRC: no mixup, no KD).
 """
 
 import numpy as np
 import torch
 
 from ..engine.trainer import TRAINER_REGISTRY, SimpleTrainer
-from ..models.clip import encode_text_ids, l2_normalize
+from ..models.clip import encode_image, encode_text_ids, l2_normalize
 from ..models.clip.tokenizer import tokenize
 from .backbone import clip_for_trainer
 from .ivlp_family import build_vlp_frozen, init_vlp_params, vlp_image_features, vlp_text_features
@@ -64,9 +69,7 @@ class IVLP(SimpleTrainer):
         self.use_kd = bool(getattr(node, "USE_KD", False))
         self.kd_alpha = float(getattr(node, "KD_ALPHA", 1.0))
         self.kd_T = float(getattr(node, "KD_T", 4.0))
-        if self.use_kd and bool(getattr(node, "INT8_TEACHER", False)):
-            raise NotImplementedError("INT8_TEACHER (the int8 KD teacher tower) is not ported "
-                                      "yet (ROADMAP A7)")
+        self.int8_teacher = self.use_kd and bool(getattr(node, "INT8_TEACHER", False))
         if self.use_kd:
             # zero-shot CLIP teacher text features, fp32 (encode_text_ids' default)
             template = CUSTOM_TEMPLATES.get(cfg.DATASET.NAME, "a photo of a {}.")
@@ -75,6 +78,26 @@ class IVLP(SimpleTrainer):
                 teacher_txt = encode_text_ids(clip, torch.from_numpy(ids).long().to(self.device),
                                               attn_impl=self.attn_impl)
             self.frozen["teacher_text"] = l2_normalize(teacher_txt)
+        if self.int8_teacher:
+            self.frozen["clip_teacher"] = self.int8_teacher_tower("[IVLP] int8 KD teacher")
+
+    def int8_teacher_tower(self, label):
+        """The frozen CLIP with its image tower in int8 (attn and mlp), for a
+        no-grad teacher pass; static activation scales under
+        MODEL.QUANT_INT8_STATIC, calibrated over the train loader's first
+        batches as the step sees them.  Under DATALOADER.DEVICE_AUG that
+        loader gives the raw uint8 PRE_SIZE cache views, which the JAX
+        package calibrates on unnormalized (or fails on, at PRE_SIZE !=
+        INPUT.SIZE): that combination raises ValueError (ROADMAP C.2)."""
+        cfg = self.cfg
+        if cfg.MODEL.QUANT_INT8_STATIC and cfg.DATALOADER.DEVICE_AUG:
+            raise ValueError(
+                f"MODEL.QUANT_INT8_STATIC with TRAINER.{self.trainer_cfg_key}.INT8_TEACHER under "
+                "DATALOADER.DEVICE_AUG: the train loader gives raw uint8 PRE_SIZE views, not the "
+                "normalized views the teacher sees; unset DEVICE_AUG or QUANT_INT8_STATIC")
+        qclip, static = self.int8_image_tower(self.clip, ("attn", "mlp"), self.train_loader_x)
+        print(f"{label} image tower (INT8_TEACHER, act={'static' if static else 'dynamic'})")
+        return qclip
 
     def _hard_loss(self, logits, labels, frozen, valid):
         if self.use_focal:
@@ -111,10 +134,16 @@ class IVLP(SimpleTrainer):
 
     def teacher_logits(self, frozen, images):
         """The zero-shot CLIP teacher's logits for KD: the frozen image tower
-        (no prompts) against the teacher text features, with no gradient."""
+        (no prompts; its int8 copy under INT8_TEACHER) against the teacher
+        text features, with no gradient."""
+        dtype, impl = self.compute_dtype(), self.attn_impl
         with torch.no_grad():
-            zs_img = l2_normalize(vlp_image_features({}, frozen, images, self.compute_dtype(),
-                                                     self.attn_impl))
+            if self.int8_teacher:
+                zs_img = encode_image(frozen["clip_teacher"], images, compute_dtype=dtype,
+                                      attn_impl=impl)
+            else:
+                zs_img = vlp_image_features({}, frozen, images, dtype, impl)
+            zs_img = l2_normalize(zs_img)
             return torch.exp(frozen["clip"].logit_scale).float() * zs_img @ frozen["teacher_text"].T
 
     # split eval: class text features once, then image logits per batch

@@ -23,9 +23,13 @@ fsvlm_tpu.trainers.promptsrc, :47-183 and :222-253).
   prompts after the last epoch; checkpoints carry the accumulator
   (``extra_state`` / ``load_extra_state``, :222-253).
 
+- under INT8_TEACHER, when CACHED_TEACHER is off (:66-91, :122-128), the
+  per-step teacher image pass runs on the augmented batch through an int8
+  copy of the image tower (``ops/quant.py``), built once at build
+  (``IVLP.int8_teacher_tower``);
+
 Features, logits, softmaxes and losses are fp32; the logit scale is
-exponentiated in the frozen towers' dtype, as in the JAX package.  Not
-ported: INT8_TEACHER (ROADMAP A7; the config node has no such key).
+exponentiated in the frozen towers' dtype, as in the JAX package.
 """
 
 import numpy as np
@@ -36,7 +40,7 @@ from ..data.samplers import SequentialSampler
 from ..data.transforms import TestTransform
 from ..engine.checkpoint import flatten
 from ..engine.trainer import TRAINER_REGISTRY
-from ..models.clip import encode_text_ids, l2_normalize
+from ..models.clip import encode_image, encode_text_ids, l2_normalize
 from ..models.clip.tokenizer import tokenize
 from .ivlp import IVLP
 from .ivlp_family import vlp_image_features, vlp_text_features
@@ -69,6 +73,9 @@ class PromptSRC(IVLP):
         self.cached_teacher = bool(node.CACHED_TEACHER)
         if self.cached_teacher:
             self.frozen["zs_img_cache"] = self.build_teacher_cache(*self.eval_view_batches())
+        self.int8_teacher = bool(node.INT8_TEACHER) and not self.cached_teacher
+        if self.int8_teacher:
+            self.frozen["clip_teacher"] = self.int8_teacher_tower("[PromptSRC] int8 teacher")
 
         self.loss_type = node.LOSS_TYPE
         alpha = None
@@ -96,6 +103,10 @@ class PromptSRC(IVLP):
 
         if self.cached_teacher:  # the clean-image features, by dataset position
             zs_img = frozen["zs_img_cache"][batch["index"]]
+        elif self.int8_teacher:  # the augmented batch, at int8 teacher precision
+            with torch.no_grad():
+                zs_img = l2_normalize(encode_image(frozen["clip_teacher"], images,
+                                                   compute_dtype=dtype, attn_impl=impl))
         else:
             # frozen-CLIP teacher pass on the augmented batch (reference
             # semantics, promptsrc.py:198-201)

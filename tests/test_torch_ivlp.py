@@ -12,7 +12,7 @@
   versions);
 - a 4-step JAX-against-port IVLP trajectory with KD and mixup on a uint8
   cache, JAX's boxes, flips, perm and lam handed to the port;
-- the trainer's own mixup draws, and INT8_TEACHER raising.
+- the trainer's own mixup draws, and INT8_TEACHER building the int8 KD teacher.
 
 fp32 throughout (the tiny CLIP of test_torch_train.py: head dim 64 in both
 towers); each test states its tolerance.
@@ -35,7 +35,7 @@ from fsvlm_tpu.ops import preprocess as jax_preprocess
 from fsvlm_tpu.trainers import losses as jax_losses
 from fsvlm_tpu_torch.config import get_cfg_default
 from fsvlm_tpu_torch.models.clip import CLIPConfig, random_clip_params
-from fsvlm_tpu_torch.ops import flash_attention, preprocess
+from fsvlm_tpu_torch.ops import flash_attention, preprocess, quant
 from fsvlm_tpu_torch.trainers import losses
 from fsvlm_tpu_torch.trainers.backbone import clip_from_params
 from fsvlm_tpu_torch.trainers.ivlp import IVLP
@@ -296,7 +296,9 @@ def test_ivlp_trainer_draws_its_own_mixup():
 
 def test_ivlp_without_kd_and_the_int8_teacher(tiny_params):
     """USE_KD off: no teacher text features and no teacher pass; the loss is
-    the CE alone.  INT8_TEACHER under KD raises (ROADMAP A7)."""
+    the CE alone.  INT8_TEACHER under KD builds the int8 KD teacher tower
+    (tests/test_torch_int8_teacher.py holds it against JAX's); without KD
+    it builds none, as in JAX."""
     _, pcfg = _ivlp_cfgs(TRAINER__IVLP__USE_KD=False)
     pt = _port_ivlp(pcfg, tiny_params, CLASSNAMES, steps_per_epoch=1)
     assert "teacher_text" not in pt.frozen and not pt.use_kd
@@ -304,5 +306,9 @@ def test_ivlp_without_kd_and_the_int8_teacher(tiny_params):
                                                 "label": torch.tensor([0, 1])})
     assert torch.isfinite(loss)
     _, pcfg = _ivlp_cfgs(TRAINER__IVLP__INT8_TEACHER=True)
-    with pytest.raises(NotImplementedError, match="A7"):
-        _port_ivlp(pcfg, tiny_params, CLASSNAMES, steps_per_epoch=1)
+    pt = _port_ivlp(pcfg, tiny_params, CLASSNAMES, steps_per_epoch=1)
+    assert pt.int8_teacher and isinstance(pt.frozen["clip_teacher"].visual.blocks[0].mlp.w_fc,
+                                          quant.Int8Weight)
+    _, pcfg = _ivlp_cfgs(TRAINER__IVLP__INT8_TEACHER=True, TRAINER__IVLP__USE_KD=False)
+    pt = _port_ivlp(pcfg, tiny_params, CLASSNAMES, steps_per_epoch=1)
+    assert not pt.int8_teacher and "clip_teacher" not in pt.frozen

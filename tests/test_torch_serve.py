@@ -7,6 +7,7 @@ fp32; logits atol 1e-3 and identical top-1.
 
 import dataclasses
 import os
+import pickle
 import subprocess
 import sys
 import types
@@ -122,8 +123,9 @@ def test_predictor_requires_a_card_for_cuda():
 
 @pytest.mark.parametrize("entry", ["load_clip_backbone", "clip_from_params", "CLIP", "causal_mask",
                                    "PromptSRC", "make_lr_schedule", "CoOp", "CoCoOp", "LoRA",
-                                   "MaPLe", "ZeroshotCLIP", "ZeroshotCLIP2", "LinearProbeCLIP"])
-def test_entry_points_default_to_the_card(entry):
+                                   "MaPLe", "ZeroshotCLIP", "ZeroshotCLIP2", "LinearProbeCLIP",
+                                   "predict", "interpret_prompt", "nearest_tokens"])
+def test_entry_points_default_to_the_card(entry, tmp_path):
     """With no device given, every entry point asks for cuda, and raises on
     a box without one instead of falling back to the CPU."""
     if torch.cuda.is_available():
@@ -154,6 +156,19 @@ def test_entry_points_default_to_the_card(entry):
     for cls in (lora.LoRA, maple.MaPLe, zsclip.ZeroshotCLIP, zsclip.ZeroshotCLIP2,
                 linear_probe.LinearProbeCLIP):
         calls[cls.__name__] = lambda cls=cls: cls(get_cfg_default(), ["cat", "dog"])
+    from fsvlm_tpu_torch.tools import interpret_prompt, predict
+
+    fixture = os.path.join(REPO, "tests", "torch_fixtures", "jpeg", "gray_280x210.jpg")
+    calls["predict"] = lambda: predict.main(predict.build_argparser().parse_args([
+        "--trainer", "ZeroshotCLIP", "--dataset-config-file",
+        os.path.join(REPO, "configs/datasets/synthetic.yaml"), "--images", fixture]))
+    ckpt = tmp_path / "model.pkl-1"
+    with open(ckpt, "wb") as f:
+        pickle.dump({"state_dict": {"ctx": np.zeros((2, 64), np.float32)}, "epoch": 1}, f)
+    calls["interpret_prompt"] = lambda: interpret_prompt.main([str(ckpt), "--backbone",
+                                                               "test-tiny"])
+    calls["nearest_tokens"] = lambda: interpret_prompt.nearest_tokens(np.zeros((1, 4)),
+                                                                      np.zeros((3, 4)), 1)
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
 
@@ -232,8 +247,23 @@ args = fsvlm_tpu_torch.train.build_argparser().parse_args([
 trainer = fsvlm_tpu_torch.train.main(args)
 assert os.path.exists(os.path.join(out, "VLPromptLearner", "model-best.pkl"))
 assert "* accuracy:" in open(os.path.join(out, "log.txt")).read()
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "fsvlm_tpu", "regex", "yaml", "PIL"))
+import fsvlm_tpu_torch.ops.quant, fsvlm_tpu_torch.trainers.import_torch
+from fsvlm_tpu_torch.tools import import_torch_prompts, interpret_prompt, predict
+fixture = os.path.join({repo!r}, "tests", "torch_fixtures", "jpeg", "gray_280x210.jpg")
+rows = list(predict.predict(trainer, trainer.cfg, [fixture], topk=2))
+assert len(rows) == 1 and len(rows[0][1]) == 2, rows
+best = os.path.join(out, "VLPromptLearner", "model-best.pkl")
+ref = os.path.join(out, "model.pth.tar-1")
+import_torch_prompts.main([best, "--trainer", "PromptSRC", "--export", ref])
+import_torch_prompts.main([ref, "--trainer", "PromptSRC", "--best", "--output-dir", out + "_imp"])
+trainer.load_model(out + "_imp")
+cfg.MODEL.QUANT_INT8 = True
+trainer = ZeroshotCLIP(cfg, ["cat", "dog"], clip=clip, device="cpu", steps_per_epoch=1)
+assert 0 <= trainer.test(np.zeros((3, 32, 32, 3), np.uint8), np.zeros(3)) <= 100
+w_fc = trainer.frozen_eval()["clip"].visual.blocks[0].mlp.w_fc
+assert fsvlm_tpu_torch.ops.quant.is_quantized(w_fc)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "fsvlm_tpu", "regex", "yaml", "PIL", "sklearn"))
 print("FORBIDDEN", bad)
 sys.exit(1 if bad else 0)
 """
@@ -245,9 +275,11 @@ def test_serving_path_imports_no_jax_regex_yaml_or_pil():
     attention, and one CLI run (PromptSRC on the synthetic dataset, one
     epoch, CACHED_TEACHER, best-val), a LoRA, a MaPLe, a zero-shot (both)
     and a linear-probe epoch and test(), a PLIP epoch in each REG_TYPE, and
-    a CoOp epoch and test() on the ModifiedResNet test-tiny-rn on the CPU,
-    with every module of the port imported, load nothing of JAX, the JAX
-    package, regex, yaml or PIL."""
+    a CoOp epoch and test() on the ModifiedResNet test-tiny-rn, then the
+    tools (one predict call on the CLI run's model, its checkpoint exported
+    to a reference file and imported back) and a ZeroshotCLIP int8 test(), on
+    the CPU, with every module of the port imported, load nothing of JAX,
+    the JAX package, regex, yaml, PIL or sklearn."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _BOUNDARY.format(repo=REPO)], cwd=REPO,
                           env=env, capture_output=True, text=True, timeout=300)
