@@ -227,7 +227,37 @@ Phases; each passes or raises, and any failure exits non-zero:
    (top-4 words for every context vector).  One ``{"int8": ...}`` line, and
    the whole script's wall time.
 
-Phases 4, 6, 7, 8, 9, 10, 11, 12, 13 and 14 zero the launch counts just before each main path
+15. lpclip_export, with FSVLM_FORCE_PALLAS unset (#6 alone): ``python -m
+   fsvlm_tpu_torch.tools.lpclip``'s main in this process on phase 12's tree
+   (configs/datasets/caltech101.yaml, ViT-B/16 in fp32, random from seed 1,
+   16 shots: 1600 train, 400 val, 2465 test images): the three npz files,
+   #6 launched 12 times per extracted batch and nothing else, extraction
+   images/s per split, the L-BFGS fit's ms per C and the search's seconds
+   (tools/logreg.py, scipy over torch on the card), the val features
+   against the plain attention's (min cosine >= 0.999), and every fit of
+   the search that converged on the card (n_iter < max_iter) again on this
+   machine's CPU over the npz files, in a one-thread process beside the
+   rest of the phase, and once more on the samples permuted: the card's
+   solution within twice the CPU's own spread (or 1e-5) of the CPU's in
+   the float64 objective; the printed lines and val predictions
+   reported (the tree's 17 images under 100 labels tie the optimum's
+   class scores).  #6 in fp32 at the extraction's shape (32, 12, 197, 64) timed
+   beside its plain version and SDPA, with its bound.  Then
+   ``fsvlm_tpu_torch.tools.export_serving`` at ViT-B/16, 100 classes,
+   batch 96 (the tool's defaults; its command line for fp32, then bf16 and
+   int8 dynamic and static): the exported graph holds 12
+   ``fsvlm.flash_attn_fwd_d64`` nodes and no other attention (no SDPA,
+   softmax or other fsvlm operator), an int8 weight keeps its column-major
+   layout and a row-major one is refused; the loaded program equals the
+   live function in this process, and the ms per batch of both (median of
+   5 in turns); then a fresh process that imports torch, numpy and the port
+   alone loads each artifact with ``load_serving`` and runs it on the same
+   seeded images: top-1 equal to the live function's, logits within 1e-5
+   (fp32) or 1e-3 (bf16, int8) relative, byte equality reported, and #6
+   launched exactly 12 times per call (``LAUNCHES`` counts in the
+   operator's body).  One ``{"lpclip_export": ...}`` line.
+
+Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14 and 15 zero the launch counts just before each main path
 and read them just after: each kernel of the path must have launched its
 expected count (derived from the code: a rematerialized layer runs its
 forward kernel again), and the other families none.
@@ -3724,6 +3754,415 @@ def phase_int8_tools(clip, tree):
     return result, launches_serving, launches_teacher, launches_ivlp
 
 
+LPCLIP_SHOTS = 16  # the tool's default --num-shots: 1600 train images, 400 val
+LPCLIP_SEED = 1  # the tool's default --seed; the fp32 ViT-B/16 is random from it
+FEATURE_MIN_COSINE = 0.999  # the card's fp32 features against the plain attention's
+LR_MAX_ITER = 1000  # the tool's fits' max_iter (sklearn's default)
+LR_OBJ_RTOL = 1e-5  # the floor of the card/CPU objective gap's bound (relative)
+EXPORT_CLASSES, EXPORT_BATCH = 100, 96  # the export tool's defaults
+EXPORT_VARIANTS = [  # (label, dtype, int8, int8_static, logits' relative tolerance)
+    ("fp32", "float32", False, False, 1e-5), ("bf16", "bfloat16", False, False, 1e-3),
+    ("int8", "float32", True, False, 1e-3), ("int8_static", "float32", True, True, 1e-3)]
+EXPORT_TURNS = 5  # timed calls per side, live and loaded in turns, after a warm-up
+# what a plain attention traced in the kernels' place would add to the graph
+NOT_KERNEL_ATTENTION = ("scaled_dot_product", "softmax", "logsumexp", "fsvlm.blockwise",
+                        "fsvlm.fused", "flash_attn_bwd")
+
+_CPU_FITS = r"""
+import json, sys, time
+import numpy as np
+from fsvlm_tpu_torch.tools.logreg import LogisticRegression
+out, cs = sys.argv[1], [float(c) for c in sys.argv[2].split(",") if c]
+train, val = np.load(out + "/train.npz"), np.load(out + "/val.npz")
+X, y = train["feature_list"], train["label_list"]
+perm = np.random.RandomState(0).permutation(len(y))
+fits = []
+for i, c in enumerate(cs):
+    got = {}
+    for side, rows in (("cpu", slice(None)), ("cpu_permuted", perm)):
+        t0 = time.perf_counter()
+        clf = LogisticRegression(C=c, device="cpu").fit(X[rows], y[rows])
+        np.savez(f"{out}/{side}_{i}.npz", coef=clf.coef_, intercept=clf.intercept_)
+        got[side] = {"s": time.perf_counter() - t0, "n_iter": int(clf.n_iter_[0]),
+                     "acc": clf.score(val["feature_list"], val["label_list"]),
+                     "pred": clf.predict(val["feature_list"]).tolist()}
+    fits.append(got)
+print(json.dumps(fits))
+"""
+
+_LOAD_SERVING = r"""
+import json, sys
+import numpy as np
+import torch
+from fsvlm_tpu_torch.ops import flash_attention as fa
+from fsvlm_tpu_torch.tools.export_serving import graph_ops, load_serving
+work, labels = sys.argv[1], sys.argv[2].split(",")
+images = torch.from_numpy(np.load(work + "/images.npy")).cuda()
+result = {}
+for label in labels:
+    prog = load_serving(work + "/" + label + ".pt2")
+    params = torch.load(work + "/" + label + "_params.pt", map_location="cuda")
+    ops = graph_ops(prog.program)
+    per_call = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        top1, logits = prog(params, images)
+        torch.cuda.synchronize()
+        per_call.append(dict(fa.LAUNCHES))
+    np.savez(work + "/" + label + "_loaded.npz", top1=top1.cpu().numpy(),
+             logits=logits.float().cpu().numpy())
+    result[label] = {"launches_per_call": per_call, "ops": dict(ops)}
+    del prog, params
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "fsvlm_tpu", "sklearn", "chip_smoke"))
+print(json.dumps({"loaded": result, "forbidden_modules": bad}))
+"""
+
+
+def _lpclip_on_tree(tree):
+    """Phase 15's lpclip part on phase 12's tree (module docstring).
+    Returns (its numbers, #6's launches over the extraction, and the CPU
+    fits' process with what ``_lpclip_cpu_check`` needs)."""
+    import torch
+
+    from fsvlm_tpu_torch.data import DataManager
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.tools import lpclip
+    from fsvlm_tpu_torch.trainers.backbone import load_clip_backbone
+
+    work = tree["work"]
+    out = os.path.join(work, "lpclip")
+    argv = ["--root", work, "--dataset-config-file", "configs/datasets/caltech101.yaml",
+            "--backbone", "ViT-B/16", "--num-shots", str(LPCLIP_SHOTS), "--seed",
+            str(LPCLIP_SEED), "--output-dir", out, "--device", "cuda"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        clip = load_clip_backbone("ViT-B/16", False, "fp32", LPCLIP_SEED, "cuda")
+    console = io.StringIO()
+    torch.cuda.synchronize()
+    fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(console):
+            res = lpclip.main(argv, clip=clip)
+    except BaseException:
+        print(console.getvalue()[-4000:], flush=True)
+        raise
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    said = console.getvalue().splitlines()
+    lines = [ln for ln in said if ln.startswith(("C=", "Best C:"))]
+    cfg = lpclip.build_cfg(lpclip.build_argparser().parse_args(argv))
+    splits = res["splits"]
+    batches = {"train": len(splits["train"][1]) // cfg.DATALOADER.TRAIN_X.BATCH_SIZE,
+               "val": -(-len(splits["val"][1]) // cfg.DATALOADER.TEST.BATCH_SIZE),
+               "test": -(-len(splits["test"][1]) // cfg.DATALOADER.TEST.BATCH_SIZE)}
+    expected = 12 * sum(batches.values())
+    _others_silent(launches, fa.KERNEL, "lpclip's extraction")
+    log(f"lpclip: ViT-B/16 fp32 (random, seed {LPCLIP_SEED}) on phase 12's tree, "
+        f"{LPCLIP_SHOTS} shots: features {({k: v[0].shape for k, v in splits.items()})}, "
+        f"batches {batches}; #6 launched {launches[fa.KERNEL]} (expected 12 x "
+        f"{sum(batches.values())} = {expected}); run {run_s:.1f} s; printed "
+        f"{said[-2:]}")
+    if launches[fa.KERNEL] != expected:
+        raise SystemExit("FAIL: lpclip: #6's launches differ from the splits' batch count x 12")
+    for name in ("train", "val", "test"):
+        with np.load(os.path.join(out, f"{name}.npz")) as z:
+            if not (np.array_equal(z["feature_list"], splits[name][0])
+                    and np.array_equal(z["label_list"], splits[name][1])):
+                raise SystemExit(f"FAIL: lpclip: {name}.npz differs from the extraction")
+        if not np.isfinite(splits[name][0]).all():
+            raise SystemExit(f"FAIL: lpclip: non-finite {name} features")
+    if "=> result" not in said or not any(ln.startswith("* accuracy:") for ln in said):
+        raise SystemExit("FAIL: lpclip: no result line")
+    images_per_s = {k: len(splits[k][1]) / res["extract_s"][k] for k in splits}
+
+    # the card's features against the plain attention's on the same images
+    # (the val split, in the same order)
+    dm = DataManager(cfg)
+    with contextlib.redirect_stdout(io.StringIO()):
+        plain, plain_y = lpclip.extract_split(dm.val_loader, clip, attn_impl="plain")
+    got, got_y = splits["val"]
+    cos = float(np.min(np.sum(got * plain, 1) / (np.linalg.norm(got, axis=1)
+                                                   * np.linalg.norm(plain, axis=1))))
+    log(f"lpclip: val features ({len(got)} images) against the plain attention's: min cosine "
+        f"{cos:.9f} (limit {FEATURE_MIN_COSINE}), max |d| "
+        f"{np.abs(got - plain).max():.3e} of max |f| {np.abs(plain).max():.3e}")
+    if not np.array_equal(got_y, plain_y) or not cos >= FEATURE_MIN_COSINE:
+        raise SystemExit("FAIL: lpclip: the card's features disagree with the plain attention's")
+
+    # the card's converged fits again on this machine's CPU, over the npz
+    # files, in a process of one thread started now (it runs beside the
+    # rest of the phase; on a busy host, torch's and the BLAS's thread pools
+    # spin against each other over the fits' small operations)
+    converged = sorted({f["C"] for f in res["fits"] if f["n_iter"] < LR_MAX_ITER})
+    env = dict(os.environ, OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _CPU_FITS, out, ",".join(repr(float(c)) for c in converged)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    del clip
+    torch.cuda.empty_cache()
+    models = {}  # the search's fitted model at each C
+    for f in res["fits"]:
+        models.setdefault(f["C"], f.pop("model"))
+    result = {"images_per_s": images_per_s, "extract_s": res["extract_s"], "fits": res["fits"],
+              "search_s": res["search_s"], "best_c": res["best_c"], "accuracy": res["accuracy"],
+              "run_s": run_s, "val_min_cosine_to_plain": cos, "lines": lines,
+              "batches": batches}
+    return result, launches, (proc, out, converged, models)
+
+
+def _lr_objective(coef, intercept, X, y, C):
+    """sklearn's logistic-regression objective in float64 (mean multinomial
+    cross-entropy plus 0.5 / (C n) ||coef||^2), classes sorted as y's."""
+    X, W, b = X.astype(np.float64), coef.astype(np.float64), intercept.astype(np.float64)
+    s = X @ W.T + b
+    top = s.max(axis=1, keepdims=True)
+    lse = np.log(np.exp(s - top).sum(axis=1)) + top[:, 0]
+    ce = np.mean(lse - s[np.arange(len(y)), np.searchsorted(np.unique(y), y)])
+    return ce + 0.5 / (C * len(y)) * np.sum(W * W)
+
+
+def _lpclip_cpu_check(result, pending):
+    """The CPU process's fits against the card search's own, at every C
+    where the card's search converged (n_iter < max_iter): the card's
+    solution must reach the float64 objective of the CPU's to within twice
+    the CPU's own spread (its fit on the samples permuted moves the
+    objective; the largest move over the search's C) or 1e-5.  On phase
+    12's tree 1600 train rows are 17 distinct images under 100 random
+    labels: the optimum's class scores tie, so the val predictions and
+    the printed lines hinge on where each fit stops, and are reported."""
+    proc, out, converged, models = pending
+    t0 = time.perf_counter()
+    stdout, stderr = proc.communicate(timeout=900)
+    wait_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(stdout[-3000:], stderr[-3000:], flush=True)
+        raise SystemExit("FAIL: lpclip: the CPU fits' process failed")
+    cpu_fits = json.loads(stdout.strip().splitlines()[-1])
+    with np.load(os.path.join(out, "train.npz")) as z:
+        train_f, train_y = z["feature_list"], z["label_list"]
+    with np.load(os.path.join(out, "val.npz")) as z:
+        val_f, val_y = z["feature_list"], z["label_list"]
+    compared = []
+    for i, (c, cpu) in enumerate(zip(converged, cpu_fits)):
+        card = models[c]
+        obj = {"card": _lr_objective(card.coef_, card.intercept_, train_f, train_y, c)}
+        for side in ("cpu", "cpu_permuted"):
+            with np.load(os.path.join(out, f"{side}_{i}.npz")) as z:
+                obj[side] = _lr_objective(z["coef"], z["intercept"], train_f, train_y, c)
+        pred = card.predict(val_f)
+        compared.append({
+            "C": c, "n_iter": [int(card.n_iter_[0]), cpu["cpu"]["n_iter"],
+                               cpu["cpu_permuted"]["n_iter"]],
+            "objective": [obj["card"], obj["cpu"], obj["cpu_permuted"]],
+            "gap": abs(obj["card"] - obj["cpu"]) / obj["cpu"],
+            "cpu_spread": abs(obj["cpu_permuted"] - obj["cpu"]) / obj["cpu"],
+            "line_equal": f"{cpu['cpu']['acc'] * 100:.2f}" == f"{card.score(val_f, val_y) * 100:.2f}",
+            "val_flips": int((np.asarray(cpu["cpu"]["pred"]) != pred).sum()),
+            "cpu_val_flips": int((np.asarray(cpu["cpu"]["pred"])
+                                  != np.asarray(cpu["cpu_permuted"]["pred"])).sum()),
+            "cpu_fit_s": cpu["cpu"]["s"]})
+    stopped = sorted({f["C"] for f in result["fits"] if f["n_iter"] >= LR_MAX_ITER})
+    bound = max(LR_OBJ_RTOL, 2 * max((r["cpu_spread"] for r in compared), default=0.0))
+    log(f"lpclip: search on the card {result['search_s']:.2f} s: "
+        f"{[(f['C'], round(f['ms'], 1), f['n_iter'], f['acc']) for f in result['fits']]} (C, ms, "
+        f"n_iter, val acc), best C {result['best_c']:g}; the converged C again on the CPU (one "
+        f"thread, and on permuted samples; waited {wait_s:.1f} s for it): {compared}; objective "
+        f"gap bound {bound:.3e}; stopped at max_iter on the card, not compared: {stopped}")
+    if not compared or any(not r["gap"] <= bound for r in compared):
+        raise SystemExit("FAIL: lpclip: a card fit's objective is further from the CPU's than "
+                         "the CPU's own spread allows")
+    result.update(cpu_compared=compared, objective_gap_bound=bound, stopped_at_max_iter=stopped)
+
+
+def _fp32_extraction_timing():
+    """#6 in fp32 at lpclip's extraction shape (32, 12, 197, 64), no mask:
+    kernel, plain version and SDPA by CUDA events, with its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from fsvlm_tpu_torch.ops.flash_attention import _kernel_fwd, reference_attention_fwd
+
+    B, H, L = 32, 12, 197
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    q, k, v = _qkv(B, H, L, torch.float32, gen)
+    o, lse = _kernel_fwd(q, k, v, None)
+    o_ref, lse_ref = reference_attention_fwd(q, k, v, None)
+    err = max((o - o_ref).abs().max().item(), (lse - lse_ref).abs().max().item())
+    if not err <= TOL["float32"]["o"]:
+        raise SystemExit(f"FAIL: #6 fp32 at ({B}, {H}, {L}) disagrees with its plain version")
+    ms = _time_ms(lambda: _kernel_fwd(q, k, v, None))
+    plain_ms = _time_ms(lambda: reference_attention_fwd(q, k, v, None))
+    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    bound_ms, bound_by = _bound(B, H, L, False, "float32", 4)
+    log(f"time flash_attn_fwd_d64 fp32 lpclip extraction ({B},{H},{L},64) nomask: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}); max abs err {err:.3e}")
+    return {"shape": [B, H, L, 64], "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+
+
+def _export_serving(work):
+    """Phase 15's export part (module docstring).  Returns (its numbers,
+    #6's launches per loaded call in the fresh process)."""
+    import torch
+
+    from fsvlm_tpu_torch.models.clip import ARCHS, random_clip_params
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.tools import export_serving as tool
+
+    arch = "ViT-B/16"
+    res = ARCHS[arch].image_resolution
+    weights = random_clip_params(ARCHS[arch], seed=0)  # the tool's default weights
+    images_np = np.random.RandomState(0).randint(0, 256, (EXPORT_BATCH, res, res, 3), np.uint8)
+    np.save(os.path.join(work, "images.npy"), images_np)
+    images = torch.from_numpy(images_np).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    out, live = {}, {}
+    for label, dtype_name, int8, static, _ in EXPORT_VARIANTS:
+        path = os.path.join(work, f"{label}.pt2")
+        torch.cuda.synchronize()
+        fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        t0 = time.perf_counter()
+        if label == "fp32":  # the tool's command line, in this process
+            console = io.StringIO()
+            with contextlib.redirect_stdout(console):
+                tool.main(["--arch", arch, "--classes", str(EXPORT_CLASSES), "--batch",
+                           str(EXPORT_BATCH), "--out", path])
+            said = console.getvalue().strip().splitlines()[-1]
+            nbytes = os.path.getsize(path)
+        else:
+            _, nbytes = tool.export_serving(arch, EXPORT_CLASSES, EXPORT_BATCH, path, int8=int8,
+                                            dtype_name=dtype_name, params=weights,
+                                            int8_static=static)
+            said = None
+        torch.cuda.synchronize()
+        export_s = time.perf_counter() - t0
+        build_launches = fa.LAUNCHES[fa.KERNEL]
+        serve, params, _ = tool.build_serving_fn(arch, EXPORT_CLASSES, dtype_name=dtype_name,
+                                                 int8=int8, params=weights, int8_static=static)
+        prog = tool.load_serving(path)
+        ops = tool.graph_ops(prog.program)
+        stray = {k: n for k, n in ops.items() if any(w in k for w in NOT_KERNEL_ATTENTION)}
+        n_attn = ops.get("fsvlm.flash_attn_fwd_d64.default", 0)
+        q8 = [k for k in params if k.endswith(".q8")]
+        q8_layout = all(prog.expected[k].stride() == params[k].stride()
+                        and params[k].transpose(-1, -2).is_contiguous() for k in q8)
+        refused = None
+        if q8:
+            bad = dict(params, **{q8[0]: params[q8[0]].contiguous()})
+            try:
+                prog(bad, images)
+                refused = False
+            except ValueError:
+                refused = True
+        with torch.no_grad():
+            top1, logits = serve(params, images)
+            a_top1, a_logits = prog(params, images)
+        torch.cuda.synchronize()
+        in_process_equal = bool(torch.equal(top1, a_top1) and torch.equal(logits, a_logits))
+        # ms per batch, live and loaded in turns after a warm-up
+        times = {"live": [], "loaded": []}
+        with torch.no_grad():
+            for _ in range(EXPORT_TURNS):
+                for side, fn in (("live", serve), ("loaded", prog)):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    fn(params, images)
+                    torch.cuda.synchronize()
+                    times[side].append((time.perf_counter() - t1) * 1e3)
+        live[label] = (top1.cpu().numpy(), logits.float().cpu().numpy())
+        torch.save(params, os.path.join(work, f"{label}_params.pt"))
+        out[label] = {"artifact_bytes": nbytes, "export_s": export_s,
+                      "text_pass_launches": build_launches, "attention_nodes": n_attn,
+                      "other_attention_nodes": stray, "q8_layout_kept": q8_layout if q8 else None,
+                      "row_major_q8_refused": refused, "in_process_equal": in_process_equal,
+                      "live_ms": float(np.median(times["live"])),
+                      "loaded_ms": float(np.median(times["loaded"])), "printed": said}
+        log(f"export_serving {label}: {nbytes} bytes in {export_s:.2f} s (text pass #6 "
+            f"{build_launches}); graph: {n_attn} fsvlm.flash_attn_fwd_d64 nodes, other "
+            f"attention {stray}, int8 GEMMs {ops.get('aten._int_mm.default', 0)}; q8 layout "
+            f"kept {q8_layout if q8 else None}, row-major q8 refused {refused}; loaded here equal "
+            f"to live {in_process_equal}; ms per batch of {EXPORT_BATCH}: live "
+            f"{out[label]['live_ms']:.2f}, loaded {out[label]['loaded_ms']:.2f}"
+            + (f"; printed {said!r}" if said else ""))
+        if n_attn != 12 or stray:
+            raise SystemExit(f"FAIL: export {label}: the graph's attention is not 12 "
+                             f"fsvlm.flash_attn_fwd_d64 nodes alone")
+        if q8 and not (q8_layout and refused):
+            raise SystemExit(f"FAIL: export {label}: the q8 layout was not kept or refused")
+        if said is not None and not said.startswith(f"wrote {path} ("):
+            raise SystemExit(f"FAIL: export {label}: the tool printed {said!r}")
+        del serve, params, prog
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+
+    # a fresh process that imports torch, numpy and the port alone
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _LOAD_SERVING, work, ",".join(v[0] for v in EXPORT_VARIANTS)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=600)
+    fresh_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+        raise SystemExit("FAIL: export: loading the artifacts in a fresh process failed")
+    fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+    if fresh["forbidden_modules"]:
+        raise SystemExit(f"FAIL: export: the fresh process imported {fresh['forbidden_modules']}")
+    launches = {}
+    for label, _, _, _, rtol in EXPORT_VARIANTS:
+        got = fresh["loaded"][label]
+        with np.load(os.path.join(work, f"{label}_loaded.npz")) as z:
+            a_top1, a_logits = z["top1"], z["logits"]
+        top1, logits = live[label]
+        rel = float(np.abs(a_logits - logits).max() / np.abs(logits).max())
+        per_call = [c[fa.KERNEL] for c in got["launches_per_call"]]
+        others = [{k: n for k, n in c.items() if n and k != fa.KERNEL}
+                  for c in got["launches_per_call"]]
+        launches[label] = per_call[0]
+        out[label].update(fresh_top1_equal=bool(np.array_equal(a_top1, top1)),
+                          fresh_logits_rel=rel,
+                          fresh_byte_equal=bool(np.array_equal(a_logits, logits)),
+                          fresh_launches_per_call=per_call,
+                          fresh_attention_nodes=got["ops"].get(
+                              "fsvlm.flash_attn_fwd_d64.default", 0))
+        log(f"export_serving {label} in a fresh process: top-1 equal "
+            f"{out[label]['fresh_top1_equal']}, logits max |d| / max |l| {rel:.3e} (limit "
+            f"{rtol:g}), byte-equal {out[label]['fresh_byte_equal']}, #6 per call {per_call}, "
+            f"other kernels {others}")
+        if (not out[label]["fresh_top1_equal"] or not rel <= rtol or per_call != [12, 12]
+                or any(others) or out[label]["fresh_attention_nodes"] != 12):
+            raise SystemExit(f"FAIL: export {label}: the loaded program in a fresh process "
+                             f"disagrees with the live function")
+    log(f"export_serving: fresh process {fresh_s:.1f} s; peak device memory of the exports "
+        f"{peak / 2**30:.2f} GiB")
+    return dict(variants=out, fresh_process_s=fresh_s, peak_bytes=peak), launches
+
+
+def phase_lpclip_export(tree):
+    """Phase 15 (module docstring), FSVLM_FORCE_PALLAS unset (the caller
+    sets it), on phase 12's tree.  Returns (the ``{"lpclip_export": ...}``
+    numbers, #6's launches over lpclip's extraction, #6's per loaded call)."""
+    t0 = time.perf_counter()
+    lp, launches_lp, pending = _lpclip_on_tree(tree)
+    work = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        fp32 = _fp32_extraction_timing()
+        export, launches_export = _export_serving(work)
+        _lpclip_cpu_check(lp, pending)
+    finally:
+        pending[0].kill()
+        shutil.rmtree(work, ignore_errors=True)
+    result = {"lpclip": lp, "flash_attn_fwd_d64_fp32": fp32, "export": export,
+              "phase_s": time.perf_counter() - t0}
+    print(json.dumps({"lpclip_export": result}), flush=True)
+    return result, launches_lp, launches_export
+
+
 def _recipe_cfg_from_argv(argv):
     """The CLI's config for ``argv`` (setup_cfg), without running it."""
     from fsvlm_tpu_torch.train import build_argparser, setup_cfg
@@ -3762,6 +4201,8 @@ def main():
         # int8 serving and teachers, the tools (sets FSVLM_FORCE_PALLAS per part)
         _, launches_int8_serving, launches_int8_teacher, launches_int8_ivlp = phase_int8_tools(
             pred.clip, tree)
+        with force_pallas(None):  # lpclip and the serving export on the d = 64 kernels
+            _, launches_lpclip, launches_export = phase_lpclip_export(tree)
     finally:
         if tree:
             shutil.rmtree(tree["work"], ignore_errors=True)
@@ -3806,7 +4247,10 @@ def main():
     by_path = {"promptsrc": launches, "promptsrc_cli": launches_cli, **launches_clip,
                **launches_plip, "recognition_cli": launches_recognition, **launches_host,
                "zsclip_int8_test": launches_int8_serving,
-               "promptsrc_int8_teacher": launches_int8_teacher}
+               "promptsrc_int8_teacher": launches_int8_teacher,
+               "lpclip_extract": launches_lpclip,
+               **{f"export_{label}_loaded_call": {fa.KERNEL: n}
+                  for label, n in launches_export.items()}}
     for row in kernels[:3]:
         row["launches_by_path"] = {path: n.get(row["name"], 0) for path, n in by_path.items()}
     # #3-#5's: phase 7's IVLP KD steps and phase 14's with the int8 KD teacher
@@ -3832,7 +4276,7 @@ def main():
         "parts": [{"name": k, "launches": launches_fused[k], "ms": bwd["parts"][k]} for k in parts],
         "device_ms": bwd["device_ms"], "library_device_ms": bwd["library_device_ms"],
     })
-    log(f"chip_smoke: all 14 phases in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: all 15 phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -124,7 +124,8 @@ def test_predictor_requires_a_card_for_cuda():
 @pytest.mark.parametrize("entry", ["load_clip_backbone", "clip_from_params", "CLIP", "causal_mask",
                                    "PromptSRC", "make_lr_schedule", "CoOp", "CoCoOp", "LoRA",
                                    "MaPLe", "ZeroshotCLIP", "ZeroshotCLIP2", "LinearProbeCLIP",
-                                   "predict", "interpret_prompt", "nearest_tokens"])
+                                   "predict", "interpret_prompt", "nearest_tokens",
+                                   "LogisticRegression", "lpclip", "export_serving"])
 def test_entry_points_default_to_the_card(entry, tmp_path):
     """With no device given, every entry point asks for cuda, and raises on
     a box without one instead of falling back to the CPU."""
@@ -169,6 +170,13 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
                                                                "test-tiny"])
     calls["nearest_tokens"] = lambda: interpret_prompt.nearest_tokens(np.zeros((1, 4)),
                                                                       np.zeros((3, 4)), 1)
+    from fsvlm_tpu_torch.tools import export_serving, logreg, lpclip
+
+    calls["LogisticRegression"] = lambda: logreg.LogisticRegression().fit(np.eye(2), [0, 1])
+    calls["lpclip"] = lambda: lpclip.main(["--root", str(tmp_path), "--dataset-config-file",
+                                           os.path.join(REPO, "configs/datasets/synthetic.yaml")])
+    calls["export_serving"] = lambda: export_serving.main(["--arch", "test-tiny", "--out",
+                                                           str(tmp_path / "s.pt2")])
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
 
@@ -262,6 +270,14 @@ trainer = ZeroshotCLIP(cfg, ["cat", "dog"], clip=clip, device="cpu", steps_per_e
 assert 0 <= trainer.test(np.zeros((3, 32, 32, 3), np.uint8), np.zeros(3)) <= 100
 w_fc = trainer.frozen_eval()["clip"].visual.blocks[0].mlp.w_fc
 assert fsvlm_tpu_torch.ops.quant.is_quantized(w_fc)
+from fsvlm_tpu_torch.tools import export_serving, logreg, lpclip
+eye = np.eye(3, dtype=np.float32)
+clf = logreg.LogisticRegression(device="cpu").fit(eye, [0, 1, 2])
+assert list(clf.predict(eye)) == [0, 1, 2]
+assert lpclip.search_logreg(np.tile(eye, (2, 1)), [0, 1, 2] * 2, eye, [0, 1, 2], device="cpu")
+params, _ = export_serving.export_serving("test-tiny", 2, 2, out + "_serving.pt2", device="cpu")
+program = export_serving.load_serving(out + "_serving.pt2", device="cpu")
+assert program(params, torch.zeros((2, 32, 32, 3), dtype=torch.uint8))[0].shape == (2,)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "fsvlm_tpu", "regex", "yaml", "PIL", "sklearn"))
 print("FORBIDDEN", bad)
@@ -277,8 +293,9 @@ def test_serving_path_imports_no_jax_regex_yaml_or_pil():
     and a linear-probe epoch and test(), a PLIP epoch in each REG_TYPE, and
     a CoOp epoch and test() on the ModifiedResNet test-tiny-rn, then the
     tools (one predict call on the CLI run's model, its checkpoint exported
-    to a reference file and imported back) and a ZeroshotCLIP int8 test(), on
-    the CPU, with every module of the port imported, load nothing of JAX,
+    to a reference file and imported back), a ZeroshotCLIP int8 test(), a
+    logistic-regression fit, lpclip's C search and a serving export saved,
+    loaded and run, on the CPU, with every module of the port imported, load nothing of JAX,
     the JAX package, regex, yaml, PIL or sklearn."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _BOUNDARY.format(repo=REPO)], cwd=REPO,
