@@ -257,10 +257,39 @@ Phases; each passes or raises, and any failure exits non-zero:
    launched exactly 12 times per call (``LAUNCHES`` counts in the
    operator's body).  One ``{"lpclip_export": ...}`` line.
 
+16. drivers, with FSVLM_FORCE_PALLAS unset (the d = 64 kernels #6-#8), on
+   phase 12's tree: ``python -m fsvlm_tpu_torch.run_script
+   scripts/imbalance/run_setting_a.sh PromptSRC caltech101 1
+   vit_b16_c2_ep20_batch4_4+4ctx 50 50 ce <tree>`` (the unchanged driver,
+   its ``python train.py`` routed to the port's CLI on the card) with
+   TAIL_SWEEP=1 (850 train images), OUT_ROOT and FSVLM_PROFILE_DIR in a
+   temporary directory, cut only through FSVLM_EXTRA_OPTS (1 epoch, batch
+   48: 17 steps; random weights; bf16 towers), the recipe's host
+   augmentation and per-step teacher: the runner's exit 0 and exactly one
+   routed call, the driver's directory contract
+   (setting_a/caltech101/PromptSRC/<cfg>/ce/tail1/seed1/ with log.txt and
+   VLPromptLearner/model.pkl-1), the end signal and ``* accuracy:`` in
+   log.txt, one Chrome trace in FSVLM_PROFILE_DIR whose kernel events count
+   #6-#8 at exactly the derived numbers for its window (before_train to the
+   start of after_train: the 17 steps, 36 / 24 / 24 each), and
+   parse_test_res.py through the shim's pass-through naming the run's
+   accuracy.  Then adam, amsgrad, adamw, rmsprop and radam on phase 6's
+   PromptSRC step (batch 48): one step of the trainer under sync debug mode
+   'error', 3 steps whose parameters and moment buffers match the same
+   optimizer on the card's host CPU fed the same gradients (max |card - cpu|
+   at most 1e-6 of each tensor's largest magnitude), and a non-finite
+   gradient that leaves parameters, buffers and counts unchanged.  Then
+   lpclip's ``search_logreg`` on the card on seeded class-separated
+   features (100 classes, 16 train and 4 val rows each, 512 wide) against
+   the same search in a one-thread CPU process started at the phase's
+   start: the same printed lines and best C.  One ``{"drivers": ...}``
+   line.
+
 Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14 and 15 zero the launch counts just before each main path
-and read them just after: each kernel of the path must have launched its
-expected count (derived from the code: a rematerialized layer runs its
-forward kernel again), and the other families none.
+and read them just after, and phase 16 counts the driver's from its
+profiler trace (the run is another process): each kernel of the path must
+have launched its expected count (derived from the code: a rematerialized
+layer runs its forward kernel again), and the other families none.
 
 The line before the last is ``{"kernels": [...]}`` (one row per TPU kernel;
 #2's row lists its three CUDA kernels as ``parts``; #6-#8's and #3-#5's
@@ -4163,6 +4192,277 @@ def phase_lpclip_export(tree):
     return result, launches_lp, launches_export
 
 
+DRIVER = "scripts/imbalance/run_setting_a.sh"
+DRIVER_CFG = "vit_b16_c2_ep20_batch4_4+4ctx"
+DRIVER_BATCH = 48  # bench.py's batch (the recipe's 4): 17 steps, a trace of a few tens of MB
+# the run's cuts and settings, all through FSVLM_EXTRA_OPTS (the driver stays as it is):
+# 1 epoch of the recipe's 20, random weights (none on the machine), bf16 towers
+DRIVER_OPTS = (f"OPTIM.MAX_EPOCH 1 DATALOADER.TRAIN_X.BATCH_SIZE {DRIVER_BATCH} "
+               "MODEL.BACKBONE.PRETRAINED False MODEL.FROZEN_DTYPE bf16")
+OPTIMIZERS = ("adam", "amsgrad", "adamw", "rmsprop", "radam")
+OPT_STEPS = 3  # steps held against the same optimizer on the CPU
+OPT_RTOL = 1e-6  # per tensor: max |card - cpu| over max |cpu|
+# C.5: the search on seeded features with class structure (no ties)
+UNTIED_CLASSES, UNTIED_TRAIN, UNTIED_VAL, UNTIED_WIDTH, UNTIED_SEP = 100, 16, 4, 512, 0.3
+
+_UNTIED_CPU = r"""
+import contextlib, io, json, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from fsvlm_tpu_torch.tools.lpclip import search_logreg
+z = np.load(sys.argv[1])
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    best = search_logreg(z["train_f"], z["train_y"], z["val_f"], z["val_y"], device="cpu")
+print(json.dumps({"lines": buf.getvalue().splitlines(), "best_c": float(best)}))
+"""
+
+
+def _untied_features(path):
+    """Seeded features with class means far apart against unit noise:
+    UNTIED_CLASSES classes x (UNTIED_TRAIN train, UNTIED_VAL val) rows,
+    UNTIED_WIDTH wide, saved to ``path``; returns them."""
+    rng = np.random.RandomState(0)
+    means = rng.randn(UNTIED_CLASSES, UNTIED_WIDTH).astype(np.float32) * UNTIED_SEP
+    z = {}
+    for split, n in (("train", UNTIED_TRAIN), ("val", UNTIED_VAL)):
+        y = np.repeat(np.arange(UNTIED_CLASSES), n)
+        z[f"{split}_f"] = (means[y] + rng.randn(len(y), UNTIED_WIDTH)).astype(np.float32)
+        z[f"{split}_y"] = y
+    np.savez(path, **z)
+    return z
+
+
+def _run_runner(args, env, timeout=900):
+    """``python -m fsvlm_tpu_torch.run_script args`` from the repo's root;
+    returns its stdout (the end of it is printed if it fails)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, "-m", "fsvlm_tpu_torch.run_script", *args], cwd=here,
+                       env=env, capture_output=True, text=True, timeout=timeout)
+    if r.returncode != 0:
+        print(r.stdout[-4000:], r.stderr[-4000:], flush=True)
+        raise SystemExit(f"FAIL: drivers: the runner exited {r.returncode} on {args[:2]}")
+    return r.stdout
+
+
+def _trace_kernel_counts(path, groups):
+    """Launches of each group of ``groups`` ({label: name fragments}) among
+    the kernel events of a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {label: sum(any(f in n for f in frags) for n in names)
+            for label, frags in groups.items()}, len(names)
+
+
+def _driver_on_card(tree, work):
+    """The Setting A driver through the runner on phase 12's tree (module
+    docstring); returns (#6-#8 from the trace, its numbers)."""
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+
+    out_root, prof = os.path.join(work, "out"), os.path.join(work, "profile")
+    env = dict(os.environ, TAIL_SWEEP="1", OUT_ROOT=out_root, FSVLM_PROFILE_DIR=prof,
+               FSVLM_EXTRA_OPTS=DRIVER_OPTS)
+    env.pop("FSVLM_FORCE_PALLAS", None)
+    t0 = time.perf_counter()
+    stdout = _run_runner(["--device", "cuda", DRIVER, "PromptSRC", "caltech101", "1", DRIVER_CFG,
+                          "50", "50", "ce", tree["work"]], env)
+    run_s = time.perf_counter() - t0
+    summary = [ln for ln in stdout.splitlines() if ln.startswith("run_script:")]
+    log(f"drivers: {DRIVER} through the runner in {run_s:.1f} s: {summary}")
+    if "run_script: 1 python call(s), 0 failed; the driver exited 0" not in summary:
+        raise SystemExit("FAIL: drivers: the runner did not make exactly one routed call, or it "
+                         "failed")
+    seed_dir = os.path.join(out_root, "setting_a", "caltech101", "PromptSRC", DRIVER_CFG, "ce",
+                            "tail1", "seed1")
+    text = _read(os.path.join(seed_dir, "log.txt"))
+    mdir = os.path.join(seed_dir, "VLPromptLearner")
+    if not {"checkpoint", "model.pkl-1"} <= set(os.listdir(mdir)):
+        raise SystemExit(f"FAIL: drivers: {mdir} holds {os.listdir(mdir)}")
+    after = text[text.find("=> result"):] if "=> result" in text else ""
+    accs = re.findall(r"[*] accuracy: ([0-9.]+)%", after)
+    lines = re.findall(r"epoch \[1/1\]\[(\d+)/(\d+)\]\ttime ([0-9.]+) \(([0-9.]+)\)", text)
+    losses = [float(x) for x in re.findall(r"\bloss ([-+.\deE]+|nan|inf)", text)]
+    if (not accs or "Finish training" not in text or not lines or not losses
+            or not all(np.isfinite(losses))):
+        raise SystemExit("FAIL: drivers: log.txt lacks the end signal, the accuracy, the train "
+                         "lines or finite losses")
+    steps = int(lines[-1][1])
+    n_train = 50 * 16 + 50 * 1  # PER_CLASS_SHOTS at TAIL_SWEEP=1
+    if steps != n_train // DRIVER_BATCH or "PER_CLASS_SHOTS=[16," not in stdout:
+        raise SystemExit(f"FAIL: drivers: {steps} steps, expected {n_train // DRIVER_BATCH}")
+    epoch_ms = float(lines[-1][3]) * steps * 1e3
+
+    # #6-#8 from FSVLM_PROFILE_DIR's trace: its window runs from before_train
+    # to the start of after_train, so it holds the train steps (TEST.FINAL_MODEL
+    # last_step: no val pass) and not the final test
+    traces = os.listdir(prof)
+    if len(traces) != 1:
+        raise SystemExit(f"FAIL: drivers: FSVLM_PROFILE_DIR holds {traces}, not one trace")
+    trace_bytes = os.path.getsize(os.path.join(prof, traces[0]))
+    counts, n_kernels = _trace_kernel_counts(os.path.join(prof, traces[0]),
+                                             {**FLASH_GROUPS, **FUSED_GROUPS})
+    if counts.pop("#1") or counts.pop("#2"):
+        raise SystemExit("FAIL: drivers: the whole-sequence kernels ran on the default route")
+    Lt = Lv = 12  # ViT-B/16's text and vision layers
+    per_step = {"#6": Lv + Lt + Lv, "#7": Lt + Lv, "#8": Lt + Lv}  # teacher + student; student
+    expected = {k: steps * n for k, n in per_step.items()}
+    log(f"drivers: the trace ({trace_bytes / 2**20:.1f} MiB, {n_kernels} kernel events): "
+        f"#6-#8 {counts}, expected {expected} ({steps} steps of {DRIVER_BATCH}); epoch "
+        f"{epoch_ms:.1f} ms under the profiler ({steps * DRIVER_BATCH / epoch_ms * 1e3:.1f} "
+        f"images/s); accuracies in log.txt {accs}")
+    if counts != expected:
+        raise SystemExit("FAIL: drivers: #6-#8 in the trace differ from the derived counts")
+
+    # parse_test_res.py through the shim's pass-through, on the run's seeds
+    agg = os.path.join(work, "aggregate.sh")
+    with open(agg, "w") as f:
+        f.write('#!/bin/bash\npython parse_test_res.py "$1"\n')
+    # (--device cpu: the call routes nothing to a device, and skips CUDA's start)
+    table = _run_runner(["--device", "cpu", agg, os.path.dirname(seed_dir)], dict(os.environ))
+    want = f"* accuracy: {float(accs[-1]):.2f}%"
+    log(f"drivers: parse_test_res.py through the runner: "
+        f"{[ln for ln in table.splitlines() if ln.startswith('* ')]}")
+    if want not in table or "1 python call(s), 0 failed" not in table:
+        raise SystemExit(f"FAIL: drivers: parse_test_res.py's table does not name {want!r}")
+    launches = {fa.KERNEL: counts["#6"], fa.KERNEL_DKV: counts["#7"], fa.KERNEL_DQ: counts["#8"]}
+    return launches, {"run_s": run_s, "steps": steps, "batch": DRIVER_BATCH, "epoch_ms": epoch_ms,
+                      "trace_bytes": trace_bytes, "accuracy": float(accs[-1]), "launches": counts}
+
+
+def _rel_gap(card, cpu):
+    card, cpu = card.detach().cpu().double(), cpu.double()
+    scale = cpu.abs().max().item()
+    return (card - cpu).abs().max().item() / scale if scale else (card - cpu).abs().max().item()
+
+
+def _optimizer_family(clip):
+    """The five optimizers on phase 6's PromptSRC step (batch 48): one step
+    of the trainer under sync debug mode 'error'; OPT_STEPS steps whose
+    parameters and moment buffers match the same optimizer on the card's CPU
+    fed the same gradients; a non-finite gradient that changes nothing."""
+    import torch
+
+    from fsvlm_tpu_torch.engine.optim import build_optimizer
+    from fsvlm_tpu_torch.trainers.promptsrc import PromptSRC
+
+    cfg = _train_cfg("PROMPTSRC")
+    cache, labels = _train_cache()
+    kt = PromptSRC(cfg, [f"class {i}" for i in range(N_CLASSES)], cache, labels, clip=clip,
+                   device="cuda", steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+    init = {k: v.detach().clone() for k, v in kt.params.items()}
+    batches = [_augmented_batch(cache, labels, 40 + i) for i in range(OPT_STEPS)]
+    index = kt.epoch_schedule()[0][0]
+
+    def fresh(name):
+        cfg.OPTIM.NAME = name
+        with torch.no_grad():
+            for k, v in kt.params.items():
+                v.copy_(init[k])
+        kt.optim, kt.lr_schedule = build_optimizer(cfg, kt.params.values(), kt.steps_per_epoch)
+
+    result = {}
+    for name in OPTIMIZERS:
+        fresh(name)
+        _no_sync_step(f"optim {name}", kt.train_step_resident, index)
+        fresh(name)
+        cpu = {k: v.detach().cpu().clone() for k, v in kt.params.items()}
+        copt, _ = build_optimizer(cfg, cpu.values(), kt.steps_per_epoch)
+        gaps = []
+        for b in batches:
+            loss, _ = kt.loss_fn(kt.params, kt.frozen, b)
+            grads = torch.autograd.grad(loss, list(kt.params.values()))
+            kt.optim.step(grads)
+            copt.step([g.cpu() for g in grads])
+            gaps.append(max([_rel_gap(kt.params[k], cpu[k]) for k in cpu]
+                            + [_rel_gap(x, y) for bname in copt.buffers
+                               for x, y in zip(getattr(kt.optim, bname), getattr(copt, bname))]))
+        counts_equal = int(kt.optim.count) == int(copt.count) == OPT_STEPS
+        before = ([v.clone() for v in kt.params.values()],
+                  [x.clone() for bname in kt.optim.buffers for x in getattr(kt.optim, bname)],
+                  int(kt.optim.count))
+        bad = [g.clone() for g in grads]
+        bad[0].view(-1)[0] = float("inf")
+        kt.optim.step(bad)
+        unchanged = (all(torch.equal(a, b) for a, b in zip(before[0], kt.params.values()))
+                     and all(torch.equal(a, b) for a, b in zip(
+                         before[1], [x for bname in kt.optim.buffers
+                                     for x in getattr(kt.optim, bname)]))
+                     and int(kt.optim.count) == before[2] and int(kt.optim.notfinite_count) == 1)
+        log(f"drivers: optimizer {name} (buffers {kt.optim.buffers}): largest gap to the CPU per "
+            f"step {[f'{g:.2e}' for g in gaps]} (limit {OPT_RTOL:g}), counts equal "
+            f"{counts_equal}; a non-finite step changed nothing: {unchanged}")
+        if max(gaps) > OPT_RTOL or not counts_equal or not unchanged:
+            raise SystemExit(f"FAIL: drivers: optimizer {name} on the card differs from the CPU, "
+                             f"or its non-finite step changed its state")
+        result[name] = {"gaps": gaps, "buffers": list(kt.optim.buffers)}
+    cfg.OPTIM.NAME = "sgd"
+    del kt
+    torch.cuda.empty_cache()
+    return result
+
+
+def _untied_search(work, pending):
+    """C.5: ``search_logreg`` on the card on the untied features, against
+    the one-thread CPU process started at the phase's start: the same
+    printed lines and best C."""
+    from fsvlm_tpu_torch.tools.lpclip import search_logreg
+
+    proc, z = pending
+    buf, fits = io.StringIO(), []
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        best = search_logreg(z["train_f"], z["train_y"], z["val_f"], z["val_y"], device="cuda",
+                             fits=fits)
+    card_s = time.perf_counter() - t0
+    stdout, stderr = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        print(stdout[-3000:], stderr[-3000:], flush=True)
+        raise SystemExit("FAIL: drivers: the CPU search's process failed")
+    cpu = json.loads(stdout.strip().splitlines()[-1])
+    lines = buf.getvalue().splitlines()
+    log(f"drivers: untied lpclip search ({UNTIED_CLASSES} classes, {UNTIED_TRAIN}/{UNTIED_VAL} "
+        f"rows each, {UNTIED_WIDTH} wide) on the card in {card_s:.2f} s: {lines}, best C "
+        f"{float(best):g}, n_iter {[f['n_iter'] for f in fits]}; the CPU's best C "
+        f"{cpu['best_c']:g}, lines equal: {lines == cpu['lines']}")
+    if lines != cpu["lines"] or float(best) != cpu["best_c"]:
+        raise SystemExit("FAIL: drivers: the card's lpclip search differs from the CPU's")
+    return {"lines": lines, "best_c": float(best), "card_s": card_s}
+
+
+def phase_drivers(clip, tree):
+    """Phase 16 (module docstring), FSVLM_FORCE_PALLAS unset (the caller
+    sets it), on phase 12's tree.  Returns (#6-#8 over the driver run's
+    profiled window, the ``{"drivers": ...}`` numbers)."""
+    import torch
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_drivers_")
+    proc = None
+    try:
+        z = _untied_features(os.path.join(work, "untied.npz"))
+        env = dict(os.environ, OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1",
+                   MKL_NUM_THREADS="1")
+        proc = subprocess.Popen([sys.executable, "-c", _UNTIED_CPU,
+                                 os.path.join(work, "untied.npz")],
+                                cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        torch.cuda.empty_cache()  # the driver's own process shares the card
+        launches, driver = _driver_on_card(tree, work)
+        optimizers = _optimizer_family(clip)
+        untied = _untied_search(work, (proc, z))
+    finally:
+        if proc is not None:
+            proc.kill()
+        shutil.rmtree(work, ignore_errors=True)
+    result = {"driver": driver, "optimizers": optimizers, "lpclip_untied": untied,
+              "phase_s": time.perf_counter() - t0}
+    log(f"drivers: phase 16 in {result['phase_s']:.1f} s")
+    print(json.dumps({"drivers": result}), flush=True)
+    return launches, result
+
+
 def _recipe_cfg_from_argv(argv):
     """The CLI's config for ``argv`` (setup_cfg), without running it."""
     from fsvlm_tpu_torch.train import build_argparser, setup_cfg
@@ -4203,6 +4503,8 @@ def main():
             pred.clip, tree)
         with force_pallas(None):  # lpclip and the serving export on the d = 64 kernels
             _, launches_lpclip, launches_export = phase_lpclip_export(tree)
+        with force_pallas(None):  # the drivers through the runner, on the d = 64 kernels
+            launches_driver, _ = phase_drivers(pred.clip, tree)
     finally:
         if tree:
             shutil.rmtree(tree["work"], ignore_errors=True)
@@ -4248,7 +4550,7 @@ def main():
                **launches_plip, "recognition_cli": launches_recognition, **launches_host,
                "zsclip_int8_test": launches_int8_serving,
                "promptsrc_int8_teacher": launches_int8_teacher,
-               "lpclip_extract": launches_lpclip,
+               "lpclip_extract": launches_lpclip, "driver_setting_a": launches_driver,
                **{f"export_{label}_loaded_call": {fa.KERNEL: n}
                   for label, n in launches_export.items()}}
     for row in kernels[:3]:
@@ -4276,7 +4578,7 @@ def main():
         "parts": [{"name": k, "launches": launches_fused[k], "ms": bwd["parts"][k]} for k in parts],
         "device_ms": bwd["device_ms"], "library_device_ms": bwd["library_device_ms"],
     })
-    log(f"chip_smoke: all 15 phases in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: all 16 phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,7 +41,11 @@ class OptimConfig:
     LR: float = 0.0025  # yaml
     WEIGHT_DECAY: float = 5e-4
     MOMENTUM: float = 0.9
+    SGD_DAMPNING: int = 0  # read by no optimizer, as in the JAX package
     SGD_NESTEROV: bool = False
+    RMSPROP_ALPHA: float = 0.99
+    ADAM_BETA1: float = 0.9
+    ADAM_BETA2: float = 0.999
     LR_SCHEDULER: str = "cosine"  # yaml
     STEPSIZE: Tuple[int, ...] = (-1,)
     GAMMA: float = 0.1
@@ -91,6 +95,7 @@ class PromptSRCConfig:
     IMAGE_LOSS_WEIGHT: float = 10.0
     GPA_MEAN: float = 15
     GPA_STD: float = 1
+    LABEL_SCOPE: str = "default"  # "all" or "default"; read by no trainer, as in the JAX package
     LOSS_TYPE: str = "ce"
     SIMCLR_ALPHA: float = 0.0
     USE_GPA: bool = True
@@ -274,6 +279,7 @@ class TrainConfig:
 
 @dataclasses.dataclass
 class TestConfig:
+    EVALUATOR: str = "Classification"  # the only evaluator; another name raises
     PER_CLASS_RESULT: bool = False
     COMPUTE_CMAT: bool = False  # kept on the evaluator as ``cmat`` (no OUTPUT_DIR here)
     NO_TEST: bool = False
@@ -295,9 +301,11 @@ class DatasetConfig:
 
 @dataclasses.dataclass
 class Config:
+    VERSION: int = 1
     OUTPUT_DIR: str = "./output"
     RESUME: str = ""
     SEED: int = -1
+    USE_CUDA: bool = True  # kept for config compatibility; ignored (the device is --device's)
     VERBOSE: bool = True
     OPTIM: OptimConfig = field(default_factory=OptimConfig)
     INPUT: InputConfig = field(default_factory=InputConfig)

@@ -10,6 +10,8 @@ per-class accuracies and their mean; with TEST.COMPUTE_CMAT the confusion
 matrix normalized over the true labels (``confusion_matrix(...,
 normalize="true")``), kept as ``cmat`` since the port has no OUTPUT_DIR.
 The printed block is the JAX package's, which tools/parse_test_res.py reads.
+``build_evaluator`` takes TEST.EVALUATOR's, and Classification is the only
+one: another name raises KeyError.
 """
 
 from collections import OrderedDict, defaultdict
@@ -95,6 +97,18 @@ class Classification:
     @property
     def y_pred(self):
         return list(self._y_pred)
+
+
+EVALUATORS = {"Classification": Classification}
+
+
+def build_evaluator(cfg, lab2cname=None):
+    """The evaluator of TEST.EVALUATOR (the JAX package's build_evaluator)."""
+    name = cfg.TEST.EVALUATOR
+    if name not in EVALUATORS:
+        raise KeyError(f"TEST.EVALUATOR {name!r} is not an evaluator of this package "
+                       f"(it has {sorted(EVALUATORS)})")
+    return EVALUATORS[name](cfg, lab2cname=lab2cname)
 
 
 def macro_f1_score(y_true, y_pred):

@@ -1,4 +1,4 @@
-"""LR schedules and the SGD optimizer (counterpart of fsvlm_tpu.engine.optim).
+"""LR schedules and the optimizers (counterpart of fsvlm_tpu.engine.optim).
 
 The reference steps its torch schedulers once per epoch; the JAX package
 makes the schedule a pure function of the optimizer's step count with
@@ -17,14 +17,31 @@ per-epoch staircase (optim.py:57-112):
 lr(step) = table[min(step // steps_per_epoch, MAX_EPOCH)], a gather from a
 table on the device: no host sync.
 
-``build_optimizer`` ports the ``sgd`` chain of optim.py:115-172:
-optax.add_decayed_weights (coupled decay) -> trace (momentum, optional
-Nesterov; the trace starts at zero) -> scale_by_learning_rate(schedule),
-wrapped in optax.apply_if_finite(..., max_consecutive_errors=8): a step whose
-gradients are not all finite leaves the parameters, the momentum and the
-schedule's count unchanged, unless it is the 9th or later such step in a
-row, which is applied anyway.  The finite test and the selects run on the
-device (torch.where), so a step needs no host sync.
+``build_optimizer`` ports the optax chains of optim.py:115-172 for every
+OPTIM.NAME (AVAI_OPTIMS), on a list of fp32 tensors updated in place:
+
+- coupled decay first (optax.add_decayed_weights: g + WEIGHT_DECAY * p
+  before the statistics) for every optimizer but adamw;
+- sgd: trace (momentum, optional Nesterov; the trace starts at zero);
+- adam: scale_by_adam (eps 1e-8 outside the root), bias-corrected with
+  the update's own step count t = 1, 2, ...;
+- amsgrad: the JAX package's ``_scale_by_amsgrad_torch`` (:29-53): the
+  running max of the RAW second moment, bias-corrected after;
+- adamw: scale_by_adam, then + WEIGHT_DECAY * p (decoupled);
+- rmsprop: scale_by_rms(decay=RMSPROP_ALPHA, initial_scale=0), in optax
+  0.2.6 g * rsqrt(nu + 1e-8) (torch's RMSprop divides by sqrt(nu) + eps),
+  then a momentum trace when MOMENTUM is nonzero;
+- radam: scale_by_radam (eps 1e-8), rectified where rho_t >= 5 (torch's
+  RAdam tests rho_t > 5), else the bias-corrected first moment;
+
+then scale_by_learning_rate(schedule), the whole chain wrapped in
+optax.apply_if_finite(..., max_consecutive_errors=8): a step whose
+gradients are not all finite leaves the parameters, every moment buffer and
+the step count unchanged, unless it is the 9th or later such step in a row,
+which is applied anyway.  The finite test and the selects run on the device
+(torch.where), with the step count a device tensor, so a step needs no host
+sync.  The schedule's count and the moments' count are one: both advance on
+every applied step.
 """
 
 import math
@@ -34,7 +51,7 @@ import torch
 
 from .. import resolve_device
 
-AVAI_OPTIMS = ["sgd"]
+AVAI_OPTIMS = ["adam", "amsgrad", "sgd", "rmsprop", "radam", "adamw"]
 AVAI_SCHEDS = ["single_step", "multi_step", "cosine", "constant"]
 MAX_CONSECUTIVE_ERRORS = 8
 
@@ -89,20 +106,38 @@ def make_lr_schedule(cfg, steps_per_epoch, device=None):
     return LRSchedule(lr_at_epoch, max_epoch, steps_per_epoch, resolve_device(device))
 
 
-class SGD:
-    """optax's sgd chain under apply_if_finite, on a list of fp32 tensors
-    updated in place.  State: ``count`` (the schedule's step count),
-    ``trace`` (momentum buffers), ``notfinite_count`` (consecutive
-    non-finite steps); all on the parameters' device."""
+class Optimizer:
+    """One optax chain under apply_if_finite, on a list of fp32 tensors
+    updated in place.  State: ``count`` (the applied steps: the schedule's
+    step, and t - 1 of the bias corrections), ``notfinite_count``
+    (consecutive non-finite steps), and per parameter the buffers named in
+    ``buffers`` (lists of tensors, attributes of those names); all on the
+    parameters' device.  A subclass gives ``scalars(t)`` (per-step device
+    scalars) and ``update(p, g, buf, s)`` -> (the update before the
+    learning rate, {buffer: its new value})."""
 
-    def __init__(self, params, schedule, weight_decay, momentum, nesterov):
+    name = None
+
+    def __init__(self, params, schedule, weight_decay, buffers):
         self.params = list(params)
         self.schedule = schedule
-        self.weight_decay, self.momentum, self.nesterov = weight_decay, momentum, nesterov
+        self.weight_decay = weight_decay
+        self.buffers = tuple(buffers)
         dev = self.params[0].device
         self.count = torch.zeros((), dtype=torch.int64, device=dev)
         self.notfinite_count = torch.zeros((), dtype=torch.int64, device=dev)
-        self.trace = [torch.zeros_like(p) for p in self.params]
+        for b in self.buffers:
+            setattr(self, b, [torch.zeros_like(p) for p in self.params])
+
+    def scalars(self, t):
+        return {}
+
+    def update(self, p, g, buf, s):
+        raise NotImplementedError
+
+    def decayed(self, p, g):
+        """optax.add_decayed_weights: g + WEIGHT_DECAY * p (coupled decay)."""
+        return g + self.weight_decay * p if self.weight_decay else g
 
     @torch.no_grad()
     def step(self, grads):
@@ -111,32 +146,145 @@ class SGD:
                                            self.notfinite_count + 1)
         apply = finite | (self.notfinite_count > MAX_CONSECUTIVE_ERRORS)
         neg_lr = -self.schedule(self.count)
-        for p, g, t in zip(self.params, grads, self.trace):
-            u = g + self.weight_decay * p if self.weight_decay else g
-            if self.momentum:
-                new_t = u + self.momentum * t
-                u = u + self.momentum * new_t if self.nesterov else new_t
-                t.copy_(torch.where(apply, new_t, t))
+        s = self.scalars((self.count + 1).to(torch.float32))
+        for i, (p, g) in enumerate(zip(self.params, grads)):
+            buf = {b: getattr(self, b)[i] for b in self.buffers}
+            u, new = self.update(p, g, buf, s)
+            for b, v in new.items():
+                buf[b].copy_(torch.where(apply, v, buf[b]))
             p.copy_(torch.where(apply, p + neg_lr * u, p))
         self.count = torch.where(apply, self.count + 1, self.count)
 
     def state_dict(self, names):
-        """The state as numpy: the step counts, and the momentum buffers keyed
-        by ``names`` (the parameters' names, in order)."""
+        """The state as numpy: the optimizer's name, the step counts, and
+        each buffer keyed by ``names`` (the parameters' names, in order)."""
         def copy(t):
             return t.detach().cpu().numpy().copy()
 
-        return {"count": copy(self.count), "notfinite_count": copy(self.notfinite_count),
-                "trace": {n: copy(t) for n, t in zip(names, self.trace)}}
+        state = {"name": self.name, "count": copy(self.count),
+                 "notfinite_count": copy(self.notfinite_count)}
+        for b in self.buffers:
+            state[b] = {n: copy(t) for n, t in zip(names, getattr(self, b))}
+        return state
+
+    def accepts(self, state):
+        """Whether ``state`` (a ``state_dict``) is this optimizer's: its name
+        (an SGD state written before states were named holds only "trace")
+        and its buffers."""
+        name = state.get("name", "sgd" if "trace" in state else None)
+        return name == self.name and all(b in state for b in self.buffers)
 
     @torch.no_grad()
     def load_state_dict(self, state, names):
-        """Restore what ``state_dict`` saved, exactly."""
+        """Restore what ``state_dict`` saved, exactly; another optimizer's
+        state raises ValueError."""
+        if not self.accepts(state):
+            raise ValueError(f"the optimizer state is {state.get('name')!r}'s, not "
+                             f"{self.name!r}'s (buffers {sorted(k for k in state if k not in ('name', 'count', 'notfinite_count'))})")
         dev = self.count.device
         self.count = torch.as_tensor(state["count"], dtype=torch.int64).to(dev)
         self.notfinite_count = torch.as_tensor(state["notfinite_count"], dtype=torch.int64).to(dev)
-        for n, t in zip(names, self.trace):
-            t.copy_(torch.from_numpy(np.array(state["trace"][n], dtype=np.float32)))
+        for b in self.buffers:
+            for n, t in zip(names, getattr(self, b)):
+                t.copy_(torch.from_numpy(np.array(state[b][n], dtype=np.float32)))
+
+
+class SGD(Optimizer):
+    """sgd: coupled decay -> optax.trace (momentum, optional Nesterov)."""
+
+    name = "sgd"
+
+    def __init__(self, params, schedule, weight_decay, momentum, nesterov):
+        super().__init__(params, schedule, weight_decay, ["trace"])
+        self.momentum, self.nesterov = momentum, nesterov
+
+    def update(self, p, g, buf, s):
+        u = self.decayed(p, g)
+        if not self.momentum:
+            return u, {}
+        t = u + self.momentum * buf["trace"]
+        return (u + self.momentum * t if self.nesterov else t), {"trace": t}
+
+
+def _moments(g, buf, b1, b2):
+    """optax's update_moment and update_moment_per_elem_norm."""
+    return (1 - b1) * g + b1 * buf["mu"], (1 - b2) * g ** 2 + b2 * buf["nu"]
+
+
+class Adam(Optimizer):
+    """adam, amsgrad and adamw: optax.scale_by_adam (adamw then adds the
+    decay after it), or the JAX package's amsgrad."""
+
+    EPS = 1e-8
+
+    def __init__(self, params, schedule, weight_decay, b1, b2, name):
+        self.name = name
+        super().__init__(params, schedule, weight_decay,
+                         ["mu", "nu", "nu_max"] if name == "amsgrad" else ["mu", "nu"])
+        self.b1, self.b2 = b1, b2
+
+    def scalars(self, t):
+        return {"bc1": 1 - torch.pow(self.b1, t), "bc2": 1 - torch.pow(self.b2, t)}
+
+    def update(self, p, g, buf, s):
+        u = g if self.name == "adamw" else self.decayed(p, g)
+        mu, nu = _moments(u, buf, self.b1, self.b2)
+        if self.name == "amsgrad":
+            nu_max = torch.maximum(buf["nu_max"], nu)
+            out = (mu / s["bc1"]) / (torch.sqrt(nu_max / s["bc2"]) + self.EPS)
+            return out, {"mu": mu, "nu": nu, "nu_max": nu_max}
+        out = (mu / s["bc1"]) / (torch.sqrt(nu / s["bc2"]) + self.EPS)
+        if self.name == "adamw":
+            out = self.decayed(p, out)
+        return out, {"mu": mu, "nu": nu}
+
+
+class RMSprop(Optimizer):
+    """rmsprop: coupled decay -> optax.scale_by_rms(decay=RMSPROP_ALPHA,
+    initial_scale=0) -> optax.trace(MOMENTUM) when MOMENTUM is nonzero."""
+
+    name = "rmsprop"
+    EPS = 1e-8
+
+    def __init__(self, params, schedule, weight_decay, alpha, momentum):
+        super().__init__(params, schedule, weight_decay, ["nu", "trace"] if momentum else ["nu"])
+        self.alpha, self.momentum = alpha, momentum
+
+    def update(self, p, g, buf, s):
+        u = self.decayed(p, g)
+        nu = (1 - self.alpha) * u ** 2 + self.alpha * buf["nu"]
+        out = torch.rsqrt(nu + self.EPS) * u
+        if not self.momentum:
+            return out, {"nu": nu}
+        t = out + self.momentum * buf["trace"]
+        return t, {"nu": nu, "trace": t}
+
+
+class RAdam(Optimizer):
+    """radam: coupled decay -> optax.scale_by_radam (threshold 5)."""
+
+    name = "radam"
+    EPS = 1e-8
+    THRESHOLD = 5.0
+
+    def __init__(self, params, schedule, weight_decay, b1, b2):
+        super().__init__(params, schedule, weight_decay, ["mu", "nu"])
+        self.b1, self.b2 = b1, b2
+
+    def scalars(self, t):
+        ro_inf = 2.0 / (1.0 - self.b2) - 1.0
+        b2t = torch.pow(self.b2, t)
+        ro = ro_inf - 2 * t * b2t / (1 - b2t)
+        r = torch.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf
+                       / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
+        return {"bc1": 1 - torch.pow(self.b1, t), "bc2": 1 - b2t, "r": r,
+                "rectify": ro >= self.THRESHOLD}
+
+    def update(self, p, g, buf, s):
+        mu, nu = _moments(self.decayed(p, g), buf, self.b1, self.b2)
+        mu_hat, nu_hat = mu / s["bc1"], nu / s["bc2"]
+        out = torch.where(s["rectify"], s["r"] * mu_hat / (torch.sqrt(nu_hat) + self.EPS), mu_hat)
+        return out, {"mu": mu, "nu": nu}
 
 
 def build_optimizer(cfg, params, steps_per_epoch):
@@ -144,7 +292,16 @@ def build_optimizer(cfg, params, steps_per_epoch):
     and its schedule, both on the parameters' device."""
     o = cfg.OPTIM
     if o.NAME not in AVAI_OPTIMS:
-        raise NotImplementedError(f"OPTIM.NAME {o.NAME!r} is not ported (ported: {AVAI_OPTIMS})")
+        raise ValueError(f"Unknown OPTIM.NAME: {o.NAME} (choices {AVAI_OPTIMS})")
     params = list(params)
     schedule = make_lr_schedule(cfg, steps_per_epoch, params[0].device)
-    return SGD(params, schedule, o.WEIGHT_DECAY, o.MOMENTUM, o.SGD_NESTEROV), schedule
+    wd = o.WEIGHT_DECAY
+    if o.NAME == "sgd":
+        opt = SGD(params, schedule, wd, o.MOMENTUM, o.SGD_NESTEROV)
+    elif o.NAME == "rmsprop":
+        opt = RMSprop(params, schedule, wd, o.RMSPROP_ALPHA, o.MOMENTUM)
+    elif o.NAME == "radam":
+        opt = RAdam(params, schedule, wd, o.ADAM_BETA1, o.ADAM_BETA2)
+    else:
+        opt = Adam(params, schedule, wd, o.ADAM_BETA1, o.ADAM_BETA2, o.NAME)
+    return opt, schedule

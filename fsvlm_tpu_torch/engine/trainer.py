@@ -93,8 +93,9 @@ from .checkpoint import (
     resume_from_checkpoint,
     save_checkpoint,
 )
-from .evaluator import Classification
+from .evaluator import build_evaluator
 from .optim import build_optimizer, make_lr_schedule
+from .tb import TensorboardWriter
 
 TRAINER_REGISTRY = Registry("TRAINER")
 STEP_KEYS = ("img", "img2", "label", "valid", "index")  # what a train step reads of a batch
@@ -161,12 +162,15 @@ class SimpleTrainer:
         self.cache = self.labels = None
         self._resident_off = False
         self._frozen_eval = None
+        self._writer = None  # the TensorBoard writer, from before_train to after_train
+        self._profiler = None  # FSVLM_PROFILE_DIR's torch.profiler, likewise
         if classnames is None:
             self.build_data_loader()
         else:
             self.classnames = list(classnames)
             self.lab2cname = dict(enumerate(self.classnames))
         self.num_classes = len(self.classnames)
+        self.evaluator = build_evaluator(cfg, self.lab2cname)
         if images is not None:
             self.set_train_data(images, labels)
         self.build_model(clip)
@@ -391,11 +395,38 @@ class SimpleTrainer:
 
     def before_train(self):
         """With the DataManager: resume from cfg.RESUME, else from the output
-        directory, then make it."""
-        if self.dm is None:
+        directory, then make it and open the TensorBoard writer in its
+        ``tensorboard`` folder (trainer.py:284-293).  Then, where
+        FSVLM_PROFILE_DIR is set, start a torch.profiler over the CPU and (on
+        the card) CUDA activities, which ``after_train`` stops and writes
+        into that directory as one Chrome trace (the JAX package's
+        jax.profiler trace, :295-302)."""
+        if self.dm is not None:
+            self.resume_model_if_exist(self.cfg.RESUME or self.output_dir)
+            mkdir_if_missing(self.output_dir)
+            self._writer = TensorboardWriter(os.path.join(self.output_dir, "tensorboard"))
+        profile_dir = os.environ.get("FSVLM_PROFILE_DIR")
+        if profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            mkdir_if_missing(profile_dir)
+            self._profiler = profile(activities=activities)
+            self._profiler.start()
+
+    def _stop_profiler(self):
+        """Stop FSVLM_PROFILE_DIR's profiler, if one runs, and write its
+        Chrome trace there."""
+        if self._profiler is None:
             return
-        self.resume_model_if_exist(self.cfg.RESUME or self.output_dir)
-        mkdir_if_missing(self.output_dir)
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+        path = os.path.join(os.environ["FSVLM_PROFILE_DIR"],
+                            f"trace.{os.getpid()}.{time.time_ns()}.json")
+        prof.export_chrome_trace(path)
+        print(f"Profiler trace written to {path}")
 
     def before_epoch(self):
         pass
@@ -439,6 +470,11 @@ class SimpleTrainer:
         for bi, m in enumerate(host):
             batch_time.update(per_step + (data_time if bi == 0 else 0.0))
             losses.update(m)
+            if self._writer:  # trainer.py:432-440
+                n_iter = self.epoch * n + bi
+                for name, meter in losses.meters.items():
+                    self._writer.scalar(f"train/{name}", meter.avg, n_iter)
+                self._writer.scalar("train/lr", self.get_current_lr(), n_iter)
             if (bi + 1) % self.cfg.TRAIN.PRINT_FREQ == 0 or bi + 1 == n:
                 remain = (n - bi - 1) + (self.max_epoch - self.epoch - 1) * n
                 eta = datetime.timedelta(seconds=int(batch_time.avg * remain))
@@ -467,8 +503,10 @@ class SimpleTrainer:
             self.save_model(self.epoch, self.output_dir)
 
     def after_train(self):
-        """With the DataManager: deploy the best-val model (or keep the last)
-        and test it (trainer.py:609-625)."""
+        """Stop FSVLM_PROFILE_DIR's profiler; with the DataManager, deploy the
+        best-val model (or keep the last), test it and close the TensorBoard
+        writer (trainer.py:609-625)."""
+        self._stop_profiler()
         if self.dm is None:
             return None
         print("Finish training")
@@ -480,6 +518,8 @@ class SimpleTrainer:
             result = self.test()
         elapsed = round(time.time() - self.time_start)
         print(f"Elapsed: {datetime.timedelta(seconds=elapsed)}")
+        if self._writer is not None:
+            self._writer.close()
         return result
 
     def train(self, start_epoch=None, max_epoch=None):
@@ -526,7 +566,7 @@ class SimpleTrainer:
             else:
                 split, loader = "test", self.test_loader
             batches = ((torch.from_numpy(b["img"]), b["label"], b["valid"]) for b in loader)
-        self.evaluator = Classification(self.cfg, self.lab2cname)
+        self.evaluator = build_evaluator(self.cfg, self.lab2cname)
         print(f"Evaluate on the *{split}* set")
         split_eval = getattr(self, "text_features_fn", None) is not None
         txf = self.text_features_fn(self.params, self.frozen) if split_eval else None
@@ -542,6 +582,9 @@ class SimpleTrainer:
                 logits, y = logits[valid], y[valid]
             self.evaluator.process(logits, y)
         results = self.evaluator.evaluate()
+        for k, v in results.items():  # trainer.py:711-712
+            if self._writer:
+                self._writer.scalar(f"{split}/{k}", v, self.epoch)
         if return_pred:
             return self.evaluator.y_true, self.evaluator.y_pred
         return results["accuracy"]
@@ -652,8 +695,12 @@ class SimpleTrainer:
             return 0
         self.load_params(ckpt["state_dict"])
         optim_state = ckpt.get("optimizer")
-        if isinstance(optim_state, dict) and "trace" in optim_state:
+        if isinstance(optim_state, dict) and self.optim.accepts(optim_state):
             self.optim.load_state_dict(optim_state, list(self.params))
+        elif isinstance(optim_state, dict) and "count" in optim_state:
+            print(f"Warning: the checkpoint holds the state of optimizer "
+                  f"{optim_state.get('name', 'sgd')!r}, and this run's is {self.optim.name!r}: "
+                  f"not loaded; the moments and the schedule's step count restart")
         else:
             print("Warning: the checkpoint holds no optimizer state of this package (a JAX "
                   "package checkpoint?); the momentum and the schedule's step count restart")

@@ -90,6 +90,10 @@ def _assert_same(pcfg, jcfg):
 
 
 SYNTHETIC_TINY = "configs/datasets/synthetic.yaml|configs/trainers/tests/synthetic_tiny.yaml"
+# the keys that the port once rejected (ROADMAP C.4), set off their defaults
+C4_OPTS = ("VERSION 2 USE_CUDA False OPTIM.SGD_DAMPNING 1 TEST.EVALUATOR Classification "
+           "TRAINER.PROMPTSRC.LABEL_SCOPE all OPTIM.ADAM_BETA1 0.8 OPTIM.ADAM_BETA2 0.99 "
+           "OPTIM.RMSPROP_ALPHA 0.9")
 
 
 @pytest.mark.parametrize("paths", [pytest.param("", id="defaults"), SYNTHETIC_TINY]
@@ -116,23 +120,52 @@ def test_merge_from_file_matches_jax(paths):
     ("ZeroshotCLIP2", "configs/trainers/tests/synthetic_tiny.yaml"),
     ("PLIP", "configs/trainers/PLIP/vit_b16_c4_ep10_batch4.yaml"),
     ("CoOp", "configs/trainers/CoOp/rn50.yaml"),
-])
+] + [("PromptSRC", f"configs/trainers/tests/synthetic_tiny.yaml|{C4_OPTS} OPTIM.NAME {name}")
+     for name in ("adam", "amsgrad", "sgd", "rmsprop", "radam", "adamw")])
 def test_setup_cfg_matches_jax(trainer, config_file, monkeypatch):
     """The same command line gives the same config in both CLIs: both start
     from defaults.py, so a key that the yaml leaves unset (IVLP's N_CTX and
-    USE_MIXUP under the tiny recipe) keeps defaults.py's value in both."""
+    USE_MIXUP under the tiny recipe) keeps defaults.py's value in both.
+    ``config_file`` may carry trailing options after "|": the keys the port
+    once rejected (ROADMAP C.4) and each OPTIM.NAME with its own keys."""
     import train as jax_cli  # the JAX package's CLI, at the repo root
 
     monkeypatch.chdir(ROOT)
     monkeypatch.delenv("FSVLM_EXTRA_OPTS", raising=False)
+    config_file, _, opts = config_file.partition("|")
     argv = ["--trainer", trainer, "--seed", "1", "--output-dir", "out",
             "--dataset-config-file", "configs/datasets/synthetic.yaml",
-            "--config-file", config_file, "OPTIM.MAX_EPOCH", "2"]
+            "--config-file", config_file, "OPTIM.MAX_EPOCH", "2", *opts.split()]
     jcfg = jax_cli.setup_cfg(jax_cli.build_argparser().parse_args(argv))
     pcfg = cli.setup_cfg(cli.build_argparser().parse_args(argv))
     _assert_same(pcfg, jcfg)
     if config_file.endswith("synthetic_tiny.yaml") and trainer == "IVLP":
         assert pcfg.TRAINER.IVLP.N_CTX_TEXT == 2 and pcfg.TRAINER.IVLP.USE_MIXUP
+    if opts:
+        assert (pcfg.VERSION, pcfg.USE_CUDA, pcfg.OPTIM.SGD_DAMPNING, pcfg.OPTIM.ADAM_BETA2,
+                pcfg.TRAINER.PROMPTSRC.LABEL_SCOPE) == (2, False, 1, 0.99, "all")
+
+
+def test_another_evaluator_raises(tmp_path, monkeypatch):
+    """TEST.EVALUATOR merges as in JAX, and any name but Classification
+    raises KeyError when the trainer is built (the JAX package's registry
+    raises there too)."""
+    from fsvlm_tpu_torch.engine.evaluator import Classification, build_evaluator
+
+    cfg = get_cfg_base()
+    assert isinstance(build_evaluator(cfg), Classification)
+    cfg.merge_from_list(["TEST.EVALUATOR", "Retrieval"])
+    with pytest.raises(KeyError, match="Retrieval"):
+        build_evaluator(cfg)
+    monkeypatch.chdir(ROOT)
+    monkeypatch.delenv("FSVLM_EXTRA_OPTS", raising=False)
+    args = cli.build_argparser().parse_args(
+        ["--trainer", "PromptSRC", "--device", "cpu", "--output-dir", str(tmp_path),
+         "--dataset-config-file", "configs/datasets/synthetic.yaml",
+         "--config-file", "configs/trainers/tests/synthetic_tiny.yaml",
+         "TEST.EVALUATOR", "Retrieval"])
+    with pytest.raises(KeyError, match="TEST.EVALUATOR 'Retrieval'"):
+        cli.main(args)
 
 
 def test_merge_from_file_rejects_unknown_keys(tmp_path):

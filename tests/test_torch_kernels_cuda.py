@@ -887,3 +887,48 @@ def _bn_nodes(tree):
     elif isinstance(tree, list):
         for v in tree:
             yield from _bn_nodes(v)
+
+
+@pytest.mark.parametrize("name,momentum", [("adam", 0.9), ("amsgrad", 0.9), ("adamw", 0.9),
+                                           ("rmsprop", 0.9), ("rmsprop", 0.0), ("radam", 0.9),
+                                           ("sgd", 0.9)])
+def test_optimizer_step_on_the_card_matches_the_cpu(card, name, momentum):
+    """8 steps of OPTIM.NAME on the card and on the CPU from the same
+    gradients (radam rectifies from its 6th step): parameters and moment
+    buffers within 1e-6 of each tensor's largest magnitude, equal counts; a
+    step makes no synchronizing call; a non-finite step changes nothing."""
+    from fsvlm_tpu_torch.config import get_cfg_base
+    from fsvlm_tpu_torch.engine.optim import build_optimizer
+
+    cfg = get_cfg_base()
+    cfg.merge_from_list(["OPTIM.NAME", name, "OPTIM.MOMENTUM", momentum, "OPTIM.LR", 0.01,
+                         "OPTIM.MAX_EPOCH", 4, "OPTIM.LR_SCHEDULER", "cosine",
+                         "OPTIM.WARMUP_EPOCH", 1, "OPTIM.WARMUP_TYPE", "constant"])
+    rng = np.random.RandomState(0)
+    init = [rng.randn(4, 512).astype(np.float32), rng.randn(77, 512).astype(np.float32)]
+    on_card = [torch.from_numpy(x).cuda() for x in init]
+    on_cpu = [torch.from_numpy(x.copy()) for x in init]
+    opt, _ = build_optimizer(cfg, on_card, steps_per_epoch=3)
+    ref, _ = build_optimizer(cfg, on_cpu, steps_per_epoch=3)
+    for step in range(8):
+        grads = [rng.randn(*x.shape).astype(np.float32) for x in init]
+        g_card = [torch.from_numpy(g).cuda() for g in grads]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            opt.step(g_card)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ref.step([torch.from_numpy(g) for g in grads])
+        pairs = list(zip(on_card, on_cpu)) + [(x, y) for b in ref.buffers
+                                              for x, y in zip(getattr(opt, b), getattr(ref, b))]
+        for x, y in pairs:
+            gap = (x.cpu().double() - y.double()).abs().max().item()
+            assert gap <= 1e-6 * y.double().abs().max().item(), (name, step, gap)
+    assert int(opt.count) == int(ref.count) == 8
+    before = [x.clone() for x in on_card] + [x.clone() for b in opt.buffers for x in getattr(opt, b)]
+    g_card[1][3, 7] = float("nan")
+    opt.step(g_card)
+    after = list(on_card) + [x for b in opt.buffers for x in getattr(opt, b)]
+    assert all(torch.equal(x, y) for x, y in zip(before, after))
+    assert int(opt.count) == 8 and int(opt.notfinite_count) == 1

@@ -252,7 +252,10 @@ args = fsvlm_tpu_torch.train.build_argparser().parse_args([
     "--config-file", "configs/trainers/tests/synthetic_tiny.yaml", "OPTIM.MAX_EPOCH", "1",
     "DATALOADER.DEVICE_AUG", "True", "TRAINER.PROMPTSRC.CACHED_TEACHER", "True",
     "TEST.FINAL_MODEL", "best_val"])
+os.environ["FSVLM_PROFILE_DIR"] = out + "_profile"
 trainer = fsvlm_tpu_torch.train.main(args)
+del os.environ["FSVLM_PROFILE_DIR"]
+assert len(os.listdir(out + "_profile")) == 1
 assert os.path.exists(os.path.join(out, "VLPromptLearner", "model-best.pkl"))
 assert "* accuracy:" in open(os.path.join(out, "log.txt")).read()
 import fsvlm_tpu_torch.ops.quant, fsvlm_tpu_torch.trainers.import_torch
@@ -278,8 +281,22 @@ assert lpclip.search_logreg(np.tile(eye, (2, 1)), [0, 1, 2] * 2, eye, [0, 1, 2],
 params, _ = export_serving.export_serving("test-tiny", 2, 2, out + "_serving.pt2", device="cpu")
 program = export_serving.load_serving(out + "_serving.pt2", device="cpu")
 assert program(params, torch.zeros((2, 32, 32, 3), dtype=torch.uint8))[0].shape == (2,)
+from fsvlm_tpu_torch import run_script
+from fsvlm_tpu_torch.engine import optim, tb
+for name in ("adam", "amsgrad", "adamw", "rmsprop", "radam"):
+    cfg.OPTIM.NAME = name
+    opt, _ = optim.build_optimizer(cfg, [torch.ones(3)], steps_per_epoch=1)
+    opt.step([torch.ones(3)])
+    assert int(opt.count) == 1
+writer = tb.TensorboardWriter(out + "_tb")
+writer.scalar("train/loss", 1.0, 0)
+writer.close()
+driver = out + "_driver.sh"
+with open(driver, "w") as f:
+    f.write("#!/bin/bash\npython parse_test_res.py " + out + "\n")
+assert run_script.main(["--device", "cpu", driver]) == 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
-    "jax", "jaxlib", "fsvlm_tpu", "regex", "yaml", "PIL", "sklearn"))
+    "jax", "jaxlib", "fsvlm_tpu", "regex", "yaml", "PIL", "sklearn", "tensorflow"))
 print("FORBIDDEN", bad)
 sys.exit(1 if bad else 0)
 """
@@ -295,8 +312,11 @@ def test_serving_path_imports_no_jax_regex_yaml_or_pil():
     tools (one predict call on the CLI run's model, its checkpoint exported
     to a reference file and imported back), a ZeroshotCLIP int8 test(), a
     logistic-regression fit, lpclip's C search and a serving export saved,
-    loaded and run, on the CPU, with every module of the port imported, load nothing of JAX,
-    the JAX package, regex, yaml, PIL or sklearn."""
+    loaded and run, a step of each of the five other optimizers, a
+    TensorBoard scalar (the CLI run writes them too, under FSVLM_PROFILE_DIR)
+    and a driver through run_script, on the CPU, with every module of the
+    port imported, load nothing of JAX, the JAX package, regex, yaml, PIL,
+    sklearn or tensorflow (which imports jax where it is installed)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _BOUNDARY.format(repo=REPO)], cwd=REPO,
                           env=env, capture_output=True, text=True, timeout=300)
