@@ -285,11 +285,40 @@ Phases; each passes or raises, and any failure exits non-zero:
    start: the same printed lines and best C.  One ``{"drivers": ...}``
    line.
 
-Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14 and 15 zero the launch counts just before each main path
-and read them just after, and phase 16 counts the driver's from its
-profiler trace (the run is another process): each kernel of the path must
-have launched its expected count (derived from the code: a rematerialized
-layer runs its forward kernel again), and the other families none.
+17. zoo_data, with FSVLM_FORCE_PALLAS unset (the d = 64 kernels #6-#8): the
+   Dassl datasets and the port's PNG decoder.  (a) Whether the machine has
+   zlib's header and library (the decoder uses neither); the committed PNG
+   fixtures (tests/torch_fixtures/png) decoded in full, as the cache view
+   at 256 and as the eval view at 224, each against expected.json's
+   sha256 (Pillow's decode and the JAX package's views), the truncated one
+   raising.  (b) A PACS-layout tree at PACS's published sizes (7 classes;
+   art_painting 2048, cartoon 2344, photo 1670 as hard links to the JPEG
+   fixtures, sketch 3929 to the PNG sketch fixtures, its
+   dog/n02103406_4068-1.png a truncated PNG listed in the train split;
+   kfold splits at 9:1, 1-based labels), then PromptSRC leave-one-domain-out
+   through ``fsvlm_tpu_torch.train.main``: configs/datasets/zoo/pacs.yaml,
+   the PromptSRC recipe, art_painting + cartoon + photo -> sketch, seed 1,
+   phase 4's ViT-B/16 towers, bf16, the host transforms (DEVICE_AUG off),
+   the per-step teacher, cut to 1 epoch at batch 48: the decode rates over
+   the sketch files at 8 threads, the split sizes and the summary's counts
+   (the truncated file skipped), #6-#8 at the counts derived from the code,
+   ``--eval-only`` reproducing the predictions (its wall time a cold eval
+   of the sketch PNGs), the epoch ms and images/s, peak memory.  (c) A
+   DEVICE_AUG DataManager with sketch among the sources: the materialized
+   train cache's sketch rows each equal to their fixture's cache256 digest.
+   (d) An SSL CIFAR-10 tree at CIFAR-10's sizes (50,000 + 10,000 hard
+   links to a 32x32 PNG fixture) through configs/datasets/zoo/ssl_cifar10.yaml
+   at SEED 1: the split counts, each split's digest equal to the JAX
+   package's (SSL_JAX_DIGESTS), and 50 batches of the train_u loader at the
+   FixMatch recipe's loader settings (views/s, labels equal to the
+   dataset's at each batch's indices).  One ``{"zoo_data": ...}`` line.
+
+Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 17 zero the launch counts
+just before each main path and read them just after, and phase 16 counts
+the driver's from its profiler trace (the run is another process): each
+kernel of the path must have launched its expected count (derived from the
+code: a rematerialized layer runs its forward kernel again), and the other
+families none.
 
 The line before the last is ``{"kernels": [...]}`` (one row per TPU kernel;
 #2's row lists its three CUDA kernels as ``parts``; #6-#8's and #3-#5's
@@ -4463,6 +4492,416 @@ def phase_drivers(clip, tree):
     return launches, result
 
 
+PNG_FIXTURE_DIR = os.path.join("tests", "torch_fixtures", "png")
+# PACS's published per-class counts (Li et al., 2017), classes in Dassl's order
+PACS_CLASSES = ("dog", "elephant", "giraffe", "guitar", "horse", "house", "person")
+PACS_COUNTS = {"art_painting": (379, 255, 285, 184, 201, 295, 449),
+               "cartoon": (389, 457, 346, 135, 324, 288, 405),
+               "photo": (189, 202, 182, 186, 199, 280, 432),
+               "sketch": (772, 740, 753, 608, 816, 80, 160)}
+PACS_ERROR = "sketch/dog/n02103406_4068-1.png"  # data/datasets/legacy.py's _error_paths
+PACS_SOURCES, PACS_TARGET = ("art_painting", "cartoon", "photo"), "sketch"
+PACS_BATCH, PACS_EPOCHS = 48, 1
+CIFAR10_CLASSES = ("airplane", "automobile", "bird", "cat", "deer", "dog", "frog", "horse",
+                   "ship", "truck")
+SSL_U_BATCHES = 50
+# sha256 of the sorted (relative path, label) list of each split that the JAX
+# package's CIFAR10 gives on _ssl_tree's tree with configs/datasets/zoo/ssl_cifar10.yaml
+# at SEED 1 (fsvlm_tpu.data.datasets.legacy.CIFAR10, computed on the CPU)
+SSL_JAX_DIGESTS = {
+    "train_x": "e4157950f52f5034bdc12fd7ef21d893ed4c6599b69968cd8cc5f96cc57cba88",
+    "train_u": "469373b06fb9981d2b268aec03ae2da6e41745d49043c339fd464b80aa98e948",
+    "val": "094270d8cb3b09049c2a5c5c1c5268bfff1f058fba6d2e3975d1e11f7c0a85d6",
+    "test": "d2935f4117159a68cb2caa102f1429234b4fe45f7b184780431cd966e8fa3dcf",
+}
+
+
+def _zlib_finding():
+    """Whether this machine has zlib's header and library (the port's PNG
+    decoder uses neither: its inflate is in csrc/png_decoder.cpp)."""
+    try:
+        ldconfig = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True,
+                                  timeout=60).stdout
+    except OSError:
+        ldconfig = ""
+    libs = sorted({ln.split("=>")[-1].strip() for ln in ldconfig.splitlines()
+                   if re.search(r"libz\.so", ln)})
+    return {"header": os.path.isfile("/usr/include/zlib.h"), "libz": libs}
+
+
+def _check_png_fixtures():
+    """(a) Every committed PNG fixture decoded by the port against the digests
+    computed from Pillow and the JAX package's views (make_fixtures.py): the
+    full decode, the loader's cache view at 256 and the eval view at 224;
+    the truncated file must raise."""
+    from fsvlm_tpu_torch import native
+    from fsvlm_tpu_torch.data import imageops
+    from fsvlm_tpu_torch.data.base_dataset import Datum
+    from fsvlm_tpu_torch.data.loader import RawDatasetWrapper
+
+    with open(os.path.join(PNG_FIXTURE_DIR, "expected.json")) as f:
+        expected = json.load(f)
+    bad, raised = [], []
+    for name, want in sorted(expected["digests"].items()):
+        path = os.path.join(PNG_FIXTURE_DIR, name)
+        full = native.read_image(path)
+        got = {"full": _digest(full),
+               "cache256": _digest(RawDatasetWrapper([Datum(impath=path)], 256)[0]["img"]),
+               "eval224": _digest(imageops.resize_center_crop(full, (224, 224), "bicubic"))}
+        bad += [f"{name} {k}: got {got[k]}, expected {want[k]}" for k in want if got[k] != want[k]]
+    for name in expected["truncated"]:
+        try:
+            native.read_image(os.path.join(PNG_FIXTURE_DIR, name))
+        except ValueError:
+            raised.append(name)
+    n = len(expected["digests"])
+    log(f"zoo_data: {n} committed PNG fixtures x 3 views (full decode, cache view 256, eval view "
+        f"224) against their digests: {3 * n - len(bad)} equal, {len(bad)} differ; truncated "
+        f"files raising ValueError: {len(raised)} of {len(expected['truncated'])}")
+    bad += [f"{name}: decoded, expected a ValueError" for name in expected["truncated"]
+            if name not in raised]
+    if bad:
+        raise SystemExit("FAIL: zoo_data: PNG decodes differ from the fixtures' digests:\n"
+                         + "\n".join(bad))
+    return expected
+
+
+def _link_all(pairs, threads=8):
+    """Hard-link each (source, destination) pair (a copy where linking
+    fails), the directories first, the links from a thread pool: metadata
+    calls are slow on the card machine's file system (60,000 links took
+    18 s from one thread on an H100 host)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    for d in sorted({os.path.dirname(dst) for _, dst in pairs}):
+        os.makedirs(d, exist_ok=True)
+
+    def link(pair):
+        try:
+            os.link(*pair)
+        except OSError:
+            shutil.copy(*pair)
+
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        list(pool.map(link, pairs))
+
+
+def _pacs_tree(root, jpegs, sketches):
+    """PACS's layout (data/datasets/legacy.py PACS): ``pacs/images/<domain>/
+    <class>/<file>`` at PACS's published sizes, and ``pacs/splits/<domain>_
+    {train,crossval}_kfold.txt`` (1-based labels) at 9:1 per class.  The
+    photo-like domains are hard links to the JPEG fixtures, sketch to the PNG
+    sketch fixtures, and PACS_ERROR a truncated PNG listed in sketch's train
+    split.  Returns {relative path: fixture} for the sketch files."""
+    sketch_of, pairs = {}, []
+    k = 0
+    for dom, counts in PACS_COUNTS.items():
+        files, src_dir, ext = ((sketches, PNG_FIXTURE_DIR, ".png") if dom == "sketch" else
+                               (jpegs, FIXTURE_DIR, ".jpg"))
+        lines = {"train": [], "crossval": []}
+        for c, (cls, n) in enumerate(zip(PACS_CLASSES, counts)):
+            n_val = n // 10
+            for i in range(n):
+                split = "crossval" if i < n_val else "train"
+                rel = f"{dom}/{cls}/pic_{i:04d}{ext}"
+                src = files[k % len(files)]
+                if dom == "sketch" and cls == "dog" and i == n - 1:
+                    rel, src = PACS_ERROR, "truncated_n02103406_4068-1.png"
+                else:
+                    k += 1
+                pairs.append((os.path.abspath(os.path.join(src_dir, src)),
+                              os.path.join(root, "pacs", "images", rel)))
+                if dom == "sketch":
+                    sketch_of[rel] = src
+                lines[split].append(f"{rel} {c + 1}")
+        for split, ls in lines.items():
+            os.makedirs(os.path.join(root, "pacs", "splits"), exist_ok=True)
+            with open(os.path.join(root, "pacs", "splits", f"{dom}_{split}_kfold.txt"), "w") as f:
+                f.write("\n".join(ls) + "\n")
+    _link_all(pairs)
+    return sketch_of
+
+
+def _ssl_tree(root, png):
+    """SSL CIFAR-10's layout (data/datasets/legacy.py CIFAR10) at CIFAR-10's
+    sizes: ``cifar10/{train,test}/<class>/<nnnn>.png``, 5000 train and 1000
+    test images per class, hard links to one 32x32 PNG fixture."""
+    src = os.path.abspath(os.path.join(PNG_FIXTURE_DIR, png))
+    _link_all([(src, os.path.join(root, "cifar10", split, cls, f"{i:04d}.png"))
+               for split, n in (("train", 5000), ("test", 1000)) for cls in CIFAR10_CLASSES
+               for i in range(n)])
+
+
+def _read_bytes(path):
+    with open(path, "rb") as f:
+        return len(f.read())
+
+
+def _split_digests(ds, root):
+    """sha256 of each split's sorted (relative path, label) list."""
+    import hashlib
+
+    out = {}
+    for split in ("train_x", "train_u", "val", "test"):
+        rows = sorted((os.path.relpath(d.impath, root), d.label) for d in getattr(ds, split))
+        out[split] = hashlib.sha256(json.dumps(rows).encode()).hexdigest()
+    return out
+
+
+def _pacs_launches(t, clip_cfg, epochs):
+    """#6-#8 over the PACS run, from the code: the teacher text features
+    (PromptSRC.build_model); per step the student text and vision towers
+    and the frozen teacher's vision pass forward (no CACHED_TEACHER), the
+    student towers backward; per test() one text pass and one vision pass
+    per batch (_host_launches)."""
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+
+    Lt, Lv = clip_cfg.transformer_layers, clip_cfg.vision_layers
+    want = _host_launches(t, clip_cfg, (Lt + 2 * Lv, Lt + Lv), epochs)
+    want[fa.KERNEL] += Lt
+    return want
+
+
+def _pacs_run(clip, work, threads):
+    """(b) PromptSRC leave-one-domain-out on PACS through the port's CLI."""
+    import resource
+
+    import torch
+
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+
+    def argv(out, *flags):
+        return ["--trainer", "PromptSRC", "--seed", "1", "--device", "cuda", "--root", work,
+                "--dataset-config-file", "configs/datasets/zoo/pacs.yaml",
+                "--source-domains", *PACS_SOURCES, "--target-domains", PACS_TARGET,
+                "--config-file", CLI_RECIPE, "--output-dir", out, *flags,
+                "MODEL.FROZEN_DTYPE", "bf16", "TRAINER.PROMPTSRC.PREC", "bf16",
+                "OPTIM.MAX_EPOCH", str(PACS_EPOCHS),
+                "DATALOADER.TRAIN_X.BATCH_SIZE", str(PACS_BATCH)]
+
+    out = os.path.join(work, "run")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+    t0 = time.perf_counter()
+    t = _run_cli(clip, argv(out))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ds = t.dm.dataset
+    text = _read(os.path.join(out, "log.txt"))
+    losses = [float(x) for x in re.findall(r"\bloss ([-+.\deE]+|nan|inf)", text)]
+    n_src = {d: sum(PACS_COUNTS[d]) for d in PACS_SOURCES}
+    val = sum(n // 10 for d in PACS_SOURCES for n in PACS_COUNTS[d])
+    want_sizes = (sum(n_src.values()) - val, val, sum(PACS_COUNTS[PACS_TARGET]) - 1)
+    got_sizes = (len(ds.train_x), len(ds.val), len(ds.test))
+    summary = {k: int(v.replace(",", "")) for k, v in re.findall(
+        r"# (train_x|val|test)\s+([\d,]+)", text)}
+    log(f"zoo_data: PACS leave-one-domain-out ({'+'.join(PACS_SOURCES)} -> {PACS_TARGET}) "
+        f"through the CLI: train_x/val/test {got_sizes} (expected {want_sizes}; "
+        f"{PACS_ERROR} skipped), summary {summary}, {t.num_classes} classes, "
+        f"{t.dm.num_source_domains} source domains; {t.steps_per_epoch} steps of "
+        f"{t.batch_size}; run {run_s:.1f} s; losses logged {losses}; accuracy in log.txt "
+        f"{re.findall(r'[*] accuracy: ([0-9.]+)%', text)}")
+    for needle in ("=> result", "* accuracy:", "Finish training", "DEVICE_AUG: False",
+                   "Using GPA model for final inference"):
+        if needle not in text:
+            raise SystemExit(f"FAIL: zoo_data: the PACS run's log.txt lacks {needle!r}")
+    if got_sizes != want_sizes or summary != dict(zip(("train_x", "val", "test"), want_sizes)):
+        raise SystemExit("FAIL: zoo_data: the PACS splits are not the tree's")
+    if t.num_classes != 7 or t.dm.num_source_domains != 3 or any(
+            os.path.relpath(d.impath, os.path.join(work, "pacs", "images")) == PACS_ERROR
+            for d in ds.test):
+        raise SystemExit("FAIL: zoo_data: PACS's classes, domains or error path are wrong")
+    if not losses or not all(np.isfinite(losses)):
+        raise SystemExit(f"FAIL: zoo_data: non-finite or no loss in the PACS run: {losses}")
+    want = _pacs_launches(t, clip.cfg, PACS_EPOCHS)
+    _others_silent(launches, "flash_attn", "the PACS CLI run")
+    got = {k: launches[k] for k in want}
+    log(f"zoo_data: PACS launches {got}, expected {want}")
+    if got != want:
+        raise SystemExit("FAIL: zoo_data: #6-#8 launches differ from the derived counts")
+
+    # --eval-only from the run's last model: its wall time is a cold test() of
+    # the sketch target (PNG decode, eval view, model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t2 = _run_cli(clip, argv(os.path.join(work, "eval"), "--eval-only", "--model-dir", out))
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    if t2.evaluator.y_pred != t.evaluator.y_pred or t2.evaluator.y_true != t.evaluator.y_true:
+        raise SystemExit("FAIL: zoo_data: --eval-only did not reproduce the PACS predictions")
+    log(f"zoo_data: --eval-only reproduced the run's {len(t2.evaluator.y_pred)} sketch "
+        f"predictions")
+    del t2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        metrics = t.run_epoch()
+    torch.cuda.synchronize()
+    epoch_ms = (time.perf_counter() - t0) * 1e3
+    if not metrics or not all(np.isfinite(m["loss"]) for m in metrics):
+        raise SystemExit("FAIL: zoo_data: a non-finite loss in the timed PACS epoch")
+    n_img = t.steps_per_epoch * t.batch_size
+    result = {"run_s": run_s, "epoch_ms": epoch_ms, "epoch_images": n_img,
+              "epoch_images_per_s": n_img / epoch_ms * 1e3, "eval_only_s": eval_s,
+              "test_images": len(ds.test), "sizes": dict(zip(("train_x", "val", "test"),
+                                                             got_sizes)),
+              "steps": t.steps_per_epoch, "batch": t.batch_size, "threads": threads,
+              "peak_device_bytes": peak,
+              "peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss << 10}
+    log(f"zoo_data: PACS epoch {epoch_ms:.1f} ms ({n_img} images, "
+        f"{result['epoch_images_per_s']:.1f} images/s, host transforms at {threads} threads); "
+        f"--eval-only (cold: {len(ds.test)} sketch PNGs decoded, eval view, model) {eval_s:.1f} s; "
+        f"peak device memory {peak / 2**30:.2f} GiB, process peak RSS "
+        f"{result['peak_rss_bytes'] / 2**30:.2f} GiB")
+    del t
+    torch.cuda.empty_cache()
+    return launches, result
+
+
+def _pacs_device_aug(work, sketch_of, expected, threads):
+    """(c) A DataManager with sketch among the sources under DEVICE_AUG: the
+    materialized train cache's sketch rows against their fixtures' cache256
+    digests."""
+    from fsvlm_tpu_torch.data.data_manager import DataManager
+
+    sources = ("art_painting", "cartoon", "sketch")
+    cfg = _recipe_cfg_from_argv([
+        "--trainer", "PromptSRC", "--seed", "1", "--device", "cuda", "--root", work,
+        "--dataset-config-file", "configs/datasets/zoo/pacs.yaml",
+        "--source-domains", *sources, "--target-domains", "photo", "--config-file", CLI_RECIPE,
+        "DATALOADER.DEVICE_AUG", "True"])
+    cfg.VERBOSE = False
+    dm = DataManager(cfg)
+    items = dm.dataset.train_x
+    t0 = time.perf_counter()
+    cache = dm.train_loader_x.wrapper.materialize(threads)
+    materialize_ms = (time.perf_counter() - t0) * 1e3
+    image_dir = os.path.join(work, "pacs", "images")
+    rows = [(i, os.path.relpath(d.impath, image_dir)) for i, d in enumerate(items)
+            if d.domain == sources.index("sketch")]
+    bad = [rel for i, rel in rows
+           if _digest(cache[i]) != expected["digests"][sketch_of[rel]]["cache256"]]
+    log(f"zoo_data: DEVICE_AUG DataManager ({'+'.join(sources)} -> photo): materialized "
+        f"{cache.shape} in {materialize_ms:.1f} ms at {threads} threads; {len(rows)} sketch "
+        f"rows against their fixtures' cache256 digests: {len(rows) - len(bad)} equal, "
+        f"{len(bad)} differ; {dm.num_source_domains} source domains")
+    if bad or not rows or PACS_ERROR in {rel for _, rel in rows}:
+        raise SystemExit(f"FAIL: zoo_data: device-aug sketch rows differ: {bad[:5]}")
+    return {"materialize_ms": materialize_ms, "rows": len(items), "sketch_rows": len(rows)}
+
+
+def _ssl_loader(work, threads):
+    """(d) SSL CIFAR-10 at CIFAR-10's sizes through configs/datasets/zoo/
+    ssl_cifar10.yaml at SEED 1: the counts, each split's digest against the
+    JAX package's, then SSL_U_BATCHES batches of the train_u loader at the
+    FixMatch recipe's loader settings (configs/trainers/zoo/fixmatch_cifar10.yaml:
+    train_u batch 448, its INPUT)."""
+    from fsvlm_tpu_torch.config import get_cfg_base
+    from fsvlm_tpu_torch.data.data_manager import DataManager
+
+    cfg = get_cfg_base()
+    cfg.merge_from_file("configs/datasets/zoo/ssl_cifar10.yaml")
+    cfg.merge_from_list([
+        "SEED", 1, "VERBOSE", False, "DATASET.ROOT", work,
+        "DATALOADER.NUM_WORKERS", threads, "DATALOADER.TRAIN_X.BATCH_SIZE", 64,
+        "DATALOADER.TRAIN_U.SAME_AS_X", False, "DATALOADER.TRAIN_U.BATCH_SIZE", 448,
+        "INPUT.SIZE", [32, 32], "INPUT.TRANSFORMS", ["random_flip", "random_crop", "normalize"]])
+    t0 = time.perf_counter()
+    dm = DataManager(cfg)
+    build_s = time.perf_counter() - t0
+    ds = dm.dataset
+    sizes = {k: len(getattr(ds, k)) for k in ("train_x", "train_u", "val", "test")}
+    digests = _split_digests(ds, work)
+    log(f"zoo_data: SSL CIFAR-10 (NUM_LABELED {cfg.DATASET.NUM_LABELED}, VAL_PERCENT "
+        f"{cfg.DATASET.VAL_PERCENT}, SEED 1): {sizes} in {build_s:.2f} s; split digests equal to "
+        f"the JAX package's: {[k for k in digests if digests[k] == SSL_JAX_DIGESTS[k]]}")
+    if sizes != {"train_x": 4000, "train_u": 41000, "val": 5000, "test": 10000}:
+        raise SystemExit("FAIL: zoo_data: the SSL CIFAR-10 counts are not the protocol's")
+    if digests != SSL_JAX_DIGESTS:
+        raise SystemExit(f"FAIL: zoo_data: SSL split digests {digests} differ from the JAX "
+                         f"package's {SSL_JAX_DIGESTS}")
+    loader_u = dm.train_loader_u
+    n, views, t0 = 0, 0, time.perf_counter()
+    for batch in loader_u:
+        want = [ds.train_u[i].label for i in batch["index"]]
+        if batch["label"].tolist() != want or batch["img"].shape[0] != 448:
+            raise SystemExit("FAIL: zoo_data: a train_u batch's labels or size are wrong")
+        views += int(batch["valid"].sum())
+        n += 1
+        if n == SSL_U_BATCHES:
+            break
+    seconds = time.perf_counter() - t0
+    log(f"zoo_data: train_u loader: {n} batches of {loader_u.batch_size} ({views} views, "
+        f"{batch['img'].dtype} {tuple(batch['img'].shape[1:])}) in {seconds:.2f} s: "
+        f"{views / seconds:.1f} views/s at {threads} threads (first visits: each PNG decoded)")
+    return {"sizes": sizes, "digests_equal_jax": True, "build_s": build_s,
+            "u_batches": n, "u_batch": loader_u.batch_size, "u_views_per_s": views / seconds}
+
+
+def phase_zoo_data(clip):
+    """Phase 17 (module docstring), FSVLM_FORCE_PALLAS unset (the caller sets
+    it).  Returns (#6-#8 over the PACS run, the ``{"zoo_data": ...}``
+    numbers)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fsvlm_tpu_torch import native
+    from fsvlm_tpu_torch.data.loader import RawDatasetWrapper
+    from fsvlm_tpu_torch.data.base_dataset import Datum
+
+    t_phase = time.perf_counter()
+    zlib = _zlib_finding()
+    log(f"zoo_data: zlib on this machine: header /usr/include/zlib.h {zlib['header']}, "
+        f"libraries {zlib['libz']}; the port's PNG decoder (csrc/png_decoder.cpp) uses neither")
+    expected = _check_png_fixtures()
+    jpegs = sorted(f for f in os.listdir(FIXTURE_DIR) if f.endswith(".jpg"))
+    sketches = sorted(n for n in expected["digests"] if n.startswith("sketch_"))
+    threads = 8  # the recipe's DATALOADER.NUM_WORKERS
+    work = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    try:
+        t0 = time.perf_counter()
+        sketch_of = _pacs_tree(work, jpegs, sketches)
+        tree_s = time.perf_counter() - t0
+        # the decode rates over the sketch domain's readable files, each file
+        # read once before: the first open of a path is slow on the card
+        # machine's file system (a cold full-decode pass read 813.6 files/s
+        # where a warm one read 1545.5)
+        image_dir = os.path.join(work, "pacs", "images")
+        paths = [os.path.join(image_dir, r) for r in sorted(sketch_of) if r != PACS_ERROR]
+        rates = {}
+        with ThreadPoolExecutor(max_workers=threads) as pool:
+            list(pool.map(_read_bytes, paths))
+            for name, fn in (("full", native.read_image),
+                             ("cache256", lambda p: RawDatasetWrapper([Datum(impath=p)],
+                                                                      256)[0]["img"])):
+                t0 = time.perf_counter()
+                list(pool.map(fn, paths))
+                rates[name] = len(paths) / (time.perf_counter() - t0)
+        log(f"zoo_data: PACS tree ({sum(map(sum, PACS_COUNTS.values()))} files, hard links) in "
+            f"{tree_s:.2f} s; PNG decode over the {len(paths)} sketch files at {threads} threads: "
+            f"full {rates['full']:.1f} images/s, cache view 256 {rates['cache256']:.1f} images/s")
+        launches, pacs = _pacs_run(clip, work, threads)
+        device_aug = _pacs_device_aug(work, sketch_of, expected, threads)
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        t0 = time.perf_counter()
+        _ssl_tree(work, "cifar_rgb8_32.png")
+        ssl_tree_s = time.perf_counter() - t0
+        ssl = dict(_ssl_loader(work, threads), tree_s=ssl_tree_s)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    result = {"zlib": zlib, "png_fixtures": len(expected["digests"]),
+              "png_full_images_per_s": rates["full"],
+              "png_cache256_images_per_s": rates["cache256"], "png_decode_images": len(paths),
+              "pacs": pacs, "pacs_launches": launches, "device_aug": device_aug, "ssl": ssl,
+              "phase_s": time.perf_counter() - t_phase}
+    log(f"zoo_data: phase 17 in {result['phase_s']:.1f} s")
+    print(json.dumps({"zoo_data": result}), flush=True)
+    return launches, result
+
+
 def _recipe_cfg_from_argv(argv):
     """The CLI's config for ``argv`` (setup_cfg), without running it."""
     from fsvlm_tpu_torch.train import build_argparser, setup_cfg
@@ -4508,6 +4947,8 @@ def main():
     finally:
         if tree:
             shutil.rmtree(tree["work"], ignore_errors=True)
+    with force_pallas(None):  # the Dassl datasets and PNG, PACS on the d = 64 kernels
+        launches_pacs, _ = phase_zoo_data(pred.clip)
 
     import torch
 
@@ -4551,6 +4992,7 @@ def main():
                "zsclip_int8_test": launches_int8_serving,
                "promptsrc_int8_teacher": launches_int8_teacher,
                "lpclip_extract": launches_lpclip, "driver_setting_a": launches_driver,
+               "pacs_dg_cli": launches_pacs,
                **{f"export_{label}_loaded_call": {fa.KERNEL: n}
                   for label, n in launches_export.items()}}
     for row in kernels[:3]:
@@ -4578,7 +5020,7 @@ def main():
         "parts": [{"name": k, "launches": launches_fused[k], "ms": bwd["parts"][k]} for k in parts],
         "device_ms": bwd["device_ms"], "library_device_ms": bwd["library_device_ms"],
     })
-    log(f"chip_smoke: all 16 phases in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: all 17 phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

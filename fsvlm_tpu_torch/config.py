@@ -293,8 +293,13 @@ class DatasetConfig:
     NAME: str = ""  # the dataset, and the KD teacher's template (trainers/templates.py)
     SOURCE_DOMAINS: Tuple[str, ...] = ()
     TARGET_DOMAINS: Tuple[str, ...] = ()
+    NUM_LABELED: int = -1  # the SSL sets' labeled images (data/datasets/legacy.py)
     NUM_SHOTS: int = -1
     VAL_PERCENT: float = 0.1
+    ALL_AS_UNLABELED: bool = False  # the SSL sets: train_x joins train_u too
+    STL10_FOLD: int = -1  # -1: all 5000 labeled STL-10 images; else fold_indices.txt's row
+    CIFAR_C_TYPE: str = ""  # CIFAR10C / CIFAR100C: the corruption
+    CIFAR_C_LEVEL: int = 1  # and its severity, 1-5
     SUBSAMPLE_CLASSES: str = "all"  # all, base or new
     PER_CLASS_SHOTS: List[int] = field(default_factory=list)  # when NUM_SHOTS < 0
 

@@ -1,21 +1,24 @@
 """DataManager: the dataset and its loaders (counterpart of
 fsvlm_tpu.data.data_manager, :16-153).
 
-Builds the dataset named by DATASET.NAME (Synthetic, the 11 recognition
-datasets and the 4 ImageNet shifts; the Dassl DA/DG/SSL sets are ROADMAP
-A13), the train and eval transforms (or ``custom_tfm_train`` /
-``custom_tfm_test``; under SEED >= 0 the train transform's shared rng is
-``random.Random(SEED)``), then the loaders.  train_x: under
-DATALOADER.DEVICE_AUG uint8 ``pre_size`` batches for the device-side
-augmentation; else the host train transform through ``dataset_wrapper``
-(default DatasetWrapper) with SEED's per-(item, visit) rngs,
-DATALOADER.K_TRANSFORMS and RETURN_IMG0, shipping uint8 where the
-transform's float stage is the trainer's normalization
-(``TrainTransform.uint8_suffices``).  It drops the last short batch when
-the set holds at least one batch.  val and test: padded uint8 batches of
-the eval view.  Every sampler is seeded from SEED (unseeded when SEED <
-0).  Prints the dataset summary table under VERBOSE.  No ported dataset
-has an unlabeled split, so there is no train_u loader.
+Builds the dataset named by DATASET.NAME (Synthetic, SyntheticSSL and
+SyntheticDA, the 11 recognition datasets and the 4 ImageNet shifts, the 21
+Dassl DA/DG/SSL sets), the train and eval transforms (or
+``custom_tfm_train`` / ``custom_tfm_test``; under SEED >= 0 the train
+transform's shared rng is ``random.Random(SEED)``), then the loaders.
+train_x, and train_u where the dataset has an unlabeled split (the DA
+targets, the SSL pool): under DATALOADER.DEVICE_AUG uint8 ``pre_size``
+batches for the device-side augmentation; else the host train transform
+through ``dataset_wrapper`` (default DatasetWrapper) with SEED's per-(item,
+visit) rngs, DATALOADER.K_TRANSFORMS and RETURN_IMG0, shipping uint8 where
+the transform's float stage is the trainer's normalization
+(``TrainTransform.uint8_suffices``).  Each drops its last short batch when
+its set holds at least one batch.  train_u takes DATALOADER.TRAIN_U's
+sampler, batch size and N_INS, or under TRAIN_U.SAME_AS_X train_x's, and
+TRAIN_U.N_DOMAIN.  val and test: padded uint8 batches of the eval view.
+Every sampler is seeded from SEED (unseeded when SEED < 0).
+``num_source_domains``: the number of SOURCE_DOMAINS, or else the largest
+train_x domain + 1.  Prints the dataset summary table under VERBOSE.
 """
 
 import random
@@ -30,11 +33,8 @@ DATASET_REGISTRY = Registry("DATASET")
 
 def build_dataset(cfg):
     if cfg.DATASET.NAME not in DATASET_REGISTRY:
-        raise KeyError(
-            f"Dataset {cfg.DATASET.NAME!r} is not ported: the Dassl domain-adaptation, "
-            "domain-generalization and semi-supervised sets (data/datasets/legacy.py) are "
-            "ROADMAP A13; ported: "
-            f"{DATASET_REGISTRY.registered_names()}")
+        raise KeyError(f"Dataset {cfg.DATASET.NAME!r} is not registered; registered: "
+                       f"{DATASET_REGISTRY.registered_names()}")
     return DATASET_REGISTRY.get(cfg.DATASET.NAME)(cfg)
 
 
@@ -59,25 +59,35 @@ class DataManager:
             return BatchLoader(DatasetWrapper(data_source, self.tfm_test), sampler,
                                cfg.DATALOADER.TEST.BATCH_SIZE, num_threads=threads)
 
-        x = cfg.DATALOADER.TRAIN_X
-        sampler = build_sampler(x.SAMPLER, dataset.train_x, batch_size=x.BATCH_SIZE,
-                                n_domain=x.N_DOMAIN, n_ins=x.N_INS, seed=seed)
-        if cfg.DATALOADER.DEVICE_AUG:
-            wrapper = RawDatasetWrapper(dataset.train_x, pre_size=cfg.DATALOADER.PRE_SIZE)
-        else:
-            uint8 = getattr(tfm_train, "uint8_suffices", lambda _: True)(cfg)
-            wrapper = (dataset_wrapper or DatasetWrapper)(
-                dataset.train_x, tfm_train, train=True,
-                k_transforms=cfg.DATALOADER.K_TRANSFORMS,
-                return_img0=cfg.DATALOADER.RETURN_IMG0, img0_transform=self.tfm_test,
-                seed=seed, uint8=uint8)
-        self.train_loader_x = BatchLoader(
-            wrapper, sampler, x.BATCH_SIZE, drop_last=len(dataset.train_x) >= x.BATCH_SIZE,
-            num_threads=threads)
+        def train_loader(data_source, sampler_type, batch_size, n_ins, n_domain):
+            if not data_source:
+                return None
+            sampler = build_sampler(sampler_type, data_source, batch_size=batch_size,
+                                    n_domain=n_domain, n_ins=n_ins, seed=seed)
+            if cfg.DATALOADER.DEVICE_AUG:
+                wrapper = RawDatasetWrapper(data_source, pre_size=cfg.DATALOADER.PRE_SIZE)
+            else:
+                uint8 = getattr(tfm_train, "uint8_suffices", lambda _: True)(cfg)
+                wrapper = (dataset_wrapper or DatasetWrapper)(
+                    data_source, tfm_train, train=True,
+                    k_transforms=cfg.DATALOADER.K_TRANSFORMS,
+                    return_img0=cfg.DATALOADER.RETURN_IMG0, img0_transform=self.tfm_test,
+                    seed=seed, uint8=uint8)
+            return BatchLoader(wrapper, sampler, batch_size,
+                               drop_last=len(data_source) >= batch_size, num_threads=threads)
+
+        x, u = cfg.DATALOADER.TRAIN_X, cfg.DATALOADER.TRAIN_U
+        self.train_loader_x = train_loader(dataset.train_x, x.SAMPLER, x.BATCH_SIZE, x.N_INS,
+                                           x.N_DOMAIN)
+        ux = x if u.SAME_AS_X else u
+        self.train_loader_u = train_loader(dataset.train_u, ux.SAMPLER, ux.BATCH_SIZE, ux.N_INS,
+                                           u.N_DOMAIN)
         self.val_loader = eval_loader(dataset.val)
         self.test_loader = eval_loader(dataset.test)
 
         self.num_classes = dataset.num_classes
+        self.num_source_domains = len(cfg.DATASET.SOURCE_DOMAINS) or (
+            max((d.domain for d in dataset.train_x), default=0) + 1)
         self.lab2cname = dataset.lab2cname
         if cfg.VERBOSE:
             self.show_dataset_summary(cfg)

@@ -1,1 +1,1 @@
-from . import recognition, synthetic  # noqa: F401  (registers the datasets)
+from . import legacy, recognition, synthetic  # noqa: F401  (registers the datasets)

@@ -158,7 +158,7 @@ class SimpleTrainer:
         self.pixel_stats = [torch.tensor(v, dtype=torch.float32, device=self.device)
                             for v in (cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD)]
         self.dm = None
-        self.train_loader_x = self.val_loader = self.test_loader = None
+        self.train_loader_x = self.train_loader_u = self.val_loader = self.test_loader = None
         self.cache = self.labels = None
         self._resident_off = False
         self._frozen_eval = None
@@ -197,8 +197,9 @@ class SimpleTrainer:
 
     def build_data_loader(self):
         self.dm = dm = DataManager(self.cfg)
-        self.train_loader_x, self.val_loader, self.test_loader = (
-            dm.train_loader_x, dm.val_loader, dm.test_loader)
+        self.train_loader_x, self.train_loader_u, self.val_loader, self.test_loader = (
+            dm.train_loader_x, dm.train_loader_u, dm.val_loader, dm.test_loader)
+        self.num_source_domains = dm.num_source_domains
         self.classnames = dm.dataset.classnames
         self.lab2cname = dm.lab2cname
 

@@ -2,29 +2,37 @@
 the PIL calls of the JAX package's data layer), through ctypes.
 
 The card's machine has neither libjpeg's header nor its library, so the
-decoder is the port's own C++ (``csrc/jpeg_decoder.cpp``: baseline and
-progressive Huffman JPEG, no library); ``csrc/imaging.cpp`` holds the
-per-pixel passes of ``data/imageops.py``'s Pillow-exact image operations
-(resampling with a box, the affine transform, the Gaussian blur, HSV, the
-3x3 filter, blend, L and lookup tables).  Both are compiled
+JPEG decoder is the port's own C++ (``csrc/jpeg_decoder.cpp``: baseline
+and progressive Huffman JPEG, no library); so is the PNG decoder
+(``csrc/png_decoder.cpp``: all of PNG, its inflate included), which links
+no zlib either, so that one build with no dependency serves both formats;
+``csrc/imaging.cpp`` holds the per-pixel passes of ``data/imageops.py``'s
+Pillow-exact image operations (resampling with a box, the affine
+transform, the Gaussian blur, HSV, the 3x3 filter, blend, L and lookup
+tables).  All three are compiled
 with ``g++`` at first use into one library in ``fsvlm_tpu_torch/_build/``
 (listed in ``.gitignore``), named by a hash of sources and flags, and
 loaded once.  A failed build raises with the compiler's output; nothing
 falls back to another decoder.
 
-- ``read_image(path)``: the full-resolution RGB image as an (H, W, 3)
+- ``read_image(path)``: the full-resolution RGB image of a JPEG or PNG file
+  (told apart by their magic bytes, whatever the extension) as an (H, W, 3)
   uint8 array, byte-equal to Pillow's ``Image.open(path).convert("RGB")``
-  (grayscale replicated, CMYK and YCCK through Pillow's CMYK->RGB);
+  (JPEG: grayscale replicated, CMYK and YCCK through Pillow's CMYK->RGB;
+  PNG: every colour type and bit depth, Adam7, as Pillow converts them);
 - ``decode_file(path, pre_size)``: the (P, P, 3) uint8 device-aug cache
-  view, byte-equal to ``fsvlm_tpu.native.decode_file`` (DCT-domain
+  view of a JPEG, byte-equal to ``fsvlm_tpu.native.decode_file`` (DCT-domain
   downscale, float bilinear resize of the shorter edge, centre crop), or
-  None for a CMYK or YCCK JPEG, for which libjpeg has no RGB output either.
+  None for a CMYK or YCCK JPEG and for a PNG, for which the JAX package's
+  libjpeg build has no output either: the loader then resizes the full
+  decode as Pillow's bilinear.
 
 Both release the GIL for the decode, so a thread pool decodes in parallel;
 so does every imaging pass (ctypes drops the GIL for each foreign call).
-A missing file raises ``IOError``; a file that is not a JPEG (by its magic
-bytes, whatever its extension) and a JPEG variant the decoder does not read
-raise ``NotImplementedError`` naming ROADMAP A16; corrupt or truncated data
+A missing file raises ``IOError``; a file in any format other than JPEG
+and PNG (by its magic bytes), a JPEG variant the decoder does not read and
+a PNG method the PNG specification does not define raise
+``NotImplementedError`` naming ROADMAP A16; corrupt or truncated data
 raises ``ValueError``.
 """
 
@@ -40,7 +48,8 @@ import numpy as np
 
 ROUTE = "B"  # the repo's own decoder; route A would link the machine's libjpeg
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = [os.path.join(CSRC, f) for f in ("jpeg_decoder.cpp", "imaging.cpp")]
+SOURCES = [os.path.join(CSRC, f) for f in ("jpeg_decoder.cpp", "png_decoder.cpp",
+                                           "imaging.cpp")]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off", "-Wall"]
 
@@ -65,12 +74,20 @@ _IMAGING = {
     "fsvlm_lut": [_U8P, _I64, _I64, _U8P, _U8P],
 }
 
-# the decoder's return codes (jpeg_decoder.cpp Status; its 4, no SOI, is
-# caught here first by the magic bytes)
+# the decoders' return codes (the Status of jpeg_decoder.cpp and of
+# png_decoder.cpp; their 4, not their format, is caught here first by the
+# magic bytes)
 NO_RGB, CORRUPT, UNSUPPORTED, NO_MEMORY, TOO_LARGE = 1, 2, 3, 5, 6
 
-_MAGIC = [(b"\x89PNG\r\n\x1a\n", "PNG"), (b"GIF8", "GIF"), (b"BM", "BMP"),
-          (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF")]
+_MAGIC = [(b"\xff\xd8", "JPEG"), (b"\x89PNG\r\n\x1a\n", "PNG"), (b"GIF8", "GIF"),
+          (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF")]
+_UNSUPPORTED = {
+    "JPEG": "a JPEG variant the port's decoder does not read (arithmetic coding, lossless, "
+            "hierarchical, 12-bit samples, or progressive scans that leave coefficients "
+            "unrefined)",
+    "PNG": "a PNG whose compression, filter or interlace method the PNG specification does "
+           "not define",
+}
 
 
 def find_cxx():
@@ -121,10 +138,13 @@ def load():
             lib.fsvlm_jpeg_decode_full.argtypes = [_U8P, ctypes.c_long, ctypes.c_int,
                                                    ctypes.c_int, _U8P]
             lib.fsvlm_jpeg_file_resize_crop.argtypes = [ctypes.c_char_p, ctypes.c_int, _U8P]
+            lib.fsvlm_png_size.argtypes = lib.fsvlm_jpeg_size.argtypes
+            lib.fsvlm_png_decode_full.argtypes = lib.fsvlm_jpeg_decode_full.argtypes
             for name, args in _IMAGING.items():
                 getattr(lib, name).argtypes = args
             for fn in (lib.fsvlm_jpeg_size, lib.fsvlm_jpeg_decode_full,
-                       lib.fsvlm_jpeg_file_resize_crop, *(getattr(lib, n) for n in _IMAGING)):
+                       lib.fsvlm_jpeg_file_resize_crop, lib.fsvlm_png_size,
+                       lib.fsvlm_png_decode_full, *(getattr(lib, n) for n in _IMAGING)):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -137,31 +157,29 @@ def build_info():
             "path": _build_info["path"], "seconds": _build_info["seconds"]}
 
 
-def _read_jpeg(path, head=None):
-    """The file's bytes (its first ``head`` bytes if given); raises unless
-    it is a JPEG (by its magic bytes)."""
+def _read(path, head=None):
+    """The file's bytes (its first ``head`` bytes if given) and its format,
+    "JPEG" or "PNG" by its magic bytes; raises for any other format."""
     if not os.path.exists(path):
         raise IOError(f'No file exists at "{path}"')
     with open(path, "rb") as f:
         data = f.read(head) if head else f.read()
-    if data[:2] != b"\xff\xd8":
-        kind = next((k for m, k in _MAGIC if data.startswith(m)), None)
-        if kind is None and data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-            kind = "WebP"
+    kind = next((k for m, k in _MAGIC if data.startswith(m)), None)
+    if kind is None and data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        kind = "WebP"
+    if kind not in ("JPEG", "PNG"):
         raise NotImplementedError(
-            f'"{path}" is {"a " + kind + " file" if kind else "not a JPEG file"}: the port '
-            "decodes JPEG only (image formats other than JPEG: ROADMAP A16)")
-    return data
+            f'"{path}" is {"a " + kind + " file" if kind else "neither a JPEG nor a PNG file"}: '
+            "the port decodes JPEG and PNG only (image formats other than JPEG and PNG: "
+            "ROADMAP A16)")
+    return data, kind
 
 
-def _check(rc, path):
+def _check(rc, path, kind):
     if rc == CORRUPT:
-        raise ValueError(f'corrupt or truncated JPEG data in "{path}"')
+        raise ValueError(f'corrupt or truncated {kind} data in "{path}"')
     if rc == UNSUPPORTED:
-        raise NotImplementedError(
-            f'"{path}" is a JPEG variant the port\'s decoder does not read (arithmetic '
-            "coding, lossless, hierarchical, 12-bit samples, or progressive scans that leave "
-            "coefficients unrefined): ROADMAP A16")
+        raise NotImplementedError(f'"{path}" is {_UNSUPPORTED[kind]}: ROADMAP A16')
     if rc == TOO_LARGE:
         raise ValueError(f'"{path}" has more pixels than twice Pillow\'s MAX_IMAGE_PIXELS, '
                          "which Pillow refuses as a decompression bomb")
@@ -174,29 +192,34 @@ def _check(rc, path):
 
 
 def read_image(path):
-    """The full-resolution RGB image of a JPEG file: uint8 (H, W, 3)."""
-    data = _read_jpeg(path)
+    """The full-resolution RGB image of a JPEG or PNG file: uint8 (H, W, 3)."""
+    data, kind = _read(path)
     lib = load()
+    size, full = ((lib.fsvlm_jpeg_size, lib.fsvlm_jpeg_decode_full) if kind == "JPEG" else
+                  (lib.fsvlm_png_size, lib.fsvlm_png_decode_full))
     buf = np.frombuffer(data, np.uint8)
     w, h = ctypes.c_int(), ctypes.c_int()
-    _check(lib.fsvlm_jpeg_size(buf.ctypes.data_as(_U8P), len(data), ctypes.byref(w),
-                               ctypes.byref(h)), path)
+    _check(size(buf.ctypes.data_as(_U8P), len(data), ctypes.byref(w), ctypes.byref(h)), path,
+           kind)
     out = np.empty((h.value, w.value, 3), np.uint8)
-    _check(lib.fsvlm_jpeg_decode_full(buf.ctypes.data_as(_U8P), len(data), w.value, h.value,
-                                      out.ctypes.data_as(_U8P)), path)
+    _check(full(buf.ctypes.data_as(_U8P), len(data), w.value, h.value,
+                out.ctypes.data_as(_U8P)), path, kind)
     return out
 
 
 def decode_file(path, pre_size):
     """The (pre_size, pre_size, 3) uint8 cache view of a JPEG file, or None
-    for a CMYK or YCCK JPEG (no RGB output at a DCT scale, as libjpeg)."""
-    _read_jpeg(path, head=12)
+    for a CMYK or YCCK JPEG (no RGB output at a DCT scale, as libjpeg) and
+    for a PNG (the JAX package's libjpeg build reads none)."""
+    _, kind = _read(path, head=12)
+    if kind == "PNG":
+        return None
     lib = load()
     out = np.empty((pre_size, pre_size, 3), np.uint8)
     rc = lib.fsvlm_jpeg_file_resize_crop(os.fsencode(path), pre_size, out.ctypes.data_as(_U8P))
     if rc == NO_RGB:
         return None
-    _check(rc, path)
+    _check(rc, path, kind)
     return out
 
 

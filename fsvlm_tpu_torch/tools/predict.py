@@ -19,7 +19,7 @@ Leave --model-dir empty with ``--trainer ZeroshotCLIP`` for zero-shot
 serving; ``MODEL.QUANT_INT8 True`` serves the int8 image tower.  Output: one
 JSON object per line, {"path", "topk": [{"label", "prob"}, ...]}, probs
 rounded to 6 places.  Directories are walked in sorted order for the
-extensions of IMG_EXTS; the port reads JPEG files only, and any other
+extensions of IMG_EXTS; the port reads JPEG and PNG files, and any other
 format raises naming ROADMAP A16.
 """
 
@@ -112,7 +112,7 @@ def build_argparser():
     parser = train_argparser()
     parser.description = __doc__
     parser.add_argument("--images", type=str, nargs="+", required=True,
-                        help="image files and/or directories (recursive); JPEG only "
+                        help="image files and/or directories (recursive); JPEG and PNG "
                              "(other formats raise naming ROADMAP A16)")
     parser.add_argument("--topk", type=int, default=5)
     parser.add_argument("--pred-batch", type=int, default=64,

@@ -37,9 +37,10 @@ def write_json(obj, fpath):
 
 def read_image(path):
     """The RGB image of a file as uint8 (H, W, 3), as the JAX package's
-    ``Image.open(path).convert("RGB")`` gives it, through the port's JPEG
-    decoder (``fsvlm_tpu_torch.native``); raises IOError for a missing file
-    and NotImplementedError (ROADMAP A16) for a file that is not a JPEG."""
+    ``Image.open(path).convert("RGB")`` gives it, through the port's JPEG and
+    PNG decoders (``fsvlm_tpu_torch.native``); raises IOError for a missing
+    file and NotImplementedError (ROADMAP A16) for a file in another
+    format."""
     from ..native import read_image as decode
 
     return decode(path)

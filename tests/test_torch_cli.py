@@ -106,8 +106,8 @@ def test_extra_opts_env_applies_last(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("opts,error,match", [
     (["TRAINER.NAME", "DANN"], KeyError, "ROADMAP A9"),
     (["TRAINER.NAME", "FixMatch"], KeyError, "ROADMAP A9"),
-    (["DATASET.NAME", "Digit5"], KeyError, "ROADMAP A13"),
-    (["DATASET.NAME", "Office31"], KeyError, "ROADMAP A13"),
+    (["TRAINER.NAME", "MeanTeacher"], KeyError, "ROADMAP A9"),
+    (["DATASET.NAME", "Office32"], KeyError, "not registered; registered: .*'Office31'"),
 ])
 def test_unported_paths_raise_naming_their_roadmap_item(tmp_path, monkeypatch, opts, error, match):
     monkeypatch.chdir(ROOT)

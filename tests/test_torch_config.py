@@ -31,12 +31,14 @@ RECIPES = [f for f in ALL_FILES if f.split(os.sep)[2:3] in (
     ["LinearProbeCLIP"], ["PLIP"])]
 DATASETS = [f for f in ALL_FILES if f.startswith(os.path.join("configs", "datasets"))
             and os.sep + "zoo" + os.sep not in f]
+ZOO_DATASETS = [f for f in ALL_FILES if f.startswith(os.path.join("configs", "datasets", "zoo"))]
 PROMPTSRC = "configs/trainers/PromptSRC/vit_b16_c2_ep20_batch4_4+4ctx.yaml"
 IVLP_KD = "configs/trainers/IVLP/vit_b16_c2_ep20_batch4_4+4ctx_kd.yaml"
 
 
 def test_the_survey_of_files_is_complete():
     assert len(ALL_FILES) == 71 and len(RECIPES) == 39 and len(DATASETS) == 16
+    assert len(ZOO_DATASETS) == 13
 
 
 @pytest.mark.parametrize("path", ALL_FILES)
@@ -97,7 +99,7 @@ C4_OPTS = ("VERSION 2 USE_CUDA False OPTIM.SGD_DAMPNING 1 TEST.EVALUATOR Classif
 
 
 @pytest.mark.parametrize("paths", [pytest.param("", id="defaults"), SYNTHETIC_TINY]
-                         + RECIPES + DATASETS)
+                         + RECIPES + DATASETS + ZOO_DATASETS)
 def test_merge_from_file_matches_jax(paths):
     """``paths``: the files merged in turn, separated by "|"."""
     jcfg, pcfg = jax_get_cfg_default(), get_cfg_base()

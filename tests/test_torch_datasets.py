@@ -348,9 +348,18 @@ def test_imagenet_preprocessed_pickles_cross_read(tmp_path):
 
 
 def test_unported_legacy_sets_name_a13(tmp_path):
-    _, pcfg = _cfgs(tmp_path, "PACS")
-    with pytest.raises(KeyError, match="ROADMAP A13"):
+    """No legacy set is left unported: all 21 are registered, and an
+    unknown name's KeyError lists them without naming ROADMAP A13."""
+    from fsvlm_tpu.data.data_manager import DATASET_REGISTRY as JAX_REGISTRY
+    from fsvlm_tpu_torch.data.data_manager import DATASET_REGISTRY
+
+    legacy = {n for n in JAX_REGISTRY.registered_names()
+              if JAX_REGISTRY.get(n).__module__.endswith(".legacy")}
+    assert len(legacy) == 21 and legacy <= set(DATASET_REGISTRY.registered_names())
+    _, pcfg = _cfgs(tmp_path, "PACS2")
+    with pytest.raises(KeyError, match="not registered") as err:
         build_dataset(pcfg)
+    assert "A13" not in str(err.value) and all(n in str(err.value) for n in legacy)
 
 
 # ----------------------------------------------------------- JPEG loaders

@@ -161,13 +161,21 @@ def test_a_missing_file_raises(tmp_path):
 
 @pytest.mark.parametrize("kind", ["junk", "png", "gif", "empty"])
 def test_a_file_that_is_not_a_jpeg_raises_naming_a16(tmp_path, kind):
+    """Every format but JPEG and PNG raises naming A16 on both views.  A
+    PNG under a JPEG name is read by the PNG decoder (Pillow's pixels), and
+    has no ``decode_file`` view, as in the JAX package's libjpeg build."""
     path = tmp_path / "x.jpg"
     if kind == "junk":
         path.write_bytes(b"definitely not a jpeg")
     elif kind == "empty":
         path.write_bytes(b"")
     else:
-        Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(path, format=kind.upper())
+        Image.fromarray(_content(4, 4, 4, 3)).save(path, format=kind.upper())
+    if kind == "png":
+        np.testing.assert_array_equal(read_image(str(path)),
+                                      np.asarray(Image.open(path).convert("RGB")))
+        assert native.decode_file(str(path), 64) is None
+        return
     for fn in (read_image, lambda p: native.decode_file(p, 64)):
         with pytest.raises(NotImplementedError, match="ROADMAP A16"):
             fn(str(path))

@@ -191,17 +191,19 @@ def test_collect_images_walks_in_sorted_order(tmp_path):
 
 
 def test_predict_names_a16_on_a_png(tmp_path, model_dir):
-    """A PNG among the images: the port's reader raises naming ROADMAP A16
-    (the JAX package's PIL reads it)."""
+    """A PNG among the images is read; a GIF among them makes the port's
+    reader raise naming ROADMAP A16 (the JAX package's PIL reads both)."""
     from PIL import Image
 
-    png = tmp_path / "x.png"
+    png, gif = tmp_path / "x.png", tmp_path / "y.gif"
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(png)
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(gif)
     _, pcfg = _cfgs(tmp_path)
     with redirect_stdout(io.StringIO()):
         pt = build_trainer(pcfg, device="cpu")
+    assert [p for p, _ in predict.predict(pt, pcfg, [str(png)])] == [str(png)]
     with pytest.raises(NotImplementedError, match="A16"):
-        list(predict.predict(pt, pcfg, [str(png)]))
+        list(predict.predict(pt, pcfg, [str(png), str(gif)]))
 
 
 # ------------------------------------------------------------------ importer
