@@ -154,7 +154,9 @@ Phases; each passes or raises, and any failure exits non-zero:
    losses, #6-#8 launched exactly the counts derived from the code, and
    ``--eval-only`` from model-best.pkl giving the run's final test
    predictions.  Then the decode rates at DATALOADER.NUM_WORKERS threads,
-   the train cache's materialize, one more epoch, a cached test(), the cold
+   the train cache's materialize, the run's own epoch as train() ran it (its
+   device cache build included; no separate timed epoch runs, to make room
+   for phase 18), a cached test(), the cold
    ``--eval-only`` time, the eval cache's bytes and the peak RSS, printed as
    one ``{"recognition": ...}`` line.
 
@@ -181,7 +183,8 @@ Phases; each passes or raises, and any failure exits non-zero:
    SIMCLR_ALPHA 0.1 on the two-view loader at batch 48: 3 steps, the first
    under sync debug mode 'error', launches as derived.  Then views/s of
    the recipes' and SimCLR's lists at NUM_WORKERS threads over the 1000
-   train files, the host-aug epoch beside phase 12's DEVICE_AUG epoch, the
+   train files, the run's host-aug epoch (files decoded on first use; no
+   separate warm epoch runs) beside phase 12's DEVICE_AUG epoch, the
    ms per step of 60 steps fed from batches built beforehand against 60
    fed by the loader as it runs (in turns: the loader's own share), and the
    device's idle share over 5 profiled host-aug steps in the loader's
@@ -303,7 +306,8 @@ Phases; each passes or raises, and any failure exits non-zero:
    the sketch files at 8 threads, the split sizes and the summary's counts
    (the truncated file skipped), #6-#8 at the counts derived from the code,
    ``--eval-only`` reproducing the predictions (its wall time a cold eval
-   of the sketch PNGs), the epoch ms and images/s, peak memory.  (c) A
+   of the sketch PNGs), the run's epoch ms and images/s (no separate
+   epoch runs), peak memory.  (c) A
    DEVICE_AUG DataManager with sketch among the sources: the materialized
    train cache's sketch rows each equal to their fixture's cache256 digest.
    (d) An SSL CIFAR-10 tree at CIFAR-10's sizes (50,000 + 10,000 hard
@@ -313,12 +317,38 @@ Phases; each passes or raises, and any failure exits non-zero:
    FixMatch recipe's loader settings (views/s, labels equal to the
    dataset's at each batch's indices).  One ``{"zoo_data": ...}`` line.
 
+18. zoo_dg: the Dassl DG zoo (fsvlm_tpu_torch/trainers/zoo/, no attention:
+   every launch count stays 0) on phase 17's PACS tree, which main keeps
+   for it.  (a) Vanilla from configs/trainers/zoo/vanilla_mixstyle_pacs.yaml
+   (resnet18_ms_l12, 224x224, batch 64, SGD 0.001, cosine, the host's
+   random_resized_crop + flip + colorjitter + normalize) through
+   ``fsvlm_tpu_torch.train.main``, art_painting + cartoon + photo ->
+   sketch, seed 1, default PRETRAINED (the "no weights found" warning is
+   checked), cut to 1 epoch (85 steps) with TEST.NO_TEST (the CLI's own
+   test after training is the one test): the log contract, finite
+   losses, the epoch ms and images/s as train() ran it, ``--eval-only``
+   from the checkpoint giving the same 3928 predictions (its wall time a
+   cold eval), a resume that restores weights, BN statistics, optimizer
+   state and generator bit for bit, one step's MixStyle draws taken twice
+   from one generator state (bit-equal, on the card, advancing the
+   generator as the step left to itself does), one step under sync debug
+   mode 'error', the idle share of 5 loader-fed steps and peak memory.
+   (b) CrossGrad, DDAIG (fcn_3x32_gctx and fcn_3x64_gctx_stn), DomainMix
+   (crossdomain and random) and DAELDG (RandomDomainSampler over the 3
+   domains) on resnet18 at 224x224, ZOO_B_BATCH images, ZOO_B_STEPS steps
+   on the card and on the card's CPU from the same weights, batches and
+   recorded draws, TF32 off, each step from the card's state: per step
+   the losses, weights (apart: those that start at zero) and BN
+   statistics within ZOO_B_BOUND (the STN generator's case:
+   ZOO_B_BOUND_STN).  One ``{"zoo_dg": ...}`` line.
+
 Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 17 zero the launch counts
 just before each main path and read them just after, and phase 16 counts
 the driver's from its profiler trace (the run is another process): each
 kernel of the path must have launched its expected count (derived from the
 code: a rematerialized layer runs its forward kernel again), and the other
-families none.
+families none; phase 18's path launches none of them.  The line
+``chip_smoke: seconds by phase {...}`` gives each phase function's time.
 
 The line before the last is ``{"kernels": [...]}`` (one row per TPU kernel;
 #2's row lists its three CUDA kernels as ``parts``; #6-#8's and #3-#5's
@@ -418,6 +448,21 @@ def log(msg):
     print(msg, flush=True)
 
 
+PHASE_S = {}  # seconds of each phase function, printed at the end
+
+
+def _timed(fn):
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            PHASE_S[fn.__name__] = round(time.perf_counter() - t0, 1)
+
+    run.__name__, run.__doc__ = fn.__name__, fn.__doc__
+    return run
+
+
 class force_pallas:
     """FSVLM_FORCE_PALLAS set to ``value`` (None: unset) inside the block, and
     restored after it."""
@@ -447,6 +492,7 @@ def _others_silent(launches, family_prefix, where):
         raise SystemExit(f"FAIL: {where} launched kernels of the other family: {stray}")
 
 
+@_timed
 def phase_device():
     import torch
 
@@ -463,6 +509,7 @@ def phase_device():
     return smi[0]
 
 
+@_timed
 def phase_build():
     from fsvlm_tpu_torch.ops.kernels.build import build_all
 
@@ -595,6 +642,7 @@ def _library_bwd_ms(q, k, v, do, causal, timer=_time_ms):
         return None
 
 
+@_timed
 def phase_kernels_bwd():
     """The dK/dV and dQ kernels against the plain backward; then times."""
     import torch
@@ -673,6 +721,7 @@ def phase_kernels_bwd():
     return {k: v[0] for k, v in worst.items()}, timings
 
 
+@_timed
 def phase_kernels_blockwise():
     """The blockwise kernels #3-#5 against their plain versions at every
     head dim and edge of L, causal and unmasked, and at the IVLP step's own
@@ -787,6 +836,7 @@ def phase_kernels_blockwise():
     return {k: max(worst[k, n][0] for n in ("float32", "bfloat16")) for k in kernels}, timings
 
 
+@_timed
 def phase_kernels_fused():
     """The whole-sequence kernels #1-#2 against their plain versions at every
     head dim and edge of L, causal and unmasked, and at the CoOp and CoCoOp
@@ -898,6 +948,7 @@ def phase_kernels_fused():
     return {k: max(worst[k, n][0] for n in ("float32", "bfloat16")) for k in (fa.FUSED_KERNEL, "bwd")}, timings
 
 
+@_timed
 def phase_kernels():
     import torch
     import torch.nn.functional as F
@@ -954,6 +1005,7 @@ def phase_kernels():
     return worst, timings
 
 
+@_timed
 def phase_main():
     import torch
 
@@ -1110,6 +1162,7 @@ def _profile(label, fn, top=12, groups=None, counts=None):
     return wall_us / 1e3, busy / 1e3
 
 
+@_timed
 def phase_profile(pred, batch):
     """Device time by kernel over one serving batch and one text pass
     (torch.profiler), and host wall time of repeated text passes, with the
@@ -1305,6 +1358,7 @@ def _no_sync_step(label, step, *args, **kw):
     log(f"{label}: one step under sync debug mode 'error' made no synchronizing call")
 
 
+@_timed
 def phase_train(clip):
     """The PromptSRC ViT-B/16 train step at full width, through the kernels
     and through the plain attention (same weights, batches, boxes, flips)."""
@@ -1375,6 +1429,7 @@ def phase_train(clip):
     return launches
 
 
+@_timed
 def phase_train_ivlp(clip):
     """The IVLP ViT-B/16 KD train step at full width under
     FSVLM_FORCE_PALLAS=1 (the caller sets it), through the blockwise kernels
@@ -1673,6 +1728,7 @@ def _cocoop_remat(clip, cache, labels):
              groups=FUSED_GROUPS)
 
 
+@_timed
 def phase_coop_cocoop(clip):
     """Phase 8, under FSVLM_FORCE_PALLAS=legacy (the caller sets it): CoOp
     and CoCoOp ViT-B/16 from their recipes through the whole-sequence
@@ -1741,6 +1797,27 @@ def _run_cli(clip, argv):
     except BaseException:
         print(console.getvalue()[-4000:], flush=True)
         raise
+
+
+@contextlib.contextmanager
+def _epochs_timed(cls, out):
+    """Append to ``out`` the ms of each ``cls.run_epoch`` that runs inside the
+    block (a CLI run's own epochs, as train() ran them; run_epoch reads its
+    metrics back at its end)."""
+    run_epoch = cls.run_epoch
+
+    def timed(self):
+        t0 = time.perf_counter()
+        try:
+            return run_epoch(self)
+        finally:
+            out.append((time.perf_counter() - t0) * 1e3)
+
+    cls.run_epoch = timed
+    try:
+        yield out
+    finally:
+        cls.run_epoch = run_epoch
 
 
 def _cli(clip, out_dir, *flags):
@@ -1861,6 +1938,7 @@ def _cached_teacher_steps(clip):
             f"launches per step {o['launches']}; trainer built in {o['build_s']:.2f} s")
 
 
+@_timed
 def phase_cli(clip):
     """The port's CLI end to end on the card (module docstring, phase 9)."""
     import torch
@@ -2304,6 +2382,7 @@ def _lora_cli(clip):
     return launches
 
 
+@_timed
 def phase_clip_trainers(clip):
     """Phase 10 (module docstring): the CLIP-LoRA, MaPLe, linear-probe and
     zero-shot paths on the d = 64 kernels, FSVLM_FORCE_PALLAS unset (the
@@ -2636,6 +2715,7 @@ def _plip_cli(clip):
     return launches
 
 
+@_timed
 def phase_plip_resnet(clip):
     """Phase 11 (module docstring): PLIP on ``clip`` (ViT-B/16) in its three
     REG_TYPEs, CoOp and ZeroshotCLIP on an RN50 tower, the RN50 golden in
@@ -2770,6 +2850,7 @@ def _decode_rates(paths, threads):
     return out
 
 
+@_timed
 def phase_recognition(clip, keep=None):
     """Phase 12 (module docstring): the decoder's fixtures, then PromptSRC
     ViT-B/16 through the CLI on a 100-class Caltech101-layout JPEG tree;
@@ -2785,6 +2866,7 @@ def phase_recognition(clip, keep=None):
 
     from fsvlm_tpu_torch import native
     from fsvlm_tpu_torch.data.loader import RawDatasetWrapper
+    from fsvlm_tpu_torch.engine.trainer import SimpleTrainer
     from fsvlm_tpu_torch.ops import flash_attention as fa
 
     finding = _libjpeg_finding()
@@ -2811,7 +2893,8 @@ def phase_recognition(clip, keep=None):
         torch.cuda.synchronize()
         fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
         t0 = time.perf_counter()
-        t = _run_cli(clip, argv(out))
+        with _epochs_timed(SimpleTrainer, []) as epochs:
+            t = _run_cli(clip, argv(out))
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = dict(fa.LAUNCHES)
@@ -2865,19 +2948,13 @@ def phase_recognition(clip, keep=None):
         t0 = time.perf_counter()
         RawDatasetWrapper(ds.train_x, pre_size=t.cfg.DATALOADER.PRE_SIZE).materialize(threads)
         materialize_ms = (time.perf_counter() - t0) * 1e3
+        epoch_ms = epochs[0]  # the run's epoch, its device cache build included
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):
-            metrics = t.run_epoch()
-        torch.cuda.synchronize()
-        epoch_ms = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             t.test()
         torch.cuda.synchronize()
         test_ms = (time.perf_counter() - t0) * 1e3
-        if not metrics or not all(np.isfinite(m["loss"]) for m in metrics):
-            raise SystemExit("FAIL: recognition: no loss or a non-finite loss in the timed epoch")
         n_img = t.steps_per_epoch * t.batch_size
         result = {
             "route": info["route"], "decoder": info["source"], "libjpeg": finding,
@@ -2890,7 +2967,7 @@ def phase_recognition(clip, keep=None):
         }
         log(f"recognition: decode over {len(train_paths)} tree files at {threads} threads: full "
             f"{rates['full']:.1f} images/s, decode_file(256) {rates['decode_file']:.1f} images/s; "
-            f"materialize {len(ds.train_x)} images {materialize_ms:.1f} ms; epoch "
+            f"materialize {len(ds.train_x)} images {materialize_ms:.1f} ms; the run's epoch "
             f"{epoch_ms:.1f} ms ({n_img} images, {n_img / epoch_ms * 1e3:.1f} images/s); test() "
             f"on {len(ds.test)} cached eval views {test_ms:.1f} ms; --eval-only run (cold: "
             f"decode, eval view, model) {eval_s:.1f} s; eval cache {cache.cached_bytes / 2**20:.1f}"
@@ -3001,6 +3078,7 @@ def _views_per_s(wrapper, threads):
     return len(items) * (2 if "img2" in items[0] else 1) / seconds
 
 
+@_timed
 def phase_host_aug(clip, recognition):
     """Phase 13 (module docstring): the host train transforms' fixtures,
     then PromptSRC and CoOp SimCLR through the CLI without DEVICE_AUG on a
@@ -3040,7 +3118,8 @@ def phase_host_aug(clip, recognition):
         torch.cuda.synchronize()
         fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
         t0 = time.perf_counter()
-        t = _run_cli(clip, promptsrc_argv(out))
+        with _epochs_timed(SimpleTrainer, []) as epochs:
+            t = _run_cli(clip, promptsrc_argv(out))
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches["host_aug_cli"] = dict(fa.LAUNCHES)
@@ -3190,19 +3269,7 @@ def phase_host_aug(clip, recognition):
         recipe_vps = _views_per_s(recipe_wrapper, threads)
         simclr_vps = _views_per_s(simclr_wrapper, threads)
         recipe_vps_1 = _views_per_s(recipe_wrapper, 1)
-        wrapper = t.train_loader_x.wrapper
-        with contextlib.redirect_stdout(io.StringIO()):
-            from concurrent.futures import ThreadPoolExecutor
-
-            with ThreadPoolExecutor(threads) as pool:  # the decoded cache, warm
-                list(pool.map(wrapper.image, range(len(wrapper))))
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            metrics = t.run_epoch()
-            torch.cuda.synchronize()
-            epoch_ms = (time.perf_counter() - t0) * 1e3
-        if not metrics or not all(np.isfinite(m["loss"]) for m in metrics):
-            raise SystemExit("FAIL: host_aug: no loss or a non-finite loss in the timed epoch")
+        epoch_ms = epochs[0]  # the run's epoch, its files decoded on first use
 
         # the loader's share of a step: LOADER_STEPS steps fed from batches
         # built beforehand against as many fed by the loader as it runs, in
@@ -3792,6 +3859,7 @@ def _tools_on_tree(clip, tree):
     return dict(result, round_trip_exact=exact, interpret_vectors=len(lines))
 
 
+@_timed
 def phase_int8_tools(clip, tree):
     """Phase 14 (module docstring).  Returns (the ``{"int8": ...}`` numbers,
     #6-#8's launches on the int8 serving and teacher paths, #3-#5's on the
@@ -4201,6 +4269,7 @@ def _export_serving(work):
     return dict(variants=out, fresh_process_s=fresh_s, peak_bytes=peak), launches
 
 
+@_timed
 def phase_lpclip_export(tree):
     """Phase 15 (module docstring), FSVLM_FORCE_PALLAS unset (the caller
     sets it), on phase 12's tree.  Returns (the ``{"lpclip_export": ...}``
@@ -4460,6 +4529,7 @@ def _untied_search(work, pending):
     return {"lines": lines, "best_c": float(best), "card_s": card_s}
 
 
+@_timed
 def phase_drivers(clip, tree):
     """Phase 16 (module docstring), FSVLM_FORCE_PALLAS unset (the caller
     sets it), on phase 12's tree.  Returns (#6-#8 over the driver run's
@@ -4668,6 +4738,7 @@ def _pacs_run(clip, work, threads):
 
     import torch
 
+    from fsvlm_tpu_torch.engine.trainer import SimpleTrainer
     from fsvlm_tpu_torch.ops import flash_attention as fa
 
     def argv(out, *flags):
@@ -4684,7 +4755,8 @@ def _pacs_run(clip, work, threads):
     torch.cuda.reset_peak_memory_stats()
     fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
     t0 = time.perf_counter()
-    t = _run_cli(clip, argv(out))
+    with _epochs_timed(SimpleTrainer, []) as epochs:
+        t = _run_cli(clip, argv(out))
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = dict(fa.LAUNCHES)
@@ -4735,14 +4807,7 @@ def _pacs_run(clip, work, threads):
     log(f"zoo_data: --eval-only reproduced the run's {len(t2.evaluator.y_pred)} sketch "
         f"predictions")
     del t2
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
-        metrics = t.run_epoch()
-    torch.cuda.synchronize()
-    epoch_ms = (time.perf_counter() - t0) * 1e3
-    if not metrics or not all(np.isfinite(m["loss"]) for m in metrics):
-        raise SystemExit("FAIL: zoo_data: a non-finite loss in the timed PACS epoch")
+    epoch_ms = epochs[0]  # the run's epoch, its files decoded on first use
     n_img = t.steps_per_epoch * t.batch_size
     result = {"run_s": run_s, "epoch_ms": epoch_ms, "epoch_images": n_img,
               "epoch_images_per_s": n_img / epoch_ms * 1e3, "eval_only_s": eval_s,
@@ -4751,7 +4816,7 @@ def _pacs_run(clip, work, threads):
               "steps": t.steps_per_epoch, "batch": t.batch_size, "threads": threads,
               "peak_device_bytes": peak,
               "peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss << 10}
-    log(f"zoo_data: PACS epoch {epoch_ms:.1f} ms ({n_img} images, "
+    log(f"zoo_data: PACS epoch (the run's) {epoch_ms:.1f} ms ({n_img} images, "
         f"{result['epoch_images_per_s']:.1f} images/s, host transforms at {threads} threads); "
         f"--eval-only (cold: {len(ds.test)} sketch PNGs decoded, eval view, model) {eval_s:.1f} s; "
         f"peak device memory {peak / 2**30:.2f} GiB, process peak RSS "
@@ -4841,10 +4906,12 @@ def _ssl_loader(work, threads):
             "u_batches": n, "u_batch": loader_u.batch_size, "u_views_per_s": views / seconds}
 
 
-def phase_zoo_data(clip):
+@_timed
+def phase_zoo_data(clip, work):
     """Phase 17 (module docstring), FSVLM_FORCE_PALLAS unset (the caller sets
-    it).  Returns (#6-#8 over the PACS run, the ``{"zoo_data": ...}``
-    numbers)."""
+    it).  The PACS tree goes to ``work``, which the caller keeps for phase 18
+    and removes; the SSL tree to a directory of its own.  Returns (#6-#8
+    over the PACS run, the ``{"zoo_data": ...}`` numbers)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from fsvlm_tpu_torch import native
@@ -4859,7 +4926,7 @@ def phase_zoo_data(clip):
     jpegs = sorted(f for f in os.listdir(FIXTURE_DIR) if f.endswith(".jpg"))
     sketches = sorted(n for n in expected["digests"] if n.startswith("sketch_"))
     threads = 8  # the recipe's DATALOADER.NUM_WORKERS
-    work = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    ssl_work = tempfile.mkdtemp(prefix="chip_smoke_ssl_")
     try:
         t0 = time.perf_counter()
         sketch_of = _pacs_tree(work, jpegs, sketches)
@@ -4884,14 +4951,14 @@ def phase_zoo_data(clip):
             f"full {rates['full']:.1f} images/s, cache view 256 {rates['cache256']:.1f} images/s")
         launches, pacs = _pacs_run(clip, work, threads)
         device_aug = _pacs_device_aug(work, sketch_of, expected, threads)
-        shutil.rmtree(work, ignore_errors=True)
-        os.makedirs(work)
+        shutil.rmtree(os.path.join(work, "run"), ignore_errors=True)
+        shutil.rmtree(os.path.join(work, "eval"), ignore_errors=True)
         t0 = time.perf_counter()
-        _ssl_tree(work, "cifar_rgb8_32.png")
+        _ssl_tree(ssl_work, "cifar_rgb8_32.png")
         ssl_tree_s = time.perf_counter() - t0
-        ssl = dict(_ssl_loader(work, threads), tree_s=ssl_tree_s)
+        ssl = dict(_ssl_loader(ssl_work, threads), tree_s=ssl_tree_s)
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(ssl_work, ignore_errors=True)
     result = {"zlib": zlib, "png_fixtures": len(expected["digests"]),
               "png_full_images_per_s": rates["full"],
               "png_cache256_images_per_s": rates["cache256"], "png_decode_images": len(paths),
@@ -4900,6 +4967,330 @@ def phase_zoo_data(clip):
     log(f"zoo_data: phase 17 in {result['phase_s']:.1f} s")
     print(json.dumps({"zoo_data": result}), flush=True)
     return launches, result
+
+
+ZOO_DG_RECIPE = "configs/trainers/zoo/vanilla_mixstyle_pacs.yaml"
+# the recipe's 50 epochs cut to 1 (85 steps of 64 over PACS's 5467 source
+# images), and TEST.NO_TEST: the CLI tests once after training, not twice
+ZOO_DG_EPOCHS = 1
+ZOO_DG_PROFILE_STEPS = 5
+# (b): each DG trainer on resnet18 at 224x224, ZOO_B_BATCH images (a multiple of
+# the 3 source domains), ZOO_B_STEPS steps on the card and on its CPU from the
+# same weights, batches and draws, with TF32 off; every step from the card's
+# state before it (the trajectories part chaotically from rounding: the CPU
+# tests' finding).  Per step |dloss| over max(|loss|, 1), and per tensor max
+# |card - cpu| over its largest magnitude, for the weights, the weights that
+# start at zero (BatchNorm biases, the generator's regress bias, LocNet's fc:
+# their largest magnitude is a few updates, and a BatchNorm bias's gradient is
+# a sum over batch x height x width terms that nearly cancel) and the BN
+# statistics, each within ZOO_B_BOUND.  Measured on an H100 80GB HBM3 (700 W),
+# batch 6: losses 3.8e-6, weights 1.2e-4 (F's 7x7 stem conv: a sum over
+# 6 x 112 x 112 positions), zero-init 0.039, statistics 2.1e-5.  The STN
+# generator (fcn_3x64_gctx_stn) is held to ZOO_B_BOUND_STN: its FCN's
+# gradient moves by 1% for a 1e-5 change of its warped input (the CPU tests'
+# finding against JAX, ROADMAP C.2), so G's update and every later tensor of
+# the step move more (measured: losses 4.1e-5, weights 0.042, zero-init 0.37,
+# statistics 0.039)
+ZOO_B_BATCH, ZOO_B_STEPS = 6, 3
+ZOO_B_BOUND = {"loss": 1e-4, "weights": 5e-4, "weights_zero_init": 0.2, "statistics": 1e-4}
+ZOO_B_BOUND_STN = {"loss": 1e-4, "weights": 0.2, "weights_zero_init": 1.0, "statistics": 0.2}
+ZOO_B_CASES = [
+    ("CrossGrad", {}),
+    ("DDAIG", {"TRAINER.DDAIG.G_ARCH": "fcn_3x32_gctx", "TRAINER.DDAIG.CLAMP": True}),
+    ("DDAIG", {"TRAINER.DDAIG.G_ARCH": "fcn_3x64_gctx_stn", "TRAINER.DDAIG.CLAMP": True}),
+    ("DomainMix", {"TRAINER.DOMAINMIX.TYPE": "crossdomain"}),
+    ("DomainMix", {"TRAINER.DOMAINMIX.TYPE": "random"}),
+    ("DAELDG", {"DATALOADER.TRAIN_X.SAMPLER": "RandomDomainSampler",
+                "TRAINER.DAELDG.STRONG_TRANSFORMS": ("random_flip", "cutout", "normalize")}),
+]
+
+
+def _zoo_argv(work, out, *flags):
+    return ["--trainer", "Vanilla", "--seed", "1", "--device", "cuda", "--root", work,
+            "--dataset-config-file", "configs/datasets/zoo/pacs.yaml",
+            "--source-domains", *PACS_SOURCES, "--target-domains", PACS_TARGET,
+            "--config-file", ZOO_DG_RECIPE, "--output-dir", out, *flags,
+            "OPTIM.MAX_EPOCH", str(ZOO_DG_EPOCHS), "TEST.NO_TEST", "True"]
+
+
+def _zoo_trees_equal(a, b):
+    """Names whose arrays differ between two nested numpy trees."""
+    from fsvlm_tpu_torch.models.convert import flatten
+
+    fa, fb = flatten(a), flatten(b)
+    return sorted(k for k in fa.keys() | fb.keys()
+                  if k not in fa or k not in fb or not np.array_equal(fa[k], fb[k]))
+
+
+def _zoo_vanilla(work):
+    """(a) Vanilla MixStyle leave-one-domain-out on PACS through the CLI."""
+    import torch
+
+    from fsvlm_tpu_torch.engine.checkpoint import load_checkpoint
+    from fsvlm_tpu_torch.engine.trainer import build_trainer
+    from fsvlm_tpu_torch.models.convert import zoo_trees
+    from fsvlm_tpu_torch.models.draws import Draws, Record
+    from fsvlm_tpu_torch.engine.trainer import SimpleTrainer
+    from fsvlm_tpu_torch.train import build_argparser, setup_cfg
+
+    out = os.path.join(work, "zoo_run")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _epochs_timed(SimpleTrainer, []) as epochs:
+        t = _run_cli(None, _zoo_argv(work, out))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    epoch_ms = epochs[0]
+    peak = torch.cuda.max_memory_allocated()
+    text = _read(os.path.join(out, "log.txt"))
+    losses = [float(x) for x in re.findall(r"\bloss ([-+.\deE]+|nan|inf)", text)]
+    log(f"zoo_dg: Vanilla {t.cfg.MODEL.BACKBONE.NAME} ({ZOO_DG_RECIPE}) on PACS "
+        f"{'+'.join(PACS_SOURCES)} -> {PACS_TARGET} through the CLI: {t.steps_per_epoch} steps "
+        f"of {t.batch_size} ({len(t.dm.dataset.train_x)} images), {t.num_classes} classes, "
+        f"{len(t.dm.dataset.test)} test images; run {run_s:.1f} s; losses logged {losses}; "
+        f"accuracy in log.txt {re.findall(r'[*] accuracy: ([0-9.]+)%', text)}")
+    for needle in ("no weights found", "Finish training", "* accuracy:", "=> result",
+                   "NAME: resnet18_ms_l12", "colorjitter"):
+        if needle not in text:
+            raise SystemExit(f"FAIL: zoo_dg: the Vanilla run's log.txt lacks {needle!r}")
+    if (t.cfg.MODEL.BACKBONE.NAME != "resnet18_ms_l12" or t.batch_size != 64
+            or t.steps_per_epoch != 85 or len(t.dm.dataset.test) != 3928):
+        raise SystemExit("FAIL: zoo_dg: the run is not the recipe's on PACS")
+    if not losses or not all(np.isfinite(losses)):
+        raise SystemExit(f"FAIL: zoo_dg: non-finite or no loss: {losses}")
+
+    # --eval-only from the epoch's checkpoint: the same 3928 predictions
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t2 = _run_cli(None, _zoo_argv(work, os.path.join(work, "zoo_eval"), "--eval-only",
+                                  "--model-dir", out))
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    if t2.evaluator.y_pred != t.evaluator.y_pred or len(t2.evaluator.y_pred) != 3928:
+        raise SystemExit("FAIL: zoo_dg: --eval-only did not reproduce the PACS predictions")
+    del t2
+    log(f"zoo_dg: --eval-only reproduced the run's {len(t.evaluator.y_pred)} predictions "
+        f"in {eval_s:.1f} s (cold: sketch PNGs decoded, eval view, model)")
+
+    # a resume from the epoch's checkpoint loads weights, BN statistics,
+    # optimizer state and generator bit for bit
+    ckpt = load_checkpoint(os.path.join(out, "model", f"model.pkl-{ZOO_DG_EPOCHS}"))
+    cfg = setup_cfg(build_argparser().parse_args(_zoo_argv(work, out)))
+    cfg.VERBOSE = False
+    with contextlib.redirect_stdout(io.StringIO()):
+        t3 = build_trainer(cfg, device="cuda")
+        start = t3.resume_model_if_exist(out)
+    params, state = zoo_trees(t3)
+    saved = t3.optim_state()
+    bad = (_zoo_trees_equal(params, ckpt["state_dict"])
+           + _zoo_trees_equal(state, ckpt["extra"]["model_state"])
+           + _zoo_trees_equal({"o": saved}, {"o": {k: v for k, v in ckpt["optimizer"].items()
+                                                   if k != "name"}})
+           + ([] if np.array_equal(t3.generator.get_state().numpy(), ckpt["extra"]["rng_state"])
+              else ["generator"]))
+    log(f"zoo_dg: resume from model.pkl-{ZOO_DG_EPOCHS}: start epoch {start}, weights, BN "
+        f"statistics, optimizer (count {int(saved['count'])}) and generator bit-equal: "
+        f"{not bad} {bad[:5]}")
+    if bad or start != ZOO_DG_EPOCHS:
+        raise SystemExit("FAIL: zoo_dg: the resume did not restore the checkpoint exactly")
+    del t3
+
+    # MixStyle's gate and Beta draws come from the trainer's generator, on
+    # the card: from one generator state, a step draws the same values twice
+    # and advances the generator as the step left to itself does
+    it = t.device_batches(t.train_loader_x)
+    batch = next(it)
+    gen_state = t.generator.get_state()
+    t.train_step(batch)
+    after = [t.generator.get_state()]
+    draws = []
+    for _ in range(2):
+        t.generator.set_state(gen_state)
+        rec = Record(Draws(t.generator))
+        t.train_step(batch, draws=rec)
+        draws.append(rec.values)
+        after.append(t.generator.get_state())
+    same = len(draws[0]) == len(draws[1]) == 6 and all(
+        a.device.type == "cuda" and torch.equal(a, b) for a, b in zip(*draws)) and all(
+        torch.equal(after[0], a) for a in after[1:])
+    gates = [float(v) for v in draws[0][0::3]]
+    log(f"zoo_dg: MixStyle draws of one step on the card from the trainer's generator "
+        f"({len(draws[0])} values: gate, Beta(0.1, 0.1) weights and partners after layer1 and "
+        f"layer2; gates {gates}, weights in [{float(draws[0][1].min()):.3g}, "
+        f"{float(draws[0][1].max()):.3g}]): bit-equal from one generator state, which advances "
+        f"as in the step left to itself: {same}")
+    if not same:
+        raise SystemExit("FAIL: zoo_dg: MixStyle's draws are not the generator's")
+
+    # no host sync in a step
+    batch = next(it)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t.train_step(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("zoo_dg: one Vanilla step under sync debug mode 'error': no synchronizing call")
+    # the device's idle share over profiled steps fed by the loader
+    for _, b in zip(range(2), it):
+        t.train_step(b)
+
+    def profiled_steps():
+        for _, b in zip(range(ZOO_DG_PROFILE_STEPS), it):
+            t.train_step(b)
+
+    wall, busy = _profile(f"{ZOO_DG_PROFILE_STEPS} Vanilla resnet18_ms_l12 steps on the host "
+                          f"pipeline (batch 64, loader to step, steady state)", profiled_steps,
+                          top=8)
+    it.close()
+    n_img = t.steps_per_epoch * t.batch_size
+    result = {"run_s": run_s, "epoch_ms": epoch_ms, "epoch_images": n_img,
+              "epoch_images_per_s": n_img / epoch_ms * 1e3, "eval_only_s": eval_s,
+              "test_images": len(t.evaluator.y_pred), "peak_device_bytes": peak,
+              "profiled_steps": ZOO_DG_PROFILE_STEPS, "profiled_wall_ms": wall,
+              "profiled_busy_ms": busy, "idle_share": max(0.0, 1 - busy / wall),
+              "host_syncs_per_step": 0, "losses": losses,
+              "accuracy": float(re.findall(r"[*] accuracy: ([0-9.]+)%", text)[-1])}
+    log(f"zoo_dg: PACS epoch (the run's) {epoch_ms:.1f} ms ({n_img} images, "
+        f"{result['epoch_images_per_s']:.1f} images/s, host transforms at "
+        f"{t.cfg.DATALOADER.NUM_WORKERS} threads); peak device memory {peak / 2**30:.2f} GiB; "
+        f"idle share of {ZOO_DG_PROFILE_STEPS} profiled steps {result['idle_share']:.3f}")
+    del t
+    return result
+
+
+def _copy_zoo_state(src, dst):
+    """dst's weights, BN statistics and optimizer state := src's."""
+    import torch
+
+    with torch.no_grad():
+        for g, m in src.nets.items():
+            for a, b in zip(m.parameters(), dst.nets[g].parameters()):
+                b.copy_(a.to(b.device))
+
+        def move(tree):
+            return {k: move(v) if isinstance(v, dict) else v.to(dst.device).clone()
+                    for k, v in tree.items()}
+
+        dst.model_state = move(src.model_state)
+        for g, opt in src.optims.items():
+            other = dst.optims[g]
+            for name in opt.buffers:
+                for a, b in zip(getattr(opt, name), getattr(other, name)):
+                    b.copy_(a.to(b.device))
+            other.count = opt.count.to(dst.device).clone()
+            other.notfinite_count = opt.notfinite_count.to(dst.device).clone()
+
+
+def _zoo_rel(card, cpu):
+    """max |card - cpu| over max |card| of each tensor of two nested trees."""
+    from fsvlm_tpu_torch.models.convert import flatten
+
+    fa, fb = flatten(card), flatten(cpu)
+    out = {}
+    for k, a in fa.items():
+        a, b = np.asarray(a, np.float64), np.asarray(fb[k], np.float64)
+        out[k] = float(np.abs(a - b).max()) / max(float(np.abs(a).max()), 1e-30)
+    return out
+
+
+def _zoo_card_vs_cpu(work, name, opts):
+    """(b) One DG trainer: ZOO_B_STEPS steps on the card and on its CPU."""
+    import torch
+
+    from fsvlm_tpu_torch.engine.trainer import build_trainer
+    from fsvlm_tpu_torch.models.convert import flatten, zoo_trees
+    from fsvlm_tpu_torch.models.draws import Draws, Record, Replay
+    from fsvlm_tpu_torch.train import build_argparser, setup_cfg
+
+    argv = _zoo_argv(work, os.path.join(work, "zoo_b"), "MODEL.BACKBONE.NAME", "resnet18",
+                     "MODEL.BACKBONE.PRETRAINED", "False", "DATALOADER.TRAIN_X.BATCH_SIZE",
+                     str(ZOO_B_BATCH), "TEST.NO_TEST", "True",
+                     *[str(x) for kv in opts.items() for x in kv])
+    argv[argv.index("Vanilla")] = name
+    cfg = setup_cfg(build_argparser().parse_args(argv))
+    cfg.VERBOSE = False
+    with contextlib.redirect_stdout(io.StringIO()):
+        card = build_trainer(cfg, device="cuda")
+        cpu = build_trainer(cfg, device="cpu")
+    it = iter(card.train_loader_x)
+    batches = [next(it) for _ in range(ZOO_B_STEPS)]
+    it.close()
+    worst = {"loss": 0.0, "weights": 0.0, "weights_zero_init": 0.0, "statistics": 0.0}
+    worst_at = {}
+    step_ms = []
+    zero_init = {k for k, v in flatten(zoo_trees(card)[0]).items() if not np.any(v)}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        saved_tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            for step, batch in enumerate(batches):
+                _copy_zoo_state(card, cpu)
+                card.batch_idx = cpu.batch_idx = step
+                rec = Record(Draws(card.generator))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mc = card.train_step(batch, draws=rec)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                mp = cpu.train_step(batch, draws=Replay(rec.values, "cpu"))
+                for k in mc:
+                    a, b = float(mc[k]), float(mp[k])
+                    if k.startswith("loss"):  # relative, absolute below 1 (DDAIG's loss_g)
+                        r = abs(a - b) / max(abs(a), 1.0)
+                        if r > worst["loss"]:
+                            worst["loss"], worst_at["loss"] = r, f"{k} step {step}"
+                (pc, sc), (pp, sp) = zoo_trees(card), zoo_trees(cpu)
+                for kind, rel in (("weights", _zoo_rel(pc, pp)), ("statistics", _zoo_rel(sc, sp))):
+                    for k, r in rel.items():
+                        if kind == "weights" and k in zero_init:
+                            kind_k = "weights_zero_init"
+                        else:
+                            kind_k = kind
+                        if r > worst[kind_k]:
+                            worst[kind_k], worst_at[kind_k] = r, f"{k} step {step}"
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved_tf32
+    label = f"{name} {list(opts.values())[0] if opts and name != 'DAELDG' else ''}".strip()
+    log(f"zoo_dg: {label} on resnet18 224x224 batch {ZOO_B_BATCH}, {ZOO_B_STEPS} steps card vs "
+        f"CPU (TF32 off, each step from the card's state): worst loss {worst['loss']:.3g} "
+        f"({worst_at.get('loss')}), weights {worst['weights']:.3g} ({worst_at.get('weights')}), "
+        f"weights that start at zero {worst['weights_zero_init']:.3g} "
+        f"({worst_at.get('weights_zero_init')}), BN statistics {worst['statistics']:.3g} "
+        f"({worst_at.get('statistics')}); card step ms "
+        f"{[round(x, 2) for x in step_ms]}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return {"case": label, **worst, "worst_at": worst_at, "card_step_ms": step_ms}
+
+
+@_timed
+def phase_zoo_dg(work):
+    """Phase 18 (module docstring) on phase 17's PACS tree in ``work``.
+    Returns the ``{"zoo_dg": ...}`` numbers."""
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+    vanilla = _zoo_vanilla(work)
+    cases = [_zoo_card_vs_cpu(work, name, opts) for name, opts in ZOO_B_CASES]
+    launched = {k: n for k, n in fa.LAUNCHES.items() if n}
+    log(f"zoo_dg: attention kernel launches over the phase: {launched or 'none'}")
+    if launched:
+        raise SystemExit(f"FAIL: zoo_dg: the zoo launched attention kernels: {launched}")
+    over = [c for c in cases if any(
+        c[k] > (ZOO_B_BOUND_STN if "stn" in c["case"] else ZOO_B_BOUND)[k] for k in ZOO_B_BOUND)]
+    result = {"vanilla": vanilla, "card_vs_cpu": cases, "card_vs_cpu_bound": ZOO_B_BOUND,
+              "card_vs_cpu_bound_stn": ZOO_B_BOUND_STN,
+              "attention_launches": 0, "phase_s": time.perf_counter() - t_phase}
+    log(f"zoo_dg: phase 18 in {result['phase_s']:.1f} s")
+    print(json.dumps({"zoo_dg": result}), flush=True)
+    if over:
+        raise SystemExit(f"FAIL: zoo_dg: card and CPU steps differ past their bounds: "
+                         f"{[(c['case'], c['worst_at']) for c in over]}")
+    return result
 
 
 def _recipe_cfg_from_argv(argv):
@@ -4947,8 +5338,13 @@ def main():
     finally:
         if tree:
             shutil.rmtree(tree["work"], ignore_errors=True)
-    with force_pallas(None):  # the Dassl datasets and PNG, PACS on the d = 64 kernels
-        launches_pacs, _ = phase_zoo_data(pred.clip)
+    pacs_work = tempfile.mkdtemp(prefix="chip_smoke_pacs_")  # phases 17 and 18
+    try:
+        with force_pallas(None):  # the Dassl datasets and PNG, PACS on the d = 64 kernels
+            launches_pacs, _ = phase_zoo_data(pred.clip, pacs_work)
+        phase_zoo_dg(pacs_work)  # the DG zoo: no attention
+    finally:
+        shutil.rmtree(pacs_work, ignore_errors=True)
 
     import torch
 
@@ -5020,7 +5416,8 @@ def main():
         "parts": [{"name": k, "launches": launches_fused[k], "ms": bwd["parts"][k]} for k in parts],
         "device_ms": bwd["device_ms"], "library_device_ms": bwd["library_device_ms"],
     })
-    log(f"chip_smoke: all 17 phases in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: seconds by phase {json.dumps(PHASE_S)}")
+    log(f"chip_smoke: all 18 phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -55,6 +55,11 @@ class OptimConfig:
     WARMUP_CONS_LR: float = 1e-5  # yaml
     WARMUP_MIN_LR: float = 1e-5
     WARMUP_RECOUNT: bool = True
+    # staged LR (build_optimizer's param_labels/lr_mult): read by nothing, as
+    # in the JAX package, whose zoo passes neither
+    STAGED_LR: bool = False
+    NEW_LAYERS: Tuple[str, ...] = ()
+    BASE_LR_MULT: float = 0.1
 
 
 @dataclasses.dataclass
@@ -196,6 +201,37 @@ class LoRAConfig:
     LOGITS_LOSS_WEIGHT: float = 1.0
 
 
+# the Dassl zoo's trainer nodes (defaults.py:322-387, Dassl's defaults); the
+# DA and SSL trainers that read some of them come in later slices
+def _node(name, **fields):
+    return dataclasses.make_dataclass(
+        name, [(k, type(v), field(default=v)) for k, v in fields.items()])
+
+
+MCDConfig = _node("MCDConfig", N_STEP_F=4)
+MMEConfig = _node("MMEConfig", LMDA=0.1)
+CDACConfig = _node("CDACConfig", CLASS_LR_MULTI=10, RAMPUP_COEF=30, RAMPUP_ITRS=1000,
+                   TOPK_MATCH=5, P_THRESH=0.95, STRONG_TRANSFORMS=())
+SEConfig = _node("SEConfig", EMA_ALPHA=0.999, CONF_THRE=0.95, RAMPUP=300)
+M3SDAConfig = _node("M3SDAConfig", LMDA=0.5, N_STEP_F=4)
+DAELConfig = _node("DAELConfig", WEIGHT_U=0.5, CONF_THRE=0.95, STRONG_TRANSFORMS=())
+CrossGradConfig = _node("CrossGradConfig", EPS_F=1.0, EPS_D=1.0, ALPHA_F=0.5, ALPHA_D=0.5)
+DDAIGConfig = _node("DDAIGConfig", G_ARCH="", LMDA=0.3, CLAMP=False, CLAMP_MIN=-1.0,
+                    CLAMP_MAX=1.0, WARMUP=0, ALPHA=0.5)
+DAELDGConfig = _node("DAELDGConfig", WEIGHT_U=0.5, CONF_THRE=0.95, STRONG_TRANSFORMS=())
+DomainMixConfig = _node("DomainMixConfig", TYPE="crossdomain", ALPHA=1.0, BETA=1.0)
+EntMinConfig = _node("EntMinConfig", LMDA=1e-3)
+MeanTeacherConfig = _node("MeanTeacherConfig", WEIGHT_U=1.0, EMA_ALPHA=0.999, RAMPUP=5)
+MixMatchConfig = _node("MixMatchConfig", WEIGHT_U=100.0, TEMP=2.0, MIXUP_BETA=0.75,
+                       RAMPUP=20000)
+FixMatchConfig = _node("FixMatchConfig", WEIGHT_U=1.0, CONF_THRE=0.95, STRONG_TRANSFORMS=())
+ZOO_NODES = {"MCD": MCDConfig, "MME": MMEConfig, "CDAC": CDACConfig, "SE": SEConfig,
+             "M3SDA": M3SDAConfig, "DAEL": DAELConfig, "CROSSGRAD": CrossGradConfig,
+             "DDAIG": DDAIGConfig, "DAELDG": DAELDGConfig, "DOMAINMIX": DomainMixConfig,
+             "ENTMIN": EntMinConfig, "MEANTEACHER": MeanTeacherConfig,
+             "MIXMATCH": MixMatchConfig, "FIXMATCH": FixMatchConfig}
+
+
 @dataclasses.dataclass
 class TrainerConfig:
     NAME: str = ""
@@ -207,12 +243,36 @@ class TrainerConfig:
     LINEAR_PROBE: LinearProbeConfig = field(default_factory=LinearProbeConfig)
     PLIP: PLIPConfig = field(default_factory=PLIPConfig)
     LORA: LoRAConfig = field(default_factory=LoRAConfig)
+    MCD: MCDConfig = field(default_factory=MCDConfig)
+    MME: MMEConfig = field(default_factory=MMEConfig)
+    CDAC: CDACConfig = field(default_factory=CDACConfig)
+    SE: SEConfig = field(default_factory=SEConfig)
+    M3SDA: M3SDAConfig = field(default_factory=M3SDAConfig)
+    DAEL: DAELConfig = field(default_factory=DAELConfig)
+    CROSSGRAD: CrossGradConfig = field(default_factory=CrossGradConfig)
+    DDAIG: DDAIGConfig = field(default_factory=DDAIGConfig)
+    DAELDG: DAELDGConfig = field(default_factory=DAELDGConfig)
+    DOMAINMIX: DomainMixConfig = field(default_factory=DomainMixConfig)
+    ENTMIN: EntMinConfig = field(default_factory=EntMinConfig)
+    MEANTEACHER: MeanTeacherConfig = field(default_factory=MeanTeacherConfig)
+    MIXMATCH: MixMatchConfig = field(default_factory=MixMatchConfig)
+    FIXMATCH: FixMatchConfig = field(default_factory=FixMatchConfig)
 
 
 @dataclasses.dataclass
 class BackboneConfig:
     NAME: str = "ViT-B/16"  # yaml
     PRETRAINED: bool = True  # load weights (trainers/backbone.py); False: random from SEED
+
+
+@dataclasses.dataclass
+class HeadConfig:
+    """The zoo's MLP head after the backbone (models/simple_net.py)."""
+    NAME: str = ""
+    HIDDEN_LAYERS: Tuple[int, ...] = ()
+    ACTIVATION: str = "relu"
+    BN: bool = True
+    DROPOUT: float = 0.0
 
 
 @dataclasses.dataclass
@@ -228,6 +288,7 @@ class ModelConfig:
     QUANT_INT8_FAMILIES: List[str] = field(default_factory=lambda: ["attn", "mlp"])
     QUANT_INT8_STATIC: bool = False
     QUANT_INT8_CALIB_BATCHES: int = 4
+    HEAD: HeadConfig = field(default_factory=HeadConfig)
 
 
 @dataclasses.dataclass
@@ -273,6 +334,8 @@ class DataLoaderConfig:
 class TrainConfig:
     CHECKPOINT_FREQ: int = 0  # also save every this many epochs (the last always)
     PRINT_FREQ: int = 20  # yaml (defaults.py: 10)
+    # the zoo's train_x + train_u epochs: steps of train_x, train_u or smaller_one
+    COUNT_ITER: str = "train_x"
     # checkpoint each transformer layer in the backward (CoCoOp's text passes)
     REMAT: bool = False
 

@@ -42,6 +42,13 @@ which is applied anyway.  The finite test and the selects run on the device
 (torch.where), with the step count a device tensor, so a step needs no host
 sync.  The schedule's count and the moments' count are one: both advance on
 every applied step.
+
+Staged LR (optim.py:163-168): ``param_labels`` ("base" or "new", one per
+tensor) with ``lr_mult`` scale the "base" tensors' learning rate by
+lr_mult and the "new" ones' by 1.0, as optax.multi_transform of two chains
+does (both chains advance together, so one count serves them);
+``schedule_override`` replaces the staircase by another lr(step) on the
+device (the zoo's groups stepped k times per iteration).
 """
 
 import math
@@ -123,6 +130,7 @@ class Optimizer:
         self.schedule = schedule
         self.weight_decay = weight_decay
         self.buffers = tuple(buffers)
+        self.lr_scales = None  # per tensor: staged LR's multiplier (build_optimizer)
         dev = self.params[0].device
         self.count = torch.zeros((), dtype=torch.int64, device=dev)
         self.notfinite_count = torch.zeros((), dtype=torch.int64, device=dev)
@@ -145,14 +153,18 @@ class Optimizer:
         self.notfinite_count = torch.where(finite, torch.zeros_like(self.notfinite_count),
                                            self.notfinite_count + 1)
         apply = finite | (self.notfinite_count > MAX_CONSECUTIVE_ERRORS)
-        neg_lr = -self.schedule(self.count)
+        lr = self.schedule(self.count)
+        neg_lr = {1.0: -lr}
         s = self.scalars((self.count + 1).to(torch.float32))
         for i, (p, g) in enumerate(zip(self.params, grads)):
             buf = {b: getattr(self, b)[i] for b in self.buffers}
             u, new = self.update(p, g, buf, s)
             for b, v in new.items():
                 buf[b].copy_(torch.where(apply, v, buf[b]))
-            p.copy_(torch.where(apply, p + neg_lr * u, p))
+            scale = 1.0 if self.lr_scales is None else self.lr_scales[i]
+            if scale not in neg_lr:
+                neg_lr[scale] = -(scale * lr)
+            p.copy_(torch.where(apply, p + neg_lr[scale] * u, p))
         self.count = torch.where(apply, self.count + 1, self.count)
 
     def state_dict(self, names):
@@ -287,14 +299,18 @@ class RAdam(Optimizer):
         return out, {"mu": mu, "nu": nu}
 
 
-def build_optimizer(cfg, params, steps_per_epoch):
+def build_optimizer(cfg, params, steps_per_epoch, param_labels=None, lr_mult=None,
+                    schedule_override=None):
     """The optimizer of OPTIM.NAME over ``params`` (a list of fp32 tensors)
-    and its schedule, both on the parameters' device."""
+    and its schedule, both on the parameters' device; ``param_labels`` and
+    ``lr_mult``: staged LR; ``schedule_override``: lr(step) instead of the
+    staircase (the module docstring)."""
     o = cfg.OPTIM
     if o.NAME not in AVAI_OPTIMS:
         raise ValueError(f"Unknown OPTIM.NAME: {o.NAME} (choices {AVAI_OPTIMS})")
     params = list(params)
-    schedule = make_lr_schedule(cfg, steps_per_epoch, params[0].device)
+    schedule = (schedule_override if schedule_override is not None
+                else make_lr_schedule(cfg, steps_per_epoch, params[0].device))
     wd = o.WEIGHT_DECAY
     if o.NAME == "sgd":
         opt = SGD(params, schedule, wd, o.MOMENTUM, o.SGD_NESTEROV)
@@ -304,4 +320,8 @@ def build_optimizer(cfg, params, steps_per_epoch):
         opt = RAdam(params, schedule, wd, o.ADAM_BETA1, o.ADAM_BETA2)
     else:
         opt = Adam(params, schedule, wd, o.ADAM_BETA1, o.ADAM_BETA2, o.NAME)
+    if param_labels is not None and lr_mult is not None:
+        if len(param_labels) != len(params) or set(param_labels) - {"base", "new"}:
+            raise ValueError("param_labels: one of 'base' or 'new' per tensor")
+        opt.lr_scales = [float(lr_mult) if lab == "base" else 1.0 for lab in param_labels]
     return opt, schedule

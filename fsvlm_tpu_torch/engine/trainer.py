@@ -100,12 +100,12 @@ from .tb import TensorboardWriter
 TRAINER_REGISTRY = Registry("TRAINER")
 STEP_KEYS = ("img", "img2", "label", "valid", "index")  # what a train step reads of a batch
 
-# the JAX package's Dassl zoo trainers (fsvlm_tpu/trainers/zoo/): domain
-# adaptation, semi-supervised learning and domain generalization; not ported
+# the JAX package's Dassl zoo trainers (fsvlm_tpu/trainers/zoo/) of domain
+# adaptation and semi-supervised learning, not ported yet (the domain
+# generalization ones are: trainers/zoo/dg.py)
 ZOO_TRAINERS = (
     "SourceOnly", "DANN", "ADDA", "AdaBN", "MCD", "MME", "SE", "M3SDA", "CDAC", "DAEL",
     "SupBaseline", "EntMin", "MeanTeacher", "MixMatch", "FixMatch",
-    "Vanilla", "CrossGrad", "DDAIG", "DomainMix", "DAELDG",
 )
 
 
@@ -131,6 +131,7 @@ class SimpleTrainer:
     use_mixup = False  # set by build_model: every step then draws (perm, lam)
     mixup_alpha = 1.0
     use_dropout = False  # set by build_model: every step then draws dropout masks
+    step_keys = STEP_KEYS  # what train_step and device_batches keep of a batch
 
     def __init__(self, cfg, classnames=None, images=None, labels=None, clip=None, device=None,
                  steps_per_epoch=None, attn_impl=None):
@@ -316,7 +317,7 @@ class SimpleTrainer:
         parameters, the loss alone, without a gradient).  Returns the
         metrics (loss and the loss function's aux) as device tensors."""
         batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()
-                 if k in STEP_KEYS}
+                 if k in self.step_keys}
         batch["label"] = batch["label"].long()
         if "index" in batch:
             batch["index"] = batch["index"].long()
@@ -382,7 +383,7 @@ class SimpleTrainer:
         ahead = None
         for batch in batches:
             cur = {}
-            for k in STEP_KEYS:
+            for k in self.step_keys:
                 if k in batch:
                     t = torch.from_numpy(np.ascontiguousarray(batch[k]))
                     if self.device.type == "cuda":

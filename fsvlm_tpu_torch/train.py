@@ -74,7 +74,7 @@ def reset_cfg(cfg, args):
     if args.backbone:
         cfg.MODEL.BACKBONE.NAME = args.backbone
     if args.head:
-        raise NotImplementedError("--head names a Dassl zoo head, not ported (ROADMAP A9)")
+        cfg.MODEL.HEAD.NAME = args.head
 
 
 def setup_cfg(args):

@@ -1,4 +1,4 @@
 """The ported trainers; importing the package registers them in
 ``engine.trainer.TRAINER_REGISTRY``."""
 
-from . import cocoop, coop, ivlp, linear_probe, lora, maple, plip, promptsrc, zsclip  # noqa: F401
+from . import cocoop, coop, ivlp, linear_probe, lora, maple, plip, promptsrc, zoo, zsclip  # noqa: F401

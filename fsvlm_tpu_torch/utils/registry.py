@@ -10,13 +10,15 @@ class Registry:
         self._name = name
         self._obj_map = {}
 
-    def register(self):
-        """A class decorator that registers the class under its name."""
+    def register(self, name=None):
+        """A decorator that registers a class or function under ``name``, by
+        default its own name."""
         def wrapper(cls):
-            if cls.__name__ in self._obj_map:
-                raise KeyError(f'An object named "{cls.__name__}" was already registered in '
+            key = name or cls.__name__
+            if key in self._obj_map:
+                raise KeyError(f'An object named "{key}" was already registered in '
                                f'"{self._name}" registry')
-            self._obj_map[cls.__name__] = cls
+            self._obj_map[key] = cls
             return cls
 
         return wrapper

@@ -297,7 +297,7 @@ def test_init_weights_load_the_checkpoint_prompts(tmp_path):
 @pytest.mark.parametrize("name,match", [
     ("DANN", "Dassl zoo trainers, not ported yet [(]ROADMAP A9[)]"),
     ("FixMatch", "ROADMAP A9"),
-    ("DAELDG", "ROADMAP A9"),
+    ("MCD", "ROADMAP A9"),
     ("SourceOnly", "ROADMAP A9"),
     ("NoSuchTrainer", "No trainer 'NoSuchTrainer'; ported: .*'PLIP'"),
 ])

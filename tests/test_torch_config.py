@@ -123,7 +123,11 @@ def test_merge_from_file_matches_jax(paths):
     ("PLIP", "configs/trainers/PLIP/vit_b16_c4_ep10_batch4.yaml"),
     ("CoOp", "configs/trainers/CoOp/rn50.yaml"),
 ] + [("PromptSRC", f"configs/trainers/tests/synthetic_tiny.yaml|{C4_OPTS} OPTIM.NAME {name}")
-     for name in ("adam", "amsgrad", "sgd", "rmsprop", "radam", "adamw")])
+     for name in ("adam", "amsgrad", "sgd", "rmsprop", "radam", "adamw")] + [
+    ("Vanilla", "configs/trainers/zoo/vanilla_mixstyle_pacs.yaml"),
+    ("DANN", "configs/trainers/zoo/dann_resnet18.yaml"),
+    ("FixMatch", "configs/trainers/zoo/fixmatch_cifar10.yaml"),
+])
 def test_setup_cfg_matches_jax(trainer, config_file, monkeypatch):
     """The same command line gives the same config in both CLIs: both start
     from defaults.py, so a key that the yaml leaves unset (IVLP's N_CTX and
@@ -172,8 +176,10 @@ def test_another_evaluator_raises(tmp_path, monkeypatch):
 
 def test_merge_from_file_rejects_unknown_keys(tmp_path):
     cfg = get_cfg_default()
-    with pytest.raises(KeyError, match="TRAINER.FIXMATCH"):
-        cfg.merge_from_file(os.path.join(ROOT, "configs/trainers/zoo/fixmatch_cifar10.yaml"))
+    unknown = tmp_path / "unknown_node.yaml"
+    unknown.write_text("TRAINER:\n  NOT_A_TRAINER:\n    WEIGHT_U: 1.0\n")
+    with pytest.raises(KeyError, match="TRAINER.NOT_A_TRAINER"):
+        cfg.merge_from_file(str(unknown))
     bad = tmp_path / "bad.yaml"
     bad.write_text("OPTIM:\n  LR: 0.1\n  NOT_A_KEY: 1\n")
     with pytest.raises(KeyError, match="OPTIM.NOT_A_KEY"):

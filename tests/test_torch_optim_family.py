@@ -230,3 +230,48 @@ def test_the_trainers_resume_refuses_another_optimizers_state(tmp_path, capsys, 
     else:
         assert "optimizer 'adam', and this run's is 'rmsprop': not loaded" in out
         assert int(t2.optim.count) == 0 and not any(x.any() for x in t2.optim.nu)
+
+
+STAGED = [("sgd", 0.9), ("adam", 0.9), ("rmsprop", 0.9)]
+
+
+@pytest.mark.parametrize("name,momentum", STAGED, ids=[n for n, _ in STAGED])
+@pytest.mark.parametrize("override", [False, True], ids=["staircase", "override"])
+def test_staged_lr_and_schedule_override_match_the_optax_chain(name, momentum, override):
+    """``param_labels``/``lr_mult`` (optax.multi_transform of a "base" chain
+    at lr_mult and a "new" one at 1.0) and ``schedule_override`` (lr(step)
+    instead of the staircase; here the zoo's lr(count // 2) for a group
+    stepped twice per iteration), 12 steps with one non-finite step."""
+    jcfg, pcfg = _both_cfgs(NAME=name, WEIGHT_DECAY=5e-4, MOMENTUM=momentum)
+    rng, init = _init(3)
+    labels = {"a": "base", "b": "new"}
+    jsched = jax_optim.make_lr_schedule(jcfg, 3)
+    psched = optim.make_lr_schedule(pcfg, 3, device="cpu")
+    tx, _ = jax_optim.build_optimizer(
+        jcfg, 3, param_labels=labels, lr_mult=0.1,
+        schedule_override=(lambda c: jsched(c // 2)) if override else None)
+    jparams = {k: jnp.asarray(v) for k, v in init.items()}
+    state = tx.init(jparams)
+    update = jax.jit(tx.update)
+    params = {k: torch.from_numpy(v.copy()) for k, v in init.items()}
+    opt, _ = optim.build_optimizer(
+        pcfg, params.values(), 3, param_labels=[labels[k] for k in params], lr_mult=0.1,
+        schedule_override=(lambda c: psched(c // 2)) if override else None)
+    assert opt.lr_scales == [0.1, 1.0]
+    for step in range(N_STEPS):
+        grads = _grads(rng, init, step == 5)
+        updates, state = update({k: jnp.asarray(g) for k, g in grads.items()}, state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        opt.step([torch.from_numpy(grads[k]) for k in params])
+        for k in params:
+            _assert_close(params[k].numpy(), jparams[k], f"{name} {k} at step {step}")
+    assert int(opt.count) == N_STEPS - 1
+
+
+def test_staged_lr_labels_are_checked():
+    _, pcfg = _both_cfgs(NAME="sgd")
+    params = [torch.zeros(2), torch.zeros(3)]
+    with pytest.raises(ValueError, match="param_labels"):
+        optim.build_optimizer(pcfg, params, 3, param_labels=["base"], lr_mult=0.1)
+    with pytest.raises(ValueError, match="param_labels"):
+        optim.build_optimizer(pcfg, params, 3, param_labels=["base", "old"], lr_mult=0.1)
