@@ -342,12 +342,39 @@ Phases; each passes or raises, and any failure exits non-zero:
    statistics within ZOO_B_BOUND (the STN generator's case:
    ZOO_B_BOUND_STN).  One ``{"zoo_dg": ...}`` line.
 
+19. zoo_da: the Dassl DA zoo (trainers/zoo/da.py, no attention: every
+   launch count stays 0) on its own Office-31-layout tree (office31/
+   {amazon,webcam,dslr}/<the 31 classes>/ at the published domain sizes
+   2817 / 795 / 498, hard links to the JPEG fixtures).  (a) DANN from
+   configs/trainers/zoo/dann_resnet18.yaml with
+   configs/datasets/zoo/office31.yaml (resnet18, 224x224, batch 32, SGD
+   0.002, cosine, the host's random_flip + random_translation + normalize,
+   COUNT_ITER smaller_one: 795 // 32 = 24 steps) through
+   ``fsvlm_tpu_torch.train.main``, amazon -> webcam, seed 1, default
+   PRETRAINED (the warning is checked), cut to 1 epoch: the log contract,
+   finite losses, ``--eval-only`` giving the same 795 predictions, a resume
+   that restores both groups' weights and optimizer states, the net's and
+   the critic's BN statistics and the generator bit for bit, one step under
+   sync debug mode 'error', the epoch ms and images/s as train() ran it,
+   the idle share of 5 loader-fed steps, peak memory.  (b) SourceOnly
+   through the CLI (1 epoch), then ADDA and AdaBN from its checkpoint
+   through MODEL.INIT_WEIGHTS (1 epoch each): ADDA's classifier unchanged
+   and its backbone moved, AdaBN's weights unchanged and its statistics
+   re-estimated; the three webcam accuracies.  (c) Each of the ten DA
+   trainers on SyntheticDA (3 source domains) on cnn_digit5_m3sda at 32x32
+   (ZOO_C_CASES), ZOO_C_STEPS steps card vs CPU as phase 18's (b), at
+   ZOO_C_BOUND (its reason beside it), and one more card step under sync
+   debug mode 'error'.  (d)
+   Each new backbone (alexnet, vgg16, preact_resnet18, efficientnet_b0-b7)
+   train forward and backward card vs CPU (ZOO_D_CASES), within ZOO_D_BOUND.
+   One ``{"zoo_da": ...}`` line.
+
 Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 17 zero the launch counts
 just before each main path and read them just after, and phase 16 counts
 the driver's from its profiler trace (the run is another process): each
 kernel of the path must have launched its expected count (derived from the
 code: a rematerialized layer runs its forward kernel again), and the other
-families none; phase 18's path launches none of them.  The line
+families none; phases 18 and 19 launch none of them.  The line
 ``chip_smoke: seconds by phase {...}`` gives each phase function's time.
 
 The line before the last is ``{"kernels": [...]}`` (one row per TPU kernel;
@@ -4991,9 +5018,19 @@ ZOO_DG_PROFILE_STEPS = 5
 # finding against JAX, ROADMAP C.2), so G's update and every later tensor of
 # the step move more (measured: losses 4.1e-5, weights 0.042, zero-init 0.37,
 # statistics 0.039)
-ZOO_B_BATCH, ZOO_B_STEPS = 6, 3
-ZOO_B_BOUND = {"loss": 1e-4, "weights": 5e-4, "weights_zero_init": 0.2, "statistics": 1e-4}
-ZOO_B_BOUND_STN = {"loss": 1e-4, "weights": 0.2, "weights_zero_init": 1.0, "statistics": 0.2}
+# ZOO_B_STEPS cut from 3 to 2 when phase 19 came in (the call's time limit)
+ZOO_B_BATCH, ZOO_B_STEPS = 6, 2
+ZOO_B_BOUND = {"loss": 1e-4, "weights": 5e-4, "weights_zero_init": 0.2, "statistics": 1e-4,
+               "weights_rounding_noise": 1e-6}
+ZOO_B_BOUND_STN = {"loss": 1e-4, "weights": 0.2, "weights_zero_init": 1.0, "statistics": 0.2,
+                   "weights_rounding_noise": 1e-6}
+# a tensor that starts at zero and stays below ZOO_NOISE of its network's
+# largest weight on the card is rounding noise: a bias that feeds a BatchNorm
+# (cnn_digit5_m3sda's conv and fc biases) has a zero gradient, and its
+# card/CPU values (12.6 of its own size apart, measured) carry no signal.
+# Such a tensor is held instead to stay below ZOO_NOISE on the CPU as well
+# (``weights_rounding_noise``: the larger side over the network's largest weight)
+ZOO_NOISE = 1e-6
 ZOO_B_CASES = [
     ("CrossGrad", {}),
     ("DDAIG", {"TRAINER.DDAIG.G_ARCH": "fcn_3x32_gctx", "TRAINER.DDAIG.CLAMP": True}),
@@ -5162,12 +5199,14 @@ def _zoo_vanilla(work):
 
 
 def _copy_zoo_state(src, dst):
-    """dst's weights, BN statistics and optimizer state := src's."""
+    """dst's weights, BN statistics, method state (ADDA's source model, SE's
+    teacher) and optimizer state := src's."""
     import torch
 
     with torch.no_grad():
-        for g, m in src.nets.items():
-            for a, b in zip(m.parameters(), dst.nets[g].parameters()):
+        for g, m in list(src.nets.items()) + list(src.extra_nets.items()):
+            other = dst.nets[g] if g in dst.nets else dst.extra_nets[g]
+            for a, b in zip(m.parameters(), other.parameters()):
                 b.copy_(a.to(b.device))
 
         def move(tree):
@@ -5175,6 +5214,7 @@ def _copy_zoo_state(src, dst):
                     for k, v in tree.items()}
 
         dst.model_state = move(src.model_state)
+        dst.extra = move(src.extra)
         for g, opt in src.optims.items():
             other = dst.optims[g]
             for name in opt.buffers:
@@ -5184,25 +5224,26 @@ def _copy_zoo_state(src, dst):
             other.notfinite_count = opt.notfinite_count.to(dst.device).clone()
 
 
-def _zoo_rel(card, cpu):
-    """max |card - cpu| over max |card| of each tensor of two nested trees."""
+def _zoo_tensors(t):
+    """A zoo trainer's weights and BN statistics as two {dotted name: CPU
+    tensor} dicts, named as ``zoo_trees`` names them (the module paths),
+    in the port's layouts: a gap is the same in either layout."""
     from fsvlm_tpu_torch.models.convert import flatten
 
-    fa, fb = flatten(card), flatten(cpu)
-    out = {}
-    for k, a in fa.items():
-        a, b = np.asarray(a, np.float64), np.asarray(fb[k], np.float64)
-        out[k] = float(np.abs(a - b).max()) / max(float(np.abs(a).max()), 1e-30)
-    return out
+    return ({f"{g}.{n}": p.detach().cpu() for g, m in t.nets.items()
+             for n, p in m.named_parameters()},
+            {f"{g}.{k}": v.detach().cpu() for g, s in t.model_state.items()
+             for k, v in flatten(s).items()})
+
+
+def _zoo_rel(card, cpu):
+    """max |card - cpu| over max |card| of each tensor of two {name: tensor}."""
+    return {k: float((a.double() - cpu[k].double()).abs().max())
+            / max(float(a.abs().max()), 1e-30) for k, a in card.items()}
 
 
 def _zoo_card_vs_cpu(work, name, opts):
     """(b) One DG trainer: ZOO_B_STEPS steps on the card and on its CPU."""
-    import torch
-
-    from fsvlm_tpu_torch.engine.trainer import build_trainer
-    from fsvlm_tpu_torch.models.convert import flatten, zoo_trees
-    from fsvlm_tpu_torch.models.draws import Draws, Record, Replay
     from fsvlm_tpu_torch.train import build_argparser, setup_cfg
 
     argv = _zoo_argv(work, os.path.join(work, "zoo_b"), "MODEL.BACKBONE.NAME", "resnet18",
@@ -5212,58 +5253,113 @@ def _zoo_card_vs_cpu(work, name, opts):
     argv[argv.index("Vanilla")] = name
     cfg = setup_cfg(build_argparser().parse_args(argv))
     cfg.VERBOSE = False
+    label = f"{name} {list(opts.values())[0] if opts and name != 'DAELDG' else ''}".strip()
+    return _card_vs_cpu_steps(cfg, label, ZOO_B_STEPS, "zoo_dg", "resnet18 224x224",
+                              ZOO_B_BATCH)
+
+
+def _card_vs_cpu_steps(cfg, label, n_steps, phase, what, batch, sync_check=False):
+    """``n_steps`` steps of one zoo trainer of ``cfg`` on the card and on the
+    card's CPU from the same weights, batches (and train_u batches) and
+    recorded draws, TF32 off, each step from the card's state: the worst
+    loss, weight, zero-init weight and BN statistic gaps (``_zoo_rel``).
+    With ``sync_check``, one more card step under sync debug mode 'error'."""
+    import torch
+
+    from fsvlm_tpu_torch.engine.trainer import build_trainer
+    from fsvlm_tpu_torch.models.draws import Draws, Record, Replay
+
     with contextlib.redirect_stdout(io.StringIO()):
         card = build_trainer(cfg, device="cuda")
         cpu = build_trainer(cfg, device="cpu")
-    it = iter(card.train_loader_x)
-    batches = [next(it) for _ in range(ZOO_B_STEPS)]
-    it.close()
-    worst = {"loss": 0.0, "weights": 0.0, "weights_zero_init": 0.0, "statistics": 0.0}
+
+    def take(loader, n):  # the loader cycled, as the XU base cycles the shorter one
+        out = []
+        while len(out) < n:
+            it = iter(loader)
+            out += [b for _, b in zip(range(n - len(out)), it)]
+            it.close()
+        return out
+
+    n_take = n_steps + (1 if sync_check else 0)
+    batches = take(card.train_loader_x, n_take)
+    batches_u = (take(card.train_loader_u, n_take) if card.train_loader_u is not None
+                 else [None] * n_take)
+    worst = {"loss": 0.0, "weights": 0.0, "weights_zero_init": 0.0, "statistics": 0.0,
+             "weights_rounding_noise": 0.0}
     worst_at = {}
     step_ms = []
-    zero_init = {k for k, v in flatten(zoo_trees(card)[0]).items() if not np.any(v)}
+    zero_init = {k for k, v in _zoo_tensors(card)[0].items() if not v.any()}
+
+    def group_scale(weights):
+        scale = {}
+        for k, v in weights.items():
+            g = k.split(".")[0]
+            scale[g] = max(scale.get(g, 0.0), float(v.abs().max()))
+        return scale
+
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         saved_tf32 = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False
         try:
-            for step, batch in enumerate(batches):
+            for step in range(n_steps):
                 _copy_zoo_state(card, cpu)
                 card.batch_idx = cpu.batch_idx = step
                 rec = Record(Draws(card.generator))
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                mc = card.train_step(batch, draws=rec)
+                mc = card.train_step(batches[step], draws=rec, batch_u=batches_u[step])
                 torch.cuda.synchronize()
                 step_ms.append((time.perf_counter() - t0) * 1e3)
-                mp = cpu.train_step(batch, draws=Replay(rec.values, "cpu"))
+                mp = cpu.train_step(batches[step], draws=Replay(rec.values, "cpu"),
+                                    batch_u=batches_u[step])
                 for k in mc:
                     a, b = float(mc[k]), float(mp[k])
                     if k.startswith("loss"):  # relative, absolute below 1 (DDAIG's loss_g)
                         r = abs(a - b) / max(abs(a), 1.0)
                         if r > worst["loss"]:
                             worst["loss"], worst_at["loss"] = r, f"{k} step {step}"
-                (pc, sc), (pp, sp) = zoo_trees(card), zoo_trees(cpu)
+                (pc, sc), (pp, sp) = _zoo_tensors(card), _zoo_tensors(cpu)
+                scale = group_scale(pc)
                 for kind, rel in (("weights", _zoo_rel(pc, pp)), ("statistics", _zoo_rel(sc, sp))):
                     for k, r in rel.items():
-                        if kind == "weights" and k in zero_init:
-                            kind_k = "weights_zero_init"
-                        else:
-                            kind_k = kind
+                        kind_k = "weights_zero_init" if kind == "weights" and k in zero_init else kind
+                        g = k.split(".")[0]
+                        if (kind_k == "weights_zero_init"
+                                and float(pc[k].abs().max()) <= ZOO_NOISE * scale[g]):
+                            kind_k = "weights_rounding_noise"
+                            r = max(float(pc[k].abs().max()), float(pp[k].abs().max())) / scale[g]
                         if r > worst[kind_k]:
                             worst[kind_k], worst_at[kind_k] = r, f"{k} step {step}"
         finally:
             torch.backends.cuda.matmul.allow_tf32 = saved_tf32
-    label = f"{name} {list(opts.values())[0] if opts and name != 'DAELDG' else ''}".strip()
-    log(f"zoo_dg: {label} on resnet18 224x224 batch {ZOO_B_BATCH}, {ZOO_B_STEPS} steps card vs "
-        f"CPU (TF32 off, each step from the card's state): worst loss {worst['loss']:.3g} "
+    syncs = None
+    if sync_check:  # the step's batches already on the card: no copy in the step
+        on_card = [None if b is None else
+                   next(card.device_batches([b])) for b in (batches[-1], batches_u[-1])]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            card.train_step(on_card[0], batch_u=on_card[1])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        syncs = 0
+    log(f"{phase}: {label} on {what} batch {batch}, {n_steps} steps card vs CPU (TF32 off, "
+        f"each step from the card's state): worst loss {worst['loss']:.3g} "
         f"({worst_at.get('loss')}), weights {worst['weights']:.3g} ({worst_at.get('weights')}), "
         f"weights that start at zero {worst['weights_zero_init']:.3g} "
-        f"({worst_at.get('weights_zero_init')}), BN statistics {worst['statistics']:.3g} "
-        f"({worst_at.get('statistics')}); card step ms "
-        f"{[round(x, 2) for x in step_ms]}")
+        f"({worst_at.get('weights_zero_init')}), rounding noise {worst['weights_rounding_noise']:.3g}"
+        f" ({worst_at.get('weights_rounding_noise')}), BN statistics {worst['statistics']:.3g} "
+        f"({worst_at.get('statistics')}); card step ms {[round(x, 2) for x in step_ms]}"
+        + ("; one more step under sync debug mode 'error': no synchronizing call"
+           if sync_check else ""))
     del card, cpu
     torch.cuda.empty_cache()
-    return {"case": label, **worst, "worst_at": worst_at, "card_step_ms": step_ms}
+    out = {"case": label, **worst, "worst_at": worst_at, "card_step_ms": step_ms}
+    if sync_check:
+        out["host_syncs_per_step"] = syncs
+    return out
 
 
 @_timed
@@ -5290,6 +5386,389 @@ def phase_zoo_dg(work):
     if over:
         raise SystemExit(f"FAIL: zoo_dg: card and CPU steps differ past their bounds: "
                          f"{[(c['case'], c['worst_at']) for c in over]}")
+    return result
+
+
+# Office-31's 31 classes and its published domain sizes (Saenko et al., 2010)
+OFFICE31_CLASSES = (
+    "back_pack", "bike", "bike_helmet", "bookcase", "bottle", "calculator", "desk_chair",
+    "desk_lamp", "desktop_computer", "file_cabinet", "headphones", "keyboard",
+    "laptop_computer", "letter_tray", "mobile_phone", "monitor", "mouse", "mug",
+    "paper_notebook", "pen", "phone", "printer", "projector", "punchers", "ring_binder", "ruler",
+    "scissors", "speaker", "stapler", "tape_dispenser", "trash_can")
+OFFICE31_SIZES = {"amazon": 2817, "webcam": 795, "dslr": 498}
+ZOO_DA_RECIPE = "configs/trainers/zoo/dann_resnet18.yaml"
+# the recipe's 20 epochs cut to 1: COUNT_ITER smaller_one, webcam's 795 // 32 = 24
+# steps of 32; the CLI's own test after training (795 webcam images) is the one test
+ZOO_DA_EPOCHS = 1
+ZOO_DA_PROFILE_STEPS = 5
+# (c): each DA trainer on SyntheticDA with the 3 source domains (d2 also the
+# target), cnn_digit5_m3sda (Digit-5's backbone in Dassl's M3SDA and DAEL
+# protocols: BN, dropout) at 32x32, ZOO_C_BATCH source and ZOO_C_BATCH_U target
+# images, ZOO_C_STEPS steps card vs CPU, each from the card's state, at
+# ZOO_C_BOUND; one more card step under sync debug mode 'error'.  The
+# settings of tests/test_torch_zoo_da_trainers.py (CDAC at its LR 0.005)
+ZOO_C_BATCH, ZOO_C_BATCH_U, ZOO_C_STEPS = 24, 8, 3
+ZOO_C_THREE = {"DATALOADER.TRAIN_X.SAMPLER": "RandomDomainSampler",
+               "DATALOADER.TRAIN_X.N_DOMAIN": 3}
+ZOO_C_CASES = [
+    ("SourceOnly", {}), ("DANN", {}), ("ADDA", {}), ("AdaBN", {}),
+    ("MCD", {"TRAINER.MCD.N_STEP_F": 2}), ("MME", {}),
+    ("SE", {"DATALOADER.K_TRANSFORMS": 2, "TRAINER.SE.CONF_THRE": 0.3}),
+    ("M3SDA", dict(ZOO_C_THREE, **{"TRAINER.M3SDA.N_STEP_F": 2})),
+    ("CDAC", {"DATALOADER.K_TRANSFORMS": 2, "TRAINER.CDAC.STRONG_TRANSFORMS": ["normalize"],
+              "TRAINER.CDAC.RAMPUP_ITRS": 4, "TRAINER.CDAC.P_THRESH": 0.5, "OPTIM.LR": 0.005}),
+    ("DAEL", dict(ZOO_C_THREE, **{"TRAINER.DAEL.STRONG_TRANSFORMS": ["normalize"],
+                                  "TRAINER.DAEL.CONF_THRE": 0.3})),
+]
+# (d): each new backbone's train-mode forward and backward (a random cotangent
+# on the features) at (input size, batch) on the card and its CPU, TF32 off, the
+# card's dropout / drop-connect masks replayed on the CPU: features and input
+# gradient as max |card - cpu| over their largest magnitude, the new BN means
+# over their largest standard deviation (a batch mean that is zero up to
+# rounding has no relative error: 1.7 of its own size measured on the
+# EfficientNets) and variances over their largest.  vgg16 and preact_resnet18
+# in float64: in float32 a max-pool window whose two largest inputs tie to
+# rounding sends its gradient to either (the CPU tests' finding against JAX:
+# 4e-2 of the gradient at 224x224), and preact_resnet18's float32 train-mode
+# input gradient is ill-conditioned at batch 4 (card vs CPU 4.6e-2, measured;
+# the CPU's own float32 against float64 1e-3)
+# (c)'s bound: the worst card-vs-CPU gaps measured on cnn_digit5_m3sda
+# (four calls): weights 9.9e-3 (M3SDA's fc1.w), statistics 8.9e-3 (M3SDA's
+# bnf1.var; 4.1e-3 in the three calls before), losses 1.6e-4 (M3SDA's
+# loss_step_B), each at one step, and in
+# other trainers on other calls (MCD 3.5e-3, MME 1.6e-3, SE 1.3e-3 at
+# fc1.w, DANN 1.0e-3 at the critic's fc1.w).  compare_zoo_f64.py holds each
+# fp32 step against a float64 step from the same state: the card's MCD
+# step 1 sits 3.5e-3 from it while the CPU's sits 3.1e-7, and the CPU's
+# M3SDA step 1 sits 1.7e-3 from it while the card's sits 1.5e-4.  So either
+# side strays: an fc activation after BN over 8-24 rows, ReLU and dropout
+# that sits within rounding of zero flips between fp32 implementations, and
+# one flip moves its sample's whole row of the fc gradient
+ZOO_C_BOUND = {"loss": 1e-3, "weights": 5e-2, "weights_zero_init": 0.2, "statistics": 5e-2,
+               "weights_rounding_noise": 1e-6}
+ZOO_D_CASES = {"alexnet": (64, 4, "float32"), "vgg16": (32, 4, "float64"),
+               "preact_resnet18": (32, 4, "float64"),
+               **{f"efficientnet_b{i}": (64, 4, "float32") for i in range(8)}}
+ZOO_D_BOUND = {"features": 1e-4, "input_grad": 1e-3, "statistics": 1e-4}
+
+
+def _office31_tree(root, fixtures):
+    """Office-31's layout (data/datasets/legacy.py Office31): ``office31/
+    <domain>/<class>/<file>`` at the published domain sizes, each domain's
+    images split over the 31 classes in turn, hard links to the fixtures."""
+    pairs, k = [], 0
+    for dom, n in OFFICE31_SIZES.items():
+        for i in range(n):
+            cls = OFFICE31_CLASSES[i % len(OFFICE31_CLASSES)]
+            pairs.append((os.path.abspath(os.path.join(FIXTURE_DIR, fixtures[k % len(fixtures)])),
+                          os.path.join(root, "office31", dom, cls, f"frame_{i:04d}.jpg")))
+            k += 1
+    _link_all(pairs)
+
+
+def _da_argv(work, out, trainer, *flags):
+    return ["--trainer", trainer, "--seed", "1", "--device", "cuda", "--root", work,
+            "--dataset-config-file", "configs/datasets/zoo/office31.yaml",
+            "--source-domains", "amazon", "--target-domains", "webcam",
+            "--config-file", ZOO_DA_RECIPE, "--output-dir", out, *flags,
+            "OPTIM.MAX_EPOCH", str(ZOO_DA_EPOCHS)]
+
+
+def _zoo_dann(work):
+    """(a) DANN amazon -> webcam on the Office-31 tree through the CLI."""
+    import torch
+
+    from fsvlm_tpu_torch.engine.checkpoint import load_checkpoint
+    from fsvlm_tpu_torch.engine.trainer import build_trainer
+    from fsvlm_tpu_torch.models.convert import zoo_trees
+    from fsvlm_tpu_torch.train import build_argparser, setup_cfg
+    from fsvlm_tpu_torch.trainers.zoo.base import NetTrainerXU
+
+    out = os.path.join(work, "dann_run")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _epochs_timed(NetTrainerXU, []) as epochs:
+        t = _run_cli(None, _da_argv(work, out, "DANN"))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    epoch_ms = epochs[0]
+    peak = torch.cuda.max_memory_allocated()
+    text = _read(os.path.join(out, "log.txt"))
+    losses = [float(x) for x in re.findall(r"\bloss ([-+.\deE]+|nan|inf)", text)]
+    log(f"zoo_da: DANN {t.cfg.MODEL.BACKBONE.NAME} ({ZOO_DA_RECIPE}) on Office-31 amazon -> "
+        f"webcam through the CLI: {t.steps_per_epoch} steps of {t.batch_size} "
+        f"({len(t.dm.dataset.train_x)} source, {len(t.dm.dataset.train_u)} target images), "
+        f"{t.num_classes} classes, {len(t.dm.dataset.test)} test images; run {run_s:.1f} s; "
+        f"losses logged {losses}; accuracy in log.txt "
+        f"{re.findall(r'[*] accuracy: ([0-9.]+)%', text)}")
+    for needle in ("no weights found", "Finish training", "* accuracy:", "=> result",
+                   "NAME: resnet18", "random_translation", "loss_d"):
+        if needle not in text:
+            raise SystemExit(f"FAIL: zoo_da: the DANN run's log.txt lacks {needle!r}")
+    if (t.cfg.MODEL.BACKBONE.NAME != "resnet18" or t.batch_size != 32 or t.num_classes != 31
+            or t.steps_per_epoch != 24 or len(t.dm.dataset.test) != 795):
+        raise SystemExit("FAIL: zoo_da: the run is not the recipe's on Office-31")
+    if not losses or not all(np.isfinite(losses)):
+        raise SystemExit(f"FAIL: zoo_da: non-finite or no loss: {losses}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t2 = _run_cli(None, _da_argv(work, os.path.join(work, "dann_eval"), "DANN", "--eval-only",
+                                 "--model-dir", out))
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    if t2.evaluator.y_pred != t.evaluator.y_pred or len(t2.evaluator.y_pred) != 795:
+        raise SystemExit("FAIL: zoo_da: --eval-only did not reproduce the webcam predictions")
+    del t2
+    log(f"zoo_da: --eval-only reproduced the run's {len(t.evaluator.y_pred)} predictions in "
+        f"{eval_s:.1f} s")
+
+    # a resume: both groups' weights and optimizer states, the net's and the
+    # critic's BN statistics and the generator, bit for bit
+    ckpt = load_checkpoint(os.path.join(out, "model", f"model.pkl-{ZOO_DA_EPOCHS}"))
+    cfg = setup_cfg(build_argparser().parse_args(_da_argv(work, out, "DANN")))
+    cfg.VERBOSE = False
+    with contextlib.redirect_stdout(io.StringIO()):
+        t3 = build_trainer(cfg, device="cuda")
+        start = t3.resume_model_if_exist(out)
+    params, state = zoo_trees(t3)
+    saved = t3.optim_state()
+    bad = (_zoo_trees_equal(params, ckpt["state_dict"])
+           + _zoo_trees_equal(state, ckpt["extra"]["model_state"])
+           + _zoo_trees_equal({"o": saved}, {"o": {g: {k: v for k, v in o.items() if k != "name"}
+                                                   for g, o in ckpt["optimizer"].items()}})
+           + ([] if np.array_equal(t3.generator.get_state().numpy(), ckpt["extra"]["rng_state"])
+              else ["generator"]))
+    log(f"zoo_da: resume from model.pkl-{ZOO_DA_EPOCHS}: start epoch {start}, both groups' "
+        f"weights and optimizer states (counts {[int(o['count']) for o in saved.values()]}), "
+        f"the net's and the critic's BN statistics and the generator bit-equal: {not bad} "
+        f"{bad[:5]}")
+    if bad or start != ZOO_DA_EPOCHS or set(saved) != {"net", "critic"}:
+        raise SystemExit("FAIL: zoo_da: the resume did not restore the checkpoint exactly")
+    del t3
+
+    # no host sync in a step; the idle share of loader-fed steps
+    pairs = zip(t.device_batches(t.train_loader_x), t.device_batches(t.train_loader_u))
+    bx, bu = next(pairs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t.train_step(bx, batch_u=bu)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("zoo_da: one DANN step under sync debug mode 'error': no synchronizing call")
+    for _, (bx, bu) in zip(range(2), pairs):
+        t.train_step(bx, batch_u=bu)
+
+    def profiled_steps():
+        for _, (bx_, bu_) in zip(range(ZOO_DA_PROFILE_STEPS), pairs):
+            t.train_step(bx_, batch_u=bu_)
+
+    wall, busy = _profile(f"{ZOO_DA_PROFILE_STEPS} DANN resnet18 steps on the host pipeline "
+                          f"(batch 32 + 32, loaders to step, steady state)", profiled_steps, top=8)
+    n_img = t.steps_per_epoch * t.batch_size
+    result = {"run_s": run_s, "epoch_ms": epoch_ms, "epoch_source_images": n_img,
+              "epoch_images_per_s": 2 * n_img / epoch_ms * 1e3, "eval_only_s": eval_s,
+              "test_images": len(t.evaluator.y_pred), "peak_device_bytes": peak,
+              "profiled_steps": ZOO_DA_PROFILE_STEPS, "profiled_wall_ms": wall,
+              "profiled_busy_ms": busy, "idle_share": max(0.0, 1 - busy / wall),
+              "host_syncs_per_step": 0, "losses": losses,
+              "accuracy": float(re.findall(r"[*] accuracy: ([0-9.]+)%", text)[-1])}
+    log(f"zoo_da: Office-31 DANN epoch (the run's) {epoch_ms:.1f} ms ({n_img} source + {n_img} "
+        f"target images, {result['epoch_images_per_s']:.1f} images/s, host transforms at "
+        f"{t.cfg.DATALOADER.NUM_WORKERS} threads); peak device memory {peak / 2**30:.2f} GiB; "
+        f"idle share of {ZOO_DA_PROFILE_STEPS} profiled steps {result['idle_share']:.3f}")
+    del t
+    return result
+
+
+def _zoo_adda_adabn(work):
+    """(b) SourceOnly amazon -> webcam through the CLI, then ADDA and AdaBN
+    from its checkpoint through MODEL.INIT_WEIGHTS, 1 epoch each."""
+    import torch
+
+    from fsvlm_tpu_torch.engine.checkpoint import load_checkpoint
+    from fsvlm_tpu_torch.models.convert import zoo_trees
+
+    src = os.path.join(work, "source_only")
+    del_t = _run_cli(None, _da_argv(work, src, "SourceOnly"))
+    del del_t
+    init = os.path.join(src, "model", f"model.pkl-{ZOO_DA_EPOCHS}")
+    ckpt = load_checkpoint(init)
+    text = {}
+    for name in ("ADDA", "AdaBN"):
+        out = os.path.join(work, name.lower())
+        t = _run_cli(None, _da_argv(work, out, name, "MODEL.INIT_WEIGHTS", init))
+        text[name] = _read(os.path.join(out, "log.txt"))
+        params, state = zoo_trees(t)
+        if name == "ADDA":
+            moved = _zoo_trees_equal(params["net"]["classifier"],
+                                     ckpt["state_dict"]["net"]["classifier"])
+            backbone_moved = bool(_zoo_trees_equal(params["net"]["backbone"],
+                                                   ckpt["state_dict"]["net"]["backbone"]))
+            log(f"zoo_da: ADDA from SourceOnly's checkpoint, {t.steps_per_epoch} steps: the "
+                f"classifier unchanged: {not moved}; the backbone moved: {backbone_moved}")
+            if moved or not backbone_moved:
+                raise SystemExit("FAIL: zoo_da: ADDA's classifier moved, or its backbone did not")
+        else:
+            moved = _zoo_trees_equal(params, ckpt["state_dict"])
+            same_stats = not _zoo_trees_equal(state, ckpt["extra"]["model_state"])
+            log(f"zoo_da: AdaBN from SourceOnly's checkpoint, {t.steps_per_epoch} steps: weights "
+                f"unchanged: {not moved}; statistics re-estimated (differ from the "
+                f"checkpoint's): {not same_stats}")
+            if moved or same_stats:
+                raise SystemExit("FAIL: zoo_da: AdaBN moved a weight or kept the statistics")
+        del t
+        torch.cuda.empty_cache()
+    acc = {"SourceOnly": _read(os.path.join(src, "log.txt")), **text}
+    result = {"webcam_accuracy": {k: float(re.findall(r"[*] accuracy: ([0-9.]+)%", v)[-1])
+                                  for k, v in acc.items()}}
+    log(f"zoo_da: webcam test accuracy after 1 epoch (random resnet18, fixture images): "
+        f"{result['webcam_accuracy']}")
+    return result
+
+
+def _zoo_da_card_vs_cpu(work):
+    """(c) Each DA trainer, card against the card's CPU, on SyntheticDA."""
+    from fsvlm_tpu_torch.config import get_cfg_base
+    from fsvlm_tpu_torch.engine.trainer import build_trainer
+
+    base = {"SEED": 1, "VERBOSE": False, "DATASET.NAME": "SyntheticDA",
+            "DATASET.SOURCE_DOMAINS": ["d0", "d1", "d2"], "DATASET.TARGET_DOMAINS": ["d2"],
+            "INPUT.SIZE": [32, 32], "INPUT.TRANSFORMS": ["normalize"],
+            "MODEL.BACKBONE.NAME": "cnn_digit5_m3sda", "MODEL.BACKBONE.PRETRAINED": False,
+            "DATALOADER.TRAIN_X.BATCH_SIZE": ZOO_C_BATCH,
+            "DATALOADER.TRAIN_U.BATCH_SIZE": ZOO_C_BATCH_U, "DATALOADER.TRAIN_U.SAME_AS_X": False,
+            "DATALOADER.NUM_WORKERS": 2, "OPTIM.NAME": "sgd", "OPTIM.LR": 0.01,
+            "OPTIM.MOMENTUM": 0.9, "OPTIM.WEIGHT_DECAY": 5e-4, "OPTIM.MAX_EPOCH": 4,
+            "TEST.NO_TEST": True, "TRAIN.COUNT_ITER": "smaller_one"}
+
+    def cfg_of(name, opts):
+        cfg = get_cfg_base()
+        kv = dict(base, **opts, **{"TRAINER.NAME": name,
+                                   "OUTPUT_DIR": os.path.join(work, "zoo_c", name)})
+        cfg.merge_from_list([x for pair in kv.items() for x in pair])
+        return cfg
+
+    with contextlib.redirect_stdout(io.StringIO()):  # the source model of ADDA and AdaBN
+        src = build_trainer(cfg_of("SourceOnly", {}), device="cuda")
+        src.save_model(0, os.path.join(work, "zoo_c", "source"))
+    init = os.path.join(work, "zoo_c", "source", "model", "model.pkl-1")
+    del src
+    cases = []
+    for name, opts in ZOO_C_CASES:
+        if name in ("ADDA", "AdaBN"):
+            opts = dict(opts, **{"MODEL.INIT_WEIGHTS": init})
+        cases.append(_card_vs_cpu_steps(cfg_of(name, opts), name, ZOO_C_STEPS, "zoo_da",
+                                        "cnn_digit5_m3sda 32x32", f"{ZOO_C_BATCH} + {ZOO_C_BATCH_U}",
+                                        sync_check=True))
+    return cases
+
+
+def _zoo_backbones_card_vs_cpu():
+    """(d) Each new backbone's train-mode forward and backward, card vs CPU."""
+    import copy
+
+    import torch
+
+    from fsvlm_tpu_torch.models.backbones import build_backbone
+    from fsvlm_tpu_torch.models.convert import flatten, state_tree
+    from fsvlm_tpu_torch.models.draws import Draws, Record, Replay
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.abs(a - b).max()) / max(float(np.abs(a).max()), 1e-30)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = []
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for name, (size, batch, dtype) in ZOO_D_CASES.items():
+            dtype = getattr(torch, dtype)
+            cpu = build_backbone(name, seed=3).to(dtype)
+            card = copy.deepcopy(cpu).cuda()
+            rng = np.random.RandomState(0)
+            x = torch.from_numpy(rng.randn(batch, 3, size, size)).to(dtype)
+            g = torch.from_numpy(rng.randn(batch, cpu.out_features)).to(dtype)
+            res = {}
+            for where, net in (("card", card), ("cpu", cpu)):
+                dev = "cuda" if where == "card" else "cpu"
+                xi = x.to(dev).requires_grad_(True)
+                state = _to_device(net.init_state(), dev, dtype)
+                draws = Record(Draws(gen)) if where == "card" else Replay(res["draws"], "cpu")
+                t0 = time.perf_counter()
+                f, ns = net(xi, state, train=True, draws=draws)
+                (gx,) = torch.autograd.grad(f, xi, g.to(dev))
+                if where == "card":
+                    torch.cuda.synchronize()
+                    res["card_ms"] = (time.perf_counter() - t0) * 1e3
+                    res["draws"] = draws.values
+                res[where] = (f.detach().cpu(), gx.cpu(), flatten(state_tree(ns)))
+            (fc, gc, sc), (fp, gp, sp) = res["card"], res["cpu"]
+            stats = [float(np.abs(np.asarray(sc[k], np.float64) - sp[k]).max()) / max(
+                float(np.sqrt(np.abs(sc[k[:-4] + "var"]).max())), 1e-30)
+                if k.endswith("mean") else rel(sc[k], sp[k]) for k in sc]
+            row = {"case": name, "dtype": str(dtype).split(".")[-1], "size": size,
+                   "batch": batch, "features": rel(fc, fp), "input_grad": rel(gc, gp),
+                   "statistics": max(stats or [0.0]),
+                   "draws": len(res["draws"]), "card_ms_first_call": res["card_ms"]}
+            log(f"zoo_da: {name} {row['dtype']} {size}x{size} batch {batch} train forward + "
+                f"backward card vs CPU (TF32 off, {row['draws']} masks replayed): features "
+                f"{row['features']:.3g}, input gradient {row['input_grad']:.3g}, statistics "
+                f"{row['statistics']:.3g}")
+            out.append(row)
+            del card
+    torch.cuda.empty_cache()
+    return out
+
+
+def _to_device(tree, dev, dtype):
+    return {k: _to_device(v, dev, dtype) if isinstance(v, dict) else v.to(dev, dtype)
+            for k, v in tree.items()}
+
+
+@_timed
+def phase_zoo_da():
+    """Phase 19 (module docstring).  Returns the ``{"zoo_da": ...}`` numbers."""
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+    with open(os.path.join(FIXTURE_DIR, "expected.json")) as f:
+        fixtures = sorted(json.load(f))
+    work = tempfile.mkdtemp(prefix="chip_smoke_office31_")
+    try:
+        t0 = time.perf_counter()
+        _office31_tree(work, fixtures)
+        log(f"zoo_da: an Office-31 tree ({sum(OFFICE31_SIZES.values())} hard links to "
+            f"{len(fixtures)} JPEG fixtures, {OFFICE31_SIZES}) in {time.perf_counter() - t0:.1f} s")
+        parts, part_s = {}, {}
+        for part, fn in (("a", lambda: _zoo_dann(work)), ("b", lambda: _zoo_adda_adabn(work)),
+                         ("c", lambda: _zoo_da_card_vs_cpu(work)),
+                         ("d", _zoo_backbones_card_vs_cpu)):
+            t0 = time.perf_counter()
+            parts[part] = fn()
+            part_s[part] = time.perf_counter() - t0
+        log(f"zoo_da: seconds by part {json.dumps(part_s)}")
+        dann, adda, cases, backbones = (parts[k] for k in "abcd")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launched = {k: n for k, n in fa.LAUNCHES.items() if n}
+    log(f"zoo_da: attention kernel launches over the phase: {launched or 'none'}")
+    if launched:
+        raise SystemExit(f"FAIL: zoo_da: the zoo launched attention kernels: {launched}")
+    over = [c["case"] for c in cases if any(c[k] > ZOO_C_BOUND[k] for k in ZOO_C_BOUND)]
+    over += [b["case"] for b in backbones if any(b[k] > ZOO_D_BOUND[k] for k in ZOO_D_BOUND)]
+    result = {"dann": dann, "adda_adabn": adda, "card_vs_cpu": cases,
+              "card_vs_cpu_bound": ZOO_C_BOUND, "backbones": backbones,
+              "backbones_bound": ZOO_D_BOUND, "attention_launches": 0, "part_s": part_s,
+              "phase_s": time.perf_counter() - t_phase}
+    log(f"zoo_da: phase 19 in {result['phase_s']:.1f} s")
+    print(json.dumps({"zoo_da": result}), flush=True)
+    if over:
+        raise SystemExit(f"FAIL: zoo_da: card and CPU differ past their bounds: {over}")
     return result
 
 
@@ -5345,6 +5824,7 @@ def main():
         phase_zoo_dg(pacs_work)  # the DG zoo: no attention
     finally:
         shutil.rmtree(pacs_work, ignore_errors=True)
+    phase_zoo_da()  # the DA zoo on its Office-31 tree: no attention
 
     import torch
 
@@ -5417,7 +5897,7 @@ def main():
         "device_ms": bwd["device_ms"], "library_device_ms": bwd["library_device_ms"],
     })
     log(f"chip_smoke: seconds by phase {json.dumps(PHASE_S)}")
-    log(f"chip_smoke: all 18 phases in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: all 19 phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -100,26 +100,23 @@ from .tb import TensorboardWriter
 TRAINER_REGISTRY = Registry("TRAINER")
 STEP_KEYS = ("img", "img2", "label", "valid", "index")  # what a train step reads of a batch
 
-# the JAX package's Dassl zoo trainers (fsvlm_tpu/trainers/zoo/) of domain
-# adaptation and semi-supervised learning, not ported yet (the domain
-# generalization ones are: trainers/zoo/dg.py)
-ZOO_TRAINERS = (
-    "SourceOnly", "DANN", "ADDA", "AdaBN", "MCD", "MME", "SE", "M3SDA", "CDAC", "DAEL",
-    "SupBaseline", "EntMin", "MeanTeacher", "MixMatch", "FixMatch",
-)
+# the JAX package's Dassl zoo trainers (fsvlm_tpu/trainers/zoo/ssl.py) of
+# semi-supervised learning, not ported yet (the domain generalization and
+# domain adaptation ones are: trainers/zoo/dg.py, trainers/zoo/da.py)
+ZOO_TRAINERS = ("SupBaseline", "EntMin", "MeanTeacher", "MixMatch", "FixMatch")
 
 
 def build_trainer(cfg, **kwargs):
     """The trainer of TRAINER.NAME, fed by the DataManager; ``kwargs`` go to
     its constructor (``device``, ``clip``, ``attn_impl``).  A name of the
-    JAX package's zoo raises KeyError naming ROADMAP A9; any other unknown
-    name raises KeyError listing the ported trainers."""
+    JAX package's five SSL zoo trainers raises KeyError naming ROADMAP A9;
+    any other unknown name raises KeyError listing the ported trainers."""
     from .. import trainers  # noqa: F401  (registers the ported trainers)
 
     name = cfg.TRAINER.NAME
     if name in ZOO_TRAINERS:
-        raise KeyError(f"Trainer {name!r} is one of the Dassl zoo trainers, not ported yet "
-                       f"(ROADMAP A9)")
+        raise KeyError(f"Trainer {name!r} is one of the Dassl zoo's SSL trainers, not ported "
+                       f"yet (ROADMAP A9)")
     if name not in TRAINER_REGISTRY:
         raise KeyError(f"No trainer {name!r}; ported: {TRAINER_REGISTRY.registered_names()}")
     return TRAINER_REGISTRY.get(name)(cfg, **kwargs)
@@ -176,7 +173,7 @@ class SimpleTrainer:
             self.set_train_data(images, labels)
         self.build_model(clip)
         if cfg.MODEL.INIT_WEIGHTS:  # dassl's load_pretrained_weights (trainer.py:64-72)
-            self.load_params(load_checkpoint(cfg.MODEL.INIT_WEIGHTS)["state_dict"])
+            self.load_init_weights(load_checkpoint(cfg.MODEL.INIT_WEIGHTS))
             print(f'Initialized params from "{cfg.MODEL.INIT_WEIGHTS}"')
         self._build_optimizer(steps_per_epoch)
 
@@ -206,6 +203,10 @@ class SimpleTrainer:
 
     def build_model(self, clip):
         raise NotImplementedError
+
+    def load_init_weights(self, ckpt):
+        """MODEL.INIT_WEIGHTS: the checkpoint's weights, as the JAX package's."""
+        self.load_params(ckpt["state_dict"])
 
     def set_train_data(self, images, labels):
         """Move the uint8 (N, P, P, 3) train images and their labels to the

@@ -7,7 +7,8 @@ arrays (NHWC/HWIO, linear weights (in, out)); the port keeps the weights in
 statistics as nested dicts of tensors.  The transposes live here alone
 (ROADMAP C.3): each leaf module's ``layouts`` names the JAX layout of a
 tensor stored otherwise ("hwio" conv kernels -> OIHW, "io" linear weights
--> (out, in), "kio" DAELDG's stacked experts -> (K, out, in)); every other
+-> (out, in), "kio" stacked linears, DAELDG's and DAEL's experts and M3SDA's
+classifier pairs -> (K, out, in)); every other
 tensor (biases, BatchNorm scale/bias/mean/var) is the same array.  A flat
 feature order needs no permutation: the port flattens in NHWC order, as
 the JAX package does.
@@ -16,8 +17,12 @@ the JAX package does.
 - ``load_state(state, device)`` / ``state_tree(state)``: its statistics;
 - ``load_zoo(trainer, params, state)`` / ``zoo_trees(trainer)``: a zoo
   trainer's groups ({"net": ...}, or CrossGrad's {"F", "D"}, DDAIG's
-  {"F", "D", "G"}, DAELDG's {"F", "E"}) as the JAX trainer holds them in
-  ``params`` and ``model_state``.
+  {"F", "D", "G"}, DAELDG's and DAEL's {"F", "E"}, DANN's and ADDA's
+  {"net", "critic"}, MCD's {"F", "C1", "C2"}, MME's {"net", "C"}, M3SDA's
+  {"F", "C": {"c1", "c2"}}, CDAC's {"F", "C"}) as the JAX trainer holds them
+  in ``params`` and ``model_state``; a method's frozen networks (ADDA's
+  source model, SE's teacher) go through ``params_tree`` / ``load_params``
+  into the checkpoint's ``method_extra`` (trainers/zoo/base.py).
 """
 
 import numpy as np

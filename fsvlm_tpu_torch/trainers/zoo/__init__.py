@@ -1,5 +1,7 @@
 """The Dassl zoo's trainers (counterpart of fsvlm_tpu.trainers.zoo): the
-domain generalization family (dg.py); the DA and SSL families are not
-ported yet (ROADMAP A9).  Importing the package registers them."""
+domain generalization family (dg.py) and the domain adaptation family
+(da.py); the five semi-supervised trainers (SupBaseline, EntMin,
+MeanTeacher, MixMatch, FixMatch) are not ported yet (ROADMAP A9).
+Importing the package registers them."""
 
-from . import dg  # noqa: F401
+from . import da, dg  # noqa: F401

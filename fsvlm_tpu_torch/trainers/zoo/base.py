@@ -24,10 +24,15 @@ generator, or values handed in).
   trainer's drop), "valid".
 - Checkpoints hold the JAX trainer's trees: ``state_dict`` the groups'
   params in the JAX layout (models/convert.py), ``extra`` the BN
-  statistics (``model_state``) and ``method_extra``; ``optimizer`` the
-  port's per-group optimizer states.  ``load_model`` restores the
-  statistics too (the JAX package's restores the weights alone, so its
-  --eval-only tests a zoo net on its initial statistics: ROADMAP C.2).
+  statistics (``model_state``) and ``method_extra``: ``extra`` (tensors
+  and their trees, as they are) and the weights of ``extra_nets`` (a
+  method's frozen copies of a network: ADDA's source model, SE's teacher)
+  in the JAX layout; ``optimizer`` the port's per-group optimizer states.
+  ``load_model`` restores the statistics too, and so does MODEL.INIT_WEIGHTS
+  from a zoo checkpoint that holds them (the JAX package's restore the
+  weights alone, so its --eval-only tests a zoo net on its initial
+  statistics, and its ADDA freezes its source model on them: ROADMAP C.2).
+- ``param_groups = []``: nothing to update (AdaBN), no optimizer.
 - DATALOADER.DEVICE_AUG raises ValueError (base.py:103-109).
 
 NetTrainerX runs labeled epochs on train_x; NetTrainerXU zips train_x and
@@ -35,6 +40,7 @@ train_u cyclically for TRAIN.COUNT_ITER's number of steps (train_x,
 train_u or smaller_one, dassl trainer.py:560-610).
 """
 
+import copy
 import itertools
 import os
 import time
@@ -46,7 +52,7 @@ import torch.nn.functional as F
 from ...engine.checkpoint import load_checkpoint, resume_from_checkpoint, save_checkpoint
 from ...engine.optim import build_optimizer, make_lr_schedule
 from ...engine.trainer import STEP_KEYS, SimpleTrainer
-from ...models.convert import flatten, load_state, params_tree, state_tree
+from ...models.convert import flatten, load_params, load_state, params_tree, state_tree
 from ...models.backbones.common import TO_PORT
 from ...models.draws import Draws
 from ...models.simple_net import SimpleNet
@@ -100,11 +106,32 @@ def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
 
 
+def _clone(tree):
+    return {k: _clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def grads_of(loss, modules):
+    """d loss / d each module's parameters, a list per module; zeros where
+    the loss does not reach a parameter (ADDA's classifier), as jax.grad."""
+    params = [list(m.parameters()) for m in modules]
+    flat = torch.autograd.grad(loss, [p for ps in params for p in ps], allow_unused=True)
+    out, i = [], 0
+    for ps in params:
+        out.append([torch.zeros_like(p) if g is None else g
+                    for p, g in zip(ps, flat[i:i + len(ps)])])
+        i += len(ps)
+    return out
+
+
 class NetTrainerX(SimpleTrainer):
     """Labeled-only zoo base (TrainerX)."""
 
     model_name = "model"
     param_groups = None
+    # the default net without a classifier: a feature extractor, SimpleNet(cfg,
+    # MODEL, 0), for the methods that own their heads (MCD, MME, M3SDA, CDAC,
+    # DAEL, DAELDG; the JAX package builds the classifier net, then this one)
+    feature_net = False
     step_keys = STEP_KEYS + ("domain",)
 
     def __init__(self, cfg, device=None, **kwargs):
@@ -121,27 +148,45 @@ class NetTrainerX(SimpleTrainer):
     # ------------------------------------------------------------------ setup
     def build_model(self, clip=None):
         cfg = self.cfg
-        self.nets = {"net": SimpleNet(cfg, cfg.MODEL, self.num_classes, seed=max(cfg.SEED, 0))}
-        self.frozen, self.extra = {}, {}
+        self.nets = {"net": SimpleNet(cfg, cfg.MODEL, 0 if self.feature_net else self.num_classes,
+                                      seed=max(cfg.SEED, 0))}
+        self.frozen, self.extra, self.extra_nets = {}, {}, {}
         self.build_method()
         for m in self.nets.values():
             m.to(self.device)
         self.model_state = {g: _to(m.init_state(), self.device) for g, m in self.nets.items()
                             if hasattr(m, "init_state")}
         self.params = {f"{g}.{n}": p for g, m in self.nets.items() for n, p in m.named_parameters()}
+        self.init_extra()
+
+    def init_extra(self):
+        """Set ``extra`` / ``extra_nets`` from the initial networks (SE's
+        teacher), before MODEL.INIT_WEIGHTS."""
+
+    def frozen_copy(self, group):
+        """A copy of a network with its gradients off, and of its statistics
+        (ADDA's source model, SE's teacher)."""
+        net = copy.deepcopy(self.nets[group]).requires_grad_(False)
+        return net, _clone(self.model_state[group])
 
     def build_method(self):
         """Set the method's ``nets`` and ``step_core`` (and ``infer``)."""
         raise NotImplementedError
 
-    def use_feature_net(self):
-        """A feature extractor without classifier in place of the default net
-        (SimpleNet(cfg, MODEL, 0): MCD, MME, M3SDA, CDAC, DAEL, DAELDG)."""
-        self.nets = {"net": SimpleNet(self.cfg, self.cfg.MODEL, 0, seed=max(self.cfg.SEED, 0))}
-
     def finalize_method(self):
         """Runs after MODEL.INIT_WEIGHTS, before the first step (ADDA's frozen
         source model, AdaBN's statistics reset)."""
+
+    def domain_split(self):
+        """(rows per domain, domains per batch) of a RandomDomainSampler batch:
+        TRAIN_X.N_DOMAIN, or every source domain where it is not positive
+        (DAELDG, M3SDA, DAEL)."""
+        n_domain = self.cfg.DATALOADER.TRAIN_X.N_DOMAIN
+        if n_domain <= 0:
+            n_domain = self.num_source_domains
+        self.n_domain = n_domain
+        self.split_batch = self.cfg.DATALOADER.TRAIN_X.BATCH_SIZE // n_domain
+        return self.split_batch, n_domain
 
     def _num_batches(self):
         return len(self.train_loader_x)
@@ -229,7 +274,8 @@ class NetTrainerX(SimpleTrainer):
     def extra_state(self):
         s = super().extra_state()
         s["model_state"] = state_tree(self.model_state)
-        s["method_extra"] = state_tree(self.extra)
+        s["method_extra"] = {**state_tree(self.extra),
+                             **{k: params_tree(m) for k, m in self.extra_nets.items()}}
         return s
 
     def load_extra_state(self, state):
@@ -237,7 +283,20 @@ class NetTrainerX(SimpleTrainer):
         if state.get("model_state") is not None:
             self.model_state = load_state(state["model_state"], self.device)
         if state.get("method_extra") is not None:
-            self.extra = load_state(state["method_extra"], self.device)
+            extra = dict(state["method_extra"])
+            for k, m in self.extra_nets.items():
+                load_params(m, extra.pop(k))
+            self.extra = load_state(extra, self.device)
+
+    def load_init_weights(self, ckpt):
+        """The weights, and the BatchNorm statistics of the groups that a zoo
+        checkpoint holds (ROADMAP C.2: the JAX package loads the weights
+        alone)."""
+        self.load_params(ckpt["state_dict"])
+        saved = (ckpt.get("extra") or {}).get("model_state") or {}
+        for g in self.model_state:
+            if g in saved:
+                self.model_state[g] = load_state(saved[g], self.device)
 
     @torch.no_grad()
     def load_params(self, loaded):

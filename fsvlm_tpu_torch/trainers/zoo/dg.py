@@ -15,28 +15,19 @@ when it can; ROADMAP C.2).  Every random value comes from the step's
 ``draws``, forward by forward in the JAX step's order.
 """
 
-import copy
-import random
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...data.loader import BatchLoader
-from ...data.samplers import build_sampler
-from ...data.transforms import TrainTransform
 from ...engine.trainer import TRAINER_REGISTRY
 from ...models.backbones.common import as_param, linear_init
 from ...models.networks import build_network
 from ...models.simple_net import SimpleNet
-from .base import NetTrainerX, accuracy, cross_entropy_logits
+from .base import NetTrainerX, accuracy, cross_entropy_logits, grads_of
 from .ops import create_onehot
-from .ssl import _WeakStrongWrapper
-
-
-def _grads(loss, module):
-    return torch.autograd.grad(loss, list(module.parameters()))
+from .ssl import two_view_loader
 
 
 @TRAINER_REGISTRY.register()
@@ -49,7 +40,7 @@ class Vanilla(NetTrainerX):
             net = self.nets["net"]
             logits, ns = net(bx["img"], self.model_state["net"], True, draws=draws)
             loss = cross_entropy_logits(logits, bx["label"], bx.get("valid"))
-            self.optim.step(_grads(loss, net))
+            self.optim.step(grads_of(loss, [net])[0])
             self.model_state = dict(self.model_state, net=ns)
             return {"loss": loss, "acc": accuracy(logits.detach(), bx["label"], bx.get("valid"))}
 
@@ -90,12 +81,12 @@ class CrossGrad(NetTrainerX):
             l2, ns_f = F_net(input_d, ns, True, draws=draws)
             loss_f = ((1 - alpha_f) * cross_entropy_logits(l1, y, vx)
                       + alpha_f * cross_entropy_logits(l2, y, vx))
-            g_f = _grads(loss_f, F_net)
+            g_f = grads_of(loss_f, [F_net])[0]
             l1, ns = D_net(x, ns_d, True, draws=draws)
             l2, ns_d = D_net(input_f, ns, True, draws=draws)
             loss_d = ((1 - alpha_d) * cross_entropy_logits(l1, d, vx)
                       + alpha_d * cross_entropy_logits(l2, d, vx))
-            g_d = _grads(loss_d, D_net)
+            g_d = grads_of(loss_d, [D_net])[0]
             self.group_update("F", g_f)
             self.group_update("D", g_d)
             self.model_state = {"F": ns_f, "D": ns_d}
@@ -145,7 +136,7 @@ class DDAIG(NetTrainerX):
             lf, _ = F_net(x_p, st["F"], True, draws=draws)
             ld, _ = D_net(x_p, st["D"], True, draws=draws)
             loss_g = cross_entropy_logits(lf, y, vx) - cross_entropy_logits(ld, d, vx)
-            self.group_update("G", _grads(loss_g, G_net))
+            self.group_update("G", grads_of(loss_g, [G_net])[0])
             with torch.no_grad():
                 x_p, ns_g = perturb(ns_g, x)
 
@@ -155,12 +146,12 @@ class DDAIG(NetTrainerX):
             l2, ns_f = F_net(x_p, ns, True, draws=draws)
             if epoch + 1 > warmup:
                 loss_f = (1.0 - alpha) * loss_f + alpha * cross_entropy_logits(l2, y, vx)
-            self.group_update("F", _grads(loss_f, F_net))
+            self.group_update("F", grads_of(loss_f, [F_net])[0])
 
             # D on clean
             l1, ns_d = D_net(x, st["D"], True, draws=draws)
             loss_d = cross_entropy_logits(l1, d, vx)
-            self.group_update("D", _grads(loss_d, D_net))
+            self.group_update("D", grads_of(loss_d, [D_net])[0])
             self.model_state = {"F": ns_f, "D": ns_d, "G": ns_g}
             return {"loss": loss_f, "loss_g": loss_g, "loss_f": loss_f, "loss_d": loss_d}
 
@@ -198,7 +189,7 @@ class DomainMix(NetTrainerX):
             logits, ns = net(x_mix, self.model_state["net"], True, draws=draws)
             loss = (lam * cross_entropy_logits(logits, y, vx)
                     + (1.0 - lam) * cross_entropy_logits(logits, y[perm], vx))
-            self.optim.step(_grads(loss, net))
+            self.optim.step(grads_of(loss, [net])[0])
             self.model_state = dict(self.model_state, net=ns)
             return {"loss": loss, "acc": accuracy(logits.detach(), y, vx)}
 
@@ -206,7 +197,8 @@ class DomainMix(NetTrainerX):
 
 
 class Experts(nn.Module):
-    """DAELDG's K domain experts, stacked: ``w`` (K, classes, fdim), ``b``
+    """K domain experts, stacked (DAELDG's and DAEL's experts, M3SDA's
+    classifier pairs): ``w`` (K, classes, fdim), ``b``
     (K, classes); drawn as the JAX package's (K linear inits for the
     weights, then K for the biases, from one RandomState)."""
 
@@ -218,16 +210,22 @@ class Experts(nn.Module):
                           "kio")
         self.b = as_param(np.stack([linear_init(rng, fdim, n_cls)["b"] for _ in range(k)]))
 
+    def logits_all(self, f):
+        """Every expert's logits: (B, K, classes)."""
+        return torch.einsum("bf,kcf->bkc", f, self.w) + self.b[None]
+
+    def logits_one(self, dom, f):
+        """Expert ``dom``'s logits (a device scalar: gathered, no host sync)."""
+        i = dom.view(1)
+        return F.linear(f, torch.index_select(self.w, 0, i)[0], torch.index_select(self.b, 0, i)[0])
+
     def all(self, f):
         """Every expert's softmax: (B, K, classes)."""
-        z = torch.einsum("bf,kcf->bkc", f, self.w) + self.b[None]
-        return torch.softmax(z.float(), -1)
+        return torch.softmax(self.logits_all(f).float(), -1)
 
     def one(self, dom, f):
-        """Expert ``dom`` (a device scalar) on f: (B, classes)."""
-        i = dom.view(1)
-        z = F.linear(f, torch.index_select(self.w, 0, i)[0], torch.index_select(self.b, 0, i)[0])
-        return torch.softmax(z.float(), -1)
+        """Expert ``dom``'s softmax on f: (B, classes)."""
+        return torch.softmax(self.logits_one(dom, f).float(), -1)
 
 
 @TRAINER_REGISTRY.register()
@@ -237,6 +235,7 @@ class DAELDG(NetTrainerX):
     prediction on the weak view pulled toward the other batch experts' on
     the strong view."""
 
+    feature_net = True
     param_groups = ["F", "E"]
 
     def check_cfg(self, cfg):
@@ -247,33 +246,16 @@ class DAELDG(NetTrainerX):
         """train_x through the weak/strong wrapper (img: INPUT.TRANSFORMS,
         img2: TRAINER.DAELDG.STRONG_TRANSFORMS), RandomDomainSampler."""
         super().build_data_loader()
-        cfg = self.cfg
-        strong_cfg = copy.deepcopy(cfg)
-        strong_cfg.INPUT.TRANSFORMS = tuple(cfg.TRAINER.DAELDG.STRONG_TRANSFORMS)
-        seed = cfg.SEED if cfg.SEED >= 0 else None
-        tfm_weak = TrainTransform(cfg, rng=random.Random(seed or 0))
-        tfm_strong = TrainTransform(strong_cfg, rng=random.Random((seed or 0) + 1))
-        data_source = self.dm.dataset.train_x
-        bs = cfg.DATALOADER.TRAIN_X.BATCH_SIZE
-        sampler = build_sampler(cfg.DATALOADER.TRAIN_X.SAMPLER, data_source, batch_size=bs,
-                                n_domain=cfg.DATALOADER.TRAIN_X.N_DOMAIN, seed=seed)
-        self.train_loader_x = BatchLoader(
-            _WeakStrongWrapper(data_source, tfm_weak, tfm_strong, seed=seed), sampler,
-            batch_size=bs, drop_last=len(data_source) >= bs,
-            num_threads=max(1, cfg.DATALOADER.NUM_WORKERS), extra_keys=("img2",))
+        x = self.cfg.DATALOADER.TRAIN_X
+        self.train_loader_x = two_view_loader(self.cfg, self.cfg.TRAINER.DAELDG.STRONG_TRANSFORMS,
+                                              self.dm.dataset.train_x, x.SAMPLER, x.BATCH_SIZE,
+                                              x.N_DOMAIN)
 
     def build_method(self):
-        cfg = self.cfg
-        self.use_feature_net()
-        n_domain = cfg.DATALOADER.TRAIN_X.N_DOMAIN
-        if n_domain <= 0:
-            n_domain = self.num_source_domains
-        self.split_batch = cfg.DATALOADER.TRAIN_X.BATCH_SIZE // n_domain
-        self.n_domain = n_domain
+        split, nd = self.domain_split()
         K, n_cls = self.num_source_domains, self.num_classes
-        rng = np.random.RandomState(max(cfg.SEED, 0) + 7)
+        rng = np.random.RandomState(max(self.cfg.SEED, 0) + 7)
         self.nets = {"F": self.nets["net"], "E": Experts(rng, K, self.nets["net"].fdim, n_cls)}
-        split, nd = self.split_batch, n_domain
 
         def chunks(x):
             return [x[i * split:(i + 1) * split] for i in range(nd)]

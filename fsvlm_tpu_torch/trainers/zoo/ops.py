@@ -1,16 +1,17 @@
 """Shared zoo ops (counterpart of fsvlm_tpu.trainers.zoo.ops): ramps,
-sharpening, one-hot, mixup, EMA, the BCE helpers, the functional MLP head
-and prototype classifier, and the gradient reversal layer
-(dassl/modeling/ops utils.py, mixup.py, reverse_grad.py).  A ramp takes
+sharpening, one-hot, mixup, EMA, the BCE helpers, the MLP-head critic and
+the prototype classifier (as modules named as the JAX trees), and the
+gradient reversal layer (dassl/modeling/ops utils.py, mixup.py,
+reverse_grad.py).  A ramp takes
 the global step as an int or a device tensor; mixup's weights come from a
 ``models.draws`` source.
 """
 
-import numpy as np
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
-from ...models.backbones.common import batch_norm, linear_init
+from ...models.backbones.common import BatchNorm, Linear, as_param, batch_norm, linear, linear_init
 
 
 def sigmoid_rampup(current, rampup_length):
@@ -77,52 +78,50 @@ def leaky_relu(x, negative_slope=0.01):
     return F.leaky_relu(x, negative_slope)
 
 
-def _t(a):
-    return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+class Critic(nn.Module):
+    """dassl's mlp head (dassl/modeling/head/mlp.py: Linear -> BN1d ->
+    leaky relu per hidden layer) and a linear ``out`` to one logit: DANN's
+    and ADDA's domain critic, drawn as the JAX package's mlp_head_init then
+    linear_init; ``forward(x, state, train)`` -> (logits, new statistics)."""
+
+    def __init__(self, rng, fdim, hidden):
+        super().__init__()
+        cin = fdim
+        self.n = len(hidden)
+        for i, width in enumerate(hidden):
+            self.add_module(f"fc{i}", Linear(rng, cin, width))
+            self.add_module(f"bn{i}", BatchNorm(width))
+            cin = width
+        self.out = Linear(rng, cin, 1)
+
+    def init_state(self):
+        return {f"bn{i}": getattr(self, f"bn{i}").init_state() for i in range(self.n)}
+
+    def forward(self, x, state, train=True):
+        ns = {}
+        for i in range(self.n):
+            x, ns[f"bn{i}"] = batch_norm(linear(x, getattr(self, f"fc{i}")),
+                                         getattr(self, f"bn{i}"), state[f"bn{i}"], train)
+            x = leaky_relu(x)
+        return linear(x, self.out), ns
 
 
-def mlp_head_init(rng, in_features, hidden_layers, bn=True):
-    """The functional dassl mlp head (dassl/modeling/head/mlp.py): [Linear
-    -> BN1d -> activation] per hidden layer, drawn as the JAX package draws
-    it.  Returns (params, state, out_features); weights (out, in)."""
-    params, state = {}, {}
-    cin = in_features
-    for i, width in enumerate(hidden_layers):
-        p = linear_init(rng, cin, width)
-        params[f"fc{i}"] = {"w": _t(p["w"].T), "b": _t(p["b"])}
-        if bn:
-            params[f"bn{i}"] = {"scale": torch.ones(width), "bias": torch.zeros(width)}
-            state[f"bn{i}"] = {"mean": torch.zeros(width), "var": torch.ones(width)}
-        cin = width
-    return params, state, cin
+class Prototypes(nn.Module):
+    """MME's and CDAC's cosine classifier: a bias-free linear ``w`` over
+    L2-normalized features, at temperature 0.05 (its init draws a linear's
+    weight and bias and keeps the weight, as the JAX package)."""
 
+    layouts = {"w": "io"}
 
-class _BN:
-    def __init__(self, p):
-        self.scale, self.bias = p["scale"], p["bias"]
+    def __init__(self, rng, fdim, num_classes):
+        super().__init__()
+        self.w = as_param(linear_init(rng, fdim, num_classes)["w"], "io")
 
-
-def mlp_head_apply(x, params, state, train, n_layers, act=leaky_relu):
-    new_state = {}
-    for i in range(n_layers):
-        x = F.linear(x, params[f"fc{i}"]["w"], params[f"fc{i}"]["b"])
-        if f"bn{i}" in params:
-            x, new_state[f"bn{i}"] = batch_norm(x, _BN(params[f"bn{i}"]), state[f"bn{i}"], train)
-        x = act(x)
-    return x, new_state
-
-
-def prototypes_init(rng, fdim, num_classes):
-    """MME/CDAC's cosine prototype classifier: a bias-free linear (out, in)
-    over L2-normalized features, temperature 0.05."""
-    return {"w": _t(linear_init(rng, fdim, num_classes)["w"].T)}
-
-
-def prototypes_apply(x, params, temp=0.05, reverse=False, lmda=1.0):
-    if reverse:
-        x = grad_reverse(x, lmda)
-    x = x * torch.rsqrt((x * x).sum(-1, keepdim=True) + 1e-12)
-    return F.linear(x, params["w"]) / temp
+    def forward(self, x, reverse=False, temp=0.05):
+        if reverse:
+            x = grad_reverse(x, 1.0)
+        x = x * torch.rsqrt((x * x).sum(-1, keepdim=True) + 1e-12)
+        return F.linear(x, self.w) / temp
 
 
 class _GradReverse(torch.autograd.Function):

@@ -295,14 +295,14 @@ def test_init_weights_load_the_checkpoint_prompts(tmp_path):
 
 
 @pytest.mark.parametrize("name,match", [
-    ("DANN", "Dassl zoo trainers, not ported yet [(]ROADMAP A9[)]"),
+    ("SupBaseline", "Dassl zoo's SSL trainers, not ported yet [(]ROADMAP A9[)]"),
     ("FixMatch", "ROADMAP A9"),
-    ("MCD", "ROADMAP A9"),
-    ("SourceOnly", "ROADMAP A9"),
+    ("EntMin", "ROADMAP A9"),
+    ("MixMatch", "ROADMAP A9"),
     ("NoSuchTrainer", "No trainer 'NoSuchTrainer'; ported: .*'PLIP'"),
 ])
 def test_unported_trainer_names_the_roadmap_item(tmp_path, name, match):
-    """A name of the JAX package's Dassl zoo names ROADMAP A9; any other
+    """A name of the JAX package's SSL zoo trainers names ROADMAP A9; any other
     unknown name lists the ported trainers (PLIP among them)."""
     _, pcfg = _cfgs(tmp_path, name)
     with pytest.raises(KeyError, match=match):

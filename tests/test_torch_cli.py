@@ -104,7 +104,7 @@ def test_extra_opts_env_applies_last(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("opts,error,match", [
-    (["TRAINER.NAME", "DANN"], KeyError, "ROADMAP A9"),
+    (["TRAINER.NAME", "SupBaseline"], KeyError, "ROADMAP A9"),
     (["TRAINER.NAME", "FixMatch"], KeyError, "ROADMAP A9"),
     (["TRAINER.NAME", "MeanTeacher"], KeyError, "ROADMAP A9"),
     (["DATASET.NAME", "Office32"], KeyError, "not registered; registered: .*'Office31'"),

@@ -11,7 +11,8 @@
   loads the port's weights, and the port loads a JAX-written checkpoint's
   weights and statistics;
 - ``--head`` sets MODEL.HEAD.NAME as the JAX CLI does; build_trainer
-  raises KeyError naming ROADMAP A9 for the DA and SSL names, ValueError
+  raises KeyError naming ROADMAP A9 for the five SSL names (the DA names
+  build: test_torch_zoo_da_trainers.py), ValueError
   under DATALOADER.DEVICE_AUG, and asks for cuda unless told otherwise.
 """
 

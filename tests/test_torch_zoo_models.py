@@ -1,8 +1,9 @@
 """The port's zoo backbones and SimpleNet against the JAX package's, on
 the CPU (the ops, heads and generators: tests/test_torch_zoo_ops.py).
 
-- the registry is the JAX package's less the names left for later, which
-  raise KeyError naming ROADMAP A9;
+- the registry is the JAX package's less the names left for later (the two
+  wide ResNets of the SSL slice), which raise KeyError naming ROADMAP A9
+  (the DA slice's backbones: test_torch_zoo_da_backbones.py);
 - the port draws the JAX package's initial weights from a seed (one name
   of each kind; shapes and counts for resnet101 and a dynamic resnet50);
 - features in train and eval mode and the new BatchNorm statistics at

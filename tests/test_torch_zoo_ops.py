@@ -20,7 +20,7 @@ import jax.numpy as jnp
 
 from fsvlm_tpu_torch.models import draws as draws_mod
 from fsvlm_tpu_torch.models import modeling_ops as P
-from fsvlm_tpu_torch.models.convert import load_params, load_state, params_tree, state_tree
+from fsvlm_tpu_torch.models.convert import flatten, load_params, load_state, params_tree, state_tree
 
 FWD_TOL = 1e-5
 
@@ -257,16 +257,26 @@ def test_zoo_ops_match_jax():
     t, s = {"a": rng.randn(3).astype(np.float32)}, {"a": rng.randn(3).astype(np.float32)}
     close(Z.ema_update({"a": torch.from_numpy(s["a"])}, {"a": torch.from_numpy(t["a"])},
                        0.9)["a"], J.ema_update(s, t, 0.9)["a"], "ema")
-    jp, js, jout = J.mlp_head_init(np.random.RandomState(14), 6, [5, 4])
-    pp, ps, pout = Z.mlp_head_init(np.random.RandomState(14), 6, [5, 4])
-    assert jout == pout == 4
+    # the critic (DANN's, ADDA's): JAX's mlp_head_init + a linear "out"
+    from fsvlm_tpu.models.backbones.common import linear_apply, linear_init
+
+    rng_j = np.random.RandomState(14)
+    jp, js, jout = J.mlp_head_init(rng_j, 6, [5, 4])
+    jp["out"] = linear_init(rng_j, jout, 1)
+    critic = Z.Critic(np.random.RandomState(14), 6, [5, 4])
+    assert jout == 4
+    for k, v in flatten(params_tree(critic)).items():
+        np.testing.assert_array_equal(v, flatten(jp)[k], err_msg=k)
     f = rng.randn(7, 6).astype(np.float32)
-    ref, _ = J.mlp_head_apply(jnp.asarray(f), jp, js, True, 2)
-    got, _ = Z.mlp_head_apply(torch.from_numpy(f), pp, ps, True, 2)
-    close(got, ref, "mlp head")
-    jw, pw = J.prototypes_init(np.random.RandomState(15), 6, 3), Z.prototypes_init(
-        np.random.RandomState(15), 6, 3)
-    close(Z.prototypes_apply(torch.from_numpy(f), pw), J.prototypes_apply(f, jw), "prototypes")
+    h, jns = J.mlp_head_apply(jnp.asarray(f), jp, js, True, 2)
+    got, pns = critic(torch.from_numpy(f), load_state(js, "cpu"), True)
+    close(got.detach(), linear_apply(h, jp["out"]), "critic")
+    for k in jns:
+        close(pns[k]["var"], jns[k]["var"], f"critic {k} statistics")
+    jw = J.prototypes_init(np.random.RandomState(15), 6, 3)
+    proto = Z.Prototypes(np.random.RandomState(15), 6, 3)
+    np.testing.assert_array_equal(params_tree(proto)["w"], jw["w"])
+    close(proto(torch.from_numpy(f)).detach(), J.prototypes_apply(f, jw), "prototypes")
     ft = torch.from_numpy(f).requires_grad_(True)
     (gr,) = torch.autograd.grad((Z.grad_reverse(ft, 0.5) * 2).sum(), ft)
     np.testing.assert_array_equal(gr.numpy(), np.full_like(f, -1.0))

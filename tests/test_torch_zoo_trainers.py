@@ -18,9 +18,10 @@
   tolerances (loss 5e-4 relative, metrics 1e-3; weights rtol 2e-3, atol
   3e-5); DomainMix's partner and weight draws are the JAX ones that the
   trace was recorded with;
-- build_trainer: the DG names on the CPU when asked, the DA/SSL names and
-  the unported backbones raising KeyError naming ROADMAP A9, DEVICE_AUG
-  raising ValueError.
+- build_trainer: the DG names on the CPU when asked (the DA names:
+  test_torch_zoo_da_trainers.py; the SSL names and the wide ResNets raise
+  KeyError naming ROADMAP A9: test_torch_zoo_cli.py, test_torch_zoo_models.py),
+  DEVICE_AUG raising ValueError.
 """
 
 import os
