@@ -147,8 +147,9 @@ Phases; each passes or raises, and any failure exits non-zero:
    through the CLI (``--root``, configs/datasets/caltech101.yaml, phase 9's
    recipe and bf16 towers) on a temporary Caltech101-layout tree of 100
    class folders (hard links to the fixtures, split_zhou_Caltech101.json of
-   Caltech101's sizes: 4100 / 1650 / 2465) under Setting A at tail 4
-   (PER_CLASS_SHOTS 50 x 16 then 50 x 4: 1000 train images, 400 val),
+   Caltech101's sizes: 4100 / 1650 / 2465) under Setting A's shape at half
+   of tail 4's shots (PER_CLASS_SHOTS 50 x 8 then 50 x 2: 500 train images,
+   300 val; 50 x 16 then 50 x 4 until phase 20 came in),
    WeightedClassSampler, DEVICE_AUG, CACHED_TEACHER, best-val, 1 epoch (the
    recipe's 20, cut): the log contract with the base/new report, finite
    losses, #6-#8 launched exactly the counts derived from the code, and
@@ -182,11 +183,12 @@ Phases; each passes or raises, and any failure exits non-zero:
    ValueError under DEVICE_AUG, and its step time.  Then PromptSRC with
    SIMCLR_ALPHA 0.1 on the two-view loader at batch 48: 3 steps, the first
    under sync debug mode 'error', launches as derived.  Then views/s of
-   the recipes' and SimCLR's lists at NUM_WORKERS threads over the 1000
+   the recipes' and SimCLR's lists at NUM_WORKERS threads over the 500
    train files, the run's host-aug epoch (files decoded on first use; no
    separate warm epoch runs) beside phase 12's DEVICE_AUG epoch, the
-   ms per step of 60 steps fed from batches built beforehand against 60
-   fed by the loader as it runs (in turns: the loader's own share), and the
+   ms per step of LOADER_STEPS (10) steps fed from batches built beforehand
+   against as many fed by the loader as it runs (in turns: the loader's own
+   share), and the
    device's idle share over 5 profiled host-aug steps in the loader's
    steady state, printed as one ``{"host_aug": ...}`` line.
 
@@ -233,13 +235,14 @@ Phases; each passes or raises, and any failure exits non-zero:
 15. lpclip_export, with FSVLM_FORCE_PALLAS unset (#6 alone): ``python -m
    fsvlm_tpu_torch.tools.lpclip``'s main in this process on phase 12's tree
    (configs/datasets/caltech101.yaml, ViT-B/16 in fp32, random from seed 1,
-   16 shots: 1600 train, 400 val, 2465 test images): the three npz files,
+   8 shots, the tool's default 16 cut for the call's time: 800 train, 400
+   val, 2465 test images): the three npz files,
    #6 launched 12 times per extracted batch and nothing else, extraction
    images/s per split, the L-BFGS fit's ms per C and the search's seconds
    (tools/logreg.py, scipy over torch on the card), the val features
    against the plain attention's (min cosine >= 0.999), and every fit of
    the search that converged on the card (n_iter < max_iter) again on this
-   machine's CPU over the npz files, in a one-thread process beside the
+   machine's CPU over the npz files, in three one-thread processes beside the
    rest of the phase, and once more on the samples permuted: the card's
    solution within twice the CPU's own spread (or 1e-5) of the CPU's in
    the float64 objective; the printed lines and val predictions
@@ -252,13 +255,15 @@ Phases; each passes or raises, and any failure exits non-zero:
    ``fsvlm.flash_attn_fwd_d64`` nodes and no other attention (no SDPA,
    softmax or other fsvlm operator), an int8 weight keeps its column-major
    layout and a row-major one is refused; the loaded program equals the
-   live function in this process, and the ms per batch of both (median of
-   5 in turns); then a fresh process that imports torch, numpy and the port
+   live function in this process; beside those checks (every artifact is
+   written first), a fresh process that imports torch, numpy and the port
    alone loads each artifact with ``load_serving`` and runs it on the same
    seeded images: top-1 equal to the live function's, logits within 1e-5
    (fp32) or 1e-3 (bf16, int8) relative, byte equality reported, and #6
    launched exactly 12 times per call (``LAUNCHES`` counts in the
-   operator's body).  One ``{"lpclip_export": ...}`` line.
+   operator's body).  Once that process has ended, the ms per batch of the
+   live function and the loaded program (median of EXPORT_TURNS (3) in
+   turns).  One ``{"lpclip_export": ...}`` line.
 
 16. drivers, with FSVLM_FORCE_PALLAS unset (the d = 64 kernels #6-#8), on
    phase 12's tree: ``python -m fsvlm_tpu_torch.run_script
@@ -267,14 +272,14 @@ Phases; each passes or raises, and any failure exits non-zero:
    its ``python train.py`` routed to the port's CLI on the card) with
    TAIL_SWEEP=1 (850 train images), OUT_ROOT and FSVLM_PROFILE_DIR in a
    temporary directory, cut only through FSVLM_EXTRA_OPTS (1 epoch, batch
-   48: 17 steps; random weights; bf16 towers), the recipe's host
+   96: 8 steps; random weights; bf16 towers), the recipe's host
    augmentation and per-step teacher: the runner's exit 0 and exactly one
    routed call, the driver's directory contract
    (setting_a/caltech101/PromptSRC/<cfg>/ce/tail1/seed1/ with log.txt and
    VLPromptLearner/model.pkl-1), the end signal and ``* accuracy:`` in
    log.txt, one Chrome trace in FSVLM_PROFILE_DIR whose kernel events count
    #6-#8 at exactly the derived numbers for its window (before_train to the
-   start of after_train: the 17 steps, 36 / 24 / 24 each), and
+   start of after_train: the 8 steps, 36 / 24 / 24 each), and
    parse_test_res.py through the shim's pass-through naming the run's
    accuracy.  Then adam, amsgrad, adamw, rmsprop and radam on phase 6's
    PromptSRC step (batch 48): one step of the trainer under sync debug mode
@@ -313,7 +318,7 @@ Phases; each passes or raises, and any failure exits non-zero:
    (d) An SSL CIFAR-10 tree at CIFAR-10's sizes (50,000 + 10,000 hard
    links to a 32x32 PNG fixture) through configs/datasets/zoo/ssl_cifar10.yaml
    at SEED 1: the split counts, each split's digest equal to the JAX
-   package's (SSL_JAX_DIGESTS), and 50 batches of the train_u loader at the
+   package's (SSL_JAX_DIGESTS), and SSL_U_BATCHES (10) batches of the train_u loader at the
    FixMatch recipe's loader settings (views/s, labels equal to the
    dataset's at each batch's indices).  One ``{"zoo_data": ...}`` line.
 
@@ -369,12 +374,40 @@ Phases; each passes or raises, and any failure exits non-zero:
    train forward and backward card vs CPU (ZOO_D_CASES), within ZOO_D_BOUND.
    One ``{"zoo_da": ...}`` line.
 
+20. zoo_ssl: the Dassl SSL zoo (trainers/zoo/ssl.py, no attention: every
+   launch count stays 0) on phase 17's SSL CIFAR-10 tree, which main keeps
+   for it, and data-parallel training at world size 1 (parallel/mesh.py).
+   (a) FixMatch from configs/trainers/zoo/fixmatch_cifar10.yaml with
+   configs/datasets/zoo/ssl_cifar10.yaml (wide_resnet_28_2, 32x32, 64
+   labeled + 448 unlabeled a step, each with a weak and a strong view from
+   the host's transforms, SGD 0.03, COUNT_ITER train_u) through
+   ``fsvlm_tpu_torch.train.main``, seed 1, default PRETRAINED (the warning
+   is checked), cut to 1 epoch of ZOO_SSL_STEPS steps (its reason beside
+   it): the log contract (the pseudo-label metrics among the losses), finite
+   losses, ``--eval-only`` giving the same 10,000 predictions (its wall
+   time a cold eval), a resume that restores weights, BN statistics,
+   optimizer and generator bit for bit, one step under sync debug mode
+   'error', the epoch ms and images/s as train() ran it, step busy ms and
+   the idle share of 5 loader-fed steps, peak memory.  (b) SupBaseline,
+   EntMin, MeanTeacher, MixMatch (K = 2) and FixMatch on SyntheticDA on
+   wide_resnet_28_2 at 32x32 (ZOO_E_CASES), ZOO_E_STEPS steps card vs CPU
+   as phase 18's (b), MeanTeacher's teacher and its statistics among the
+   compared tensors, within ZOO_E_BOUND (its reason beside it), one more
+   card step of each under sync debug mode 'error'; MeanTeacher's
+   checkpoint resumed into a new trainer bit-equal (weights, statistics,
+   teacher, optimizer, generator); wide_resnet_28_2's (in float64) and
+   wide_resnet_16_4's train forward and backward card vs CPU within
+   ZOO_D_BOUND.  (c) FixMatch's two steps and its eval (logits gathered
+   over the ranks) under a NCCL process group of world size 1, bit-equal
+   to the same run without one (and that run to itself), cuDNN
+   deterministic.  One ``{"zoo_ssl": ...}`` line.
+
 Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 17 zero the launch counts
 just before each main path and read them just after, and phase 16 counts
 the driver's from its profiler trace (the run is another process): each
 kernel of the path must have launched its expected count (derived from the
 code: a rematerialized layer runs its forward kernel again), and the other
-families none; phases 18 and 19 launch none of them.  The line
+families none; phases 18, 19 and 20 launch none of them.  The line
 ``chip_smoke: seconds by phase {...}`` gives each phase function's time.
 
 The line before the last is ``{"kernels": [...]}`` (one row per TPU kernel;
@@ -1160,32 +1193,36 @@ def _profile(label, fn, top=12, groups=None, counts=None):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    # kernels only: the aten ops that launched them carry the same device time
-    rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
-                  key=dev_us, reverse=True)
-    busy = sum(dev_us(e) for e in rows)
+    # the device's own events (kernels, copies, fills; not the ranges that
+    # annotations project onto the device's timeline), summed by name from
+    # the profiler's raw events: key_averages() would build the CPU op tree
+    # first, tens of seconds for a loader-fed window
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == DeviceType.CUDA and e.duration_ns() > 0
+                and not getattr(e, "is_user_annotation", lambda: False)()):
+            row = by_name.setdefault(e.name(), [0, 0.0])
+            row[0] += 1
+            row[1] += e.duration_ns() / 1e3
+    rows = sorted(((name, n, us) for name, (n, us) in by_name.items()), key=lambda r: -r[2])
+    busy = sum(us for _, _, us in rows)
     log(f"profile: {label}: wall {wall_us / 1e3:.3f} ms under the profiler, device busy "
         f"{busy / 1e3:.3f} ms, idle share {max(0.0, 1 - busy / wall_us):.3f}")
-    for e in rows[:top]:
-        log(f"profile:   {dev_us(e) / 1e3:9.3f} ms  {100 * dev_us(e) / busy:5.1f}%  "
-            f"x{e.count:<4d} {e.key[:100]}")
-    for name, frags in (groups or {}).items():
-        hit = [e for e in rows if any(f in e.key for f in frags)]
-        us = sum(dev_us(e) for e in hit)
-        log(f"profile:   {name}: {us / 1e3:.3f} ms, {100 * us / busy:.1f}% of busy, "
-            f"{sum(e.count for e in hit)} launches")
+    for name, n, us in rows[:top]:
+        log(f"profile:   {us / 1e3:9.3f} ms  {100 * us / busy:5.1f}%  x{n:<4d} {name[:100]}")
+    for group, frags in (groups or {}).items():
+        hit = [(n, us) for name, n, us in rows if any(f in name for f in frags)]
+        us = sum(u for _, u in hit)
+        log(f"profile:   {group}: {us / 1e3:.3f} ms, {100 * us / busy:.1f}% of busy, "
+            f"{sum(n for n, _ in hit)} launches")
         if counts is not None:
-            counts[name] = sum(e.count for e in hit)
+            counts[group] = sum(n for n, _ in hit)
     return wall_us / 1e3, busy / 1e3
 
 
@@ -2774,7 +2811,11 @@ def phase_plip_resnet(clip):
 
 FIXTURE_DIR = os.path.join("tests", "torch_fixtures", "jpeg")
 RECOG_CLASSES = 100
-RECOG_SHOTS = [16] * 50 + [4] * 50  # Setting A at tail 4: 1000 train images
+# Setting A's shape (50 head classes, then 50 tail classes at a quarter of
+# their shots) at half of tail 4's shots, 50 x 8 then 50 x 2: 500 train
+# images, 300 val (16 and 4 until phase 20 came in: the call's time limit)
+RECOG_SHOTS = [8] * 50 + [2] * 50
+RECOG_TRAIN, RECOG_VAL = sum(RECOG_SHOTS), sum(min(s, 4) for s in RECOG_SHOTS)
 RECOG_EPOCHS = 1  # the recipe's 20, cut to 1
 
 
@@ -2929,17 +2970,18 @@ def phase_recognition(clip, keep=None):
         text = _read(os.path.join(out, "log.txt"))
         losses = [float(x) for x in re.findall(r"\bloss ([-+.\deE]+|nan|inf)", text)]
         log(f"recognition: {CLI_RECIPE} on a Caltech101-layout tree (split {sizes}): train_x "
-            f"{len(ds.train_x)} (50 x 16 + 50 x 4), val {len(ds.val)}, test {len(ds.test)}; "
+            f"{len(ds.train_x)} (50 x 8 + 50 x 2), val {len(ds.val)}, test {len(ds.test)}; "
             f"{t.steps_per_epoch} steps of {t.batch_size}, {RECOG_EPOCHS} epoch; run "
             f"{run_s:.1f} s; losses logged {losses}; accuracies in log.txt "
             f"{[float(x) for x in re.findall(r'[*] accuracy: ([0-9.]+)%', text)]}")
         for needle in ("=> result", "* accuracy:", "Classification Report", "Finish training",
                        "Base class accuracy", "New  class accuracy",
                        "[PromptSRC] cached teacher image features",
-                       "* device-resident train set: 1000 images"):
+                       f"* device-resident train set: {RECOG_TRAIN} images"):
             if needle not in text:
                 raise SystemExit(f"FAIL: recognition: log.txt lacks {needle!r}")
-        if (len(ds.train_x), len(ds.val), len(ds.test)) != (1000, 400, sizes["test"]):
+        if (len(ds.train_x), len(ds.val), len(ds.test)) != (RECOG_TRAIN, RECOG_VAL,
+                                                             sizes["test"]):
             raise SystemExit("FAIL: recognition: the split sizes are not the protocol's")
         # (c) the loss is finite
         if not losses or not all(np.isfinite(losses)):
@@ -3016,7 +3058,7 @@ TRANSFORM_FIXTURES = os.path.join("tests", "torch_fixtures", "transforms", "expe
 COOP_SIMCLR_EPOCHS = 1
 SIMCLR_STEPS, SIMCLR_BATCH = 3, 48  # PromptSRC with SIMCLR_ALPHA: steps at bench.py's batch
 HOST_PROFILE_STEPS = 5
-LOADER_STEPS = 60  # steps per side of the loader's-share comparison
+LOADER_STEPS = 10  # steps per side of the loader's-share comparison (60 before phase 20)
 
 
 def _check_transform_fixtures():
@@ -3345,7 +3387,8 @@ def phase_host_aug(clip, recognition):
             "recipe_views_per_s": recipe_vps, "simclr_views_per_s": simclr_vps,
             "recipe_views_per_s_one_thread": recipe_vps_1,
             "views_images": len(train_x), "epoch_ms": epoch_ms, "epoch_images": n_img,
-            "device_aug_epoch_ms": recognition["epoch_ms"], "run_s": run_s,
+            "device_aug_epoch_ms": recognition["epoch_ms"],
+            "device_aug_epoch_images": recognition["epoch_images"], "run_s": run_s,
             "coop_simclr_step_ms": coop_step_ms, "coop_simclr_step_ms_all": coop_ms,
             "coop_simclr_batch": coop_batch, "coop_run_s": coop_run_s,
             "profiled_steps": HOST_PROFILE_STEPS, "profiled_wall_ms": wall,
@@ -3355,8 +3398,11 @@ def phase_host_aug(clip, recognition):
         log(f"host_aug: at {threads} threads over {len(train_x)} tree files (decoded cache warm): "
             f"recipe list {recipe_vps:.1f} views/s ({recipe_vps_1:.1f} on one thread), SimCLR "
             f"list {simclr_vps:.1f} views/s; host-aug "
-            f"epoch {epoch_ms:.1f} ms ({n_img} images) beside phase 12's DEVICE_AUG epoch "
-            f"{recognition['epoch_ms']:.1f} ms; CoOp SimCLR step {coop_step_ms:.2f} ms (batch "
+            f"epoch {epoch_ms:.1f} ms ({n_img} images, {epoch_ms / n_img:.2f} ms each) beside "
+            f"phase 12's DEVICE_AUG epoch {recognition['epoch_ms']:.1f} ms "
+            f"({recognition['epoch_images']} images, "
+            f"{recognition['epoch_ms'] / recognition['epoch_images']:.2f} ms each); CoOp SimCLR "
+            f"step {coop_step_ms:.2f} ms (batch "
             f"{coop_batch}, synced, {[round(x, 2) for x in coop_ms]}); device idle share over "
             f"{HOST_PROFILE_STEPS} profiled host-aug steps {result['idle_share']:.3f}; ms per step "
             f"over {LOADER_STEPS} steps from batches built beforehand {per_step['built']}, from "
@@ -3376,7 +3422,7 @@ INT8_OPS_PER_S = 1979e12  # int8 dense tensor-core peak (H100 SXM data sheet, 70
 # the image features' cosine to the bf16 tower's: tests/test_quant.py:77 (dynamic), :279 (static)
 MIN_INT8_COSINE = {"dynamic": 0.99, "static": 0.985}
 INT8_CAL_BATCHES = 4  # MODEL.QUANT_INT8_CALIB_BATCHES' default
-INT8_TIMED = 5  # timed repeats per side, in turns
+INT8_TIMED = 3  # timed repeats per side, in turns (5 before phase 20)
 IVLP_INT8_STEPS = 3
 PREDICT_FILES = 100
 
@@ -3786,17 +3832,47 @@ def _int8_teacher_ivlp(clip):
              "teacher_max_dlogit_over_spread": rel, "losses": losses}, launches)
 
 
+def _start_tool(module, *args):
+    """``python -m fsvlm_tpu_torch.tools.<module> args`` from the checkout,
+    started; ``_finish_tool`` waits for it."""
+    return module, subprocess.Popen(
+        [sys.executable, "-m", f"fsvlm_tpu_torch.tools.{module}", *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True), time.perf_counter()
+
+
+def _finish_tool(started, timeout=600):
+    """(stdout, seconds from start to exit) of a ``_start_tool`` process
+    (raises with the end of its output if it fails)."""
+    module, proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(stdout[-3000:], stderr[-3000:], flush=True)
+        raise SystemExit(f"FAIL: tools: python -m fsvlm_tpu_torch.tools.{module} exited "
+                         f"{proc.returncode}")
+    return stdout, wall
+
+
+def _finish_tools(started, timeout=600):
+    """``_finish_tool`` of each process of a dict, each awaited by a thread
+    of its own, so that each wall time ends at its own process's exit."""
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(len(started)) as pool:
+        futures = {k: pool.submit(_finish_tool, p, timeout) for k, p in started.items()}
+        return {k: f.result() for k, f in futures.items()}
+
+
 def _run_tool(module, *args, timeout=600):
     """``python -m fsvlm_tpu_torch.tools.<module> args`` from the checkout;
     returns its stdout (raises with the end of its output if it fails)."""
-    proc = subprocess.run([sys.executable, "-m", f"fsvlm_tpu_torch.tools.{module}", *args],
-                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-                          text=True, timeout=timeout)
-    if proc.returncode != 0:
-        print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
-        raise SystemExit(f"FAIL: tools: python -m fsvlm_tpu_torch.tools.{module} exited "
-                         f"{proc.returncode}")
-    return proc.stdout
+    return _finish_tool(_start_tool(module, *args), timeout)[0]
 
 
 def _tools_on_tree(clip, tree):
@@ -3806,7 +3882,8 @@ def _tools_on_tree(clip, tree):
     this process for both; export_torch_checkpoint then
     ``import_torch_prompts`` as a subprocess then ``--eval-only``
     (predictions exact); ``interpret_prompt`` as a subprocess (every context
-    vector's line)."""
+    vector's line).  The four subprocesses run at once (each spends most of
+    its ~30 s building a random ViT-B/16 on the host), before the rest."""
     import torch
 
     from fsvlm_tpu_torch.engine.checkpoint import load_checkpoint
@@ -3827,16 +3904,28 @@ def _tools_on_tree(clip, tree):
     opts = ["MODEL.BACKBONE.PRETRAINED", "False", "MODEL.FROZEN_DTYPE", "bf16",
             "TRAINER.PROMPTSRC.PREC", "bf16", "DATASET.NUM_SHOTS", "-1",
             "DATASET.PER_CLASS_SHOTS", str(RECOG_SHOTS)]
+    modes = (("bf16", []), ("int8", ["MODEL.QUANT_INT8", "True"]))
+    ref = os.path.join(work, "model.pth.tar-1")
+    best = os.path.join(out, "VLPromptLearner", "model-best.pkl")
+    export_torch_checkpoint(best, "PromptSRC", ref)
+    imported = os.path.join(work, "imported")
+    started = {mode: _start_tool("predict", *flags, "--images", *files, "--topk", "5",
+                                 "--pred-batch", "100", "--out",
+                                 os.path.join(work, f"predict_{mode}.jsonl"), *opts, *quant_opts)
+               for mode, quant_opts in modes}
+    started["import"] = _start_tool("import_torch_prompts", ref, "--trainer", "PromptSRC",
+                                    "--best", "--output-dir", imported)
+    started["interpret"] = _start_tool("interpret_prompt", best, "--backbone", "ViT-B/16",
+                                       "--topk", "4")
+    done = _finish_tools(started)
+    said = {k: out for k, (out, _) in done.items()}
+    wall = {k: s for k, (_, s) in done.items()}
     result = {}
-    for mode, quant_opts in (("bf16", []), ("int8", ["MODEL.QUANT_INT8", "True"])):
+    for mode, quant_opts in modes:
         jsonl = os.path.join(work, f"predict_{mode}.jsonl")
-        t0 = time.perf_counter()
-        _run_tool("predict", *flags, "--images", *files, "--topk", "5", "--pred-batch", "100",
-                  "--out", jsonl, *opts, *quant_opts)
-        wall = time.perf_counter() - t0
         rows = [json.loads(ln) for ln in _read(jsonl).splitlines()]
         got = [r["topk"][0]["label"] for r in rows]
-        result[mode] = {"rows": len(rows), "subprocess_s": wall,
+        result[mode] = {"rows": len(rows), "subprocess_s": wall[mode],
                         "top1_equal_test": got == want,
                         "top1_agreement_test": float(np.mean([a == b for a, b in zip(got, want)]))}
         if len(rows) != PREDICT_FILES or [r["path"] for r in rows] != files or any(
@@ -3858,25 +3947,22 @@ def _tools_on_tree(clip, tree):
             result[mode]["images_per_s"] = PREDICT_FILES / (time.perf_counter() - t0)
         result[mode]["top1_equal_subprocess"] = inproc == got
         del t
-    log(f"tools: predict over {PREDICT_FILES} test files of phase 12's tree: {result}")
+    log(f"tools: predict over {PREDICT_FILES} test files of phase 12's tree (subprocess_s: "
+        f"this call's wall from start to exit, the four tool processes run at once): {result}; "
+        f"import_torch_prompts {wall['import']:.1f} s, interpret_prompt "
+        f"{wall['interpret']:.1f} s")
 
-    ref = os.path.join(work, "model.pth.tar-1")
-    best = os.path.join(out, "VLPromptLearner", "model-best.pkl")
-    export_torch_checkpoint(best, "PromptSRC", ref)
-    imported = os.path.join(work, "imported")
-    said = _run_tool("import_torch_prompts", ref, "--trainer", "PromptSRC", "--best",
-                     "--output-dir", imported)
     t3 = _run_cli(clip, tree["argv"](os.path.join(work, "eval_imported"), "--eval-only",
                                      "--model-dir", imported))
     exact = t3.evaluator.y_pred == tree["y_pred"] and t3.evaluator.y_true == tree["y_true"]
-    log(f"tools: export -> import_torch_prompts -> --eval-only: {said.strip().splitlines()[-1]}; "
+    log(f"tools: export -> import_torch_prompts -> --eval-only: "
+        f"{said['import'].strip().splitlines()[-1]}; "
         f"predictions on {len(t3.evaluator.y_pred)} test images equal to phase 12's: {exact}")
     if not exact:
         raise SystemExit("FAIL: tools: the import round trip changed the predictions")
     del t3
 
-    said = _run_tool("interpret_prompt", best, "--backbone", "ViT-B/16", "--topk", "4")
-    lines = [ln for ln in said.splitlines() if ln.startswith("ctx[")]
+    lines = [ln for ln in said["interpret"].splitlines() if ln.startswith("ctx[")]
     state = load_checkpoint(best)["state_dict"]
     n_vec = len(state["ctx"]) * (1 + len(state.get("text_deep", ())))
     log(f"tools: interpret_prompt: {len(lines)} context vectors (expected {n_vec}); first "
@@ -3892,22 +3978,34 @@ def phase_int8_tools(clip, tree):
     #6-#8's launches on the int8 serving and teacher paths, #3-#5's on the
     IVLP int8 teacher path)."""
     t0 = time.perf_counter()
-    product, int8_names = _int8_product()
-    with force_pallas(None):
-        serving, launches_serving = _int8_serving(clip, int8_names)
-        teacher, launches_teacher = _int8_teacher(clip, int8_names)
-    with force_pallas("1"):
-        ivlp, launches_ivlp = _int8_teacher_ivlp(clip)
-    with force_pallas(None):
-        tools = _tools_on_tree(clip, tree)
+    part_s = {}
+
+    def part(name, fn, route=None):
+        t1 = time.perf_counter()
+        with force_pallas(route):
+            out = fn()
+        part_s[name] = round(time.perf_counter() - t1, 1)
+        return out
+
+    product, int8_names = part("product", _int8_product)
+    serving, launches_serving = part("serving", lambda: _int8_serving(clip, int8_names))
+    teacher, launches_teacher = part("teacher", lambda: _int8_teacher(clip, int8_names))
+    ivlp, launches_ivlp = part("ivlp_teacher", lambda: _int8_teacher_ivlp(clip), "1")
+    tools = part("tools", lambda: _tools_on_tree(clip, tree))
+    log(f"int8: seconds by part {json.dumps(part_s)}")
     result = {"product": product, "int8_gemm_kernels": sorted(int8_names), "serving": serving,
               "promptsrc_teacher": teacher, "ivlp_teacher": ivlp, "tools": tools,
-              "phase_s": time.perf_counter() - t0}
+              "part_s": part_s, "phase_s": time.perf_counter() - t0}
     print(json.dumps({"int8": result}), flush=True)
     return result, launches_serving, launches_teacher, launches_ivlp
 
 
-LPCLIP_SHOTS = 16  # the tool's default --num-shots: 1600 train images, 400 val
+# the tool's default --num-shots 16 cut to 8 for the call's time when phase 20
+# came in: 800 train images, 400 val; the search 34.5 s against 50.0 s at 16,
+# each card fit within 0.17 of the objective-gap bound (measured on an H100
+# 80GB HBM3 at 700 W).  At 4 shots a card fit left the CPU's objective by more
+# than the CPU's own spread in two calls: the tied fits of a 400-row problem
+LPCLIP_SHOTS = 8
 LPCLIP_SEED = 1  # the tool's default --seed; the fp32 ViT-B/16 is random from it
 FEATURE_MIN_COSINE = 0.999  # the card's fp32 features against the plain attention's
 LR_MAX_ITER = 1000  # the tool's fits' max_iter (sklearn's default)
@@ -3916,7 +4014,7 @@ EXPORT_CLASSES, EXPORT_BATCH = 100, 96  # the export tool's defaults
 EXPORT_VARIANTS = [  # (label, dtype, int8, int8_static, logits' relative tolerance)
     ("fp32", "float32", False, False, 1e-5), ("bf16", "bfloat16", False, False, 1e-3),
     ("int8", "float32", True, False, 1e-3), ("int8_static", "float32", True, True, 1e-3)]
-EXPORT_TURNS = 5  # timed calls per side, live and loaded in turns, after a warm-up
+EXPORT_TURNS = 3  # timed calls per side, live and loaded in turns, after a warm-up (5 before phase 20)
 # what a plain attention traced in the kernels' place would add to the graph
 NOT_KERNEL_ATTENTION = ("scaled_dot_product", "softmax", "logsumexp", "fsvlm.blockwise",
                         "fsvlm.fused", "flash_attn_bwd")
@@ -3925,12 +4023,13 @@ _CPU_FITS = r"""
 import json, sys, time
 import numpy as np
 from fsvlm_tpu_torch.tools.logreg import LogisticRegression
-out, cs = sys.argv[1], [float(c) for c in sys.argv[2].split(",") if c]
+out = sys.argv[1]
+cs = [(int(ic.split(":")[0]), float(ic.split(":")[1])) for ic in sys.argv[2].split(",") if ic]
 train, val = np.load(out + "/train.npz"), np.load(out + "/val.npz")
 X, y = train["feature_list"], train["label_list"]
 perm = np.random.RandomState(0).permutation(len(y))
-fits = []
-for i, c in enumerate(cs):
+fits = {}
+for i, c in cs:
     got = {}
     for side, rows in (("cpu", slice(None)), ("cpu_permuted", perm)):
         t0 = time.perf_counter()
@@ -3939,17 +4038,24 @@ for i, c in enumerate(cs):
         got[side] = {"s": time.perf_counter() - t0, "n_iter": int(clf.n_iter_[0]),
                      "acc": clf.score(val["feature_list"], val["label_list"]),
                      "pred": clf.predict(val["feature_list"]).tolist()}
-    fits.append(got)
+    fits[i] = got
 print(json.dumps(fits))
 """
+CPU_FIT_PROCS = 3  # one-thread CPU processes sharing the converged C (round robin)
 
 _LOAD_SERVING = r"""
-import json, sys
+import json, os, sys, time
 import numpy as np
 import torch
 from fsvlm_tpu_torch.ops import flash_attention as fa
 from fsvlm_tpu_torch.tools.export_serving import graph_ops, load_serving
 work, labels = sys.argv[1], sys.argv[2].split(",")
+torch.cuda.init()
+deadline = time.monotonic() + 900
+while not os.path.exists(work + "/ready"):  # the caller writes it after the artifacts
+    if time.monotonic() > deadline:
+        sys.exit("no artifacts")
+    time.sleep(0.1)
 images = torch.from_numpy(np.load(work + "/images.npy")).cuda()
 result = {}
 for label in labels:
@@ -4046,15 +4152,17 @@ def _lpclip_on_tree(tree):
         raise SystemExit("FAIL: lpclip: the card's features disagree with the plain attention's")
 
     # the card's converged fits again on this machine's CPU, over the npz
-    # files, in a process of one thread started now (it runs beside the
-    # rest of the phase; on a busy host, torch's and the BLAS's thread pools
-    # spin against each other over the fits' small operations)
+    # files, in CPU_FIT_PROCS processes of one thread each started now (they
+    # run beside the rest of the phase; on a busy host, torch's and the
+    # BLAS's thread pools spin against each other over the fits' small
+    # operations; one process took 150 s for the 11 C at 16 shots)
     converged = sorted({f["C"] for f in res["fits"] if f["n_iter"] < LR_MAX_ITER})
     env = dict(os.environ, OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1")
-    proc = subprocess.Popen(
-        [sys.executable, "-c", _CPU_FITS, out, ",".join(repr(float(c)) for c in converged)],
+    proc = [subprocess.Popen(
+        [sys.executable, "-c", _CPU_FITS, out,
+         ",".join(f"{i}:{float(c)!r}" for i, c in enumerate(converged) if i % CPU_FIT_PROCS == k)],
         cwd=os.path.dirname(os.path.abspath(__file__)), env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
+        stderr=subprocess.PIPE, text=True) for k in range(CPU_FIT_PROCS)]
     del clip
     torch.cuda.empty_cache()
     models = {}  # the search's fitted model at each C
@@ -4084,17 +4192,20 @@ def _lpclip_cpu_check(result, pending):
     solution must reach the float64 objective of the CPU's to within twice
     the CPU's own spread (its fit on the samples permuted moves the
     objective; the largest move over the search's C) or 1e-5.  On phase
-    12's tree 1600 train rows are 17 distinct images under 100 random
+    12's tree the train rows are 17 distinct images under 100 random
     labels: the optimum's class scores tie, so the val predictions and
     the printed lines hinge on where each fit stops, and are reported."""
-    proc, out, converged, models = pending
+    procs, out, converged, models = pending
     t0 = time.perf_counter()
-    stdout, stderr = proc.communicate(timeout=900)
+    cpu_fits = {}
+    for proc in procs:
+        stdout, stderr = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            print(stdout[-3000:], stderr[-3000:], flush=True)
+            raise SystemExit("FAIL: lpclip: a CPU fits' process failed")
+        cpu_fits.update(json.loads(stdout.strip().splitlines()[-1]))
     wait_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        print(stdout[-3000:], stderr[-3000:], flush=True)
-        raise SystemExit("FAIL: lpclip: the CPU fits' process failed")
-    cpu_fits = json.loads(stdout.strip().splitlines()[-1])
+    cpu_fits = [cpu_fits[str(i)] for i in range(len(converged))]
     with np.load(os.path.join(out, "train.npz")) as z:
         train_f, train_y = z["feature_list"], z["label_list"]
     with np.load(os.path.join(out, "val.npz")) as z:
@@ -4122,8 +4233,9 @@ def _lpclip_cpu_check(result, pending):
     bound = max(LR_OBJ_RTOL, 2 * max((r["cpu_spread"] for r in compared), default=0.0))
     log(f"lpclip: search on the card {result['search_s']:.2f} s: "
         f"{[(f['C'], round(f['ms'], 1), f['n_iter'], f['acc']) for f in result['fits']]} (C, ms, "
-        f"n_iter, val acc), best C {result['best_c']:g}; the converged C again on the CPU (one "
-        f"thread, and on permuted samples; waited {wait_s:.1f} s for it): {compared}; objective "
+        f"n_iter, val acc), best C {result['best_c']:g}; the converged C again on the CPU "
+        f"({CPU_FIT_PROCS} one-thread processes, and on permuted samples; waited {wait_s:.1f} s "
+        f"for them): {compared}; objective "
         f"gap bound {bound:.3e}; stopped at max_iter on the card, not compared: {stopped}")
     if not compared or any(not r["gap"] <= bound for r in compared):
         raise SystemExit("FAIL: lpclip: a card fit's objective is further from the CPU's than "
@@ -4158,23 +4270,14 @@ def _fp32_extraction_timing():
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
 
 
-def _export_serving(work):
-    """Phase 15's export part (module docstring).  Returns (its numbers,
-    #6's launches per loaded call in the fresh process)."""
+def _export_variants(tool, fa, arch, weights, images, work, live):
+    """Each EXPORT_VARIANTS artifact written under ``work``, with its serving
+    params; ``live`` gets each live function's top-1 and logits.  Returns
+    {label: (path, serve, params, top1, logits, bytes, export s, #6 in the
+    text pass, the tool's last line or None)}."""
     import torch
 
-    from fsvlm_tpu_torch.models.clip import ARCHS, random_clip_params
-    from fsvlm_tpu_torch.ops import flash_attention as fa
-    from fsvlm_tpu_torch.tools import export_serving as tool
-
-    arch = "ViT-B/16"
-    res = ARCHS[arch].image_resolution
-    weights = random_clip_params(ARCHS[arch], seed=0)  # the tool's default weights
-    images_np = np.random.RandomState(0).randint(0, 256, (EXPORT_BATCH, res, res, 3), np.uint8)
-    np.save(os.path.join(work, "images.npy"), images_np)
-    images = torch.from_numpy(images_np).cuda()
-    torch.cuda.reset_peak_memory_stats()
-    out, live = {}, {}
+    built = {}
     for label, dtype_name, int8, static, _ in EXPORT_VARIANTS:
         path = os.path.join(work, f"{label}.pt2")
         torch.cuda.synchronize()
@@ -4197,6 +4300,49 @@ def _export_serving(work):
         build_launches = fa.LAUNCHES[fa.KERNEL]
         serve, params, _ = tool.build_serving_fn(arch, EXPORT_CLASSES, dtype_name=dtype_name,
                                                  int8=int8, params=weights, int8_static=static)
+        with torch.no_grad():
+            top1, logits = serve(params, images)
+        live[label] = (top1.cpu().numpy(), logits.float().cpu().numpy())
+        torch.save(params, os.path.join(work, f"{label}_params.pt"))
+        built[label] = (path, serve, params, top1, logits, nbytes, export_s, build_launches, said)
+    return built
+
+
+def _export_serving(work):
+    """Phase 15's export part (module docstring).  Returns (its numbers,
+    #6's launches per loaded call in the fresh process)."""
+    import torch
+
+    from fsvlm_tpu_torch.models.clip import ARCHS, random_clip_params
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.tools import export_serving as tool
+
+    arch = "ViT-B/16"
+    res = ARCHS[arch].image_resolution
+    weights = random_clip_params(ARCHS[arch], seed=0)  # the tool's default weights
+    images_np = np.random.RandomState(0).randint(0, 256, (EXPORT_BATCH, res, res, 3), np.uint8)
+    np.save(os.path.join(work, "images.npy"), images_np)
+    images = torch.from_numpy(images_np).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    out, live = {}, {}
+    # a fresh process that imports torch, numpy and the port alone: it starts
+    # CUDA while this one exports, then loads the artifacts while this one
+    # checks each program; the programs are timed after it has ended
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _LOAD_SERVING, work, ",".join(v[0] for v in EXPORT_VARIANTS)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        built = _export_variants(tool, fa, arch, weights, images, work, live)
+    except BaseException:
+        proc.kill()
+        raise
+    with open(os.path.join(work, "ready"), "w"):
+        pass
+    t_fresh = time.perf_counter()
+    checked = {}
+    for label, dtype_name, int8, static, _ in EXPORT_VARIANTS:
+        path, serve, params, top1, logits, nbytes, export_s, build_launches, said = built.pop(label)
         prog = tool.load_serving(path)
         ops = tool.graph_ops(prog.program)
         stray = {k: n for k, n in ops.items() if any(w in k for w in NOT_KERNEL_ATTENTION)}
@@ -4213,11 +4359,35 @@ def _export_serving(work):
             except ValueError:
                 refused = True
         with torch.no_grad():
-            top1, logits = serve(params, images)
             a_top1, a_logits = prog(params, images)
         torch.cuda.synchronize()
         in_process_equal = bool(torch.equal(top1, a_top1) and torch.equal(logits, a_logits))
-        # ms per batch, live and loaded in turns after a warm-up
+        out[label] = {"artifact_bytes": nbytes, "export_s": export_s,
+                      "text_pass_launches": build_launches, "attention_nodes": n_attn,
+                      "other_attention_nodes": stray, "q8_layout_kept": q8_layout if q8 else None,
+                      "row_major_q8_refused": refused, "in_process_equal": in_process_equal,
+                      "printed": said}
+        log(f"export_serving {label}: {nbytes} bytes in {export_s:.2f} s (text pass #6 "
+            f"{build_launches}); graph: {n_attn} fsvlm.flash_attn_fwd_d64 nodes, other "
+            f"attention {stray}, int8 GEMMs {ops.get('aten._int_mm.default', 0)}; q8 layout "
+            f"kept {q8_layout if q8 else None}, row-major q8 refused {refused}; loaded here equal "
+            f"to live {in_process_equal}" + (f"; printed {said!r}" if said else ""))
+        if n_attn != 12 or stray:
+            proc.kill()
+            raise SystemExit(f"FAIL: export {label}: the graph's attention is not 12 "
+                             f"fsvlm.flash_attn_fwd_d64 nodes alone")
+        if q8 and not (q8_layout and refused):
+            proc.kill()
+            raise SystemExit(f"FAIL: export {label}: the q8 layout was not kept or refused")
+        if said is not None and not said.startswith(f"wrote {path} ("):
+            proc.kill()
+            raise SystemExit(f"FAIL: export {label}: the tool printed {said!r}")
+        checked[label] = (serve, params, prog)
+    stdout, stderr = proc.communicate(timeout=600)
+    fresh_s = time.perf_counter() - t_fresh
+    # ms per batch, live and loaded in turns after a warm-up, with the card
+    # to this process alone
+    for label, (serve, params, prog) in checked.items():
         times = {"live": [], "loaded": []}
         with torch.no_grad():
             for _ in range(EXPORT_TURNS):
@@ -4227,43 +4397,17 @@ def _export_serving(work):
                     fn(params, images)
                     torch.cuda.synchronize()
                     times[side].append((time.perf_counter() - t1) * 1e3)
-        live[label] = (top1.cpu().numpy(), logits.float().cpu().numpy())
-        torch.save(params, os.path.join(work, f"{label}_params.pt"))
-        out[label] = {"artifact_bytes": nbytes, "export_s": export_s,
-                      "text_pass_launches": build_launches, "attention_nodes": n_attn,
-                      "other_attention_nodes": stray, "q8_layout_kept": q8_layout if q8 else None,
-                      "row_major_q8_refused": refused, "in_process_equal": in_process_equal,
-                      "live_ms": float(np.median(times["live"])),
-                      "loaded_ms": float(np.median(times["loaded"])), "printed": said}
-        log(f"export_serving {label}: {nbytes} bytes in {export_s:.2f} s (text pass #6 "
-            f"{build_launches}); graph: {n_attn} fsvlm.flash_attn_fwd_d64 nodes, other "
-            f"attention {stray}, int8 GEMMs {ops.get('aten._int_mm.default', 0)}; q8 layout "
-            f"kept {q8_layout if q8 else None}, row-major q8 refused {refused}; loaded here equal "
-            f"to live {in_process_equal}; ms per batch of {EXPORT_BATCH}: live "
-            f"{out[label]['live_ms']:.2f}, loaded {out[label]['loaded_ms']:.2f}"
-            + (f"; printed {said!r}" if said else ""))
-        if n_attn != 12 or stray:
-            raise SystemExit(f"FAIL: export {label}: the graph's attention is not 12 "
-                             f"fsvlm.flash_attn_fwd_d64 nodes alone")
-        if q8 and not (q8_layout and refused):
-            raise SystemExit(f"FAIL: export {label}: the q8 layout was not kept or refused")
-        if said is not None and not said.startswith(f"wrote {path} ("):
-            raise SystemExit(f"FAIL: export {label}: the tool printed {said!r}")
-        del serve, params, prog
+        out[label].update(live_ms=float(np.median(times["live"])),
+                          loaded_ms=float(np.median(times["loaded"])))
+        log(f"export_serving {label}: ms per batch of {EXPORT_BATCH}, {EXPORT_TURNS} in turns: "
+            f"live {times['live']}, loaded {times['loaded']}")
+    del checked, serve, params, prog
     peak = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
-
-    # a fresh process that imports torch, numpy and the port alone
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-c", _LOAD_SERVING, work, ",".join(v[0] for v in EXPORT_VARIANTS)],
-        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
-        timeout=600)
-    fresh_s = time.perf_counter() - t0
     if proc.returncode != 0:
-        print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+        print(stdout[-3000:], stderr[-3000:], flush=True)
         raise SystemExit("FAIL: export: loading the artifacts in a fresh process failed")
-    fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+    fresh = json.loads(stdout.strip().splitlines()[-1])
     if fresh["forbidden_modules"]:
         raise SystemExit(f"FAIL: export: the fresh process imported {fresh['forbidden_modules']}")
     launches = {}
@@ -4291,7 +4435,8 @@ def _export_serving(work):
                 or any(others) or out[label]["fresh_attention_nodes"] != 12):
             raise SystemExit(f"FAIL: export {label}: the loaded program in a fresh process "
                              f"disagrees with the live function")
-    log(f"export_serving: fresh process {fresh_s:.1f} s; peak device memory of the exports "
+    log(f"export_serving: fresh process {fresh_s:.1f} s from the artifacts' readiness to its "
+        f"exit (started with the exports); peak device memory of the exports "
         f"{peak / 2**30:.2f} GiB")
     return dict(variants=out, fresh_process_s=fresh_s, peak_bytes=peak), launches
 
@@ -4303,23 +4448,32 @@ def phase_lpclip_export(tree):
     numbers, #6's launches over lpclip's extraction, #6's per loaded call)."""
     t0 = time.perf_counter()
     lp, launches_lp, pending = _lpclip_on_tree(tree)
+    part_s = {"lpclip": round(time.perf_counter() - t0, 1)}
     work = tempfile.mkdtemp(prefix="chip_smoke_export_")
     try:
+        t1 = time.perf_counter()
         fp32 = _fp32_extraction_timing()
         export, launches_export = _export_serving(work)
+        part_s["fp32_timing_and_export"] = round(time.perf_counter() - t1, 1)
+        t1 = time.perf_counter()
         _lpclip_cpu_check(lp, pending)
+        part_s["wait_for_the_cpu_search"] = round(time.perf_counter() - t1, 1)
     finally:
-        pending[0].kill()
+        for proc in pending[0]:
+            proc.kill()
         shutil.rmtree(work, ignore_errors=True)
+    log(f"lpclip_export: seconds by part {json.dumps(part_s)}")
     result = {"lpclip": lp, "flash_attn_fwd_d64_fp32": fp32, "export": export,
-              "phase_s": time.perf_counter() - t0}
+              "part_s": part_s, "phase_s": time.perf_counter() - t0}
     print(json.dumps({"lpclip_export": result}), flush=True)
     return result, launches_lp, launches_export
 
 
 DRIVER = "scripts/imbalance/run_setting_a.sh"
 DRIVER_CFG = "vit_b16_c2_ep20_batch4_4+4ctx"
-DRIVER_BATCH = 48  # bench.py's batch (the recipe's 4): 17 steps, a trace of a few tens of MB
+# twice bench.py's batch (the recipe's 4): 8 steps, a trace of ~50 MB (48 and 17
+# steps until phase 20 came in: the call's time limit)
+DRIVER_BATCH = 96
 # the run's cuts and settings, all through FSVLM_EXTRA_OPTS (the driver stays as it is):
 # 1 epoch of the recipe's 20, random weights (none on the machine), bf16 towers
 DRIVER_OPTS = (f"OPTIM.MAX_EPOCH 1 DATALOADER.TRAIN_X.BATCH_SIZE {DRIVER_BATCH} "
@@ -4601,7 +4755,7 @@ PACS_SOURCES, PACS_TARGET = ("art_painting", "cartoon", "photo"), "sketch"
 PACS_BATCH, PACS_EPOCHS = 48, 1
 CIFAR10_CLASSES = ("airplane", "automobile", "bird", "cat", "deer", "dog", "frog", "horse",
                    "ship", "truck")
-SSL_U_BATCHES = 50
+SSL_U_BATCHES = 10  # 50 until phase 20 came in (the call's time limit)
 # sha256 of the sorted (relative path, label) list of each split that the JAX
 # package's CIFAR10 gives on _ssl_tree's tree with configs/datasets/zoo/ssl_cifar10.yaml
 # at SEED 1 (fsvlm_tpu.data.datasets.legacy.CIFAR10, computed on the CPU)
@@ -4934,11 +5088,12 @@ def _ssl_loader(work, threads):
 
 
 @_timed
-def phase_zoo_data(clip, work):
+def phase_zoo_data(clip, work, ssl_work=None):
     """Phase 17 (module docstring), FSVLM_FORCE_PALLAS unset (the caller sets
     it).  The PACS tree goes to ``work``, which the caller keeps for phase 18
-    and removes; the SSL tree to a directory of its own.  Returns (#6-#8
-    over the PACS run, the ``{"zoo_data": ...}`` numbers)."""
+    and removes; the SSL tree to ``ssl_work``, which the caller keeps for
+    phase 20 and removes (by default a directory of its own, removed here).
+    Returns (#6-#8 over the PACS run, the ``{"zoo_data": ...}`` numbers)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from fsvlm_tpu_torch import native
@@ -4953,7 +5108,8 @@ def phase_zoo_data(clip, work):
     jpegs = sorted(f for f in os.listdir(FIXTURE_DIR) if f.endswith(".jpg"))
     sketches = sorted(n for n in expected["digests"] if n.startswith("sketch_"))
     threads = 8  # the recipe's DATALOADER.NUM_WORKERS
-    ssl_work = tempfile.mkdtemp(prefix="chip_smoke_ssl_")
+    keep_ssl = ssl_work is not None
+    ssl_work = ssl_work or tempfile.mkdtemp(prefix="chip_smoke_ssl_")
     try:
         t0 = time.perf_counter()
         sketch_of = _pacs_tree(work, jpegs, sketches)
@@ -4985,7 +5141,8 @@ def phase_zoo_data(clip, work):
         ssl_tree_s = time.perf_counter() - t0
         ssl = dict(_ssl_loader(ssl_work, threads), tree_s=ssl_tree_s)
     finally:
-        shutil.rmtree(ssl_work, ignore_errors=True)
+        if not keep_ssl:
+            shutil.rmtree(ssl_work, ignore_errors=True)
     result = {"zlib": zlib, "png_fixtures": len(expected["digests"]),
               "png_full_images_per_s": rates["full"],
               "png_cache256_images_per_s": rates["cache256"], "png_decode_images": len(paths),
@@ -5018,8 +5175,9 @@ ZOO_DG_PROFILE_STEPS = 5
 # finding against JAX, ROADMAP C.2), so G's update and every later tensor of
 # the step move more (measured: losses 4.1e-5, weights 0.042, zero-init 0.37,
 # statistics 0.039)
-# ZOO_B_STEPS cut from 3 to 2 when phase 19 came in (the call's time limit)
-ZOO_B_BATCH, ZOO_B_STEPS = 6, 2
+# ZOO_B_STEPS cut from 3 to 2 when phase 19 came in, and to 1 when phase 20
+# came in (the call's time limit); every step started from the card's state
+ZOO_B_BATCH, ZOO_B_STEPS = 6, 1
 ZOO_B_BOUND = {"loss": 1e-4, "weights": 5e-4, "weights_zero_init": 0.2, "statistics": 1e-4,
                "weights_rounding_noise": 1e-6}
 ZOO_B_BOUND_STN = {"loss": 1e-4, "weights": 0.2, "weights_zero_init": 1.0, "statistics": 0.2,
@@ -5224,16 +5382,23 @@ def _copy_zoo_state(src, dst):
             other.notfinite_count = opt.notfinite_count.to(dst.device).clone()
 
 
-def _zoo_tensors(t):
+def _zoo_tensors(t, extra=False):
     """A zoo trainer's weights and BN statistics as two {dotted name: CPU
     tensor} dicts, named as ``zoo_trees`` names them (the module paths),
-    in the port's layouts: a gap is the same in either layout."""
+    in the port's layouts: a gap is the same in either layout.  With
+    ``extra``, also its ``extra_nets``' weights and ``extra``'s tensors
+    (MeanTeacher's teacher and its statistics), under "extra."."""
     from fsvlm_tpu_torch.models.convert import flatten
 
-    return ({f"{g}.{n}": p.detach().cpu() for g, m in t.nets.items()
-             for n, p in m.named_parameters()},
-            {f"{g}.{k}": v.detach().cpu() for g, s in t.model_state.items()
-             for k, v in flatten(s).items()})
+    weights = {f"{g}.{n}": p.detach().cpu() for g, m in t.nets.items()
+               for n, p in m.named_parameters()}
+    stats = {f"{g}.{k}": v.detach().cpu() for g, s in t.model_state.items()
+             for k, v in flatten(s).items()}
+    if extra:
+        weights.update({f"extra.{g}.{n}": p.detach().cpu() for g, m in t.extra_nets.items()
+                        for n, p in m.named_parameters()})
+        stats.update({f"extra.{k}": v.detach().cpu() for k, v in flatten(t.extra).items()})
+    return weights, stats
 
 
 def _zoo_rel(card, cpu):
@@ -5258,12 +5423,25 @@ def _zoo_card_vs_cpu(work, name, opts):
                               ZOO_B_BATCH)
 
 
-def _card_vs_cpu_steps(cfg, label, n_steps, phase, what, batch, sync_check=False):
+def _take(loader, n):
+    """``n`` batches of ``loader``, cycled as the XU base cycles the shorter one."""
+    out = []
+    while len(out) < n:
+        it = iter(loader)
+        out += [b for _, b in zip(range(n - len(out)), it)]
+        it.close()
+    return out
+
+
+def _card_vs_cpu_steps(cfg, label, n_steps, phase, what, batch, sync_check=False, extra=False,
+                       keep=None):
     """``n_steps`` steps of one zoo trainer of ``cfg`` on the card and on the
     card's CPU from the same weights, batches (and train_u batches) and
     recorded draws, TF32 off, each step from the card's state: the worst
-    loss, weight, zero-init weight and BN statistic gaps (``_zoo_rel``).
-    With ``sync_check``, one more card step under sync debug mode 'error'."""
+    loss, weight, zero-init weight and BN statistic gaps (``_zoo_rel``; with
+    ``extra``, the method's extra networks and statistics too).  With
+    ``sync_check``, one more card step under sync debug mode 'error'.  With
+    ``keep`` (a list), the card trainer is appended to it."""
     import torch
 
     from fsvlm_tpu_torch.engine.trainer import build_trainer
@@ -5273,23 +5451,15 @@ def _card_vs_cpu_steps(cfg, label, n_steps, phase, what, batch, sync_check=False
         card = build_trainer(cfg, device="cuda")
         cpu = build_trainer(cfg, device="cpu")
 
-    def take(loader, n):  # the loader cycled, as the XU base cycles the shorter one
-        out = []
-        while len(out) < n:
-            it = iter(loader)
-            out += [b for _, b in zip(range(n - len(out)), it)]
-            it.close()
-        return out
-
     n_take = n_steps + (1 if sync_check else 0)
-    batches = take(card.train_loader_x, n_take)
-    batches_u = (take(card.train_loader_u, n_take) if card.train_loader_u is not None
+    batches = _take(card.train_loader_x, n_take)
+    batches_u = (_take(card.train_loader_u, n_take) if card.train_loader_u is not None
                  else [None] * n_take)
     worst = {"loss": 0.0, "weights": 0.0, "weights_zero_init": 0.0, "statistics": 0.0,
              "weights_rounding_noise": 0.0}
     worst_at = {}
     step_ms = []
-    zero_init = {k for k, v in _zoo_tensors(card)[0].items() if not v.any()}
+    zero_init = {k for k, v in _zoo_tensors(card, extra)[0].items() if not v.any()}
 
     def group_scale(weights):
         scale = {}
@@ -5319,7 +5489,7 @@ def _card_vs_cpu_steps(cfg, label, n_steps, phase, what, batch, sync_check=False
                         r = abs(a - b) / max(abs(a), 1.0)
                         if r > worst["loss"]:
                             worst["loss"], worst_at["loss"] = r, f"{k} step {step}"
-                (pc, sc), (pp, sp) = _zoo_tensors(card), _zoo_tensors(cpu)
+                (pc, sc), (pp, sp) = _zoo_tensors(card, extra), _zoo_tensors(cpu, extra)
                 scale = group_scale(pc)
                 for kind, rel in (("weights", _zoo_rel(pc, pp)), ("statistics", _zoo_rel(sc, sp))):
                     for k, r in rel.items():
@@ -5354,6 +5524,8 @@ def _card_vs_cpu_steps(cfg, label, n_steps, phase, what, batch, sync_check=False
         f"({worst_at.get('statistics')}); card step ms {[round(x, 2) for x in step_ms]}"
         + ("; one more step under sync debug mode 'error': no synchronizing call"
            if sync_check else ""))
+    if keep is not None:
+        keep.append(card)
     del card, cpu
     torch.cuda.empty_cache()
     out = {"case": label, **worst, "worst_at": worst_at, "card_step_ms": step_ms}
@@ -5408,7 +5580,9 @@ ZOO_DA_PROFILE_STEPS = 5
 # images, ZOO_C_STEPS steps card vs CPU, each from the card's state, at
 # ZOO_C_BOUND; one more card step under sync debug mode 'error'.  The
 # settings of tests/test_torch_zoo_da_trainers.py (CDAC at its LR 0.005)
-ZOO_C_BATCH, ZOO_C_BATCH_U, ZOO_C_STEPS = 24, 8, 3
+# ZOO_C_STEPS cut from 3 to 2, then to 1, when phase 20 came in (the call's
+# time limit); every step started from the card's state anyway
+ZOO_C_BATCH, ZOO_C_BATCH_U, ZOO_C_STEPS = 24, 8, 1
 ZOO_C_THREE = {"DATALOADER.TRAIN_X.SAMPLER": "RandomDomainSampler",
                "DATALOADER.TRAIN_X.N_DOMAIN": 3}
 ZOO_C_CASES = [
@@ -5668,8 +5842,9 @@ def _zoo_da_card_vs_cpu(work):
     return cases
 
 
-def _zoo_backbones_card_vs_cpu():
-    """(d) Each new backbone's train-mode forward and backward, card vs CPU."""
+def _zoo_backbones_card_vs_cpu(cases=None, phase="zoo_da"):
+    """(d) Each new backbone's train-mode forward and backward, card vs CPU
+    (``cases``: ZOO_D_CASES by default)."""
     import copy
 
     import torch
@@ -5685,7 +5860,7 @@ def _zoo_backbones_card_vs_cpu():
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = []
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        for name, (size, batch, dtype) in ZOO_D_CASES.items():
+        for name, (size, batch, dtype) in (cases or ZOO_D_CASES).items():
             dtype = getattr(torch, dtype)
             cpu = build_backbone(name, seed=3).to(dtype)
             card = copy.deepcopy(cpu).cuda()
@@ -5714,7 +5889,7 @@ def _zoo_backbones_card_vs_cpu():
                    "batch": batch, "features": rel(fc, fp), "input_grad": rel(gc, gp),
                    "statistics": max(stats or [0.0]),
                    "draws": len(res["draws"]), "card_ms_first_call": res["card_ms"]}
-            log(f"zoo_da: {name} {row['dtype']} {size}x{size} batch {batch} train forward + "
+            log(f"{phase}: {name} {row['dtype']} {size}x{size} batch {batch} train forward + "
                 f"backward card vs CPU (TF32 off, {row['draws']} masks replayed): features "
                 f"{row['features']:.3g}, input gradient {row['input_grad']:.3g}, statistics "
                 f"{row['statistics']:.3g}")
@@ -5772,6 +5947,357 @@ def phase_zoo_da():
     return result
 
 
+ZOO_SSL_RECIPE = "configs/trainers/zoo/fixmatch_cifar10.yaml"
+ZOO_SSL_DATASET = "configs/datasets/zoo/ssl_cifar10.yaml"
+# (a): the recipe's 100 epochs cut to 1, and its epoch of 41000 // 448 = 91
+# train_u steps cut to ZOO_SSL_STEPS: each step's 64 + 448 weak and 64 + 448
+# strong views come from the host's transforms at 8 threads, 1.79 s a step
+# measured (host-bound; an H100 80GB HBM3 at 700 W), so 24 steps took phase 20
+# to 117 s of its 90, and 10 to 58.8-64.7 s; 8 for the whole call's time.
+# TEST.NO_TEST: the CLI's own test after training (10,000 images) is the one
+# test
+ZOO_SSL_STEPS = 8
+ZOO_SSL_PROFILE_STEPS = 5
+# (b): each SSL trainer on SyntheticDA (target d2 unlabeled) on wide_resnet_28_2
+# at 32x32, ZOO_E_BATCH labeled and ZOO_E_BATCH_U unlabeled images, MixMatch at
+# K = 2, ZOO_E_STEPS steps card vs CPU as phase 18's (b), each from the card's
+# state, MeanTeacher's teacher and its statistics among the compared tensors
+ZOO_E_BATCH, ZOO_E_BATCH_U, ZOO_E_STEPS = 16, 16, 2
+ZOO_E_CASES = [
+    ("SupBaseline", {}), ("EntMin", {}),
+    ("MeanTeacher", {"TRAINER.MEANTEACHER.RAMPUP": 2}),
+    ("MixMatch", {"DATALOADER.K_TRANSFORMS": 2, "TRAINER.MIXMATCH.RAMPUP": 2}),
+    ("FixMatch", {"TRAINER.FIXMATCH.STRONG_TRANSFORMS": ["random_flip", "random_crop",
+                                                         "randaugment_fixmatch", "cutout",
+                                                         "normalize"],
+                  "TRAINER.FIXMATCH.CONF_THRE": 0.3}),
+]
+# (b)'s bound, each entry over the worst card-vs-CPU gap measured on an H100
+# 80GB HBM3 at 700 W (three calls): losses 2.2e-7 (MixMatch's loss); weights
+# 1.8e-4 (the stem conv, whose gradient sums over 16 x 32 x 32 positions per
+# output, in every trainer); weights that start at zero 2.8e-2 (BatchNorm
+# biases, whose gradient sums near-cancelling terms over the batch and the
+# image, as phase 18's); statistics 6.2e-7; no zero-init tensor below the noise
+# floor.  The bound leaves each a factor of 5-45 over its measurement
+ZOO_E_BOUND = {"loss": 1e-5, "weights": 1e-3, "weights_zero_init": 0.2, "statistics": 1e-5,
+               "weights_rounding_noise": 1e-6}
+# wide_resnet_28_2 in float64: its float32 train-mode input gradient at batch
+# 4, 32x32 is ill-conditioned (card vs CPU 3.3e-2; the CPU's own float32
+# against float64 3.0e-2, measured), as preact_resnet18's in phase 19;
+# wide_resnet_16_4's float32 one sits at 1.6e-6
+ZOO_E_BACKBONES = {"wide_resnet_28_2": (32, 4, "float64"), "wide_resnet_16_4": (32, 4, "float32")}
+
+
+@contextlib.contextmanager
+def _steps_per_epoch_cut(cls, n):
+    """``cls``'s epochs cut to at most ``n`` steps (its ``_num_batches``,
+    which sets both the epoch's steps and the schedule's steps per epoch)."""
+    num_batches = cls._num_batches
+    cls._num_batches = lambda self: min(num_batches(self), n)
+    try:
+        yield
+    finally:
+        cls._num_batches = num_batches
+
+
+def _ssl_argv(work, out, *flags):
+    return ["--trainer", "FixMatch", "--seed", "1", "--device", "cuda", "--root", work,
+            "--dataset-config-file", ZOO_SSL_DATASET, "--config-file", ZOO_SSL_RECIPE,
+            "--output-dir", out, *flags, "OPTIM.MAX_EPOCH", "1", "TEST.NO_TEST", "True"]
+
+
+def _strip_name(optim_state):
+    return {k: v for k, v in optim_state.items() if k != "name"}
+
+
+def _zoo_fixmatch(work):
+    """(a) FixMatch wide_resnet_28_2 on SSL CIFAR-10 through the CLI."""
+    import torch
+
+    from fsvlm_tpu_torch.engine.checkpoint import load_checkpoint
+    from fsvlm_tpu_torch.engine.trainer import build_trainer
+    from fsvlm_tpu_torch.models.convert import zoo_trees
+    from fsvlm_tpu_torch.train import build_argparser, setup_cfg
+    from fsvlm_tpu_torch.trainers.zoo.base import NetTrainerXU
+
+    out = os.path.join(work, "fixmatch_run")
+    with _steps_per_epoch_cut(NetTrainerXU, ZOO_SSL_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _epochs_timed(NetTrainerXU, []) as epochs:
+            t = _run_cli(None, _ssl_argv(work, out))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        epoch_ms = epochs[0]
+        peak = torch.cuda.max_memory_allocated()
+        text = _read(os.path.join(out, "log.txt"))
+        losses = [float(x) for x in re.findall(r"\bloss ([-+.\deE]+|nan|inf)", text)]
+        ds = t.dm.dataset
+        bu = t.cfg.DATALOADER.TRAIN_U.BATCH_SIZE
+        log(f"zoo_ssl: FixMatch {t.cfg.MODEL.BACKBONE.NAME} ({ZOO_SSL_RECIPE}) on SSL CIFAR-10 "
+            f"through the CLI: {t.steps_per_epoch} steps of {t.batch_size} labeled + {bu} "
+            f"unlabeled ({len(ds.train_x)} labeled, {len(ds.train_u)} unlabeled, "
+            f"{len(ds.test)} test images), {t.num_classes} classes; run {run_s:.1f} s; losses "
+            f"logged {losses}; accuracy in log.txt {re.findall(r'[*] accuracy: ([0-9.]+)%', text)}")
+        for needle in ("no weights found", "Finish training", "* accuracy:", "=> result",
+                       "NAME: wide_resnet_28_2", "randaugment_fixmatch", "y_u_pred_keep"):
+            if needle not in text:
+                raise SystemExit(f"FAIL: zoo_ssl: the FixMatch run's log.txt lacks {needle!r}")
+        if (t.batch_size != 64 or bu != 448 or t.num_classes != 10 or len(ds.train_x) != 4000
+                or len(ds.train_u) != 41000 or len(ds.test) != 10000
+                or t.steps_per_epoch != ZOO_SSL_STEPS):
+            raise SystemExit("FAIL: zoo_ssl: the run is not the recipe's on SSL CIFAR-10")
+        if not losses or not all(np.isfinite(losses)):
+            raise SystemExit(f"FAIL: zoo_ssl: non-finite or no loss: {losses}")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t2 = _run_cli(None, _ssl_argv(work, os.path.join(work, "fixmatch_eval"), "--eval-only",
+                                      "--model-dir", out))
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        if t2.evaluator.y_pred != t.evaluator.y_pred or len(t2.evaluator.y_pred) != 10000:
+            raise SystemExit("FAIL: zoo_ssl: --eval-only did not reproduce the test predictions")
+        del t2
+        log(f"zoo_ssl: --eval-only (cold: 10000 test PNGs decoded, eval view, model) reproduced "
+            f"the run's {len(t.evaluator.y_pred)} predictions in {eval_s:.1f} s")
+
+        # a resume: weights, BN statistics, optimizer and generator, bit for bit
+        ckpt = load_checkpoint(os.path.join(out, "model", "model.pkl-1"))
+        cfg = setup_cfg(build_argparser().parse_args(_ssl_argv(work, out)))
+        cfg.VERBOSE = False
+        with contextlib.redirect_stdout(io.StringIO()):
+            t3 = build_trainer(cfg, device="cuda")
+            start = t3.resume_model_if_exist(out)
+        params, state = zoo_trees(t3)
+        saved = t3.optim_state()
+        bad = (_zoo_trees_equal(params, ckpt["state_dict"])
+               + _zoo_trees_equal(state, ckpt["extra"]["model_state"])
+               + _zoo_trees_equal({"o": _strip_name(saved)},
+                                  {"o": _strip_name(ckpt["optimizer"])})
+               + ([] if np.array_equal(t3.generator.get_state().numpy(),
+                                       ckpt["extra"]["rng_state"]) else ["generator"]))
+        log(f"zoo_ssl: resume from model.pkl-1: start epoch {start}, weights, BN statistics, "
+            f"optimizer (count {int(saved['count'])}) and generator bit-equal: {not bad} "
+            f"{bad[:5]}")
+        if bad or start != 1:
+            raise SystemExit("FAIL: zoo_ssl: the resume did not restore the checkpoint exactly")
+        del t3
+
+    # no host sync in a step; the idle share of loader-fed steps
+    pairs = zip(t.device_batches(t.train_loader_x), t.device_batches(t.train_loader_u))
+    bx, bu_ = next(pairs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t.train_step(bx, batch_u=bu_)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("zoo_ssl: one FixMatch step under sync debug mode 'error': no synchronizing call")
+    bx, bu_ = next(pairs)
+    t.train_step(bx, batch_u=bu_)
+
+    def profiled_steps():
+        for _, (bx_, bu2) in zip(range(ZOO_SSL_PROFILE_STEPS), pairs):
+            t.train_step(bx_, batch_u=bu2)
+
+    wall, busy = _profile(f"{ZOO_SSL_PROFILE_STEPS} FixMatch wide_resnet_28_2 steps on the host "
+                          f"pipeline (64 + 448, weak and strong views, loaders to step, steady "
+                          f"state)", profiled_steps, top=8)
+    n_img = t.steps_per_epoch * (t.batch_size + bu)
+    result = {"run_s": run_s, "epoch_ms": epoch_ms, "epoch_steps": t.steps_per_epoch,
+              "epoch_images": n_img, "epoch_images_per_s": n_img / epoch_ms * 1e3,
+              "eval_only_s": eval_s, "test_images": len(t.evaluator.y_pred),
+              "peak_device_bytes": peak, "profiled_steps": ZOO_SSL_PROFILE_STEPS,
+              "profiled_wall_ms": wall, "profiled_busy_ms": busy,
+              "step_busy_ms": busy / ZOO_SSL_PROFILE_STEPS,
+              "idle_share": max(0.0, 1 - busy / wall), "host_syncs_per_step": 0,
+              "losses": losses,
+              "accuracy": float(re.findall(r"[*] accuracy: ([0-9.]+)%", text)[-1])}
+    log(f"zoo_ssl: SSL CIFAR-10 FixMatch epoch (the run's, {t.steps_per_epoch} steps) "
+        f"{epoch_ms:.1f} ms ({n_img} labeled + unlabeled images, each with a weak and a strong "
+        f"view: {result['epoch_images_per_s']:.1f} images/s, host transforms at "
+        f"{t.cfg.DATALOADER.NUM_WORKERS} threads); peak device memory {peak / 2**30:.2f} GiB; "
+        f"step busy {result['step_busy_ms']:.2f} ms, idle share of {ZOO_SSL_PROFILE_STEPS} "
+        f"profiled steps {result['idle_share']:.3f}")
+    del t
+    return result
+
+
+def _zoo_ssl_cfg(work, name, opts):
+    from fsvlm_tpu_torch.config import get_cfg_base
+
+    base = {"SEED": 1, "VERBOSE": False, "DATASET.NAME": "SyntheticDA",
+            "DATASET.SOURCE_DOMAINS": ["d0", "d1"], "DATASET.TARGET_DOMAINS": ["d2"],
+            "INPUT.SIZE": [32, 32], "INPUT.TRANSFORMS": ["normalize"],
+            "MODEL.BACKBONE.NAME": "wide_resnet_28_2", "MODEL.BACKBONE.PRETRAINED": False,
+            "DATALOADER.TRAIN_X.BATCH_SIZE": ZOO_E_BATCH,
+            "DATALOADER.TRAIN_U.BATCH_SIZE": ZOO_E_BATCH_U, "DATALOADER.TRAIN_U.SAME_AS_X": False,
+            "DATALOADER.NUM_WORKERS": 2, "DATALOADER.TEST.BATCH_SIZE": 32, "OPTIM.NAME": "sgd",
+            "OPTIM.LR": 0.03, "OPTIM.MOMENTUM": 0.9, "OPTIM.WEIGHT_DECAY": 5e-4,
+            "OPTIM.MAX_EPOCH": 4, "TEST.NO_TEST": True, "TRAIN.COUNT_ITER": "smaller_one"}
+    cfg = get_cfg_base()
+    kv = dict(base, **opts, **{"TRAINER.NAME": name,
+                               "OUTPUT_DIR": os.path.join(work, "zoo_e", name)})
+    cfg.merge_from_list([x for pair in kv.items() for x in pair])
+    return cfg
+
+
+def _zoo_ssl_card_vs_cpu(work):
+    """(b) Each SSL trainer, card against the card's CPU, on SyntheticDA; then
+    MeanTeacher's checkpoint resumed into a new trainer."""
+    import torch
+
+    from fsvlm_tpu_torch.engine.trainer import build_trainer
+
+    cases, kept = [], []
+    for name, opts in ZOO_E_CASES:
+        cases.append(_card_vs_cpu_steps(
+            _zoo_ssl_cfg(work, name, opts), name, ZOO_E_STEPS, "zoo_ssl",
+            "wide_resnet_28_2 32x32", f"{ZOO_E_BATCH} + {ZOO_E_BATCH_U}", sync_check=True,
+            extra=name == "MeanTeacher", keep=kept if name == "MeanTeacher" else None))
+    # MeanTeacher's checkpoint: weights, statistics, teacher, optimizer, generator
+    mt = kept[0]
+    ckpt_dir = os.path.join(work, "zoo_e", "mt_ckpt")
+    with contextlib.redirect_stdout(io.StringIO()):
+        mt.save_model(0, ckpt_dir)
+        t2 = build_trainer(_zoo_ssl_cfg(work, "MeanTeacher", dict(ZOO_E_CASES)["MeanTeacher"]),
+                           device="cuda")
+        start = t2.resume_model_if_exist(ckpt_dir)
+    (wa, sa), (wb, sb) = _zoo_tensors(mt, True), _zoo_tensors(t2, True)
+    bad = [k for k in wa if not torch.equal(wa[k], wb[k])]
+    bad += [k for k in sa if not torch.equal(sa[k], sb[k])]
+    bad += _zoo_trees_equal({"o": _strip_name(mt.optim_state())},
+                            {"o": _strip_name(t2.optim_state())})
+    bad += [] if torch.equal(mt.generator.get_state(), t2.generator.get_state()) else ["generator"]
+    n_teacher = sum(k.startswith("extra.") for k in list(wa) + list(sa))
+    log(f"zoo_ssl: MeanTeacher checkpoint after {ZOO_E_STEPS} card steps resumed into a new "
+        f"trainer: start epoch {start}; weights, statistics, the teacher's {n_teacher} weights "
+        f"and statistics, optimizer and generator bit-equal: {not bad} {bad[:5]}")
+    if bad or start != 1 or not n_teacher:
+        raise SystemExit("FAIL: zoo_ssl: MeanTeacher's resume did not restore its state exactly")
+    del mt, t2, kept
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _zoo_ssl_nccl(work):
+    """(c) FixMatch at world size 1 under a NCCL process group against the
+    same run without one: two steps and the gathered eval, bit for bit."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from fsvlm_tpu_torch.engine.trainer import build_trainer
+    from fsvlm_tpu_torch.parallel import mesh
+
+    cfg = _zoo_ssl_cfg(work, "FixMatch", dict(ZOO_E_CASES)["FixMatch"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        host = build_trainer(cfg, device="cuda")
+    batches = list(zip(_take(host.train_loader_x, 2), _take(host.train_loader_u, 2)))
+    x_test = torch.from_numpy(next(iter(host.test_loader))["img"])
+    del host
+
+    def run():
+        with contextlib.redirect_stdout(io.StringIO()):
+            t = build_trainer(cfg, device="cuda")
+            metrics = []
+            for bx, bu in batches:
+                (dx,), (du,) = list(t.device_batches([bx])), list(t.device_batches([bu]))
+                metrics.append({k: v.clone() for k, v in t.train_step(dx, batch_u=du).items()})
+            y_true, y_pred = t.test(return_pred=True)
+            with torch.no_grad():
+                x = t.eval_images(mesh.shard_rows(x_test).cuda()).movedim(-1, -3)
+                logits = mesh.gather_rows(t.infer(x))
+        weights, stats = _zoo_tensors(t)
+        return metrics, weights, stats, y_pred, logits.cpu(), mesh.world_size(), mesh.active()
+
+    def differ(a, b):
+        ma, wa, sa, pa, la = a[:5]
+        mb, wb, sb, pb, lb = b[:5]
+        out = [f"m{i}.{k}" for i, (x, y) in enumerate(zip(ma, mb)) for k in x
+               if not torch.equal(x[k], y[k])]
+        out += [k for k in wa if not torch.equal(wa[k], wb[k])]
+        out += [k for k in sa if not torch.equal(sa[k], sb[k])]
+        out += [] if pa == pb else ["test predictions"]
+        return out + ([] if torch.equal(la, lb) else ["eval logits"])
+
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False):
+        ref, again = run(), run()
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                                rank=0)
+        try:
+            got = run()
+        finally:
+            dist.destroy_process_group()
+    repeat, pg = differ(ref, again), differ(ref, got)
+    log(f"zoo_ssl: FixMatch wide_resnet_28_2, 2 steps of {ZOO_E_BATCH} + {ZOO_E_BATCH_U} and "
+        f"the eval ({len(ref[3])} test images, logits gathered): without a process group twice "
+        f"bit-equal: {not repeat} {repeat[:5]}; under NCCL at world size {got[5]} (active "
+        f"{got[6]}) bit-equal to without: {not pg} {pg[:5]}")
+    if repeat or pg or got[5] != 1 or not got[6] or ref[6]:
+        raise SystemExit("FAIL: zoo_ssl: world size 1 under NCCL differs from no process group")
+    return {"steps": len(batches), "test_images": len(ref[3]), "bit_equal": True,
+            "backend": "nccl", "world_size": 1}
+
+
+@_timed
+def phase_zoo_ssl(ssl_work=None):
+    """Phase 20 (module docstring), on phase 17's SSL CIFAR-10 tree in
+    ``ssl_work`` (built here when None).  Returns the ``{"zoo_ssl": ...}``
+    numbers."""
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+    work = ssl_work or tempfile.mkdtemp(prefix="chip_smoke_ssl_")
+    try:
+        t0 = time.perf_counter()
+        if ssl_work is None:
+            _ssl_tree(work, "cifar_rgb8_32.png")
+        tree_s = time.perf_counter() - t0
+        where = "phase 17's" if ssl_work else f"built in {tree_s:.1f} s"
+        log(f"zoo_ssl: an SSL CIFAR-10 tree (60000 hard links to one 32x32 PNG): {where}")
+        parts, part_s = {}, {}
+        for part, fn in (("a", lambda: _zoo_fixmatch(work)),
+                         ("b", lambda: _zoo_ssl_card_vs_cpu(work)),
+                         ("backbones", lambda: _zoo_backbones_card_vs_cpu(ZOO_E_BACKBONES,
+                                                                          "zoo_ssl")),
+                         ("c", lambda: _zoo_ssl_nccl(work))):
+            t0 = time.perf_counter()
+            parts[part] = fn()
+            part_s[part] = time.perf_counter() - t0
+        log(f"zoo_ssl: seconds by part {json.dumps(part_s)}")
+    finally:
+        if ssl_work is None:
+            shutil.rmtree(work, ignore_errors=True)
+        else:  # the phase's own outputs; the tree is the caller's
+            for d in ("fixmatch_run", "fixmatch_eval", "zoo_e"):
+                shutil.rmtree(os.path.join(work, d), ignore_errors=True)
+    launched = {k: n for k, n in fa.LAUNCHES.items() if n}
+    log(f"zoo_ssl: attention kernel launches over the phase: {launched or 'none'}")
+    if launched:
+        raise SystemExit(f"FAIL: zoo_ssl: the SSL zoo launched attention kernels: {launched}")
+    cases, backbones = parts["b"], parts["backbones"]
+    over = [c["case"] for c in cases if any(c[k] > ZOO_E_BOUND[k] for k in ZOO_E_BOUND)]
+    over += [b["case"] for b in backbones if any(b[k] > ZOO_D_BOUND[k] for k in ZOO_D_BOUND)]
+    result = {"fixmatch": parts["a"], "card_vs_cpu": cases, "card_vs_cpu_bound": ZOO_E_BOUND,
+              "backbones": backbones, "backbones_bound": ZOO_D_BOUND,
+              "world_size_1_nccl": parts["c"], "attention_launches": 0, "tree_s": tree_s,
+              "part_s": part_s, "phase_s": time.perf_counter() - t_phase}
+    log(f"zoo_ssl: phase 20 in {result['phase_s']:.1f} s")
+    print(json.dumps({"zoo_ssl": result}), flush=True)
+    if over:
+        raise SystemExit(f"FAIL: zoo_ssl: card and CPU differ past their bounds: {over}")
+    return result
+
+
 def _recipe_cfg_from_argv(argv):
     """The CLI's config for ``argv`` (setup_cfg), without running it."""
     from fsvlm_tpu_torch.train import build_argparser, setup_cfg
@@ -5818,13 +6344,18 @@ def main():
         if tree:
             shutil.rmtree(tree["work"], ignore_errors=True)
     pacs_work = tempfile.mkdtemp(prefix="chip_smoke_pacs_")  # phases 17 and 18
+    ssl_work = tempfile.mkdtemp(prefix="chip_smoke_ssl_")  # phases 17 and 20
     try:
-        with force_pallas(None):  # the Dassl datasets and PNG, PACS on the d = 64 kernels
-            launches_pacs, _ = phase_zoo_data(pred.clip, pacs_work)
-        phase_zoo_dg(pacs_work)  # the DG zoo: no attention
+        try:
+            with force_pallas(None):  # the Dassl datasets and PNG, PACS on the d = 64 kernels
+                launches_pacs, _ = phase_zoo_data(pred.clip, pacs_work, ssl_work)
+            phase_zoo_dg(pacs_work)  # the DG zoo: no attention
+        finally:
+            shutil.rmtree(pacs_work, ignore_errors=True)
+        phase_zoo_da()  # the DA zoo on its Office-31 tree: no attention
+        phase_zoo_ssl(ssl_work)  # the SSL zoo and one rank under NCCL: no attention
     finally:
-        shutil.rmtree(pacs_work, ignore_errors=True)
-    phase_zoo_da()  # the DA zoo on its Office-31 tree: no attention
+        shutil.rmtree(ssl_work, ignore_errors=True)
 
     import torch
 
@@ -5897,7 +6428,7 @@ def main():
         "device_ms": bwd["device_ms"], "library_device_ms": bwd["library_device_ms"],
     })
     log(f"chip_smoke: seconds by phase {json.dumps(PHASE_S)}")
-    log(f"chip_smoke: all 19 phases in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: all 20 phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,7 @@ import pickle
 import numpy as np
 import torch
 
+from ..parallel import mesh
 from ..utils import mkdir_if_missing
 
 _PICKLE_MODULES = ("builtins", "collections", "copyreg", "_codecs")
@@ -69,7 +70,10 @@ def flatten(tree, prefix=""):
 
 def save_checkpoint(state, save_dir, model_name=""):
     """Pickle ``state`` (numpy and builtins only) to ``model_name``, by
-    default ``model.pkl-<epoch>``, which alone moves the pointer."""
+    default ``model.pkl-<epoch>``, which alone moves the pointer.  Across
+    ranks, rank 0 alone writes (trainer.py:736)."""
+    if not mesh.is_main():
+        return
     mkdir_if_missing(save_dir)
     update_pointer = not model_name
     model_name = model_name or f"model.pkl-{state['epoch']}"

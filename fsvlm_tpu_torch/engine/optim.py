@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel import mesh
 
 AVAI_OPTIMS = ["adam", "amsgrad", "sgd", "rmsprop", "radam", "adamw"]
 AVAI_SCHEDS = ["single_step", "multi_step", "cosine", "constant"]
@@ -140,6 +141,11 @@ class Optimizer:
     def scalars(self, t):
         return {}
 
+    def tensors(self):
+        """Every state tensor: the counts and the buffers."""
+        return [self.count, self.notfinite_count] + [t for b in self.buffers
+                                                     for t in getattr(self, b)]
+
     def update(self, p, g, buf, s):
         raise NotImplementedError
 
@@ -149,6 +155,7 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, grads):
+        mesh.all_reduce_(grads)  # the global gradient: summed over the ranks
         finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
         self.notfinite_count = torch.where(finite, torch.zeros_like(self.notfinite_count),
                                            self.notfinite_count + 1)

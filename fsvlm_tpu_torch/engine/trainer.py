@@ -82,8 +82,11 @@ from ..ops.preprocess import (
     crop_resize_flip_normalize,
     normalize_only,
     random_resized_crop_flip_normalize,
+    sample_crop_boxes,
+    sample_flips,
 )
 from ..ops.quant import calibrate_visual_amax, quantize_clip
+from ..parallel import mesh
 from ..utils import AverageMeter, MetricMeter, mkdir_if_missing
 from ..utils.registry import Registry
 from .checkpoint import (
@@ -100,26 +103,27 @@ from .tb import TensorboardWriter
 TRAINER_REGISTRY = Registry("TRAINER")
 STEP_KEYS = ("img", "img2", "label", "valid", "index")  # what a train step reads of a batch
 
-# the JAX package's Dassl zoo trainers (fsvlm_tpu/trainers/zoo/ssl.py) of
-# semi-supervised learning, not ported yet (the domain generalization and
-# domain adaptation ones are: trainers/zoo/dg.py, trainers/zoo/da.py)
-ZOO_TRAINERS = ("SupBaseline", "EntMin", "MeanTeacher", "MixMatch", "FixMatch")
-
 
 def build_trainer(cfg, **kwargs):
     """The trainer of TRAINER.NAME, fed by the DataManager; ``kwargs`` go to
-    its constructor (``device``, ``clip``, ``attn_impl``).  A name of the
-    JAX package's five SSL zoo trainers raises KeyError naming ROADMAP A9;
-    any other unknown name raises KeyError listing the ported trainers."""
+    its constructor (``device``, ``clip``, ``attn_impl``).  An unknown name
+    raises KeyError listing the ported trainers."""
     from .. import trainers  # noqa: F401  (registers the ported trainers)
 
     name = cfg.TRAINER.NAME
-    if name in ZOO_TRAINERS:
-        raise KeyError(f"Trainer {name!r} is one of the Dassl zoo's SSL trainers, not ported "
-                       f"yet (ROADMAP A9)")
     if name not in TRAINER_REGISTRY:
         raise KeyError(f"No trainer {name!r}; ported: {TRAINER_REGISTRY.registered_names()}")
     return TRAINER_REGISTRY.get(name)(cfg, **kwargs)
+
+
+def sum_metrics(metrics):
+    """A step's metrics summed over the ranks: each is this rank's part of a
+    global row mean; as they are without a process group."""
+    if not mesh.active():
+        return metrics
+    vals = [v.detach().clone() for v in metrics.values()]
+    mesh.all_reduce_(vals)
+    return dict(zip(metrics, vals))
 
 
 class SimpleTrainer:
@@ -129,6 +133,10 @@ class SimpleTrainer:
     mixup_alpha = 1.0
     use_dropout = False  # set by build_model: every step then draws dropout masks
     step_keys = STEP_KEYS  # what train_step and device_batches keep of a batch
+    # whether a step across ranks (parallel.mesh) computes the global step:
+    # its losses are row means, with no term that pairs rows or reads the
+    # parameters alone
+    data_parallel = False
 
     def __init__(self, cfg, classnames=None, images=None, labels=None, clip=None, device=None,
                  steps_per_epoch=None, attn_impl=None):
@@ -144,6 +152,9 @@ class SimpleTrainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.check_cfg(cfg)
+        if mesh.distributed() and not self.data_parallel:
+            raise ValueError(f"{type(self).__name__} does not train across ranks: a term of its "
+                             f"loss pairs rows or reads the parameters alone (ROADMAP A8)")
         self.attn_impl = attn_impl
         self.start_epoch = self.epoch = self.batch_idx = 0
         self.max_epoch = cfg.OPTIM.MAX_EPOCH
@@ -176,6 +187,7 @@ class SimpleTrainer:
             self.load_init_weights(load_checkpoint(cfg.MODEL.INIT_WEIGHTS))
             print(f'Initialized params from "{cfg.MODEL.INIT_WEIGHTS}"')
         self._build_optimizer(steps_per_epoch)
+        self.sync_replicas()
 
     # ------------------------------------------------------------------ setup
     @property
@@ -203,6 +215,16 @@ class SimpleTrainer:
 
     def build_model(self, clip):
         raise NotImplementedError
+
+    def replica_tensors(self):
+        """The state that every rank holds alike: the parameters and the
+        optimizer's."""
+        return list(self.params.values()) + (self.optim.tensors() if self.optim else [])
+
+    def sync_replicas(self):
+        """Rank 0's state on every rank (at build and after a resume: the JAX
+        package's replicate, trainer.py:107-109); nothing on one process."""
+        mesh.broadcast_(self.replica_tensors())
 
     def load_init_weights(self, ckpt):
         """MODEL.INIT_WEIGHTS: the checkpoint's weights, as the JAX package's."""
@@ -275,6 +297,12 @@ class SimpleTrainer:
         images; ``aug`` = (boxes, flips) hands in the draws, else they come
         from the trainer's generator."""
         inp = self.cfg.INPUT
+        if aug is None and mesh.distributed():  # the global batch's draws, this rank's rows
+            B, H, W, _ = images.shape
+            rows = slice(mesh.rank() * B, (mesh.rank() + 1) * B)
+            aug = (sample_crop_boxes(B * mesh.world_size(), H, W, inp.RRCROP_SCALE,
+                                     self.generator)[rows],
+                   sample_flips(B * mesh.world_size(), self.generator)[rows])
         if aug is None:
             return random_resized_crop_flip_normalize(images, self.generator, inp.SIZE[0],
                                                       inp.RRCROP_SCALE, *self.pixel_stats)
@@ -340,7 +368,7 @@ class SimpleTrainer:
             self.optim.step(torch.autograd.grad(loss, params))
         metrics = {k: v.detach() for k, v in aux.items()}
         metrics["loss"] = loss.detach()
-        return metrics
+        return sum_metrics(metrics)
 
     def train_step_resident(self, index, valid=None, aug=None, mix=None, drop=None):
         """One step on cache rows ``index`` (gathered on the device)."""
@@ -380,9 +408,11 @@ class SimpleTrainer:
         """The loader's batches on the device, each copied while the step
         before it is queued (the JAX package's device_batches,
         trainer.py:469-484): from pinned host memory, without blocking the
-        host."""
+        host.  Across ranks, this rank's rows of each (``mesh.shard_batch``)."""
         ahead = None
         for batch in batches:
+            if mesh.active():
+                batch = mesh.shard_batch({k: batch[k] for k in self.step_keys if k in batch})
             cur = {}
             for k in self.step_keys:
                 if k in batch:
@@ -406,8 +436,10 @@ class SimpleTrainer:
         jax.profiler trace, :295-302)."""
         if self.dm is not None:
             self.resume_model_if_exist(self.cfg.RESUME or self.output_dir)
+            self.sync_replicas()
             mkdir_if_missing(self.output_dir)
-            self._writer = TensorboardWriter(os.path.join(self.output_dir, "tensorboard"))
+            if mesh.is_main():  # one writer (trainer.py:291)
+                self._writer = TensorboardWriter(os.path.join(self.output_dir, "tensorboard"))
         profile_dir = os.environ.get("FSVLM_PROFILE_DIR")
         if profile_dir:
             from torch.profiler import ProfilerActivity, profile
@@ -442,6 +474,8 @@ class SimpleTrainer:
         t0 = time.time()
         if self._maybe_device_cache() is not None:
             index, valid = self.epoch_schedule()
+            if mesh.active():  # every rank's cache, each rank's columns
+                index, valid = mesh.shard_columns(index, valid)
             steps = zip(index, valid)
         else:
             steps = self.device_batches(self.train_loader_x)
@@ -517,7 +551,9 @@ class SimpleTrainer:
         if not self.cfg.TEST.NO_TEST:
             if self.cfg.TEST.FINAL_MODEL == "best_val":
                 print("Deploy the model with the best val performance")
-                self.load_model(self.output_dir)
+                if mesh.is_main():  # rank 0 wrote it; the other ranks take its state
+                    self.load_model(self.output_dir)
+                self.sync_replicas()
             result = self.test()
         elapsed = round(time.time() - self.time_start)
         print(f"Elapsed: {datetime.timedelta(seconds=elapsed)}")
@@ -575,12 +611,13 @@ class SimpleTrainer:
         txf = self.text_features_fn(self.params, self.frozen) if split_eval else None
         frozen = self.frozen_eval()
         for x, y, valid in batches:
-            x = self.eval_images(x.to(self.device))
+            n = len(x)  # across ranks: this rank's rows, then the gathered logits
+            x = self.eval_images(mesh.shard_rows(x).to(self.device))
             if split_eval:
                 logits = self.image_logits_fn(self.params, frozen, x, txf)
             else:
                 logits = self.logits_fn(self.params, frozen, x)
-            logits = logits.float().cpu().numpy()
+            logits = mesh.gather_rows(logits.float())[:n].cpu().numpy()
             if valid is not None:
                 logits, y = logits[valid], y[valid]
             self.evaluator.process(logits, y)

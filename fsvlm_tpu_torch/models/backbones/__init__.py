@@ -7,9 +7,8 @@ package from the same seed), with ``init_state()`` its BatchNorm running
 statistics as a nested dict of tensors (the JAX tree's ``state``) and
 ``forward(x, state, train=False, draws=None) -> (features (B, fdim), new
 state)`` on NCHW images; ``draws`` (``models.draws``) feeds the stochastic
-variants in train mode.  The JAX package's two wide ResNets
-(wide_resnet_16_4, wide_resnet_28_2: the SSL trainers' backbones, not
-ported yet) raise KeyError naming ROADMAP A9.
+variants in train mode.  The registry holds every backbone of the JAX
+package's, the SSL trainers' two wide ResNets included.
 """
 
 import torch.nn as nn
@@ -18,12 +17,13 @@ from ...utils.registry import Registry
 
 BACKBONE_REGISTRY = Registry("BACKBONE")
 
-# the JAX package's backbones that this package does not have yet
-UNPORTED = ("wide_resnet_16_4", "wide_resnet_28_2")
-
 
 class Backbone(nn.Module):
     out_features = None
+    # whether a train-mode forward draws random values for its rows (dropout,
+    # drop-connect, style mixing): across ranks, each rank would draw its rows'
+    # values from the generator's one state, not its rows' of the global batch
+    draws_rows = False
 
     def init_state(self):
         return {}
@@ -33,13 +33,10 @@ class Backbone(nn.Module):
 
 
 def build_backbone(name, verbose=False, **kwargs):
-    if name in UNPORTED:
-        raise KeyError(f"Backbone {name!r} is one of the Dassl SSL zoo's wide ResNets, not "
-                       f"ported yet (ROADMAP A9)")
     backbone = BACKBONE_REGISTRY.get(name)(**kwargs)
     if verbose:
         print(f"Backbone: {name} (fdim={backbone.out_features})")
     return backbone
 
 
-from . import cnn_digit, efficientnet, misc, resnet  # noqa: E402,F401  (register)
+from . import cnn_digit, efficientnet, misc, resnet, wide_resnet  # noqa: E402,F401  (register)

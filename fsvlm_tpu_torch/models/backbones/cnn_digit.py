@@ -64,6 +64,7 @@ class CnnDigitSingle(Backbone):
 
 class CnnDigit5M3SDA(Backbone):
     out_features = 2048
+    draws_rows = True
     BNS = (("bn1", 64), ("bn2", 64), ("bn3", 128), ("bnf1", 3072), ("bnf2", 2048))
 
     def __init__(self, seed=0):

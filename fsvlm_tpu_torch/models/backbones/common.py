@@ -22,6 +22,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...parallel import mesh
+
 # how the JAX tree stores a tensor, against the port's layout
 TO_PORT = {
     "hwio": lambda a: a.transpose(3, 2, 0, 1),  # conv (kh, kw, cin, cout) -> OIHW
@@ -106,12 +108,31 @@ class BatchNorm(nn.Module):
 
 def batch_norm(x, bn, s, train, momentum=0.1, eps=1e-5):
     """(y, new running statistics) of BatchNorm over every axis but 1;
-    ``s`` is left as it is."""
+    ``s`` is left as it is.  Across ranks (``parallel.mesh``) the batch
+    moments are those of every rank's rows together."""
     if not train:
         return F.batch_norm(x, s["mean"], s["var"], bn.scale, bn.bias, False, 0.0, eps), s
+    if mesh.distributed():
+        return _batch_norm_global(x, bn, s, momentum, eps)
     mean, var = s["mean"].clone(), s["var"].clone()
     y = F.batch_norm(x, mean, var, bn.scale, bn.bias, True, momentum, eps)
     return y, {"mean": mean, "var": var}
+
+
+def _batch_norm_global(x, bn, s, momentum, eps):
+    """Train-mode BatchNorm with the moments of the global batch: the sums
+    over every rank's rows (differentiable), in fp32."""
+    axes = [0] + list(range(2, x.dim()))
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    xf = x.float()
+    n = float(xf.numel() // xf.shape[1] * mesh.world_size())
+    mean = mesh.all_reduce_sum(xf.sum(axes)) / n
+    d = xf - mean.view(shape)
+    var = mesh.all_reduce_sum((d * d).sum(axes)) / n
+    y = d * torch.rsqrt(var + eps).view(shape) * bn.scale.view(shape) + bn.bias.view(shape)
+    new = {"mean": (1 - momentum) * s["mean"] + momentum * mean.detach(),
+           "var": (1 - momentum) * s["var"] + momentum * var.detach() * (n / max(n - 1, 1))}
+    return y.to(x.dtype), new
 
 
 def max_pool(x, window=3, stride=2, padding=1):

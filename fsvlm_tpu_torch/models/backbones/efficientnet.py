@@ -120,6 +120,8 @@ class MBConv(Backbone):
 
 
 class EfficientNet(Backbone):
+    draws_rows = True
+
     def __init__(self, name, seed=0):
         super().__init__()
         width, depth, _res, self.dropout_rate = PARAMS[name]

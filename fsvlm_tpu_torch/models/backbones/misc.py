@@ -34,6 +34,7 @@ def dropout(x, draws, rate, train):
 
 class AlexNet(Backbone):
     out_features = 4096
+    draws_rows = True
     CONVS = (("conv1", 11, 3, 64), ("conv2", 5, 64, 192), ("conv3", 3, 192, 384),
              ("conv4", 3, 384, 256), ("conv5", 3, 256, 256))
 
@@ -62,6 +63,7 @@ VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M",
 
 class VGG16(Backbone):
     out_features = 4096
+    draws_rows = True
 
     def __init__(self, seed=0):
         super().__init__()

@@ -101,6 +101,7 @@ class ResNetBackbone(Backbone):
         self.out_features = 512 * _EXPANSION[kind]
         self.ms_layers, self.ms_class = tuple(ms_layers), ms_class
         self.ms_p, self.ms_a = ms_p, ms_a
+        self.draws_rows = bool(self.ms_layers)
         rng = np.random.RandomState(seed)
         self.conv1 = Conv(rng, 7, 7, 3, 64)
         self.bn1 = BatchNorm(64)

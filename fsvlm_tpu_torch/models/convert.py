@@ -19,10 +19,13 @@ the JAX package does.
   trainer's groups ({"net": ...}, or CrossGrad's {"F", "D"}, DDAIG's
   {"F", "D", "G"}, DAELDG's and DAEL's {"F", "E"}, DANN's and ADDA's
   {"net", "critic"}, MCD's {"F", "C1", "C2"}, MME's {"net", "C"}, M3SDA's
-  {"F", "C": {"c1", "c2"}}, CDAC's {"F", "C"}) as the JAX trainer holds them
-  in ``params`` and ``model_state``; a method's frozen networks (ADDA's
-  source model, SE's teacher) go through ``params_tree`` / ``load_params``
-  into the checkpoint's ``method_extra`` (trainers/zoo/base.py).
+  {"F", "C": {"c1", "c2"}}, CDAC's {"F", "C"}; the SSL trainers' {"net"})
+  as the JAX trainer holds them in ``params`` and ``model_state``; a
+  method's frozen networks (ADDA's source model, SE's and MeanTeacher's
+  teachers) go through ``params_tree`` / ``load_params`` into the
+  checkpoint's ``method_extra`` (trainers/zoo/base.py).  Every backbone,
+  the wide ResNets included, names its tensors as the JAX tree does, so no
+  network needs a table of its own here.
 """
 
 import numpy as np

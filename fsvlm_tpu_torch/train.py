@@ -23,6 +23,15 @@ accuracy split.  Training augments on the host (INPUT.TRANSFORMS through
 False) or, under DATALOADER.DEVICE_AUG True, on the device.  The SimCLR
 objectives (SIMCLR_ALPHA > 0, LOSS_TYPE simclr) train on the two-view
 loader (``maybe_override_simclr_loader``) and raise under DEVICE_AUG.
+
+Across ranks (``parallel/mesh.py``), one process per device: under
+FSVLM_MULTIHOST=1 the rendezvous at FSVLM_COORDINATOR=host:port with
+FSVLM_NUM_PROCESSES and FSVLM_PROCESS_ID (FSVLM_INIT_TIMEOUT seconds,
+default 600), or without FSVLM_COORDINATOR torchrun's environment
+(``FSVLM_MULTIHOST=1 torchrun --nproc-per-node 4 -m fsvlm_tpu_torch.train
+...``); NCCL on cuda, each rank on its local card, gloo under ``--device
+cpu``.  Every rank runs its rows of the global batch and prints the same
+test lines; rank 0 alone writes log.txt, the checkpoints and TensorBoard.
 """
 
 import argparse
@@ -31,9 +40,11 @@ import shlex
 import sys
 
 import numpy as np
+import torch
 
 from .config import get_cfg_base
 from .engine.trainer import build_trainer
+from .parallel import mesh
 from .utils import collect_env_info, set_random_seed, setup_logger
 
 # per-dataset base-class counts for the base/new accuracy split when
@@ -181,11 +192,16 @@ def main(args, clip=None):
     cfg = setup_cfg(args)
     logger = None
     console = sys.stdout
+    started = False  # whether this call started the process group (FSVLM_MULTIHOST)
+    if not mesh.active():
+        mesh.init_from_env(torch.device(args.device or "cuda").type)
+        started = mesh.active()
     try:
         if cfg.SEED >= 0:
             print(f"Setting fixed seed: {cfg.SEED}")
             set_random_seed(cfg.SEED)
-        logger = setup_logger(cfg.OUTPUT_DIR)
+        if mesh.is_main():  # one log.txt
+            logger = setup_logger(cfg.OUTPUT_DIR)
         print_args(args, cfg)
         print("Collecting env info ...")
         print(f"** System info **\n{collect_env_info()}\n")
@@ -211,6 +227,8 @@ def main(args, clip=None):
         if logger is not None:
             logger.close()
         sys.stdout = console
+        if started:
+            torch.distributed.destroy_process_group()
 
 
 def build_argparser():

@@ -16,6 +16,7 @@ import torch
 
 from ..engine.trainer import TRAINER_REGISTRY, SimpleTrainer
 from ..models.clip import clip_logits, encode_image, encode_text_embeds, l2_normalize
+from ..parallel import mesh
 from .backbone import clip_for_trainer
 from .losses import cross_entropy, focal_alpha_from_shots, focal_loss, masked_acc, nt_xent
 from .prompts import assemble_prompts, build_prompt_context, prompt_tensors
@@ -25,6 +26,7 @@ from .prompts import assemble_prompts, build_prompt_context, prompt_tensors
 class CoOp(SimpleTrainer):
     model_name = "prompt_learner"
     trainer_cfg_key = "COOP"
+    data_parallel = True  # its CE and focal losses are row means (not so its NT-Xent)
 
     def build_model(self, clip):
         cfg, tc = self.cfg, self.node
@@ -46,6 +48,9 @@ class CoOp(SimpleTrainer):
         self.loss_type = tc.LOSS_TYPE
         if tc.USE_FOCAL_LOSS and self.loss_type == "ce":
             self.loss_type = "focal"
+        if self.loss_type == "simclr" and mesh.distributed():
+            raise ValueError("CoOp's NT-Xent pairs rows across the batch: it does not train "
+                             "across ranks (ROADMAP A8)")
         alpha = None
         if self.loss_type == "focal" and len(cfg.DATASET.PER_CLASS_SHOTS) > 0:
             alpha = focal_alpha_from_shots(cfg.DATASET.PER_CLASS_SHOTS, self.device)

@@ -21,14 +21,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import mesh
+
 
 def masked_mean(per_example, valid=None):
     """Mean of (B,) per-example values over valid rows (plain mean if no
-    mask); masked entries are selected away, so they may be inf or NaN."""
-    if valid is None:
-        return per_example.mean()
-    safe = torch.where(valid, per_example, torch.zeros_like(per_example))
-    return safe.sum() / valid.to(per_example.dtype).sum().clamp_min(1.0)
+    mask), over the global batch across ranks (``parallel.mesh``)."""
+    return mesh.global_mean(per_example, valid)
 
 
 def masked_acc(logits, labels, valid=None):

@@ -1,7 +1,6 @@
 """The Dassl zoo's trainers (counterpart of fsvlm_tpu.trainers.zoo): the
-domain generalization family (dg.py) and the domain adaptation family
-(da.py); the five semi-supervised trainers (SupBaseline, EntMin,
-MeanTeacher, MixMatch, FixMatch) are not ported yet (ROADMAP A9).
-Importing the package registers them."""
+domain generalization family (dg.py), the domain adaptation family
+(da.py) and the semi-supervised family (ssl.py).  Importing the package
+registers them."""
 
-from . import da, dg  # noqa: F401
+from . import da, dg, ssl  # noqa: F401

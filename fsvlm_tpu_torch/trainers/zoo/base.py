@@ -26,8 +26,8 @@ generator, or values handed in).
   params in the JAX layout (models/convert.py), ``extra`` the BN
   statistics (``model_state``) and ``method_extra``: ``extra`` (tensors
   and their trees, as they are) and the weights of ``extra_nets`` (a
-  method's frozen copies of a network: ADDA's source model, SE's teacher)
-  in the JAX layout; ``optimizer`` the port's per-group optimizer states.
+  method's frozen copies of a network: ADDA's source model, SE's and
+  MeanTeacher's teachers) in the JAX layout; ``optimizer`` the port's per-group optimizer states.
   ``load_model`` restores the statistics too, and so does MODEL.INIT_WEIGHTS
   from a zoo checkpoint that holds them (the JAX package's restore the
   weights alone, so its --eval-only tests a zoo net on its initial
@@ -38,6 +38,13 @@ generator, or values handed in).
 NetTrainerX runs labeled epochs on train_x; NetTrainerXU zips train_x and
 train_u cyclically for TRAIN.COUNT_ITER's number of steps (train_x,
 train_u or smaller_one, dassl trainer.py:560-610).
+
+Across ranks (``parallel.mesh``): the masked means divide by the global
+count, the step's metrics are summed over the ranks and ``replica_tensors``
+(weights, statistics, ``extra``, ``extra_nets``, the optimizers) are
+broadcast from rank 0 at build and after a resume.  A backbone's own draws
+(dropout, MixStyle) are not split by rank: each rank draws them for its
+rows from the same generator state (ROADMAP C.2).
 """
 
 import copy
@@ -51,11 +58,12 @@ import torch.nn.functional as F
 
 from ...engine.checkpoint import load_checkpoint, resume_from_checkpoint, save_checkpoint
 from ...engine.optim import build_optimizer, make_lr_schedule
-from ...engine.trainer import STEP_KEYS, SimpleTrainer
+from ...engine.trainer import STEP_KEYS, SimpleTrainer, sum_metrics
 from ...models.convert import flatten, load_params, load_state, params_tree, state_tree
 from ...models.backbones.common import TO_PORT
 from ...models.draws import Draws
 from ...models.simple_net import SimpleNet
+from ...parallel import mesh
 
 # ---------------------------------------------------------------- metrics
 
@@ -67,10 +75,9 @@ def cross_entropy_logits(logits, labels, valid=None):
 
 
 def masked_mean(x, valid):
-    if valid is None:
-        return x.mean()
-    w = valid.to(x.dtype)
-    return (x * w).sum() / w.sum().clamp_min(1.0)
+    """Mean of ``x`` over its valid rows (every element without a mask),
+    over the global batch across ranks (``parallel.mesh``)."""
+    return mesh.global_mean(x, valid)
 
 
 def masked_row_mean(x, valid):
@@ -108,6 +115,10 @@ def _to(tree, device):
 
 def _clone(tree):
     return {k: _clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def _leaves(tree):
+    return [t for v in tree.values() for t in (_leaves(v) if isinstance(v, dict) else [v])]
 
 
 def grads_of(loss, modules):
@@ -242,7 +253,7 @@ class NetTrainerX(SimpleTrainer):
         bu = self.prepare_batch(batch_u) if batch_u is not None else None
         step = self.epoch * self.steps_per_epoch + self.batch_idx
         metrics = self.step_core(bx, bu, step, draws if draws is not None else Draws(self.generator))
-        return {k: v.detach() for k, v in metrics.items()}
+        return sum_metrics({k: v.detach() for k, v in metrics.items()})
 
     def infer(self, x):
         """Logits of NCHW images in eval mode."""
@@ -251,6 +262,13 @@ class NetTrainerX(SimpleTrainer):
     def logits_fn(self, params, frozen, images):
         with torch.no_grad():
             return self.infer(images.movedim(-1, -3))
+
+    def replica_tensors(self):
+        """Every group's weights and statistics, ``extra`` and ``extra_nets``,
+        and every optimizer's state."""
+        out = list(self.params.values()) + _leaves(self.model_state) + _leaves(self.extra)
+        out += [p for m in self.extra_nets.values() for p in m.parameters()]
+        return out + [t for o in self.optims.values() for t in o.tensors()]
 
     # ------------------------------------------------------------ checkpoints
     def optim_state(self):

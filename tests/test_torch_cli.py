@@ -103,14 +103,25 @@ def test_extra_opts_env_applies_last(tmp_path, monkeypatch, capsys):
     assert "=> result" in out  # the CLI's own test after training
 
 
+SSL_OPTS = ["DATALOADER.DEVICE_AUG", "False", "MODEL.BACKBONE.NAME", "wide_resnet_28_2",
+            "TRAINER.FIXMATCH.STRONG_TRANSFORMS", "['random_flip', 'normalize']"]
+
+
 @pytest.mark.parametrize("opts,error,match", [
-    (["TRAINER.NAME", "SupBaseline"], KeyError, "ROADMAP A9"),
-    (["TRAINER.NAME", "FixMatch"], KeyError, "ROADMAP A9"),
-    (["TRAINER.NAME", "MeanTeacher"], KeyError, "ROADMAP A9"),
+    (["TRAINER.NAME", "SupBaseline"] + SSL_OPTS, None, "SupBaseline"),
+    (["TRAINER.NAME", "FixMatch"] + SSL_OPTS, None, "FixMatch"),
+    (["TRAINER.NAME", "MeanTeacher"] + SSL_OPTS, None, "MeanTeacher"),
     (["DATASET.NAME", "Office32"], KeyError, "not registered; registered: .*'Office31'"),
 ])
 def test_unported_paths_raise_naming_their_roadmap_item(tmp_path, monkeypatch, opts, error, match):
+    """The SSL zoo trainers build through the CLI (--no-train); an unknown
+    dataset raises listing the registered ones."""
     monkeypatch.chdir(ROOT)
+    if error is None:
+        args = cli.build_argparser().parse_args(
+            BASE_ARGS + ["--output-dir", str(tmp_path), "--no-train"] + TINY_OPTS + opts)
+        assert type(cli.main(args)).__name__ == match
+        return
     args = cli.build_argparser().parse_args(
         BASE_ARGS + ["--output-dir", str(tmp_path)] + TINY_OPTS + opts)
     with pytest.raises(error, match=match):

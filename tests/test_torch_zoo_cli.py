@@ -11,8 +11,8 @@
   loads the port's weights, and the port loads a JAX-written checkpoint's
   weights and statistics;
 - ``--head`` sets MODEL.HEAD.NAME as the JAX CLI does; build_trainer
-  raises KeyError naming ROADMAP A9 for the five SSL names (the DA names
-  build: test_torch_zoo_da_trainers.py), ValueError
+  builds the five SSL names on a wide ResNet (the DA names:
+  test_torch_zoo_da_trainers.py), raises ValueError
   under DATALOADER.DEVICE_AUG, and asks for cuda unless told otherwise.
 """
 
@@ -25,7 +25,7 @@ import torch
 
 from fsvlm_tpu_torch import train as cli
 from fsvlm_tpu_torch.engine.checkpoint import load_checkpoint
-from fsvlm_tpu_torch.engine.trainer import ZOO_TRAINERS, build_trainer
+from fsvlm_tpu_torch.engine.trainer import build_trainer
 from fsvlm_tpu_torch.models.convert import flatten, zoo_trees
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -153,13 +153,19 @@ def test_head_flag_sets_the_head_as_the_jax_cli(monkeypatch):
     assert pcfg.MODEL.HEAD.NAME == jcfg.MODEL.HEAD.NAME == "mlp"
 
 
-@pytest.mark.parametrize("name", ZOO_TRAINERS)
+SSL_TRAINERS = ("SupBaseline", "EntMin", "MeanTeacher", "MixMatch", "FixMatch")
+
+
+@pytest.mark.parametrize("name", SSL_TRAINERS)
 def test_da_and_ssl_trainers_name_the_roadmap_item(name, monkeypatch):
+    """The five SSL trainers build from the CLI's config on a wide ResNet."""
     monkeypatch.chdir(ROOT)
     cfg = cli.setup_cfg(cli.build_argparser().parse_args(_argv("out")))
     cfg.TRAINER.NAME = name
-    with pytest.raises(KeyError, match="ROADMAP A9"):
-        build_trainer(cfg, device="cpu")
+    cfg.MODEL.BACKBONE.NAME = "wide_resnet_28_2"
+    cfg.DATALOADER.K_TRANSFORMS = 2
+    cfg.TRAINER.FIXMATCH.STRONG_TRANSFORMS = ("random_flip", "normalize")
+    assert type(build_trainer(cfg, device="cpu")).__name__ == name
 
 
 def test_device_aug_and_the_default_device(monkeypatch):

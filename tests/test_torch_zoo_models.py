@@ -1,9 +1,9 @@
 """The port's zoo backbones and SimpleNet against the JAX package's, on
 the CPU (the ops, heads and generators: tests/test_torch_zoo_ops.py).
 
-- the registry is the JAX package's less the names left for later (the two
-  wide ResNets of the SSL slice), which raise KeyError naming ROADMAP A9
-  (the DA slice's backbones: test_torch_zoo_da_backbones.py);
+- the registry is the JAX package's, whole, and the two wide ResNets of
+  the SSL slice build (held against JAX in test_torch_zoo_ssl.py; the DA
+  slice's backbones: test_torch_zoo_da_backbones.py);
 - the port draws the JAX package's initial weights from a seed (one name
   of each kind; shapes and counts for resnet101 and a dynamic resnet50);
 - features in train and eval mode and the new BatchNorm statistics at
@@ -28,7 +28,7 @@ import jax
 import jax.numpy as jnp
 
 from fsvlm_tpu_torch.models import draws as draws_mod
-from fsvlm_tpu_torch.models.backbones import BACKBONE_REGISTRY, UNPORTED, build_backbone
+from fsvlm_tpu_torch.models.backbones import BACKBONE_REGISTRY, build_backbone
 from fsvlm_tpu_torch.models.convert import load_state, params_tree, state_tree
 
 FWD_TOL = 1e-5
@@ -80,18 +80,20 @@ def close_trees(port, ref, what, tol=FWD_TOL):
 
 # ---------------------------------------------------------------- backbones
 
+WIDE_RESNETS = ("wide_resnet_16_4", "wide_resnet_28_2")
+
+
 def test_registry_is_the_jax_one_less_the_names_left_for_later():
+    """The registry is the JAX package's, whole."""
     from fsvlm_tpu.models.backbones import BACKBONE_REGISTRY as JAX_REGISTRY
 
-    jax_names = set(JAX_REGISTRY.registered_names())
-    assert set(BACKBONE_REGISTRY.registered_names()) == jax_names - set(UNPORTED)
-    assert set(UNPORTED) <= jax_names
+    assert set(BACKBONE_REGISTRY.registered_names()) == set(JAX_REGISTRY.registered_names())
 
 
-@pytest.mark.parametrize("name", UNPORTED)
+@pytest.mark.parametrize("name", WIDE_RESNETS)
 def test_unported_backbones_name_the_roadmap_item(name):
-    with pytest.raises(KeyError, match="ROADMAP A9"):
-        build_backbone(name)
+    """The wide ResNets build, at the JAX package's feature width."""
+    assert build_backbone(name).out_features == _jax_backbone(name).out_features
 
 
 def _jax_backbone(name, seed=3):

@@ -19,8 +19,7 @@
   3e-5); DomainMix's partner and weight draws are the JAX ones that the
   trace was recorded with;
 - build_trainer: the DG names on the CPU when asked (the DA names:
-  test_torch_zoo_da_trainers.py; the SSL names and the wide ResNets raise
-  KeyError naming ROADMAP A9: test_torch_zoo_cli.py, test_torch_zoo_models.py),
+  test_torch_zoo_da_trainers.py; the SSL names: test_torch_zoo_ssl.py),
   DEVICE_AUG raising ValueError.
 """
 
