@@ -46,8 +46,22 @@ Phases; each passes or raises, and any failure exits non-zero:
    rounding noise), the per-step losses and the prompts' total change must
    agree (limits below), and each kernel must launch its expected count per
    step.  Then step time, images/s, peak memory, one step checked to make
-   no synchronizing call, epochs timed with and without per-step syncs in
-   alternation, and one profiled step.
+   no synchronizing call; then TRAIN.EPOCH_FUSE: 2 epochs fused (a warm-up
+   step, the captured step, its replays) against 2 step by step from one
+   state, bit-equal (prompts, momentum, step count, generator, every step's
+   metrics), the fused run under torch.profiler: the wrappers' counts those
+   of the warm-up and the captured step alone (a replay calls no wrapper),
+   the trace's #6-#8 kernel events at the derived counts per step times the
+   steps, one cudaGraphLaunch per replay; a replay loop under sync
+   debug mode 'error'; epochs timed fused, step by step as train() runs
+   them unfused and synced after every step, in turns, with images/s, the
+   capture's ms, peak memory each way and model TFLOP/s from
+   ``utils/flops.py`` (its own JSON line ``{"fused_epoch": ...}``); and one
+   profiled step.  The harness that times single steps sets EPOCH_FUSE
+   "off" (a fused epoch never calls ``train_step_resident``); the CLI
+   phases on a resident cache (9-12) run with "auto", so fused, and count
+   the wrappers' calls over the steps that are not replays
+   (``engine/fused.py``'s STEPS).
 7. IVLP train: the IVLP ViT-B/16 KD train step (the _kd recipe: CE plus KD
    from the zero-shot CLIP teacher, whose image pass runs on every batch)
    under FSVLM_FORCE_PALLAS=1, so that every attention takes the blockwise
@@ -58,8 +72,10 @@ Phases; each passes or raises, and any failure exits non-zero:
    kernels against plain attention), then 2 steps with mixup on, the same
    perm and lam handed to
    both; step time, images/s, peak memory, one step checked to make no
-   synchronizing call (and one with the trainer's own mixup draws), and one
-   profiled step.  The variable is set for the phase and restored after it;
+   synchronizing call (and one with the trainer's own mixup draws), an
+   epoch of mixup steps on the trainer's own draws fused against step by
+   step (phase 6's rule, bit-equal, #3-#5 counted from its trace), and one profiled
+   step.  The variable is set for the phase and restored after it;
    phases 4-6 run with it unset, on the d = 64 kernels.
 8. CoOp and CoCoOp: under FSVLM_FORCE_PALLAS=legacy, so that every
    attention takes the whole-sequence kernels #1-#2 (phase 3 holds them to
@@ -70,11 +86,15 @@ Phases; each passes or raises, and any failure exits non-zero:
    step, then test() on 200 cache images through both paths (text features
    once; |dlogit| at most 0.1, and the kernel path's distance to an fp32
    plain evaluation at most 4x the plain bf16 path's; top-1 agreement past
-   twice the largest |dlogit|).  CoCoOp from configs/trainers/CoCoOp/vit_b16_c4_ep10_batch1.yaml
+   twice the largest |dlogit|); then an epoch fused against step by step
+   (phase 6's rule, #1-#2 counted from its trace), and one of CoOp under
+   LOSS_TYPE focal.  CoCoOp from configs/trainers/CoCoOp/vit_b16_c4_ep10_batch1.yaml
    (4 ctx, batch 1: 100 text sequences per step): the same run and rules;
    then 2 steps at batch 48 with TRAIN.REMAT, past BATCHED_TEXT_LIMIT, so
    class blocks of 85 (2 blocks, one padded) with every block and text
-   layer rematerialized, against the plain path, with its peak memory.
+   layer rematerialized, against the plain path, with its peak memory;
+   there the trainer vetoes EPOCH_FUSE "auto" (as the JAX package's), and
+   "on" overrides it: an epoch fused against step by step, bit-equal.
 
 9. cli: ``fsvlm_tpu_torch.train.main``, the port's CLI, on the card with
    FSVLM_FORCE_PALLAS unset (the d = 64 kernels #6-#8): PromptSRC from
@@ -86,11 +106,15 @@ Phases; each passes or raises, and any failure exits non-zero:
    epoch, 2 epochs.  The log contract (log.txt, which parse_test_res.py
    parses; the checkpoint pointer, model.pkl-1/-2, model-best.pkl), the
    launches of #6-#8 (the teacher cache pass, steps without a teacher pass,
-   the val and test passes: counts derived from the code), the teacher
+   the val and test passes: counts derived from the code; the epochs
+   fused, so the wrappers' calls over the steps that are not replays), the
+   teacher
    cache against a plain-attention cache (cosine), a rerun that resumes
    from a copy whose pointer names model.pkl-1 (start epoch, prompts,
    momentum, step count, generator and GPA accumulator restored exactly;
-   epoch 2 trained) and ``--eval-only --load-epoch 2`` (the epoch-2
+   epoch 2 trained, fused, under FSVLM_PROFILE_DIR: its Chrome trace holds
+   #6-#8 at the derived counts for every step of epoch 2 and its val pass,
+   and one cudaGraphLaunch per replay) and ``--eval-only --load-epoch 2`` (the epoch-2
    model's test predictions exactly) must hold.  The CLI's own output goes
    to its log files, not to this script's.  Then the teacher cache build
    time, the epoch time and images/s, and phase 6's PromptSRC step at batch
@@ -105,10 +129,11 @@ Phases; each passes or raises, and any failure exits non-zero:
    random nonzero B (at the init B = 0 and A's gradient is 0), 6 steps
    against the plain attention on the same weights, boxes, flips and
    dropout masks (phase 6's rules), #6 48 and #7/#8 24 launches per step, no
-   synchronizing call, step time, images/s, peak memory and a profiled
-   step.  Then MaPLe from configs/trainers/MaPLe/vit_b16_c2_ep5_batch4_2ctx.yaml
+   synchronizing call, step time, images/s, peak memory, an epoch with
+   the trainer's own dropout draws fused against step by step (bit-equal,
+   counted from its trace) and a profiled step.  Then MaPLe from configs/trainers/MaPLe/vit_b16_c2_ep5_batch4_2ctx.yaml
    at batch 48 (vision L = 199, no remat: 24 launches each), the same way;
-   LinearProbeCLIP (batch 32, #6 only); ZeroshotCLIP and ZeroshotCLIP2
+   LinearProbeCLIP (batch 32, #6 only), the same way; ZeroshotCLIP and ZeroshotCLIP2
    test() on 200 cache images against the plain path (phase 8's eval
    rules); and ``--trainer LoRA`` through the CLI on Synthetic for 2
    epochs (lora/best.pkl and last.pkl, derived launches, ``--eval-only``
@@ -124,8 +149,9 @@ Phases; each passes or raises, and any failure exits non-zero:
    own gradient in fp32 against a central difference, 6 steps against the
    plain attention (losses and penalties), no synchronizing call, step
    time and a profiled step, then test() on 200 images under phase 8's
-   eval rules.  Then one step each of REG_TYPE svd and spectral_norm (the
-   text tower on #6-#8: 24/12/12 per step).  Then CoOp from
+   eval rules, and an epoch fused against step by step.  Then one step
+   each of REG_TYPE svd and spectral_norm (the text tower on #6-#8:
+   24/12/12 per step), each with an epoch fused against step by step.  Then CoOp from
    configs/trainers/CoOp/rn50.yaml (16 ctx, batch 32, bf16) on an RN50
    tower (random weights from seed 0, every BN perturbed so that the
    residual branches speak): phase 6's run and rules with #6-#8 12 each per
@@ -216,11 +242,13 @@ Phases; each passes or raises, and any failure exits non-zero:
    scales under DEVICE_AUG, which is checked), in turns with the bf16
    teacher on the same cache and draws: the teacher's features on one batch
    (cosine as above), finite losses and their gap to the bf16 teacher's,
-   #6-#8 as phase 6 derived, 48 int8 products per step (the int8 GEMM
-   kernels shown by name in one profiled step), no host sync, step ms,
-   busy, idle and peak memory.  IVLP KD INT8_TEACHER under
+   train() fused, so #6-#8 as phase 6 derived and 48 int8 products per
+   step over the steps that are not replays (the int8 GEMM kernels shown by
+   name in one profiled step), no host sync, an epoch of the dynamic
+   teacher fused against step by step (phase 6's rule), step ms, busy,
+   idle and peak memory.  IVLP KD INT8_TEACHER under
    FSVLM_FORCE_PALLAS=1 at KD_ALPHA 0.5: 3 steps with #3-#5 as phase 7
-   derived, the teacher's features (cosine >= 0.99) and its logits' gap to
+   derived, an epoch fused against step by step, the teacher's features (cosine >= 0.99) and its logits' gap to
    the bf16 teacher's beside phase 7's rule (reported: that rule holds a
    kernel to its plain version, not int8 to bf16).  Then on phase 12's tree
    and model: ``python -m fsvlm_tpu_torch.tools.predict`` over 100 test
@@ -272,14 +300,17 @@ Phases; each passes or raises, and any failure exits non-zero:
    its ``python train.py`` routed to the port's CLI on the card) with
    TAIL_SWEEP=1 (850 train images), OUT_ROOT and FSVLM_PROFILE_DIR in a
    temporary directory, cut only through FSVLM_EXTRA_OPTS (1 epoch, batch
-   96: 8 steps; random weights; bf16 towers), the recipe's host
-   augmentation and per-step teacher: the runner's exit 0 and exactly one
+   96: 8 steps; random weights; bf16 towers; the recipe's host
+   augmentation, so no resident cache and no fused epoch), the per-step
+   teacher: the
+   runner's exit 0 and exactly one
    routed call, the driver's directory contract
    (setting_a/caltech101/PromptSRC/<cfg>/ce/tail1/seed1/ with log.txt and
    VLPromptLearner/model.pkl-1), the end signal and ``* accuracy:`` in
    log.txt, one Chrome trace in FSVLM_PROFILE_DIR whose kernel events count
    #6-#8 at exactly the derived numbers for its window (before_train to the
-   start of after_train: the 8 steps, 36 / 24 / 24 each), and
+   start of after_train: the 8 steps, 36 / 24 / 24 each; no
+   cudaGraphLaunch), and
    parse_test_res.py through the shim's pass-through naming the run's
    accuracy.  Then adam, amsgrad, adamw, rmsprop and radam on phase 6's
    PromptSRC step (batch 48): one step of the trainer under sync debug mode
@@ -337,7 +368,7 @@ Phases; each passes or raises, and any failure exits non-zero:
    state and generator bit for bit, one step's MixStyle draws taken twice
    from one generator state (bit-equal, on the card, advancing the
    generator as the step left to itself does), one step under sync debug
-   mode 'error', the idle share of 5 loader-fed steps and peak memory.
+   mode 'error', the idle share of 3 loader-fed steps and peak memory.
    (b) CrossGrad, DDAIG (fcn_3x32_gctx and fcn_3x64_gctx_stn), DomainMix
    (crossdomain and random) and DAELDG (RandomDomainSampler over the 3
    domains) on resnet18 at 224x224, ZOO_B_BATCH images, ZOO_B_STEPS steps
@@ -361,7 +392,7 @@ Phases; each passes or raises, and any failure exits non-zero:
    that restores both groups' weights and optimizer states, the net's and
    the critic's BN statistics and the generator bit for bit, one step under
    sync debug mode 'error', the epoch ms and images/s as train() ran it,
-   the idle share of 5 loader-fed steps, peak memory.  (b) SourceOnly
+   the idle share of 3 loader-fed steps, peak memory.  (b) SourceOnly
    through the CLI (1 epoch), then ADDA and AdaBN from its checkpoint
    through MODEL.INIT_WEIGHTS (1 epoch each): ADDA's classifier unchanged
    and its backbone moved, AdaBN's weights unchanged and its statistics
@@ -388,7 +419,7 @@ Phases; each passes or raises, and any failure exits non-zero:
    time a cold eval), a resume that restores weights, BN statistics,
    optimizer and generator bit for bit, one step under sync debug mode
    'error', the epoch ms and images/s as train() ran it, step busy ms and
-   the idle share of 5 loader-fed steps, peak memory.  (b) SupBaseline,
+   the idle share of 3 loader-fed steps, peak memory.  (b) SupBaseline,
    EntMin, MeanTeacher, MixMatch (K = 2) and FixMatch on SyntheticDA on
    wide_resnet_28_2 at 32x32 (ZOO_E_CASES), ZOO_E_STEPS steps card vs CPU
    as phase 18's (b), MeanTeacher's teacher and its statistics among the
@@ -407,11 +438,20 @@ just before each main path and read them just after, and phase 16 counts
 the driver's from its profiler trace (the run is another process): each
 kernel of the path must have launched its expected count (derived from the
 code: a rematerialized layer runs its forward kernel again), and the other
-families none; phases 18, 19 and 20 launch none of them.  The line
+families none; phases 18, 19 and 20 launch none of them.  A count is a
+wrapper's calls (``LAUNCHES``); a fused epoch's CUDA graph replays the
+captured step's kernels without calling a wrapper, so its replays are
+counted apart (``engine/fused.py``'s STEPS) and its kernels from a
+profiler trace: each ``_fused_vs_eager`` run, and phase 9's resumed CLI
+run (FSVLM_PROFILE_DIR).  The line
 ``chip_smoke: seconds by phase {...}`` gives each phase function's time.
 
 The line before the last is ``{"kernels": [...]}`` (one row per TPU kernel;
-#2's row lists its three CUDA kernels as ``parts``; #6-#8's and #3-#5's
+#2's row lists its three CUDA kernels as ``parts``; ``launches`` the
+wrappers' calls on the fused main path (phase 6's PromptSRC epochs for
+#6-#8, phase 7's IVLP mixup epoch for #3-#5, phase 8's CoOp epoch for #1
+and #2), ``launches_traced`` that run's kernel events in its trace (#2's:
+its three kernels') and ``graph_replays`` its replays; #6-#8's and #3-#5's
 rows their launches on each path that runs them, ``launches_by_path``); the
 last line is ``{"ok": true, "device": {...}}``, and the script exits 0.
 """
@@ -473,7 +513,7 @@ MIN_COSINE, MAX_DLOGIT, MAX_DLOGIT_OVER_SPREAD = 0.999, 0.1, 0.25
 # plain gradient at most BF16_NOISE_RATIO times the plain bf16 path's
 TRAIN_BATCH, TRAIN_CACHE, TRAIN_EPOCHS, TRAIN_STEPS_PER_EPOCH = 48, 288, 2, 3
 DLOSS, MIN_GRAD_COSINE, MIN_DELTA_COSINE, BF16_NOISE_RATIO = 1e-2, 0.999, 0.99, 4.0
-N_EPOCH_PAIRS = 4  # epochs timed synced after every step and as train() runs them
+N_EPOCH_PAIRS = 3  # epochs timed fused, unfused and synced after every step, in turns
 # blockwise kernels #3-#5: head dims (80 is zero-padded to the 128 instantiation),
 # lengths (the IVLP step's text 16 and vision 201, edges of L), and the timed
 # shapes: the train vision shape and two of the same D * H at other head dims
@@ -509,6 +549,7 @@ def log(msg):
 
 
 PHASE_S = {}  # seconds of each phase function, printed at the end
+CARD = []  # nvidia-smi's name and power limit, for the lines that print a time
 
 
 def _timed(fn):
@@ -562,6 +603,7 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
     log(smi[0])
+    CARD[:] = [smi[0]]
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1173,6 +1215,12 @@ LSE_DQ = ("dq_tiled_kernel<64, true", "dq_packed_kernel<64, 16, true",
           "dq_packed_kernel<64, 32, true")
 FLASH_GROUPS = {"#6": FLASH_FWD, "#7": LSE_DKV, "#8": LSE_DQ}
 BW_GROUPS = {"#3": FLASH_FWD, "#4": LSE_DKV, "#5": LSE_DQ}
+# the LAUNCHES names (``ops/flash_attention.py``) of each group's kernels
+GROUP_KERNELS = {"#6": ("flash_attn_fwd_d64",), "#7": ("flash_attn_bwd_dkv_d64",),
+                 "#8": ("flash_attn_bwd_dq_d64",), "#3": ("blockwise_attn_fwd",),
+                 "#4": ("blockwise_attn_bwd_dkv",), "#5": ("blockwise_attn_bwd_dq",),
+                 "#1": ("fused_attn_fwd",),
+                 "#2": ("fused_attn_bwd_stats", "fused_attn_bwd_dkv", "fused_attn_bwd_dq")}
 FUSED_GROUPS = {"#1": ("fwd_tiled_kernel", "fwd_packed_kernel", "fused_attn_fwd_kernel"),
                 "#2": ("stats_tiled_kernel", "stats_packed_kernel", "fused_attn_bwd_stats_kernel",
                        *(f"{kind}_tiled_kernel<{D}, false" for kind in ("dkv", "dq")
@@ -1224,6 +1272,59 @@ def _profile(label, fn, top=12, groups=None, counts=None):
         if counts is not None:
             counts[group] = sum(n for n, _ in hit)
     return wall_us / 1e3, busy / 1e3
+
+
+def _traced(fn, groups):
+    """Run ``fn`` under torch.profiler.  Returns its result, the launches
+    of each group of ``groups`` ({label: name fragments}) among the
+    device's kernel events (a CUDA graph's replayed kernels among them),
+    and the number of CUDA graph launches (cudaGraphLaunch runtime calls)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    counts, graphs = dict.fromkeys(groups, 0), 0
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if name.startswith("cudaGraphLaunch"):
+            graphs += 1
+        elif (e.device_type() == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", lambda: False)()):
+            for label, frags in groups.items():
+                counts[label] += any(f in name for f in frags)
+    return out, counts, graphs
+
+
+def _group_launches(groups, per_step, steps):
+    """{group label: launches} that ``steps`` steps of ``per_step``
+    ({kernel: launches}) make, by GROUP_KERNELS."""
+    return {g: steps * sum(per_step.get(k, 0) for k in GROUP_KERNELS[g]) for g in groups}
+
+
+def _zero_fused_steps():
+    from fsvlm_tpu_torch.engine import fused
+
+    fused.STEPS.update(dict.fromkeys(fused.STEPS, 0))
+
+
+def _wrapped_steps(label, total):
+    """Of the ``total`` train steps run since ``_zero_fused_steps``, the
+    ones whose kernel wrappers ran, so that LAUNCHES counts them: every step
+    but a CUDA graph replay, and each captured step once (its launches are
+    recorded into the graph, which the first replay runs).  Checks that the
+    fused epochs' steps (``engine/fused.py``'s STEPS) fit in ``total``.
+    Returns (that number, STEPS)."""
+    from fsvlm_tpu_torch.engine import fused
+
+    s = dict(fused.STEPS)
+    if (s["eager"] + s["replays"] > total or s["captured"] > s["eager"]
+            or (s["replays"] > 0) != (s["captured"] > 0)):
+        raise SystemExit(f"FAIL: {label}: the fused epochs' steps {s} do not fit {total} steps")
+    return total - s["replays"] + s["captured"], s
 
 
 @_timed
@@ -1351,6 +1452,10 @@ def _train_both(label, kt, pt, per_step, family, batch=TRAIN_BATCH, aux=()):
     init = {k: v.detach().clone() for k, v in kt.params.items()}
     step_ms = []
     run_step = kt.train_step_resident
+    # step by step: the timer wraps each train_step_resident, which a fused
+    # epoch (TRAIN.EPOCH_FUSE) would not call
+    fuse = kt.cfg.TRAIN.EPOCH_FUSE, pt.cfg.TRAIN.EPOCH_FUSE
+    kt.cfg.TRAIN.EPOCH_FUSE = pt.cfg.TRAIN.EPOCH_FUSE = "off"
 
     def timed_step(*args, **kw):
         torch.cuda.synchronize()
@@ -1369,6 +1474,7 @@ def _train_both(label, kt, pt, per_step, family, batch=TRAIN_BATCH, aux=()):
     peak = torch.cuda.max_memory_allocated()
     kt.train_step_resident = run_step
     p_hist = pt.train()
+    kt.cfg.TRAIN.EPOCH_FUSE, pt.cfg.TRAIN.EPOCH_FUSE = fuse
     if not torch.equal(kt.generator.get_state(), pt.generator.get_state()):
         raise SystemExit(f"FAIL: {label}: the two runs drew differently from their generators")
 
@@ -1422,6 +1528,152 @@ def _no_sync_step(label, step, *args, **kw):
     log(f"{label}: one step under sync debug mode 'error' made no synchronizing call")
 
 
+def _trainer_state(t):
+    """A copy of what a step changes: the trained tensors, the optimizer's
+    tensors (counts and moments), the generator and the mixup rng."""
+    import copy
+
+    return {"params": {k: v.detach().clone() for k, v in t.params.items()},
+            "optim": [x.clone() for x in t.optim.tensors()] if t.optim else [],
+            "generator": t.generator.get_state(),
+            "mix_rng": copy.deepcopy(t.mix_rng.bit_generator.state)}
+
+
+def _set_trainer_state(t, state):
+    import torch
+
+    with torch.no_grad():
+        for k, v in state["params"].items():
+            t.params[k].copy_(v)
+        for x, v in zip(t.optim.tensors() if t.optim else [], state["optim"]):
+            x.copy_(v)
+    t.generator.set_state(state["generator"])
+    t.mix_rng.bit_generator.state = state["mix_rng"]
+
+
+def _states_equal(a, b):
+    import torch
+
+    return (a["params"].keys() == b["params"].keys()
+            and all(torch.equal(a["params"][k], b["params"][k]) for k in a["params"])
+            and len(a["optim"]) == len(b["optim"])
+            and all(torch.equal(x, y) for x, y in zip(a["optim"], b["optim"]))
+            and torch.equal(a["generator"], b["generator"]) and a["mix_rng"] == b["mix_rng"])
+
+
+def _fused_vs_eager(label, t, epochs, per_step, groups):
+    """From one state, ``epochs`` epochs of trainer ``t`` step by step
+    (TRAIN.EPOCH_FUSE off) and fused ("on": a warm-up step, the capture,
+    replays), the fused run under torch.profiler: the trained tensors, the
+    optimizer's counts and moments, the generator, the mixup rng and every
+    step's metrics must be bit-equal.  Launches: step by step each kernel
+    at ``per_step`` x steps; fused, the wrappers' counts those of the
+    warm-up and the captured step alone (a replay calls no wrapper), the
+    captured step's calls ``per_step``, one cudaGraphLaunch per replay in
+    the trace, and the trace's kernel events of each group of ``groups``
+    at ``per_step`` x steps: the replays ran the kernels.
+    Leaves t in the fused run's state with its graph, EPOCH_FUSE "auto".
+    Returns ({mode: {"ms", "peak", "launches"}, with "traced" and "replays"
+    for "on"}, the capture's timings)."""
+    import torch
+
+    from fsvlm_tpu_torch.engine import fused
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.ops import quant
+
+    start, runs = _trainer_state(t), {}
+    t._fused = None  # the fused run captures its own graph
+    for mode in ("off", "on"):
+        _set_trainer_state(t, start)
+        t.cfg.TRAIN.EPOCH_FUSE = mode
+        fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        quant.LAUNCHES.update(dict.fromkeys(quant.LAUNCHES, 0))
+        _zero_fused_steps()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run():
+            hist = []
+            for t.epoch in range(epochs):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    hist.append(t.run_epoch())
+            return hist
+
+        t0 = time.perf_counter()
+        if mode == "on":
+            hist, traced, graphs = _traced(run, groups)
+        else:
+            hist, traced, graphs = run(), None, None
+        torch.cuda.synchronize()
+        runs[mode] = {"ms": (time.perf_counter() - t0) * 1e3,
+                      "peak": torch.cuda.max_memory_allocated(),
+                      "launches": {**fa.LAUNCHES, **quant.LAUNCHES}, "hist": hist,
+                      "state": _trainer_state(t), "traced": traced, "graphs": graphs,
+                      "steps": dict(fused.STEPS)}
+    t.cfg.TRAIN.EPOCH_FUSE = "auto"
+    on, off = runs["on"], runs["off"]
+    steps = sum(len(h) for h in on["hist"])
+    f = t._fused
+    same = on["hist"] == off["hist"] and _states_equal(on["state"], off["state"])
+    want_traced = _group_launches(groups, per_step, steps)
+    tally = {k: n for c in (f.tally if f and f.tally else ()) for k, n in c.items() if n}
+    log(f"{label}: {epochs} epoch(s), {steps} steps, fused (warm-up step, capture, replays) "
+        f"against step by step from one state: metrics, trained tensors, optimizer counts and "
+        f"moments, generator and mixup rng bit-equal: {same}; optimizer count "
+        f"{int(t.optim.count) if t.optim else None}; fused steps {on['steps']}; wrapper calls "
+        f"fused {on['launches']} (the captured step's {tally}), step by step "
+        f"{off['launches']}; fused under the profiler: kernel events {on['traced']} (expected "
+        f"{want_traced}), {on['graphs']} cudaGraphLaunch; capture (under the profiler) "
+        f"{f.timings if f else None} ms; wall ms fused (profiled) {on['ms']:.1f}, step by step "
+        f"{off['ms']:.1f}; peak memory fused {on['peak'] / 2**30:.2f} GiB, step by step "
+        f"{off['peak'] / 2**30:.2f} GiB")
+    if f is None or f.graph is None:
+        raise SystemExit(f"FAIL: {label}: the fused epochs captured no graph")
+    if not same:
+        raise SystemExit(f"FAIL: {label}: fused and step-by-step epochs differ")
+    replays = steps - 1  # a warm-up step, the capture, then one replay a step
+    if (on["steps"] != {"eager": 1, "captured": 1, "replays": replays}
+            or any(off["launches"][k] != n * steps for k, n in per_step.items())
+            or any(on["launches"][k] * steps != n * 2 for k, n in off["launches"].items())
+            or any(tally.get(k, 0) != n for k, n in per_step.items())):
+        raise SystemExit(f"FAIL: {label}: the wrapper calls are not the warm-up's and the "
+                         f"captured step's, or not the derived counts (per step {per_step})")
+    if on["traced"] != want_traced or on["graphs"] != replays:
+        raise SystemExit(f"FAIL: {label}: the fused run's trace holds {on['traced']} kernel "
+                         f"events and {on['graphs']} graph launches, expected {want_traced} "
+                         f"and {replays}")
+    keep = ("ms", "peak", "launches", "traced", "graphs")
+    return {m: {k: r[k] for k in keep} for m, r in runs.items()}, f.timings
+
+
+def _no_sync_replays(label, t):
+    """One fused epoch of ``t`` (its graph captured) with torch.cuda's sync
+    debug mode raising on a synchronizing call around the replay loop."""
+    import torch
+
+    f = t._fused
+    run = f.run
+
+    def no_sync_run(*args):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    f.run = no_sync_run
+    t.cfg.TRAIN.EPOCH_FUSE = "on"
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            n = len(t.run_epoch())
+    finally:
+        del f.run
+        t.cfg.TRAIN.EPOCH_FUSE = "auto"
+    log(f"{label}: the replay loop of a fused epoch ({n} replays) under sync debug mode "
+        f"'error' made no synchronizing call")
+
+
 @_timed
 def phase_train(clip):
     """The PromptSRC ViT-B/16 train step at full width, through the kernels
@@ -1459,8 +1711,22 @@ def phase_train(clip):
     index = kt.epoch_schedule()[0][0]
     _no_sync_step("train", kt.train_step_resident, index)
 
-    # epochs as train() runs them (no sync between steps, one read-back at the
-    # end) against epochs synced after every step, in alternating order
+    # TRAIN.EPOCH_FUSE (the default path, "auto"): TRAIN_EPOCHS epochs fused
+    # against step by step from one state, bit-equal, #6-#8 counted from the
+    # fused run's trace; a replay loop without a sync
+    fused, _ = _fused_vs_eager("train", kt, TRAIN_EPOCHS, per_step, FLASH_GROUPS)
+    _no_sync_replays("train", kt)
+    # the capture's ms outside the profiler: a fused epoch that captures anew
+    kt._fused = None
+    kt.cfg.TRAIN.EPOCH_FUSE = "on"
+    with contextlib.redirect_stdout(io.StringIO()):
+        kt.run_epoch()
+    kt.cfg.TRAIN.EPOCH_FUSE = "auto"
+    capture = kt._fused.timings
+
+    # epochs fused (replays of the captured step), step by step as train()
+    # runs them without fusion (no sync between steps, one read-back at the
+    # end) and synced after every step, in turns
     run_step = kt.train_step_resident
 
     def synced_step(*args, **kw):
@@ -1469,28 +1735,52 @@ def phase_train(clip):
         torch.cuda.synchronize()
         return out
 
-    def epoch_ms_per_step(step_fn):
-        kt.train_step_resident = step_fn
+    def epoch_ms_per_step(mode):
+        kt.cfg.TRAIN.EPOCH_FUSE = "on" if mode == "fused" else "off"
+        kt.train_step_resident = synced_step if mode == "synced" else run_step
         torch.cuda.synchronize()
         t = time.perf_counter()
-        kt.run_epoch()
+        with contextlib.redirect_stdout(io.StringIO()):
+            kt.run_epoch()
+        ms = (time.perf_counter() - t) * 1e3 / TRAIN_STEPS_PER_EPOCH
         kt.train_step_resident = run_step
-        return (time.perf_counter() - t) * 1e3 / TRAIN_STEPS_PER_EPOCH
+        kt.cfg.TRAIN.EPOCH_FUSE = "auto"
+        return ms
 
-    epochs = {"synced": [], "pipelined": []}
+    modes = ("fused", "pipelined", "synced")
+    epochs = {m: [] for m in modes}
     for i in range(N_EPOCH_PAIRS):
-        order = ("synced", "pipelined") if i % 2 == 0 else ("pipelined", "synced")
-        for mode in order:
-            epochs[mode].append(epoch_ms_per_step(synced_step if mode == "synced" else run_step))
+        for mode in modes[i % 3:] + modes[:i % 3]:
+            epochs[mode].append(epoch_ms_per_step(mode))
     epoch_med = {m: float(np.median(v)) for m, v in epochs.items()}
+    from fsvlm_tpu_torch.utils.flops import promptsrc_step_flops
+
+    node = cfg.TRAINER.PROMPTSRC
+    step_flops = promptsrc_step_flops(clip.cfg, TRAIN_BATCH, N_CLASSES,
+                                      kt.frozen["base_embed"].shape[1], n_vpt=node.N_CTX_VISION)
+    tflops = {m: step_flops / (ms * 1e-3) / 1e12 for m, ms in epoch_med.items()}
     log(f"train: ms per step over {N_EPOCH_PAIRS} epochs of {TRAIN_STEPS_PER_EPOCH} steps each way, "
-        f"alternating: synced after every step {[round(x, 2) for x in epochs['synced']]} "
-        f"(median {epoch_med['synced']:.2f}), as train() runs them "
-        f"{[round(x, 2) for x in epochs['pipelined']]} (median {epoch_med['pipelined']:.2f}, "
-        f"{TRAIN_BATCH / epoch_med['pipelined'] * 1e3:.1f} images/s)")
+        f"in turns, on {CARD[0]}: fused (TRAIN.EPOCH_FUSE, replays) "
+        f"{[round(x, 2) for x in epochs['fused']]} (median {epoch_med['fused']:.2f}, "
+        f"{TRAIN_BATCH / epoch_med['fused'] * 1e3:.1f} images/s), step by step as train() runs "
+        f"them unfused {[round(x, 2) for x in epochs['pipelined']]} (median "
+        f"{epoch_med['pipelined']:.2f}, {TRAIN_BATCH / epoch_med['pipelined'] * 1e3:.1f} "
+        f"images/s), synced after every step {[round(x, 2) for x in epochs['synced']]} (median "
+        f"{epoch_med['synced']:.2f}); the step's model FLOPs (utils/flops.py, dgrad only) "
+        f"{step_flops / 1e12:.4f} TFLOP: {tflops['fused']:.1f} TFLOP/s fused, "
+        f"{tflops['pipelined']:.1f} unfused, {tflops['synced']:.1f} synced; capture "
+        f"{capture['capture']:.1f} ms, instantiate {capture['instantiate']:.1f} ms; peak memory "
+        f"over {TRAIN_EPOCHS} epochs fused (with the capture) {fused['on']['peak'] / 2**30:.2f} "
+        f"GiB, step by step {fused['off']['peak'] / 2**30:.2f} GiB")
+    print(json.dumps({"fused_epoch": {
+        "ms_per_step": epoch_med, "images_per_s": {m: TRAIN_BATCH / v * 1e3
+                                                    for m, v in epoch_med.items()},
+        "model_tflops": tflops, "capture_ms": capture,
+        "peak_gib": {m: fused[m]["peak"] / 2**30 for m in ("on", "off")}, "card": CARD[0]}}),
+          flush=True)
     _profile(f"one train step, batch {TRAIN_BATCH}", lambda: kt.train_step_resident(index), top=30,
              groups=FLASH_GROUPS)
-    return launches
+    return fused["on"], launches
 
 
 @_timed
@@ -1602,9 +1892,11 @@ def phase_train_ivlp(clip):
                              f"steps, expected {k * N_MIX_STEPS}")
     kt.draw_epoch_lams()  # as run_epoch does at an epoch's start: one copy to the device
     _no_sync_step("ivlp (mixup on the trainer's own draws)", kt.train_step_resident, index)
+    # an epoch of mixup steps on the trainer's own draws, fused against step by step
+    fused, _ = _fused_vs_eager("ivlp mixup", kt, 1, per_step, BW_GROUPS)
     _profile(f"one IVLP KD train step, batch {TRAIN_BATCH}", lambda: kt.train_step_resident(index),
              top=30, groups=BW_GROUPS)
-    return launches, step_ms, peak
+    return fused["on"], launches
 
 
 COOP_RECIPE = "configs/trainers/CoOp/vit_b16_ep50.yaml"
@@ -1790,6 +2082,15 @@ def _cocoop_remat(clip, cache, labels):
     _profile(f"one CoCoOp step under TRAIN.REMAT, batch {REMAT_BATCH}",
              lambda: kt.train_step_resident(torch.arange(REMAT_BATCH, device="cuda")), top=12,
              groups=FUSED_GROUPS)
+    # past BATCHED_TEXT_LIMIT the trainer vetoes EPOCH_FUSE "auto" (as JAX's);
+    # "on" overrides it: an epoch fused against step by step
+    if not (kt._epoch_fuse_auto_off and not kt.fuses_epoch()):
+        raise SystemExit("FAIL: cocoop remat: EPOCH_FUSE auto is not vetoed past the limit")
+    log("cocoop remat: EPOCH_FUSE auto vetoed past BATCHED_TEXT_LIMIT; \"on\" below overrides it")
+    kt.cfg.TRAIN.EPOCH_FUSE = "on"
+    if not kt.fuses_epoch():
+        raise SystemExit("FAIL: cocoop remat: EPOCH_FUSE on does not override the veto")
+    _fused_vs_eager("cocoop remat (EPOCH_FUSE on)", kt, 1, per_step, FUSED_GROUPS)
 
 
 @_timed
@@ -1814,13 +2115,22 @@ def phase_coop_cocoop(clip):
     log(f"coop: {COOP_RECIPE}: N_CTX {cfg.TRAINER.COOP.N_CTX}, batch {batch}, LR {cfg.OPTIM.LR}, "
         f"text L={kt.frozen['base_embed'].shape[1]}")
     _grad_agreement("coop", kt, pt, cfg.TRAINER.COOP, _augmented_batch(cache, labels, 10, batch))
-    launches, _, _ = _train_both("coop", kt, pt, _fused_per_step(clip.cfg, 1), "fused_attn", batch)
+    per_step = _fused_per_step(clip.cfg, 1)
+    launches, _, _ = _train_both("coop", kt, pt, per_step, "fused_attn", batch)
     index = kt.epoch_schedule()[0][0]
     _no_sync_step("coop", kt.train_step_resident, index)
     _profile(f"one CoOp train step, batch {batch}", lambda: kt.train_step_resident(index), top=20,
              groups=FUSED_GROUPS)
     _coop_test(kt, pt, cache)
-    del kt, pt
+    fused, _ = _fused_vs_eager("coop", kt, 1, per_step, FUSED_GROUPS)
+    kt.cfg.TRAINER.COOP.LOSS_TYPE = "focal"  # the trainer reads it at build
+    with contextlib.redirect_stdout(io.StringIO()):
+        ft = CoOp(kt.cfg, classnames, cache, labels, clip=clip, device="cuda",
+                  steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+    if ft.loss_type != "focal":
+        raise SystemExit("FAIL: coop: LOSS_TYPE focal did not build the focal loss")
+    _fused_vs_eager("coop focal", ft, 1, per_step, FUSED_GROUPS)
+    del kt, pt, ft
 
     cfg = _recipe_cfg(COCOOP_RECIPE)
     batch = cfg.DATALOADER.TRAIN_X.BATCH_SIZE
@@ -1839,7 +2149,7 @@ def phase_coop_cocoop(clip):
     del kt, pt
     torch.cuda.empty_cache()
     _cocoop_remat(clip, cache, labels)
-    return launches
+    return fused["on"], launches
 
 
 CLI_RECIPE = "configs/trainers/PromptSRC/vit_b16_c2_ep20_batch4_4+4ctx.yaml"
@@ -1910,21 +2220,23 @@ def _max_abs(a, b):
     return float((a - b).abs().max()) if a.numel() else 0.0
 
 
-def _cli_expected_launches(t, clip_cfg, epochs=CLI_EPOCHS):
+def _cli_expected_launches(t, clip_cfg, epochs=CLI_EPOCHS, steps=None):
     """#6-#8 over the CLI run, from the code: the teacher text features
     (PromptSRC.build_model) and the teacher cache pass (one vision pass per
     batch of min(64, N)); per step the student text and vision towers
     forward and backward (no teacher pass under CACHED_TEACHER); per test()
     one text pass and one vision pass per batch: the val set after each
     epoch (best_val), then the test set twice (after_train, and the CLI's
-    report)."""
+    report).  ``steps``: the train steps counted (default all; the wrappers'
+    counts leave out a fused epoch's replays, ``_wrapped_steps``)."""
     from fsvlm_tpu_torch.ops import flash_attention as fa
 
     Lt, Lv = clip_cfg.transformer_layers, clip_cfg.vision_layers
     ds = t.dm.dataset
     n_train, B_test = len(ds.train_x), t.cfg.DATALOADER.TEST.BATCH_SIZE
     cache_batches = -(-n_train // min(64, n_train))
-    steps = t.steps_per_epoch * epochs
+    if steps is None:
+        steps = t.steps_per_epoch * epochs
 
     def test_pass(n):
         return Lt + -(-n // B_test) * Lv
@@ -1932,6 +2244,32 @@ def _cli_expected_launches(t, clip_cfg, epochs=CLI_EPOCHS):
     fwd = (Lt + cache_batches * Lv + steps * (Lt + Lv) + epochs * test_pass(len(ds.val))
            + 2 * test_pass(len(ds.test)))
     return {fa.KERNEL: fwd, fa.KERNEL_DKV: steps * (Lt + Lv), fa.KERNEL_DQ: steps * (Lt + Lv)}
+
+
+def _resumed_trace(t, clip_cfg, prof):
+    """Phase 9's resumed run: #6-#8 among the kernel events of its
+    FSVLM_PROFILE_DIR trace (epoch 2 fused: a warm-up step, the capture and
+    a replay a step, then the val pass) at the derived counts, and one
+    cudaGraphLaunch per replay (``engine/fused.py``'s STEPS)."""
+    from fsvlm_tpu_torch.engine import fused
+
+    traces = os.listdir(prof)
+    if len(traces) != 1:
+        raise SystemExit(f"FAIL: cli: FSVLM_PROFILE_DIR holds {traces}, not one trace")
+    counts, n_kernels, graphs = _trace_kernel_counts(os.path.join(prof, traces[0]),
+                                                     FLASH_GROUPS)
+    Lt, Lv = clip_cfg.transformer_layers, clip_cfg.vision_layers
+    steps, n_val = t.steps_per_epoch, len(t.dm.dataset.val)
+    val = Lt + -(-n_val // t.cfg.DATALOADER.TEST.BATCH_SIZE) * Lv  # text once, vision per batch
+    want = {"#6": steps * (Lt + Lv) + val, "#7": steps * (Lt + Lv), "#8": steps * (Lt + Lv)}
+    fsteps = dict(fused.STEPS)
+    log(f"cli: the resumed run's FSVLM_PROFILE_DIR trace ({n_kernels} kernel events): #6-#8 "
+        f"{counts}, expected {want} ({steps} steps of epoch 2 and its val pass); {graphs} "
+        f"cudaGraphLaunch; fused steps {fsteps}")
+    if (counts != want or fsteps != {"eager": 1, "captured": 1, "replays": steps - 1}
+            or graphs != steps - 1):
+        raise SystemExit("FAIL: cli: the resumed run's trace does not hold every step's kernels "
+                         "or one graph launch per replay")
 
 
 def _cached_teacher_steps(clip):
@@ -2016,16 +2354,19 @@ def phase_cli(clip):
         out = os.path.join(work, "run")
         torch.cuda.synchronize()
         fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        _zero_fused_steps()
         t0 = time.perf_counter()
         t = _cli(clip, out)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = dict(fa.LAUNCHES)
         ds = t.dm.dataset
+        total = t.steps_per_epoch * CLI_EPOCHS
+        wrapped, fsteps = _wrapped_steps("cli", total)
         log(f"cli: {CLI_RECIPE} on Synthetic: train_x {len(ds.train_x)} (per class "
             f"{CLI_PER_CLASS_SHOTS}), val {len(ds.val)}, test {len(ds.test)}; "
             f"{t.steps_per_epoch} steps of {t.batch_size} per epoch, {CLI_EPOCHS} epochs; "
-            f"run {run_s:.1f} s; launches {launches}")
+            f"run {run_s:.1f} s; fused steps {fsteps}; wrapper calls {launches}")
 
         # the log contract
         text = _read(os.path.join(out, "log.txt"))
@@ -2051,12 +2392,17 @@ def phase_cli(clip):
         log(f"cli: log contract holds; accuracies in log.txt (val, val, test, test) {accs}; "
             f"parse_test_res.py: {agg.stdout.strip().splitlines()[-1]}")
 
-        # launches of #6-#8, from the code
-        expected = _cli_expected_launches(t, clip.cfg)
+        # launches of #6-#8, from the code: the wrappers' calls, the epochs
+        # fused (TRAIN.EPOCH_FUSE auto: one capture, then a replay a step,
+        # which calls no wrapper; the resumed run below counts the replays'
+        # kernels in its trace)
+        expected = _cli_expected_launches(t, clip.cfg, steps=wrapped)
         _others_silent(launches, "flash_attn", "the CLI run")
-        if any(launches[k] != n for k, n in expected.items()):
-            raise SystemExit(f"FAIL: cli: launches {launches}, expected {expected}")
-        log(f"cli: #6-#8 launched the expected {expected}")
+        if (any(launches[k] != n for k, n in expected.items())
+                or fsteps != {"eager": 1, "captured": 1, "replays": total - 1}):
+            raise SystemExit(f"FAIL: cli: launches {launches}, expected {expected}; fused steps "
+                             f"{fsteps}, expected one capture")
+        log(f"cli: #6-#8 wrapper calls the expected {expected}")
 
         # the teacher cache against the plain attention; its build time
         kernel_cache = t.frozen["zs_img_cache"]
@@ -2105,10 +2451,20 @@ def phase_cli(clip):
             return start
 
         SimpleTrainer.resume_model_if_exist = spy
+        # under FSVLM_PROFILE_DIR: its window (before_train to the start of
+        # after_train) holds epoch 2, fused, and its val pass
+        prof, env_prof = os.path.join(work, "profile"), os.environ.get("FSVLM_PROFILE_DIR")
+        os.environ["FSVLM_PROFILE_DIR"] = prof
+        _zero_fused_steps()
         try:
             t2 = _cli(clip, resumed)
         finally:
             SimpleTrainer.resume_model_if_exist = resume
+            if env_prof is None:
+                del os.environ["FSVLM_PROFILE_DIR"]
+            else:
+                os.environ["FSVLM_PROFILE_DIR"] = env_prof
+        _resumed_trace(t2, clip.cfg, prof)
         sd, opt, extra = flatten(saved["state_dict"]), saved["optimizer"], saved["extra"]
         diffs = {
             "prompts": max(_max_abs(restored["params"][k], sd[k]) for k in sd),
@@ -2229,6 +2585,7 @@ def _lora_step(clip, cache, labels):
     per_step = {fa.KERNEL: 2 * (Lt + Lv), fa.KERNEL_DKV: Lt + Lv, fa.KERNEL_DQ: Lt + Lv}
     launches, step_ms, peak = _train_both("lora", kt, pt, per_step, "flash_attn", batch)
     _step_summary("lora", kt, batch, step_ms, peak)
+    _fused_vs_eager("lora (dropout draws)", kt, 1, per_step, FLASH_GROUPS)
     return launches
 
 
@@ -2255,6 +2612,7 @@ def _maple_step(clip, cache, labels):
     per_step = {fa.KERNEL: Lt + Lv, fa.KERNEL_DKV: Lt + Lv, fa.KERNEL_DQ: Lt + Lv}  # no remat
     launches, step_ms, peak = _train_both("maple", kt, pt, per_step, "flash_attn", MAPLE_BATCH)
     _step_summary("maple", kt, MAPLE_BATCH, step_ms, peak)
+    _fused_vs_eager("maple", kt, 1, per_step, FLASH_GROUPS)
     return launches
 
 
@@ -2288,6 +2646,7 @@ def _linear_probe_steps(clip, cache, labels):
     per_step = {fa.KERNEL: clip.cfg.vision_layers, fa.KERNEL_DKV: 0, fa.KERNEL_DQ: 0}
     launches, step_ms, peak = _train_both("linear probe", kt, pt, per_step, "flash_attn", batch)
     _step_summary("linear probe", kt, batch, step_ms, peak)
+    _fused_vs_eager("linear probe", kt, 1, per_step, FLASH_GROUPS)
     return launches
 
 
@@ -2390,13 +2749,16 @@ def _lora_cli(clip):
         out = os.path.join(work, "run")
         torch.cuda.synchronize()
         fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        _zero_fused_steps()
         t0 = time.perf_counter()
         t = _run_cli(clip, argv(out))
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = dict(fa.LAUNCHES)
         ds, Lt, Lv = t.dm.dataset, clip.cfg.transformer_layers, clip.cfg.vision_layers
-        steps = t.steps_per_epoch * CLI_EPOCHS
+        # fused (TRAIN.EPOCH_FUSE auto): the wrappers count the steps that
+        # are not replays
+        steps, fsteps = _wrapped_steps("lora cli", t.steps_per_epoch * CLI_EPOCHS)
 
         def test_pass(n):  # split eval: the text once, the vision tower per batch
             return Lt + -(-n // t.cfg.DATALOADER.TEST.BATCH_SIZE) * Lv
@@ -2414,13 +2776,14 @@ def _lora_cli(clip):
             f"test {len(ds.test)}; {t.steps_per_epoch} steps of {t.batch_size} per epoch, "
             f"{CLI_EPOCHS} epochs; run {run_s:.1f} s; accuracies in log.txt "
             f"{[float(x) for x in re.findall(r'[*] accuracy: ([0-9.]+)%', text)]}; {lora_dir} "
-            f"holds {files}; launches {launches}, expected {want}")
+            f"holds {files}; fused steps {fsteps}; wrapper calls {launches}, expected {want}")
         _others_silent(launches, "flash_attn", "the LoRA CLI run")
         for needle in ("=> result", "Finish training", "LoRA checkpoint saved to",
                        "Deploy the model with the best val performance", "Loaded LoRA weights"):
             if needle not in text:
                 raise SystemExit(f"FAIL: lora cli: log.txt lacks {needle!r}")
-        if files != ["best.pkl", "last.pkl"] or any(launches[k] != n for k, n in want.items()):
+        if (files != ["best.pkl", "last.pkl"] or any(launches[k] != n for k, n in want.items())
+                or fsteps["replays"] == 0):
             raise SystemExit("FAIL: lora cli: checkpoint files or launches are not as expected")
         epoch_ms = []
         for _ in range(2):
@@ -2578,6 +2941,7 @@ def _plip_grad(clip, cache, labels):
     ms = _split_eval_test("plip test()", kt, pt, cache, node, {fa.KERNEL: Lt + n_batches * Lv},
                           "flash_attn")
     log(f"plip test(): {N_TEST} images in {ms:.1f} ms (text features once, on the kernels)")
+    _fused_vs_eager("plip grad", kt, 1, per_step, FLASH_GROUPS)
     return launches
 
 
@@ -2631,6 +2995,7 @@ def _plip_one_step(clip, cache, labels, reg_type):
         raise SystemExit(f"FAIL: {label}: kernel and plain steps disagree, or the launches are "
                          f"not {want}")
     _no_sync_step(label, kt.train_step_resident, index)
+    _fused_vs_eager(label, kt, 1, want, FLASH_GROUPS)
     return launches
 
 
@@ -2734,13 +3099,16 @@ def _plip_cli(clip):
         out = os.path.join(work, "run")
         torch.cuda.synchronize()
         fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        _zero_fused_steps()
         t0 = time.perf_counter()
         t = _run_cli(clip, argv(out))
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = dict(fa.LAUNCHES)
         ds, Lt, Lv = t.dm.dataset, clip.cfg.transformer_layers, clip.cfg.vision_layers
-        steps = t.steps_per_epoch * CLI_EPOCHS
+        # fused (TRAIN.EPOCH_FUSE auto): the wrappers count the steps that
+        # are not replays
+        steps, fsteps = _wrapped_steps("plip cli", t.steps_per_epoch * CLI_EPOCHS)
 
         def test_pass(n):  # split eval: the text once, the vision tower per batch
             return Lt + -(-n // t.cfg.DATALOADER.TEST.BATCH_SIZE) * Lv
@@ -2756,14 +3124,14 @@ def _plip_cli(clip):
             f"test {len(ds.test)}; {t.steps_per_epoch} steps of {t.batch_size} per epoch, "
             f"{CLI_EPOCHS} epochs; run {run_s:.1f} s; accuracies in log.txt "
             f"{[float(x) for x in re.findall(r'[*] accuracy: ([0-9.]+)%', text)]}; {mdir} holds "
-            f"{files}; launches {launches}, expected {want}")
+            f"{files}; fused steps {fsteps}; wrapper calls {launches}, expected {want}")
         _others_silent(launches, "flash_attn", "the PLIP CLI run")
         for needle in ("=> result", "Finish training", "REG_COEFF: 0.01",
                        "Deploy the model with the best val performance"):
             if needle not in text:
                 raise SystemExit(f"FAIL: plip cli: log.txt lacks {needle!r}")
         if (not {"checkpoint", "model-best.pkl", "model.pkl-1", "model.pkl-2"} <= set(files)
-                or any(launches[k] != n for k, n in want.items())):
+                or any(launches[k] != n for k, n in want.items()) or fsteps["replays"] == 0):
             raise SystemExit("FAIL: plip cli: checkpoint files or launches are not as expected")
         t2 = _run_cli(clip, argv(os.path.join(work, "eval"), "--eval-only", "--model-dir", out))
         same = (t2.evaluator.y_pred == t.evaluator.y_pred
@@ -2960,6 +3328,7 @@ def phase_recognition(clip, keep=None):
         out = os.path.join(work, "run")
         torch.cuda.synchronize()
         fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        _zero_fused_steps()
         t0 = time.perf_counter()
         with _epochs_timed(SimpleTrainer, []) as epochs:
             t = _run_cli(clip, argv(out))
@@ -2986,11 +3355,13 @@ def phase_recognition(clip, keep=None):
         # (c) the loss is finite
         if not losses or not all(np.isfinite(losses)):
             raise SystemExit(f"FAIL: recognition: non-finite or no loss in log.txt: {losses}")
-        # (b) #6-#8 at the counts derived from the code
-        expected = _cli_expected_launches(t, clip.cfg, epochs=RECOG_EPOCHS)
+        # (b) #6-#8 at the counts derived from the code, over the steps that
+        # are not a fused epoch's replays (TRAIN.EPOCH_FUSE auto)
+        wrapped, fsteps = _wrapped_steps("recognition", t.steps_per_epoch * RECOG_EPOCHS)
+        expected = _cli_expected_launches(t, clip.cfg, epochs=RECOG_EPOCHS, steps=wrapped)
         _others_silent(launches, "flash_attn", "the recognition CLI run")
-        log(f"recognition: launches {launches}, expected {expected}")
-        if any(launches[k] != n for k, n in expected.items()):
+        log(f"recognition: fused steps {fsteps}; wrapper calls {launches}, expected {expected}")
+        if any(launches[k] != n for k, n in expected.items()) or fsteps["replays"] == 0:
             raise SystemExit("FAIL: recognition: #6-#8 launches differ from the derived counts")
 
         # (c) --eval-only from the run's best model: the run's own final
@@ -3714,30 +4085,37 @@ def _int8_teacher(clip, int8_names):
         torch.cuda.reset_peak_memory_stats()
         fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
         quant.LAUNCHES["int8_gemm"] = 0
-        hist = t.train()
+        _zero_fused_steps()
+        hist = t.train()  # fused (TRAIN.EPOCH_FUSE auto)
         launches = dict(fa.LAUNCHES)
+        wrapped, fsteps = _wrapped_steps(f"int8: PromptSRC {name} teacher", steps)
         runs[name] = {"losses": [m["loss"] for h in hist for m in h], "launches": launches,
                       "int8_gemm_launches": quant.LAUNCHES["int8_gemm"],
-                      "peak_bytes": torch.cuda.max_memory_allocated()}
+                      "peak_bytes": torch.cuda.max_memory_allocated(), "wrapped": wrapped,
+                      "fused_steps": fsteps}
         _others_silent(launches, "flash_attn", f"the PromptSRC {name} teacher path")
     base = runs["bf16"]["losses"]
     for name, r in runs.items():
         gaps = [abs(a - b) for a, b in zip(r["losses"], base)]
         r["loss_gap_max"] = max(gaps)
         log(f"int8: PromptSRC, {name} teacher: losses {[round(v, 5) for v in r['losses']]}; "
-            f"max |loss - bf16 teacher's| {max(gaps):.3e}; launches over {steps} steps "
-            f"{ {k: v for k, v in r['launches'].items() if v} }, int8 products "
+            f"max |loss - bf16 teacher's| {max(gaps):.3e}; {steps} steps fused "
+            f"{r['fused_steps']}: wrapper calls over the {r['wrapped']} steps that are not "
+            f"replays { {k: v for k, v in r['launches'].items() if v} }, int8 products "
             f"{r['int8_gemm_launches']}; peak memory "
             f"{r['peak_bytes'] / 2**30:.2f} GiB"
             + (f"; teacher features' min cosine to bf16 {cos[name]:.6f}" if name in cos else ""))
         if (len(r["losses"]) != steps or not all(np.isfinite(r["losses"]))
-                or any(r["launches"][k] != v * steps for k, v in per_step.items())
-                or r["int8_gemm_launches"] != (0 if name == "bf16" else 4 * n * steps)
+                or r["fused_steps"]["replays"] == 0
+                or any(r["launches"][k] != v * r["wrapped"] for k, v in per_step.items())
+                or r["int8_gemm_launches"] != (0 if name == "bf16" else 4 * n * r["wrapped"])
                 or (name in cos and cos[name] < MIN_INT8_COSINE[name.split()[1]])):
             raise SystemExit(f"FAIL: int8: the PromptSRC {name} teacher steps")
     index = trainers["bf16"].epoch_schedule()[0][0]
     for name in ("int8 dynamic", "int8 static"):
         _no_sync_step(f"int8: PromptSRC {name} teacher", trainers[name].train_step_resident, index)
+    _fused_vs_eager("int8: PromptSRC int8 dynamic teacher", trainers["int8 dynamic"], 1, per_step,
+                    FLASH_GROUPS)
     ms = {name: [] for name in trainers}
     for _ in range(INT8_TIMED):
         for name, t in trainers.items():
@@ -3827,6 +4205,7 @@ def _int8_teacher_ivlp(clip):
             or not all(np.isfinite(losses))
             or any(launches[k] != v * IVLP_INT8_STEPS for k, v in per_step.items())):
         raise SystemExit("FAIL: int8: the IVLP int8 KD teacher")
+    _fused_vs_eager("int8: IVLP KD int8 teacher", kq, 1, per_step, BW_GROUPS)
     del trainers, kq, kf
     return ({"teacher_min_cosine": cos, "teacher_max_dlogit": dlog.max().item(),
              "teacher_max_dlogit_over_spread": rel, "losses": losses}, launches)
@@ -4475,7 +4854,9 @@ DRIVER_CFG = "vit_b16_c2_ep20_batch4_4+4ctx"
 # steps until phase 20 came in: the call's time limit)
 DRIVER_BATCH = 96
 # the run's cuts and settings, all through FSVLM_EXTRA_OPTS (the driver stays as it is):
-# 1 epoch of the recipe's 20, random weights (none on the machine), bf16 towers
+# 1 epoch of the recipe's 20, random weights (none on the machine), bf16 towers;
+# the recipe's host augmentation, as the driver runs it, so no resident cache
+# and no fused epoch (phase 9's trace holds a fused run's replays)
 DRIVER_OPTS = (f"OPTIM.MAX_EPOCH 1 DATALOADER.TRAIN_X.BATCH_SIZE {DRIVER_BATCH} "
                "MODEL.BACKBONE.PRETRAINED False MODEL.FROZEN_DTYPE bf16")
 OPTIMIZERS = ("adam", "amsgrad", "adamw", "rmsprop", "radam")
@@ -4527,12 +4908,14 @@ def _run_runner(args, env, timeout=900):
 
 def _trace_kernel_counts(path, groups):
     """Launches of each group of ``groups`` ({label: name fragments}) among
-    the kernel events of a Chrome trace."""
+    the kernel events of a Chrome trace, the number of kernel events, and
+    the number of CUDA graph launches (cudaGraphLaunch runtime calls)."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    graphs = sum(e.get("name") == "cudaGraphLaunch" for e in events)
     return {label: sum(any(f in n for f in frags) for n in names)
-            for label, frags in groups.items()}, len(names)
+            for label, frags in groups.items()}, len(names), graphs
 
 
 def _driver_on_card(tree, work):
@@ -4580,19 +4963,23 @@ def _driver_on_card(tree, work):
     if len(traces) != 1:
         raise SystemExit(f"FAIL: drivers: FSVLM_PROFILE_DIR holds {traces}, not one trace")
     trace_bytes = os.path.getsize(os.path.join(prof, traces[0]))
-    counts, n_kernels = _trace_kernel_counts(os.path.join(prof, traces[0]),
-                                             {**FLASH_GROUPS, **FUSED_GROUPS})
+    counts, n_kernels, n_graphs = _trace_kernel_counts(os.path.join(prof, traces[0]),
+                                                       {**FLASH_GROUPS, **FUSED_GROUPS})
     if counts.pop("#1") or counts.pop("#2"):
         raise SystemExit("FAIL: drivers: the whole-sequence kernels ran on the default route")
     Lt = Lv = 12  # ViT-B/16's text and vision layers
     per_step = {"#6": Lv + Lt + Lv, "#7": Lt + Lv, "#8": Lt + Lv}  # teacher + student; student
     expected = {k: steps * n for k, n in per_step.items()}
-    log(f"drivers: the trace ({trace_bytes / 2**20:.1f} MiB, {n_kernels} kernel events): "
-        f"#6-#8 {counts}, expected {expected} ({steps} steps of {DRIVER_BATCH}); epoch "
+    log(f"drivers: the trace ({trace_bytes / 2**20:.1f} MiB, {n_kernels} kernel events, "
+        f"{n_graphs} CUDA graph launches: host-augmented steps, none): #6-#8 {counts}, expected "
+        f"{expected} ({steps} steps of {DRIVER_BATCH}); epoch "
         f"{epoch_ms:.1f} ms under the profiler ({steps * DRIVER_BATCH / epoch_ms * 1e3:.1f} "
         f"images/s); accuracies in log.txt {accs}")
     if counts != expected:
         raise SystemExit("FAIL: drivers: #6-#8 in the trace differ from the derived counts")
+    if n_graphs:  # host-augmented batches: no resident cache, so no fused epoch
+        raise SystemExit(f"FAIL: drivers: {n_graphs} graph launches in the trace of a "
+                         f"host-augmented run")
 
     # parse_test_res.py through the shim's pass-through, on the run's seeds
     agg = os.path.join(work, "aggregate.sh")
@@ -5157,7 +5544,7 @@ ZOO_DG_RECIPE = "configs/trainers/zoo/vanilla_mixstyle_pacs.yaml"
 # the recipe's 50 epochs cut to 1 (85 steps of 64 over PACS's 5467 source
 # images), and TEST.NO_TEST: the CLI tests once after training, not twice
 ZOO_DG_EPOCHS = 1
-ZOO_DG_PROFILE_STEPS = 5
+ZOO_DG_PROFILE_STEPS = 3  # 5 until the fused-epoch checks came in
 # (b): each DG trainer on resnet18 at 224x224, ZOO_B_BATCH images (a multiple of
 # the 3 source domains), ZOO_B_STEPS steps on the card and on its CPU from the
 # same weights, batches and draws, with TF32 off; every step from the card's
@@ -5573,7 +5960,7 @@ ZOO_DA_RECIPE = "configs/trainers/zoo/dann_resnet18.yaml"
 # the recipe's 20 epochs cut to 1: COUNT_ITER smaller_one, webcam's 795 // 32 = 24
 # steps of 32; the CLI's own test after training (795 webcam images) is the one test
 ZOO_DA_EPOCHS = 1
-ZOO_DA_PROFILE_STEPS = 5
+ZOO_DA_PROFILE_STEPS = 3  # 5 until the fused-epoch checks came in
 # (c): each DA trainer on SyntheticDA with the 3 source domains (d2 also the
 # target), cnn_digit5_m3sda (Digit-5's backbone in Dassl's M3SDA and DAEL
 # protocols: BN, dropout) at 32x32, ZOO_C_BATCH source and ZOO_C_BATCH_U target
@@ -5953,11 +6340,12 @@ ZOO_SSL_DATASET = "configs/datasets/zoo/ssl_cifar10.yaml"
 # train_u steps cut to ZOO_SSL_STEPS: each step's 64 + 448 weak and 64 + 448
 # strong views come from the host's transforms at 8 threads, 1.79 s a step
 # measured (host-bound; an H100 80GB HBM3 at 700 W), so 24 steps took phase 20
-# to 117 s of its 90, and 10 to 58.8-64.7 s; 8 for the whole call's time.
+# to 117 s of its 90, and 10 to 58.8-64.7 s; 8 for the whole call's time, 4
+# since the fused-epoch checks came in (phases 6-10).
 # TEST.NO_TEST: the CLI's own test after training (10,000 images) is the one
 # test
-ZOO_SSL_STEPS = 8
-ZOO_SSL_PROFILE_STEPS = 5
+ZOO_SSL_STEPS = 4
+ZOO_SSL_PROFILE_STEPS = 3  # 5 until the fused-epoch checks came in
 # (b): each SSL trainer on SyntheticDA (target d2 unlabeled) on wide_resnet_28_2
 # at 32x32, ZOO_E_BATCH labeled and ZOO_E_BATCH_U unlabeled images, MixMatch at
 # K = 2, ZOO_E_STEPS steps card vs CPU as phase 18's (b), each from the card's
@@ -6316,11 +6704,11 @@ def main():
     with force_pallas(None):  # the default route: the d = 64 kernels
         pred, batch = phase_main()
         phase_profile(pred, batch)
-        launches = phase_train(pred.clip)
+        main_flash, launches = phase_train(pred.clip)
     with force_pallas("1"):  # every attention through the blockwise kernels
-        launches_bw, _, _ = phase_train_ivlp(pred.clip)
+        main_bw, launches_bw = phase_train_ivlp(pred.clip)
     with force_pallas("legacy"):  # every attention through the whole-sequence kernels
-        launches_fused = phase_coop_cocoop(pred.clip)
+        main_fused, launches_coop = phase_coop_cocoop(pred.clip)
     with force_pallas(None):  # the CLI on the default route: the d = 64 kernels
         launches_cli = phase_cli(pred.clip)
     with force_pallas(None):  # the CLIP-path trainers on the d = 64 kernels
@@ -6361,31 +6749,39 @@ def main():
 
     from fsvlm_tpu_torch.ops import flash_attention as fa
 
+    # each row's main path is a fused run (TRAIN.EPOCH_FUSE auto, the
+    # default): ``launches`` its wrappers' calls (the warm-up step's and the
+    # captured step's), ``launches_traced`` its kernel events in the
+    # profiler's trace (every step's), ``graph_replays`` its replays
     src = "fsvlm_tpu_torch/ops/kernels/"
-    rows = [(fa.KERNEL, "flash_attn_fwd.cu", 544, worst, timings["vision"], launches),
+    rows = [(fa.KERNEL, "flash_attn_fwd.cu", 544, worst, timings["vision"], main_flash, "#6"),
             (fa.KERNEL_DKV, "flash_attn_bwd.cu", 599, worst_bwd[fa.KERNEL_DKV],
-             timings_bwd["vision"][fa.KERNEL_DKV], launches),
+             timings_bwd["vision"][fa.KERNEL_DKV], main_flash, "#7"),
             (fa.KERNEL_DQ, "flash_attn_bwd.cu", 648, worst_bwd[fa.KERNEL_DQ],
-             timings_bwd["vision"][fa.KERNEL_DQ], launches)]
-    rows += [(name, source, line, worst_bw[name], timings_bw["vision"][name], launches_bw)
-             for name, source, line in ((fa.BW_KERNEL, "blockwise_attn_fwd.cu", 232),
-                                        (fa.BW_KERNEL_DKV, "blockwise_attn_bwd.cu", 324),
-                                        (fa.BW_KERNEL_DQ, "blockwise_attn_bwd.cu", 372))]
+             timings_bwd["vision"][fa.KERNEL_DQ], main_flash, "#8")]
+    rows += [(name, source, line, worst_bw[name], timings_bw["vision"][name], main_bw, group)
+             for name, source, line, group in (
+                 (fa.BW_KERNEL, "blockwise_attn_fwd.cu", 232, "#3"),
+                 (fa.BW_KERNEL_DKV, "blockwise_attn_bwd.cu", 324, "#4"),
+                 (fa.BW_KERNEL_DQ, "blockwise_attn_bwd.cu", 372, "#5"))]
     rows.append((fa.FUSED_KERNEL, "fused_attn_fwd.cu", 32, worst_fused[fa.FUSED_KERNEL],
-                 timings_fused["vision"][fa.FUSED_KERNEL], launches_fused))
+                 timings_fused["vision"][fa.FUSED_KERNEL], main_fused, "#1"))
     kernels = [{
         "name": name,
         "route": "cuda",
         "source": src + source,
         "replaces": f"fsvlm_tpu/ops/flash_attention.py:{line}",
-        "launches": counts[name],
+        "launches": run["launches"][name],
         "max_abs_err": err,
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
-    } for name, source, line, err, t, counts in rows]
+        "launches_traced": run["traced"][group],
+        "graph_replays": run["graphs"],
+    } for name, source, line, err, t, run, group in rows]
+    launches_fused = main_fused["launches"]
     # #2 is three CUDA kernels (row pre-pass, dK/dV, dQ), each launched once
     # per backward: one row, its time the three launches in a row, its parts
     # with their own launch counts and times
@@ -6393,8 +6789,10 @@ def main():
     parts = (fa.FUSED_KERNEL_STATS, fa.FUSED_KERNEL_DKV, fa.FUSED_KERNEL_DQ)
     if len({launches_fused[k] for k in parts}) != 1:
         raise SystemExit(f"FAIL: #2's kernels launched unequal counts: {launches_fused}")
-    # #6-#8's launches on every path that runs them (``launches``: phase 6's)
-    by_path = {"promptsrc": launches, "promptsrc_cli": launches_cli, **launches_clip,
+    # #6-#8's launches on every path that runs them (wrapper calls; a fused
+    # run's leave out its replays)
+    by_path = {"promptsrc_fused": main_flash["launches"], "promptsrc_step_by_step": launches,
+               "promptsrc_cli": launches_cli, **launches_clip,
                **launches_plip, "recognition_cli": launches_recognition, **launches_host,
                "zsclip_int8_test": launches_int8_serving,
                "promptsrc_int8_teacher": launches_int8_teacher,
@@ -6404,9 +6802,11 @@ def main():
                   for label, n in launches_export.items()}}
     for row in kernels[:3]:
         row["launches_by_path"] = {path: n.get(row["name"], 0) for path, n in by_path.items()}
-    # #3-#5's: phase 7's IVLP KD steps and phase 14's with the int8 KD teacher
+    # #3-#5's: phase 7's IVLP mixup epoch fused and KD steps step by step, and
+    # phase 14's with the int8 KD teacher
     for row in kernels[3:6]:
-        row["launches_by_path"] = {"ivlp_kd": launches_bw[row["name"]],
+        row["launches_by_path"] = {"ivlp_mixup_fused": row["launches"],
+                                   "ivlp_kd_step_by_step": launches_bw[row["name"]],
                                    "ivlp_kd_int8_teacher": launches_int8_ivlp[row["name"]]}
     # device times (profiler) beside the event times: the forwards', #7/#8's
     # and #4/#5's
@@ -6425,6 +6825,8 @@ def main():
         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
         "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"],
         "parts": [{"name": k, "launches": launches_fused[k], "ms": bwd["parts"][k]} for k in parts],
+        "launches_traced": main_fused["traced"]["#2"], "graph_replays": main_fused["graphs"],
+        "launches_step_by_step": {k: launches_coop[k] for k in parts},
         "device_ms": bwd["device_ms"], "library_device_ms": bwd["library_device_ms"],
     })
     log(f"chip_smoke: seconds by phase {json.dumps(PHASE_S)}")

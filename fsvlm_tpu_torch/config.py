@@ -338,6 +338,13 @@ class TrainConfig:
     COUNT_ITER: str = "train_x"
     # checkpoint each transformer layer in the backward (CoCoOp's text passes)
     REMAT: bool = False
+    # auto | on | off: run an epoch over the device-resident train set as
+    # replays of one captured step (engine/trainer.py); auto defers to a
+    # trainer's veto
+    EPOCH_FUSE: str = "auto"
+    # with the fused epoch, build its schedule on the device from a
+    # generator seeded from (SEED, epoch) (Random/Sequential samplers only)
+    DEVICE_SCHEDULE: bool = False
 
 
 @dataclasses.dataclass

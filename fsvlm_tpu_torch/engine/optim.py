@@ -120,7 +120,9 @@ class Optimizer:
     step, and t - 1 of the bias corrections), ``notfinite_count``
     (consecutive non-finite steps), and per parameter the buffers named in
     ``buffers`` (lists of tensors, attributes of those names); all on the
-    parameters' device.  A subclass gives ``scalars(t)`` (per-step device
+    parameters' device, and every one updated in place, never rebound, so
+    that a captured step (a CUDA graph replayed by the fused epoch) reads
+    and writes the live state.  A subclass gives ``scalars(t)`` (per-step device
     scalars) and ``update(p, g, buf, s)`` -> (the update before the
     learning rate, {buffer: its new value})."""
 
@@ -157,8 +159,8 @@ class Optimizer:
     def step(self, grads):
         mesh.all_reduce_(grads)  # the global gradient: summed over the ranks
         finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-        self.notfinite_count = torch.where(finite, torch.zeros_like(self.notfinite_count),
-                                           self.notfinite_count + 1)
+        self.notfinite_count.copy_(torch.where(finite, torch.zeros_like(self.notfinite_count),
+                                               self.notfinite_count + 1))
         apply = finite | (self.notfinite_count > MAX_CONSECUTIVE_ERRORS)
         lr = self.schedule(self.count)
         neg_lr = {1.0: -lr}
@@ -172,7 +174,7 @@ class Optimizer:
             if scale not in neg_lr:
                 neg_lr[scale] = -(scale * lr)
             p.copy_(torch.where(apply, p + neg_lr[scale] * u, p))
-        self.count = torch.where(apply, self.count + 1, self.count)
+        self.count.copy_(torch.where(apply, self.count + 1, self.count))
 
     def state_dict(self, names):
         """The state as numpy: the optimizer's name, the step counts, and
@@ -200,9 +202,8 @@ class Optimizer:
         if not self.accepts(state):
             raise ValueError(f"the optimizer state is {state.get('name')!r}'s, not "
                              f"{self.name!r}'s (buffers {sorted(k for k in state if k not in ('name', 'count', 'notfinite_count'))})")
-        dev = self.count.device
-        self.count = torch.as_tensor(state["count"], dtype=torch.int64).to(dev)
-        self.notfinite_count = torch.as_tensor(state["notfinite_count"], dtype=torch.int64).to(dev)
+        self.count.copy_(torch.as_tensor(state["count"], dtype=torch.int64))
+        self.notfinite_count.copy_(torch.as_tensor(state["notfinite_count"], dtype=torch.int64))
         for b in self.buffers:
             for n, t in zip(names, getattr(self, b)):
                 t.copy_(torch.from_numpy(np.array(state[b][n], dtype=np.float32)))

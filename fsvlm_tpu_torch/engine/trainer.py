@@ -34,6 +34,23 @@ moved to the device once per epoch.  A step launches its work and returns
 its metrics as device tensors, with no host sync; ``run_epoch`` reads them
 back once, at the epoch's end, and prints the JAX package's train lines.
 
+An epoch over the resident cache runs one of two ways, chosen by
+``fuses_epoch`` as the JAX package chooses (trainer.py:450-467):
+
+- fused (TRAIN.EPOCH_FUSE "auto", the default, or "on"; a trainer may veto
+  "auto", as CoCoOp does past its batched-text limit; never across ranks,
+  never in the zoo): the epoch's schedule, and under mixup its lams, are
+  copied into the static buffers of an ``engine/fused.py::FusedEpoch``,
+  the first step runs eagerly, the second is captured as a CUDA graph and
+  the rest are its replays, each step reading its row and lam at a device
+  step counter and writing its metrics into a device buffer at it; on the
+  CPU the same code runs eagerly.  The trajectory is bit-equal to the
+  per-step path's.  Under TRAIN.DEVICE_SCHEDULE (Random or Sequential
+  sampler) the schedule is built on the device from a generator seeded from
+  (SEED, epoch) (``device_schedule``), else it is the host's;
+- step by step ("off", a veto, or no resident cache): each step launched
+  from Python, as below.
+
 - ``train_step(batch, aug, mix, drop)``: a batch that carries its images
   ("img", and "img2" for the SimCLR objectives: float, already normalized;
   or uint8, augmented on the device under DEVICE_AUG, and normalized as
@@ -78,6 +95,7 @@ import torch
 
 from .. import resolve_device
 from ..data import DataManager, RawDatasetWrapper
+from ..data.samplers import RandomSampler, SequentialSampler
 from ..ops.preprocess import (
     crop_resize_flip_normalize,
     normalize_only,
@@ -97,11 +115,16 @@ from .checkpoint import (
     save_checkpoint,
 )
 from .evaluator import build_evaluator
+from .fused import FusedEpoch
 from .optim import build_optimizer, make_lr_schedule
 from .tb import TensorboardWriter
 
 TRAINER_REGISTRY = Registry("TRAINER")
 STEP_KEYS = ("img", "img2", "label", "valid", "index")  # what a train step reads of a batch
+OFF = ("off", "false", "0", "no")  # TRAIN.EPOCH_FUSE / DEVICE_SCHEDULE spellings of off
+# the environment that the attention route reads at every call: a captured
+# step keeps the route it was captured on
+ROUTE_ENV = ("FSVLM_FORCE_PALLAS", "FSVLM_ATTN_BF16", "FSVLM_ATTN_REMAT")
 
 
 def build_trainer(cfg, **kwargs):
@@ -137,6 +160,12 @@ class SimpleTrainer:
     # its losses are row means, with no term that pairs rows or reads the
     # parameters alone
     data_parallel = False
+    # whether run_epoch may fuse an epoch over the resident cache (the zoo's
+    # own run_epoch never does, as JAX's zoo has no train_epoch_resident)
+    epoch_fusion = True
+    # set by build_model where TRAIN.EPOCH_FUSE "auto" must run step by step
+    # (printed); "on" overrides it
+    _epoch_fuse_auto_off = False
 
     def __init__(self, cfg, classnames=None, images=None, labels=None, clip=None, device=None,
                  steps_per_epoch=None, attn_impl=None):
@@ -168,8 +197,9 @@ class SimpleTrainer:
                             for v in (cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD)]
         self.dm = None
         self.train_loader_x = self.train_loader_u = self.val_loader = self.test_loader = None
-        self.cache = self.labels = None
+        self.cache = self.labels = self.domains = None
         self._resident_off = False
+        self._fused = None  # the fused epoch's FusedEpoch, made at its first epoch
         self._frozen_eval = None
         self._writer = None  # the TensorBoard writer, from before_train to after_train
         self._profiler = None  # FSVLM_PROFILE_DIR's torch.profiler, likewise
@@ -225,14 +255,16 @@ class SimpleTrainer:
         """Rank 0's state on every rank (at build and after a resume: the JAX
         package's replicate, trainer.py:107-109); nothing on one process."""
         mesh.broadcast_(self.replica_tensors())
+        self._fused = None  # recapture after any change of the state
 
     def load_init_weights(self, ckpt):
         """MODEL.INIT_WEIGHTS: the checkpoint's weights, as the JAX package's."""
         self.load_params(ckpt["state_dict"])
 
-    def set_train_data(self, images, labels):
-        """Move the uint8 (N, P, P, 3) train images and their labels to the
-        device, where every step gathers its batch."""
+    def set_train_data(self, images, labels, domains=None):
+        """Move the uint8 (N, P, P, 3) train images, their labels and (from
+        the DataManager) their domains to the device, where every step
+        gathers its batch and DEVICE_SCHEDULE its schedule."""
         images = torch.as_tensor(images)
         if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[-1] != 3:
             raise ValueError(f"images must be uint8 (N, P, P, 3), got {images.dtype} "
@@ -242,6 +274,8 @@ class SimpleTrainer:
             raise ValueError(f"need one label per image, got {tuple(labels.shape)}")
         self.cache = images.to(self.device)
         self.labels = labels.to(self.device, torch.long)
+        self.domains = None if domains is None else torch.as_tensor(domains).to(self.device,
+                                                                               torch.long)
 
     def _build_optimizer(self, steps_per_epoch):
         if steps_per_epoch is None and self.dm is not None:
@@ -269,7 +303,7 @@ class SimpleTrainer:
         if self.cache is not None or self.dm is None or self._resident_off:
             return self.cache
         mode = str(self.cfg.DATALOADER.DEVICE_RESIDENT).lower()
-        if mode in ("false", "off", "0", "no"):
+        if mode in OFF:
             return None
         wrapper = self.train_loader_x.wrapper
         if not isinstance(wrapper, RawDatasetWrapper):  # host-augmented batches
@@ -286,7 +320,9 @@ class SimpleTrainer:
             self._resident_off = True
             return None
         images = wrapper.materialize(num_threads=max(1, self.cfg.DATALOADER.NUM_WORKERS))
-        self.set_train_data(images, np.asarray([it.label for it in wrapper.data_source]))
+        data = wrapper.data_source
+        self.set_train_data(images, np.asarray([it.label for it in data]),
+                            np.asarray([it.domain for it in data]))
         print(f"* device-resident train set: {n} images x {wrapper.pre_size}^2 "
               f"({nbytes >> 20} MB) on {self.device}; per-step H2D is indices only")
         return self.cache
@@ -319,22 +355,31 @@ class SimpleTrainer:
 
     def draw_epoch_lams(self):
         """This epoch's mixup lams, one per step, ~ Beta(alpha, alpha) (1 when
-        alpha <= 0, as mixup_batch), drawn on the host and moved to the
-        device in one copy."""
+        alpha <= 0, as mixup_batch), drawn on the host and copied to the
+        device in one copy, into the same tensor every epoch (a captured
+        step reads it)."""
         n = self.steps_per_epoch
         a = self.mixup_alpha
-        lams = self.mix_rng.beta(a, a, n) if a > 0 else np.ones(n)
-        self.epoch_lams = torch.from_numpy(lams.astype(np.float32)).to(self.device)
+        lams = torch.from_numpy((self.mix_rng.beta(a, a, n) if a > 0 else np.ones(n))
+                                .astype(np.float32))
+        if self.epoch_lams is None:
+            self.epoch_lams = lams.to(self.device)
+        else:
+            self.epoch_lams.copy_(lams)
 
     def mixup_draws(self, batch_size):
         """This step's (perm, lam) on the device, with no host sync: a
         permutation of the batch from the generator, and the epoch's lam at
-        this step (a view of the device tensor: indexing it by a Python int
-        reads nothing back)."""
+        this step: in a fused epoch read at the device step counter, else a
+        view of the device tensor (indexing it by a Python int reads
+        nothing back)."""
         if self.epoch_lams is None:
             self.draw_epoch_lams()
         perm = torch.randperm(batch_size, generator=self.generator, device=self.device)
-        return perm, self.epoch_lams[self.batch_idx % len(self.epoch_lams)]
+        n = len(self.epoch_lams)
+        if self._fused is not None and self._fused.active:
+            return perm, self.epoch_lams.index_select(0, self._fused.counter.view(1) % n)[0]
+        return perm, self.epoch_lams[self.batch_idx % n]
 
     def dropout_draws(self):
         """This step's dropout draw source, on the device from the generator
@@ -466,11 +511,30 @@ class SimpleTrainer:
     def before_epoch(self):
         pass
 
+    def fuses_epoch(self):
+        """Whether run_epoch fuses this epoch, by the JAX package's rules
+        (trainer.py:450-467): a resident cache, steps to run, TRAIN.EPOCH_FUSE
+        not off (and under "auto" no veto of the trainer's), one process,
+        and a trainer with a resident step."""
+        mode = str(self.cfg.TRAIN.EPOCH_FUSE).lower()
+        return (self._maybe_device_cache() is not None
+                and self._num_batches() > 0
+                and mode not in OFF
+                and not (mode == "auto" and self._epoch_fuse_auto_off)
+                and not mesh.distributed()
+                and self.epoch_fusion)
+
+    def _num_batches(self):
+        return len(self.train_loader_x) if self.dm is not None else self.steps_per_epoch
+
     def run_epoch(self):
         """The epoch's steps, resident where the train set is on the device,
         else on the loader's batches; the metrics are read back once,
         at the end, and printed as the JAX package's train lines.  Returns
-        them as a list of {name: float}."""
+        them as a list of {name: float}.  Fused (``fuses_epoch``): the
+        resident steps as replays of one captured step."""
+        if self.fuses_epoch():
+            return self._run_epoch_fused()
         t0 = time.time()
         if self._maybe_device_cache() is not None:
             index, valid = self.epoch_schedule()
@@ -489,10 +553,96 @@ class SimpleTrainer:
             else:
                 pending.append(self.train_step_resident(*step))
         host = [{k: float(v) for k, v in m.items()} for m in pending]
+        self._check_finite(host)
+        self._print_train_lines(host, time.time() - t0, data_time)
+        return host
+
+    def _check_finite(self, host):
         for bi, m in enumerate(host):
             if not math.isfinite(m["loss"]):
                 raise FloatingPointError(f"Loss is infinite or NaN at epoch {self.epoch} "
                                          f"step {bi}: {m}")
+
+    def device_schedule(self, num_batches):
+        """TRAIN.DEVICE_SCHEDULE's epoch schedule, built on the device
+        (trainer.py:212-252, :374-408): under a RandomSampler a permutation
+        of the resident set from a generator seeded from (SEED, epoch) alone,
+        so a pure function of the epoch (JAX: fold_in(epoch_key, 1 << 20));
+        under a SequentialSampler an arange; cut to ``num_batches`` x B
+        (drop-last), or padded with its last element (valid False), and the
+        labels and domains gathered.  {"index", "valid", "label", "domain"},
+        each (steps, B); None when off, without the DataManager's resident
+        set, or (printed) for another sampler.  The order is not the host
+        sampler's, nor JAX's threefry order: the documented divergence that
+        the default (off) keeps out of the default path."""
+        if str(self.cfg.TRAIN.DEVICE_SCHEDULE).lower() in OFF + ("",) or self.domains is None:
+            return None
+        sampler = self.train_loader_x.sampler
+        if not isinstance(sampler, (RandomSampler, SequentialSampler)):
+            print("* TRAIN.DEVICE_SCHEDULE: unsupported sampler "
+                  f"{type(sampler).__name__}; falling back to host schedule")
+            return None
+        n, B, dev = len(self.cache), self.train_loader_x.batch_size, self.device
+        if isinstance(sampler, RandomSampler):
+            seed = np.random.SeedSequence((max(self.cfg.SEED, 0), self.epoch, 1 << 20))
+            gen = torch.Generator(device=dev).manual_seed(int(seed.generate_state(1, np.uint64)[0]))
+            perm = torch.randperm(n, generator=gen, device=dev)
+        else:
+            perm = torch.arange(n, device=dev)
+        total = num_batches * B
+        if total > n:  # pad as the host path pads: repeat the last element
+            perm = torch.cat([perm, perm[-1:].expand(total - n)])
+        index = perm[:total].reshape(num_batches, B)
+        valid = (torch.arange(total, device=dev) < n).reshape(num_batches, B)
+        return {"index": index, "valid": valid, "label": self.labels[index],
+                "domain": self.domains[index]}
+
+    def _fused_key(self):
+        """What a captured step depends on besides its buffers."""
+        return (self.batch_size, self.compute_dtype(), self.use_mixup, self.use_dropout,
+                tuple(os.environ.get(k) for k in ROUTE_ENV))
+
+    def _fused_step(self):
+        """One step of the fused epoch: the schedule's row at the device
+        step counter, gathered from the cache (train_step_resident's batch,
+        its label from the schedule)."""
+        f = self._fused
+        index = f.row(f.index)
+        batch = {"img": self.cache[index], "label": f.row(f.label), "index": index,
+                 "valid": f.row(f.valid)}
+        return self.train_step(batch)
+
+    def _run_epoch_fused(self):
+        """The epoch as the JAX package's fused epoch runs it (trainer.py:508-568):
+        its schedule (DEVICE_SCHEDULE's, else the host one ``epoch_schedule``
+        gives the per-step path) and mixup lams copied into the static
+        buffers of a ``FusedEpoch``, the steps run as replays of one
+        captured step (on the CPU, eagerly), and the metrics read back once
+        and printed as the per-step path prints them.  A non-finite loss
+        raises FloatingPointError at the epoch's end, naming the step, after
+        every step ran (trainer.py:518-521)."""
+        t0 = time.time()
+        sched = self.device_schedule(self._num_batches())
+        if sched is None:
+            index, valid = self.epoch_schedule()
+            sched = {"index": index, "valid": valid, "label": self.labels[index]}
+        steps, B = sched["index"].shape
+        if self.use_mixup:
+            self.draw_epoch_lams()
+        key = self._fused_key()
+        if self._fused is None or not self._fused.fits(steps, key):
+            self._fused = FusedEpoch(self.device, steps, B, key, type(self).__name__)
+        f = self._fused
+        f.load(sched["index"], sched["valid"], sched["label"])
+        data_time = time.time() - t0
+        f.active = True
+        try:
+            f.run(steps, self._fused_step, self.generator)
+        finally:
+            f.active = False
+        self.batch_idx = steps - 1
+        host = f.host_metrics(steps)
+        self._check_finite(host)
         self._print_train_lines(host, time.time() - t0, data_time)
         return host
 
@@ -703,6 +853,7 @@ class SimpleTrainer:
                 "best_result": float(self.best_result)}
 
     def load_extra_state(self, state):
+        self._fused = None  # recapture after any change of the state
         if state.get("rng_state") is not None:
             self.generator.set_state(torch.from_numpy(np.array(state["rng_state"], np.uint8)))
         if state.get("mix_rng_state") is not None:
@@ -767,3 +918,4 @@ class SimpleTrainer:
         print(f'Load model from "{directory}" (epoch {ckpt["epoch"]}, '
               f'val_result {ckpt.get("val_result")})')
         self.load_params(ckpt["state_dict"])
+        self._fused = None

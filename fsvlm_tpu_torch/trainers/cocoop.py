@@ -19,8 +19,10 @@ Parameters are flat keys of ``params``: "ctx" and "meta_net.w1",
 package's (in, out) layout; ``meta_net_from_torch`` is the one place that
 transposes torch's (out, in) ``nn.Linear`` weights.  The meta-net is drawn
 from the same numpy RandomState as the context, after it, as in the JAX
-package (:71-88), so one seed gives the same init in both.  The JAX
-package's EPOCH_FUSE hints are not ported (the port has no epoch fusion).
+package (:71-88), so one seed gives the same init in both.  Past
+``BATCHED_TEXT_LIMIT`` the trainer vetoes TRAIN.EPOCH_FUSE "auto", as the
+JAX package's does (:115-128), and says so: its epochs then run step by
+step; "on" still fuses them.
 """
 
 import numpy as np
@@ -97,6 +99,15 @@ class CoCoOp(SimpleTrainer):
         self.frozen = {"clip": clip, **prompt_tensors(pc, self.device), "alpha": alpha}
         self.remat = bool(cfg.TRAIN.REMAT)
         self.class_chunk = int(node.CLASS_CHUNK)
+        # TRAIN.EPOCH_FUSE "auto": past the batched-text limit a step is
+        # seconds of class-chunked text work, and the JAX package keeps
+        # such epochs step by step (its whole-epoch program crashed the
+        # TPU worker at 500 classes x batch 32); "on" still fuses
+        train_bs = int(cfg.DATALOADER.TRAIN_X.BATCH_SIZE)
+        if train_bs * self.num_classes > BATCHED_TEXT_LIMIT:
+            self._epoch_fuse_auto_off = True
+            print(f"[CoCoOp] batch x classes = {train_bs} x {self.num_classes} > "
+                  f"{BATCHED_TEXT_LIMIT}: EPOCH_FUSE=auto selects per-step dispatch")
 
     def _text_logits(self, frozen, imf, ctx, scale, base, scat, eot):
         """scale * cos(image, class text) for the classes of ``base`` /

@@ -144,6 +144,7 @@ class NetTrainerX(SimpleTrainer):
     # DAEL, DAELDG; the JAX package builds the classifier net, then this one)
     feature_net = False
     step_keys = STEP_KEYS + ("domain",)
+    epoch_fusion = False  # no resident step: JAX's zoo sets _train_epoch_resident = None
 
     def __init__(self, cfg, device=None, **kwargs):
         if cfg.DATALOADER.DEVICE_AUG:

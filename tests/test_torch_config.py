@@ -85,7 +85,17 @@ def _jax_value(cfg, key):
     return node
 
 
+def _jax_keys(node, prefix=""):
+    for k, v in node.items():
+        if hasattr(v, "items"):
+            yield from _jax_keys(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}"
+
+
 def _assert_same(pcfg, jcfg):
+    """The same keys (225 leaves) with the same values and types."""
+    assert sorted(k for k, _ in _leaves(pcfg)) == sorted(_jax_keys(jcfg))
     for key, value in _leaves(pcfg):
         ref = _jax_value(jcfg, key)
         assert type(value) is type(ref) and value == ref, (key, value, ref)
@@ -122,6 +132,9 @@ def test_merge_from_file_matches_jax(paths):
     ("ZeroshotCLIP2", "configs/trainers/tests/synthetic_tiny.yaml"),
     ("PLIP", "configs/trainers/PLIP/vit_b16_c4_ep10_batch4.yaml"),
     ("CoOp", "configs/trainers/CoOp/rn50.yaml"),
+    ("PromptSRC", "configs/trainers/tests/synthetic_tiny.yaml|TRAIN.EPOCH_FUSE off"),
+    ("CoCoOp", "configs/trainers/CoCoOp/vit_b16_c4_ep10_batch1.yaml|TRAIN.EPOCH_FUSE on "
+               "TRAIN.DEVICE_SCHEDULE True"),
 ] + [("PromptSRC", f"configs/trainers/tests/synthetic_tiny.yaml|{C4_OPTS} OPTIM.NAME {name}")
      for name in ("adam", "amsgrad", "sgd", "rmsprop", "radam", "adamw")] + [
     ("Vanilla", "configs/trainers/zoo/vanilla_mixstyle_pacs.yaml"),
@@ -147,7 +160,10 @@ def test_setup_cfg_matches_jax(trainer, config_file, monkeypatch):
     _assert_same(pcfg, jcfg)
     if config_file.endswith("synthetic_tiny.yaml") and trainer == "IVLP":
         assert pcfg.TRAINER.IVLP.N_CTX_TEXT == 2 and pcfg.TRAINER.IVLP.USE_MIXUP
-    if opts:
+    if "EPOCH_FUSE" in opts:
+        assert pcfg.TRAIN.EPOCH_FUSE in ("off", "on")
+        assert pcfg.TRAIN.DEVICE_SCHEDULE is ("DEVICE_SCHEDULE" in opts)
+    elif opts:
         assert (pcfg.VERSION, pcfg.USE_CUDA, pcfg.OPTIM.SGD_DAMPNING, pcfg.OPTIM.ADAM_BETA2,
                 pcfg.TRAINER.PROMPTSRC.LABEL_SCOPE) == (2, False, 1, 0.99, "all")
 
