@@ -433,7 +433,30 @@ Phases; each passes or raises, and any failure exits non-zero:
    to the same run without one (and that run to itself), cuDNN
    deterministic.  One ``{"zoo_ssl": ...}`` line.
 
-Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 17 zero the launch counts
+21. ranks: the CLIP trainers across ranks (parallel/mesh.py).  (a)
+   PromptSRC ViT-B/16 (phase 6's settings: batch 48, bf16, 100 classes,
+   DEVICE_AUG on phase 6's cache, per-step teacher) 2 epochs of 3 steps, and
+   IVLP with mixup and KD (KD_ALPHA 0.5) under FSVLM_FORCE_PALLAS=1 (#3-#5)
+   1 epoch, each step by step and fused, each run from a new trainer,
+   without a process group and under a NCCL one of world size 1 (the
+   captured step then holds the gradients' and the metrics' all-reduces):
+   the four runs bit-equal (metrics, prompts, optimizer, generator, mixup
+   rng, GPA), the wrappers' calls, the fused runs' kernel events per
+   group in their profiler traces (36 / 24 / 24 a step) and one
+   ``cudaGraphLaunch`` per replay, the replay loop under NCCL without a
+   sync.  (b) Beside (a), three processes of this script (``--ranks-worker``):
+   PromptSRC ViT-B/16 in fp32 with TF32 off at the global batch 48 as two
+   gloo ranks on cuda:0 (24 + 24; NCCL refuses two ranks on one card)
+   against one process at 48, RANKS_B_STEPS steps on the same batches
+   with host-given boxes and flips, step by step (EPOCH_FUSE off: a gloo
+   collective cannot be captured), then test() on RANKS_B_TEST images:
+   within RANKS_DLOSS and RANKS_DPARAM, the same predictions, #6-#8 at
+   their per-step counts on each rank.  Then the cost of LoRA's
+   image-tower dropout masks drawn at the global shape (LORA_MASK_RANKS
+   ranks, batch LORA_MASK_BATCH) against the local one.  One
+   ``{"ranks": ...}`` line.
+
+Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 17 and 21 zero the launch counts
 just before each main path and read them just after, and phase 16 counts
 the driver's from its profiler trace (the run is another process): each
 kernel of the path must have launched its expected count (derived from the
@@ -6341,11 +6364,11 @@ ZOO_SSL_DATASET = "configs/datasets/zoo/ssl_cifar10.yaml"
 # strong views come from the host's transforms at 8 threads, 1.79 s a step
 # measured (host-bound; an H100 80GB HBM3 at 700 W), so 24 steps took phase 20
 # to 117 s of its 90, and 10 to 58.8-64.7 s; 8 for the whole call's time, 4
-# since the fused-epoch checks came in (phases 6-10).
+# since the fused-epoch checks came in (phases 6-10), 2 since phase 21 came in.
 # TEST.NO_TEST: the CLI's own test after training (10,000 images) is the one
 # test
-ZOO_SSL_STEPS = 4
-ZOO_SSL_PROFILE_STEPS = 3  # 5 until the fused-epoch checks came in
+ZOO_SSL_STEPS = 2
+ZOO_SSL_PROFILE_STEPS = 2  # 5 until the fused-epoch checks came in, 3 until phase 21
 # (b): each SSL trainer on SyntheticDA (target d2 unlabeled) on wide_resnet_28_2
 # at 32x32, ZOO_E_BATCH labeled and ZOO_E_BATCH_U unlabeled images, MixMatch at
 # K = 2, ZOO_E_STEPS steps card vs CPU as phase 18's (b), each from the card's
@@ -6686,6 +6709,342 @@ def phase_zoo_ssl(ssl_work=None):
     return result
 
 
+RANKS_EPOCHS = 2  # (a): PromptSRC's epochs each way (IVLP: 1)
+RANKS_B_STEPS, RANKS_B_TEST = 2, 200  # (b): steps of the global batch; test() images
+# (b): two ranks against one process, fp32 with TF32 off: per step
+# |dloss| <= RANKS_DLOSS * (1 + |loss|); each trained tensor's max |d| <=
+# RANKS_DPARAM of its largest magnitude (the two ranks sum their rows'
+# gradients apart and add the sums: rounding, ~1e-7 relative)
+RANKS_DLOSS, RANKS_DPARAM = 1e-5, 1e-4
+LORA_MASK_RANKS, LORA_MASK_BATCH = 8, 32  # the global-shape dropout draws' cost, per rank
+
+
+def _ranks_worker(world, rank, port, out):
+    """Phase 21 (b), one process: PromptSRC ViT-B/16 in fp32 (TF32 off) at
+    the global batch TRAIN_BATCH, this rank's rows of it (all of it at
+    world 1), RANKS_B_STEPS steps on the phase-6 cache with host-given
+    boxes and flips for the global batch, then test() on RANKS_B_TEST cache
+    images; under a gloo process group of ``world`` ranks on cuda:0 when
+    world > 1.  Writes the metrics, the prompts, the predictions and the
+    step's kernel launches to ``out`` (rank 0)."""
+    import torch
+    import torch.distributed as dist
+
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.ops.preprocess import sample_crop_boxes, sample_flips
+    from fsvlm_tpu_torch.parallel import mesh
+    from fsvlm_tpu_torch.trainers.backbone import load_clip_backbone
+    from fsvlm_tpu_torch.trainers.promptsrc import PromptSRC
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    if world > 1:
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                                rank=rank)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            clip = load_clip_backbone("ViT-B/16", frozen="fp32", seed=0, device="cuda")
+            cfg = _train_cfg("PROMPTSRC")
+            cfg.MODEL.FROZEN_DTYPE = "fp32"
+            cfg.TRAINER.PROMPTSRC.PREC = "fp32"
+            cfg.TRAIN.EPOCH_FUSE = "off"  # a gloo collective cannot be captured
+            cache, labels = _train_cache()
+            t = PromptSRC(cfg, [f"class {i}" for i in range(N_CLASSES)], cache, labels, clip=clip,
+                          device="cuda", steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        b = TRAIN_BATCH // world
+        rows = slice(rank * b, (rank + 1) * b)
+        res = {"world": np.asarray(mesh.world_size())}
+        fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        for step in range(RANKS_B_STEPS):
+            index = torch.arange(step * TRAIN_BATCH, (step + 1) * TRAIN_BATCH, device="cuda")
+            aug = (sample_crop_boxes(TRAIN_BATCH, 224, 224, (0.08, 1.0), gen),
+                   sample_flips(TRAIN_BATCH, gen))
+            t.epoch, t.batch_idx = divmod(step, TRAIN_STEPS_PER_EPOCH)
+            m = t.train_step_resident(index[rows], aug=(aug[0][rows], aug[1][rows]))
+            res.update({f"m{step}/{k}": np.asarray(float(v)) for k, v in m.items()})
+        torch.cuda.synchronize()
+        res["launches"] = np.asarray(json.dumps(dict(fa.LAUNCHES)))
+        res.update({f"p/{k}": v.detach().cpu().numpy() for k, v in t.params.items()})
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, pred = t.test(cache[:RANKS_B_TEST], labels[:RANKS_B_TEST].cpu().numpy(),
+                             return_pred=True)
+        res["pred"] = np.asarray(pred)
+        launches = json.loads(str(res["launches"]))
+        log(f"ranks: (b) rank {rank} of {world}: {RANKS_B_STEPS} steps of {b} rows, kernel "
+            f"launches {({k: n for k, n in launches.items() if n})}")
+        if rank == 0:
+            np.savez(out, **res)
+    finally:
+        if world > 1:
+            dist.destroy_process_group()
+
+
+def _start_ranks_b(work):
+    """Phase 21 (b)'s three processes, started together: two gloo ranks and
+    one process alone."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    me = os.path.abspath(__file__)
+    runs = [(2, r, os.path.join(work, "two.npz")) for r in range(2)] + [
+        (1, 0, os.path.join(work, "one.npz"))]
+    return [subprocess.Popen([sys.executable, me, "--ranks-worker", str(w), str(r), str(port),
+                              out], cwd=os.path.dirname(me), stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True) for w, r, out in runs]
+
+
+def _finish_ranks_b(procs, work, per_step):
+    """Wait for (b)'s processes and hold the two ranks to the one process."""
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=600)
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        for line in out.splitlines():
+            if line.startswith("ranks:"):
+                log(line)
+        if p.returncode != 0:
+            raise SystemExit(f"FAIL: ranks: (b) process {p.args[3:6]} exited {p.returncode}: "
+                             f"{out[-3000:]}")
+    two = dict(np.load(os.path.join(work, "two.npz")))
+    one = dict(np.load(os.path.join(work, "one.npz")))
+    dmetric = {k: abs(float(two[k]) - float(one[k])) / (1 + abs(float(one[k])))
+               for k in one if k.startswith("m")}
+    dloss = max(v for k, v in dmetric.items() if k.endswith("/loss"))
+    dparam = {k[2:]: float(np.abs(two[k] - one[k]).max() / np.abs(one[k]).max())
+              for k in one if k.startswith("p/")}
+    same_keys = two.keys() == one.keys()
+    same_pred = bool(np.array_equal(two["pred"], one["pred"]))
+    launches = [json.loads(str(r["launches"])) for r in (two, one)]
+    want = {k: n * RANKS_B_STEPS for k, n in per_step.items()}
+    log(f"ranks: (b) PromptSRC ViT-B/16 fp32, TF32 off, global batch {TRAIN_BATCH}: 2 gloo ranks "
+        f"on cuda:0 ({TRAIN_BATCH // 2} + {TRAIN_BATCH // 2}) against one process, "
+        f"{RANKS_B_STEPS} steps: max |dloss|/(1+|loss|) {dloss:.3e} (bound {RANKS_DLOSS:g}; "
+        f"every metric {({k: f'{v:.1e}' for k, v in dmetric.items()})}), "
+        f"max |dparam|/max|param| {max(dparam.values()):.3e} (bound {RANKS_DPARAM:g}) "
+        f"{ {k: f'{v:.2e}' for k, v in dparam.items()} }; test() on {RANKS_B_TEST} images, "
+        f"predictions equal: {same_pred}; rank 0's step launches {launches[0]}")
+    if (not same_keys or int(two["world"]) != 2 or int(one["world"]) != 1
+            or dloss > RANKS_DLOSS or max(dparam.values()) > RANKS_DPARAM or not same_pred):
+        raise SystemExit("FAIL: ranks: (b) two ranks and one process differ past the bounds")
+    for got in launches:
+        if any(got.get(k, 0) != n for k, n in want.items()):
+            raise SystemExit(f"FAIL: ranks: (b) the steps launched {got}, expected {want}")
+    return {"dloss": dloss, "dloss_bound": RANKS_DLOSS, "dmetric": dmetric, "dparam": dparam,
+            "dparam_bound": RANKS_DPARAM, "predictions_equal": same_pred,
+            "test_images": RANKS_B_TEST, "steps": RANKS_B_STEPS, "backend": "gloo",
+            "device": "cuda:0", "launches_rank0": launches[0]}
+
+
+def _ranks_runs(label, build, epochs, per_step, groups):
+    """Phase 21 (a) for one trainer: ``epochs`` epochs step by step and
+    fused (each from a new trainer, ``build(mode)``, so from the seed's
+    state), without a process group and under a NCCL one of world size 1;
+    the fused runs under torch.profiler.  Everything bit-equal across the
+    four runs (metrics, trained tensors, optimizer counts and moments,
+    generator, mixup rng, GPA); the wrappers' calls per_step x steps step
+    by step, per_step x 2 fused (the warm-up and the captured step); the
+    fused trace's kernel events of ``groups`` per_step x steps and one
+    cudaGraphLaunch per replay; the replay loop under NCCL without a sync."""
+    import gc
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from fsvlm_tpu_torch.engine import fused
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.parallel import mesh
+
+    def run(mode):
+        t = build(mode)
+        fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        _zero_fused_steps()
+
+        def epochs_():
+            hist = []
+            for t.epoch in range(epochs):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    hist.append(t.run_epoch())
+                    t.after_epoch()  # PromptSRC: GPA (no DataManager: no checkpoint)
+            return hist
+
+        if mode == "on":
+            hist, traced, graphs = _traced(epochs_, groups)
+        else:
+            hist, traced, graphs = epochs_(), None, None
+        state = _trainer_state(t)
+        state["gpa"] = {k: v.clone() for k, v in (getattr(t, "gpa_params", None) or {}).items()}
+        return {"t": t, "hist": hist, "state": state, "launches": dict(fa.LAUNCHES),
+                "traced": traced, "graphs": graphs, "steps": dict(fused.STEPS),
+                "world": mesh.world_size(), "active": mesh.active()}
+
+    runs = {}
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for pg in ("none", "nccl"):
+        if pg == "nccl":
+            dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                                    rank=0)
+        try:
+            for mode in ("off", "on"):
+                runs[pg, mode] = run(mode)
+            if pg == "nccl":
+                _no_sync_replays(f"ranks: {label} under NCCL", runs[pg, "on"]["t"])
+        finally:
+            for r in runs.values():  # the graphs go before the process group
+                t = r.pop("t", None)
+                if t is not None:
+                    t._fused = None
+            gc.collect()
+            torch.cuda.synchronize()
+            if pg == "nccl":
+                dist.destroy_process_group()
+    ref = runs["none", "off"]
+    steps = sum(len(h) for h in ref["hist"])
+
+    def same(a, b):
+        return (a["hist"] == b["hist"] and _states_equal(a["state"], b["state"])
+                and a["state"]["gpa"].keys() == b["state"]["gpa"].keys()
+                and all(torch.equal(v, b["state"]["gpa"][k]) for k, v in a["state"]["gpa"].items()))
+
+    equal = {f"{pg}/{mode}": same(r, ref) for (pg, mode), r in runs.items()}
+    want_traced = _group_launches(groups, per_step, steps)
+    log(f"ranks: (a) {label}, {epochs} epoch(s) of {steps // epochs} steps, step by step and fused, "
+        f"without a process group and under NCCL at world size {runs['nccl', 'on']['world']} "
+        f"(active {runs['nccl', 'on']['active']}): bit-equal to the first run (metrics, trained "
+        f"tensors, optimizer, generator, mixup rng, GPA) {equal}; wrapper calls "
+        f"{ {f'{pg}/{m}': {k: r['launches'][k] for k in per_step} for (pg, m), r in runs.items()} }; "
+        f"fused steps {runs['nccl', 'on']['steps']}; the fused runs' traces: kernel events "
+        f"{runs['none', 'on']['traced']} / {runs['nccl', 'on']['traced']} (expected {want_traced}), "
+        f"cudaGraphLaunch {runs['none', 'on']['graphs']} / {runs['nccl', 'on']['graphs']}")
+    if not all(equal.values()) or runs["nccl", "on"]["world"] != 1 or not runs["nccl", "on"]["active"]:
+        raise SystemExit(f"FAIL: ranks: (a) {label}: the runs differ: {equal}")
+    for (pg, mode), r in runs.items():
+        n = steps if mode == "off" else 2
+        if any(r["launches"][k] != c * n for k, c in per_step.items()):
+            raise SystemExit(f"FAIL: ranks: (a) {label} {pg}/{mode}: wrapper calls "
+                             f"{r['launches']}, expected per step {per_step} x {n}")
+        if mode == "on" and (r["traced"] != want_traced or r["graphs"] != steps - 1
+                             or r["steps"] != {"eager": 1, "captured": 1, "replays": steps - 1}):
+            raise SystemExit(f"FAIL: ranks: (a) {label} {pg}/on: trace {r['traced']}, "
+                             f"{r['graphs']} graph launches, steps {r['steps']}; expected "
+                             f"{want_traced} and {steps - 1}")
+    return {"steps": steps, "bit_equal": equal, "traced": runs["nccl", "on"]["traced"],
+            "graph_replays": runs["nccl", "on"]["graphs"],
+            "launches": runs["nccl", "on"]["launches"]}
+
+
+def _lora_mask_cost():
+    """LoRA's dropout keep masks across ranks: each rank draws the image
+    tower's masks for the global batch (LORA_MASK_RANKS ranks of
+    LORA_MASK_BATCH // LORA_MASK_RANKS rows) and keeps its rows.  One step's
+    draws (ViT-B/16's 12 layers x q, k, v at (rows, 197, 768)) at the global
+    shape and at the local one, by CUDA events: launched eagerly (a step
+    by step epoch), and as replays of a captured graph (a fused epoch: the
+    device's time alone), median of 5."""
+    import torch
+
+    def draw(rows):
+        return [torch.rand((rows, 197, 768), device="cuda") < 0.75 for _ in range(12 * 3)]
+
+    def ms_of(fn):
+        times = []
+        for _ in range(6):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times[1:]))
+
+    g, l = LORA_MASK_BATCH, LORA_MASK_BATCH // LORA_MASK_RANKS
+    out = {"ranks": LORA_MASK_RANKS, "global_batch": g}
+    for name, rows in (("global", g), ("local", l)):
+        eager = ms_of(lambda: draw(rows))
+        graph = torch.cuda.CUDAGraph()
+        draw(rows)
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph):
+            draw(rows)
+        out[name] = {"rows": rows, "eager_ms": eager, "replay_ms": ms_of(graph.replay),
+                     # the float draws written and read, the bool masks written
+                     "mib": rows * 12 * 3 * 197 * 768 * 9 / 2**20}
+        del graph
+    log(f"ranks: LoRA dropout masks of the image tower per step and rank at {LORA_MASK_RANKS} "
+        f"ranks, global batch {g}, on {CARD[0]}: drawn at the global shape "
+        f"({g} rows, {out['global']['mib']:.1f} MiB moved) {out['global']['eager_ms']:.3f} ms "
+        f"eager, {out['global']['replay_ms']:.3f} ms replayed; at the local ({l} rows, "
+        f"{out['local']['mib']:.1f} MiB) {out['local']['eager_ms']:.3f} / "
+        f"{out['local']['replay_ms']:.3f} ms")
+    return out
+
+
+@_timed
+def phase_ranks(clip):
+    """Phase 21 (module docstring).  Returns the ``{"ranks": ...}`` numbers."""
+    import torch
+
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.trainers.ivlp import IVLP
+    from fsvlm_tpu_torch.trainers.promptsrc import PromptSRC
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    n = clip.cfg.vision_layers
+    per_step = {fa.KERNEL: 3 * n, fa.KERNEL_DKV: 2 * n, fa.KERNEL_DQ: 2 * n}
+    procs = _start_ranks_b(work)  # (b) runs beside (a)
+    try:
+        classnames = [f"class {i}" for i in range(N_CLASSES)]
+        cache, labels = _train_cache()
+
+        def promptsrc(mode):
+            cfg = _train_cfg("PROMPTSRC")
+            cfg.TRAIN.EPOCH_FUSE = mode
+            with contextlib.redirect_stdout(io.StringIO()):
+                return PromptSRC(cfg, classnames, cache, labels, clip=clip, device="cuda",
+                                 steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+
+        def ivlp(mode):
+            cfg = _train_cfg("IVLP")
+            node = cfg.TRAINER.IVLP
+            node.USE_MIXUP, node.USE_KD, node.KD_ALPHA = True, True, 0.5
+            cfg.TRAIN.EPOCH_FUSE = mode
+            with contextlib.redirect_stdout(io.StringIO()):
+                return IVLP(cfg, classnames, cache, labels, clip=clip, device="cuda",
+                            steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+
+        with force_pallas(None):
+            a_promptsrc = _ranks_runs("PromptSRC", promptsrc, RANKS_EPOCHS, per_step,
+                                      FLASH_GROUPS)
+        with force_pallas("1"):  # every attention through the blockwise kernels #3-#5
+            bw = {fa.BW_KERNEL: 3 * n, fa.BW_KERNEL_DKV: 2 * n, fa.BW_KERNEL_DQ: 2 * n}
+            a_ivlp = _ranks_runs("IVLP mixup + KD", ivlp, 1, bw, BW_GROUPS)
+        mask_cost = _lora_mask_cost()
+        b = _finish_ranks_b(procs, work, per_step)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(work, ignore_errors=True)
+    result = {"a_promptsrc": a_promptsrc, "a_ivlp": a_ivlp, "b": b, "lora_masks": mask_cost,
+              "card": CARD[0], "phase_s": time.perf_counter() - t_phase}
+    log(f"ranks: phase 21 in {result['phase_s']:.1f} s")
+    print(json.dumps({"ranks": result}), flush=True)
+    return a_promptsrc["launches"]
+
+
 def _recipe_cfg_from_argv(argv):
     """The CLI's config for ``argv`` (setup_cfg), without running it."""
     from fsvlm_tpu_torch.train import build_argparser, setup_cfg
@@ -6744,6 +7103,7 @@ def main():
         phase_zoo_ssl(ssl_work)  # the SSL zoo and one rank under NCCL: no attention
     finally:
         shutil.rmtree(ssl_work, ignore_errors=True)
+    launches_ranks = phase_ranks(pred.clip)  # the CLIP trainers across ranks
 
     import torch
 
@@ -6797,7 +7157,7 @@ def main():
                "zsclip_int8_test": launches_int8_serving,
                "promptsrc_int8_teacher": launches_int8_teacher,
                "lpclip_extract": launches_lpclip, "driver_setting_a": launches_driver,
-               "pacs_dg_cli": launches_pacs,
+               "pacs_dg_cli": launches_pacs, "promptsrc_fused_nccl": launches_ranks,
                **{f"export_{label}_loaded_call": {fa.KERNEL: n}
                   for label, n in launches_export.items()}}
     for row in kernels[:3]:
@@ -6830,7 +7190,7 @@ def main():
         "device_ms": bwd["device_ms"], "library_device_ms": bwd["library_device_ms"],
     })
     log(f"chip_smoke: seconds by phase {json.dumps(PHASE_S)}")
-    log(f"chip_smoke: all 20 phases in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: all 21 phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6838,4 +7198,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ranks-worker"]:  # phase 21 (b)'s processes
+        _ranks_worker(*(int(x) for x in sys.argv[2:5]), sys.argv[5])
+    else:
+        main()

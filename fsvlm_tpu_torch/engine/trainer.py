@@ -38,8 +38,9 @@ An epoch over the resident cache runs one of two ways, chosen by
 ``fuses_epoch`` as the JAX package chooses (trainer.py:450-467):
 
 - fused (TRAIN.EPOCH_FUSE "auto", the default, or "on"; a trainer may veto
-  "auto", as CoCoOp does past its batched-text limit; never across ranks,
-  never in the zoo): the epoch's schedule, and under mixup its lams, are
+  "auto", as CoCoOp does past its batched-text limit; never in the zoo;
+  across ranks on each rank's columns of the schedule): the epoch's
+  schedule, and under mixup its lams, are
   copied into the static buffers of an ``engine/fused.py::FusedEpoch``,
   the first step runs eagerly, the second is captured as a CUDA graph and
   the rest are its replays, each step reading its row and lam at a device
@@ -156,9 +157,11 @@ class SimpleTrainer:
     mixup_alpha = 1.0
     use_dropout = False  # set by build_model: every step then draws dropout masks
     step_keys = STEP_KEYS  # what train_step and device_batches keep of a batch
-    # whether a step across ranks (parallel.mesh) computes the global step:
-    # its losses are row means, with no term that pairs rows or reads the
-    # parameters alone
+    # whether a step across ranks (parallel.mesh) computes the global step
+    # (its row means global, its cross-row terms over the gathered batch,
+    # its parameter-only terms at 1/R): every CLIP trainer and the SSL zoo;
+    # the DG and DA zoo trainers, whose per-domain and paired terms are not
+    # ported across ranks, leave it False and refuse
     data_parallel = False
     # whether run_epoch may fuse an epoch over the resident cache (the zoo's
     # own run_epoch never does, as JAX's zoo has no train_epoch_resident)
@@ -178,12 +181,13 @@ class SimpleTrainer:
         batch), as the JAX package's drop-last train loader.  attn_impl:
         None (the hand-written kernels on CUDA) or "plain", for comparisons
         only."""
+        if mesh.distributed() and not self.data_parallel:
+            raise ValueError(f"{type(self).__name__} does not train across ranks: the DG and DA "
+                             f"zoo trainers' per-domain and paired terms are not ported across "
+                             f"ranks (ROADMAP A8)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.check_cfg(cfg)
-        if mesh.distributed() and not self.data_parallel:
-            raise ValueError(f"{type(self).__name__} does not train across ranks: a term of its "
-                             f"loss pairs rows or reads the parameters alone (ROADMAP A8)")
         self.attn_impl = attn_impl
         self.start_epoch = self.epoch = self.batch_idx = 0
         self.max_epoch = cfg.OPTIM.MAX_EPOCH
@@ -369,13 +373,15 @@ class SimpleTrainer:
 
     def mixup_draws(self, batch_size):
         """This step's (perm, lam) on the device, with no host sync: a
-        permutation of the batch from the generator, and the epoch's lam at
-        this step: in a fused epoch read at the device step counter, else a
-        view of the device tensor (indexing it by a Python int reads
-        nothing back)."""
+        permutation of the batch from the generator (across ranks of the
+        padded global batch, the same on every rank, as ``augment`` draws
+        its boxes), and the epoch's lam at this step: in a fused epoch read
+        at the device step counter, else a view of the device tensor
+        (indexing it by a Python int reads nothing back)."""
         if self.epoch_lams is None:
             self.draw_epoch_lams()
-        perm = torch.randperm(batch_size, generator=self.generator, device=self.device)
+        perm = torch.randperm(batch_size * mesh.world_size(), generator=self.generator,
+                              device=self.device)
         n = len(self.epoch_lams)
         if self._fused is not None and self._fused.active:
             return perm, self.epoch_lams.index_select(0, self._fused.counter.view(1) % n)[0]
@@ -514,14 +520,14 @@ class SimpleTrainer:
     def fuses_epoch(self):
         """Whether run_epoch fuses this epoch, by the JAX package's rules
         (trainer.py:450-467): a resident cache, steps to run, TRAIN.EPOCH_FUSE
-        not off (and under "auto" no veto of the trainer's), one process,
-        and a trainer with a resident step."""
+        not off (and under "auto" no veto of the trainer's) and a trainer
+        with a resident step; across ranks too, as the JAX package fuses
+        over its mesh."""
         mode = str(self.cfg.TRAIN.EPOCH_FUSE).lower()
         return (self._maybe_device_cache() is not None
                 and self._num_batches() > 0
                 and mode not in OFF
                 and not (mode == "auto" and self._epoch_fuse_auto_off)
-                and not mesh.distributed()
                 and self.epoch_fusion)
 
     def _num_batches(self):
@@ -618,14 +624,22 @@ class SimpleTrainer:
         gives the per-step path) and mixup lams copied into the static
         buffers of a ``FusedEpoch``, the steps run as replays of one
         captured step (on the CPU, eagerly), and the metrics read back once
-        and printed as the per-step path prints them.  A non-finite loss
-        raises FloatingPointError at the epoch's end, naming the step, after
-        every step ran (trainer.py:518-521)."""
+        and printed as the per-step path prints them.  Across ranks each
+        rank loads its columns of the schedule, padded as ``shard_batch``
+        pads (the JAX package's P(None, "data"), trainer.py:535-551); the
+        step's collectives (the gradients', the metrics', the gathers) are
+        captured with it, the eager warm-up step having made the
+        communicator.  A non-finite loss raises FloatingPointError at the
+        epoch's end, naming the step, after every step ran
+        (trainer.py:518-521)."""
         t0 = time.time()
         sched = self.device_schedule(self._num_batches())
         if sched is None:
             index, valid = self.epoch_schedule()
             sched = {"index": index, "valid": valid, "label": self.labels[index]}
+        if mesh.active():  # every rank's schedule, each rank's columns
+            sched = dict(zip(("index", "valid", "label"), mesh.shard_columns(
+                sched["index"], sched["valid"], sched["label"])))
         steps, B = sched["index"].shape
         if self.use_mixup:
             self.draw_epoch_lams()

@@ -20,6 +20,14 @@ R-device mesh:
   rows (``all_reduce_sum``, differentiable: its backward sums the gradients
   over the ranks, as SyncBatchNorm's), so that the running statistics stay
   equal on every rank;
+- a term that pairs rows across the batch (NT-Xent's negatives, mixup's
+  partners) reads the other ranks' rows: ``gather_rows_grad`` (whose
+  backward sums the gradients over the ranks and keeps this rank's rows)
+  where they carry a gradient, ``gather_rows`` where they do not;
+- a term that reads the replicated parameters alone (an L1 between
+  prompted and frozen text features, a penalty on the context) is computed
+  whole on every rank and weighted 1/R (``replicated_term``), so that the
+  summed gradients and metrics count it once;
 - a step's metrics are summed over the ranks, eval logits are gathered
   (``gather_rows``) and rank 0 alone writes.
 
@@ -129,6 +137,13 @@ def all_reduce_sum(x):
     return _AllReduceSum.apply(x) if distributed() else x
 
 
+def replicated_term(x):
+    """A loss term that every rank computes whole from the replicated
+    parameters alone, weighted 1/R across ranks, so that the ranks' values
+    (and their gradients) sum to it once; ``x`` on one rank."""
+    return x / world_size() if distributed() else x
+
+
 def global_mean(x, valid=None):
     """The mean of ``x`` over the global batch: of its rows weighted by
     ``valid`` (``x`` (B,), ``valid`` (B,) bool or weights; the entries of
@@ -174,28 +189,55 @@ def shard_rows(x):
     return x[r * rows:(r + 1) * rows]
 
 
-def shard_columns(index, valid):
+def shard_columns(index, valid, *rest):
     """This rank's columns of an epoch schedule's (steps, B) index and valid
-    tensors, padded along the batch axis as ``shard_batch`` pads rows
-    (trainer.py:535-550)."""
+    tensors (and of ``rest``, such as its labels), padded along the batch
+    axis as ``shard_batch`` pads rows: the last column repeated, valid
+    False (trainer.py:535-551)."""
     world, r = world_size(), rank()
     pad = (-index.shape[1]) % world
-    if pad:
-        index = torch.cat([index, index[:, -1:].expand(-1, pad)], 1)
-        valid = torch.cat([valid, valid.new_zeros((valid.shape[0], pad))], 1)
-    cols = index.shape[1] // world
-    return index[:, r * cols:(r + 1) * cols], valid[:, r * cols:(r + 1) * cols]
+    cols = (index.shape[1] + pad) // world
+
+    def put(t, fill):
+        if pad:
+            t = torch.cat([t, t.new_zeros((t.shape[0], pad)) if fill else
+                           t[:, -1:].expand(-1, pad)], 1)
+        return t[:, r * cols:(r + 1) * cols]
+
+    return (put(index, False), put(valid, True)) + tuple(put(t, False) for t in rest)
+
+
+def _all_gather(x):
+    parts = [torch.empty_like(x) for _ in range(world_size())]
+    dist.all_gather(parts, x.contiguous())
+    return torch.cat(parts, 0)
 
 
 @torch.no_grad()
 def gather_rows(x):
     """Every rank's rows of ``x`` concatenated along axis 0, in rank order
-    (the global batch); ``x`` without a process group."""
-    if not active():
-        return x
-    parts = [torch.empty_like(x) for _ in range(world_size())]
-    dist.all_gather(parts, x.contiguous())
-    return torch.cat(parts, 0)
+    (the global batch), without a gradient; ``x`` on one rank."""
+    return _all_gather(x) if distributed() else x
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _all_gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g)
+        rows = g.shape[0] // world_size()
+        return g[rank() * rows:(rank() + 1) * rows]
+
+
+def gather_rows_grad(x):
+    """``gather_rows``, differentiable: the backward sums the global batch's
+    gradient over the ranks (each rank's loss reads every rank's rows) and
+    returns this rank's block of rows; ``x`` itself on one rank."""
+    return _GatherRows.apply(x) if distributed() else x
 
 
 @torch.no_grad()

@@ -22,7 +22,10 @@ from the same numpy RandomState as the context, after it, as in the JAX
 package (:71-88), so one seed gives the same init in both.  Past
 ``BATCHED_TEXT_LIMIT`` the trainer vetoes TRAIN.EPOCH_FUSE "auto", as the
 JAX package's does (:115-128), and says so: its epochs then run step by
-step; "on" still fuses them.
+step; "on" still fuses them.  Across ranks both the veto and the class
+blocks read the global batch, as the JAX package's SPMD step does; a batch
+of 1 is padded to one row per rank (``parallel.mesh.shard_batch``), the pad
+rows out of every mean.
 """
 
 import numpy as np
@@ -31,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..engine.trainer import TRAINER_REGISTRY, SimpleTrainer
 from ..models.clip import encode_image, encode_text_embeds, l2_normalize
+from ..parallel import mesh
 from .backbone import clip_for_trainer
 from .losses import cross_entropy, focal_alpha_from_shots, focal_loss, masked_acc
 from .prompts import build_prompt_context, prompt_tensors
@@ -67,6 +71,7 @@ def meta_net_from_torch(state):
 class CoCoOp(SimpleTrainer):
     model_name = "prompt_learner"
     trainer_cfg_key = "COCOOP"
+    data_parallel = True
 
     def build_model(self, clip):
         cfg, node = self.cfg, self.node
@@ -139,7 +144,8 @@ class CoCoOp(SimpleTrainer):
         base, scat, eot = frozen["base_embed"], frozen["ctx_scatter"], frozen["eot_idx"]
 
         n_cls = self.num_classes
-        chunk = self.class_chunk_for(images.shape[0])
+        # the global batch's, as the JAX package's SPMD step sees it
+        chunk = self.class_chunk_for(images.shape[0] * mesh.world_size())
         if chunk <= 0 or chunk >= n_cls:
             return self._text_logits(frozen, imf, ctx, scale, base, scat, eot)
         n_pad = (-n_cls) % chunk  # pad with the first classes to whole blocks

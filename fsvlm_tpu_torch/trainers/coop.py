@@ -4,8 +4,9 @@ Learnable text context vectors, unified or class-specific (CSC), with the
 class token at the end, in the middle or at the front; frozen CLIP towers;
 LOSS_TYPE ce, focal (alpha from DATASET.PER_CLASS_SHOTS; USE_FOCAL_LOSS turns
 ce into focal) or simclr (the fork's NT-Xent over the logits of two views,
-"img" and "img2").  The trainable state is {"ctx"}; the text encoder runs
-over all n_cls assembled prompts each step, and the image tower runs under
+"img" and "img2"; across ranks over the global batch, ``losses.nt_xent``).
+The trainable state is {"ctx"}; the text encoder runs over all n_cls
+assembled prompts each step, and the image tower runs under
 ``torch.no_grad()`` (the JAX package's ``stop_gradient``).  Split eval: the
 class text features once (``text_features_fn``), then image logits per
 batch (``image_logits_fn``).
@@ -16,7 +17,6 @@ import torch
 
 from ..engine.trainer import TRAINER_REGISTRY, SimpleTrainer
 from ..models.clip import clip_logits, encode_image, encode_text_embeds, l2_normalize
-from ..parallel import mesh
 from .backbone import clip_for_trainer
 from .losses import cross_entropy, focal_alpha_from_shots, focal_loss, masked_acc, nt_xent
 from .prompts import assemble_prompts, build_prompt_context, prompt_tensors
@@ -26,7 +26,7 @@ from .prompts import assemble_prompts, build_prompt_context, prompt_tensors
 class CoOp(SimpleTrainer):
     model_name = "prompt_learner"
     trainer_cfg_key = "COOP"
-    data_parallel = True  # its CE and focal losses are row means (not so its NT-Xent)
+    data_parallel = True
 
     def build_model(self, clip):
         cfg, tc = self.cfg, self.node
@@ -48,9 +48,6 @@ class CoOp(SimpleTrainer):
         self.loss_type = tc.LOSS_TYPE
         if tc.USE_FOCAL_LOSS and self.loss_type == "ce":
             self.loss_type = "focal"
-        if self.loss_type == "simclr" and mesh.distributed():
-            raise ValueError("CoOp's NT-Xent pairs rows across the batch: it does not train "
-                             "across ranks (ROADMAP A8)")
         alpha = None
         if self.loss_type == "focal" and len(cfg.DATASET.PER_CLASS_SHOTS) > 0:
             alpha = focal_alpha_from_shots(cfg.DATASET.PER_CLASS_SHOTS, self.device)

@@ -6,7 +6,8 @@ PromptSRC inherits (counterpart of fsvlm_tpu.trainers.ivlp, :51-196).
 - IVLP's own loss (:126-184): CE, or the focal loss with per-class alpha from
   DATASET.PER_CLASS_SHOTS; under USE_MIXUP the images are mixed before the
   student and teacher passes (the draws come in the batch as "perm" and
-  "lam"; ``valid`` is not permuted); under USE_KD
+  "lam"; ``valid`` is not permuted; across ranks the permutation is of the
+  global batch and the partners come from every rank); under USE_KD
   ``KD_ALPHA * loss + (1 - KD_ALPHA) * kd_loss(student, teacher, KD_T)``,
   the teacher being zero-shot CLIP: the frozen image tower on the (mixed)
   batch under ``torch.no_grad()`` (the JAX package's ``stop_gradient``)
@@ -30,6 +31,7 @@ import torch
 from ..engine.trainer import TRAINER_REGISTRY, SimpleTrainer
 from ..models.clip import encode_image, encode_text_ids, l2_normalize
 from ..models.clip.tokenizer import tokenize
+from ..parallel import mesh
 from .backbone import clip_for_trainer
 from .ivlp_family import build_vlp_frozen, init_vlp_params, vlp_image_features, vlp_text_features
 from .losses import (
@@ -49,6 +51,7 @@ from .templates import CUSTOM_TEMPLATES
 class IVLP(SimpleTrainer):
     model_name = "VLPromptLearner"
     trainer_cfg_key = "IVLP"
+    data_parallel = True
 
     def build_model(self, clip):
         cfg, node = self.cfg, self.node
@@ -111,7 +114,7 @@ class IVLP(SimpleTrainer):
 
         if self.use_mixup:  # before the student and the teacher passes
             images, perm, lam = mixup_batch(images, batch["perm"], batch["lam"])
-            labels_b = labels[perm]
+            labels_b = mesh.gather_rows(labels)[perm]
 
         imf = l2_normalize(vlp_image_features(params, frozen, images, dtype, impl))
         txf = l2_normalize(vlp_text_features(params, frozen, dtype, impl))

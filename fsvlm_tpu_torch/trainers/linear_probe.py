@@ -24,6 +24,7 @@ from .losses import cross_entropy, focal_alpha_from_shots, focal_loss, masked_ac
 class LinearProbeCLIP(SimpleTrainer):
     model_name = "linear_head"
     trainer_cfg_key = "LINEAR_PROBE"
+    data_parallel = True
 
     def check_cfg(self, cfg):
         loss_type = cfg.TRAINER.LINEAR_PROBE.LOSS_TYPE

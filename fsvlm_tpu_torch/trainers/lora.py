@@ -12,20 +12,22 @@ of fsvlm_tpu.trainers.lora, :1-327).
 - fixed text prompts "a photo of a {}." (ctx frozen at its phrase init);
 - optional SCL losses against a frozen zero-shot teacher, TEXT/IMAGE/
   LOGITS_LOSS_WEIGHT (the KL summed over classes, meaned over valid rows,
-  divided by the class count);
+  divided by the class count; across ranks the text L1, which reads the
+  factors alone, is every rank's whole term at 1/R);
 - DROPOUT_RATE: the reference's LoRA dropout on each projection's branch
   input while training; each step's keep masks come from the trainer's
   generator on the device (``dropout_draws``), one independent mask per
   projection, tower and layer, drawn before the layer outside its
-  checkpoint; evaluation draws none;
+  checkpoint (across ranks the image tower's for the global batch, then
+  sliced: ``DropoutDraws``); evaluation draws none;
 - both towers rematerialized (``remat``), in training and evaluation;
 - a LoRA-only checkpoint {weights, metadata{r, alpha, encoder, params,
   position}, epoch, val_result} at ``<dir>/<DATASET>/<backbone>/lora/``
   ``best.pkl`` (the best-val save, or every save without best-val
-  tracking) and ``last.pkl``, with ``weights`` in the JAX tree layout
-  {"text"|"vision": {"q": (A, B), ...}}, so that either package loads the
-  other's; a metadata mismatch raises ValueError.  ``resume_model_if_exist``
-  returns 0, as in JAX.
+  tracking) and ``last.pkl``, written by rank 0 alone, with ``weights``
+  in the JAX tree layout {"text"|"vision": {"q": (A, B), ...}}, so that
+  either package loads the other's; a metadata mismatch raises
+  ValueError.  ``resume_model_if_exist`` returns 0, as in JAX.
 
 The trainable tensors are flat entries of ``params``: "text.q.0" is the
 text tower's stacked q A, "text.q.1" its B.
@@ -41,6 +43,7 @@ from ..engine.checkpoint import flatten, load_checkpoint
 from ..engine.trainer import TRAINER_REGISTRY, SimpleTrainer
 from ..models.clip import encode_image_vit, encode_text_embeds, encode_text_ids, l2_normalize
 from ..models.clip.tokenizer import tokenize
+from ..parallel import mesh
 from ..utils import mkdir_if_missing
 from .backbone import clip_for_trainer
 from .ivlp_family import build_vlp_frozen
@@ -102,7 +105,12 @@ class DropoutDraws:
     Drawn on first use from ``generator`` (on its device) and kept, so that
     a recomputed layer, or a second trainer handed the same object, sees
     the same masks; or handed in whole as ``masks`` (tests inject the JAX
-    package's ``jax.random.bernoulli`` draws)."""
+    package's ``jax.random.bernoulli`` draws).  Across ranks the image
+    tower's masks, whose first axis is this rank's rows, are drawn at the
+    global batch's shape from the generator (the same on every rank) and
+    sliced to this rank's rows, as the JAX package's per-layer keys draw
+    over the global array; the text tower's (per class) are every rank's
+    alike."""
 
     def __init__(self, rate, names, generator=None, masks=None):
         self.rate, self.names, self.generator = rate, tuple(names), generator
@@ -114,8 +122,14 @@ class DropoutDraws:
             key = (tower, layer)
             if key not in self.masks:
                 g, p = self.generator, 1 - self.rate
-                self.masks[key] = {n: torch.rand(shape, generator=g, device=g.device) < p
-                                   for n in self.names}
+                rows = mesh.distributed() and tower == "vision"
+                full = (shape[0] * mesh.world_size(),) + tuple(shape[1:]) if rows else shape
+                masks = {n: torch.rand(full, generator=g, device=g.device) < p
+                         for n in self.names}
+                if rows:
+                    b, r = shape[0], mesh.rank()
+                    masks = {n: m[r * b:(r + 1) * b] for n, m in masks.items()}
+                self.masks[key] = masks
             return self.masks[key]
         return draw
 
@@ -124,6 +138,7 @@ class DropoutDraws:
 class LoRA(SimpleTrainer):
     model_name = "lora"
     trainer_cfg_key = "LORA"
+    data_parallel = True
 
     def check_cfg(self, cfg):
         super().check_cfg(cfg)
@@ -215,8 +230,9 @@ class LoRA(SimpleTrainer):
                 zs_img = l2_normalize(encode_image_vit(
                     frozen["clip"], images, compute_dtype=self.compute_dtype(),
                     attn_impl=self.attn_impl))
-        if self.text_w > 0:
-            loss = loss + self.text_w * l1_loss(txf, frozen["zs_text"])
+        if self.text_w > 0:  # reads the factors alone: every rank's whole term, at 1/R
+            loss = loss + self.text_w * mesh.replicated_term(
+                l1_loss(txf, frozen["zs_text"], rows=False))
         if self.image_w > 0:
             loss = loss + self.image_w * l1_loss(imf, zs_img, valid=valid)
         if self.logits_w > 0:
@@ -255,7 +271,10 @@ class LoRA(SimpleTrainer):
     def save_model(self, epoch, directory, val_result=None, model_name=""):
         """The LoRA-only checkpoint (JAX :246-278): the best-val save owns
         best.pkl, and periodic and final saves go to last.pkl when best-val
-        tracking is on (else every save to best.pkl)."""
+        tracking is on (else every save to best.pkl).  Across ranks rank 0
+        alone writes."""
+        if not mesh.is_main():
+            return
         save_dir = self.lora_dir(directory)
         mkdir_if_missing(save_dir)
         payload = {"weights": self.lora_weights(), "metadata": dict(self.lora_meta),

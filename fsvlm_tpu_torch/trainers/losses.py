@@ -65,34 +65,50 @@ def focal_alpha_from_shots(per_class_shots, device=None):
 def nt_xent(z1, z2, temperature=0.07, valid=None):
     """SimCLR NT-Xent over two aligned views z1, z2 (N, D), rows
     L2-normalized here.  Positives are (i, i+N); self-similarity is excluded.
-    With ``valid``, padded rows are excluded as anchors and as negatives."""
+    With ``valid``, padded rows are excluded as anchors and as negatives.
+
+    Across ranks (``parallel.mesh``) this rank's rows of both views are its
+    anchors, and the whole global batch (``gather_rows_grad``) the
+    candidates: the positive of local row i of a view sits at global row
+    r * b + i of the other, and each anchor's term enters through
+    ``global_mean``, so that the ranks' values sum to the global NT-Xent."""
     z1 = z1 / torch.linalg.vector_norm(z1, dim=1, keepdim=True)
     z2 = z2 / torch.linalg.vector_norm(z2, dim=1, keepdim=True)
-    z = torch.cat([z1, z2], dim=0).float()
+    b = z1.shape[0]
+    anchors = torch.cat([z1, z2], dim=0).float()
+    z = torch.cat([mesh.gather_rows_grad(z1), mesh.gather_rows_grad(z2)], dim=0).float()
     n2 = z.shape[0]
     n = n2 // 2
-    sim = z @ z.T / temperature
-    eye = torch.eye(n2, dtype=torch.bool, device=z.device)
-    sim = sim.masked_fill(eye, float("-inf"))
+    off = mesh.rank() * b if mesh.distributed() else 0  # this rank's first global row
+    sim = anchors @ z.T / temperature
+    rows = torch.arange(2 * b, device=z.device)
+    own = torch.cat([rows[:b] + off, rows[:b] + off + n])  # each anchor's own column
+    sim = sim.masked_fill(own[:, None] == torch.arange(n2, device=z.device)[None, :],
+                          float("-inf"))
     v2 = None
     if valid is not None:
+        vg = mesh.gather_rows(valid)
+        sim = sim.masked_fill(~torch.cat([vg, vg]).bool()[None, :], float("-inf"))
         v2 = torch.cat([valid, valid]).bool()
-        sim = sim.masked_fill(~v2[None, :], float("-inf"))
-    ar = torch.arange(n, device=z.device)
-    pos_idx = torch.cat([ar + n, ar])
-    per_row = torch.logsumexp(sim, dim=1) - sim[torch.arange(n2, device=z.device), pos_idx]
-    if v2 is not None:
-        per_row = torch.where(v2, per_row, torch.zeros_like(per_row))
-        return per_row.sum() / v2.float().sum().clamp_min(1.0)
-    return per_row.mean()
+    pos_idx = torch.cat([own[b:], own[:b]])
+    per_row = torch.logsumexp(sim, dim=1) - sim[rows, pos_idx]
+    return masked_mean(per_row, v2)
 
 
 def mixup_batch(images, perm, lam):
     """(lam * images + (1 - lam) * images[perm], perm, lam): mixup_data's
-    semantics (independentVL.py:12-21) on draws handed in, ``perm`` a (B,)
-    permutation and ``lam`` a scalar (a 0-dim tensor keeps it on the
-    device)."""
-    mixed = lam * images + (1.0 - lam) * images[perm]
+    semantics (independentVL.py:12-21) on draws handed in, ``perm`` a
+    permutation of the (global) batch and ``lam`` a scalar (a 0-dim tensor
+    keeps it on the device).  Across ranks ``perm`` permutes the padded
+    global batch, as the JAX package's mixup inside its SPMD step: this
+    rank's rows take their partners from every rank's images
+    (``parallel.mesh.gather_rows``; the images carry no gradient), and the
+    returned ``perm`` is this rank's rows of it, global row numbers into
+    ``gather_rows`` of the batch's labels."""
+    if mesh.distributed():
+        b = images.shape[0]
+        perm = perm[mesh.rank() * b:(mesh.rank() + 1) * b]
+    mixed = lam * images + (1.0 - lam) * mesh.gather_rows(images)[perm]
     return mixed, perm, lam
 
 
@@ -116,13 +132,18 @@ def kd_loss(student_logits, teacher_logits, T=4.0, valid=None):
     return kl_logits(student_logits, teacher_logits, T=T, valid=valid)
 
 
-def l1_loss(a, b, valid=None):
-    """Elementwise-mean L1; with ``valid``, rows (axis 0) are masked.  Where
-    a equals b the gradient is +1, JAX's rule for abs (torch's is 0): at
-    LoRA's init (B = 0) the student's image features equal the teacher's
-    exactly, and the first step's gradients must be JAX's."""
+def l1_loss(a, b, valid=None, rows=True):
+    """Elementwise-mean L1.  ``rows``: a and b are a batch's rows (axis 0),
+    so across ranks the mean is the global batch's (``masked_mean``), with
+    ``valid`` masking rows; else (a term of the replicated parameters
+    alone, such as prompted text features against frozen ones) the mean
+    over this rank's a and b, which the caller weights by
+    ``parallel.mesh.replicated_term``.  Where a equals b the gradient is
+    +1, JAX's rule for abs (torch's is 0): at LoRA's init (B = 0) the
+    student's image features equal the teacher's exactly, and the first
+    step's gradients must be JAX's."""
     x = a.float() - b.float()
     d = torch.where(x >= 0, x, -x)
     if valid is None:
-        return d.mean()
+        return masked_mean(d) if rows else d.mean()
     return masked_mean(d.reshape(d.shape[0], -1).mean(dim=1), valid)

@@ -20,6 +20,11 @@ the loss is CE + REG_COEFF * penalty, by REG_TYPE:
   Vh from ``np.linalg.svd`` of the initial ctx, the JAX package's call) and
   no penalty.
 
+Across ranks (``parallel.mesh``) each penalty is every rank's whole term at
+1/R: "grad"'s on the global CE's gradient (this rank's, summed over the
+ranks by the differentiable ``all_reduce_sum``), "spectral_norm"'s on the
+replicated ctx from a start vector that every rank draws alike.
+
 The trainable state is {"ctx"}, or {"S"} under svd; checkpoints hold it
 under ``prompt_learner/`` as the JAX package's do.  The image tower runs
 under ``torch.no_grad()``.  Split eval: the class text features once
@@ -31,6 +36,7 @@ import torch
 
 from ..engine.trainer import TRAINER_REGISTRY, SimpleTrainer
 from ..models.clip import clip_logits, encode_image, encode_text_embeds, l2_normalize
+from ..parallel import mesh
 from .backbone import clip_for_trainer
 from .losses import cross_entropy, masked_acc
 from .prompts import assemble_prompts, build_prompt_context, prompt_tensors
@@ -43,6 +49,7 @@ POWER_STEPS = 5
 class PLIP(SimpleTrainer):
     model_name = "prompt_learner"
     trainer_cfg_key = "PLIP"
+    data_parallel = True
 
     def check_cfg(self, cfg):
         super().check_cfg(cfg)
@@ -109,8 +116,13 @@ class PLIP(SimpleTrainer):
                              frozen["clip"].logit_scale)
         ce = cross_entropy(logits, labels, valid=valid)
         if self.reg_type == "grad":
+            # the gradient of the global CE: this rank's share summed over the
+            # ranks (differentiable, so each rank's share takes its own double
+            # backward); the penalty on it is every rank's whole term, at 1/R
             g, = torch.autograd.grad(ce, ctx, create_graph=True)
-            penalty = ((torch.linalg.vector_norm(g, dim=1) - self.K) ** 2).mean()
+            g = mesh.all_reduce_sum(g)
+            penalty = mesh.replicated_term(((torch.linalg.vector_norm(g, dim=1) - self.K) ** 2)
+                                           .mean())
         elif self.reg_type == "spectral_norm":
             v = batch.get("v0")  # this step's start vector, else drawn from the generator
             if v is None:
@@ -120,7 +132,7 @@ class PLIP(SimpleTrainer):
             for _ in range(POWER_STEPS):
                 v = gram @ v
                 v = v / torch.linalg.vector_norm(v)
-            penalty = torch.linalg.vector_norm(ctx @ v)
+            penalty = mesh.replicated_term(torch.linalg.vector_norm(ctx @ v))
         else:  # svd: the constraint lives in the parameterization
             penalty = torch.zeros((), device=ctx.device)
         loss = ce + self.coeff * penalty

@@ -16,7 +16,9 @@ fsvlm_tpu.trainers.promptsrc, :47-183 and :222-253).
 - the loss (reference forward_backward, promptsrc.py:285-331):
     CE (or focal) + TEXT_W * L1(text, zs_text) + IMAGE_W * L1(img, zs_img)
       + LOGITS_W * KL(student || teacher) summed over classes / n_classes,
-  with an optional SimCLR term on a second view ("img2");
+  with an optional SimCLR term on a second view ("img2"); across ranks
+  (``parallel.mesh``) the text L1, which reads the prompts alone, is
+  every rank's whole term at 1/R, and the others are global row means;
 - Gaussian Prompt Aggregation: per-epoch Gaussian weights over epochs
   1..MAX_EPOCH (mean GPA_MEAN, std GPA_STD, normalized), accumulated into a
   second set of prompt tensors at each epoch's end and copied into the live
@@ -42,6 +44,7 @@ from ..engine.checkpoint import flatten
 from ..engine.trainer import TRAINER_REGISTRY
 from ..models.clip import encode_image, encode_text_ids, l2_normalize
 from ..models.clip.tokenizer import tokenize
+from ..parallel import mesh
 from .ivlp import IVLP
 from .ivlp_family import vlp_image_features, vlp_text_features
 from .losses import (
@@ -118,7 +121,9 @@ class PromptSRC(IVLP):
             loss_ce = focal_loss(logits, labels, alpha=frozen["alpha"], valid=valid)
         else:
             loss_ce = cross_entropy(logits, labels, valid=valid)
-        loss_scl_text = l1_loss(txf, frozen["zs_text"]) * node.TEXT_LOSS_WEIGHT
+        # the text features read the prompts alone: every rank's whole term, at 1/R
+        loss_scl_text = (mesh.replicated_term(l1_loss(txf, frozen["zs_text"], rows=False))
+                         * node.TEXT_LOSS_WEIGHT)
         loss_scl_image = l1_loss(imf, zs_img, valid=valid) * node.IMAGE_LOSS_WEIGHT
         # KL(student || teacher) summed over classes, averaged over valid rows,
         # over the class count (promptsrc.py:316-324)

@@ -13,7 +13,8 @@ buffers eagerly here: the CUDA graph is the card's, tests/test_torch_graphs_cuda
   tolerances: rtol 1e-3, atol 1e-6);
 - the "auto" / "on" / "off" rules, CoCoOp's veto past BATCHED_TEXT_LIMIT
   (tests/test_cocoop_chunked_eval.py::test_epoch_fuse_auto_veto_past_batched_limit),
-  no fusion across ranks or for the zoo;
+  fusion across ranks (tests/test_torch_mesh_clip.py runs it on two), none
+  for the zoo;
 - a NaN loss raised at the epoch's end, after every step ran;
 - DEVICE_SCHEDULE's contract (tests/test_device_resident.py::test_device_schedule_contract):
   JAX's schedule exactly under the sequential sampler, a drop-last
@@ -194,8 +195,8 @@ def test_epoch_fuse_modes_and_cocoop_veto(monkeypatch, capsys):
 def test_no_fusion_across_ranks_or_in_the_zoo(monkeypatch, tmp_path):
     t = _trainer("PromptSRC", "on")
     assert t.fuses_epoch()
-    monkeypatch.setattr(mesh, "world_size", lambda: 2)
-    assert mesh.distributed() and not t.fuses_epoch()
+    monkeypatch.setattr(mesh, "world_size", lambda: 2)  # fused across ranks too, as JAX's mesh
+    assert mesh.distributed() and t.fuses_epoch()
     monkeypatch.undo()
     classes = [TRAINER_REGISTRY.get(n) for n in TRAINER_REGISTRY.registered_names()]
     zoo = [c for c in classes if issubclass(c, NetTrainerX)]

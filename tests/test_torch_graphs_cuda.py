@@ -21,7 +21,10 @@ This file imports neither JAX nor the JAX package:
   outlives (the collector is off during a capture: a graph's teardown
   makes CUDA calls that a capture forbids);
 - ``Optimizer.count`` (the LR table's index and the bias corrections' t)
-  advancing by one per replay, and a replay that makes no host sync.
+  advancing by one per replay, and a replay that makes no host sync;
+- PromptSRC's step captured under a NCCL process group of world size 1,
+  its collectives (the gradients' and the metrics' all-reduces) in the
+  graph: 2 epochs bit-equal to the same epochs without a process group.
 """
 
 import gc
@@ -179,3 +182,36 @@ def test_count_advances_by_replay_without_a_sync(card):
     assert int(t.optim.count) == 6 and int(f.counter) == 3
     lr = t.lr_schedule(t.optim.count)  # epoch 2's LR: the table read at the advanced count
     assert float(lr) == np.float32(t.lr_schedule.lr_at_epoch(2))
+
+
+def test_capture_under_one_nccl_rank_bit_equal_to_no_group(card):
+    import socket
+
+    import torch.distributed as dist
+
+    from fsvlm_tpu_torch.parallel import mesh
+
+    def run():
+        t = _trainer("PromptSRC", "on")
+        hist = [_epoch(t, epoch) for epoch in range(2)]
+        assert t._fused.graph is not None and hist[1][2]["replays"] == 3
+        state = ([p.clone() for p in t.params.values()], [x.clone() for x in t.optim.tensors()],
+                 t.generator.get_state())
+        t._fused = None  # the graph goes before the process group
+        return [h for h, _, _ in hist], state
+
+    ref = run()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        assert mesh.active() and not mesh.distributed()
+        got = run()
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert got[0] == ref[0]
+    for a, b in zip(got[1][:2], ref[1][:2]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(got[1][2], ref[1][2])

@@ -21,7 +21,8 @@ against one rank and against the JAX package's mesh, on the CPU.
   epochs of batch 16 over 4 classes x 8 images, on the host transforms and
   under DATALOADER.DEVICE_AUG (the device-resident cache on every rank,
   each rank its columns of the schedule, the crops drawn for the global
-  batch), and under TEST.FINAL_MODEL best_val; the parameters within
+  batch), and under TEST.FINAL_MODEL best_val; PromptSRC under DEVICE_AUG,
+  its epochs fused on every rank; the parameters within
   CLI_ATOL, the same accuracy line on both ranks, one log.txt and one
   checkpoint directory written by rank 0.
 """
@@ -58,10 +59,11 @@ def _env():
     return env
 
 
-def _launch(case, world, pad_to, out):
+def _launch(case, world, pad_to, out, draws=None):
     port = free_port()
+    extra = [str(draws)] if draws else []
     return [subprocess.Popen([sys.executable, WORKER, case, str(world), str(r), str(port),
-                              str(pad_to), str(out)], cwd=ROOT, env=_env(),
+                              str(pad_to), str(out)] + extra, cwd=ROOT, env=_env(),
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for r in range(world)]
 
@@ -162,22 +164,22 @@ def test_ssl_trainers_refuse_row_drawing_nets_across_ranks(tmp_path, monkeypatch
         build_trainer(cfg, device="cpu")
 
 
-CLI = ["-m", "fsvlm_tpu_torch.train", "--trainer", "CoOp", "--seed", "1", "--device", "cpu",
+CLI = ["-m", "fsvlm_tpu_torch.train", "--seed", "1", "--device", "cpu",
        "--dataset-config-file", "configs/datasets/synthetic.yaml",
        "--config-file", "configs/trainers/tests/synthetic_tiny.yaml"]
 CLI_OPTS = ["OPTIM.MAX_EPOCH", "2", "TRAIN.CHECKPOINT_FREQ", "0", "DATALOADER.NUM_WORKERS", "1"]
 
 
-def _cli(out_dir, extra_env, opts=()):
+def _cli(out_dir, extra_env, opts=(), trainer="CoOp"):
     env = dict(_env(), **extra_env)
-    return subprocess.Popen([sys.executable] + CLI + ["--output-dir", str(out_dir)] + CLI_OPTS
-                            + list(opts),
+    return subprocess.Popen([sys.executable] + CLI + ["--trainer", trainer, "--output-dir",
+                                                      str(out_dir)] + CLI_OPTS + list(opts),
                             cwd=ROOT, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
 
-def _ckpt_params(out_dir):
-    with open(os.path.join(out_dir, "prompt_learner", "model.pkl-2"), "rb") as f:
+def _ckpt_params(out_dir, folder="prompt_learner"):
+    with open(os.path.join(out_dir, folder, "model.pkl-2"), "rb") as f:
         return pickle.load(f)["state_dict"]
 
 
@@ -188,27 +190,34 @@ def _ckpt_params(out_dir):
 CLI_ATOL = 2e-5
 
 
-@pytest.mark.parametrize("mode", [False, True, "best_val"])
+@pytest.mark.parametrize("mode", [False, True, "best_val", "promptsrc"])
 def test_two_process_cli_matches_one_process(tmp_path, mode):
     """mode: DATALOADER.DEVICE_AUG, or "best_val": the host transforms under
     TEST.FINAL_MODEL best_val (rank 0 saves and loads the best model after
-    each val test, and every rank deploys its state)."""
+    each val test, and every rank deploys its state), or "promptsrc":
+    PromptSRC under DEVICE_AUG, where each epoch fuses (each rank its
+    columns of the schedule, the crops drawn for the global batch, the text
+    L1 at 1/R) and GPA is swapped in after the last."""
     single, multi = tmp_path / "single", tmp_path / "multi"
     port = free_port()
     best_val = mode == "best_val"
-    opts = ["DATALOADER.DEVICE_AUG", str(mode is True)]
+    promptsrc = mode == "promptsrc"
+    trainer, folder = ("PromptSRC", "VLPromptLearner") if promptsrc else ("CoOp", "prompt_learner")
+    opts = ["DATALOADER.DEVICE_AUG", str(mode is True or promptsrc)]
     if best_val:
         opts += ["TEST.FINAL_MODEL", "best_val"]
-    procs = [_cli(single, {}, opts)] + [
+    if promptsrc:  # the recipe's scale of LR (synthetic_tiny's 3.0 is CoOp's)
+        opts += ["OPTIM.LR", "0.05", "OPTIM.WARMUP_CONS_LR", "0.01"]
+    procs = [_cli(single, {}, opts, trainer)] + [
         _cli(multi, {"FSVLM_MULTIHOST": "1", "FSVLM_COORDINATOR": f"localhost:{port}",
-                     "FSVLM_NUM_PROCESSES": "2", "FSVLM_PROCESS_ID": str(r)}, opts)
+                     "FSVLM_NUM_PROCESSES": "2", "FSVLM_PROCESS_ID": str(r)}, opts, trainer)
         for r in range(2)]
     outs = []
     for p in procs:
         out, _ = p.communicate(timeout=600)
         assert p.returncode == 0, out[-3000:]
         outs.append(out)
-    a, b = _ckpt_params(single), _ckpt_params(multi)
+    a, b = _ckpt_params(single, folder), _ckpt_params(multi, folder)
     assert set(a) == set(b)
     for k in a:
         np.testing.assert_allclose(np.asarray(b[k]), np.asarray(a[k]), rtol=0, atol=CLI_ATOL,
@@ -217,7 +226,9 @@ def test_two_process_cli_matches_one_process(tmp_path, mode):
     assert acc[0] and acc[1] == acc[2] == acc[0], acc
     # rank 0 alone writes: one log, one checkpoint directory
     assert sorted(f for f in os.listdir(multi) if f.startswith("log.txt")) == ["log.txt"]
-    assert sorted(os.listdir(multi / "prompt_learner")) == (
+    assert sorted(os.listdir(multi / folder)) == (
         ["checkpoint"] + ["model-best.pkl"] * best_val + ["model.pkl-2"])
     if best_val:
         assert all("Deploy the model with the best val performance" in o for o in outs)
+    if promptsrc:  # a resident cache on every rank: TRAIN.EPOCH_FUSE "auto" fuses each epoch
+        assert all("* device-resident train set" in o for o in outs)
