@@ -212,7 +212,7 @@ Phases; each passes or raises, and any failure exits non-zero:
    the recipes' and SimCLR's lists at NUM_WORKERS threads over the 500
    train files, the run's host-aug epoch (files decoded on first use; no
    separate warm epoch runs) beside phase 12's DEVICE_AUG epoch, the
-   ms per step of LOADER_STEPS (10) steps fed from batches built beforehand
+   ms per step of LOADER_STEPS (6) steps fed from batches built beforehand
    against as many fed by the loader as it runs (in turns: the loader's own
    share), and the
    device's idle share over 5 profiled host-aug steps in the loader's
@@ -349,7 +349,7 @@ Phases; each passes or raises, and any failure exits non-zero:
    (d) An SSL CIFAR-10 tree at CIFAR-10's sizes (50,000 + 10,000 hard
    links to a 32x32 PNG fixture) through configs/datasets/zoo/ssl_cifar10.yaml
    at SEED 1: the split counts, each split's digest equal to the JAX
-   package's (SSL_JAX_DIGESTS), and SSL_U_BATCHES (10) batches of the train_u loader at the
+   package's (SSL_JAX_DIGESTS), and SSL_U_BATCHES (6) batches of the train_u loader at the
    FixMatch recipe's loader settings (views/s, labels equal to the
    dataset's at each batch's indices).  One ``{"zoo_data": ...}`` line.
 
@@ -368,7 +368,7 @@ Phases; each passes or raises, and any failure exits non-zero:
    state and generator bit for bit, one step's MixStyle draws taken twice
    from one generator state (bit-equal, on the card, advancing the
    generator as the step left to itself does), one step under sync debug
-   mode 'error', the idle share of 3 loader-fed steps and peak memory.
+   mode 'error', the idle share of 2 loader-fed steps and peak memory.
    (b) CrossGrad, DDAIG (fcn_3x32_gctx and fcn_3x64_gctx_stn), DomainMix
    (crossdomain and random) and DAELDG (RandomDomainSampler over the 3
    domains) on resnet18 at 224x224, ZOO_B_BATCH images, ZOO_B_STEPS steps
@@ -392,7 +392,7 @@ Phases; each passes or raises, and any failure exits non-zero:
    that restores both groups' weights and optimizer states, the net's and
    the critic's BN statistics and the generator bit for bit, one step under
    sync debug mode 'error', the epoch ms and images/s as train() ran it,
-   the idle share of 3 loader-fed steps, peak memory.  (b) SourceOnly
+   the idle share of 2 loader-fed steps, peak memory.  (b) SourceOnly
    through the CLI (1 epoch), then ADDA and AdaBN from its checkpoint
    through MODEL.INIT_WEIGHTS (1 epoch each): ADDA's classifier unchanged
    and its backbone moved, AdaBN's weights unchanged and its statistics
@@ -419,7 +419,7 @@ Phases; each passes or raises, and any failure exits non-zero:
    time a cold eval), a resume that restores weights, BN statistics,
    optimizer and generator bit for bit, one step under sync debug mode
    'error', the epoch ms and images/s as train() ran it, step busy ms and
-   the idle share of 3 loader-fed steps, peak memory.  (b) SupBaseline,
+   the idle share of 2 loader-fed steps, peak memory.  (b) SupBaseline,
    EntMin, MeanTeacher, MixMatch (K = 2) and FixMatch on SyntheticDA on
    wide_resnet_28_2 at 32x32 (ZOO_E_CASES), ZOO_E_STEPS steps card vs CPU
    as phase 18's (b), MeanTeacher's teacher and its statistics among the
@@ -456,12 +456,29 @@ Phases; each passes or raises, and any failure exits non-zero:
    ranks, batch LORA_MASK_BATCH) against the local one.  One
    ``{"ranks": ...}`` line.
 
+22. zoo_ranks: the Dassl zoo across ranks (parallel/mesh.py; no attention:
+   every launch count stays 0).  (a) DAELDG on resnet18_ms_l12 (MixStyle's
+   weights and partners drawn for the global batch, one forward per
+   per-domain block) and M3SDA on cnn_digit5_m3sda (dropout, the blocks'
+   moments) on SyntheticDA at 32x32, ZOO_RANKS_STEPS steps from the
+   loaders through ``device_batches`` and ``shard_x``, then test(), cuDNN
+   deterministic and TF32 off, without a process group and under a NCCL
+   one of world size 1: bit-equal metrics, weights, statistics, test
+   predictions and eval logits.  (b) Beside (a), three processes of this
+   script (``--zoo-ranks-worker``): CDAC and DomainMix crossdomain on
+   cnn_digit5_m3sda at 32x32, fp32 with TF32 off, at the global batch of
+   ZOO_RANKS_B_BATCH rows (padded as the JAX package's mesh pads it: 5 + 3
+   rows on each of two gloo ranks on cuda:0) against one process on the
+   same padded batches, ZOO_RANKS_STEPS steps: within ZOO_RANKS_B_BOUND
+   (set from the card's readings, well inside ZOO_C_BOUND).  One
+   ``{"zoo_ranks": ...}`` line.
+
 Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 17 and 21 zero the launch counts
 just before each main path and read them just after, and phase 16 counts
 the driver's from its profiler trace (the run is another process): each
 kernel of the path must have launched its expected count (derived from the
 code: a rematerialized layer runs its forward kernel again), and the other
-families none; phases 18, 19 and 20 launch none of them.  A count is a
+families none; phases 18, 19, 20 and 22 launch none of them.  A count is a
 wrapper's calls (``LAUNCHES``); a fused epoch's CUDA graph replays the
 captured step's kernels without calling a wrapper, so its replays are
 counted apart (``engine/fused.py``'s STEPS) and its kernels from a
@@ -3452,7 +3469,8 @@ TRANSFORM_FIXTURES = os.path.join("tests", "torch_fixtures", "transforms", "expe
 COOP_SIMCLR_EPOCHS = 1
 SIMCLR_STEPS, SIMCLR_BATCH = 3, 48  # PromptSRC with SIMCLR_ALPHA: steps at bench.py's batch
 HOST_PROFILE_STEPS = 5
-LOADER_STEPS = 10  # steps per side of the loader's-share comparison (60 before phase 20)
+# steps per side of the loader's-share comparison (60 before phase 20, 10 before phase 22)
+LOADER_STEPS = 6
 
 
 def _check_transform_fixtures():
@@ -5165,7 +5183,7 @@ PACS_SOURCES, PACS_TARGET = ("art_painting", "cartoon", "photo"), "sketch"
 PACS_BATCH, PACS_EPOCHS = 48, 1
 CIFAR10_CLASSES = ("airplane", "automobile", "bird", "cat", "deer", "dog", "frog", "horse",
                    "ship", "truck")
-SSL_U_BATCHES = 10  # 50 until phase 20 came in (the call's time limit)
+SSL_U_BATCHES = 6  # 50 until phase 20 came in, 10 until phase 22 (the call's time limit)
 # sha256 of the sorted (relative path, label) list of each split that the JAX
 # package's CIFAR10 gives on _ssl_tree's tree with configs/datasets/zoo/ssl_cifar10.yaml
 # at SEED 1 (fsvlm_tpu.data.datasets.legacy.CIFAR10, computed on the CPU)
@@ -5567,7 +5585,7 @@ ZOO_DG_RECIPE = "configs/trainers/zoo/vanilla_mixstyle_pacs.yaml"
 # the recipe's 50 epochs cut to 1 (85 steps of 64 over PACS's 5467 source
 # images), and TEST.NO_TEST: the CLI tests once after training, not twice
 ZOO_DG_EPOCHS = 1
-ZOO_DG_PROFILE_STEPS = 3  # 5 until the fused-epoch checks came in
+ZOO_DG_PROFILE_STEPS = 2  # 5 until the fused-epoch checks came in, 3 until phase 22
 # (b): each DG trainer on resnet18 at 224x224, ZOO_B_BATCH images (a multiple of
 # the 3 source domains), ZOO_B_STEPS steps on the card and on its CPU from the
 # same weights, batches and draws, with TF32 off; every step from the card's
@@ -5983,7 +6001,7 @@ ZOO_DA_RECIPE = "configs/trainers/zoo/dann_resnet18.yaml"
 # the recipe's 20 epochs cut to 1: COUNT_ITER smaller_one, webcam's 795 // 32 = 24
 # steps of 32; the CLI's own test after training (795 webcam images) is the one test
 ZOO_DA_EPOCHS = 1
-ZOO_DA_PROFILE_STEPS = 3  # 5 until the fused-epoch checks came in
+ZOO_DA_PROFILE_STEPS = 2  # 5 until the fused-epoch checks came in, 3 until phase 22
 # (c): each DA trainer on SyntheticDA with the 3 source domains (d2 also the
 # target), cnn_digit5_m3sda (Digit-5's backbone in Dassl's M3SDA and DAEL
 # protocols: BN, dropout) at 32x32, ZOO_C_BATCH source and ZOO_C_BATCH_U target
@@ -6594,6 +6612,21 @@ def _zoo_ssl_card_vs_cpu(work):
     return cases
 
 
+def _zoo_runs_differ(a, b):
+    """What differs between two zoo runs' (metrics per step, weights,
+    statistics, test predictions, eval logits), bit for bit."""
+    import torch
+
+    ma, wa, sa, pa, la = a[:5]
+    mb, wb, sb, pb, lb = b[:5]
+    out = [f"m{i}.{k}" for i, (x, y) in enumerate(zip(ma, mb)) for k in x
+           if not torch.equal(x[k], y[k])]
+    out += [k for k in wa if not torch.equal(wa[k], wb[k])]
+    out += [k for k in sa if not torch.equal(sa[k], sb[k])]
+    out += [] if pa == pb else ["test predictions"]
+    return out + ([] if torch.equal(la, lb) else ["eval logits"])
+
+
 def _zoo_ssl_nccl(work):
     """(c) FixMatch at world size 1 under a NCCL process group against the
     same run without one: two steps and the gathered eval, bit for bit."""
@@ -6626,16 +6659,6 @@ def _zoo_ssl_nccl(work):
         weights, stats = _zoo_tensors(t)
         return metrics, weights, stats, y_pred, logits.cpu(), mesh.world_size(), mesh.active()
 
-    def differ(a, b):
-        ma, wa, sa, pa, la = a[:5]
-        mb, wb, sb, pb, lb = b[:5]
-        out = [f"m{i}.{k}" for i, (x, y) in enumerate(zip(ma, mb)) for k in x
-               if not torch.equal(x[k], y[k])]
-        out += [k for k in wa if not torch.equal(wa[k], wb[k])]
-        out += [k for k in sa if not torch.equal(sa[k], sb[k])]
-        out += [] if pa == pb else ["test predictions"]
-        return out + ([] if torch.equal(la, lb) else ["eval logits"])
-
     with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False):
         ref, again = run(), run()
         with socket.socket() as s:
@@ -6647,7 +6670,7 @@ def _zoo_ssl_nccl(work):
             got = run()
         finally:
             dist.destroy_process_group()
-    repeat, pg = differ(ref, again), differ(ref, got)
+    repeat, pg = _zoo_runs_differ(ref, again), _zoo_runs_differ(ref, got)
     log(f"zoo_ssl: FixMatch wide_resnet_28_2, 2 steps of {ZOO_E_BATCH} + {ZOO_E_BATCH_U} and "
         f"the eval ({len(ref[3])} test images, logits gathered): without a process group twice "
         f"bit-equal: {not repeat} {repeat[:5]}; under NCCL at world size {got[5]} (active "
@@ -7045,6 +7068,285 @@ def phase_ranks(clip):
     return a_promptsrc["launches"]
 
 
+ZOO_RANKS_STEPS = 2
+ZOO_RANKS_BASE = {
+    "SEED": 1, "VERBOSE": False, "DATASET.NAME": "SyntheticDA",
+    "DATASET.SOURCE_DOMAINS": ["d0", "d1"], "DATASET.TARGET_DOMAINS": ["d2"],
+    "INPUT.SIZE": [32, 32], "INPUT.TRANSFORMS": ["normalize"],
+    "MODEL.BACKBONE.NAME": "cnn_digit5_m3sda", "MODEL.BACKBONE.PRETRAINED": False,
+    "DATALOADER.TRAIN_U.SAME_AS_X": False, "DATALOADER.NUM_WORKERS": 2,
+    "DATALOADER.TEST.BATCH_SIZE": 64, "OPTIM.NAME": "sgd", "OPTIM.LR": 0.01,
+    "OPTIM.MOMENTUM": 0.9, "OPTIM.WEIGHT_DECAY": 5e-4, "OPTIM.MAX_EPOCH": 4,
+    "TEST.NO_TEST": True, "TRAIN.COUNT_ITER": "smaller_one"}
+# (a): 2 blocks of 9 rows (DAELDG), 3 of 8 (M3SDA)
+ZOO_RANKS_A = [
+    ("DAELDG", {"MODEL.BACKBONE.NAME": "resnet18_ms_l12",
+                "DATALOADER.TRAIN_X.SAMPLER": "RandomDomainSampler",
+                "DATALOADER.TRAIN_X.N_DOMAIN": 2, "DATALOADER.TRAIN_X.BATCH_SIZE": 18,
+                "TRAINER.DAELDG.STRONG_TRANSFORMS": ["normalize"]}),
+    ("M3SDA", {"DATASET.SOURCE_DOMAINS": ["d0", "d1", "d2"],
+               "DATALOADER.TRAIN_X.SAMPLER": "RandomDomainSampler",
+               "DATALOADER.TRAIN_X.N_DOMAIN": 3, "DATALOADER.TRAIN_X.BATCH_SIZE": 24,
+               "DATALOADER.TRAIN_U.BATCH_SIZE": 8, "TRAINER.M3SDA.N_STEP_F": 2}),
+]
+# (b): the global batch (labeled, unlabeled), which two ranks do not divide
+ZOO_RANKS_B_BATCH = (9, 5)
+_B_BATCH = {"DATALOADER.TRAIN_X.BATCH_SIZE": ZOO_RANKS_B_BATCH[0],
+            "DATALOADER.TRAIN_U.BATCH_SIZE": ZOO_RANKS_B_BATCH[1]}
+ZOO_RANKS_B = [
+    ("CDAC", dict(_B_BATCH, **{"DATALOADER.K_TRANSFORMS": 2,
+                               "TRAINER.CDAC.STRONG_TRANSFORMS": ["normalize"],
+                               "TRAINER.CDAC.RAMPUP_ITRS": 4, "TRAINER.CDAC.P_THRESH": 0.5,
+                               "OPTIM.LR": 0.005})),
+    ("DomainMix", dict(_B_BATCH, **{"TRAINER.DOMAINMIX.TYPE": "crossdomain"})),
+]
+# (b)'s limits, from the card's readings over three calls (NVIDIA H100 80GB
+# HBM3, 700 W): loss up to 8.9e-7, weights up to 4.9e-5, statistics up to
+# 2.1e-6, where cuDNN picks other algorithms for 5 rows than for 10.  After
+# 2 steps at LR 0.005-0.01 a wrong gradient on one rank moves the weights
+# far less than ZOO_C_BOUND's 5% of their largest, so (b) holds its own.
+ZOO_RANKS_B_BOUND = {"loss": 1e-5, "weights": 1e-3, "statistics": 1e-3}
+
+
+def _zoo_ranks_cfg(work, name, opts):
+    from fsvlm_tpu_torch.config import get_cfg_base
+
+    cfg = get_cfg_base()
+    kv = dict(ZOO_RANKS_BASE, **opts, **{"TRAINER.NAME": name,
+                                         "OUTPUT_DIR": os.path.join(work, name)})
+    cfg.merge_from_list([x for pair in kv.items() for x in pair])
+    return cfg
+
+
+def _padded(batch, world):
+    """A host batch padded along its rows to a multiple of ``world`` as
+    ``mesh.shard_batch`` pads it (the last row repeated, valid False)."""
+    from fsvlm_tpu_torch.parallel.mesh import shard_batch
+
+    parts = [shard_batch(batch, world, i) for i in range(world)]
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def _zoo_ranks_worker(world, rank, port, out):
+    """Phase 22 (b), one process: each ZOO_RANKS_B trainer on cuda:0, fp32
+    with TF32 off, ZOO_RANKS_STEPS steps on its loaders' first batches of
+    ZOO_RANKS_B_BATCH rows padded to a multiple of 2; this rank's
+    rows of them (``shard_x`` and ``shard_batch``) under a gloo process
+    group of ``world`` ranks when world > 1.  Rank 0 writes the metrics,
+    the weights and the statistics to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    from fsvlm_tpu_torch.engine.trainer import build_trainer
+    from fsvlm_tpu_torch.parallel import mesh
+    from fsvlm_tpu_torch.trainers.zoo.base import NetTrainerXU
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    if world > 1:
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                                rank=rank)
+    try:
+        res = {"world": np.asarray(mesh.world_size())}
+        for name, opts in ZOO_RANKS_B:
+            cfg = _zoo_ranks_cfg(os.path.dirname(out), name, opts)
+            with contextlib.redirect_stdout(io.StringIO()):
+                t = build_trainer(cfg, device="cuda")
+            loaders = (t.train_loader_x, t.train_loader_u if isinstance(t, NetTrainerXU) else None)
+            batches = [[None] * ZOO_RANKS_STEPS if ld is None else
+                       [_padded({k: v for k, v in b.items() if k != "impath"}, 2)
+                        for b in _take(ld, ZOO_RANKS_STEPS)] for ld in loaders]
+            for step, (bx, bu) in enumerate(zip(*batches)):
+                dx = next(t.device_batches([bx], t.shard_x))
+                du = None if bu is None else next(t.device_batches([bu]))
+                t.batch_idx = step
+                m = t.train_step(dx, batch_u=du)
+                res.update({f"{name}/m{step}/{k}": np.asarray(float(v)) for k, v in m.items()})
+            weights, stats = _zoo_tensors(t)
+            res.update({f"{name}/p/{k}": v.numpy() for k, v in weights.items()})
+            res.update({f"{name}/s/{k}": v.numpy() for k, v in stats.items()})
+            log(f"zoo_ranks: (b) rank {rank} of {world}: {name}, {ZOO_RANKS_STEPS} steps of "
+                f"{dx['img'].shape[0]} + {0 if du is None else du['img'].shape[0]} rows")
+        if rank == 0:
+            np.savez(out, **res)
+    finally:
+        if world > 1:
+            dist.destroy_process_group()
+
+
+def _start_zoo_ranks_b(work):
+    """Phase 22 (b)'s three processes, started together: two gloo ranks and
+    one process alone."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    me = os.path.abspath(__file__)
+    runs = [(2, r, os.path.join(work, "two", "res.npz")) for r in range(2)] + [
+        (1, 0, os.path.join(work, "one", "res.npz"))]
+    for sub in ("two", "one"):
+        os.makedirs(os.path.join(work, sub), exist_ok=True)
+    return [subprocess.Popen([sys.executable, me, "--zoo-ranks-worker", str(w), str(r),
+                              str(port), out], cwd=os.path.dirname(me), stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True) for w, r, out in runs]
+
+
+def _finish_zoo_ranks_b(procs, work):
+    """Wait for (b)'s processes and hold the two ranks to the one process
+    within ZOO_RANKS_B_BOUND: each loss's gap over max(|loss|, 1), each weight's
+    max gap over the largest magnitude of its network (a weight that starts
+    at zero has no scale of its own), each statistic's over its largest."""
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=300)
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        for line in out.splitlines():
+            if line.startswith("zoo_ranks:"):
+                log(line)
+        if p.returncode != 0:
+            raise SystemExit(f"FAIL: zoo_ranks: (b) process {p.args[3:6]} exited "
+                             f"{p.returncode}: {out[-3000:]}")
+    two = dict(np.load(os.path.join(work, "two", "res.npz")))
+    one = dict(np.load(os.path.join(work, "one", "res.npz")))
+    if two.keys() != one.keys() or int(two["world"]) != 2 or int(one["world"]) != 1:
+        raise SystemExit("FAIL: zoo_ranks: (b) the runs hold different results")
+    cases = []
+    for name, _ in ZOO_RANKS_B:
+        def of(prefix):
+            return {k[len(prefix):]: (two[k], one[k]) for k in one if k.startswith(prefix)}
+
+        loss = max(abs(float(a) - float(b)) / max(abs(float(b)), 1.0)
+                   for k, (a, b) in of(f"{name}/m").items() if "loss" in k)
+        weights, stats = of(f"{name}/p/"), of(f"{name}/s/")
+        scale = {}
+        for k, (_, b) in weights.items():
+            g = k.split(".")[0]
+            scale[g] = max(scale.get(g, 0.0), float(np.abs(b).max()))
+        gap = {k: float(np.abs(a.astype(np.float64) - b).max()) for k, (a, b) in
+               list(weights.items()) + list(stats.items())}
+        cases.append({"case": name, "loss": loss,
+                      "weights": max(gap[k] / scale[k.split(".")[0]] for k in weights),
+                      "statistics": max(gap[k] / max(float(np.abs(b).max()), 1e-30)
+                                        for k, (_, b) in stats.items())})
+    shown = [{k: (f"{v:.3g}" if isinstance(v, float) else v) for k, v in c.items()}
+             for c in cases]
+    log(f"zoo_ranks: (b) CDAC and DomainMix crossdomain on cnn_digit5_m3sda 32x32, fp32, TF32 "
+        f"off, global batch {ZOO_RANKS_B_BATCH[0]} + {ZOO_RANKS_B_BATCH[1]} padded to 10 + 6: "
+        f"2 gloo ranks on cuda:0 against one process, {ZOO_RANKS_STEPS} steps: {shown}"
+        f" (bound {ZOO_RANKS_B_BOUND['loss']:g} / {ZOO_RANKS_B_BOUND['weights']:g} / "
+        f"{ZOO_RANKS_B_BOUND['statistics']:g})")
+    over = [c["case"] for c in cases
+            if any(c[k] > ZOO_RANKS_B_BOUND[k] for k in ZOO_RANKS_B_BOUND)]
+    if over:
+        raise SystemExit(f"FAIL: zoo_ranks: (b) two ranks and one process differ past "
+                         f"ZOO_RANKS_B_BOUND: {over}")
+    return {"cases": cases, "bound": ZOO_RANKS_B_BOUND, "steps": ZOO_RANKS_STEPS,
+            "global_batch": list(ZOO_RANKS_B_BATCH), "backend": "gloo", "device": "cuda:0"}
+
+
+def _zoo_ranks_nccl(work):
+    """(a) Each ZOO_RANKS_A trainer without a process group and under a NCCL
+    one of world size 1: bit for bit."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from fsvlm_tpu_torch.engine.trainer import build_trainer
+    from fsvlm_tpu_torch.parallel import mesh
+    from fsvlm_tpu_torch.trainers.zoo.base import NetTrainerXU
+
+    def run(cfg):
+        with contextlib.redirect_stdout(io.StringIO()):
+            t = build_trainer(cfg, device="cuda")
+            xu = isinstance(t, NetTrainerXU)
+            metrics = []
+            bxs = _take(t.train_loader_x, ZOO_RANKS_STEPS)
+            bus = _take(t.train_loader_u, ZOO_RANKS_STEPS) if xu else [None] * ZOO_RANKS_STEPS
+            for t.batch_idx, (bx, bu) in enumerate(zip(bxs, bus)):
+                dx = next(t.device_batches([bx], t.shard_x))
+                du = next(t.device_batches([bu])) if xu else None
+                metrics.append({k: v.clone() for k, v in t.train_step(dx, batch_u=du).items()})
+            _, y_pred = t.test(return_pred=True)
+            x_test = torch.from_numpy(next(iter(t.test_loader))["img"])
+            with torch.no_grad():
+                x = t.eval_images(mesh.shard_rows(x_test).cuda()).movedim(-1, -3)
+                logits = mesh.gather_rows(t.infer(x))
+        weights, stats = _zoo_tensors(t)
+        return metrics, weights, stats, y_pred, logits.cpu(), mesh.world_size(), mesh.active()
+
+    cfgs = [(name, _zoo_ranks_cfg(work, name, opts)) for name, opts in ZOO_RANKS_A]
+    saved_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False,
+                                        allow_tf32=False):
+            ref = {name: run(cfg) for name, cfg in cfgs}
+            with socket.socket() as s:
+                s.bind(("localhost", 0))
+                port = s.getsockname()[1]
+            dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                    world_size=1, rank=0)
+            try:
+                got = {name: run(cfg) for name, cfg in cfgs}
+            finally:
+                dist.destroy_process_group()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved_tf32
+    out = {}
+    for name, _ in cfgs:
+        diff = _zoo_runs_differ(ref[name], got[name])
+        out[name] = {"bit_equal": not diff, "steps": len(ref[name][0]),
+                     "test_images": len(ref[name][3]), "world_size": got[name][5],
+                     "active": got[name][6]}
+        log(f"zoo_ranks: (a) {name}, {ZOO_RANKS_STEPS} steps and test() ({len(ref[name][3])} "
+            f"images, eval logits gathered), cuDNN deterministic, TF32 off: under NCCL at world "
+            f"size {got[name][5]} (active {got[name][6]}) bit-equal to no process group: "
+            f"{not diff} {diff[:5]}")
+        if diff or got[name][5] != 1 or not got[name][6] or ref[name][6]:
+            raise SystemExit(f"FAIL: zoo_ranks: (a) {name} at world size 1 under NCCL differs "
+                             f"from no process group: {diff[:5]}")
+    return out
+
+
+@_timed
+def phase_zoo_ranks():
+    """Phase 22 (module docstring).  Returns the ``{"zoo_ranks": ...}``
+    numbers."""
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+    work = tempfile.mkdtemp(prefix="chip_smoke_zoo_ranks_")
+    procs = _start_zoo_ranks_b(work)  # (b) runs beside (a)
+    try:
+        t0 = time.perf_counter()
+        a = _zoo_ranks_nccl(work)
+        a_s = time.perf_counter() - t0
+        b = _finish_zoo_ranks_b(procs, work)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(work, ignore_errors=True)
+    launched = {k: n for k, n in fa.LAUNCHES.items() if n}
+    if launched:
+        raise SystemExit(f"FAIL: zoo_ranks: the zoo launched attention kernels: {launched}")
+    result = {"a": a, "b": b, "a_s": a_s, "card": CARD[0], "attention_launches": 0,
+              "phase_s": time.perf_counter() - t_phase}
+    log(f"zoo_ranks: phase 22 in {result['phase_s']:.1f} s")
+    print(json.dumps({"zoo_ranks": result}), flush=True)
+    return result
+
+
 def _recipe_cfg_from_argv(argv):
     """The CLI's config for ``argv`` (setup_cfg), without running it."""
     from fsvlm_tpu_torch.train import build_argparser, setup_cfg
@@ -7104,6 +7406,7 @@ def main():
     finally:
         shutil.rmtree(ssl_work, ignore_errors=True)
     launches_ranks = phase_ranks(pred.clip)  # the CLIP trainers across ranks
+    phase_zoo_ranks()  # the DG and DA zoo across ranks: no attention
 
     import torch
 
@@ -7190,7 +7493,7 @@ def main():
         "device_ms": bwd["device_ms"], "library_device_ms": bwd["library_device_ms"],
     })
     log(f"chip_smoke: seconds by phase {json.dumps(PHASE_S)}")
-    log(f"chip_smoke: all 21 phases in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: all 22 phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7200,5 +7503,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ranks-worker"]:  # phase 21 (b)'s processes
         _ranks_worker(*(int(x) for x in sys.argv[2:5]), sys.argv[5])
+    elif sys.argv[1:2] == ["--zoo-ranks-worker"]:  # phase 22 (b)'s processes
+        _zoo_ranks_worker(*(int(x) for x in sys.argv[2:5]), sys.argv[5])
     else:
         main()

@@ -157,12 +157,6 @@ class SimpleTrainer:
     mixup_alpha = 1.0
     use_dropout = False  # set by build_model: every step then draws dropout masks
     step_keys = STEP_KEYS  # what train_step and device_batches keep of a batch
-    # whether a step across ranks (parallel.mesh) computes the global step
-    # (its row means global, its cross-row terms over the gathered batch,
-    # its parameter-only terms at 1/R): every CLIP trainer and the SSL zoo;
-    # the DG and DA zoo trainers, whose per-domain and paired terms are not
-    # ported across ranks, leave it False and refuse
-    data_parallel = False
     # whether run_epoch may fuse an epoch over the resident cache (the zoo's
     # own run_epoch never does, as JAX's zoo has no train_epoch_resident)
     epoch_fusion = True
@@ -181,10 +175,6 @@ class SimpleTrainer:
         batch), as the JAX package's drop-last train loader.  attn_impl:
         None (the hand-written kernels on CUDA) or "plain", for comparisons
         only."""
-        if mesh.distributed() and not self.data_parallel:
-            raise ValueError(f"{type(self).__name__} does not train across ranks: the DG and DA "
-                             f"zoo trainers' per-domain and paired terms are not ported across "
-                             f"ranks (ROADMAP A8)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.check_cfg(cfg)
@@ -339,10 +329,9 @@ class SimpleTrainer:
         inp = self.cfg.INPUT
         if aug is None and mesh.distributed():  # the global batch's draws, this rank's rows
             B, H, W, _ = images.shape
-            rows = slice(mesh.rank() * B, (mesh.rank() + 1) * B)
-            aug = (sample_crop_boxes(B * mesh.world_size(), H, W, inp.RRCROP_SCALE,
-                                     self.generator)[rows],
-                   sample_flips(B * mesh.world_size(), self.generator)[rows])
+            aug = (mesh.draw_rows(lambda n: sample_crop_boxes(n, H, W, inp.RRCROP_SCALE,
+                                                              self.generator), B),
+                   mesh.draw_rows(lambda n: sample_flips(n, self.generator), B))
         if aug is None:
             return random_resized_crop_flip_normalize(images, self.generator, inp.SIZE[0],
                                                       inp.RRCROP_SCALE, *self.pixel_stats)
@@ -455,15 +444,20 @@ class SimpleTrainer:
         valid = (torch.arange(total, device=self.device) < n).reshape(steps, B)
         return index, valid
 
-    def device_batches(self, batches):
+    def shard_x(self, batch, world=None, index=None):
+        """This rank's rows of a host train_x batch (``mesh.shard_batch``)."""
+        return mesh.shard_batch(batch, world, index)
+
+    def device_batches(self, batches, shard=mesh.shard_batch):
         """The loader's batches on the device, each copied while the step
         before it is queued (the JAX package's device_batches,
         trainer.py:469-484): from pinned host memory, without blocking the
-        host.  Across ranks, this rank's rows of each (``mesh.shard_batch``)."""
+        host.  Across ranks, this rank's rows of each (``shard``: train_x's
+        by ``shard_x``)."""
         ahead = None
         for batch in batches:
             if mesh.active():
-                batch = mesh.shard_batch({k: batch[k] for k in self.step_keys if k in batch})
+                batch = shard({k: batch[k] for k in self.step_keys if k in batch})
             cur = {}
             for k in self.step_keys:
                 if k in batch:
@@ -548,7 +542,7 @@ class SimpleTrainer:
                 index, valid = mesh.shard_columns(index, valid)
             steps = zip(index, valid)
         else:
-            steps = self.device_batches(self.train_loader_x)
+            steps = self.device_batches(self.train_loader_x, self.shard_x)
         data_time = time.time() - t0
         if self.use_mixup:
             self.draw_epoch_lams()

@@ -20,10 +20,6 @@ BACKBONE_REGISTRY = Registry("BACKBONE")
 
 class Backbone(nn.Module):
     out_features = None
-    # whether a train-mode forward draws random values for its rows (dropout,
-    # drop-connect, style mixing): across ranks, each rank would draw its rows'
-    # values from the generator's one state, not its rows' of the global batch
-    draws_rows = False
 
     def init_state(self):
         return {}

@@ -14,6 +14,7 @@ that the layers reading it take the JAX weights transposed.
 
 import numpy as np
 
+from ..draws import bernoulli_rows
 from . import BACKBONE_REGISTRY, Backbone
 from .common import (
     BatchNorm,
@@ -64,7 +65,6 @@ class CnnDigitSingle(Backbone):
 
 class CnnDigit5M3SDA(Backbone):
     out_features = 2048
-    draws_rows = True
     BNS = (("bn1", 64), ("bn2", 64), ("bn3", 128), ("bnf1", 3072), ("bnf2", 2048))
 
     def __init__(self, seed=0):
@@ -95,7 +95,7 @@ class CnnDigit5M3SDA(Backbone):
         h, ns["bnf1"] = batch_norm(linear(h, self.fc1), self.bnf1, state["bnf1"], train)
         h = relu(h)
         if train and draws is not None:  # F.dropout(training=...), p = 0.5
-            keep = draws.bernoulli(0.5, h.shape)
+            keep = bernoulli_rows(draws, 0.5, h.shape)
             h = h * keep / 0.5
         h, ns["bnf2"] = batch_norm(linear(h, self.fc2), self.bnf2, state["bnf2"], train)
         return relu(h), ns

@@ -109,7 +109,8 @@ class BatchNorm(nn.Module):
 def batch_norm(x, bn, s, train, momentum=0.1, eps=1e-5):
     """(y, new running statistics) of BatchNorm over every axis but 1;
     ``s`` is left as it is.  Across ranks (``parallel.mesh``) the batch
-    moments are those of every rank's rows together."""
+    moments are those of every rank's rows together (a block's pad rows
+    left out)."""
     if not train:
         return F.batch_norm(x, s["mean"], s["var"], bn.scale, bn.bias, False, 0.0, eps), s
     if mesh.distributed():
@@ -121,14 +122,19 @@ def batch_norm(x, bn, s, train, momentum=0.1, eps=1e-5):
 
 def _batch_norm_global(x, bn, s, momentum, eps):
     """Train-mode BatchNorm with the moments of the global batch: the sums
-    over every rank's rows (differentiable), in fp32."""
+    over every rank's rows (differentiable), in fp32, over the global count
+    of the forward's rows (``mesh.row_weight``: a per-domain block's pad
+    rows weigh 0); float64 stays float64."""
     axes = [0] + list(range(2, x.dim()))
     shape = [1, -1] + [1] * (x.dim() - 2)
-    xf = x.float()
-    n = float(xf.numel() // xf.shape[1] * mesh.world_size())
-    mean = mesh.all_reduce_sum(xf.sum(axes)) / n
+    xf = x if x.dtype == torch.float64 else x.float()
+    w, rows = mesh.row_weight(x.shape[0], x.device)
+    n = float(xf.numel() // (xf.shape[0] * xf.shape[1]) * rows)
+    if w is not None:
+        w = w.to(xf.dtype).view([-1] + [1] * (x.dim() - 1))
+    mean = mesh.all_reduce_sum((xf if w is None else xf * w).sum(axes)) / n
     d = xf - mean.view(shape)
-    var = mesh.all_reduce_sum((d * d).sum(axes)) / n
+    var = mesh.all_reduce_sum((d * d if w is None else d * d * w).sum(axes)) / n
     y = d * torch.rsqrt(var + eps).view(shape) * bn.scale.view(shape) + bn.bias.view(shape)
     new = {"mean": (1 - momentum) * s["mean"] + momentum * mean.detach(),
            "var": (1 - momentum) * s["var"] + momentum * var.detach() * (n / max(n - 1, 1))}

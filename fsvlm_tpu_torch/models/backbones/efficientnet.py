@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..draws import bernoulli_rows
 from . import BACKBONE_REGISTRY, Backbone
 from .common import BatchNorm, Conv, batch_norm
 
@@ -114,14 +115,12 @@ class MBConv(Backbone):
         if self.stride == 1 and self.cin == self.cout:
             if train and drop_rate:
                 keep = 1.0 - drop_rate
-                h = h / keep * draws.bernoulli(keep, (h.shape[0], 1, 1, 1))
+                h = h / keep * bernoulli_rows(draws, keep, (h.shape[0], 1, 1, 1))
             h = h + x
         return h, ns
 
 
 class EfficientNet(Backbone):
-    draws_rows = True
-
     def __init__(self, name, seed=0):
         super().__init__()
         width, depth, _res, self.dropout_rate = PARAMS[name]
@@ -163,7 +162,7 @@ class EfficientNet(Backbone):
         h = swish(h).mean((2, 3))
         if train and self.dropout_rate:
             keep = 1.0 - self.dropout_rate
-            h = h * draws.bernoulli(keep, h.shape) / keep
+            h = h * bernoulli_rows(draws, keep, h.shape) / keep
         return h, ns
 
 

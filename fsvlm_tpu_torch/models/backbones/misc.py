@@ -19,6 +19,7 @@ without an rng.  Flattening is in NHWC order (``flatten_nhwc``).
 import numpy as np
 import torch.nn.functional as F
 
+from ..draws import bernoulli_rows
 from . import BACKBONE_REGISTRY, Backbone
 from .common import BatchNorm, Conv, Linear, batch_norm, conv, flatten_nhwc, linear, max_pool, relu
 
@@ -29,12 +30,11 @@ def dropout(x, draws, rate, train):
         return x
     if draws is None:
         raise ValueError("dropout needs draws in train mode")
-    return x * draws.bernoulli(1.0 - rate, x.shape) / (1.0 - rate)
+    return x * bernoulli_rows(draws, 1.0 - rate, x.shape) / (1.0 - rate)
 
 
 class AlexNet(Backbone):
     out_features = 4096
-    draws_rows = True
     CONVS = (("conv1", 11, 3, 64), ("conv2", 5, 64, 192), ("conv3", 3, 192, 384),
              ("conv4", 3, 384, 256), ("conv5", 3, 256, 256))
 
@@ -63,7 +63,6 @@ VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M",
 
 class VGG16(Backbone):
     out_features = 4096
-    draws_rows = True
 
     def __init__(self, seed=0):
         super().__init__()

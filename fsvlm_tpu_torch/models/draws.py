@@ -14,12 +14,19 @@ partners) asks a ``Draws`` for its values, in a fixed order within a step:
 - ``Record(draws)``: the same draws, each also kept in ``values``;
 - ``Replay(values)``: hands out given values in order (a test's JAX draws,
   or what a ``Record`` kept on another device), on the device asked for.
+
+Across ranks a value drawn for each row is drawn for the global batch and
+sliced to this rank's rows (``parallel.mesh.draw_rows``; ``bernoulli_rows``
+for a keep mask), so that every source above sees one process's calls and
+shapes.
 """
 
 import math
 
 import numpy as np
 import torch
+
+from ..parallel import mesh
 
 GAMMA_CANDIDATES = 16
 
@@ -120,3 +127,9 @@ class Replay:
 
     def categorical(self, logits):
         return self._next(logits.shape[:-1]).long()
+
+
+def bernoulli_rows(draws, p, shape):
+    """A keep mask of a per-row tensor's ``shape`` from ``draws``: across
+    ranks drawn for the global batch, this rank's rows kept."""
+    return mesh.draw_rows(lambda n: draws.bernoulli(p, (n,) + tuple(shape[1:])), shape[0])

@@ -11,6 +11,7 @@ import torch.nn.functional as F
 from ..utils.registry import Registry
 from .backbones import Backbone
 from .backbones.common import BatchNorm, Linear, batch_norm, linear
+from .draws import bernoulli_rows
 
 HEAD_REGISTRY = Registry("HEAD")
 
@@ -61,7 +62,7 @@ class MLPHead(Backbone):
             if self.dropout > 0 and train:
                 if draws is None:
                     raise ValueError("mlp head dropout needs draws in train mode")
-                keep = draws.bernoulli(1.0 - self.dropout, x.shape)
+                keep = bernoulli_rows(draws, 1.0 - self.dropout, x.shape)
                 x = x * keep / (1.0 - self.dropout)
         return x, new_state
 

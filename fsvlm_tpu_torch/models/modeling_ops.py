@@ -6,7 +6,12 @@ dynamic conv.
 Plain functions on NCHW tensors (channels on axis 1; the JAX package's are
 NHWC).  Their random values come from a ``models.draws`` source, in the
 JAX package's order: the gate, the Beta weights, then the partner
-permutation.  The normalizers take and return their running statistics.
+permutation.  Across ranks the gate is one scalar for every rank, the
+weights and the partners are drawn for the global batch and sliced to this
+rank's rows (``parallel.mesh.draw_rows``), and a partner's statistics
+(MixStyle, detached) or sorted values (EFDMix, with their gradient) are
+read from the global batch (``mesh.global_rows``).  The normalizers take
+and return their running statistics.
 """
 
 import numpy as np
@@ -14,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import mesh
 from .backbones.common import Conv, Linear, conv, linear
 
 # ------------------------------------------------------------- style mixing
@@ -41,14 +47,16 @@ def mixstyle(draws, x, p=0.5, alpha=0.1, eps=1e-6, mix="random", train=True):
         return x
     B = x.shape[0]
     gate = draws.uniform(())
-    lmda = draws.beta(alpha, alpha, (B,)).to(x.dtype).view(B, 1, 1, 1)
-    perm = mix_perm(draws, B, mix)
+    lmda = mesh.draw_rows(lambda n: draws.beta(alpha, alpha, (n,)), B).to(x.dtype).view(B, 1, 1, 1)
+    perm = mesh.draw_rows(lambda n: mix_perm(draws, n, mix), B)
     mu = x.mean(dim=(2, 3), keepdim=True).detach()
     var = x.var(dim=(2, 3), keepdim=True, unbiased=False).detach()
     sig = torch.sqrt(var + eps)
     x_normed = (x - mu) / sig
-    mu_mix = mu * lmda + mu[perm] * (1 - lmda)
-    sig_mix = sig * lmda + sig[perm] * (1 - lmda)
+    # the partners' statistics, of the global batch
+    mu_p, sig_p = mesh.global_rows(torch.cat([mu, sig], 1))[perm].chunk(2, 1)
+    mu_mix = mu * lmda + mu_p * (1 - lmda)
+    sig_mix = sig * lmda + sig_p * (1 - lmda)
     return torch.where(gate <= p, x_normed * sig_mix + mu_mix, x)
 
 
@@ -60,12 +68,14 @@ def efdmix(draws, x, p=0.5, alpha=0.1, mix="random", train=True):
         return x
     B, C, H, W = x.shape
     gate = draws.uniform(())
-    lmda = draws.beta(alpha, alpha, (B,)).to(x.dtype).view(B, 1, 1)
-    perm = mix_perm(draws, B, mix)
+    lmda = mesh.draw_rows(lambda n: draws.beta(alpha, alpha, (n,)), B).to(x.dtype).view(B, 1, 1)
+    perm = mesh.draw_rows(lambda n: mix_perm(draws, n, mix), B)
     x_view = x.reshape(B, C, H * W)
     value_x, index_x = torch.sort(x_view, dim=-1, stable=True)
     inverse_index = torch.argsort(index_x, dim=-1)
-    x_view_copy = torch.gather(value_x[perm], -1, inverse_index)
+    # the partners' sorted values, of the global batch (their gradient summed
+    # back to the ranks that hold them)
+    x_view_copy = torch.gather(mesh.global_rows(value_x, grad=True)[perm], -1, inverse_index)
     new_x = x_view + (x_view_copy - x_view.detach()) * (1 - lmda)
     return torch.where(gate <= p, new_x.reshape(B, C, H, W), x)
 

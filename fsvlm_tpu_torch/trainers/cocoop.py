@@ -71,7 +71,6 @@ def meta_net_from_torch(state):
 class CoCoOp(SimpleTrainer):
     model_name = "prompt_learner"
     trainer_cfg_key = "COCOOP"
-    data_parallel = True
 
     def build_model(self, clip):
         cfg, node = self.cfg, self.node

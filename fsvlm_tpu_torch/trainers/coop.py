@@ -26,7 +26,6 @@ from .prompts import assemble_prompts, build_prompt_context, prompt_tensors
 class CoOp(SimpleTrainer):
     model_name = "prompt_learner"
     trainer_cfg_key = "COOP"
-    data_parallel = True
 
     def build_model(self, clip):
         cfg, tc = self.cfg, self.node

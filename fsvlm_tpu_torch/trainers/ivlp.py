@@ -51,7 +51,6 @@ from .templates import CUSTOM_TEMPLATES
 class IVLP(SimpleTrainer):
     model_name = "VLPromptLearner"
     trainer_cfg_key = "IVLP"
-    data_parallel = True
 
     def build_model(self, clip):
         cfg, node = self.cfg, self.node

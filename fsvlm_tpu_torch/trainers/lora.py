@@ -122,14 +122,14 @@ class DropoutDraws:
             key = (tower, layer)
             if key not in self.masks:
                 g, p = self.generator, 1 - self.rate
-                rows = mesh.distributed() and tower == "vision"
-                full = (shape[0] * mesh.world_size(),) + tuple(shape[1:]) if rows else shape
-                masks = {n: torch.rand(full, generator=g, device=g.device) < p
-                         for n in self.names}
-                if rows:
-                    b, r = shape[0], mesh.rank()
-                    masks = {n: m[r * b:(r + 1) * b] for n, m in masks.items()}
-                self.masks[key] = masks
+
+                def mask(n):
+                    return torch.rand((n,) + tuple(shape[1:]), generator=g, device=g.device) < p
+
+                if tower == "vision":  # rows: the global batch's masks, this rank's rows
+                    self.masks[key] = {n: mesh.draw_rows(mask, shape[0]) for n in self.names}
+                else:
+                    self.masks[key] = {n: mask(shape[0]) for n in self.names}
             return self.masks[key]
         return draw
 
@@ -138,7 +138,6 @@ class DropoutDraws:
 class LoRA(SimpleTrainer):
     model_name = "lora"
     trainer_cfg_key = "LORA"
-    data_parallel = True
 
     def check_cfg(self, cfg):
         super().check_cfg(cfg)

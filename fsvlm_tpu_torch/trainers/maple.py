@@ -35,7 +35,6 @@ from .prompts import assemble_prompts, build_prompt_context, prompt_tensors
 class MaPLe(SimpleTrainer):
     model_name = "MultiModalPromptLearner"
     trainer_cfg_key = "MAPLE"
-    data_parallel = True
 
     def check_cfg(self, cfg):
         super().check_cfg(cfg)

@@ -49,7 +49,6 @@ POWER_STEPS = 5
 class PLIP(SimpleTrainer):
     model_name = "prompt_learner"
     trainer_cfg_key = "PLIP"
-    data_parallel = True
 
     def check_cfg(self, cfg):
         super().check_cfg(cfg)

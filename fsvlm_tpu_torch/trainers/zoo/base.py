@@ -19,7 +19,8 @@ generator, or values handed in).
   optimizer per model, dassl trainer.py:86-116); a group stepped k > 1
   times per iteration (``group_updates_per_step``) sees lr(count // k).
 - Batches: "img" (and DAELDG's "img2") as the loader gives them, NHWC,
-  uint8 normalized as ``eval_images`` or float as they are, then NCHW;
+  uint8 normalized as ``eval_images`` or float as they are (float32, or
+  float64 for a net held in float64), then NCHW;
   "label" and "domain" (``step_keys`` keep "domain", which the base
   trainer's drop), "valid".
 - Checkpoints hold the JAX trainer's trees: ``state_dict`` the groups'
@@ -39,12 +40,17 @@ NetTrainerX runs labeled epochs on train_x; NetTrainerXU zips train_x and
 train_u cyclically for TRAIN.COUNT_ITER's number of steps (train_x,
 train_u or smaller_one, dassl trainer.py:560-610).
 
-Across ranks (``parallel.mesh``): the masked means divide by the global
-count, the step's metrics are summed over the ranks and ``replica_tensors``
-(weights, statistics, ``extra``, ``extra_nets``, the optimizers) are
-broadcast from rank 0 at build and after a resume.  A backbone's own draws
-(dropout, MixStyle) are not split by rank: each rank draws them for its
-rows from the same generator state (ROADMAP C.2).
+Across ranks (``parallel.mesh``) a step computes the JAX package's step
+on its mesh over the same padded global batch: the masked means, moments
+and pair means are the global batch's, the step's metrics are summed over
+the ranks and ``replica_tensors`` (weights, statistics, ``extra``,
+``extra_nets``, the optimizers) are broadcast from rank 0 at build and
+after a resume.  A backbone's own draws (dropout, style mixing) are drawn
+for the global batch and sliced (``mesh.draw_rows``).  The train_x batch
+is sharded by ``shard_x``: contiguous rows (``mesh.shard_batch``), or for
+the methods that cut it into per-domain blocks (DAELDG, M3SDA, DAEL) each
+rank's share of every block (``mesh.shard_blocks``), each block then one
+forward on every rank (``block_forward``), its losses under ``block_mask``.
 """
 
 import copy
@@ -86,23 +92,16 @@ def masked_row_mean(x, valid):
 
 
 def masked_pair_mean(x, valid):
-    """Mean of a pairwise (B, B) matrix where both rows are valid."""
-    if valid is None:
-        return x.mean()
-    w = valid.to(x.dtype)
-    ww = w[:, None] * w[None, :]
-    return (x * ww).sum() / ww.sum().clamp_min(1.0)
+    """Mean of a pairwise (B, B) matrix where both rows are valid; across
+    ranks this rank's rows against the global batch's columns, over the
+    global count of valid pairs (``parallel.mesh``)."""
+    return mesh.global_pair_mean(x, valid)
 
 
 def masked_moments(f, valid, ddof=0):
-    """Row-masked per-feature mean and variance of ``f`` (B, D)."""
-    if valid is None:
-        return f.mean(0), f.var(0, correction=ddof)
-    w = valid.to(f.dtype)[:, None]
-    n = w.sum().clamp_min(1.0)
-    mu = (f * w).sum(0) / n
-    var = ((f - mu) ** 2 * w).sum(0) / (n - ddof).clamp_min(1.0)
-    return mu, var
+    """Row-masked per-feature mean and variance of ``f`` (B, D), of the
+    global batch across ranks (``parallel.mesh``)."""
+    return mesh.global_moments(f, valid, ddof)
 
 
 def accuracy(logits, labels, valid=None):
@@ -144,6 +143,7 @@ class NetTrainerX(SimpleTrainer):
     # DAEL, DAELDG; the JAX package builds the classifier net, then this one)
     feature_net = False
     step_keys = STEP_KEYS + ("domain",)
+    split_batch = None  # rows per domain block, where a method cuts batches (domain_split)
     epoch_fusion = False  # no resident step: JAX's zoo sets _train_epoch_resident = None
 
     def __init__(self, cfg, device=None, **kwargs):
@@ -200,6 +200,32 @@ class NetTrainerX(SimpleTrainer):
         self.split_batch = self.cfg.DATALOADER.TRAIN_X.BATCH_SIZE // n_domain
         return self.split_batch, n_domain
 
+    def shard_x(self, batch, world=None, index=None):
+        """This rank's rows of a host train_x batch: contiguous rows
+        (``mesh.shard_batch``), or each rank's share of every per-domain
+        block where the method cuts the batch into blocks (``blocks``)."""
+        if self.split_batch is None:
+            return super().shard_x(batch, world, index)
+        return mesh.shard_blocks(batch, self.split_batch, self.n_domain, world, index)
+
+    def blocks(self, x):
+        """The per-domain blocks of a train_x tensor, this rank's rows of
+        each (``shard_x``)."""
+        b = mesh.block_rows(self.split_batch)
+        return [x[i * b:(i + 1) * b] for i in range(self.n_domain)]
+
+    def block_forward(self, net, x, state, draws):
+        """``net``'s train-mode forward over one block: ``split`` global rows
+        (``mesh.rows``), the pad rows out of its statistics."""
+        with mesh.rows((x.shape[0], self.split_batch)):
+            return net(x, state, True, draws=draws)
+
+    def block_mask(self, device):
+        """The weights of a block's rows in its losses and moments: 0 on a
+        pad row; None where every row counts (R divides ``split``)."""
+        with mesh.rows((mesh.block_rows(self.split_batch), self.split_batch)) as lay:
+            return lay.weight(device)
+
     def _num_batches(self):
         return len(self.train_loader_x)
 
@@ -240,7 +266,8 @@ class NetTrainerX(SimpleTrainer):
                 continue
             t = torch.as_tensor(batch[k]).to(self.device)
             if k in ("img", "img2"):
-                t = (self.eval_images(t) if t.dtype == torch.uint8 else t.float())
+                t = (self.eval_images(t) if t.dtype == torch.uint8
+                     else t if t.dtype == torch.float64 else t.float())
                 t = t.movedim(-1, -3).contiguous()
             elif k != "valid":
                 t = t.long()
@@ -415,7 +442,7 @@ class NetTrainerXU(NetTrainerX):
         it_u = cycle(self.train_loader_u or self.train_loader_x)
         pending = []
         try:
-            pairs = zip(self.device_batches(itertools.islice(it_x, n)),
+            pairs = zip(self.device_batches(itertools.islice(it_x, n), self.shard_x),
                         self.device_batches(itertools.islice(it_u, n)))
             for self.batch_idx, (bx, bu) in enumerate(pairs):
                 pending.append(self.train_step(bx, batch_u=bu))

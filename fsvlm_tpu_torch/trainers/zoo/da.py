@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from ...engine.optim import build_optimizer
 from ...engine.trainer import TRAINER_REGISTRY
 from ...models.backbones.common import Linear, linear
+from ...parallel import mesh
 from .base import (NetTrainerXU, accuracy, cross_entropy_logits, grads_of, masked_mean,
                    masked_moments, masked_pair_mean, masked_row_mean)
 from .dg import Experts
@@ -338,10 +339,13 @@ def _euclidean(a, b):
     return torch.sqrt(((a - b) ** 2).sum() + 1e-12)
 
 
-def _moment_distance(feats, feat_u, valid_u):
+def _moment_distance(feats, feat_u, valid_u, valid_blocks=None):
     """M3SDA's first and second moment distance: every source chunk against
     the target and every pair of chunks, the variances unbiased (torch's
-    ``var`` default in the reference; the target's row-masked)."""
+    ``var`` default in the reference; the target's row-masked, the chunks'
+    by ``valid_blocks``, their pad rows').  Across ranks the moments are
+    the global batch's and the distance, whole on every rank, counts 1/R
+    (``mesh.replicated_term``)."""
     def pairwise(xs, u):
         dist = [_euclidean(x, u) for x in xs]
         dist += [_euclidean(xs[i], xs[j]) for i in range(len(xs) - 1)
@@ -349,9 +353,10 @@ def _moment_distance(feats, feat_u, valid_u):
         return sum(dist) / len(dist)
 
     mu_u, var_u = masked_moments(feat_u, valid_u, ddof=1)
-    d1 = pairwise([f.mean(0) for f in feats], mu_u)
-    d2 = pairwise([f.var(0, correction=1) for f in feats], var_u)
-    return (d1 + d2) / 2.0
+    moments = [masked_moments(f, valid_blocks, ddof=1) for f in feats]
+    d1 = pairwise([mu for mu, _ in moments], mu_u)
+    d2 = pairwise([var for _, var in moments], var_u)
+    return mesh.replicated_term((d1 + d2) / 2.0)
 
 
 @TRAINER_REGISTRY.register()
@@ -373,7 +378,7 @@ class M3SDA(NetTrainerXU):
 
     def build_method(self):
         cfg = self.cfg
-        split, nd = self.domain_split()
+        _, nd = self.domain_split()
         n_step_f = int(cfg.TRAINER.M3SDA.N_STEP_F)
         lmda = float(cfg.TRAINER.M3SDA.LMDA)
         rng = np.random.RandomState(max(cfg.SEED, 0) + 7)
@@ -381,23 +386,22 @@ class M3SDA(NetTrainerXU):
                      "C": PairBank(rng, self.num_source_domains, self.nets["net"].fdim,
                                    self.num_classes)}
 
-        def chunks(x):
-            return [x[i * split:(i + 1) * split] for i in range(nd)]
-
         def step_core(bx, bu, step, draws):
             F_net, C = self.nets["F"], self.nets["C"]
-            xs, ys = chunks(bx["img"]), chunks(bx["label"])
-            ds = [bx["domain"][i * split] for i in range(nd)]
+            xs, ys = self.blocks(bx["img"]), self.blocks(bx["label"])
+            ds = [blk[0] for blk in self.blocks(bx["domain"])]  # each block's domain
+            wb = self.block_mask(bx["img"].device)
             vu = bu.get("valid")
             # step A
             loss_x, feats, ns = 0.0, [], self.model_state["F"]
             for x, y, d in zip(xs, ys, ds):
-                f, ns = F_net(x, ns, True, draws=draws)
+                f, ns = self.block_forward(F_net, x, ns, draws)
                 z1, z2 = C.pair(d, f)
-                loss_x = loss_x + (cross_entropy_logits(z1, y) + cross_entropy_logits(z2, y))
+                loss_x = loss_x + (cross_entropy_logits(z1, y, wb)
+                                   + cross_entropy_logits(z2, y, wb))
                 feats.append(f)
             fu, ns = F_net(bu["img"], ns, True, draws=draws)
-            loss_a = loss_x / nd + _moment_distance(feats, fu, vu) * lmda
+            loss_a = loss_x / nd + _moment_distance(feats, fu, vu, wb) * lmda
             g_f, g_c = grads_of(loss_a, [F_net, C])
             self.group_update("F", g_f)
             self.group_update("C", g_c)
@@ -406,12 +410,13 @@ class M3SDA(NetTrainerXU):
                 feat_u, ns = F_net(bu["img"], ns, True, draws=draws)
                 feats = []
                 for x in xs:
-                    f, ns = F_net(x, ns, True, draws=draws)
+                    f, ns = self.block_forward(F_net, x, ns, draws)
                     feats.append(f)
             loss_x = loss_dis = 0.0
             for f, y, d in zip(feats, ys, ds):
                 z1, z2 = C.pair(d, f)
-                loss_x = loss_x + (cross_entropy_logits(z1, y) + cross_entropy_logits(z2, y))
+                loss_x = loss_x + (cross_entropy_logits(z1, y, wb)
+                                   + cross_entropy_logits(z2, y, wb))
                 z1, z2 = C.pair(d, feat_u)
                 loss_dis = loss_dis + _discrepancy(_softmax(z1), _softmax(z2), vu)
             loss_b = loss_x / nd - loss_dis / nd
@@ -437,13 +442,19 @@ class M3SDA(NetTrainerXU):
         return self.nets["C"].c1.logits_all(f).mean(1)
 
 
-def topk_similarity(feat, k):
-    """CDAC's s_ij = 1 iff rows i and j have the same top-k feature indices;
-    among equal values the lower index first (jax.lax.top_k's rule, by a
-    stable descending sort: ReLU features hold many exact zeros)."""
-    idx = torch.sort(feat.detach().float(), dim=1, descending=True, stable=True).indices[:, :k]
-    idx = torch.sort(idx, dim=1).values
-    return (idx[:, None, :] == idx[None, :, :]).all(-1).float()
+def topk_similarity(feat, k, cols=None):
+    """CDAC's s_ij = 1 iff row i of ``feat`` and row j of ``cols`` (default
+    ``feat``: across ranks the global batch) have the same top-k feature
+    indices; among equal values the lower index first (jax.lax.top_k's
+    rule, by a stable descending sort: ReLU features hold many exact
+    zeros)."""
+    def top(f):
+        idx = torch.sort(f.detach().float(), dim=1, descending=True, stable=True).indices[:, :k]
+        return torch.sort(idx, dim=1).values
+
+    idx = top(feat)
+    idx_c = idx if cols is None else top(cols)
+    return (idx[:, None, :] == idx_c[None, :, :]).all(-1).float()
 
 
 class CDACSchedule:
@@ -525,9 +536,11 @@ class CDAC(NetTrainerXU):
             fu, ns = F_net(bu["img"][:, 0], ns, True, draws=draws)
             fus, ns = F_net(bu["img2"][:, 0], ns, True, draws=draws)
             fus2, ns = F_net(bu["img2"][:, 1], ns, True, draws=draws)
-            # Eq. 3: adversarial adaptive clustering through the reversed prototypes
-            P = _softmax(C(fu, reverse=True)) @ _softmax(C(fus, reverse=True)).T
-            sim = topk_similarity(fu, topk)
+            # Eq. 3: adversarial adaptive clustering through the reversed
+            # prototypes: this rank's rows against the global batch's
+            p_us = mesh.global_rows(_softmax(C(fus, reverse=True)), grad=True)
+            P = _softmax(C(fu, reverse=True)) @ p_us.T
+            sim = topk_similarity(fu, topk, mesh.global_rows(fu) if mesh.distributed() else None)
             bce = -(sim * torch.log(P + 1e-7) + (1.0 - sim) * torch.log(1.0 - P + 1e-7))
             aac_loss = -masked_pair_mean(bce, vu)
             # Eq. 4: pseudo-labels on the second strong view
@@ -552,7 +565,8 @@ class CDAC(NetTrainerXU):
                     "acc_x": accuracy(logit_x.detach(), bx["label"], bx.get("valid")),
                     "loss_u": loss_u, "aac_loss": aac_loss, "pl_loss": pl_loss,
                     "cons_loss": cons_loss, "p_u_pred_acc": masked_mean(eq, vu),
-                    "p_u_pred_acc_thre": (eq * mask).sum() / (mask.sum() + 1e-5),
+                    "p_u_pred_acc_thre": (eq * mask).sum() / (mesh.all_reduce_sum(mask.sum())
+                                                              + 1e-5),
                     "p_u_pred_keep": masked_mean(mask, vu)}
 
         self.step_core = step_core
@@ -587,20 +601,18 @@ class DAEL(NetTrainerXU):
 
     def build_method(self):
         cfg = self.cfg
-        split, nd = self.domain_split()
+        _, nd = self.domain_split()
         weight_u, conf_thre = float(cfg.TRAINER.DAEL.WEIGHT_U), float(cfg.TRAINER.DAEL.CONF_THRE)
         K, n_cls = self.num_source_domains, self.num_classes
         rng = np.random.RandomState(max(cfg.SEED, 0) + 7)
         self.nets = {"F": self.nets["net"], "E": Experts(rng, K, self.nets["net"].fdim, n_cls)}
 
-        def chunks(x):
-            return [x[i * split:(i + 1) * split] for i in range(nd)]
-
         def step_core(bx, bu, step, draws):
             F_net, E = self.nets["F"], self.nets["E"]
-            xs, x2s = chunks(bx["img"]), chunks(bx["img2"])
-            ys = [create_onehot(y, n_cls) for y in chunks(bx["label"])]
-            ds = [bx["domain"][i * split] for i in range(nd)]
+            xs, x2s = self.blocks(bx["img"]), self.blocks(bx["img2"])
+            ys = [create_onehot(y, n_cls) for y in self.blocks(bx["label"])]
+            ds = [blk[0] for blk in self.blocks(bx["domain"])]  # each block's domain
+            wb = self.block_mask(bx["img"].device)
             vu = bu.get("valid")
             with torch.no_grad():  # pseudo-labels from the most confident expert
                 feat_u, ns = F_net(bu["img"], self.model_state["F"], True, draws=draws)
@@ -614,10 +626,10 @@ class DAEL(NetTrainerXU):
                     mask_u = mask_u * vu.float()
             feats, feats2 = [], []
             for x in xs:
-                f, ns = F_net(x, ns, True, draws=draws)
+                f, ns = self.block_forward(F_net, x, ns, draws)
                 feats.append(f)
             for x in x2s:
-                f, ns = F_net(x, ns, True, draws=draws)
+                f, ns = self.block_forward(F_net, x, ns, draws)
                 feats2.append(f)
             feat_u2, ns = F_net(bu["img2"], ns, True, draws=draws)
             # the other experts present in the batch (da/dael.py:131)
@@ -625,12 +637,13 @@ class DAEL(NetTrainerXU):
             loss_x = loss_cr = acc_x = 0.0
             for f_i, f2_i, y_i, d_i in zip(feats, feats2, ys, ds):
                 pred_i = E.one(d_i, f_i)
-                loss_x = loss_x + (-y_i * torch.log(pred_i + 1e-5)).sum(1).mean()
-                acc_x = acc_x + 100.0 * (pred_i.argmax(1) == y_i.argmax(1)).float().mean()
+                loss_x = loss_x + masked_mean((-y_i * torch.log(pred_i + 1e-5)).sum(1), wb)
+                acc_x = acc_x + 100.0 * masked_mean((pred_i.argmax(1) == y_i.argmax(1)).float(),
+                                                    wb)
                 w_others = present - F.one_hot(d_i, K).float()
                 w_others = w_others / w_others.sum().clamp_min(1.0)
                 cr_pred = torch.einsum("bkc,k->bc", E.all(f2_i), w_others)
-                loss_cr = loss_cr + ((cr_pred - pred_i.detach()) ** 2).sum(1).mean()
+                loss_cr = loss_cr + masked_mean(((cr_pred - pred_i.detach()) ** 2).sum(1), wb)
             loss_x, loss_cr = loss_x / nd, loss_cr / nd
             l_u = (-pseudo_u * torch.log(E.all(feat_u2).mean(1) + 1e-5)).sum(1)
             loss_u = masked_mean(l_u * mask_u, vu)

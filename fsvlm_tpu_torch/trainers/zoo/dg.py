@@ -25,7 +25,8 @@ from ...engine.trainer import TRAINER_REGISTRY
 from ...models.backbones.common import as_param, linear_init
 from ...models.networks import build_network
 from ...models.simple_net import SimpleNet
-from .base import NetTrainerX, accuracy, cross_entropy_logits, grads_of
+from ...parallel import mesh
+from .base import NetTrainerX, accuracy, cross_entropy_logits, grads_of, masked_mean
 from .ops import create_onehot
 from .ssl import two_view_loader
 
@@ -177,18 +178,20 @@ class DomainMix(NetTrainerX):
             x, y, d, vx = bx["img"], bx["label"], bx["domain"], bx.get("valid")
             lam = (draws.beta(alpha, beta, ()) if alpha > 0
                    else torch.ones((), device=x.device))
+            # each row's partner among the global batch's rows (``mesh``)
             if mix_type == "crossdomain":
-                other = (d[None, :] != d[:, None]).float()
+                d_all = mesh.global_rows(d)
+                other = (d_all[None, :] != d_all[:, None]).float()
                 has_other = other.sum(1, keepdim=True) > 0
                 w = torch.where(has_other, other, torch.ones_like(other))
-                perm = draws.categorical(torch.log(w + 1e-9))
+                perm = mesh.draw_rows(lambda n: draws.categorical(torch.log(w + 1e-9)), len(d))
             else:
-                perm = draws.permutation(x.shape[0])
-            x_mix = lam * x + (1.0 - lam) * x[perm]
+                perm = mesh.draw_rows(draws.permutation, x.shape[0])
+            x_mix = lam * x + (1.0 - lam) * mesh.global_rows(x)[perm]
             net = self.nets["net"]
             logits, ns = net(x_mix, self.model_state["net"], True, draws=draws)
             loss = (lam * cross_entropy_logits(logits, y, vx)
-                    + (1.0 - lam) * cross_entropy_logits(logits, y[perm], vx))
+                    + (1.0 - lam) * cross_entropy_logits(logits, mesh.global_rows(y)[perm], vx))
             self.optim.step(grads_of(loss, [net])[0])
             self.model_state = dict(self.model_state, net=ns)
             return {"loss": loss, "acc": accuracy(logits.detach(), y, vx)}
@@ -252,38 +255,36 @@ class DAELDG(NetTrainerX):
                                               x.N_DOMAIN)
 
     def build_method(self):
-        split, nd = self.domain_split()
+        _, nd = self.domain_split()
         K, n_cls = self.num_source_domains, self.num_classes
         rng = np.random.RandomState(max(self.cfg.SEED, 0) + 7)
         self.nets = {"F": self.nets["net"], "E": Experts(rng, K, self.nets["net"].fdim, n_cls)}
 
-        def chunks(x):
-            return [x[i * split:(i + 1) * split] for i in range(nd)]
-
         def step_core(bx, bu, step, draws):
             F_net, E = self.nets["F"], self.nets["E"]
-            xs, x2s = chunks(bx["img"]), chunks(bx["img2"])
-            ys = [create_onehot(yy, n_cls) for yy in chunks(bx["label"])]
-            ds = [bx["domain"][i * split] for i in range(nd)]
+            xs, x2s = self.blocks(bx["img"]), self.blocks(bx["img2"])
+            ys = [create_onehot(yy, n_cls) for yy in self.blocks(bx["label"])]
+            ds = [blk[0] for blk in self.blocks(bx["domain"])]  # each block's domain
+            wb = self.block_mask(bx["img"].device)
             ns = self.model_state["F"]
             feats, feats2 = [], []
             for xx in xs:
-                f, ns = F_net(xx, ns, True, draws=draws)
+                f, ns = self.block_forward(F_net, xx, ns, draws)
                 feats.append(f)
             for xx in x2s:
-                f, ns = F_net(xx, ns, True, draws=draws)
+                f, ns = self.block_forward(F_net, xx, ns, draws)
                 feats2.append(f)
             present = F.one_hot(torch.stack(ds), K).float().sum(0)
             loss_x = loss_cr = acc = 0.0
             for f_i, f2_i, y_i, d_i in zip(feats, feats2, ys, ds):
                 pred_i = E.one(d_i, f_i)
-                loss_x = loss_x + (-y_i * torch.log(pred_i + 1e-5)).sum(1).mean()
-                acc = acc + 100.0 * (pred_i.argmax(1) == y_i.argmax(1)).float().mean()
+                loss_x = loss_x + masked_mean((-y_i * torch.log(pred_i + 1e-5)).sum(1), wb)
+                acc = acc + 100.0 * masked_mean((pred_i.argmax(1) == y_i.argmax(1)).float(), wb)
                 # the other experts present in the batch (dg/daeldg.py as da/dael.py:131)
                 w_others = present - F.one_hot(d_i, K).float()
                 w_others = w_others / w_others.sum().clamp_min(1.0)
                 cr_pred = torch.einsum("bkc,k->bc", E.all(f2_i), w_others)
-                loss_cr = loss_cr + ((cr_pred - pred_i.detach()) ** 2).sum(1).mean()
+                loss_cr = loss_cr + masked_mean(((cr_pred - pred_i.detach()) ** 2).sum(1), wb)
             loss_x, loss_cr = loss_x / nd, loss_cr / nd
             loss = loss_x + loss_cr
             grads = torch.autograd.grad(loss, list(F_net.parameters()) + list(E.parameters()))

@@ -12,6 +12,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...models.backbones.common import BatchNorm, Linear, as_param, batch_norm, linear, linear_init
+from ...parallel import mesh
 
 
 def sigmoid_rampup(current, rampup_length):
@@ -65,13 +66,10 @@ def optax_sigmoid_bce(logits, labels):
 
 
 def bce_logits(logits, targets, valid=None):
-    """BCEWithLogitsLoss (mean), rows weighted by ``valid``."""
+    """BCEWithLogitsLoss (mean), rows weighted by ``valid``, over the global
+    batch across ranks (``parallel.mesh``)."""
     per = optax_sigmoid_bce(logits, targets)
-    per = per.reshape(per.shape[0], -1).mean(1)
-    if valid is None:
-        return per.mean()
-    w = valid.to(per.dtype)
-    return (per * w).sum() / w.sum().clamp_min(1.0)
+    return mesh.global_mean(per.reshape(per.shape[0], -1).mean(1), valid)
 
 
 def leaky_relu(x, negative_slope=0.01):

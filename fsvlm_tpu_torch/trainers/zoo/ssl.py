@@ -17,7 +17,10 @@ values handed in), in that order, after the backbone's.
 Across ranks (``parallel.mesh``) every loss is a row mean over the global
 batch; MixMatch's permutation runs over the global pool of [x; u] (the
 ranks' rows gathered in the JAX package's order, x then each u view), and
-each rank mixes its own rows.
+each rank mixes its own rows.  A forward over rows of several batches
+(FixMatch's [x; u], MixMatch's u views) says so (``mesh.rows``), so that
+a backbone's per-row draws are those of the JAX package's concatenated
+global batch.
 """
 
 import copy
@@ -112,18 +115,6 @@ def ema_alpha_host(step, ema_alpha):
 
 
 class _SSLTrainer(NetTrainerXU):
-    # the losses are row means over the global batch
-    data_parallel = True
-
-    def build_model(self, clip=None):
-        super().build_model(clip)
-        drawing = sorted({type(m).__name__ for m in self.nets["net"].modules()
-                          if getattr(m, "draws_rows", False)})
-        if mesh.distributed() and drawing:
-            raise ValueError(f"{type(self).__name__} does not train across ranks on a network "
-                             f"that draws random values for its rows ({', '.join(drawing)}): "
-                             f"each rank would draw them from one generator state (ROADMAP A8)")
-
     def _keep(self, ns):
         self.model_state = dict(self.model_state, net=ns)
 
@@ -243,30 +234,32 @@ class MixMatch(_SSLTrainer):
                     prob_sum = prob_sum + _softmax(logits_v)
                 label_u = sharpen_prob(prob_sum / K, temp)
             input_u, label_u_all = torch.cat(views_u, 0), label_u.repeat(K, 1)
-            # the global pool [x; u_1..u_K] in the JAX package's row order, and
-            # this rank's rows of it (every row on one rank)
+            # the global pool [x; u_1..u_K] in the JAX package's row order; each
+            # rank mixes its rows of it with their partners and weights
             bx_n, bu_n = input_x.shape[0], views_u[0].shape[0]
-            views_g = [mesh.gather_rows(v) for v in views_u]
-            Bx, Bu = bx_n * mesh.world_size(), views_g[0].shape[0]
-            pool = torch.cat([mesh.gather_rows(input_x)] + views_g, 0)
-            lpool = torch.cat([mesh.gather_rows(label_x)] + [mesh.gather_rows(label_u)] * K, 0)
-            r, dev = mesh.rank(), input_x.device
-            rows_x = r * bx_n + torch.arange(bx_n, device=dev)
-            rows_u = torch.cat([k * Bu + r * bu_n + torch.arange(bu_n, device=dev)
-                                for k in range(K)])
-            perm = draws.permutation(pool.shape[0])
-            pool, lpool = pool[perm], lpool[perm]
-            lam_x = draws.beta(beta, beta, (Bx,))
-            lam_u = draws.beta(beta, beta, (K * Bu,))
-            lam_x, lam_u = torch.maximum(lam_x, 1.0 - lam_x), torch.maximum(lam_u, 1.0 - lam_u)
-            px, lpx, lam_x = pool[:Bx][rows_x], lpool[:Bx][rows_x], lam_x[rows_x]
-            pu, lpu, lam_u = pool[Bx:][rows_u], lpool[Bx:][rows_u], lam_u[rows_u]
-            mixed_x, mixed_lx = _mix(lam_x, input_x, px), _mix(lam_x, label_x, lpx)
-            mixed_u, mixed_lu = _mix(lam_u, input_u, pu), _mix(lam_u, label_u_all, lpu)
+            with mesh.rows(bx_n, *[bu_n] * K) as pool_rows:
+                pool = mesh.global_rows(torch.cat([input_x, input_u]))
+                lpool = mesh.global_rows(torch.cat([label_x, label_u_all]))
+                Bx = pool_rows.segments[0][1]
+                perm = draws.permutation(pool.shape[0])
+
+                def lams(n):  # max(lam, 1 - lam) of x's rows, then u's
+                    lam = torch.cat([draws.beta(beta, beta, (Bx,)),
+                                     draws.beta(beta, beta, (n - Bx,))])
+                    return torch.maximum(lam, 1.0 - lam)
+
+                lam = mesh.draw_rows(lams, bx_n + K * bu_n)
+                partner = mesh.draw_rows(lambda n: perm, bx_n + K * bu_n)
+            pp, lpp = pool[partner], lpool[partner]
+            lam_x, lam_u = lam[:bx_n], lam[bx_n:]
+            mixed_x, mixed_lx = _mix(lam_x, input_x, pp[:bx_n]), _mix(lam_x, label_x, lpp[:bx_n])
+            mixed_u, mixed_lu = (_mix(lam_u, input_u, pp[bx_n:]),
+                                 _mix(lam_u, label_u_all, lpp[bx_n:]))
 
             logits_x, ns = net(mixed_x, ns0, True, draws=draws)
             loss_x = masked_mean(-(mixed_lx * torch.log(_softmax(logits_x) + 1e-5)).sum(1), None)
-            logits_u, ns = net(mixed_u, ns, True, draws=draws)
+            with mesh.rows(*[bu_n] * K):  # the K views' global batches, one after another
+                logits_u, ns = net(mixed_u, ns, True, draws=draws)
             loss_u = masked_mean((mixed_lu - _softmax(logits_u)) ** 2, None)
             loss = loss_x + loss_u * (weight_u * linear_rampup_host(step, rampup))
             self.optim.step(grads_of(loss, [net])[0])
@@ -314,7 +307,8 @@ class FixMatch(_SSLTrainer):
                     return ref.float() if ref is not None else torch.ones(n, device=self.device)
 
                 valid_xu = torch.cat([_v(vx, n_x), _v(vu, bu["img"].shape[0])])
-            with torch.no_grad():  # train mode: its statistics feed the passes below
+            n_u = bu["img"].shape[0]
+            with torch.no_grad(), mesh.rows(n_x, n_u):  # train mode: feeds the passes below
                 logits_w, ns_w = net(torch.cat([bx["img"], bu["img"]]), self.model_state["net"],
                                      True, draws=draws)
                 prob_w = _softmax(logits_w)
@@ -328,7 +322,8 @@ class FixMatch(_SSLTrainer):
                 acc_raw, keep_rate = masked_mean(eq, vu), masked_mean(mask_uu, vu)
             logits_x, ns = net(bx["img"], ns_w, True, draws=draws)
             loss_x = cross_entropy_logits(logits_x, bx["label"], vx)
-            logits_u2, ns = net(torch.cat([bx["img2"], bu["img2"]]), ns, True, draws=draws)
+            with mesh.rows(n_x, n_u):
+                logits_u2, ns = net(torch.cat([bx["img2"], bu["img2"]]), ns, True, draws=draws)
             logp = F.log_softmax(logits_u2.float(), dim=1)
             nll = -logp.gather(1, label_u_pred[:, None])[:, 0]
             loss_u = masked_mean(nll * mask_u, valid_xu)

@@ -26,7 +26,6 @@ from .templates import CUSTOM_TEMPLATES, IMAGENET_TEMPLATES_SELECT
 @TRAINER_REGISTRY.register()
 class ZeroshotCLIP(SimpleTrainer):
     model_name = "zsclip"
-    data_parallel = True
 
     def check_cfg(self, cfg):
         pass

@@ -17,6 +17,16 @@ from fsvlm_tpu.ops.flash_attention import _hp_fwd_impl, packed_attention
 from fsvlm_tpu_torch.ops import attention, flash_attention, layers
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread: beside the suite's other workers a thread pool per
+    op oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _unpack_lse(lse, B, H, L):
     """(B*H/2, Lq, 128) packed per-head LSE -> (B, H, L)."""
     lse = np.asarray(lse)

@@ -44,6 +44,16 @@ from fsvlm_tpu_torch.trainers.coop import CoOp
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread: beside the suite's other workers a thread pool per
+    op oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # ------------------------------------------------------------------- config
 def _leaves(node, prefix=""):
     """(dotted key, value) of every leaf of a port config node."""

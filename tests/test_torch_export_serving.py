@@ -46,6 +46,16 @@ ARCH, N_CLASSES, BATCH = "test-tiny", 5, 4
 VARIANTS = {"fp32": {}, "int8": {"int8": True}, "int8_static": {"int8": True, "int8_static": True}}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread: beside the suite's other workers a thread pool per
+    op oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _images(seed=0):
     return np.random.RandomState(seed).randint(0, 256, (BATCH, 32, 32, 3), dtype=np.uint8)
 

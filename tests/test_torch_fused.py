@@ -23,6 +23,16 @@ from fsvlm_tpu_torch.ops import attention, flash_attention
 fa = flash_attention
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread: beside the suite's other workers a thread pool per
+    op oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(B, H, L, d, seed, n=3):
     rng = np.random.RandomState(seed)
     return [rng.randn(B, H, L, d).astype(np.float32) for _ in range(n)]

@@ -35,6 +35,16 @@ from fsvlm_tpu_torch.trainers.promptsrc import PromptSRC
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread: beside the suite's other workers a thread pool per
+    op oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def tiny_params():
     return random_clip_params(CLIPConfig(*TINY), seed=3)

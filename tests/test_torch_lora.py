@@ -46,6 +46,25 @@ PROJ_INDEX = {"q": 0, "k": 1, "v": 2, "o": 3}  # JAX's fold_in index (attention.
 RATE = 0.25
 
 
+# the gradient tests whose limits sit at the fp32 noise floor keep torch's
+# default thread pool, with which those limits were measured: one thread sums
+# in another order (one entry of 512 past its limit, 1.7e-7 against 1.3e-7)
+DEFAULT_THREADS = ("test_lora_loss_and_grads_match_jax",)
+
+
+@pytest.fixture(autouse=True)
+def _one_thread(request):
+    """One torch thread: beside the suite's other workers a thread pool per
+    op oversubscribes the cores."""
+    if request.node.originalname in DEFAULT_THREADS:
+        yield
+        return
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _set(cfg, **kw):
     for path, value in kw.items():
         *parents, leaf = path.split("__")

@@ -36,6 +36,16 @@ CLASSNAMES = ["cat", "golden_retriever", "aircraft carrier", "sea", "Ferrari 250
 SHOTS = [1, 4, 0, 2, 8]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread: beside the suite's other workers a thread pool per
+    op oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _set(cfg, **kw):
     for path, value in kw.items():
         *parents, leaf = path.split("__")

@@ -20,8 +20,8 @@ holds two ranks against the JAX package's 8-device mesh).
   against the one-rank value;
 - fused epochs on two ranks (the CPU's eager fused path over each rank's
   columns of the schedule, padded) against the same epochs step by step,
-  bit for bit: PromptSRC, and IVLP with mixup and KD;
-- the DG and DA zoo trainers still raise ValueError naming A8 at two ranks.
+  bit for bit: PromptSRC, and IVLP with mixup and KD.
+The zoo across ranks: tests/test_torch_mesh_zoo.py.
 """
 
 import os
@@ -35,7 +35,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 import torch_mesh_worker as w  # noqa: E402
-from test_torch_mesh import _launch, _wait  # noqa: E402
+from test_torch_mesh import _launch  # noqa: E402
 
 # two ranks against one on the same padded batches: each rank sums its
 # rows, and the all-reduce adds the two sums, where one rank sums all rows
@@ -56,8 +56,7 @@ def runs(tmp_path_factory):
     two, one = root / "two", root / "one"
     two.mkdir()
     one.mkdir()
-    procs = _launch(cases, 2, 2, two / "{case}.npz") + _launch(cases, 1, 2, one / "{case}.npz")
-    _wait(procs)
+    _launch((cases, 2, 2, two / "{case}.npz"), (cases, 1, 2, one / "{case}.npz")).wait()
     return two, one
 
 
@@ -117,23 +116,3 @@ def test_fused_epochs_on_two_ranks_match_step_by_step(runs, key):
         assert on.keys() == off.keys() and len(on) > 8
         for k in on:
             np.testing.assert_array_equal(on[k], off[k], err_msg=k)
-
-
-# the DG and DA zoo trainers: their per-domain and paired terms are A8's
-# last part
-ZOO_REFUSING = ("Vanilla", "CrossGrad", "DDAIG", "DomainMix", "DAELDG", "SourceOnly", "DANN",
-                "ADDA", "AdaBN", "MCD", "MME", "SE", "M3SDA", "CDAC", "DAEL")
-
-
-@pytest.mark.parametrize("name", ZOO_REFUSING)
-def test_dg_and_da_trainers_refuse_two_ranks(tmp_path, monkeypatch, name):
-    from fsvlm_tpu_torch import trainers  # noqa: F401  (registers them)
-    from fsvlm_tpu_torch.engine.trainer import TRAINER_REGISTRY, build_trainer
-    from fsvlm_tpu_torch.parallel import mesh
-    from test_torch_zoo_da_trainers import _cfgs
-
-    assert not TRAINER_REGISTRY.get(name).data_parallel
-    _, cfg = _cfgs(tmp_path, name, {})
-    monkeypatch.setattr(mesh, "world_size", lambda: 2)
-    with pytest.raises(ValueError, match="ROADMAP A8"):
-        build_trainer(cfg, device="cpu")

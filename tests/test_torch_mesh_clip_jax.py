@@ -21,7 +21,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 import torch_mesh_worker as w  # noqa: E402
-from test_torch_mesh import _launch, _wait  # noqa: E402
+from test_torch_mesh import _launch  # noqa: E402
 
 JAX_CASES = ["promptsrc16", "ivlp_mixup16", "plip_grad16"]
 JAX_KEY0 = 100  # JAX's step s runs on PRNGKey(JAX_KEY0 + s)
@@ -60,11 +60,10 @@ def two_ranks(tmp_path_factory):
     draws = root / "draws.npz"
     np.savez(draws, **{f"ivlp_mixup16/{k}{s}": v for s in range(w.STEPS)
                        for k, v in zip(("perm", "lam"), _jax_mixup(s, 16))})
-    procs = _launch(",".join(JAX_CASES), 2, 2, root / "{case}.npz", draws)
+    group = _launch((",".join(JAX_CASES), 2, 2, root / "{case}.npz", draws))
 
     def result(case):
-        while procs:
-            _wait([procs.pop()])
+        group.wait()
         return dict(np.load(root / f"{case}.npz"))
 
     return result

@@ -45,6 +45,16 @@ CLASSNAMES = ["cat", "golden_retriever", "aircraft carrier", "sea", "Ferrari 250
 REG_TYPES = ["grad", "svd", "spectral_norm"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread: beside the suite's other workers a thread pool per
+    op oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # ------------------------------------------------------- second derivatives
 def _second_order_torch(fn, x, g, u, extra=()):
     """d<dx, u>/d(x, g, *extra), dx the backward of <fn(x, *extra), g>."""

@@ -38,6 +38,16 @@ from fsvlm_tpu_torch.trainers.backbone import clip_from_params
 RATIO = 1 / 3  # port int8 to JAX int8, over JAX int8 to JAX fp32
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread: beside the suite's other workers a thread pool per
+    op oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _params(arch, seed=0):
     return random_clip_params(ARCHS[arch], seed=seed)
 

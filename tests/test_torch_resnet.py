@@ -55,6 +55,16 @@ CLASSNAMES = ["cat", "golden_retriever", "aircraft carrier", "sea", "Ferrari 250
 TINY_RN = "test-tiny-rn"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread: beside the suite's other workers a thread pool per
+    op oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _leaves(tree, prefix=""):
     """(path, array) of every leaf of a pytree of dicts and lists."""
     if isinstance(tree, dict):

@@ -32,6 +32,16 @@ CLASSNAMES = ["cat", "golden_retriever", "aircraft carrier", "sea", "Ferrari 250
 NODE = PromptSRCServeConfig()  # the yaml's values: 4+4 ctx, depth 9 (capped at 2 layers)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread: beside the suite's other workers a thread pool per
+    op oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def setup():
     params = random_clip_params(CLIPConfig(*TINY), seed=3)
@@ -318,6 +328,7 @@ def test_serving_path_imports_no_jax_regex_yaml_or_pil():
     port imported, load nothing of JAX, the JAX package, regex, yaml, PIL,
     sklearn or tensorflow (which imports jax where it is installed)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")  # one torch thread, as the file's
     proc = subprocess.run([sys.executable, "-c", _BOUNDARY.format(repo=REPO)], cwd=REPO,
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

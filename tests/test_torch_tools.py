@@ -56,6 +56,16 @@ OPTS = ["TRAINER.PROMPTSRC.PREC", "fp32", "TRAINER.PROMPTSRC.PROMPT_DEPTH_TEXT",
         "MODEL.QUANT_INT8_CALIB_BATCHES", "2"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread: beside the suite's other workers a thread pool per
+    op oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _load_tool(name):
     """The repository's tools/<name>.py as a module."""
     spec = importlib.util.spec_from_file_location(f"jax_tool_{name}",

@@ -37,6 +37,16 @@ from fsvlm_tpu_torch.trainers.backbone import clip_from_params
 TINY = (64, 32, 2, 128, 16, 77, 49408, 128, 2, 2)  # d = 64, two heads per tower
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread: beside the suite's other workers a thread pool per
+    op oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def tiny():
     cfg = CLIPConfig(*TINY)

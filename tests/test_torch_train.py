@@ -40,6 +40,16 @@ TINY = (64, 32, 2, 128, 16, 77, 49408, 128, 2, 2)  # d = 64 in both towers
 CLASSNAMES = ["cat", "golden_retriever", "aircraft carrier", "sea", "Ferrari 250 GTO"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread: beside the suite's other workers a thread pool per
+    op oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _set(cfg, **kw):
     """cfg.A.B = v for each A__B=v (works on the yacs tree and the dataclasses)."""
     for path, value in kw.items():
