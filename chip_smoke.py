@@ -173,7 +173,8 @@ Phases; each passes or raises, and any failure exits non-zero:
    through the CLI (``--root``, configs/datasets/caltech101.yaml, phase 9's
    recipe and bf16 towers) on a temporary Caltech101-layout tree of 100
    class folders (hard links to the fixtures, split_zhou_Caltech101.json of
-   Caltech101's sizes: 4100 / 1650 / 2465) under Setting A's shape at half
+   Caltech101's train and val sizes, 4100 / 1650, and 500 test images of
+   its 2465, RECOG_TEST_PER_CLASS a class) under Setting A's shape at half
    of tail 4's shots (PER_CLASS_SHOTS 50 x 8 then 50 x 2: 500 train images,
    300 val; 50 x 16 then 50 x 4 until phase 20 came in),
    WeightedClassSampler, DEVICE_AUG, CACHED_TEACHER, best-val, 1 epoch (the
@@ -264,7 +265,7 @@ Phases; each passes or raises, and any failure exits non-zero:
    fsvlm_tpu_torch.tools.lpclip``'s main in this process on phase 12's tree
    (configs/datasets/caltech101.yaml, ViT-B/16 in fp32, random from seed 1,
    8 shots, the tool's default 16 cut for the call's time: 800 train, 400
-   val, 2465 test images): the three npz files,
+   val, 500 test images): the three npz files,
    #6 launched 12 times per extracted batch and nothing else, extraction
    images/s per split, the L-BFGS fit's ms per C and the search's seconds
    (tools/logreg.py, scipy over torch on the card), the val features
@@ -472,8 +473,28 @@ Phases; each passes or raises, and any failure exits non-zero:
    same padded batches, ZOO_RANKS_STEPS steps: within ZOO_RANKS_B_BOUND
    (set from the card's readings, well inside ZOO_C_BOUND).  One
    ``{"zoo_ranks": ...}`` line.
+23. formats: the image formats the port reads besides JPEG and PNG
+   (fsvlm_tpu_torch/native.py and csrc/{bmp,pnm,gif,tiff}_decoder.cpp, the
+   arithmetic-coded, block-smoothed and lossless JPEGs of
+   csrc/jpeg_decoder.cpp).  (a) Every committed fixture of
+   tests/torch_fixtures/formats (BMP, Netpbm, GIF, TIFF, JPEG variants)
+   against its digests: the full decode, ``decode_file`` at 256 (None but
+   for the DCT JPEGs), the cache view at 256 and the eval view at 224,
+   exactly; the truncated file raises ValueError, the YCbCr TIFF
+   NotImplementedError.  (b) ``read_image`` images/s at the recipe's 8
+   threads per format over FORMAT_RATE_LINKS hard links to that format's
+   fixtures (and ``decode_file`` at 256 over the JPEG variants').  (c)
+   PromptSRC ViT-B/16 through the CLI (DEVICE_AUG, CACHED_TEACHER, best-val,
+   batch 4, 1 epoch) on a Caltech101-layout tree of FORMAT_CLASSES classes
+   x FORMAT_SPLIT whose files are hard links, round robin, to the fixtures
+   under their own extensions: every row of the trainer's device-resident
+   cache equal to its fixture's cache256 digest, #6-#8 at the derived
+   counts, ``--eval-only`` reproducing the predictions, and
+   ``tools/predict.py`` collecting the test files by extension (every
+   ``.bmp``, ``.ppm``, ``.tif`` and ``.tiff`` among them) with
+   ``--eval-only``'s top-1.  One ``{"formats": ...}`` line.
 
-Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 17 and 21 zero the launch counts
+Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 17, 21 and 23 zero the launch counts
 just before each main path and read them just after, and phase 16 counts
 the driver's from its profiler trace (the run is another process): each
 kernel of the path must have launched its expected count (derived from the
@@ -3225,6 +3246,9 @@ RECOG_CLASSES = 100
 RECOG_SHOTS = [8] * 50 + [2] * 50
 RECOG_TRAIN, RECOG_VAL = sum(RECOG_SHOTS), sum(min(s, 4) for s in RECOG_SHOTS)
 RECOG_EPOCHS = 1  # the recipe's 20, cut to 1
+# the tree's test images a class (Caltech101's 24-25, cut when phase 23 came
+# in: phases 12-16 decode and evaluate the test split cold several times)
+RECOG_TEST_PER_CLASS = 5
 
 
 def _digest(a):
@@ -3286,14 +3310,15 @@ def _caltech_tree(root, fixtures):
     """A Caltech101-layout tree (docs/DATASETS.md) of 100 class folders whose
     files are hard links to the fixtures, and a split_zhou_Caltech101.json
     of Caltech101's split sizes: 41 train per class (4100), 16-17 val
-    (1650), 24-25 test (2465)."""
+    (1650); the test split cut to RECOG_TEST_PER_CLASS a class (Caltech101's
+    24-25, 2465, until phase 23 came in)."""
     image_dir = os.path.join(root, "caltech-101", "101_ObjectCategories")
     split = {"train": [], "val": [], "test": []}
     k = 0
     for c in range(RECOG_CLASSES):
         cname = f"category_{c:03d}"
         os.makedirs(os.path.join(image_dir, cname))
-        counts = {"train": 41, "val": 17 if c < 50 else 16, "test": 25 if c < 65 else 24}
+        counts = {"train": 41, "val": 17 if c < 50 else 16, "test": RECOG_TEST_PER_CLASS}
         for part, n in counts.items():
             for j in range(n):
                 rel = f"{cname}/image_{part}_{j:04d}.jpg"
@@ -4560,12 +4585,15 @@ def _lpclip_on_tree(tree):
     # the card's features against the plain attention's on the same images
     # (the val split, in the same order)
     dm = DataManager(cfg)
+    t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         plain, plain_y = lpclip.extract_split(dm.val_loader, clip, attn_impl="plain")
+    plain_s = time.perf_counter() - t0
     got, got_y = splits["val"]
     cos = float(np.min(np.sum(got * plain, 1) / (np.linalg.norm(got, axis=1)
                                                    * np.linalg.norm(plain, axis=1))))
-    log(f"lpclip: val features ({len(got)} images) against the plain attention's: min cosine "
+    log(f"lpclip: val features ({len(got)} images, plain extraction {plain_s:.1f} s) against "
+        f"the plain attention's: min cosine "
         f"{cos:.9f} (limit {FEATURE_MIN_COSINE}), max |d| "
         f"{np.abs(got - plain).max():.3e} of max |f| {np.abs(plain).max():.3e}")
     if not np.array_equal(got_y, plain_y) or not cos >= FEATURE_MIN_COSINE:
@@ -5875,9 +5903,11 @@ def _card_vs_cpu_steps(cfg, label, n_steps, phase, what, batch, sync_check=False
     from fsvlm_tpu_torch.engine.trainer import build_trainer
     from fsvlm_tpu_torch.models.draws import Draws, Record, Replay
 
+    t_build = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         card = build_trainer(cfg, device="cuda")
         cpu = build_trainer(cfg, device="cpu")
+    build_s = time.perf_counter() - t_build
 
     n_take = n_steps + (1 if sync_check else 0)
     batches = _take(card.train_loader_x, n_take)
@@ -5951,7 +5981,7 @@ def _card_vs_cpu_steps(cfg, label, n_steps, phase, what, batch, sync_check=False
         f" ({worst_at.get('weights_rounding_noise')}), BN statistics {worst['statistics']:.3g} "
         f"({worst_at.get('statistics')}); card step ms {[round(x, 2) for x in step_ms]}"
         + ("; one more step under sync debug mode 'error': no synchronizing call"
-           if sync_check else ""))
+           if sync_check else "") + f"; both trainers built in {build_s:.1f} s")
     if keep is not None:
         keep.append(card)
     del card, cpu
@@ -6289,9 +6319,11 @@ def _zoo_backbones_card_vs_cpu(cases=None, phase="zoo_da"):
     out = []
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         for name, (size, batch, dtype) in (cases or ZOO_D_CASES).items():
+            t_case = time.perf_counter()
             dtype = getattr(torch, dtype)
             cpu = build_backbone(name, seed=3).to(dtype)
             card = copy.deepcopy(cpu).cuda()
+            build_s = time.perf_counter() - t_case
             rng = np.random.RandomState(0)
             x = torch.from_numpy(rng.randn(batch, 3, size, size)).to(dtype)
             g = torch.from_numpy(rng.randn(batch, cpu.out_features)).to(dtype)
@@ -6320,7 +6352,8 @@ def _zoo_backbones_card_vs_cpu(cases=None, phase="zoo_da"):
             log(f"{phase}: {name} {row['dtype']} {size}x{size} batch {batch} train forward + "
                 f"backward card vs CPU (TF32 off, {row['draws']} masks replayed): features "
                 f"{row['features']:.3g}, input gradient {row['input_grad']:.3g}, statistics "
-                f"{row['statistics']:.3g}")
+                f"{row['statistics']:.3g}; {time.perf_counter() - t_case:.1f} s, of which the "
+                f"network's build {build_s:.1f} s")
             out.append(row)
             del card
     torch.cuda.empty_cache()
@@ -7346,6 +7379,222 @@ def phase_zoo_ranks():
     print(json.dumps({"zoo_ranks": result}), flush=True)
     return result
 
+FORMAT_FIXTURE_DIR = os.path.join("tests", "torch_fixtures", "formats")
+FORMAT_KINDS = {".bmp": "BMP", ".ppm": "Netpbm", ".pgm": "Netpbm", ".pbm": "Netpbm",
+                ".gif": "GIF", ".tif": "TIFF", ".tiff": "TIFF", ".jpg": "JPEG variants"}
+FORMAT_RATE_LINKS = 500  # hard links a format for its decode rate
+# (c): 20 classes x (8 train, 2 val, 5 test) in the Caltech101 layout, the
+# recipe's batch 4, 1 epoch (40 steps)
+FORMAT_CLASSES, FORMAT_SPLIT = 20, {"train": 8, "val": 2, "test": 5}
+FORMAT_EPOCHS = 1
+
+
+def _check_format_fixtures():
+    """(a) Every committed fixture of tests/torch_fixtures/formats decoded by
+    the port against the digests computed from Pillow and the JAX package's
+    views (make_fixtures.py): the full decode, decode_file at 256 (None
+    except for the DCT JPEGs), the loader's cache view at 256 and the eval
+    view at 224; the truncated file raises ValueError, the refused one
+    NotImplementedError."""
+    from fsvlm_tpu_torch import native
+    from fsvlm_tpu_torch.data import imageops
+    from fsvlm_tpu_torch.data.base_dataset import Datum
+    from fsvlm_tpu_torch.data.loader import RawDatasetWrapper
+
+    with open(os.path.join(FORMAT_FIXTURE_DIR, "expected.json")) as f:
+        expected = json.load(f)
+    bad = []
+    for name, want in sorted(expected["digests"].items()):
+        path = os.path.join(FORMAT_FIXTURE_DIR, name)
+        full = native.read_image(path)
+        raw = native.decode_file(path, 256)
+        got = {"full": _digest(full), "raw256": None if raw is None else _digest(raw),
+               "cache256": _digest(RawDatasetWrapper([Datum(impath=path)], 256)[0]["img"]),
+               "eval224": _digest(imageops.resize_center_crop(full, (224, 224), "bicubic"))}
+        bad += [f"{name} {k}: got {got[k]}, expected {want[k]}" for k in want if got[k] != want[k]]
+    raised = []
+    for names, error in ((expected["truncated"], ValueError),
+                         (expected["refused"], NotImplementedError)):
+        for name in names:
+            try:
+                native.read_image(os.path.join(FORMAT_FIXTURE_DIR, name))
+            except error:
+                raised.append(name)
+    n = len(expected["digests"])
+    log(f"formats: {n} committed BMP, Netpbm, GIF, TIFF and JPEG-variant fixtures x 4 views "
+        f"(full decode, decode_file 256, cache view 256, eval view 224) against their digests: "
+        f"{4 * n - len(bad)} equal, {len(bad)} differ; truncated and refused files raising: "
+        f"{len(raised)} of {len(expected['truncated']) + len(expected['refused'])}")
+    bad += [f"{name}: decoded, expected it to raise" for name in
+            expected["truncated"] + expected["refused"] if name not in raised]
+    if bad:
+        raise SystemExit("FAIL: formats: decodes differ from the fixtures' digests:\n"
+                         + "\n".join(bad))
+    return expected
+
+
+def _format_tree(root, names):
+    """A Caltech101-layout tree of FORMAT_CLASSES class folders whose files
+    are hard links, round robin, to the fixtures ``names`` under their own
+    extensions, and its split_zhou_Caltech101.json.  Returns {relative path:
+    fixture name}."""
+    image_dir = os.path.join(root, "caltech-101", "101_ObjectCategories")
+    split, fixture_of, pairs, k = {"train": [], "val": [], "test": []}, {}, [], 0
+    for c in range(FORMAT_CLASSES):
+        cname = f"category_{c:03d}"
+        for part, n in FORMAT_SPLIT.items():
+            for j in range(n):
+                name = names[k % len(names)]
+                rel = f"{cname}/image_{part}_{j:04d}{os.path.splitext(name)[1]}"
+                pairs.append((os.path.abspath(os.path.join(FORMAT_FIXTURE_DIR, name)),
+                              os.path.join(image_dir, rel)))
+                split[part].append([rel, c, cname.replace("_", " ")])
+                fixture_of[rel] = name
+                k += 1
+    _link_all(pairs)
+    with open(os.path.join(root, "caltech-101", "split_zhou_Caltech101.json"), "w") as f:
+        json.dump(split, f)
+    return fixture_of
+
+
+def _format_rates(work, names, threads):
+    """(b) read_image images/s at ``threads`` per format over
+    FORMAT_RATE_LINKS hard links to that format's fixtures (each file read
+    once before: a path's first open is slow on the card machine's file
+    system), and decode_file(256) over the JPEG variants' links."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fsvlm_tpu_torch import native
+
+    by_kind = {}
+    for name in names:
+        by_kind.setdefault(FORMAT_KINDS[os.path.splitext(name)[1]], []).append(name)
+    rates = {}
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        for kind, members in sorted(by_kind.items()):
+            pairs = [(os.path.abspath(os.path.join(FORMAT_FIXTURE_DIR, members[i % len(members)])),
+                      os.path.join(work, "rates", kind.replace(" ", "_"), f"{i:04d}_" +
+                                   members[i % len(members)]))
+                     for i in range(FORMAT_RATE_LINKS)]
+            _link_all(pairs, threads)
+            paths = [dst for _, dst in pairs]
+            list(pool.map(_read_bytes, paths))
+            fns = [("read_image", native.read_image)]
+            if kind == "JPEG variants":
+                fns.append(("decode_file_256", lambda p: native.decode_file(p, 256)))
+            for label, fn in fns:
+                t0 = time.perf_counter()
+                list(pool.map(fn, paths))
+                rates[f"{kind} {label}"] = len(paths) / (time.perf_counter() - t0)
+            rates[f"{kind} files"] = len(members)
+    log(f"formats: decode rates at {threads} threads over {FORMAT_RATE_LINKS} links a format "
+        f"(images/s): {json.dumps({k: round(v, 1) for k, v in rates.items()})}")
+    return rates
+
+
+@_timed
+def phase_formats(clip):
+    """Phase 23 (module docstring), FSVLM_FORCE_PALLAS unset (the caller sets
+    it).  Returns (#6-#8 over the CLI run, the ``{"formats": ...}`` numbers)."""
+    import torch
+
+    from fsvlm_tpu_torch.engine.trainer import SimpleTrainer
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.tools import predict
+
+    t_phase = time.perf_counter()
+    expected = _check_format_fixtures()
+    names = sorted(expected["digests"])
+    threads = 8  # the recipe's DATALOADER.NUM_WORKERS
+    work = tempfile.mkdtemp(prefix="chip_smoke_formats_")
+
+    def argv(out, *flags):
+        return ["--trainer", "PromptSRC", "--seed", "1", "--device", "cuda", "--root", work,
+                "--dataset-config-file", "configs/datasets/caltech101.yaml",
+                "--config-file", CLI_RECIPE, "--output-dir", out, *flags,
+                "MODEL.FROZEN_DTYPE", "bf16", "TRAINER.PROMPTSRC.PREC", "bf16",
+                "DATASET.NUM_SHOTS", "-1", "DATALOADER.DEVICE_AUG", "True",
+                "TRAINER.PROMPTSRC.CACHED_TEACHER", "True", "TEST.FINAL_MODEL", "best_val",
+                "OPTIM.MAX_EPOCH", str(FORMAT_EPOCHS)]
+
+    try:
+        rates = _format_rates(work, names, threads)
+        fixture_of = _format_tree(work, names)
+        image_dir = os.path.join(work, "caltech-101", "101_ObjectCategories")
+        # (c) the CLI on the tree: the device-resident cache, #6-#8 at the
+        # derived counts, --eval-only, and predict over the test files
+        out = os.path.join(work, "run")
+        torch.cuda.synchronize()
+        fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        _zero_fused_steps()
+        t0 = time.perf_counter()
+        with _epochs_timed(SimpleTrainer, []) as epochs:
+            t = _run_cli(clip, argv(out))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        ds = t.dm.dataset
+        if t.cache is None or t.cfg.DATALOADER.PRE_SIZE != 256:
+            raise SystemExit("FAIL: formats: no device-resident train cache at 256")
+        cache = t.cache.cpu().numpy()
+        bad = [d.impath for i, d in enumerate(ds.train_x)
+               if _digest(cache[i]) != expected["digests"][
+                   fixture_of[os.path.relpath(d.impath, image_dir)]]["cache256"]]
+        kinds = sorted({FORMAT_KINDS[os.path.splitext(d.impath)[1]] for d in ds.train_x})
+        log(f"formats: {CLI_RECIPE} on a Caltech101-layout tree of {len(fixture_of)} links "
+            f"({FORMAT_CLASSES} classes x {FORMAT_SPLIT}) to {len(names)} fixtures in {kinds}: "
+            f"train_x {len(ds.train_x)}, val {len(ds.val)}, test {len(ds.test)}; "
+            f"{t.steps_per_epoch} steps of {t.batch_size}; run {run_s:.1f} s (epoch "
+            f"{epochs[0]:.1f} ms); the resident cache's {len(cache)} rows against their "
+            f"fixtures' cache256 digests: {len(cache) - len(bad)} equal, {len(bad)} differ")
+        if bad or len(cache) != len(ds.train_x):
+            raise SystemExit(f"FAIL: formats: resident cache rows differ: {bad[:5]}")
+        wrapped, fsteps = _wrapped_steps("formats", t.steps_per_epoch * FORMAT_EPOCHS)
+        want = _cli_expected_launches(t, clip.cfg, epochs=FORMAT_EPOCHS, steps=wrapped)
+        _others_silent(launches, "flash_attn", "the formats CLI run")
+        log(f"formats: fused steps {fsteps}; wrapper calls {launches}, expected {want}")
+        if any(launches[k] != n for k, n in want.items()) or fsteps["replays"] == 0:
+            raise SystemExit("FAIL: formats: #6-#8 launches differ from the derived counts")
+        t0 = time.perf_counter()
+        t2 = _run_cli(clip, argv(os.path.join(work, "eval"), "--eval-only", "--model-dir", out))
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        same = (t2.evaluator.y_pred == t.evaluator.y_pred
+                and t2.evaluator.y_true == t.evaluator.y_true)
+        log(f"formats: --eval-only from model-best.pkl reproduced the run's final test "
+            f"predictions: {same} ({len(t2.evaluator.y_pred)} images, {eval_s:.1f} s cold)")
+        if not same:
+            raise SystemExit("FAIL: formats: --eval-only did not reproduce the predictions")
+        # predict collects the tree's files by extension; its test files must
+        # be every test file of IMG_EXTS (each .bmp, .ppm, .tif and .tiff
+        # among them), with --eval-only's top-1
+        collected = [p for p in predict.collect_images([image_dir])
+                     if os.path.basename(p).startswith("image_test_")]
+        tests = [d.impath for d in ds.test]
+        want_paths = [p for p in tests if os.path.splitext(p)[1] in predict.IMG_EXTS]
+        exts = {os.path.splitext(p)[1] for p in collected}
+        label = dict(zip(tests, (t2.lab2cname[y] for y in t2.evaluator.y_pred)))
+        with contextlib.redirect_stdout(io.StringIO()):
+            rows = list(predict.predict(t2, t2.cfg, collected, topk=1, pred_batch=64))
+        top1 = {p: tk[0][0] for p, tk in rows}
+        agree = sum(top1[p] == label[p] for p in collected)
+        log(f"formats: predict collected {len(collected)} test files ({sorted(exts)}) of the "
+            f"{len(want_paths)} with its extensions; top-1 equal to --eval-only's on {agree}")
+        if (sorted(collected) != sorted(want_paths)
+                or not {".bmp", ".ppm", ".tif", ".tiff"} <= exts or agree != len(collected)):
+            raise SystemExit("FAIL: formats: predict's collection or top-1 differs")
+        result = {"fixtures": len(names), "rates_images_per_s": rates, "threads": threads,
+                  "cli_run_s": run_s, "epoch_ms": epochs[0], "eval_only_s": eval_s,
+                  "train": len(ds.train_x), "test": len(ds.test), "predict_files": len(collected),
+                  "launches": launches, "phase_s": time.perf_counter() - t_phase}
+        del t, t2
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"formats: phase 23 in {result['phase_s']:.1f} s")
+    print(json.dumps({"formats": result}), flush=True)
+    return launches, result
+
 
 def _recipe_cfg_from_argv(argv):
     """The CLI's config for ``argv`` (setup_cfg), without running it."""
@@ -7407,6 +7656,8 @@ def main():
         shutil.rmtree(ssl_work, ignore_errors=True)
     launches_ranks = phase_ranks(pred.clip)  # the CLIP trainers across ranks
     phase_zoo_ranks()  # the DG and DA zoo across ranks: no attention
+    with force_pallas(None):  # the CLI on a BMP/Netpbm/GIF/TIFF tree, the d = 64 kernels
+        launches_formats, _ = phase_formats(pred.clip)
 
     import torch
 
@@ -7461,6 +7712,7 @@ def main():
                "promptsrc_int8_teacher": launches_int8_teacher,
                "lpclip_extract": launches_lpclip, "driver_setting_a": launches_driver,
                "pacs_dg_cli": launches_pacs, "promptsrc_fused_nccl": launches_ranks,
+               "formats_cli": launches_formats,
                **{f"export_{label}_loaded_call": {fa.KERNEL: n}
                   for label, n in launches_export.items()}}
     for row in kernels[:3]:
@@ -7493,7 +7745,7 @@ def main():
         "device_ms": bwd["device_ms"], "library_device_ms": bwd["library_device_ms"],
     })
     log(f"chip_smoke: seconds by phase {json.dumps(PHASE_S)}")
-    log(f"chip_smoke: all 22 phases in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: all 23 phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,72 @@
+// What the port's host decoders share: their return codes, Pillow's
+// decompression-bomb limit, the zlib inflate of png_decoder.cpp (which
+// tiff_decoder.cpp's Deflate strips use too), Pillow's CMYK->RGB, the
+// bit-exact Python round() of a sample's rescale, and the guard that keeps
+// a C++ exception from crossing the C interface.
+//
+// Every decoder is compiled with the others into one library by
+// fsvlm_tpu_torch/native.py; the status codes are read there.
+
+#pragma once
+
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+#include <new>
+
+namespace fsvlm {
+
+enum Status {
+  kOk = 0,
+  kNoRgb = 1,        // CMYK / YCCK JPEG at a DCT scale: libjpeg gives no RGB output
+  kCorrupt = 2,      // malformed or truncated data
+  kUnsupported = 3,  // a variant the port does not read (yet) though Pillow does
+  kNoMemory = 5,     // an allocation failed
+  kTooLarge = 6,     // more than kMaxPixels pixels
+  kRefused = 7,      // a layout Pillow 12.1 refuses too
+};
+
+// Pillow refuses an image of more than twice Image.MAX_IMAGE_PIXELS as a
+// decompression bomb, so the JAX package reads none: neither do the port's
+// decoders, which keeps a corrupt header from sizing their buffers.
+constexpr int64_t kMaxPixels = 2 * int64_t(89478485);
+
+inline bool too_large(int64_t w, int64_t h) { return w * h > kMaxPixels; }
+
+// A zlib stream (RFC 1950) inflated into exactly `cap` bytes at `out`; the
+// count written goes to *produced.  Returns kOk, or kCorrupt for a stream
+// that is malformed, truncated or longer than `cap` (png_decoder.cpp).
+int zlib_inflate(const uint8_t* in, size_t n, uint8_t* out, size_t cap, size_t* produced);
+
+// Pillow's Convert.c cmyk2rgb (mode CMYK, not inverted, to RGB).
+inline void cmyk_to_rgb(int c, int m, int y, int k, uint8_t* o) {
+  const int nk = 255 - k;
+  const int ch[3] = {c, m, y};
+  for (int j = 0; j < 3; ++j) {
+    const int t = ch[j] * nk + 128;  // MULDIV255
+    const int v = nk - (((t >> 8) + t) >> 8);
+    o[j] = static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v);
+  }
+}
+
+// Python's round(v / maxval * out_max) for the integers Pillow rescales:
+// the same double operations, ties to even as round() breaks them.
+inline int64_t py_round_scale(int64_t v, int64_t maxval, int64_t out_max) {
+  const double q = static_cast<double>(v) / static_cast<double>(maxval) *
+                   static_cast<double>(out_max);
+  return static_cast<int64_t>(std::nearbyint(q));
+}
+
+// Runs an entry's body with no C++ exception crossing the C interface.
+template <typename F>
+int guarded(F&& body) {
+  try {
+    return body();
+  } catch (const std::bad_alloc&) {
+    return kNoMemory;
+  } catch (...) {
+    return kCorrupt;
+  }
+}
+
+}  // namespace fsvlm

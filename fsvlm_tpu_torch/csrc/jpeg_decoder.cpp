@@ -1,29 +1,45 @@
-// The port's JPEG decoder: baseline and progressive Huffman JPEG with no
-// library, its output byte-equal to libjpeg-turbo's (8-bit samples) for the
-// two views the data layer reads.
+// The port's JPEG decoder: baseline, extended, progressive and lossless
+// JPEG, Huffman and arithmetic coded, with no library, its output
+// byte-equal to libjpeg-turbo's (8-bit samples) for the two views the data
+// layer reads.
 //
 //  - fsvlm_jpeg_decode_full: the full-resolution RGB image that Pillow's
-//    Image.open(path).convert("RGB") gives: libjpeg's integer IDCT
-//    (JDCT_ISLOW, jidctint.c), its "fancy" triangle upsampling (jdsample.c:
-//    h2v1, h1v2, h2v2, with their alternating rounding biases; box
-//    replication for other integral factors), its fixed-point YCbCr->RGB
-//    (jdcolor.c); grayscale replicated to three channels; CMYK and YCCK
-//    (Adobe) through Pillow's inverted CMYK and its CMYK->RGB.
+//    Image.open(path).convert("RGB") gives (its libjpeg-turbo 3.1):
+//    libjpeg's integer IDCT (JDCT_ISLOW, jidctint.c), its "fancy" triangle
+//    upsampling (jdsample.c: h2v1, h1v2, h2v2, with their alternating
+//    rounding biases; box replication for other integral factors), its
+//    fixed-point YCbCr->RGB (jdcolor.c); grayscale replicated to three
+//    channels; CMYK and YCCK (Adobe) through Pillow's inverted CMYK and its
+//    CMYK->RGB.
 //  - fsvlm_jpeg_decode_resize_crop: the device-aug cache view that
-//    native/decoder.cpp computes through libjpeg: decode at the largest DCT
-//    scale 1/2^k (k <= 3) whose shorter edge stays >= pre_size (jidctred.c's
-//    4x4, 2x2 and 1x1 IDCTs; a subsampled component takes a larger IDCT
-//    instead of upsampling where libjpeg does, jdmaster.c), a separable float
-//    bilinear resize of the shorter edge to pre_size, the centre crop.
-//    libjpeg has no CMYK->RGB conversion, so a CMYK or YCCK file returns
-//    kNoRgb here, as the libjpeg build returns its error code.
+//    native/decoder.cpp computes through libjpeg (the system's 2.1): decode
+//    at the largest DCT scale 1/2^k (k <= 3) whose shorter edge stays >=
+//    pre_size (jidctred.c's 4x4, 2x2 and 1x1 IDCTs; a subsampled component
+//    takes a larger IDCT instead of upsampling where libjpeg does,
+//    jdmaster.c), a separable float bilinear resize of the shorter edge to
+//    pre_size, the centre crop.  libjpeg has no CMYK->RGB conversion, so a
+//    CMYK or YCCK file returns kNoRgb here, as the libjpeg build returns its
+//    error code; so does a lossless file, which that build does not read.
+//  - Arithmetic coding (SOF9, SOF10; jdarith.c): the QM coder with libjpeg's
+//    statistics bins and DAC conditioning (defaults L 0, U 1, K 5), its
+//    restart intervals, and after a decoding error the rest of the interval
+//    left as it is, as libjpeg leaves it.
+//  - Block smoothing (jdcoefct.c decompress_smooth_data): a progressive
+//    file whose scans leave any of the first 9 AC coefficients unrefined is
+//    smoothed from each block's 5x5 DC neighbourhood, with the edge rules of
+//    libjpeg-turbo 3 for the full decode and of 2.1 for the cache view.
+//  - Lossless (SOF3; jdlossls.c, jdlhuff.c, jdpred.c): Huffman-coded
+//    differences, predictors 1-7, the point transform, restarts at row
+//    boundaries; components of 1x1 sampling.  A three-component frame read
+//    as YCbCr is refused, as libjpeg-turbo 3 converts no colour of a
+//    lossless frame.
 //
 // Every call is reentrant and allocates its own buffers, so a Python thread
 // pool decodes in parallel (ctypes releases the GIL around the call).
-// Corrupt or truncated data, and the JPEG variants this decoder does not
-// read (arithmetic coding, lossless, hierarchical, 12-bit samples, a
-// progressive file whose last scans leave coefficients unrefined), return an
-// error code; nothing is guessed.
+// Corrupt or truncated data returns kCorrupt; the variants this decoder
+// does not read return kUnsupported: hierarchical frames, arithmetic
+// lossless and 12-bit samples (which Pillow 12.1 refuses too) and lossless
+// frames with subsampled components.  Nothing is guessed.
 //
 // Build: g++ -O3 -std=c++17 -fPIC -shared -ffp-contract=off (the port's
 // fsvlm_tpu_torch/native.py does this at first use).  The float resize
@@ -40,6 +56,8 @@
 #include <new>
 #include <vector>
 
+#include "host_common.h"
+
 namespace {
 
 enum Status {
@@ -50,6 +68,7 @@ enum Status {
   kNotJpeg = 4,      // no SOI marker
   kNoMemory = 5,     // an allocation failed
   kTooLarge = 6,     // more than kMaxPixels pixels
+  kRefused = 7,      // a file libjpeg-turbo 3 (Pillow's) refuses too
   kOpen = 10,
   kRead = 11,
 };
@@ -67,6 +86,52 @@ const int kNaturalOrder[64 + 16] = {
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// jaricom.c jpeg_aritab: the QM coder's Qe values and its probability
+// estimation state machine (ITU-T T.81 table D.2), packed as libjpeg packs
+// them: Qe << 16 | Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS.
+// Entry 113 is the fixed 0.5 estimate of sign and refinement bits.
+#define V(i, qe, lps, mps, sw) ((int64_t(qe) << 16) | ((mps) << 8) | ((sw) << 7) | (lps))
+const int64_t kAritab[114] = {
+    V(0, 0x5a1d, 1, 1, 1),     V(1, 0x2586, 14, 2, 0),    V(2, 0x1114, 16, 3, 0),
+    V(3, 0x080b, 18, 4, 0),    V(4, 0x03d8, 20, 5, 0),    V(5, 0x01da, 23, 6, 0),
+    V(6, 0x00e5, 25, 7, 0),    V(7, 0x006f, 28, 8, 0),    V(8, 0x0036, 30, 9, 0),
+    V(9, 0x001a, 33, 10, 0),   V(10, 0x000d, 35, 11, 0),  V(11, 0x0006, 9, 12, 0),
+    V(12, 0x0003, 10, 13, 0),  V(13, 0x0001, 12, 13, 0),  V(14, 0x5a7f, 15, 15, 1),
+    V(15, 0x3f25, 36, 16, 0),  V(16, 0x2cf2, 38, 17, 0),  V(17, 0x207c, 39, 18, 0),
+    V(18, 0x17b9, 40, 19, 0),  V(19, 0x1182, 42, 20, 0),  V(20, 0x0cef, 43, 21, 0),
+    V(21, 0x09a1, 45, 22, 0),  V(22, 0x072f, 46, 23, 0),  V(23, 0x055c, 48, 24, 0),
+    V(24, 0x0406, 49, 25, 0),  V(25, 0x0303, 51, 26, 0),  V(26, 0x0240, 52, 27, 0),
+    V(27, 0x01b1, 54, 28, 0),  V(28, 0x0144, 56, 29, 0),  V(29, 0x00f5, 57, 30, 0),
+    V(30, 0x00b7, 59, 31, 0),  V(31, 0x008a, 60, 32, 0),  V(32, 0x0068, 62, 33, 0),
+    V(33, 0x004e, 63, 34, 0),  V(34, 0x003b, 32, 35, 0),  V(35, 0x002c, 33, 9, 0),
+    V(36, 0x5ae1, 37, 37, 1),  V(37, 0x484c, 64, 38, 0),  V(38, 0x3a0d, 65, 39, 0),
+    V(39, 0x2ef1, 67, 40, 0),  V(40, 0x261f, 68, 41, 0),  V(41, 0x1f33, 69, 42, 0),
+    V(42, 0x19a8, 70, 43, 0),  V(43, 0x1518, 72, 44, 0),  V(44, 0x1177, 73, 45, 0),
+    V(45, 0x0e74, 74, 46, 0),  V(46, 0x0bfb, 75, 47, 0),  V(47, 0x09f8, 77, 48, 0),
+    V(48, 0x0861, 78, 49, 0),  V(49, 0x0706, 79, 50, 0),  V(50, 0x05cd, 48, 51, 0),
+    V(51, 0x04de, 50, 52, 0),  V(52, 0x040f, 50, 53, 0),  V(53, 0x0363, 51, 54, 0),
+    V(54, 0x02d4, 52, 55, 0),  V(55, 0x025c, 53, 56, 0),  V(56, 0x01f8, 54, 57, 0),
+    V(57, 0x01a4, 55, 58, 0),  V(58, 0x0160, 56, 59, 0),  V(59, 0x0125, 57, 60, 0),
+    V(60, 0x00f6, 58, 61, 0),  V(61, 0x00cb, 59, 62, 0),  V(62, 0x00ab, 61, 63, 0),
+    V(63, 0x008f, 61, 32, 0),  V(64, 0x5b12, 65, 65, 1),  V(65, 0x4d04, 80, 66, 0),
+    V(66, 0x412c, 81, 67, 0),  V(67, 0x37d8, 82, 68, 0),  V(68, 0x2fe8, 83, 69, 0),
+    V(69, 0x293c, 84, 70, 0),  V(70, 0x2379, 86, 71, 0),  V(71, 0x1edf, 87, 72, 0),
+    V(72, 0x1aa9, 87, 73, 0),  V(73, 0x174e, 72, 74, 0),  V(74, 0x1424, 72, 75, 0),
+    V(75, 0x119c, 74, 76, 0),  V(76, 0x0f6b, 74, 77, 0),  V(77, 0x0d51, 75, 78, 0),
+    V(78, 0x0bb6, 77, 79, 0),  V(79, 0x0a40, 77, 48, 0),  V(80, 0x5832, 80, 81, 1),
+    V(81, 0x4d1c, 88, 82, 0),  V(82, 0x438e, 89, 83, 0),  V(83, 0x3bdd, 90, 84, 0),
+    V(84, 0x34ee, 91, 85, 0),  V(85, 0x2eae, 92, 86, 0),  V(86, 0x299a, 93, 87, 0),
+    V(87, 0x2516, 86, 71, 0),  V(88, 0x5570, 88, 89, 1),  V(89, 0x4ca9, 95, 90, 0),
+    V(90, 0x44d9, 96, 91, 0),  V(91, 0x3e22, 97, 92, 0),  V(92, 0x3824, 99, 93, 0),
+    V(93, 0x32b4, 99, 94, 0),  V(94, 0x2e17, 93, 86, 0),  V(95, 0x56a8, 95, 96, 1),
+    V(96, 0x4f46, 101, 97, 0), V(97, 0x47e5, 102, 98, 0), V(98, 0x41cf, 103, 99, 0),
+    V(99, 0x3c3d, 104, 100, 0), V(100, 0x375e, 99, 93, 0), V(101, 0x5231, 105, 102, 0),
+    V(102, 0x4c0f, 106, 103, 0), V(103, 0x4639, 107, 104, 0), V(104, 0x415e, 103, 99, 0),
+    V(105, 0x5627, 105, 106, 1), V(106, 0x50e7, 108, 107, 0), V(107, 0x4b85, 109, 103, 0),
+    V(108, 0x5597, 110, 109, 0), V(109, 0x504f, 111, 107, 0), V(110, 0x5a10, 110, 111, 1),
+    V(111, 0x5522, 112, 109, 0), V(112, 0x59eb, 112, 111, 1), V(113, 0x5a1d, 113, 113, 0)};
+#undef V
 
 // ------------------------------------------------------------ range limits
 // libjpeg's sample_range_limit (jdmaster.c prepare_range_limit_table): the
@@ -312,6 +377,7 @@ constexpr int kLookahead = 8;  // libjpeg's HUFF_LOOKAHEAD
 
 struct Huffman {
   bool defined = false;
+  int max_symbol = 0;  // a DC table's largest size category (15, or 16 lossless)
   uint8_t counts[17] = {0};  // codes of each length 1-16
   uint8_t values[256] = {0};
   int32_t maxcode[18];
@@ -363,10 +429,9 @@ bool derive(Huffman& t, bool is_dc) {
         t.look[lookbits++] = static_cast<uint16_t>((l << 8) | t.values[p]);
     }
   }
-  if (is_dc) {
-    for (int i = 0; i < numsymbols; ++i)
-      if (t.values[i] > 15) return false;
-  }
+  t.max_symbol = 0;
+  if (is_dc)
+    for (int i = 0; i < numsymbols; ++i) t.max_symbol = std::max<int>(t.max_symbol, t.values[i]);
   return true;
 }
 
@@ -403,19 +468,33 @@ struct Component {
   int dw = 0, dh = 0;  // downsampled width / height after IDCT scaling
   std::vector<uint8_t> plane;
   int pstride = 0;
+  std::vector<uint16_t> samples;  // a lossless frame's undifferenced samples
   int16_t* block(int bx, int by) { return coef.p + (static_cast<size_t>(by) * bw + bx) * 64; }
+  const int16_t* block(int bx, int by) const {
+    return coef.p + (static_cast<size_t>(by) * bw + bx) * 64;
+  }
+  int pt = 0;  // a lossless scan's point transform
 };
 
 class Decoder {
  public:
-  Decoder(const uint8_t* data, size_t len) : data_(data), len_(len) {}
+  Decoder(const uint8_t* data, size_t len) : data_(data), len_(len) {
+    for (int i = 0; i < 16; ++i) {
+      arith_dc_l_[i] = 0;
+      arith_dc_u_[i] = 1;
+      arith_ac_k_[i] = 5;
+    }
+  }
 
   // Parse up to the first SOS (or through every scan when `full`).
   int parse(bool full);
-  int decode_rgb(int denom, bool cmyk_ok, std::vector<uint8_t>& out, int* ow, int* oh);
+  // `libjpeg3`: smooth as libjpeg-turbo 3 (Pillow) does, else as 2.1 (the
+  // JAX package's build)
+  int decode_rgb(int denom, bool cmyk_ok, bool libjpeg3, std::vector<uint8_t>& out, int* ow,
+                 int* oh);
 
   int width = 0, height = 0, ncomp = 0;
-  bool progressive = false;
+  bool progressive = false, arith = false, lossless = false;
 
  private:
   const uint8_t* data_;
@@ -438,6 +517,15 @@ class Decoder {
   bool bad_data_ = false;  // the segment ran out, or held no valid code
   int eobrun_ = 0;
 
+  // arithmetic decoding (jdarith.c): the C and A registers, the bit
+  // counter (-1 after an error, as libjpeg's ct), the statistics bins and
+  // the DAC conditioning (libjpeg's defaults L 0, U 1, K 5)
+  int64_t ac_c_ = 0, ac_a_ = 0;
+  int ac_ct_ = 0;
+  uint8_t dc_stats_[16][64], ac_stats_[16][256], fixed_bin_[4] = {113, 0, 0, 0};
+  int dc_context_[4] = {0, 0, 0, 0};
+  uint8_t arith_dc_l_[16], arith_dc_u_[16], arith_ac_k_[16];
+
   int u8() { return pos_ < len_ ? data_[pos_++] : -1; }
   int u16() {
     const int a = u8(), b = u8();
@@ -448,6 +536,7 @@ class Decoder {
   int read_dht();
   int read_dqt();
   int read_sos();
+  int read_dac();
   int read_app(int marker);
 
   void reset_bits() {
@@ -516,7 +605,17 @@ class Decoder {
   static int extend(int r, int s) { return r < (1 << (s - 1)) ? r - (1 << s) + 1 : r; }
 
   int decode_scan(Component** sc, int n, int ss, int se, int ah, int al);
-  int restart(int& expected);
+  int decode_lossless(Component** sc, int n, int predictor, int pt);
+  int restart(int& expected, Component** sc, int n, int ss, int ah);
+  void arith_reset(Component** sc, int n, int ss, int ah);
+  int arith_byte();
+  int arith_decode(uint8_t* st);
+  int arith_dc_diff(int tbl, int ci, int* v);
+  int arith_ac_value(int tbl, int k, uint8_t* st, int* v);
+  void arith_sequential(Component& c, int ci, int16_t* blk);
+  void arith_dc_first(Component& c, int ci, int16_t* blk, int al);
+  void arith_ac_first(Component& c, int16_t* blk, int ss, int se, int al);
+  void arith_ac_refine(Component& c, int16_t* blk, int ss, int se, int al);
   void decode_block_baseline(Component& c, int16_t* blk);
   void dc_first(Component& c, int16_t* blk, int al);
   void dc_refine(int16_t* blk, int al);
@@ -604,11 +703,18 @@ int Decoder::read_dht() {
 
 int Decoder::read_sof(int marker) {
   if (frame_) return kCorrupt;
-  if (marker == 0xC2) {
+  // SOF0/1 sequential, SOF2 progressive, SOF3 lossless (Huffman); SOF9 and
+  // SOF10 their arithmetic-coded forms; hierarchical frames (SOF5-7,
+  // 13-15) and arithmetic lossless (SOF11), which libjpeg-turbo refuses
+  // too, are not read
+  if (marker == 0xC2 || marker == 0xCA) {
     progressive = true;
-  } else if (marker != 0xC0 && marker != 0xC1) {
-    return kUnsupported;  // lossless, hierarchical or arithmetic-coded
+  } else if (marker == 0xC3) {
+    lossless = true;
+  } else if (marker != 0xC0 && marker != 0xC1 && marker != 0xC9) {
+    return kUnsupported;
   }
+  arith = marker == 0xC9 || marker == 0xCA;
   const int len = u16();
   if (len < 8 || pos_ + (len - 2) > len_) return kCorrupt;
   const int precision = u8();
@@ -632,6 +738,7 @@ int Decoder::read_sof(int marker) {
     max_h_ = std::max(max_h_, c.h);
     max_v_ = std::max(max_v_, c.v);
   }
+  if (lossless && (max_h_ > 1 || max_v_ > 1)) return kUnsupported;  // subsampled lossless
   mcus_x_ = (width + 8 * max_h_ - 1) / (8 * max_h_);
   mcus_y_ = (height + 8 * max_v_ - 1) / (8 * max_v_);
   for (int i = 0; i < ncomp; ++i) {
@@ -643,6 +750,27 @@ int Decoder::read_sof(int marker) {
     for (int k = 0; k < 64; ++k) c.coef_bits[k] = -1;
   }
   frame_ = true;
+  return kOk;
+}
+
+// jdmarker.c get_dac: AC conditioning K and DC conditioning (L, U) by table
+int Decoder::read_dac() {
+  int len = u16();
+  if (len < 2 || pos_ + (len - 2) > len_) return kCorrupt;
+  len -= 2;
+  while (len > 0) {
+    if (len < 2) return kCorrupt;
+    const int index = u8(), val = u8();
+    len -= 2;
+    if (index >= 32) return kCorrupt;
+    if (index >= 16) {
+      arith_ac_k_[index - 16] = static_cast<uint8_t>(val);
+    } else {
+      arith_dc_l_[index] = static_cast<uint8_t>(val & 15);
+      arith_dc_u_[index] = static_cast<uint8_t>(val >> 4);
+      if (arith_dc_l_[index] > arith_dc_u_[index]) return kCorrupt;
+    }
+  }
   return kOk;
 }
 
@@ -662,20 +790,30 @@ int Decoder::read_sos() {
       if (sc[k] == c) return kCorrupt;
     c->td = t >> 4;
     c->ta = t & 15;
-    if (c->td > 3 || c->ta > 3) return kCorrupt;
+    if (!arith && (c->td > 3 || c->ta > 3)) return kCorrupt;
     sc[i] = c;
   }
   const int ss = u8(), se = u8(), a = u8();
   const int ah = a >> 4, al = a & 15;
-  if (progressive) {  // jdphuff.c start_pass_phuff's checks
+  if (progressive) {  // jdphuff.c start_pass_phuff's checks (and jdarith.c's)
     if (ss == 0 ? se != 0 : (se < ss || se > 63 || n != 1)) return kCorrupt;
     if ((ah != 0 && al != ah - 1) || al > 13) return kCorrupt;
+  } else if (lossless) {  // jdlossls.c: a predictor 1-7 and a point transform
+    if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= 8) return kCorrupt;
   }  // a sequential scan's Ss, Se, Ah and Al are not read, as in libjpeg
   // blocks in an MCU: libjpeg's limit of 10
   if (n > 1) {
     int blocks = 0;
     for (int i = 0; i < n; ++i) blocks += sc[i]->h * sc[i]->v;
     if (blocks > 10) return kCorrupt;
+  }
+  if (lossless) {
+    for (int i = 0; i < n; ++i) {
+      Component& c = *sc[i];
+      if (c.samples.empty()) c.samples.assign(static_cast<size_t>(width) * height, 0);
+      c.latched = true;
+    }
+    return decode_lossless(sc, n, ss, al);
   }
   for (int i = 0; i < n; ++i) {
     Component& c = *sc[i];
@@ -787,14 +925,308 @@ void Decoder::ac_refine(Component& c, int16_t* blk, int ss, int se, int al) {
   }
 }
 
-int Decoder::restart(int& expected) {
-  // jdhuff.c process_restart: drop the buffered bits, read RSTn, reset
+int Decoder::restart(int& expected, Component** sc, int n, int ss, int ah) {
+  // jdhuff.c / jdarith.c process_restart: drop the buffered bits, read
+  // RSTn, reset the predictions (and the arithmetic coder's statistics)
   reset_bits();
   const int m = next_marker();
   if (m != 0xD0 + expected) return kCorrupt;
   expected = (expected + 1) & 7;
   for (int i = 0; i < ncomp; ++i) comp_[i].dc_pred = 0;
   eobrun_ = 0;
+  if (arith) arith_reset(sc, n, ss, ah);
+  return kOk;
+}
+
+// jdarith.c start_pass / process_restart: the statistics of the scan's
+// tables zeroed, the DC predictions and contexts reset, the coder re-armed
+// to read two bytes
+void Decoder::arith_reset(Component** sc, int n, int ss, int ah) {
+  for (int i = 0; i < n; ++i) {
+    const Component& c = *sc[i];
+    if (!progressive || (ss == 0 && ah == 0)) {
+      std::memset(dc_stats_[c.td], 0, sizeof dc_stats_[c.td]);
+      sc[i]->dc_pred = 0;
+      dc_context_[i] = 0;
+    }
+    if (!progressive || ss) std::memset(ac_stats_[c.ta], 0, sizeof ac_stats_[c.ta]);
+  }
+  ac_c_ = 0;
+  ac_a_ = 0;
+  ac_ct_ = -16;
+}
+
+// jdarith.c get_byte with arith_decode's marker rule: past a marker the
+// coder reads zeros; past the data's end the file is truncated
+int Decoder::arith_byte() {
+  if (at_marker_) return 0;
+  if (pos_ >= len_) {
+    bad_data_ = true;
+    return 0;
+  }
+  const int b = data_[pos_];
+  if (b != 0xFF) {
+    ++pos_;
+    return b;
+  }
+  size_t p = pos_ + 1;
+  while (p < len_ && data_[p] == 0xFF) ++p;
+  if (p >= len_) {
+    bad_data_ = true;
+    return 0;
+  }
+  if (data_[p] == 0) {
+    pos_ = p + 1;
+    return 0xFF;
+  }
+  at_marker_ = true;  // leave pos_ at the marker
+  return 0;
+}
+
+// jdarith.c arith_decode: one binary decision in the statistics bin `st`
+int Decoder::arith_decode(uint8_t* st) {
+  while (ac_a_ < 0x8000) {
+    if (--ac_ct_ < 0) {
+      ac_c_ = (ac_c_ << 8) | arith_byte();
+      if ((ac_ct_ += 8) < 0 && ++ac_ct_ == 0) ac_a_ = 0x8000;  // the two initial bytes
+    }
+    ac_a_ <<= 1;
+  }
+  int sv = *st;
+  int64_t qe = kAritab[sv & 0x7F];
+  const int nl = static_cast<int>(qe & 0xFF);
+  qe >>= 8;
+  const int nm = static_cast<int>(qe & 0xFF);
+  qe >>= 8;
+  int64_t temp = ac_a_ - qe;
+  ac_a_ = temp;
+  temp <<= ac_ct_;
+  if (ac_c_ >= temp) {
+    ac_c_ -= temp;
+    if (ac_a_ < qe) {  // conditional LPS exchange
+      ac_a_ = qe;
+      *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+    } else {
+      ac_a_ = qe;
+      *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+      sv ^= 0x80;
+    }
+  } else if (ac_a_ < 0x8000) {  // conditional MPS exchange
+    if (ac_a_ < qe) {
+      *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+      sv ^= 0x80;
+    } else {
+      *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+    }
+  }
+  return sv >> 7;
+}
+
+// A DC difference (T.81 F.1.4.4.1, jdarith.c), its conditioning updated;
+// false after a magnitude overflow, which leaves the coder in its error state
+int Decoder::arith_dc_diff(int tbl, int ci, int* v) {
+  uint8_t* st = dc_stats_[tbl] + dc_context_[ci];
+  if (arith_decode(st) == 0) {
+    dc_context_[ci] = 0;
+    *v = 0;
+    return true;
+  }
+  const int sign = arith_decode(st + 1);
+  st += 2 + sign;
+  int m = arith_decode(st);
+  if (m != 0) {
+    st = dc_stats_[tbl] + 20;
+    while (arith_decode(st)) {
+      if ((m <<= 1) == 0x8000) {
+        ac_ct_ = -1;
+        return false;
+      }
+      st += 1;
+    }
+  }
+  if (m < ((1 << arith_dc_l_[tbl]) >> 1))
+    dc_context_[ci] = 0;
+  else if (m > ((1 << arith_dc_u_[tbl]) >> 1))
+    dc_context_[ci] = 12 + sign * 4;
+  else
+    dc_context_[ci] = 4 + sign * 4;
+  int x = m;
+  st += 14;
+  while (m >>= 1)
+    if (arith_decode(st)) x |= m;
+  x += 1;
+  *v = sign ? -x : x;
+  return true;
+}
+
+// An AC value after its nonzero decision at `st` (T.81 F.1.4.4.2)
+int Decoder::arith_ac_value(int tbl, int k, uint8_t* st, int* v) {
+  const int sign = arith_decode(fixed_bin_);
+  st += 2;
+  int m = arith_decode(st);
+  if (m != 0 && arith_decode(st)) {
+    m <<= 1;
+    st = ac_stats_[tbl] + (k <= arith_ac_k_[tbl] ? 189 : 217);
+    while (arith_decode(st)) {
+      if ((m <<= 1) == 0x8000) {
+        ac_ct_ = -1;
+        return false;
+      }
+      st += 1;
+    }
+  }
+  int x = m;
+  st += 14;
+  while (m >>= 1)
+    if (arith_decode(st)) x |= m;
+  x += 1;
+  *v = sign ? -x : x;
+  return true;
+}
+
+void Decoder::arith_sequential(Component& c, int ci, int16_t* blk) {
+  int v;
+  if (!arith_dc_diff(c.td, ci, &v)) return;
+  c.dc_pred = (c.dc_pred + v) & 0xffff;
+  blk[0] = static_cast<int16_t>(c.dc_pred);
+  const int tbl = c.ta;
+  int k = 0;
+  do {
+    uint8_t* st = ac_stats_[tbl] + 3 * k;
+    if (arith_decode(st)) break;  // end of block
+    for (;;) {
+      ++k;
+      if (arith_decode(st + 1)) break;
+      st += 3;
+      if (k >= 63) {
+        ac_ct_ = -1;  // spectral overflow
+        return;
+      }
+    }
+    if (!arith_ac_value(tbl, k, st, &v)) return;
+    blk[kNaturalOrder[k]] = static_cast<int16_t>(v);
+  } while (k < 63);
+}
+
+void Decoder::arith_dc_first(Component& c, int ci, int16_t* blk, int al) {
+  int v;
+  if (!arith_dc_diff(c.td, ci, &v)) return;
+  c.dc_pred = (c.dc_pred + v) & 0xffff;
+  blk[0] = static_cast<int16_t>(static_cast<int>(static_cast<unsigned>(c.dc_pred) << al));
+}
+
+void Decoder::arith_ac_first(Component& c, int16_t* blk, int ss, int se, int al) {
+  const int tbl = c.ta;
+  for (int k = ss; k <= se; ++k) {
+    uint8_t* st = ac_stats_[tbl] + 3 * (k - 1);
+    if (arith_decode(st)) break;  // end of band
+    while (arith_decode(st + 1) == 0) {
+      st += 3;
+      if (++k > se) {
+        ac_ct_ = -1;
+        return;
+      }
+    }
+    int v;
+    if (!arith_ac_value(tbl, k, st, &v)) return;
+    blk[kNaturalOrder[k]] =
+        static_cast<int16_t>(static_cast<int>(static_cast<unsigned>(v) << al));
+  }
+}
+
+void Decoder::arith_ac_refine(Component& c, int16_t* blk, int ss, int se, int al) {
+  const int tbl = c.ta;
+  const int p1 = 1 << al, m1 = -1 * (1 << al);
+  int kex = se;  // the previous stage's end of block
+  for (; kex > 0; --kex)
+    if (blk[kNaturalOrder[kex]]) break;
+  for (int k = ss; k <= se; ++k) {
+    uint8_t* st = ac_stats_[tbl] + 3 * (k - 1);
+    if (k > kex && arith_decode(st)) break;
+    for (;;) {
+      int16_t* coef = blk + kNaturalOrder[k];
+      if (*coef) {  // a coefficient nonzero before: its correction bit
+        if (arith_decode(st + 2)) *coef = static_cast<int16_t>(*coef + (*coef < 0 ? m1 : p1));
+        break;
+      }
+      if (arith_decode(st + 1)) {  // newly nonzero
+        *coef = static_cast<int16_t>(arith_decode(fixed_bin_) ? m1 : p1);
+        break;
+      }
+      st += 3;
+      if (++k > se) {
+        ac_ct_ = -1;
+        return;
+      }
+    }
+  }
+}
+
+// A lossless scan (jdlhuff.c, jddiffct.c, jdpred.c): Huffman-coded
+// differences, undifferenced row by row with the scan's predictor, the
+// first row of the scan and of each restart interval from its left
+// neighbour (its first sample from 2^(P - Pt - 1)), every first column
+// from the sample above; samples wrap at 16 bits.
+int Decoder::decode_lossless(Component** sc, int n, int predictor, int pt) {
+  for (int i = 0; i < n; ++i) {
+    const Huffman& t = dc_[sc[i]->td];
+    if (!t.defined || t.max_symbol > 16) return kCorrupt;
+    sc[i]->pt = pt;
+  }
+  // libjpeg-turbo's lossless restarts fall on row boundaries only
+  if (restart_interval_ % width) return kCorrupt;
+  const int restart_rows = restart_interval_ / width;
+  reset_bits();
+  bad_data_ = false;
+  std::vector<int> diff(static_cast<size_t>(n) * width);
+  int rows_left = restart_rows, expected_rst = 0;
+  bool first = true;
+  for (int y = 0; y < height; ++y) {
+    if (restart_interval_) {
+      if (rows_left == 0) {
+        if (restart(expected_rst, sc, n, 0, 0) != kOk) return kCorrupt;
+        rows_left = restart_rows;
+        first = true;
+      }
+      --rows_left;
+    }
+    for (int x = 0; x < width; ++x)
+      for (int i = 0; i < n; ++i) {
+        const int s = decode_huff(dc_[sc[i]->td]);
+        diff[static_cast<size_t>(i) * width + x] =
+            s == 0 ? 0 : s == 16 ? 32768 : extend(get_bits(s), s);
+      }
+    if (bad_data_) return kCorrupt;
+    for (int i = 0; i < n; ++i) {
+      const int* df = diff.data() + static_cast<size_t>(i) * width;
+      uint16_t* row = sc[i]->samples.data() + static_cast<size_t>(y) * width;
+      if (first) {
+        int64_t ra = (df[0] + (1 << (8 - pt - 1))) & 0xFFFF;
+        row[0] = static_cast<uint16_t>(ra);
+        for (int x = 1; x < width; ++x) row[x] = static_cast<uint16_t>(ra = (df[x] + ra) & 0xFFFF);
+        continue;
+      }
+      const uint16_t* prev = row - width;
+      int64_t rb = prev[0], ra = (df[0] + rb) & 0xFFFF, rc;
+      row[0] = static_cast<uint16_t>(ra);
+      for (int x = 1; x < width; ++x) {
+        rc = rb;
+        rb = prev[x];
+        int64_t p;
+        switch (predictor) {
+          case 1: p = ra; break;
+          case 2: p = rb; break;
+          case 3: p = rc; break;
+          case 4: p = ra + rb - rc; break;
+          case 5: p = ra + ((rb - rc) >> 1); break;
+          case 6: p = rb + ((ra - rc) >> 1); break;
+          default: p = (ra + rb) >> 1; break;
+        }
+        row[x] = static_cast<uint16_t>(ra = (df[x] + p) & 0xFFFF);
+      }
+    }
+    first = false;
+  }
   return kOk;
 }
 
@@ -804,7 +1236,9 @@ int Decoder::decode_scan(Component** sc, int n, int ss, int se, int ah, int al) 
     c.dc_pred = 0;
     const bool needs_dc = !progressive || (ss == 0 && ah == 0);
     const bool needs_ac = !progressive || ss > 0;
-    if ((needs_dc && !dc_[c.td].defined) || (needs_ac && !ac_[c.ta].defined)) return kCorrupt;
+    if (!arith && ((needs_dc && (!dc_[c.td].defined || dc_[c.td].max_symbol > 15)) ||
+                   (needs_ac && !ac_[c.ta].defined)))
+      return kCorrupt;
     if (progressive) {
       // jdphuff.c: each coefficient's last successive-approximation bit
       for (int k = ss; k <= se; ++k) c.coef_bits[k] = al;
@@ -813,6 +1247,7 @@ int Decoder::decode_scan(Component** sc, int n, int ss, int se, int ah, int al) 
   eobrun_ = 0;
   reset_bits();
   bad_data_ = false;
+  if (arith) arith_reset(sc, n, ss, ah);
   int mx, my;
   if (n == 1) {
     mx = sc[0]->width_in_blocks;
@@ -827,7 +1262,7 @@ int Decoder::decode_scan(Component** sc, int n, int ss, int se, int ah, int al) 
     for (int x = 0; x < mx; ++x) {
       if (restart_interval_) {
         if (restarts_left == 0) {
-          if (restart(expected_rst) != kOk) return kCorrupt;
+          if (restart(expected_rst, sc, n, ss, ah) != kOk) return kCorrupt;
           restarts_left = restart_interval_;
         }
         --restarts_left;
@@ -838,7 +1273,20 @@ int Decoder::decode_scan(Component** sc, int n, int ss, int se, int ah, int al) 
         for (int v = 0; v < bh; ++v) {
           for (int h = 0; h < bwn; ++h) {
             int16_t* blk = n == 1 ? c.block(x, y) : c.block(x * c.h + h, y * c.v + v);
-            if (!progressive) {
+            if (arith) {
+              // after a decoding error libjpeg leaves the rest of the
+              // restart interval as it is (jdarith.c's ct == -1)
+              if (ac_ct_ == -1) continue;
+              if (!progressive) arith_sequential(c, i, blk);
+              else if (ss == 0 && ah == 0) arith_dc_first(c, i, blk, al);
+              else if (ss == 0) {
+                if (arith_decode(fixed_bin_)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+              } else if (ah == 0) {
+                arith_ac_first(c, blk, ss, se, al);
+              } else {
+                arith_ac_refine(c, blk, ss, se, al);
+              }
+            } else if (!progressive) {
               decode_block_baseline(c, blk);
             } else if (ss == 0) {
               if (ah == 0) dc_first(c, blk, al);
@@ -878,7 +1326,7 @@ int Decoder::parse(bool full) {
     } else if (m == 0xC4) {
       rc = read_dht();
     } else if (m == 0xCC) {
-      rc = kUnsupported;  // arithmetic-coding conditioning
+      rc = read_dac();
     } else if (m == 0xDB) {
       rc = read_dqt();
     } else if (m == 0xDD) {
@@ -902,7 +1350,8 @@ int Decoder::parse(bool full) {
   }
   if (!frame_) return kCorrupt;
   for (int i = 0; i < ncomp; ++i)
-    if (!comp_[i].coef.p) return kCorrupt;  // a component no scan coded
+    if (lossless ? comp_[i].samples.empty() : !comp_[i].coef.p)
+      return kCorrupt;  // a component no scan coded
   return kOk;
 }
 
@@ -986,9 +1435,170 @@ void upsample_row(const Component& c, const UpPlan& u, int y, int out_w, uint8_t
   }
 }
 
+using IdctFn = void (*)(const int16_t*, const uint16_t*, uint8_t*, int);
+
+// jdcoefct.c smoothing_ok: libjpeg smooths a progressive file's output when
+// its scans leave any of a component's first 9 AC coefficients unrefined
+// (or unsent), every DC at least partly known and the quantizers of those
+// ten coefficients nonzero.
+bool smoothing_ok(const Component* comp, int ncomp) {
+  bool useful = false;
+  for (int i = 0; i < ncomp; ++i) {
+    const uint16_t* q = comp[i].qt;
+    for (int pos : {0, 1, 8, 16, 9, 2, 3, 10, 17, 24})
+      if (q[pos] == 0) return false;
+    if (comp[i].coef_bits[0] < 0) return false;
+    for (int k = 1; k < 10; ++k)
+      if (comp[i].coef_bits[k] != 0) useful = true;
+  }
+  return useful;
+}
+
+// jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1 and later): each
+// block's unrefined low coefficients estimated from the DC values of the
+// 5x5 blocks around it, then its IDCT.  Where no AC coefficient of the
+// first nine was sent, the DC is re-estimated too (change_dc).  The edges
+// follow each version's sliding registers: libjpeg-turbo 3 (Pillow's,
+// `v3`) picks the rows around a block by its index in the image, counted
+// by iMCU row, and fills both right registers from the second column;
+// 2.1 (the JAX package's build) picks them by the block row within its
+// iMCU row and the iMCU row, which for components of 2 block rows an iMCU
+// row repeats a nearer row, and leaves the farther right register at the
+// first column in a picture two blocks wide.
+void smooth_idct(const Component& c, int imcu_rows, bool v3, IdctFn idct, int s,
+                 uint8_t* plane, int pstride) {
+  const int* cb = c.coef_bits;
+  bool change_dc = true;
+  for (int k = 1; k < 10; ++k) change_dc = change_dc && cb[k] == -1;
+  const uint16_t* q = c.qt;
+  const int64_t q00 = q[0], q01 = q[1], q10 = q[8], q20 = q[16], q11 = q[9], q02 = q[2],
+                q03 = q[3], q12 = q[10], q21 = q[17], q30 = q[24];
+  const int last = c.width_in_blocks - 1;
+  int16_t ws[64];
+  auto estimate = [](int al, int64_t qk, int64_t num) {
+    int pred;
+    if (num >= 0) {
+      pred = static_cast<int>(((qk << 7) + num) / (qk << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    } else {
+      pred = static_cast<int>(((qk << 7) - num) / (qk << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      pred = -pred;
+    }
+    return static_cast<int16_t>(pred);
+  };
+  for (int imcu = 0; imcu < imcu_rows; ++imcu) {
+    int block_rows = c.v;
+    if (imcu == imcu_rows - 1) {
+      block_rows = c.height_in_blocks % c.v;
+      if (block_rows == 0) block_rows = c.v;
+    }
+    const int image_block_rows = block_rows * imcu_rows;
+    for (int br = 0; br < block_rows; ++br) {
+      const int ibr = imcu * block_rows + br;
+      const int row = imcu * c.v + br;
+      const int last_imcu = imcu_rows - 1;
+      int rp, rpp, rn, rnn;
+      if (v3) {
+        rp = ibr > 0 ? row - 1 : row;
+        rpp = ibr > 1 ? row - 2 : rp;
+        rn = ibr < image_block_rows - 1 ? row + 1 : row;
+        rnn = ibr < image_block_rows - 2 ? row + 2 : rn;
+      } else {
+        rp = (br > 0 || imcu > 0) ? row - 1 : row;
+        rpp = (br > 1 || imcu > 1) ? row - 2 : rp;
+        rn = (br < block_rows - 1 || imcu < last_imcu) ? row + 1 : row;
+        rnn = (br < block_rows - 2 || imcu + 1 < last_imcu) ? row + 2 : rn;
+      }
+      auto dc = [&](int r, int col) { return static_cast<int>(c.block(col, r)[0]); };
+      int DC01, DC02, DC03, DC04, DC05, DC06, DC07, DC08, DC09, DC10, DC11, DC12, DC13, DC14,
+          DC15, DC16, DC17, DC18, DC19, DC20, DC21, DC22, DC23, DC24, DC25;
+      DC01 = DC02 = DC03 = DC04 = DC05 = dc(rpp, 0);
+      DC06 = DC07 = DC08 = DC09 = DC10 = dc(rp, 0);
+      DC11 = DC12 = DC13 = DC14 = DC15 = dc(row, 0);
+      DC16 = DC17 = DC18 = DC19 = DC20 = dc(rn, 0);
+      DC21 = DC22 = DC23 = DC24 = DC25 = dc(rnn, 0);
+      for (int b = 0; b <= last; ++b) {
+        std::memcpy(ws, c.block(b, row), sizeof ws);
+        if (b == 0 && b < last) {
+          DC04 = dc(rpp, 1);
+          DC09 = dc(rp, 1);
+          DC14 = dc(row, 1);
+          DC19 = dc(rn, 1);
+          DC24 = dc(rnn, 1);
+          if (v3) {  // version 3 fills the far right registers from it too
+            DC05 = DC04;
+            DC10 = DC09;
+            DC15 = DC14;
+            DC20 = DC19;
+            DC25 = DC24;
+          }
+        }
+        if (b + 1 < last) {
+          DC05 = dc(rpp, b + 2);
+          DC10 = dc(rp, b + 2);
+          DC15 = dc(row, b + 2);
+          DC20 = dc(rn, b + 2);
+          DC25 = dc(rnn, b + 2);
+        }
+        int al;
+        if ((al = cb[1]) != 0 && ws[1] == 0)
+          ws[1] = estimate(al, q01, q00 * (change_dc ?
+              (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 - 13 * DC09 + 3 * DC10 -
+               3 * DC11 + 38 * DC12 - 38 * DC14 + 3 * DC15 - 3 * DC16 + 13 * DC17 -
+               13 * DC19 + 3 * DC20 - DC21 - DC22 + DC24 + DC25) :
+              (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15)));
+        if ((al = cb[2]) != 0 && ws[8] == 0)
+          ws[8] = estimate(al, q10, q00 * (change_dc ?
+              (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 + 13 * DC07 + 38 * DC08 +
+               13 * DC09 - DC10 + DC16 - 13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+               3 * DC22 + 3 * DC23 + 3 * DC24 + DC25) :
+              (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23)));
+        if ((al = cb[3]) != 0 && ws[16] == 0)
+          ws[16] = estimate(al, q20, q00 * (change_dc ?
+              (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 - 14 * DC13 - 5 * DC14 +
+               2 * DC17 + 7 * DC18 + 2 * DC19 + DC23) :
+              (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23)));
+        if ((al = cb[4]) != 0 && ws[9] == 0)
+          ws[9] = estimate(al, q11, q00 * (change_dc ?
+              (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 + DC21 - DC25) :
+              (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 - DC24 + DC04 -
+               DC06 + 10 * DC07 - 10 * DC09)));
+        if ((al = cb[5]) != 0 && ws[2] == 0)
+          ws[2] = estimate(al, q02, q00 * (change_dc ?
+              (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 - 14 * DC13 + 7 * DC14 +
+               DC15 + 2 * DC17 - 5 * DC18 + 2 * DC19) :
+              (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15)));
+        if (change_dc) {
+          if ((al = cb[6]) != 0 && ws[3] == 0)
+            ws[3] = estimate(al, q03, q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19));
+          if ((al = cb[7]) != 0 && ws[10] == 0)
+            ws[10] = estimate(al, q12, q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19));
+          if ((al = cb[8]) != 0 && ws[17] == 0)
+            ws[17] = estimate(al, q21, q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19));
+          if ((al = cb[9]) != 0 && ws[24] == 0)
+            ws[24] = estimate(al, q30, q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19));
+          ws[0] = estimate(0, q00, q00 *
+              (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06 + 6 * DC07 +
+               42 * DC08 + 6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 + 152 * DC13 +
+               42 * DC14 - 8 * DC15 - 6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 -
+               2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25));
+        }
+        idct(ws, c.qt, plane + static_cast<size_t>(row) * s * pstride + b * s, pstride);
+        DC01 = DC02; DC02 = DC03; DC03 = DC04; DC04 = DC05;
+        DC06 = DC07; DC07 = DC08; DC08 = DC09; DC09 = DC10;
+        DC11 = DC12; DC12 = DC13; DC13 = DC14; DC14 = DC15;
+        DC16 = DC17; DC17 = DC18; DC18 = DC19; DC19 = DC20;
+        DC21 = DC22; DC22 = DC23; DC23 = DC24; DC24 = DC25;
+      }
+    }
+  }
+}
+
 // Decode to interleaved 8-bit output at 1/denom scale.  With cmyk_ok the
 // 4-component images are given as Pillow's RGB, else they return kNoRgb.
-int Decoder::decode_rgb(int denom, bool cmyk_ok, std::vector<uint8_t>& out, int* ow, int* oh) {
+int Decoder::decode_rgb(int denom, bool cmyk_ok, bool libjpeg3, std::vector<uint8_t>& out,
+                        int* ow, int* oh) {
   int rc = parse(true);
   if (rc != kOk) return rc;
   // libjpeg's colour space of the file (jdapimin.c default_decompress_parms)
@@ -1001,23 +1611,20 @@ int Decoder::decode_rgb(int denom, bool cmyk_ok, std::vector<uint8_t>& out, int*
     } else if (saw_adobe_) {
       space = adobe_transform_ == 0 ? Space::kRgb : Space::kYcc;
     } else {
+      // the component IDs: 'R', 'G', 'B' is RGB, and libjpeg-turbo 3 takes
+      // any other lossless frame for RGB too
       const int a = comp_[0].id, b = comp_[1].id, c = comp_[2].id;
-      space = (a == 82 && b == 71 && c == 66) ? Space::kRgb : Space::kYcc;
+      space = ((a == 82 && b == 71 && c == 66) || lossless) ? Space::kRgb : Space::kYcc;
     }
   } else {
     space = (saw_adobe_ && adobe_transform_ != 0) ? Space::kYcck : Space::kCmyk;
     if (!cmyk_ok) return kNoRgb;
   }
-  if (progressive) {
-    // jdcoefct.c smoothing_ok: a file whose scans leave any of the first 9
-    // AC coefficients unrefined is decoded with block smoothing, which this
-    // decoder does not do
-    for (int i = 0; i < ncomp; ++i) {
-      if (comp_[i].coef_bits[0] < 0) return kUnsupported;
-      for (int k = 1; k < 10; ++k)
-        if (comp_[i].coef_bits[k] != 0) return kUnsupported;
-    }
-  }
+  // libjpeg-turbo 2.1 (the JAX package's build) reads no lossless frame,
+  // and 3 converts no colour space of one
+  if (lossless && !libjpeg3) return kNoRgb;
+  if (lossless && (space == Space::kYcc || space == Space::kYcck)) return kRefused;
+  const bool smooth = progressive && smoothing_ok(comp_, ncomp);
   // output size and each component's IDCT size (jdmaster.c
   // jpeg_calc_output_dimensions, the JPEG_LIB_VERSION 62 build)
   const int min_ss = 8 / denom;
@@ -1033,15 +1640,25 @@ int Decoder::decode_rgb(int denom, bool cmyk_ok, std::vector<uint8_t>& out, int*
     c.ss = s;
     c.dw = static_cast<int>((int64_t(width) * c.h * s + 8 * max_h_ - 1) / (8 * max_h_));
     c.dh = static_cast<int>((int64_t(height) * c.v * s + 8 * max_v_ - 1) / (8 * max_v_));
-    c.pstride = c.width_in_blocks * s;
-    c.plane.assign(static_cast<size_t>(c.pstride) * c.height_in_blocks * s, 0);
-    void (*idct)(const int16_t*, const uint16_t*, uint8_t*, int) =
-        s == 8 ? idct_8x8 : s == 4 ? idct_4x4 : s == 2 ? idct_2x2 : idct_1x1;
-    for (int by = 0; by < c.height_in_blocks; ++by)
-      for (int bx = 0; bx < c.width_in_blocks; ++bx)
-        idct(c.block(bx, by), c.qt,
-             c.plane.data() + static_cast<size_t>(by) * s * c.pstride + bx * s, c.pstride);
-    c.coef.release();
+    if (lossless) {  // the samples, scaled back by the point transform
+      c.pstride = width;
+      c.plane.resize(static_cast<size_t>(width) * height);
+      for (size_t k = 0; k < c.plane.size(); ++k)
+        c.plane[k] = static_cast<uint8_t>(c.samples[k] << c.pt);
+    } else {
+      c.pstride = c.width_in_blocks * s;
+      c.plane.assign(static_cast<size_t>(c.pstride) * c.height_in_blocks * s, 0);
+      const IdctFn idct = s == 8 ? idct_8x8 : s == 4 ? idct_4x4 : s == 2 ? idct_2x2 : idct_1x1;
+      if (smooth) {
+        smooth_idct(c, mcus_y_, libjpeg3, idct, s, c.plane.data(), c.pstride);
+      } else {
+        for (int by = 0; by < c.height_in_blocks; ++by)
+          for (int bx = 0; bx < c.width_in_blocks; ++bx)
+            idct(c.block(bx, by), c.qt,
+                 c.plane.data() + static_cast<size_t>(by) * s * c.pstride + bx * s, c.pstride);
+      }
+      c.coef.release();
+    }
     // jdsample.c jinit_upsampler's choice
     const int h_in = c.h * s / min_ss, v_in = c.v * s / min_ss;
     const bool fancy = min_ss > 1;
@@ -1105,15 +1722,8 @@ int Decoder::decode_rgb(int denom, bool cmyk_ok, std::vector<uint8_t>& out, int*
             ye = c2[x];
           }
           // Pillow reads the samples inverted ("CMYK;I", Adobe's polarity),
-          // then converts CMYK to RGB (Convert.c cmyk2rgb)
-          const int k = 255 - c3[x];
-          const int nk = 255 - k;
-          const int ch[3] = {255 - cc, 255 - mm, 255 - ye};
-          for (int j = 0; j < 3; ++j) {
-            const int t = ch[j] * nk + 128;
-            const int v = nk - (((t >> 8) + t) >> 8);
-            o[j] = static_cast<uint8_t>(std::min(255, std::max(0, v)));
-          }
+          // then converts CMYK to RGB
+          fsvlm::cmyk_to_rgb(255 - cc, 255 - mm, 255 - ye, 255 - c3[x], o);
           break;
         }
       }
@@ -1216,7 +1826,7 @@ int fsvlm_jpeg_decode_full(const uint8_t* data, long len, int w, int h, uint8_t*
     Decoder d(data, static_cast<size_t>(len));
     std::vector<uint8_t> rgb;
     int ow = 0, oh = 0;
-    const int rc = d.decode_rgb(1, true, rgb, &ow, &oh);
+    const int rc = d.decode_rgb(1, true, true, rgb, &ow, &oh);
     if (rc != kOk) return rc;
     if (ow != w || oh != h) return static_cast<int>(kCorrupt);
     std::memcpy(out, rgb.data(), rgb.size());
@@ -1240,7 +1850,7 @@ int fsvlm_jpeg_decode_resize_crop(const uint8_t* data, long len, int pre_size, u
     Decoder full(data, static_cast<size_t>(len));
     std::vector<uint8_t> raw;
     int w = 0, h = 0;
-    rc = full.decode_rgb(denom, false, raw, &w, &h);
+    rc = full.decode_rgb(denom, false, false, raw, &w, &h);
     if (rc != kOk) return rc;
     int ow, oh;
     if (w <= h) {

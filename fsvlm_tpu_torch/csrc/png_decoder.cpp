@@ -27,7 +27,10 @@
 // more pixels than twice Pillow's MAX_IMAGE_PIXELS kTooLarge; nothing is
 // guessed.
 //
-// Build: compiled with csrc/jpeg_decoder.cpp and csrc/imaging.cpp into one
+// Its inflate is also fsvlm::zlib_inflate (host_common.h), which the TIFF
+// decoder's Deflate strips use.
+//
+// Build: compiled with the other decoders and csrc/imaging.cpp into one
 // library by fsvlm_tpu_torch/native.py.
 
 #include <algorithm>
@@ -36,6 +39,8 @@
 #include <cstring>
 #include <new>
 #include <vector>
+
+#include "host_common.h"
 
 namespace {
 
@@ -625,6 +630,16 @@ int guarded(F body) {
 }
 
 }  // namespace
+
+int fsvlm::zlib_inflate(const uint8_t* in, size_t n, uint8_t* out, size_t cap,
+                        size_t* produced) {
+  return guarded([&] {
+    Inflater inf(in, n, out, cap);
+    const int rc = inf.run();
+    *produced = inf.produced();
+    return rc;
+  });
+}
 
 extern "C" {
 

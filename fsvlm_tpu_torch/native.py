@@ -1,39 +1,43 @@
 """The port's host image code in C++ (counterpart of fsvlm_tpu.native and of
 the PIL calls of the JAX package's data layer), through ctypes.
 
-The card's machine has neither libjpeg's header nor its library, so the
-JPEG decoder is the port's own C++ (``csrc/jpeg_decoder.cpp``: baseline
-and progressive Huffman JPEG, no library); so is the PNG decoder
-(``csrc/png_decoder.cpp``: all of PNG, its inflate included), which links
-no zlib either, so that one build with no dependency serves both formats;
-``csrc/imaging.cpp`` holds the per-pixel passes of ``data/imageops.py``'s
-Pillow-exact image operations (resampling with a box, the affine
-transform, the Gaussian blur, HSV, the 3x3 filter, blend, L and lookup
-tables).  All three are compiled
-with ``g++`` at first use into one library in ``fsvlm_tpu_torch/_build/``
-(listed in ``.gitignore``), named by a hash of sources and flags, and
-loaded once.  A failed build raises with the compiler's output; nothing
-falls back to another decoder.
+The card's machine has neither libjpeg's header nor its library, nor any
+other image library, so every decoder is the port's own C++ and links
+nothing: ``csrc/jpeg_decoder.cpp`` (baseline, progressive and lossless
+JPEG, Huffman and arithmetic coded, with libjpeg's block smoothing),
+``csrc/png_decoder.cpp`` (all of PNG, its inflate included, which the TIFF
+decoder's Deflate strips share), ``csrc/bmp_decoder.cpp``,
+``csrc/pnm_decoder.cpp`` (P1-P6), ``csrc/gif_decoder.cpp`` (the first
+frame) and ``csrc/tiff_decoder.cpp`` (the first IFD: none, PackBits, LZW
+and Deflate); ``csrc/imaging.cpp`` holds the per-pixel passes of
+``data/imageops.py``'s Pillow-exact image operations (resampling with a
+box, the affine transform, the Gaussian blur, HSV, the 3x3 filter, blend,
+L and lookup tables).  All are compiled with ``g++`` at first use into one
+library in ``fsvlm_tpu_torch/_build/`` (listed in ``.gitignore``), named by
+a hash of sources, headers and flags, and loaded once.  A failed build
+raises with the compiler's output; nothing falls back to another decoder.
 
-- ``read_image(path)``: the full-resolution RGB image of a JPEG or PNG file
-  (told apart by their magic bytes, whatever the extension) as an (H, W, 3)
-  uint8 array, byte-equal to Pillow's ``Image.open(path).convert("RGB")``
-  (JPEG: grayscale replicated, CMYK and YCCK through Pillow's CMYK->RGB;
-  PNG: every colour type and bit depth, Adam7, as Pillow converts them);
+- ``read_image(path)``: the full-resolution RGB image of a JPEG, PNG, BMP,
+  Netpbm, GIF or TIFF file (told apart by their magic bytes, whatever the
+  extension) as an (H, W, 3) uint8 array, byte-equal to Pillow 12.1's
+  ``Image.open(path).convert("RGB")``, each format as Pillow reads and
+  converts it (each decoder's header says how);
 - ``decode_file(path, pre_size)``: the (P, P, 3) uint8 device-aug cache
   view of a JPEG, byte-equal to ``fsvlm_tpu.native.decode_file`` (DCT-domain
   downscale, float bilinear resize of the shorter edge, centre crop), or
-  None for a CMYK or YCCK JPEG and for a PNG, for which the JAX package's
-  libjpeg build has no output either: the loader then resizes the full
-  decode as Pillow's bilinear.
+  None where the JAX package's libjpeg build has no output either: a CMYK,
+  YCCK or lossless JPEG, and every other format.  The loader then resizes
+  the full decode as Pillow's bilinear.
 
 Both release the GIL for the decode, so a thread pool decodes in parallel;
 so does every imaging pass (ctypes drops the GIL for each foreign call).
-A missing file raises ``IOError``; a file in any format other than JPEG
-and PNG (by its magic bytes), a JPEG variant the decoder does not read and
-a PNG method the PNG specification does not define raise
-``NotImplementedError`` naming ROADMAP A16; corrupt or truncated data
-raises ``ValueError``.
+Every decoder checks Pillow's decompression-bomb limit (more than twice
+``MAX_IMAGE_PIXELS`` raises) before it sizes a buffer.  A missing file
+raises ``IOError``; corrupt or truncated data, and a layout Pillow 12.1
+refuses too, raise ``ValueError``; a file in another format (WebP among
+them), and a variant of a read format that Pillow reads but the port does
+not yet (``_UNSUPPORTED``), raise ``NotImplementedError`` naming ROADMAP
+A16.
 """
 
 import ctypes
@@ -48,8 +52,10 @@ import numpy as np
 
 ROUTE = "B"  # the repo's own decoder; route A would link the machine's libjpeg
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = [os.path.join(CSRC, f) for f in ("jpeg_decoder.cpp", "png_decoder.cpp",
-                                           "imaging.cpp")]
+SOURCES = [os.path.join(CSRC, f) for f in (
+    "jpeg_decoder.cpp", "png_decoder.cpp", "bmp_decoder.cpp", "pnm_decoder.cpp",
+    "gif_decoder.cpp", "tiff_decoder.cpp", "imaging.cpp")]
+HEADERS = [os.path.join(CSRC, "host_common.h")]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off", "-Wall"]
 
@@ -74,19 +80,24 @@ _IMAGING = {
     "fsvlm_lut": [_U8P, _I64, _I64, _U8P, _U8P],
 }
 
-# the decoders' return codes (the Status of jpeg_decoder.cpp and of
-# png_decoder.cpp; their 4, not their format, is caught here first by the
-# magic bytes)
-NO_RGB, CORRUPT, UNSUPPORTED, NO_MEMORY, TOO_LARGE = 1, 2, 3, 5, 6
+# the decoders' return codes (csrc/host_common.h's Status)
+NO_RGB, CORRUPT, UNSUPPORTED, NO_MEMORY, TOO_LARGE, REFUSED = 1, 2, 3, 5, 6, 7
 
-_MAGIC = [(b"\xff\xd8", "JPEG"), (b"\x89PNG\r\n\x1a\n", "PNG"), (b"GIF8", "GIF"),
-          (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF")]
+# each format by its magic bytes, and the prefix of its C pair
+# fsvlm_<prefix>_size / fsvlm_<prefix>_decode_full
+_MAGIC = [(b"\xff\xd8", "JPEG"), (b"\x89PNG\r\n\x1a\n", "PNG"), (b"GIF87a", "GIF"),
+          (b"GIF89a", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF")]
+_PREFIX = {"JPEG": "jpeg", "PNG": "png", "BMP": "bmp", "Netpbm": "pnm", "GIF": "gif",
+           "TIFF": "tiff"}
 _UNSUPPORTED = {
-    "JPEG": "a JPEG variant the port's decoder does not read (arithmetic coding, lossless, "
-            "hierarchical, 12-bit samples, or progressive scans that leave coefficients "
-            "unrefined)",
+    "JPEG": "a JPEG variant the port's decoder does not read (hierarchical, 12-bit or "
+            "arithmetic-coded lossless, which Pillow does not read either, or lossless with "
+            "subsampled components)",
     "PNG": "a PNG whose compression, filter or interlace method the PNG specification does "
            "not define",
+    "TIFF": "a TIFF kind the port's decoder does not read yet (YCbCr, JPEG-in-TIFF, "
+            "CCITT, LZMA, ZSTD or WebP compression, float, signed or 12-bit samples, LAB, "
+            "or a layout past Pillow's table)",
 }
 
 
@@ -100,7 +111,7 @@ def find_cxx():
 
 def library_path():
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
@@ -138,13 +149,16 @@ def load():
             lib.fsvlm_jpeg_decode_full.argtypes = [_U8P, ctypes.c_long, ctypes.c_int,
                                                    ctypes.c_int, _U8P]
             lib.fsvlm_jpeg_file_resize_crop.argtypes = [ctypes.c_char_p, ctypes.c_int, _U8P]
-            lib.fsvlm_png_size.argtypes = lib.fsvlm_jpeg_size.argtypes
-            lib.fsvlm_png_decode_full.argtypes = lib.fsvlm_jpeg_decode_full.argtypes
+            decoders = [lib.fsvlm_jpeg_file_resize_crop]
+            for prefix in _PREFIX.values():
+                size, full = (getattr(lib, f"fsvlm_{prefix}_{k}") for k in ("size",
+                                                                            "decode_full"))
+                size.argtypes = lib.fsvlm_jpeg_size.argtypes
+                full.argtypes = lib.fsvlm_jpeg_decode_full.argtypes
+                decoders += [size, full]
             for name, args in _IMAGING.items():
                 getattr(lib, name).argtypes = args
-            for fn in (lib.fsvlm_jpeg_size, lib.fsvlm_jpeg_decode_full,
-                       lib.fsvlm_jpeg_file_resize_crop, lib.fsvlm_png_size,
-                       lib.fsvlm_png_decode_full, *(getattr(lib, n) for n in _IMAGING)):
+            for fn in (*decoders, *(getattr(lib, n) for n in _IMAGING)):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -157,27 +171,38 @@ def build_info():
             "path": _build_info["path"], "seconds": _build_info["seconds"]}
 
 
+def _kind(data):
+    """The format of a file's first bytes, or None."""
+    kind = next((k for m, k in _MAGIC if data.startswith(m)), None)
+    if kind is None and data[:1] == b"P" and data[1:2] in (b"1", b"2", b"3", b"4", b"5", b"6"):
+        kind = "Netpbm"
+    if kind is None and data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        kind = "WebP"
+    return kind
+
+
 def _read(path, head=None):
-    """The file's bytes (its first ``head`` bytes if given) and its format,
-    "JPEG" or "PNG" by its magic bytes; raises for any other format."""
+    """The file's bytes (its first ``head`` bytes if given) and its format
+    by its magic bytes; raises for a format the port does not read."""
     if not os.path.exists(path):
         raise IOError(f'No file exists at "{path}"')
     with open(path, "rb") as f:
         data = f.read(head) if head else f.read()
-    kind = next((k for m, k in _MAGIC if data.startswith(m)), None)
-    if kind is None and data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        kind = "WebP"
-    if kind not in ("JPEG", "PNG"):
+    kind = _kind(data)
+    if kind not in _PREFIX:
         raise NotImplementedError(
-            f'"{path}" is {"a " + kind + " file" if kind else "neither a JPEG nor a PNG file"}: '
-            "the port decodes JPEG and PNG only (image formats other than JPEG and PNG: "
-            "ROADMAP A16)")
+            f'"{path}" is {"a " + kind + " file" if kind else "in no format the port reads"}: '
+            "the port decodes JPEG, PNG, BMP, Netpbm, GIF and TIFF (image formats other than "
+            "these, WebP next: ROADMAP A16)")
     return data, kind
 
 
 def _check(rc, path, kind):
     if rc == CORRUPT:
         raise ValueError(f'corrupt or truncated {kind} data in "{path}"')
+    if rc == REFUSED:
+        raise ValueError(f'"{path}" is a {kind} layout that Pillow 12.1 refuses too, so the '
+                         "JAX package reads it no more than the port")
     if rc == UNSUPPORTED:
         raise NotImplementedError(f'"{path}" is {_UNSUPPORTED[kind]}: ROADMAP A16')
     if rc == TOO_LARGE:
@@ -192,11 +217,11 @@ def _check(rc, path, kind):
 
 
 def read_image(path):
-    """The full-resolution RGB image of a JPEG or PNG file: uint8 (H, W, 3)."""
+    """The full-resolution RGB image of a JPEG, PNG, BMP, Netpbm, GIF or TIFF
+    file: uint8 (H, W, 3)."""
     data, kind = _read(path)
     lib = load()
-    size, full = ((lib.fsvlm_jpeg_size, lib.fsvlm_jpeg_decode_full) if kind == "JPEG" else
-                  (lib.fsvlm_png_size, lib.fsvlm_png_decode_full))
+    size, full = (getattr(lib, f"fsvlm_{_PREFIX[kind]}_{k}") for k in ("size", "decode_full"))
     buf = np.frombuffer(data, np.uint8)
     w, h = ctypes.c_int(), ctypes.c_int()
     _check(size(buf.ctypes.data_as(_U8P), len(data), ctypes.byref(w), ctypes.byref(h)), path,
@@ -209,10 +234,11 @@ def read_image(path):
 
 def decode_file(path, pre_size):
     """The (pre_size, pre_size, 3) uint8 cache view of a JPEG file, or None
-    for a CMYK or YCCK JPEG (no RGB output at a DCT scale, as libjpeg) and
-    for a PNG (the JAX package's libjpeg build reads none)."""
+    where the JAX package's libjpeg build has no output: a CMYK, YCCK or
+    lossless JPEG (no RGB output at a DCT scale, or no lossless decoder, in
+    its libjpeg) and a file in any other format."""
     _, kind = _read(path, head=12)
-    if kind == "PNG":
+    if kind != "JPEG":
         return None
     lib = load()
     out = np.empty((pre_size, pre_size, 3), np.uint8)

@@ -159,15 +159,15 @@ def test_device_aug_cache_matches_jax_bytes(pre_size):
 
 
 def test_a_file_path_raises_instead_of_falling_back(tmp_path):
-    """A file that is neither a JPEG nor a PNG raises naming ROADMAP A16 on
-    both views, whatever its extension; a missing file raises IOError.
-    Nothing falls back to another decoder."""
-    bmp = tmp_path / "img.jpg"  # a BMP under a JPEG name
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(bmp, format="BMP")
-    item = base_dataset.Datum(impath=str(bmp), label=0)
-    with pytest.raises(NotImplementedError, match="BMP file.*ROADMAP A16"):
+    """A file in a format the port does not read (WebP) raises naming
+    ROADMAP A16 on both views, whatever its extension; a missing file raises
+    IOError.  Nothing falls back to another decoder."""
+    webp = tmp_path / "img.jpg"  # a WebP under a JPEG name
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(webp, format="WEBP")
+    item = base_dataset.Datum(impath=str(webp), label=0)
+    with pytest.raises(NotImplementedError, match="WebP file.*ROADMAP A16"):
         loader.RawDatasetWrapper([item]).materialize(num_threads=1)
-    with pytest.raises(NotImplementedError, match="BMP file.*ROADMAP A16"):
+    with pytest.raises(NotImplementedError, match="WebP file.*ROADMAP A16"):
         loader.DatasetWrapper([item], lambda img: img)[0]
     missing = base_dataset.Datum(impath=str(tmp_path / "none.jpg"), label=0)
     with pytest.raises(IOError, match="No file exists"):

@@ -273,6 +273,12 @@ from fsvlm_tpu_torch.tools import import_torch_prompts, interpret_prompt, predic
 fixture = os.path.join({repo!r}, "tests", "torch_fixtures", "jpeg", "gray_280x210.jpg")
 rows = list(predict.predict(trainer, trainer.cfg, [fixture], topk=2))
 assert len(rows) == 1 and len(rows[0][1]) == 2, rows
+from fsvlm_tpu_torch.native import read_image
+formats = os.path.join({repo!r}, "tests", "torch_fixtures", "formats")
+for name in ("bmp_pal8_rle8_160x120.bmp", "gtsrb_p6_53x57.ppm", "yale_gray_320x243.gif",
+             "tiff_tiled_planar_lzw_mm_120x90.tiff", "jpeg_arith_prog_rst_cond_240x180.jpg",
+             "jpeg_smoothed_unrefined_400x300.jpg", "jpeg_lossless_pred7_96x64.jpg"):
+    assert read_image(os.path.join(formats, name)).shape[2] == 3
 best = os.path.join(out, "VLPromptLearner", "model-best.pkl")
 ref = os.path.join(out, "model.pth.tar-1")
 import_torch_prompts.main([best, "--trainer", "PromptSRC", "--export", ref])
@@ -324,7 +330,9 @@ def test_serving_path_imports_no_jax_regex_yaml_or_pil():
     logistic-regression fit, lpclip's C search and a serving export saved,
     loaded and run, a step of each of the five other optimizers, a
     TensorBoard scalar (the CLI run writes them too, under FSVLM_PROFILE_DIR)
-    and a driver through run_script, on the CPU, with every module of the
+    and a driver through run_script, and one decode of each image format
+    the port reads besides JPEG and PNG (BMP, Netpbm, GIF, TIFF, arithmetic,
+    smoothed and lossless JPEG), on the CPU, with every module of the
     port imported, load nothing of JAX, the JAX package, regex, yaml, PIL,
     sklearn or tensorflow (which imports jax where it is installed)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -201,19 +201,20 @@ def test_collect_images_walks_in_sorted_order(tmp_path):
 
 
 def test_predict_names_a16_on_a_png(tmp_path, model_dir):
-    """A PNG among the images is read; a GIF among them makes the port's
-    reader raise naming ROADMAP A16 (the JAX package's PIL reads both)."""
+    """A PNG and a GIF among the images are read; a WebP among them makes
+    the port's reader raise naming ROADMAP A16 (the JAX package's PIL reads
+    all three)."""
     from PIL import Image
 
-    png, gif = tmp_path / "x.png", tmp_path / "y.gif"
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(png)
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(gif)
+    png, gif, webp = tmp_path / "x.png", tmp_path / "y.gif", tmp_path / "z.webp"
+    for path in (png, gif, webp):
+        Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(path)
     _, pcfg = _cfgs(tmp_path)
     with redirect_stdout(io.StringIO()):
         pt = build_trainer(pcfg, device="cpu")
-    assert [p for p, _ in predict.predict(pt, pcfg, [str(png)])] == [str(png)]
+    assert [p for p, _ in predict.predict(pt, pcfg, [str(png), str(gif)])] == [str(png), str(gif)]
     with pytest.raises(NotImplementedError, match="A16"):
-        list(predict.predict(pt, pcfg, [str(png), str(gif)]))
+        list(predict.predict(pt, pcfg, [str(png), str(webp)]))
 
 
 # ------------------------------------------------------------------ importer

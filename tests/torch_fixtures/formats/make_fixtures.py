@@ -1,0 +1,245 @@
+"""Write the committed BMP, Netpbm, GIF, TIFF and JPEG-variant fixtures and
+their expected decodes.
+
+    python tests/torch_fixtures/formats/make_fixtures.py
+
+BMP, Netpbm, GIF, TIFF and the lossless JPEG are written by ``encoders.py``
+(numpy, struct and zlib, no Pillow) from seeded numpy pixels, at the sizes
+of the public sets that hold such files: GTSRB's PPM signs, the AT&T/ORL
+PGM faces, the Yale GIF faces, UC Merced's 256 x 256 and NCT-CRC-HE's
+224 x 224 TIFF tiles; and in the layouts only a hand-written encoder
+reaches (RLE4/RLE8 with deltas, OS/2 and V4/V5 BMP headers, bitfields,
+plain Netpbm with comments, 16-bit maxvals, a local-table interlaced GIF
+frame smaller than its screen, a GIF table left full without a clear code,
+tiled planar big-endian LZW with the predictor, old-style LZW, associated
+alpha, CMYK, a 16-bit colormap, FillOrder 2, an Orientation tag).  The
+arithmetic-coded and block-smoothed JPEGs come from
+``tests/torch_fixtures/jpeg/libjpeg_encoder.cpp`` (built here with
+``g++ -ljpeg``: it needs libjpeg's header and library), which writes
+arithmetic coding and scan scripts that leave coefficients unrefined; each
+stays under Pillow's 64 KiB read chunk, past which Pillow 12.1 cannot read
+an arithmetic-coded scan, but for one file past it, whose ``full`` digest
+Pillow gives with the whole file in one read.
+
+``expected.json`` holds, per readable file, the sha256 and the byte sum of
+four uint8 arrays computed here from the JAX package's own means:
+
+- ``full``: Pillow's ``Image.open(path).convert("RGB")``;
+- ``raw256``: ``fsvlm_tpu.native.decode_file(path, 256)`` (its libjpeg
+  build), None for every file but the DCT JPEGs;
+- ``cache256``: the JAX package's ``RawDatasetWrapper`` view at 256;
+- ``eval224``: the JAX eval view before normalizing (bicubic resize of the
+  shorter edge to 224, centre crop);
+
+``truncated`` the names that must raise ValueError, and ``refused`` those
+that must raise naming ROADMAP A16.  ``tests/test_torch_formats.py`` and
+``chip_smoke.py`` (phase 23) hold the port's decodes to these digests.
+"""
+
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+
+from encoders import (encode_bmp, encode_gif, encode_lossless_jpeg, encode_pnm,  # noqa: E402
+                      encode_tiff, rle_encode)
+
+SEED = 24
+PRE_SIZE = 256
+EVAL_SIZE = (224, 224)
+JPEG_DIR = os.path.join(os.path.dirname(HERE), "jpeg")
+
+
+def scene(rng, h, w, c=3):
+    """Smooth blobs over a gradient, with a little noise: a photo's
+    statistics at a file size the repo can hold."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    img = np.zeros((h, w, c))
+    for ch in range(c):
+        img[..., ch] = 60 + 80 * (x / w) * rng.uniform(0.3, 1) + 60 * (y / h) * rng.uniform(0.3, 1)
+    for _ in range(6):
+        cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+        r = rng.uniform(0.08, 0.3) * min(h, w)
+        blob = np.exp(-((y - cy) ** 2 + (x - cx) ** 2) / (2 * r * r))
+        img += blob[..., None] * rng.uniform(-90, 90, c)
+    img += rng.normal(0, 3, img.shape)
+    return np.clip(img, 0, 255).round().astype(np.int64)
+
+
+def quantize(img, levels):
+    """An RGB scene to palette indices and their palette (median colours)."""
+    g = img.mean(-1)
+    edges = np.quantile(g, np.linspace(0, 1, levels + 1)[1:-1])
+    idx = np.digitize(g, edges)
+    pal = np.array([img[idx == k].mean(0) if (idx == k).any() else [0, 0, 0]
+                    for k in range(levels)]).round().astype(np.int64)
+    return idx, pal
+
+
+def _libjpeg(exe, rng, name, w, h, nc, samp, prog, rst, arith, scans=None, noise=0):
+    path = os.path.join(HERE, name)
+    args = [exe, path, str(w), str(h), str(nc), samp, "88", str(prog), str(rst), "0", arith]
+    if scans:
+        args.append(scans)
+    pixels = np.clip(scene(rng, h, w, nc) + rng.normal(0, noise, (h, w, nc)), 0, 255)
+    pixels = pixels.astype(np.uint8)
+    subprocess.run(args, input=pixels.tobytes(), check=True)
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _files(rng, exe):
+    """name -> bytes (the libjpeg files are written by the encoder itself)."""
+    files = {}
+    img = scene(rng, 192, 256)
+    files["bmp_rgb24_256x192.bmp"] = encode_bmp(img[..., ::-1], 24)
+    idx, pal = quantize(scene(rng, 120, 160), 200)
+    files["bmp_pal8_rle8_160x120.bmp"] = encode_bmp(
+        idx, 8, compression=1, palette=pal,
+        rle=rle_encode(idx, False, deltas=[(10, 20, 5, 0), (30, 100, 7, 2)]))
+    idx, pal = quantize(scene(rng, 61, 97), 16)
+    files["bmp_pal4_rle4_97x61.bmp"] = encode_bmp(idx, 4, compression=2, palette=pal,
+                                                  rle=rle_encode(idx, True))
+    idx, pal = quantize(scene(rng, 96, 128), 256)
+    files["bmp_os2_pal8_128x96.bmp"] = encode_bmp(idx, 8, header=12, palette=pal)
+    img = scene(rng, 90, 120)
+    words = ((img[..., 0] >> 3) << 11) | ((img[..., 1] >> 2) << 5) | (img[..., 2] >> 3)
+    files["bmp_565_v5_topdown_120x90.bmp"] = encode_bmp(
+        words, 16, header=124, compression=3, masks=(0xF800, 0x7E0, 0x1F), top_down=True)
+    img = scene(rng, 80, 100, 4)
+    files["bmp_bgra32_v4_100x80.bmp"] = encode_bmp(
+        img, 32, header=108, compression=3, masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000))
+    files["bmp_bw1_64x64.bmp"] = encode_bmp(scene(rng, 64, 64, 1)[..., 0] > 128, 1,
+                                            palette=[(0, 0, 0), (255, 255, 255)])
+    files["gtsrb_p6_53x57.ppm"] = encode_pnm(scene(rng, 57, 53), 6)
+    files["orl_p5_92x112.pgm"] = encode_pnm(scene(rng, 112, 92, 1)[..., 0], 5)
+    files["p5_maxval1000_40x30.pgm"] = encode_pnm(scene(rng, 30, 40, 1)[..., 0] * 1000 // 255, 5,
+                                                  1000)
+    files["p6_maxval65535_50x40.ppm"] = encode_pnm(scene(rng, 40, 50) * 257, 6, 65535)
+    files["p3_plain_comments_33x21.ppm"] = encode_pnm(scene(rng, 21, 33) * 100 // 255, 3, 100,
+                                                      comments=True)
+    files["p4_bitmap_45x37.pbm"] = encode_pnm(scene(rng, 37, 45, 1)[..., 0] < 128, 4)
+    files["p1_plain_20x12.pbm"] = encode_pnm(scene(rng, 12, 20, 1)[..., 0] < 128, 1,
+                                             comments=True)
+    g = scene(rng, 243, 320, 1)[..., 0]
+    files["yale_gray_320x243.gif"] = encode_gif(g, global_palette=np.stack([np.arange(256)] * 3,
+                                                                           -1))
+    idx, pal = quantize(scene(rng, 150, 200), 64)
+    files["gif_local_interlaced_sub_230x170.gif"] = encode_gif(
+        idx, screen=(230, 170), offset=(17, 9), global_palette=pal[::-1][:16],
+        local_palette=pal, interlace=True, transparency=5, min_code=6)
+    idx, pal = quantize(scene(rng, 128, 128), 256)
+    files["gif_full_table_128x128.gif"] = encode_gif(idx, global_palette=pal,
+                                                     clear_when_full=False)
+    files["ucmerced_rgb_lzw_pred_256x256.tif"] = encode_tiff(
+        scene(rng, 256, 256), 2, compression=5, predictor=2, rows_per_strip=16)
+    files["nctcrc_rgb_raw_224x224.tif"] = encode_tiff(scene(rng, 224, 224), 2, rows_per_strip=32)
+    files["tiff_tiled_planar_lzw_mm_120x90.tiff"] = encode_tiff(
+        scene(rng, 90, 120), 2, order=">", compression=5, predictor=2, tile=(32, 32), planar=2)
+    img = scene(rng, 80, 100, 4)
+    img[..., :3] = img[..., :3] * img[..., 3:] // 255
+    files["tiff_rgba_assoc_deflate_100x80.tif"] = encode_tiff(img, 2, compression=8, extra=(1,))
+    idx, pal = quantize(scene(rng, 55, 77), 16)
+    cmap = np.zeros((3, 16), np.int64)
+    cmap[:, :len(pal)] = pal.T * 257 + rng.integers(0, 256, pal.T.shape)
+    files["tiff_pal4_packbits_77x55.tif"] = encode_tiff(idx, 3, bits=4, compression=32773,
+                                                        colormap=cmap)
+    files["tiff_gray16_mm_deflate_64x48.tif"] = encode_tiff(
+        scene(rng, 48, 64, 1) * 2, 1, bits=16, order=">", compression=32946, tile=(16, 16))
+    files["tiff_cmyk_lzw_64x48.tif"] = encode_tiff(scene(rng, 48, 64, 4), 5, compression=5)
+    files["tiff_minwhite1_fill2_90x60.tif"] = encode_tiff(
+        scene(rng, 60, 90, 1) > 128, 0, bits=1, fillorder=2, rows_per_strip=7)
+    files["tiff_lzw_oldstyle_80x60.tif"] = encode_tiff(scene(rng, 60, 80), 2, compression=5,
+                                                       lzw_old_style=True)
+    files["tiff_orientation6_60x40.tif"] = encode_tiff(scene(rng, 40, 60), 2, orientation=6)
+    files["tiff_ycbcr_refused_32x32.tif"] = encode_tiff(scene(rng, 32, 32), 6)
+    files["jpeg_lossless_pred7_96x64.jpg"] = encode_lossless_jpeg(scene(rng, 64, 96), predictor=7,
+                                                                  pt=1, restart_rows=16)
+    whole = encode_gif(scene(rng, 60, 80, 1)[..., 0], global_palette=np.stack([np.arange(256)] * 3,
+                                                                               -1)[::-1])
+    files["truncated_gif_80x60.gif"] = whole[:len(whole) // 2]
+    for name, args in {
+            "jpeg_arith_seq_420_300x200.jpg": (300, 200, 3, "22,11,11", 0, 0, "1"),
+            "jpeg_arith_prog_rst_cond_240x180.jpg": (240, 180, 3, "21,11,11", 1, 2, "2,4,3"),
+            "jpeg_smoothed_unrefined_400x300.jpg": (
+                400, 300, 3, "22,11,11", 1, 0, "0",
+                "012:0-0:0-1;0:1-5:0-2;0:6-63:0-2;1:1-63:0-1;2:1-63:0-1;0:1-63:2-1"),
+            "jpeg_smoothed_dconly_chroma_256x256.jpg": (
+                256, 256, 3, "11,11,11", 1, 0, "0", "012:0-0:0-0;0:1-63:0-0"),
+            "jpeg_arith_smoothed_gray_200x150.jpg": (200, 150, 1, "11", 1, 0, "1",
+                                                     "0:0-0:0-1;0:1-2:0-0;0:3-63:0-1"),
+            "jpeg_arith_past_64k_444_480x360.jpg": (480, 360, 3, "11,11,11", 0, 0, "1", None,
+                                                    24),
+    }.items():
+        files[name] = _libjpeg(exe, rng, name, *args)
+    return files
+
+
+def digest(a):
+    a = np.ascontiguousarray(a, np.uint8)
+    return {"shape": list(a.shape), "sha256": hashlib.sha256(a.tobytes()).hexdigest(),
+            "sum": int(a.sum(dtype=np.int64))}
+
+
+def _encoder():
+    """Build libjpeg_encoder.cpp (needs libjpeg's header and library)."""
+    exe = os.path.join(tempfile.mkdtemp(), "libjpeg_encoder")
+    subprocess.run(["g++", "-O2", "-o", exe, os.path.join(JPEG_DIR, "libjpeg_encoder.cpp"),
+                    "-ljpeg"], check=True)
+    return exe
+
+
+def main():
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(HERE))))
+    from PIL import Image
+
+    from fsvlm_tpu import native
+    from fsvlm_tpu.data import transforms as jax_transforms
+    from fsvlm_tpu.data.base_dataset import Datum
+    from fsvlm_tpu.data.loader import RawDatasetWrapper
+
+    if not native.native_available():
+        raise SystemExit("fsvlm_tpu.native is not built (make -C native)")
+    expected, truncated, refused = {}, [], []
+    for name, data in _files(np.random.default_rng(SEED), _encoder()).items():
+        path = os.path.join(HERE, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        if name.startswith("truncated"):
+            truncated.append(name)
+            continue
+        if "refused" in name:
+            refused.append(name)
+            continue
+        im = Image.open(path)
+        if "past_64k" in name:
+            # Pillow 12.1 cannot read an arithmetic scan across its 64 KiB
+            # read chunk; with the whole file in one read it can
+            im.decodermaxblock = 1 << 26
+        full = im.convert("RGB")
+        raw = native.decode_file(path, PRE_SIZE)
+        cache = RawDatasetWrapper([Datum(impath=path)], pre_size=PRE_SIZE)[0]["img"]
+        view = jax_transforms._resize_center_crop(full, EVAL_SIZE,
+                                                  jax_transforms._PIL_INTERP["bicubic"])
+        expected[name] = {"full": digest(np.asarray(full)),
+                          "raw256": None if raw is None else digest(raw),
+                          "cache256": digest(cache), "eval224": digest(np.asarray(view))}
+    with open(os.path.join(HERE, "expected.json"), "w") as f:
+        json.dump({"digests": expected, "truncated": truncated, "refused": refused}, f, indent=1,
+                  sort_keys=True)
+        f.write("\n")
+    names = [n for n in os.listdir(HERE) if not n.endswith((".py", ".json")) and
+             not n.startswith("__")]
+    total = sum(os.path.getsize(os.path.join(HERE, n)) for n in names)
+    print(f"wrote {len(names)} fixtures and expected.json: {total} bytes in {HERE}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,13 +1,21 @@
 // Writes a JPEG with libjpeg at sampling factors and colour spaces Pillow's
 // encoder does not offer (4:1:1, 4:4:0, YCCK, Adobe RGB, grayscale at 2x2),
-// for make_fixtures.py, which builds it with g++ -ljpeg and feeds it the
-// pixels.  Not part of the port: its fixtures are committed.
+// arithmetic-coded, or progressive under a scan script of its own, for
+// make_fixtures.py (this directory's and tests/torch_fixtures/formats/'s),
+// which build it with g++ -ljpeg and feed it the pixels.  Not part of the
+// port: its fixtures are committed.
 //
-//   libjpeg_encoder OUT W H NCOMP SAMPLING QUALITY PROGRESSIVE RESTART_ROWS SPACE < pixels
+//   libjpeg_encoder OUT W H NCOMP SAMPLING QUALITY PROGRESSIVE RESTART_ROWS SPACE
+//                   [ARITH [SCANS]] < pixels
 //
 // pixels: W*H*NCOMP bytes, row-major.  SAMPLING: "hv,hv,..." per component
 // (e.g. "41,11,11").  SPACE: 0 = the default JPEG colour space (YCbCr for 3
-// components, CMYK for 4), 1 = RGB for 3 components, YCCK for 4.
+// components, CMYK for 4), 1 = RGB for 3 components, YCCK for 4.  ARITH: 0
+// for Huffman coding, 1 for arithmetic coding with libjpeg's default
+// conditioning, or "L,U,K" for arithmetic coding with DC conditioning
+// bounds L and U and AC conditioning K on every table.  SCANS: a
+// progressive scan script, scans split by ';', each "COMPS:Ss-Se:Ah-Al"
+// (e.g. "012:0-0:0-1;0:1-5:0-2"), which may leave coefficients unrefined.
 
 #include <cstdio>
 #include <cstdlib>
@@ -16,9 +24,9 @@
 #include <jpeglib.h>
 
 int main(int argc, char** argv) {
-  if (argc != 10) {
-    std::fprintf(stderr, "usage: %s OUT W H NCOMP SAMPLING QUALITY PROGRESSIVE RESTART_ROWS SPACE\n",
-                 argv[0]);
+  if (argc < 10 || argc > 12) {
+    std::fprintf(stderr, "usage: %s OUT W H NCOMP SAMPLING QUALITY PROGRESSIVE RESTART_ROWS SPACE"
+                 " [ARITH [SCANS]]\n", argv[0]);
     return 2;
   }
   const int w = std::atoi(argv[2]), h = std::atoi(argv[3]), nc = std::atoi(argv[4]);
@@ -47,6 +55,30 @@ int main(int argc, char** argv) {
   }
   if (progressive) jpeg_simple_progression(&c);
   c.restart_in_rows = restart_rows;
+  if (argc > 10 && argv[10][0] != '0') {
+    c.arith_code = TRUE;
+    int l, u, k;
+    if (std::sscanf(argv[10], "%d,%d,%d", &l, &u, &k) == 3) {
+      for (int t = 0; t < NUM_ARITH_TBLS; ++t) {
+        c.arith_dc_L[t] = static_cast<UINT8>(l);
+        c.arith_dc_U[t] = static_cast<UINT8>(u);
+        c.arith_ac_K[t] = static_cast<UINT8>(k);
+      }
+    }
+  }
+  std::vector<jpeg_scan_info> scans;
+  if (argc > 11) {
+    for (const char* p = argv[11]; *p;) {
+      jpeg_scan_info si{};
+      while (*p >= '0' && *p <= '9') si.component_index[si.comps_in_scan++] = *p++ - '0';
+      if (std::sscanf(p, ":%d-%d:%d-%d", &si.Ss, &si.Se, &si.Ah, &si.Al) != 4) return 5;
+      scans.push_back(si);
+      while (*p && *p != ';') ++p;
+      if (*p == ';') ++p;
+    }
+    c.scan_info = scans.data();
+    c.num_scans = static_cast<int>(scans.size());
+  }
   jpeg_start_compress(&c, TRUE);
   while (c.next_scanline < c.image_height) {
     JSAMPROW row = &img[static_cast<size_t>(c.next_scanline) * w * nc];
