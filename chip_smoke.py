@@ -474,16 +474,18 @@ Phases; each passes or raises, and any failure exits non-zero:
    (set from the card's readings, well inside ZOO_C_BOUND).  One
    ``{"zoo_ranks": ...}`` line.
 23. formats: the image formats the port reads besides JPEG and PNG
-   (fsvlm_tpu_torch/native.py and csrc/{bmp,pnm,gif,tiff}_decoder.cpp, the
-   arithmetic-coded, block-smoothed and lossless JPEGs of
+   (fsvlm_tpu_torch/native.py and csrc/{bmp,pnm,gif,tiff,webp,vp8l,vp8}_
+   decoder.cpp, the arithmetic-coded, block-smoothed and lossless JPEGs of
    csrc/jpeg_decoder.cpp).  (a) Every committed fixture of
-   tests/torch_fixtures/formats (BMP, Netpbm, GIF, TIFF, JPEG variants)
-   against its digests: the full decode, ``decode_file`` at 256 (None but
-   for the DCT JPEGs), the cache view at 256 and the eval view at 224,
-   exactly; the truncated file raises ValueError, the YCbCr TIFF
-   NotImplementedError.  (b) ``read_image`` images/s at the recipe's 8
-   threads per format over FORMAT_RATE_LINKS hard links to that format's
-   fixtures (and ``decode_file`` at 256 over the JPEG variants').  (c)
+   tests/torch_fixtures/formats (BMP, Netpbm, GIF, TIFF, JPEG variants,
+   WebP lossy and lossless, with ALPH and animated) against its digests:
+   the full decode, ``decode_file`` at 256 (None but for the DCT JPEGs),
+   the cache view at 256 and the eval view at 224, exactly; the truncated
+   files raise ValueError, the YCbCr TIFF NotImplementedError.  (b)
+   ``read_image`` images/s at the recipe's 8 threads per format over
+   FORMAT_RATE_LINKS hard links to that format's fixtures, WebP's lossy
+   and lossless files apart (and ``decode_file`` at 256 over the JPEG
+   variants').  (c)
    PromptSRC ViT-B/16 through the CLI (DEVICE_AUG, CACHED_TEACHER, best-val,
    batch 4, 1 epoch) on a Caltech101-layout tree of FORMAT_CLASSES classes
    x FORMAT_SPLIT whose files are hard links, round robin, to the fixtures
@@ -491,7 +493,7 @@ Phases; each passes or raises, and any failure exits non-zero:
    cache equal to its fixture's cache256 digest, #6-#8 at the derived
    counts, ``--eval-only`` reproducing the predictions, and
    ``tools/predict.py`` collecting the test files by extension (every
-   ``.bmp``, ``.ppm``, ``.tif`` and ``.tiff`` among them) with
+   ``.bmp``, ``.ppm``, ``.tif``, ``.tiff`` and ``.webp`` among them) with
    ``--eval-only``'s top-1.  One ``{"formats": ...}`` line.
 
 Phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 17, 21 and 23 zero the launch counts
@@ -7381,7 +7383,8 @@ def phase_zoo_ranks():
 
 FORMAT_FIXTURE_DIR = os.path.join("tests", "torch_fixtures", "formats")
 FORMAT_KINDS = {".bmp": "BMP", ".ppm": "Netpbm", ".pgm": "Netpbm", ".pbm": "Netpbm",
-                ".gif": "GIF", ".tif": "TIFF", ".tiff": "TIFF", ".jpg": "JPEG variants"}
+                ".gif": "GIF", ".tif": "TIFF", ".tiff": "TIFF", ".jpg": "JPEG variants",
+                ".webp": "WebP"}
 FORMAT_RATE_LINKS = 500  # hard links a format for its decode rate
 # (c): 20 classes x (8 train, 2 val, 5 test) in the Caltech101 layout, the
 # recipe's batch 4, 1 epoch (40 steps)
@@ -7421,7 +7424,7 @@ def _check_format_fixtures():
             except error:
                 raised.append(name)
     n = len(expected["digests"])
-    log(f"formats: {n} committed BMP, Netpbm, GIF, TIFF and JPEG-variant fixtures x 4 views "
+    log(f"formats: {n} committed BMP, Netpbm, GIF, TIFF, JPEG-variant and WebP fixtures x 4 views "
         f"(full decode, decode_file 256, cache view 256, eval view 224) against their digests: "
         f"{4 * n - len(bad)} equal, {len(bad)} differ; truncated and refused files raising: "
         f"{len(raised)} of {len(expected['truncated']) + len(expected['refused'])}")
@@ -7468,7 +7471,10 @@ def _format_rates(work, names, threads):
 
     by_kind = {}
     for name in names:
-        by_kind.setdefault(FORMAT_KINDS[os.path.splitext(name)[1]], []).append(name)
+        kind = FORMAT_KINDS[os.path.splitext(name)[1]]
+        if kind == "WebP":  # lossy (VP8) and lossless (VP8L) apart
+            kind += " lossless" if name.startswith("webp_lossless_") else " lossy"
+        by_kind.setdefault(kind, []).append(name)
     rates = {}
     with ThreadPoolExecutor(max_workers=threads) as pool:
         for kind, members in sorted(by_kind.items()):
@@ -7566,8 +7572,8 @@ def phase_formats(clip):
         if not same:
             raise SystemExit("FAIL: formats: --eval-only did not reproduce the predictions")
         # predict collects the tree's files by extension; its test files must
-        # be every test file of IMG_EXTS (each .bmp, .ppm, .tif and .tiff
-        # among them), with --eval-only's top-1
+        # be every test file of IMG_EXTS (each .bmp, .ppm, .tif, .tiff and
+        # .webp among them), with --eval-only's top-1
         collected = [p for p in predict.collect_images([image_dir])
                      if os.path.basename(p).startswith("image_test_")]
         tests = [d.impath for d in ds.test]
@@ -7581,7 +7587,8 @@ def phase_formats(clip):
         log(f"formats: predict collected {len(collected)} test files ({sorted(exts)}) of the "
             f"{len(want_paths)} with its extensions; top-1 equal to --eval-only's on {agree}")
         if (sorted(collected) != sorted(want_paths)
-                or not {".bmp", ".ppm", ".tif", ".tiff"} <= exts or agree != len(collected)):
+                or not {".bmp", ".ppm", ".tif", ".tiff", ".webp"} <= exts
+                or agree != len(collected)):
             raise SystemExit("FAIL: formats: predict's collection or top-1 differs")
         result = {"fixtures": len(names), "rates_images_per_s": rates, "threads": threads,
                   "cli_run_s": run_s, "epoch_ms": epochs[0], "eval_only_s": eval_s,

@@ -1,6 +1,7 @@
 // What the port's host decoders share: their return codes, Pillow's
 // decompression-bomb limit, the zlib inflate of png_decoder.cpp (which
-// tiff_decoder.cpp's Deflate strips use too), Pillow's CMYK->RGB, the
+// tiff_decoder.cpp's Deflate strips use too), WebP's VP8L and VP8 codecs
+// (which webp_decoder.cpp's container calls), Pillow's CMYK->RGB, the
 // bit-exact Python round() of a sample's rescale, and the guard that keeps
 // a C++ exception from crossing the C interface.
 //
@@ -37,6 +38,23 @@ inline bool too_large(int64_t w, int64_t h) { return w * h > kMaxPixels; }
 // count written goes to *produced.  Returns kOk, or kCorrupt for a stream
 // that is malformed, truncated or longer than `cap` (png_decoder.cpp).
 int zlib_inflate(const uint8_t* in, size_t n, uint8_t* out, size_t cap, size_t* produced);
+
+// WebP's two codecs, which webp_decoder.cpp's container calls on a chunk's
+// payload (its padded size, as libwebp's decoder is handed it).
+//
+// VP8L (vp8l_decoder.cpp): the image's width, height and alpha bit from its
+// 5-byte header (libwebp's VP8LGetInfo); the image as RGBA rows of `stride`
+// bytes at `out` (w x h of vp8l_info); the green channel of a headerless
+// ALPH stream of w x h pixels at `out`, before the ALPH filter.
+int vp8l_info(const uint8_t* data, size_t n, int* w, int* h, int* has_alpha);
+int vp8l_decode_rgba(const uint8_t* data, size_t n, uint8_t* out, size_t stride);
+int vp8l_decode_alpha(const uint8_t* data, size_t n, int w, int h, uint8_t* out);
+// VP8 (vp8_decoder.cpp): a key frame's width and height (libwebp's
+// VP8GetInfo, `chunk_size` the chunk's unpadded size); the frame as RGBA
+// rows of `stride` bytes at `out`, alpha 255, through libwebp's fancy
+// upsampler.
+int vp8_info(const uint8_t* data, size_t n, size_t chunk_size, int* w, int* h);
+int vp8_decode_rgba(const uint8_t* data, size_t n, uint8_t* out, size_t stride);
 
 // Pillow's Convert.c cmyk2rgb (mode CMYK, not inverted, to RGB).
 inline void cmyk_to_rgb(int c, int m, int y, int k, uint8_t* o) {

@@ -8,8 +8,11 @@ JPEG, Huffman and arithmetic coded, with libjpeg's block smoothing),
 ``csrc/png_decoder.cpp`` (all of PNG, its inflate included, which the TIFF
 decoder's Deflate strips share), ``csrc/bmp_decoder.cpp``,
 ``csrc/pnm_decoder.cpp`` (P1-P6), ``csrc/gif_decoder.cpp`` (the first
-frame) and ``csrc/tiff_decoder.cpp`` (the first IFD: none, PackBits, LZW
-and Deflate); ``csrc/imaging.cpp`` holds the per-pixel passes of
+frame), ``csrc/tiff_decoder.cpp`` (the first IFD: none, PackBits, LZW
+and Deflate) and ``csrc/webp_decoder.cpp`` (the RIFF container, ALPH and
+an animation's first frame, over ``csrc/vp8l_decoder.cpp``, lossless, and
+``csrc/vp8_decoder.cpp``, lossy with libwebp's fancy upsampling: libwebp
+1.6.0 as Pillow 12.1 uses it); ``csrc/imaging.cpp`` holds the per-pixel passes of
 ``data/imageops.py``'s Pillow-exact image operations (resampling with a
 box, the affine transform, the Gaussian blur, HSV, the 3x3 filter, blend,
 L and lookup tables).  All are compiled with ``g++`` at first use into one
@@ -18,8 +21,8 @@ a hash of sources, headers and flags, and loaded once.  A failed build
 raises with the compiler's output; nothing falls back to another decoder.
 
 - ``read_image(path)``: the full-resolution RGB image of a JPEG, PNG, BMP,
-  Netpbm, GIF or TIFF file (told apart by their magic bytes, whatever the
-  extension) as an (H, W, 3) uint8 array, byte-equal to Pillow 12.1's
+  Netpbm, GIF, TIFF or WebP file (told apart by their magic bytes, whatever
+  the extension) as an (H, W, 3) uint8 array, byte-equal to Pillow 12.1's
   ``Image.open(path).convert("RGB")``, each format as Pillow reads and
   converts it (each decoder's header says how);
 - ``decode_file(path, pre_size)``: the (P, P, 3) uint8 device-aug cache
@@ -34,10 +37,10 @@ so does every imaging pass (ctypes drops the GIL for each foreign call).
 Every decoder checks Pillow's decompression-bomb limit (more than twice
 ``MAX_IMAGE_PIXELS`` raises) before it sizes a buffer.  A missing file
 raises ``IOError``; corrupt or truncated data, and a layout Pillow 12.1
-refuses too, raise ``ValueError``; a file in another format (WebP among
-them), and a variant of a read format that Pillow reads but the port does
-not yet (``_UNSUPPORTED``), raise ``NotImplementedError`` naming ROADMAP
-A16.
+refuses too, raise ``ValueError``; a file in another format, and a
+variant of a read format that Pillow reads but the port does not yet
+(``_UNSUPPORTED``: TIFF's YCbCr, JPEG and other kinds), raise
+``NotImplementedError`` naming ROADMAP A16.
 """
 
 import ctypes
@@ -54,7 +57,8 @@ ROUTE = "B"  # the repo's own decoder; route A would link the machine's libjpeg
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = [os.path.join(CSRC, f) for f in (
     "jpeg_decoder.cpp", "png_decoder.cpp", "bmp_decoder.cpp", "pnm_decoder.cpp",
-    "gif_decoder.cpp", "tiff_decoder.cpp", "imaging.cpp")]
+    "gif_decoder.cpp", "tiff_decoder.cpp", "webp_decoder.cpp", "vp8l_decoder.cpp",
+    "vp8_decoder.cpp", "imaging.cpp")]
 HEADERS = [os.path.join(CSRC, "host_common.h")]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off", "-Wall"]
@@ -88,7 +92,7 @@ NO_RGB, CORRUPT, UNSUPPORTED, NO_MEMORY, TOO_LARGE, REFUSED = 1, 2, 3, 5, 6, 7
 _MAGIC = [(b"\xff\xd8", "JPEG"), (b"\x89PNG\r\n\x1a\n", "PNG"), (b"GIF87a", "GIF"),
           (b"GIF89a", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF")]
 _PREFIX = {"JPEG": "jpeg", "PNG": "png", "BMP": "bmp", "Netpbm": "pnm", "GIF": "gif",
-           "TIFF": "tiff"}
+           "TIFF": "tiff", "WebP": "webp"}
 _UNSUPPORTED = {
     "JPEG": "a JPEG variant the port's decoder does not read (hierarchical, 12-bit or "
             "arithmetic-coded lossless, which Pillow does not read either, or lossless with "
@@ -120,19 +124,36 @@ def library_path():
 
 
 def build():
-    """Compile the library unless it is built already.  Returns {"path",
-    "seconds", "log"}; raises with the compiler's output if it fails."""
+    """Compile the library unless it is built already: one g++ per source,
+    all started together, then the link.  Returns {"path", "seconds",
+    "log"}; raises with the compiler's output if it fails."""
     out = library_path()
     if os.path.isfile(out):
         return {"path": out, "seconds": 0.0, "log": ""}
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    objects = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
     t0 = time.perf_counter()
-    proc = subprocess.run([find_cxx(), *CXX_FLAGS, "-o", tmp, *SOURCES], capture_output=True,
-                          text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for {SOURCES} (rc {proc.returncode}):\n{log}")
+    cxx = find_cxx()
+    try:
+        procs = [subprocess.Popen([cxx, *CXX_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objects)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        failed = [(src, p.returncode) for src, p in zip(SOURCES, procs) if p.returncode != 0]
+        if not failed:
+            proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, *objects], capture_output=True,
+                                  text=True)
+            log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                failed = [("the link", proc.returncode)]
+        if failed:
+            raise RuntimeError(f"g++ failed for {failed} (sources {SOURCES}):\n{log}")
+    finally:
+        for obj in objects:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, out)
     return {"path": out, "seconds": time.perf_counter() - t0, "log": log}
 
@@ -189,11 +210,11 @@ def _read(path, head=None):
     with open(path, "rb") as f:
         data = f.read(head) if head else f.read()
     kind = _kind(data)
-    if kind not in _PREFIX:
+    if kind is None:
         raise NotImplementedError(
-            f'"{path}" is {"a " + kind + " file" if kind else "in no format the port reads"}: '
-            "the port decodes JPEG, PNG, BMP, Netpbm, GIF and TIFF (image formats other than "
-            "these, WebP next: ROADMAP A16)")
+            f'"{path}" is in no format the port reads: it decodes JPEG, PNG, BMP, Netpbm, GIF, '
+            "TIFF and WebP, all but the TIFF kinds ROADMAP A16 leaves (YCbCr, JPEG-in-TIFF, "
+            "CCITT, LZMA, ZSTD or WebP compression, float, signed or 12-bit samples, LAB)")
     return data, kind
 
 
@@ -217,8 +238,8 @@ def _check(rc, path, kind):
 
 
 def read_image(path):
-    """The full-resolution RGB image of a JPEG, PNG, BMP, Netpbm, GIF or TIFF
-    file: uint8 (H, W, 3)."""
+    """The full-resolution RGB image of a JPEG, PNG, BMP, Netpbm, GIF, TIFF or
+    WebP file: uint8 (H, W, 3)."""
     data, kind = _read(path)
     lib = load()
     size, full = (getattr(lib, f"fsvlm_{_PREFIX[kind]}_{k}") for k in ("size", "decode_full"))

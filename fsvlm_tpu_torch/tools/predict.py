@@ -19,8 +19,8 @@ Leave --model-dir empty with ``--trainer ZeroshotCLIP`` for zero-shot
 serving; ``MODEL.QUANT_INT8 True`` serves the int8 image tower.  Output: one
 JSON object per line, {"path", "topk": [{"label", "prob"}, ...]}, probs
 rounded to 6 places.  Directories are walked in sorted order for the
-extensions of IMG_EXTS; the port reads JPEG, PNG, BMP, Netpbm, GIF and TIFF
-files, and a WebP file raises naming ROADMAP A16.
+extensions of IMG_EXTS; the port reads JPEG, PNG, BMP, Netpbm, GIF, TIFF
+and WebP files (the TIFF kinds of ROADMAP A16 raise naming it).
 """
 
 import json
@@ -113,7 +113,7 @@ def build_argparser():
     parser.description = __doc__
     parser.add_argument("--images", type=str, nargs="+", required=True,
                         help="image files and/or directories (recursive); JPEG, PNG, BMP, "
-                             "Netpbm, GIF and TIFF (WebP raises naming ROADMAP A16)")
+                             "Netpbm, GIF, TIFF and WebP")
     parser.add_argument("--topk", type=int, default=5)
     parser.add_argument("--pred-batch", type=int, default=64,
                         help="serving batch size (the last batch is padded to it)")

@@ -38,10 +38,11 @@ def write_json(obj, fpath):
 def read_image(path):
     """The RGB image of a file as uint8 (H, W, 3), as the JAX package's
     ``Image.open(path).convert("RGB")`` gives it, through the port's JPEG,
-    PNG, BMP, Netpbm, GIF and TIFF decoders (``fsvlm_tpu_torch.native``);
+    PNG, BMP, Netpbm, GIF, TIFF and WebP decoders (``fsvlm_tpu_torch.native``);
     raises IOError for a missing file, ValueError for corrupt data and a
     layout Pillow refuses too, and NotImplementedError (ROADMAP A16) for a
-    file in another format (WebP) or a variant the port does not read yet."""
+    file in another format or a variant the port does not read yet (TIFF's
+    YCbCr and JPEG kinds among them)."""
     from ..native import read_image as decode
 
     return decode(path)

@@ -161,10 +161,10 @@ def test_a_missing_file_raises(tmp_path):
 
 @pytest.mark.parametrize("kind", ["junk", "png", "gif", "webp", "empty"])
 def test_a_file_that_is_not_a_jpeg_raises_naming_a16(tmp_path, kind):
-    """A file in a format the port does not read (WebP, or none at all)
-    raises naming A16 on both views.  A PNG or a GIF under a JPEG name is
-    read by its own decoder (Pillow's pixels), and has no ``decode_file``
-    view, as in the JAX package's libjpeg build."""
+    """A file in no format the port reads raises naming A16 on both views.
+    A PNG, a GIF or a WebP under a JPEG name is read by its own decoder
+    (Pillow's pixels), and has no ``decode_file`` view, as in the JAX
+    package's libjpeg build."""
     path = tmp_path / "x.jpg"
     if kind == "junk":
         path.write_bytes(b"definitely not a jpeg")
@@ -172,7 +172,7 @@ def test_a_file_that_is_not_a_jpeg_raises_naming_a16(tmp_path, kind):
         path.write_bytes(b"")
     else:
         Image.fromarray(_content(4, 4, 4, 3)).save(path, format=kind.upper())
-    if kind in ("png", "gif"):
+    if kind in ("png", "gif", "webp"):
         np.testing.assert_array_equal(read_image(str(path)),
                                       np.asarray(Image.open(path).convert("RGB")))
         assert native.decode_file(str(path), 64) is None

@@ -21,8 +21,10 @@ g++ at first use, so they run on the CPU too.  Every comparison is exact.
 - the committed fixtures under tests/torch_fixtures/formats against their
   committed digests, the check ``chip_smoke.py`` phase 23 makes on the card;
 - truncated and corrupt files raising ``ValueError``, Pillow's bomb limit,
-  WebP and the TIFF and JPEG kinds the port leaves to ROADMAP A16 raising
-  ``NotImplementedError``; eight threads giving the same bytes.
+  the TIFF and JPEG kinds the port leaves to ROADMAP A16 raising
+  ``NotImplementedError``, a WebP under a JPEG name read as Pillow reads it
+  (tests/test_torch_webp.py holds WebP itself); eight threads giving the
+  same bytes.
 """
 
 import hashlib
@@ -385,18 +387,17 @@ def test_jpeg_kinds_pillow_refuses_keep_their_refusal(tmp_path, marker, why):
 
 
 # ------------------------------------------------------------------ refusals and errors
-def test_webp_and_unread_tiff_kinds_raise_naming_a16(tmp_path):
+def test_webp_named_jpg_is_read_and_unread_tiff_kinds_raise_naming_a16(tmp_path):
     webp = tmp_path / "x.jpg"  # the magic bytes decide, not the extension
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(webp, format="WEBP")
+    Image.fromarray(np.random.default_rng(2).integers(0, 256, (4, 4, 3), np.uint8)).save(
+        webp, format="WEBP")
+    np.testing.assert_array_equal(read_image(str(webp)), _pillow(webp.read_bytes()))
+    assert native.decode_file(str(webp), 64) is None  # as the JAX package's libjpeg build
     rng = np.random.default_rng(3)
-    for path, match in ((webp, "WebP file.*ROADMAP A16"),
-                        (os.path.join(FIXTURES, "tiff_ycbcr_refused_32x32.tif"), "YCbCr.*A16")):
-        for fn in (read_image, lambda p: native.decode_file(p, 64)):
-            if fn is not read_image and str(path).endswith(".tif"):
-                assert fn(str(path)) is None  # no decode_file view of a TIFF at all
-                continue
-            with pytest.raises(NotImplementedError, match=match):
-                fn(str(path))
+    path = os.path.join(FIXTURES, "tiff_ycbcr_refused_32x32.tif")
+    with pytest.raises(NotImplementedError, match="YCbCr.*A16"):
+        read_image(path)
+    assert native.decode_file(path, 64) is None  # no decode_file view of a TIFF at all
     for compression in (6, 7, 2, 34925):
         data = bytearray(enc.encode_tiff(rng.integers(0, 256, (8, 8, 3)), 2))
         i = data.index(struct.pack("<HHI", 259, 3, 1))
@@ -510,9 +511,10 @@ def test_committed_fixtures_match_their_expected_digests(name):
 
 
 def test_the_truncated_and_refused_fixtures_raise():
-    assert EXPECTED["truncated"] == ["truncated_gif_80x60.gif"]
-    with pytest.raises(ValueError, match="corrupt or truncated GIF data"):
-        read_image(os.path.join(FIXTURES, EXPECTED["truncated"][0]))
+    assert EXPECTED["truncated"] == ["truncated_gif_80x60.gif", "truncated_webp_97x61.webp"]
+    for name, kind in zip(EXPECTED["truncated"], ("GIF", "WebP")):
+        with pytest.raises(ValueError, match=f"corrupt or truncated {kind} data"):
+            read_image(os.path.join(FIXTURES, name))
     assert EXPECTED["refused"] == ["tiff_ycbcr_refused_32x32.tif"]
     with pytest.raises(NotImplementedError, match="A16"):
         read_image(os.path.join(FIXTURES, EXPECTED["refused"][0]))

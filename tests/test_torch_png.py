@@ -10,7 +10,7 @@ comparison is exact (byte equality).
   tRNS, a short PLTE, odd sizes and ancillary chunks (APNG's among them);
 - the inflate against Python's zlib on stored, fixed and dynamic blocks;
 - the errors: truncated data, a bad IHDR CRC, bad zlib data, methods the
-  PNG specification does not define, WebP naming ROADMAP A16;
+  PNG specification does not define;
 - a PNG under a ``.jpg`` name: the device-aug cache view against the JAX
   package's ``RawDatasetWrapper`` (its PIL branch);
 - eight threads decoding at once give the same bytes;
@@ -257,18 +257,13 @@ def test_stricter_than_pillow_where_documented(tmp_path, kind):
 
 @pytest.mark.parametrize("fmt", ["GIF", "BMP", "TIFF", "WEBP"])
 def test_other_formats_go_by_their_magic_bytes(tmp_path, fmt):
-    """GIF, BMP and TIFF under a PNG name are read by their own decoders
-    (Pillow's pixels, no decode_file view); WebP raises naming ROADMAP A16."""
+    """GIF, BMP, TIFF and WebP under a PNG name are read by their own
+    decoders (Pillow's pixels, no decode_file view)."""
     path = tmp_path / "x.png"  # the extension does not matter: the magic bytes do
     Image.fromarray(np.random.RandomState(4).randint(0, 256, (4, 4, 3)).astype(np.uint8)).save(
         path, format=fmt)
-    if fmt != "WEBP":
-        np.testing.assert_array_equal(read_image(str(path)), _pillow(path))
-        assert native.decode_file(str(path), 64) is None
-        return
-    for fn in (read_image, lambda p: native.decode_file(p, 64)):
-        with pytest.raises(NotImplementedError, match="WebP file.*WebP next: ROADMAP A16"):
-            fn(str(path))
+    np.testing.assert_array_equal(read_image(str(path)), _pillow(path))
+    assert native.decode_file(str(path), 64) is None
 
 
 def test_a_frame_past_pillows_bomb_limit_raises(tmp_path):

@@ -201,20 +201,25 @@ def test_collect_images_walks_in_sorted_order(tmp_path):
 
 
 def test_predict_names_a16_on_a_png(tmp_path, model_dir):
-    """A PNG and a GIF among the images are read; a WebP among them makes
-    the port's reader raise naming ROADMAP A16 (the JAX package's PIL reads
-    all three)."""
+    """A PNG, a GIF and a WebP among the images are read; a YCbCr TIFF among
+    them makes the port's reader raise naming ROADMAP A16 (the JAX package's
+    PIL reads all four)."""
     from PIL import Image
 
     png, gif, webp = tmp_path / "x.png", tmp_path / "y.gif", tmp_path / "z.webp"
     for path in (png, gif, webp):
         Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(path)
+    tif = tmp_path / "w.tif"
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_fixtures",
+                           "formats", "tiff_ycbcr_refused_32x32.tif"), "rb") as f:
+        tif.write_bytes(f.read())
     _, pcfg = _cfgs(tmp_path)
     with redirect_stdout(io.StringIO()):
         pt = build_trainer(pcfg, device="cpu")
-    assert [p for p, _ in predict.predict(pt, pcfg, [str(png), str(gif)])] == [str(png), str(gif)]
+    images = [str(png), str(gif), str(webp)]
+    assert [p for p, _ in predict.predict(pt, pcfg, images)] == images
     with pytest.raises(NotImplementedError, match="A16"):
-        list(predict.predict(pt, pcfg, [str(png), str(webp)]))
+        list(predict.predict(pt, pcfg, [str(png), str(tif)]))
 
 
 # ------------------------------------------------------------------ importer

@@ -1,5 +1,5 @@
-"""Write the committed BMP, Netpbm, GIF, TIFF and JPEG-variant fixtures and
-their expected decodes.
+"""Write the committed BMP, Netpbm, GIF, TIFF, JPEG-variant and WebP
+fixtures and their expected decodes.
 
     python tests/torch_fixtures/formats/make_fixtures.py
 
@@ -20,6 +20,17 @@ arithmetic coding and scan scripts that leave coefficients unrefined; each
 stays under Pillow's 64 KiB read chunk, past which Pillow 12.1 cannot read
 an arithmetic-coded scan, but for one file past it, whose ``full`` digest
 Pillow gives with the whole file in one read.
+
+The WebP files come from their own seed, so the files above keep their
+bytes: photo-sized lossy and lossless stills from Pillow's encoder, and,
+from ``libwebp_encoder.cpp`` (built here with ``g++ -lwebp``: it needs
+libwebp's header and library), the layouts Pillow's options do not reach:
+the simple loop filter with a nonzero sharpness, 2, 4 and 8 token
+partitions, one segment and four with their map, raw ALPH chunks under each
+alpha filter, a VP8L-compressed ALPH, and animations (lossy with alpha,
+lossless) whose first frame is smaller than the canvas, at an offset.  Their
+``full`` digests are Pillow 12.1's decode with its libwebp 1.6.0, whatever
+wrote the file.
 
 ``expected.json`` holds, per readable file, the sha256 and the byte sum of
 four uint8 arrays computed here from the JAX package's own means:
@@ -52,6 +63,7 @@ from encoders import (encode_bmp, encode_gif, encode_lossless_jpeg, encode_pnm, 
                       encode_tiff, rle_encode)
 
 SEED = 24
+WEBP_SEED = 25
 PRE_SIZE = 256
 EVAL_SIZE = (224, 224)
 JPEG_DIR = os.path.join(os.path.dirname(HERE), "jpeg")
@@ -182,6 +194,75 @@ def _files(rng, exe):
     return files
 
 
+def _webp_files(rng, exe):
+    """name -> bytes of the WebP fixtures (libwebp_encoder.cpp's written by
+    it, Pillow's here)."""
+    import io
+
+    from PIL import Image
+
+    def pillow(img, **kw):
+        buf = io.BytesIO()
+        Image.fromarray(img.astype(np.uint8)).save(buf, format="WEBP", **kw)
+        return buf.getvalue()
+
+    def libwebp(name, img, *args):
+        path = os.path.join(HERE, name)
+        h, w, c = img.shape
+        subprocess.run([exe, path, str(w), str(h), str(c), *args],
+                       input=np.ascontiguousarray(img.astype(np.uint8)).tobytes(), check=True)
+        with open(path, "rb") as f:
+            return f.read()
+
+    def photo(h, w, c=3):
+        """scene() with a photo's edges and grain: a lossy encoder then
+        spends 4x4 modes and tokens on it, not only flat 16x16 blocks."""
+        img = scene(rng, h, w, c).astype(np.float64)
+        y, x = np.mgrid[0:h, 0:w]
+        img += 40 * ((x // 9 + y // 13) % 2)[..., None] * rng.uniform(-1, 1, c)
+        img += 25 * np.sin(x * 0.9 + y * 0.4)[..., None]
+        return np.clip(img + rng.normal(0, 10, img.shape), 0, 255).round().astype(np.int64)
+
+    def with_alpha(img):
+        h, w, _ = img.shape
+        y, x = np.mgrid[0:h, 0:w]
+        a = np.clip(128 + 120 * np.sin(x / 7.0) * np.cos(y / 5.0), 0, 255).round()
+        a[h // 3:h // 2, w // 4:w // 2] = 0  # a fully transparent patch keeps its RGB
+        return np.concatenate([img, a[..., None].astype(np.int64)], -1)
+
+    files = {"webp_lossy_photo_500x375.webp": pillow(photo(375, 500), quality=80),
+             "webp_lossless_photo_333x251.webp": pillow(photo(251, 333), lossless=True)}
+    for name, img, args in [
+            ("webp_lossy_simple_sharp5_97x61.webp", photo(61, 97),
+             ["filter_type=0", "filter_sharpness=5", "filter_strength=60"]),
+            ("webp_lossy_parts2_120x90.webp", photo(90, 120), ["method=2", "partitions=1"]),
+            ("webp_lossy_parts4_120x90.webp", photo(90, 120), ["method=2", "partitions=2"]),
+            ("webp_lossy_parts8_121x89.webp", photo(89, 121),
+             ["method=0", "partitions=3", "quality=90"]),
+            ("webp_lossy_seg1_96x64.webp", photo(64, 96), ["segments=1"]),
+            ("webp_lossy_seg4_map_130x98.webp", photo(98, 130),
+             ["segments=4", "sns_strength=100", "filter_sharpness=2"]),
+            ("webp_lossy_alpha_raw_none_80x60.webp", with_alpha(photo(60, 80)),
+             ["alpha_compression=0"]),
+            ("webp_lossy_alpha_raw_horizontal_81x59.webp", with_alpha(photo(59, 81)),
+             ["raw_alpha=1"]),
+            ("webp_lossy_alpha_raw_vertical_64x48.webp", with_alpha(photo(48, 64)),
+             ["raw_alpha=2"]),
+            ("webp_lossy_alpha_raw_gradient_63x47.webp", with_alpha(photo(47, 63)),
+             ["raw_alpha=3"]),
+            ("webp_lossy_alpha_vp8l_best_99x77.webp", with_alpha(photo(77, 99)),
+             ["alpha_filtering=2", "alpha_quality=80"]),
+            ("webp_lossy_anim_offset_alpha_150x110.webp", with_alpha(photo(61, 97)),
+             ["anim=150,110,34,18"]),
+            ("webp_lossless_anim_offset_140x100.webp", photo(57, 83),
+             ["lossless=1", "anim=140,100,40,22"]),
+    ]:
+        files[name] = libwebp(name, img, *args)
+    whole = pillow(photo(61, 97), quality=75)
+    files["truncated_webp_97x61.webp"] = whole[:len(whole) // 2]
+    return files
+
+
 def digest(a):
     a = np.ascontiguousarray(a, np.uint8)
     return {"shape": list(a.shape), "sha256": hashlib.sha256(a.tobytes()).hexdigest(),
@@ -193,6 +274,14 @@ def _encoder():
     exe = os.path.join(tempfile.mkdtemp(), "libjpeg_encoder")
     subprocess.run(["g++", "-O2", "-o", exe, os.path.join(JPEG_DIR, "libjpeg_encoder.cpp"),
                     "-ljpeg"], check=True)
+    return exe
+
+
+def _webp_encoder():
+    """Build libwebp_encoder.cpp (needs libwebp's header and library)."""
+    exe = os.path.join(tempfile.mkdtemp(), "libwebp_encoder")
+    subprocess.run(["g++", "-O2", "-o", exe, os.path.join(HERE, "libwebp_encoder.cpp"), "-lwebp"],
+                   check=True)
     return exe
 
 
@@ -208,7 +297,9 @@ def main():
     if not native.native_available():
         raise SystemExit("fsvlm_tpu.native is not built (make -C native)")
     expected, truncated, refused = {}, [], []
-    for name, data in _files(np.random.default_rng(SEED), _encoder()).items():
+    files = _files(np.random.default_rng(SEED), _encoder())
+    files.update(_webp_files(np.random.default_rng(WEBP_SEED), _webp_encoder()))
+    for name, data in files.items():
         path = os.path.join(HERE, name)
         with open(path, "wb") as f:
             f.write(data)
@@ -235,7 +326,7 @@ def main():
         json.dump({"digests": expected, "truncated": truncated, "refused": refused}, f, indent=1,
                   sort_keys=True)
         f.write("\n")
-    names = [n for n in os.listdir(HERE) if not n.endswith((".py", ".json")) and
+    names = [n for n in os.listdir(HERE) if not n.endswith((".py", ".json", ".cpp")) and
              not n.startswith("__")]
     total = sum(os.path.getsize(os.path.join(HERE, n)) for n in names)
     print(f"wrote {len(names)} fixtures and expected.json: {total} bytes in {HERE}")
