@@ -14,17 +14,23 @@ Phases; each passes or raises, and any failure exits non-zero:
    the forward (O and LSE, max-abs tolerances below) and the two backward
    kernels (dQ, dK, dV: max abs error over the largest abs value of the plain
    version's three); the d = 64 kernels #6-#8, then the blockwise kernels
-   #3-#5 at head dims 32, 64, 128 and 80 (zero-padded to 128).  Then time
-   kernels, plain versions and the one PyTorch library call that computes the
-   same function (a yardstick only), with each kernel's bound.  Then the
-   whole-sequence kernels #1-#2 at head dims 32, 64, 80 and 128, L from 1 to
-   1024, B*H not a multiple of 4, and CoOp's and CoCoOp's own shapes.  The
+   #3-#5 at head dims 32, 64, 128, 80 (zero-padded to 128), 192, 256 and 320
+   (two column passes of 256).  Then time kernels, plain versions and the one
+   PyTorch library call that computes the same function (a yardstick only,
+   its backend named), with each kernel's bound.  Then the whole-sequence
+   kernels #1-#2 at head dims 32, 64, 80, 128, 192, 256 and 320, L from 1 to
+   1024, B*H not a multiple of 4, and CoOp's and CoCoOp's own shapes; then
+   attention_dispatch at head dims 192, 256 and 320 under every
+   FSVLM_FORCE_PALLAS value, forward and backward, its launch counts zeroed
+   before and read after each call: one of each kernel of the routed family
+   and none of another (``phase_wide_routes``).  The
    forwards #6, #3 and #1 and the backwards #7/#8 and #4/#5 are checked at
    the edges of the bf16 kernels' tiles and short-L packing (L 15-17, 31-33,
    63-65; #7/#8 also 127-129), and timed by CUDA events as above and, beside
    them, by the device time alone (torch.profiler), which at small shapes
    leaves out the host's launch time (#2 too; #7/#8 also at the text shapes
-   (100, 8, 16) and (100, 8, 24) causal; #3-#5 at head dims 32, 64 and 128).
+   (100, 8, 16) and (100, 8, 24) causal; #3-#5 at head dims 32, 64, 128, 192
+   and 256, and #1-#2 at 192 and 256, at the vision shapes with H d = 768).
    Phase 2 prints the registers and spills of every bf16 tensor-core kernel
    (#1-#2, the flash forward behind #3 and #6, #7/#8 and #4/#5).
 4. serving: PromptSRC ViT-B/16 at full width (random weights from seed 0,
@@ -474,14 +480,17 @@ Phases; each passes or raises, and any failure exits non-zero:
    (set from the card's readings, well inside ZOO_C_BOUND).  One
    ``{"zoo_ranks": ...}`` line.
 23. formats: the image formats the port reads besides JPEG and PNG
-   (fsvlm_tpu_torch/native.py and csrc/{bmp,pnm,gif,tiff,webp,vp8l,vp8}_
-   decoder.cpp, the arithmetic-coded, block-smoothed and lossless JPEGs of
-   csrc/jpeg_decoder.cpp).  (a) Every committed fixture of
-   tests/torch_fixtures/formats (BMP, Netpbm, GIF, TIFF, JPEG variants,
-   WebP lossy and lossless, with ALPH and animated) against its digests:
-   the full decode, ``decode_file`` at 256 (None but for the DCT JPEGs),
-   the cache view at 256 and the eval view at 224, exactly; the truncated
-   files raise ValueError, the YCbCr TIFF NotImplementedError.  (b)
+   (fsvlm_tpu_torch/native.py and csrc/{bmp,pnm,gif,tiff,ccitt,webp,vp8l,
+   vp8}_decoder.cpp, the arithmetic-coded, block-smoothed and lossless JPEGs
+   of csrc/jpeg_decoder.cpp).  (a) Every committed fixture of
+   tests/torch_fixtures/formats (BMP, Netpbm, GIF, TIFF (since PR 26 also
+   BigTIFF, YCbCr, JPEG, old-style JPEG, CCITT, signed, float, 12-bit and
+   LAB), JPEG variants, WebP lossy and lossless, with ALPH and animated)
+   against its digests: the full decode, ``decode_file`` at 256 (None but
+   for the DCT JPEGs), the cache view at 256 and the eval view at 224,
+   exactly; the truncated files (an uncompressed YCbCr TIFF among them, as
+   Pillow calls it truncated) raise ValueError, the LZMA and ZSTD TIFFs
+   NotImplementedError.  (b)
    ``read_image`` images/s at the recipe's 8 threads per format over
    FORMAT_RATE_LINKS hard links to that format's fixtures, WebP's lossy
    and lossless files apart (and ``decode_file`` at 256 over the JPEG
@@ -577,17 +586,20 @@ MIN_COSINE, MAX_DLOGIT, MAX_DLOGIT_OVER_SPREAD = 0.999, 0.1, 0.25
 TRAIN_BATCH, TRAIN_CACHE, TRAIN_EPOCHS, TRAIN_STEPS_PER_EPOCH = 48, 288, 2, 3
 DLOSS, MIN_GRAD_COSINE, MIN_DELTA_COSINE, BF16_NOISE_RATIO = 1e-2, 0.999, 0.99, 4.0
 N_EPOCH_PAIRS = 3  # epochs timed fused, unfused and synced after every step, in turns
-# blockwise kernels #3-#5: head dims (80 is zero-padded to the 128 instantiation),
+# blockwise kernels #3-#5: head dims (80 is zero-padded to the 128 instantiation;
+# 192 and 256 are instantiations, 320 runs 256's FMA tiles in two column passes),
 # lengths (the IVLP step's text 16 and vision 201, edges of L), and the timed
-# shapes: the train vision shape and two of the same D * H at other head dims
-BW_DIMS = (32, 64, 128, 80)
+# shapes: the train vision shape and four of the same D * H = 768 at other head dims
+BW_DIMS = (32, 64, 128, 80, 192, 256, 320)
 BW_LENGTHS = (1, 8, 15, 16, 17, 31, 32, 33, 63, 64, 65, 77, 201, 300, 513)
 BW_PATH_SHAPES = [  # (B, H, L, causal) at d = 64: the IVLP step's student vision,
     # KD-teacher vision (no prompts), student text and the build's teacher text
     (48, 12, 201, False), (48, 12, 197, False), (100, 8, 16, True), (100, 8, 77, True),
 ]
 BW_TIMED = {"vision": (48, 12, 201, 64, False), "vision_d32": (48, 24, 201, 32, False),
-            "vision_d128": (48, 6, 201, 128, False), "text": (100, 8, 16, 64, True)}
+            "vision_d128": (48, 6, 201, 128, False), "text": (100, 8, 16, 64, True),
+            "vision_d192": (48, 4, 201, 192, False), "vision_d256": (48, 3, 201, 256, False)}
+WIDE_DIMS = (192, 256, 320)  # head dims past 128: phase 3's routing counts
 N_MIX_STEPS = 2  # IVLP steps with mixup on, after the 6 without
 # whole-sequence kernels #1-#2: head dims (80 runs the 128 instantiation),
 # lengths (the text 16 and 24, vision 197 and 201, edges of L: the bf16
@@ -595,16 +607,19 @@ N_MIX_STEPS = 2  # IVLP steps with mixup on, after the 6 without
 # tiles past 32), the CoOp and CoCoOp steps' own shapes at d = 64 (their
 # vision pass without prompts; text at CoOp's 16 ctx, at CoCoOp's batch 1
 # and one class block of its chunked batch-48 step: 48 x 85 prompts), B*H
-# not a multiple of the 4 heads of a packed CTA, and the timed shapes
-FUSED_DIMS = (32, 64, 80, 128)
+# not a multiple of the 4 heads of a packed CTA, and the timed shapes (B, H, L,
+# causal, d): the CoOp vision, text and CoCoOp block shapes, and the vision
+# shape at D * H = 768 at head dims 192 and 256
+FUSED_DIMS = (32, 64, 80, 128, 192, 256, 320)
 FUSED_LENGTHS = (1, 8, 15, 16, 17, 24, 31, 32, 33, 63, 64, 65, 77, 197, 201, 300, 513, 1024)
 FUSED_PATH_SHAPES = [  # (B, H, L, causal) at d = 64
     (32, 12, 197, False), (100, 8, 24, True), (100, 8, 16, True), (48, 12, 197, False),
     (4080, 8, 16, True),
 ]
 FUSED_RAGGED = [(3, 1, 16, True), (5, 1, 24, True), (3, 3, 33, False)]  # (B, H, L, causal), each d
-FUSED_TIMED = {"vision": (32, 12, 197, False), "text": (100, 8, 24, True),
-               "cocoop_block": (4080, 8, 16, True)}
+FUSED_TIMED = {"vision": (32, 12, 197, False, 64), "text": (100, 8, 24, True, 64),
+               "cocoop_block": (4080, 8, 16, True, 64), "vision_d192": (32, 4, 197, False, 192),
+               "vision_d256": (32, 3, 197, False, 256)}
 
 
 def log(msg):
@@ -754,6 +769,27 @@ def _device_ms(fn, iters=20):
 
 def _ms(t):
     return "not measured" if t is None else f"{t:.4f} ms"
+
+
+def _sdpa_backend(fn):
+    """Which of torch's scaled_dot_product_attention backends ``fn`` ran,
+    from its kernels' names in a profiler trace: "flash", "efficient",
+    "cudnn" or "math" (then the first kernel's name, memsets and copies
+    left out)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not e.name.startswith(("Memset", "Memcpy"))]
+    low = " ".join(names).lower()
+    # cuDNN's SDPA kernels carry "flash" in their names too: cuDNN first
+    kind = ("cudnn" if "cudnn" in low else "flash" if "flash" in low
+            else "efficient" if "fmha" in low or "efficient" in low else "math")
+    return f"{kind}: {names[0][:80] if names else 'no kernel'}"
 
 
 def _bound(B, H, L, causal, dtype_name, elsize, d=64, lse=True):
@@ -961,6 +997,7 @@ def phase_kernels_blockwise():
         plain_bwd_ms = _time_ms(lambda: fa.reference_blockwise_bwd(q, k, v, o, lse, do, mask))
         sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
         lib_fwd_ms = _time_ms(sdpa)
+        lib_backend = _sdpa_backend(sdpa)
         lib_bwd_ms = _library_bwd_ms(q, k, v, do, causal)
         dev_ms = _device_ms(lambda: fa._blockwise_attn_fwd_op(q, k, v, mask))
         lib_dev_ms = _device_ms(sdpa)
@@ -974,7 +1011,7 @@ def phase_kernels_blockwise():
         timings[label] = {
             fa.BW_KERNEL: dict(ms=fwd_ms, plain_ms=plain_fwd_ms, library_ms=lib_fwd_ms,
                                bound_ms=b_fwd[0], bound_by=b_fwd[1], device_ms=dev_ms,
-                               library_device_ms=lib_dev_ms),
+                               library_device_ms=lib_dev_ms, library_backend=lib_backend),
             fa.BW_KERNEL_DKV: dict(ms=dkv_ms, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
                                    bound_ms=b_dkv[0], bound_by=b_dkv[1], device_ms=dev["dkv"],
                                    library_device_ms=dev["aten"]),
@@ -985,7 +1022,7 @@ def phase_kernels_blockwise():
         log(f"time blockwise bf16 {label} ({B},{H},{L},{d}) {'causal' if causal else 'nomask'}: "
             f"fwd kernel {fwd_ms:.4f} ms (launched directly {direct_ms:.4f} ms; bound "
             f"{b_fwd[0]:.4f}, {b_fwd[1]}; plain "
-            f"{plain_fwd_ms:.4f}; sdpa {lib_fwd_ms:.4f}); dK/dV kernel {dkv_ms:.4f} ms (bound "
+            f"{plain_fwd_ms:.4f}; sdpa {lib_fwd_ms:.4f}, {lib_backend}); dK/dV kernel {dkv_ms:.4f} ms (bound "
             f"{b_dkv[0]:.4f}, {b_dkv[1]}); dQ kernel {dq_ms:.4f} ms (bound {b_dq[0]:.4f}, "
             f"{b_dq[1]}); whole backward with the delta pre-pass {bwd_ms:.4f} ms; plain backward "
             f"{plain_bwd_ms:.4f} ms; aten._scaled_dot_product_flash_attention_backward "
@@ -1059,9 +1096,9 @@ def phase_kernels_fused():
         f"{FUSED_PATH_SHAPES} at d 64; fp32 and bf16)")
 
     timings = {}
-    for label, (B, H, L, causal) in FUSED_TIMED.items():
-        q, k, v = _qkv(B, H, L, torch.bfloat16, gen)
-        do = _blhd_grad(B, H, L, torch.bfloat16, gen)
+    for label, (B, H, L, causal, d) in FUSED_TIMED.items():
+        q, k, v = _qkv(B, H, L, torch.bfloat16, gen, d)
+        do = _blhd_grad(B, H, L, torch.bfloat16, gen, d)
         mask = causal_mask(L, device="cuda") if causal else None
         stats = fa._fused_launch_stats(q, k, v, do, mask)
         fwd_ms = _time_ms(lambda: fa._fused_launch(q, k, v, mask))
@@ -1081,24 +1118,25 @@ def phase_kernels_fused():
         plain_bwd_ms = _time_ms(lambda: fa.reference_fused_bwd(q, k, v, do, mask))
         sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
         lib_fwd_ms = _time_ms(sdpa)
+        lib_backend = _sdpa_backend(sdpa)
         lib_bwd_ms = _library_bwd_ms(q, k, v, do, causal)
         # device time alone (profiler): the kernels', the three of #2 and the library calls'
         dev = {"fwd": _device_ms(lambda: fa._fused_launch(q, k, v, mask)),
                "bwd": _device_ms(launches_bwd), "sdpa": _device_ms(sdpa),
                "aten_bwd": _library_bwd_ms(q, k, v, do, causal, timer=_device_ms)}
-        b_fwd = _bound(B, H, L, causal, "bfloat16", 2, lse=False)
-        b_bwd = _bound_bwd(B, H, L, causal, 2, 3, 10, stats=False)
+        b_fwd = _bound(B, H, L, causal, "bfloat16", 2, d, lse=False)
+        b_bwd = _bound_bwd(B, H, L, causal, 2, 3, 10, d, stats=False)
         timings[label] = {
             fa.FUSED_KERNEL: dict(ms=fwd_ms, plain_ms=plain_fwd_ms, library_ms=lib_fwd_ms,
                                   bound_ms=b_fwd[0], bound_by=b_fwd[1], device_ms=dev["fwd"],
-                                  library_device_ms=dev["sdpa"]),
+                                  library_device_ms=dev["sdpa"], library_backend=lib_backend),
             "bwd": dict(ms=bwd_ms, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
                         bound_ms=b_bwd[0], bound_by=b_bwd[1], parts=part_ms,
                         device_ms=dev["bwd"], library_device_ms=dev["aten_bwd"]),
         }
-        log(f"time fused bf16 {label} ({B},{H},{L},64) {'causal' if causal else 'nomask'}: "
+        log(f"time fused bf16 {label} ({B},{H},{L},{d}) {'causal' if causal else 'nomask'}: "
             f"fwd kernel {fwd_ms:.4f} ms (bound {b_fwd[0]:.4f}, {b_fwd[1]}; plain "
-            f"{plain_fwd_ms:.4f}; sdpa {lib_fwd_ms:.4f}); backward {bwd_ms:.4f} ms = stats "
+            f"{plain_fwd_ms:.4f}; sdpa {lib_fwd_ms:.4f}, {lib_backend}); backward {bwd_ms:.4f} ms = stats "
             f"{part_ms[fa.FUSED_KERNEL_STATS]:.4f} + dK/dV {part_ms[fa.FUSED_KERNEL_DKV]:.4f} + dQ "
             f"{part_ms[fa.FUSED_KERNEL_DQ]:.4f} timed apart (bound {b_bwd[0]:.4f}, {b_bwd[1]}); "
             f"plain backward {plain_bwd_ms:.4f} ms; "
@@ -1111,6 +1149,55 @@ def phase_kernels_fused():
         log(f"kernel fused {kern} {name}: worst max|err| {a:.3e}"
             + (f", worst max|err|/max|ref| {r:.3e}" if kern != fa.FUSED_KERNEL else ""))
     return {k: max(worst[k, n][0] for n in ("float32", "bfloat16")) for k in (fa.FUSED_KERNEL, "bwd")}, timings
+
+
+@_timed
+def phase_wide_routes():
+    """Head dims past 128 (WIDE_DIMS) through attention_dispatch, forward
+    and backward in bf16, under FSVLM_FORCE_PALLAS unset, ``1``, ``packed``
+    and ``legacy``: the launch counts, set to 0 before each call and read
+    after it, are one of each kernel of the routed family (the blockwise
+    #3-#5, or the whole-sequence #1-#2 under ``legacy``) and none of any
+    other attention; O and the gradients against the family's plain versions
+    at phase 3's limits.  Returns {force: {d: counts}}."""
+    import torch
+
+    from fsvlm_tpu_torch.ops import flash_attention as fa
+    from fsvlm_tpu_torch.ops.attention import causal_mask
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    B, H, L = 2, 3, 77
+    out = {}
+    for force in (None, "1", "packed", "legacy"):
+        family = ("fused_attn",) if force == "legacy" else ("blockwise_attn",)
+        for d in WIDE_DIMS:
+            q, k, v = (t.detach().requires_grad_() for t in _qkv(B, H, L, torch.bfloat16, gen, d))
+            do = _blhd_grad(B, H, L, torch.bfloat16, gen, d)
+            mask = causal_mask(L, device="cuda")
+            with force_pallas(force):
+                for n in fa.LAUNCHES:
+                    fa.LAUNCHES[n] = 0
+                o = fa.attention_dispatch(q, k, v, mask)
+                grads = torch.autograd.grad(o, (q, k, v), do)
+                counts = dict(fa.LAUNCHES)
+                ref_o = fa.attention_dispatch(q, k, v, mask, impl="plain")
+                ref = torch.autograd.grad(ref_o, (q, k, v), do)
+            torch.cuda.synchronize()
+            want = {n: int(n.startswith(family)) for n in counts}
+            err_o = (o.float() - ref_o.float()).abs().max().item()
+            scale = max(r.float().abs().max().item() for r in ref)
+            rel = max((g.float() - r.float()).abs().max().item()
+                      for g, r in zip(grads, ref)) / scale
+            ok = counts == want and err_o <= TOL["bfloat16"]["o"] and rel <= TOL_BWD["bfloat16"]
+            log(f"wide route FSVLM_FORCE_PALLAS={force} d={d} ({B},{H},{L}) causal: launched "
+                f"{ {n: c for n, c in counts.items() if c} }; max|dO| {err_o:.3e}, grads "
+                f"max|err|/max|ref| {rel:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"FAIL: attention_dispatch at d={d} under FSVLM_FORCE_PALLAS="
+                                 f"{force} launched {counts} or disagrees with its plain version")
+            out.setdefault(str(force), {})[d] = {n: c for n, c in counts.items() if c}
+            del q, k, v, do, o, grads, ref_o, ref
+    return out
 
 
 @_timed
@@ -7397,7 +7484,7 @@ def _check_format_fixtures():
     the port against the digests computed from Pillow and the JAX package's
     views (make_fixtures.py): the full decode, decode_file at 256 (None
     except for the DCT JPEGs), the loader's cache view at 256 and the eval
-    view at 224; the truncated file raises ValueError, the refused one
+    view at 224; the truncated files raise ValueError, the refused ones
     NotImplementedError."""
     from fsvlm_tpu_torch import native
     from fsvlm_tpu_torch.data import imageops
@@ -7618,6 +7705,7 @@ def main():
     worst_bwd, timings_bwd = phase_kernels_bwd()
     worst_bw, timings_bw = phase_kernels_blockwise()
     worst_fused, timings_fused = phase_kernels_fused()
+    wide_routes = phase_wide_routes()
     with force_pallas(None):  # the default route: the d = 64 kernels
         pred, batch = phase_main()
         phase_profile(pred, batch)
@@ -7751,6 +7839,31 @@ def main():
         "launches_step_by_step": {k: launches_coop[k] for k in parts},
         "device_ms": bwd["device_ms"], "library_device_ms": bwd["library_device_ms"],
     })
+    # #1-#5 at the head dims past 128 (the D = 192 and 256 instantiations at
+    # the vision shape with H * d = 768): their times and bounds, and the
+    # launches of phase 3's routing run at every head dim of WIDE_DIMS
+    wide_t = {fa.BW_KERNEL: timings_bw, fa.BW_KERNEL_DKV: timings_bw,
+              fa.BW_KERNEL_DQ: timings_bw, fa.FUSED_KERNEL: timings_fused}
+    for row in kernels:
+        name = row["name"]
+        force = "legacy" if name.startswith("fused_attn") else "None"
+        counts = [(d, c) for d, c in wide_routes[force].items()]
+        row["by_head_dim"] = {}
+        for label in ("vision_d192", "vision_d256"):
+            if name in wide_t:
+                t = wide_t[name][label][name]
+            elif name == "fused_attn_bwd":
+                t = timings_fused[label]["bwd"]
+            else:
+                continue
+            row["by_head_dim"][label] = {k: t.get(k) for k in (
+                "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+                "library_backend", "bound_ms", "bound_by")}
+        if row["by_head_dim"] or name == "fused_attn_bwd":
+            parts_of = (fa.FUSED_KERNEL_STATS, fa.FUSED_KERNEL_DKV, fa.FUSED_KERNEL_DQ)
+            row["launches_by_head_dim"] = {
+                d: (c.get(name, 0) if name != "fused_attn_bwd"
+                    else {k: c.get(k, 0) for k in parts_of}) for d, c in counts}
     log(f"chip_smoke: seconds by phase {json.dumps(PHASE_S)}")
     log(f"chip_smoke: all 23 phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -14,6 +14,7 @@
 #include <cstddef>
 #include <cstdint>
 #include <new>
+#include <vector>
 
 namespace fsvlm {
 
@@ -36,8 +37,11 @@ inline bool too_large(int64_t w, int64_t h) { return w * h > kMaxPixels; }
 
 // A zlib stream (RFC 1950) inflated into exactly `cap` bytes at `out`; the
 // count written goes to *produced.  Returns kOk, or kCorrupt for a stream
-// that is malformed, truncated or longer than `cap` (png_decoder.cpp).
-int zlib_inflate(const uint8_t* in, size_t n, uint8_t* out, size_t cap, size_t* produced);
+// that is malformed, truncated or longer than `cap` (png_decoder.cpp);
+// with `prefix`, a stream longer than `cap` stops there (libtiff's
+// ZIPDecode: zlib never reads past a full output buffer).
+int zlib_inflate(const uint8_t* in, size_t n, uint8_t* out, size_t cap, size_t* produced,
+                 bool prefix = false);
 
 // WebP's two codecs, which webp_decoder.cpp's container calls on a chunk's
 // payload (its padded size, as libwebp's decoder is handed it).
@@ -55,6 +59,29 @@ int vp8l_decode_alpha(const uint8_t* data, size_t n, int w, int h, uint8_t* out)
 // upsampler.
 int vp8_info(const uint8_t* data, size_t n, size_t chunk_size, int* w, int* h);
 int vp8_decode_rgba(const uint8_t* data, size_t n, uint8_t* out, size_t stride);
+
+// A JPEG stream as libtiff's JPEG codec has libjpeg decode a strip or tile
+// (jpeg_decoder.cpp): `ycbcr`, three components converted from YCbCr to RGB,
+// else the samples as stored; the first component sampled (hs, vs), the
+// others 1 (else kRefused); RGB rows (gray replicated) into `rgb`, w x h.
+int jpeg_decode_tiff(const uint8_t* data, size_t n, bool ycbcr, int hs, int vs,
+                     std::vector<uint8_t>& rgb, int* w, int* h);
+
+// A JPEG stream's samples as libjpeg's raw_data_out gives them and libtiff's
+// old-style JPEG codec packs them (jpeg_decoder.cpp): YCbCr's subsampling
+// blocks, (*hs, *vs) the luma's sampling (the chroma's 1), each block hs x vs
+// Y samples then Cb and Cr, rows of ceil(w / hs) blocks, ceil(h / vs) rows.
+int jpeg_decode_ycbcr_blocks(const uint8_t* data, size_t n, int* hs, int* vs,
+                             std::vector<uint8_t>& blocks, int* w, int* h);
+
+// A CCITT strip or tile as libtiff's tif_fax3.c decodes it (ccitt_decoder.cpp):
+// compression 2, 3 (`two_d`: T4Options bit 0), 4 or 32771 over `n` bytes at
+// file offset `offset`, FillOrder 2 when `lsb_first`; `rows` rows of
+// `width` pixels, 1 bit a pixel (1 for a black run), rows byte-padded;
+// *noeol: T.4 decoded without EOLs (set by a failed EOL search, kept by the
+// caller from strip to strip).
+int ccitt_decode(const uint8_t* data, size_t n, uint64_t offset, int compression, bool two_d,
+                 bool lsb_first, int64_t width, int64_t rows, uint8_t* out, bool* noeol);
 
 // Pillow's Convert.c cmyk2rgb (mode CMYK, not inverted, to RGB).
 inline void cmyk_to_rgb(int c, int m, int y, int k, uint8_t* o) {

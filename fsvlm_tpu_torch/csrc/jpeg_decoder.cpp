@@ -495,6 +495,17 @@ class Decoder {
 
   int width = 0, height = 0, ncomp = 0;
   bool progressive = false, arith = false, lossless = false;
+  // libtiff's JPEG codec (tif_jpeg.c) sets the stream's colour space: -1
+  // none (libjpeg's own default), 0 JCS_UNKNOWN (samples as stored), 1
+  // JCS_YCbCr; (tiff_hs, tiff_vs) the sampling it expects of the first
+  // component (the YCbCrSubsampling at YCbCr, else 1, 1), the others' 1
+  int tiff_space = -1, tiff_hs = 1, tiff_vs = 1;
+  // libjpeg's raw_data_out (old-style JPEG-in-TIFF): decode_rgb stops after
+  // the IDCT, each component's MCU-padded plane left in raw_plane(i)
+  bool raw_out = false;
+  const Component& raw_plane(int i) const { return comp_[i]; }
+  int max_h() const { return max_h_; }
+  int max_v() const { return max_v_; }
 
  private:
   const uint8_t* data_;
@@ -1620,6 +1631,15 @@ int Decoder::decode_rgb(int denom, bool cmyk_ok, bool libjpeg3, std::vector<uint
     space = (saw_adobe_ && adobe_transform_ != 0) ? Space::kYcck : Space::kCmyk;
     if (!cmyk_ok) return kNoRgb;
   }
+  if (tiff_space >= 0) {
+    if (ncomp != 1 && ncomp != 3) return kRefused;
+    if (ncomp == 3) space = tiff_space == 1 ? Space::kYcc : Space::kRgb;
+    // JPEGPreDecode's sampling checks: the first component's as the TIFF's
+    // (libtiff fails at a smaller one too, after its warning), the others 1
+    if (comp_[0].h != tiff_hs || comp_[0].v != tiff_vs) return kRefused;
+    for (int i = 1; i < ncomp; ++i)
+      if (comp_[i].h != 1 || comp_[i].v != 1) return kRefused;
+  }
   // libjpeg-turbo 2.1 (the JAX package's build) reads no lossless frame,
   // and 3 converts no colour space of one
   if (lossless && !libjpeg3) return kNoRgb;
@@ -1678,6 +1698,11 @@ int Decoder::decode_rgb(int denom, bool cmyk_ok, bool libjpeg3, std::vector<uint
     } else {
       return kUnsupported;  // fractional sampling ratios (libjpeg refuses them too)
     }
+  }
+  if (raw_out) {
+    *ow = out_w;
+    *oh = out_h;
+    return kOk;
   }
   out.assign(static_cast<size_t>(out_w) * out_h * 3, 0);
   std::vector<uint8_t> rows(static_cast<size_t>(out_w) * ncomp);
@@ -1804,6 +1829,49 @@ int guarded(F&& body) {
     return kCorrupt;
   }
 }
+
+namespace fsvlm {
+
+int jpeg_decode_tiff(const uint8_t* data, size_t n, bool ycbcr, int hs, int vs,
+                     std::vector<uint8_t>& rgb, int* w, int* h) {
+  Decoder d(data, n);
+  d.tiff_space = ycbcr ? 1 : 0;
+  d.tiff_hs = hs;
+  d.tiff_vs = vs;
+  const int rc = d.decode_rgb(1, false, true, rgb, w, h);
+  return rc == kNoRgb ? static_cast<int>(kRefused) : rc == kNotJpeg ? static_cast<int>(kCorrupt) : rc;
+}
+
+int jpeg_decode_ycbcr_blocks(const uint8_t* data, size_t n, int* hs, int* vs,
+                             std::vector<uint8_t>& blocks, int* w, int* h) {
+  Decoder d(data, n);
+  d.raw_out = true;
+  std::vector<uint8_t> unused;
+  int rc = d.decode_rgb(1, false, true, unused, w, h);
+  if (rc != kOk) return rc == kNoRgb ? static_cast<int>(kRefused) : rc;
+  if (d.ncomp != 3 || d.lossless) return kRefused;
+  const Component &y = d.raw_plane(0), &cb = d.raw_plane(1), &cr = d.raw_plane(2);
+  if (cb.h != 1 || cb.v != 1 || cr.h != 1 || cr.v != 1 || y.h != d.max_h() || y.v != d.max_v())
+    return kRefused;
+  *hs = y.h;
+  *vs = y.v;
+  const int bx = (*w + *hs - 1) / *hs, by = (*h + *vs - 1) / *vs, block = *hs * *vs + 2;
+  if (static_cast<int64_t>(bx) * *hs > static_cast<int64_t>(y.pstride) || bx > cb.pstride)
+    return kCorrupt;
+  blocks.assign(static_cast<size_t>(bx) * by * block, 0);
+  uint8_t* o = blocks.data();
+  for (int r = 0; r < by; ++r)
+    for (int c = 0; c < bx; ++c) {
+      for (int sy = 0; sy < *vs; ++sy)
+        for (int sx = 0; sx < *hs; ++sx)
+          *o++ = y.plane[static_cast<size_t>(r * *vs + sy) * y.pstride + c * *hs + sx];
+      *o++ = cb.plane[static_cast<size_t>(r) * cb.pstride + c];
+      *o++ = cr.plane[static_cast<size_t>(r) * cr.pstride + c];
+    }
+  return kOk;
+}
+
+}  // namespace fsvlm
 
 extern "C" {
 

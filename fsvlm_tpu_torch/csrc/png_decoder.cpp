@@ -153,11 +153,13 @@ const uint8_t kDistExtra[30] = {0, 0, 0, 0, 1, 1, 2, 2,  3,  3,  4,  4,  5,  5, 
 const uint8_t kCodeOrder[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15};
 
 // A zlib stream into a buffer of exactly `cap` bytes: the image's filtered
-// scanlines, whose size the header fixes.  Output past it is corrupt.
+// scanlines, whose size the header fixes.  Output past it is corrupt, but
+// with `prefix` (zlib's inflate into a full output buffer, as libtiff's
+// ZIPDecode calls it): the stream stops there, whatever follows.
 class Inflater {
  public:
-  Inflater(const uint8_t* in, size_t n, uint8_t* out, size_t cap)
-      : p_(in), end_(in + n), out_(out), cap_(cap) {}
+  Inflater(const uint8_t* in, size_t n, uint8_t* out, size_t cap, bool prefix = false)
+      : p_(in), end_(in + n), out_(out), cap_(cap), prefix_(prefix) {}
 
   int run() {
     if (end_ - p_ < 2) return kCorrupt;
@@ -178,6 +180,7 @@ class Inflater {
         rc = dynamic();
       else
         rc = kCorrupt;
+      if (rc == kFull) return kOk;
       if (rc != kOk) return rc;
     }
     // the Adler-32 of the output, big-endian, after the byte boundary
@@ -254,15 +257,20 @@ class Inflater {
     // bytes still in the bit buffer come first (at most 4 after need(32))
     uint32_t k = 0;
     for (; k < len && bitcnt_ >= 8; ++k) {
-      if (pos_ == cap_) return kCorrupt;
+      if (pos_ == cap_) return prefix_ ? kFull : kCorrupt;
       out_[pos_++] = static_cast<uint8_t>(bits(8));
     }
-    const size_t rest = len - k;
+    size_t rest = len - k;
+    bool full = false;
+    if (prefix_ && cap_ - pos_ < rest) {
+      rest = cap_ - pos_;
+      full = true;
+    }
     if (static_cast<size_t>(end_ - p_) < rest || cap_ - pos_ < rest) return kCorrupt;
     std::memcpy(out_ + pos_, p_, rest);
     pos_ += rest;
     p_ += rest;
-    return kOk;
+    return full ? kFull : kOk;
   }
 
   int fixed() {
@@ -332,7 +340,7 @@ class Inflater {
       int sym = decode(lit);
       if (sym < 0) return kCorrupt;
       if (sym < 256) {
-        if (pos_ == cap_) return kCorrupt;
+        if (pos_ == cap_) return prefix_ ? kFull : kCorrupt;
         out_[pos_++] = static_cast<uint8_t>(sym);
         continue;
       }
@@ -345,11 +353,13 @@ class Inflater {
       if (ds < 0 || ds >= 30) return kCorrupt;
       if (!need(kDistExtra[ds])) return kCorrupt;
       const size_t d = kDistBase[ds] + bits(kDistExtra[ds]);
-      if (d > pos_ || len > cap_ - pos_) return kCorrupt;
+      if (d > pos_ || (len > cap_ - pos_ && !prefix_)) return kCorrupt;
+      const size_t n = std::min(len, cap_ - pos_);
       uint8_t* o = out_ + pos_;
       const uint8_t* s = o - d;
-      for (size_t i = 0; i < len; ++i) o[i] = s[i];  // overlapping copies repeat
-      pos_ += len;
+      for (size_t i = 0; i < n; ++i) o[i] = s[i];  // overlapping copies repeat
+      pos_ += n;
+      if (n < len) return kFull;
     }
   }
 
@@ -373,6 +383,8 @@ class Inflater {
   uint8_t* out_;
   size_t cap_;
   size_t pos_ = 0;
+  bool prefix_;
+  static constexpr int kFull = 100;  // the output filled in prefix mode
   uint64_t bitbuf_ = 0;
   int bitcnt_ = 0;
 };
@@ -632,9 +644,9 @@ int guarded(F body) {
 }  // namespace
 
 int fsvlm::zlib_inflate(const uint8_t* in, size_t n, uint8_t* out, size_t cap,
-                        size_t* produced) {
+                        size_t* produced, bool prefix) {
   return guarded([&] {
-    Inflater inf(in, n, out, cap);
+    Inflater inf(in, n, out, cap, prefix);
     const int rc = inf.run();
     *produced = inf.produced();
     return rc;

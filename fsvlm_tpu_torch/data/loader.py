@@ -19,8 +19,9 @@ float stage runs on the host; (B, K, H, W, 3) under K_TRANSFORMS K > 1),
 under RETURN_IMG0 and the loader's ``extra_keys`` (SimCLR's "img2").
 Images come from the in-memory synthetic store (``synthetic://<key>``) or
 from JPEG, PNG, BMP, Netpbm, GIF, TIFF and WebP files through the port's
-decoders (``fsvlm_tpu_torch.native``; TIFF's YCbCr and JPEG kinds raise,
-ROADMAP A16), and nothing falls back to another decoder.  The device-aug
+decoders (``fsvlm_tpu_torch.native``; a TIFF compressed with LZMA, ZSTD,
+WebP, Thunderscan or SGILog raises, ROADMAP A16), and nothing falls back to
+another decoder.  The device-aug
 cache view follows the JAX package's rule (fsvlm_tpu/data/loader.py:154-183):
 a ``.jpg`` or ``.jpeg`` path takes ``decode_file``; where that has no output
 (a CMYK, YCCK or lossless JPEG, another format under a JPEG name), and for

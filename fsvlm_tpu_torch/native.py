@@ -8,9 +8,12 @@ JPEG, Huffman and arithmetic coded, with libjpeg's block smoothing),
 ``csrc/png_decoder.cpp`` (all of PNG, its inflate included, which the TIFF
 decoder's Deflate strips share), ``csrc/bmp_decoder.cpp``,
 ``csrc/pnm_decoder.cpp`` (P1-P6), ``csrc/gif_decoder.cpp`` (the first
-frame), ``csrc/tiff_decoder.cpp`` (the first IFD: none, PackBits, LZW
-and Deflate) and ``csrc/webp_decoder.cpp`` (the RIFF container, ALPH and
-an animation's first frame, over ``csrc/vp8l_decoder.cpp``, lossless, and
+frame), ``csrc/tiff_decoder.cpp`` (the first IFD of a classic or a
+BigTIFF: none, PackBits, LZW, Deflate, JPEG (through the JPEG decoder),
+old-style JPEG and CCITT (``csrc/ccitt_decoder.cpp``); signed, float,
+12- and 32-bit samples, YCbCr through libtiff's RGBA conversion, LAB
+through LittleCMS's) and ``csrc/webp_decoder.cpp`` (the RIFF container,
+ALPH and an animation's first frame, over ``csrc/vp8l_decoder.cpp``, lossless, and
 ``csrc/vp8_decoder.cpp``, lossy with libwebp's fancy upsampling: libwebp
 1.6.0 as Pillow 12.1 uses it); ``csrc/imaging.cpp`` holds the per-pixel passes of
 ``data/imageops.py``'s Pillow-exact image operations (resampling with a
@@ -39,8 +42,8 @@ Every decoder checks Pillow's decompression-bomb limit (more than twice
 raises ``IOError``; corrupt or truncated data, and a layout Pillow 12.1
 refuses too, raise ``ValueError``; a file in another format, and a
 variant of a read format that Pillow reads but the port does not yet
-(``_UNSUPPORTED``: TIFF's YCbCr, JPEG and other kinds), raise
-``NotImplementedError`` naming ROADMAP A16.
+(``_UNSUPPORTED``: TIFF's LZMA, ZSTD, WebP, Thunderscan and SGILog
+compressions), raise ``NotImplementedError`` naming ROADMAP A16.
 """
 
 import ctypes
@@ -57,8 +60,8 @@ ROUTE = "B"  # the repo's own decoder; route A would link the machine's libjpeg
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = [os.path.join(CSRC, f) for f in (
     "jpeg_decoder.cpp", "png_decoder.cpp", "bmp_decoder.cpp", "pnm_decoder.cpp",
-    "gif_decoder.cpp", "tiff_decoder.cpp", "webp_decoder.cpp", "vp8l_decoder.cpp",
-    "vp8_decoder.cpp", "imaging.cpp")]
+    "gif_decoder.cpp", "tiff_decoder.cpp", "ccitt_decoder.cpp", "webp_decoder.cpp",
+    "vp8l_decoder.cpp", "vp8_decoder.cpp", "imaging.cpp")]
 HEADERS = [os.path.join(CSRC, "host_common.h")]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off", "-Wall"]
@@ -90,7 +93,8 @@ NO_RGB, CORRUPT, UNSUPPORTED, NO_MEMORY, TOO_LARGE, REFUSED = 1, 2, 3, 5, 6, 7
 # each format by its magic bytes, and the prefix of its C pair
 # fsvlm_<prefix>_size / fsvlm_<prefix>_decode_full
 _MAGIC = [(b"\xff\xd8", "JPEG"), (b"\x89PNG\r\n\x1a\n", "PNG"), (b"GIF87a", "GIF"),
-          (b"GIF89a", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF")]
+          (b"GIF89a", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
+          (b"II+\x00", "TIFF"), (b"MM\x00+", "TIFF")]  # the last two BigTIFF
 _PREFIX = {"JPEG": "jpeg", "PNG": "png", "BMP": "bmp", "Netpbm": "pnm", "GIF": "gif",
            "TIFF": "tiff", "WebP": "webp"}
 _UNSUPPORTED = {
@@ -99,9 +103,8 @@ _UNSUPPORTED = {
             "subsampled components)",
     "PNG": "a PNG whose compression, filter or interlace method the PNG specification does "
            "not define",
-    "TIFF": "a TIFF kind the port's decoder does not read yet (YCbCr, JPEG-in-TIFF, "
-            "CCITT, LZMA, ZSTD or WebP compression, float, signed or 12-bit samples, LAB, "
-            "or a layout past Pillow's table)",
+    "TIFF": "a TIFF compressed as the port's decoder does not read yet (LZMA, ZSTD, WebP, "
+            "Thunderscan or SGILog; or old-style JPEG past one strip)",
 }
 
 
@@ -213,8 +216,8 @@ def _read(path, head=None):
     if kind is None:
         raise NotImplementedError(
             f'"{path}" is in no format the port reads: it decodes JPEG, PNG, BMP, Netpbm, GIF, '
-            "TIFF and WebP, all but the TIFF kinds ROADMAP A16 leaves (YCbCr, JPEG-in-TIFF, "
-            "CCITT, LZMA, ZSTD or WebP compression, float, signed or 12-bit samples, LAB)")
+            "TIFF and WebP, all but the TIFF compressions ROADMAP A16 leaves (LZMA, ZSTD, WebP, "
+            "Thunderscan, SGILog)")
     return data, kind
 
 

@@ -10,11 +10,11 @@ them.
   ``_hp_bwd_dkv_kernel`` (:599) and ``_hp_bwd_dq_kernel`` (:648).  The TPU's
   two-heads-per-128-lanes packing is not carried over.  Entry:
   ``attention_fwd``.
-- Blockwise, any head dim up to 128 (``kernels/blockwise_attn_fwd.cu``,
+- Blockwise, any head dim (``kernels/blockwise_attn_fwd.cu``,
   ``kernels/blockwise_attn_bwd.cu``): counterpart of ``blockwise_attention``
   (:413-516): ``_blockwise_fwd_kernel`` (:232), ``_blockwise_dkv_kernel``
   (:324) and ``_blockwise_dq_kernel`` (:372).  Entry: ``blockwise_attention``.
-- Whole-sequence, any head dim up to 128 (``kernels/fused_attn_fwd.cu``,
+- Whole-sequence, any head dim (``kernels/fused_attn_fwd.cu``,
   ``kernels/fused_attn_bwd.cu``): counterpart of ``fused_attention``
   (:72-203): ``_attn_kernel`` (:32), a softmax normalized over the whole row
   before P is rounded, and ``_attn_bwd_kernel`` (:116), which recomputes
@@ -33,7 +33,11 @@ In bf16 every kernel runs on the tensor cores (``mma.sync``;
 the whole-sequence backward, and the d = 64 and blockwise backwards, whose
 dK/dV and dQ kernels are the whole-sequence backward's reading the
 forward's LSE instead of a row max and sum.  In fp32 every kernel is FMA
-tiles.
+tiles.  The blockwise and whole-sequence kernels are instantiated at head
+dims 32, 64, 128, 192 and 256 (d zero-padded up to the next); past 256 they
+run the FMA tiles at 256 in column passes for both dtypes, each pass summing
+S over the whole head dim and writing 256 columns of the output, as the TPU
+pads d to a multiple of 128 (:82, :168, :281, :441).
 
 Each entry is one ``torch.autograd.Function``, differentiable with respect
 to q, k and v: for CUDA tensors it launches the family's forward kernel and,
@@ -86,7 +90,9 @@ LAUNCHES = {name: 0 for name in (KERNEL, KERNEL_DKV, KERNEL_DQ,
 # the fp32 kernels' (blockwise_attn.cuh's BwdTile).  (The fp32 forward walks
 # 32-key tiles at D = 128, which in fp32 changes only the order of sums; so
 # do the bf16 backward's tiles (mma_attn.cuh), since no backward rounds P.)
-BW_TILES = {32: (64, 64), 64: (64, 64), 128: (64, 32)}
+# Past 256 the kernels run D = 256's FMA tiles in column passes, bf16 too,
+# whose forward walks 64-key tiles as well.
+BW_TILES = {32: (64, 64), 64: (64, 64), 128: (64, 32), 192: (64, 32), 256: (64, 32)}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -106,19 +112,22 @@ def reference_attention_fwd(q, k, v, mask=None):
     return _tiled_fwd(q, k, v, mask, BLOCK_K)
 
 
+def _head_dim(d):
+    """ValueError unless d is a head dim the kernels take: any d >= 1."""
+    if d < 1:
+        raise ValueError(f"the attention kernels take head dims >= 1, got {d}")
+
+
 def _bw_tiles(d):
     """The blockwise kernels' (forward key tile, backward own tile) for head
-    dim d; ValueError past the largest instantiation."""
-    for dp, tiles in sorted(BW_TILES.items()):
-        if 1 <= d <= dp:
-            return tiles
-    raise ValueError(f"the blockwise kernels take head dims 1..{max(BW_TILES)}, got {d} "
-                     f"(a larger head dim is open in ROADMAP B6)")
+    dim d: those of the instantiation that holds it, past 256 of D = 256."""
+    _head_dim(d)
+    return next((t for dp, t in sorted(BW_TILES.items()) if d <= dp), BW_TILES[max(BW_TILES)])
 
 
 def reference_blockwise_fwd(q, k, v, mask=None):
     """Plain PyTorch version of the blockwise forward kernel (TPU kernel
-    :245-271) at any head dim up to 128, scale d^-1/2: the arithmetic of
+    :245-271) at any head dim, scale d^-1/2: the arithmetic of
     ``reference_attention_fwd`` over the kernel's own key tiles.  Returns
     (O in q's dtype, LSE fp32 (B, H, L))."""
     return _tiled_fwd(q, k, v, mask, _bw_tiles(q.shape[-1])[0])
@@ -168,7 +177,7 @@ def reference_attention_bwd(q, k, v, o, lse, do, mask=None):
 
 def reference_blockwise_bwd(q, k, v, o, lse, do, mask=None):
     """Plain PyTorch version of the two blockwise backward kernels (TPU
-    kernels :334-406) at any head dim up to 128, scale d^-1/2: the arithmetic
+    kernels :334-406) at any head dim, scale d^-1/2: the arithmetic
     of ``reference_attention_bwd``, over key tiles of the fp32 dK/dV
     kernel's own tile and query tiles of 64 (P is not rounded, so the bf16
     kernels' tiles give the same function).  Returns (dq, dk, dv)."""
@@ -198,13 +207,6 @@ def _tiled_bwd(q, k, v, o, lse, do, mask, block_q, block_k):
             dk[:, :, k0:k1] += (ds.transpose(-1, -2) @ qt) * scale
             dq[:, :, q0:q1] += (ds @ kt) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
-
-
-def _fused_dim(d):
-    """ValueError unless the whole-sequence kernels take head dim d."""
-    if not 1 <= d <= max(BW_TILES):
-        raise ValueError(f"the whole-sequence kernels take head dims 1..{max(BW_TILES)}, got {d} "
-                         f"(a larger head dim is open in ROADMAP B6)")
 
 
 def _whole_row_probs(q, k, mask, acc_t):
@@ -355,7 +357,7 @@ def _blhd(q):
 
 def _check_inputs(q, k, v, mask, family="packed"):
     """Raise on what the kernels of ``family`` do not take: the d = 64 family
-    needs head dim 64, the blockwise and whole-sequence ones 1..128."""
+    needs head dim 64, the blockwise and whole-sequence ones any d >= 1."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("q, k, v must lie on one CUDA device")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -364,10 +366,8 @@ def _check_inputs(q, k, v, mask, family="packed"):
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be (B, H, L, d) of one shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if family == "blockwise":
-        _bw_tiles(q.shape[-1])
-    elif family == "fused":
-        _fused_dim(q.shape[-1])
+    if family in ("blockwise", "fused"):
+        _head_dim(q.shape[-1])
     elif q.shape[-1] != D:
         raise ValueError(f"this kernel takes head dim {D}, got {q.shape[-1]}")
     if min(t.stride(-1) for t in (q, k, v)) != 1 or max(t.stride(-1) for t in (q, k, v)) != 1:
@@ -720,8 +720,8 @@ def blockwise_attention(q, k, v, mask=None, block_q=256, block_k=512, impl=None)
     (#3-#5), differentiable (first order) with respect to q, k and v; the
     counterpart of the JAX package's ``blockwise_attention``.
 
-    q, k, v: (B, H, L, d), d in 1..128 (ValueError past it), float32 or
-    bfloat16; mask: optional (L, L) additive, shared over batch and heads.
+    q, k, v: (B, H, L, d), any d >= 1, float32 or bfloat16; mask: optional
+    (L, L) additive, shared over batch and heads.
     Returns O (B, H, L, d) in q's dtype; its LSE and O are saved for the
     backward.  ``block_q`` / ``block_k`` are the JAX signature's tile sizes,
     validated and otherwise unused: the card's tiles are the kernels' own
@@ -732,7 +732,7 @@ def blockwise_attention(q, k, v, mask=None, block_q=256, block_k=512, impl=None)
     for name, b in (("block_q", block_q), ("block_k", block_k)):
         if not isinstance(b, int) or b < 1:
             raise ValueError(f"{name} must be a positive int, got {b!r}")
-    _bw_tiles(q.shape[-1])
+    _head_dim(q.shape[-1])
     return _FlashAttention.apply(q, k, v, mask, "blockwise", _plain(impl, q))[0]
 
 
@@ -741,14 +741,14 @@ def fused_attention(q, k, v, mask=None, impl=None):
     (#1-#2), differentiable (first order) with respect to q, k and v; the
     counterpart of the JAX package's ``fused_attention``.
 
-    q, k, v: (B, H, L, d), d in 1..128 (ValueError past it, ROADMAP B6; JAX
-    takes any d), float32 or bfloat16; mask: optional (L, L) additive,
-    shared over batch and heads.  Any other mask shape raises ValueError, as
-    JAX's ``full_mask.at[:L, :L].add(mask)`` (:90, :175) does.  Returns O
+    q, k, v: (B, H, L, d), any d >= 1, as JAX, float32 or bfloat16; mask:
+    optional (L, L) additive, shared over batch and heads.  Any other mask
+    shape raises ValueError, as JAX's ``full_mask.at[:L, :L].add(mask)``
+    (:90, :175) does.  Returns O
     (B, H, L, d) in q's dtype; only q, k, v and the mask are saved for the
     backward.  CUDA tensors go through the kernels; CPU tensors, or
     ``impl="plain"``, through the plain versions."""
-    _fused_dim(q.shape[-1])
+    _head_dim(q.shape[-1])
     L = q.shape[2]
     if mask is not None and tuple(mask.shape) != (L, L):
         raise ValueError(f"fused_attention takes an (L, L) = ({L}, {L}) mask, got "
@@ -764,7 +764,7 @@ def attention_route(head_dim, mask=None, heads=None):
     variable.
 
     - ``legacy``: "fused" (the whole-sequence kernels take an (L, L) mask or
-      none; ``fused_attention`` raises past head dim 128, ROADMAP B6);
+      none, at any head dim);
     - ``1``: "blockwise";
     - ``packed``: "packed" at d = 64 with an even head count (or ``heads``
       not given), else "blockwise": JAX packs two heads per 128 lanes and
@@ -775,8 +775,8 @@ def attention_route(head_dim, mask=None, heads=None):
     - unset or any other value: JAX takes XLA's attention.  The one rule:
       where a kernel of the port computes the same function, the port takes
       the kernel (its own default, ROADMAP B4): "packed" at d = 64, else
-      "blockwise", with an (L, L) mask or none.  A broadcast mask, which no
-      kernel takes, goes to "reference"."""
+      "blockwise" (at any head dim), with an (L, L) mask or none.  A
+      broadcast mask, which no kernel takes, goes to "reference"."""
     force = os.environ.get("FSVLM_FORCE_PALLAS")
     shared = mask is None or mask.dim() == 2
     if force in ("legacy", "1", "packed") and not shared:

@@ -11,7 +11,12 @@
 // group (neighbouring lanes of one warp) read consecutive 16-byte vectors.
 // A head dim d below the kernel's instantiation D is zero-padded in shared
 // memory (the TPU pads to 128 lanes the same way); only dims below d are
-// stored.
+// stored.  Past d = 256 the kernels run at D = 256 in column passes
+// (gridDim.z = ceil(d / 256), pass z writing output columns 256 z ..
+// 256 z + 255): each pass sums S (and dP) over the whole head dim, 256
+// columns of Q and K at a time through the same shared tiles, and reloads
+// its own tiles for each 256 columns; at d <= 256 one pass holds the whole
+// head dim, as before.  bf16 inputs take these FMA tiles too past d = 256.
 //
 // The second half holds the fp32 backward's tiles (Bwd<D>) and its dK/dV
 // and dQ kernels, templated on kWholeRow: false for the blockwise backward,
@@ -84,19 +89,28 @@ __device__ __forceinline__ void load_rows_t(float* dst, int stride, const T* __r
   }
 }
 
-// the head-dim instantiation that holds d (0: none)
-inline int padded_dim(int d) { return d < 1 ? 0 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 0; }
+// the head-dim instantiation that holds d, or that runs it in column passes
+// past 256 (0: none, d < 1)
+inline int padded_dim(int d) {
+  return d < 1 ? 0 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : d <= 192 ? 192 : 256;
+}
+
+// the column passes of head dim d at instantiation D
+__host__ __device__ inline int passes(int d, int D) { return (d + D - 1) / D; }
 
 // ------------------------------------------------------------ backward tiles
 // Tile traits per D: 8 column groups and own tiles of 64 rows at D = 32 and
-// 64; at D = 128, 16 column groups and own tiles of 32 rows, which keep a
-// thread's two accumulators at 4 x 8 each (as at D = 64).  Every tile lives
+// 64; from D = 128, 16 column groups and own tiles of 32 rows, which keep a
+// thread's two accumulators at 4 x 8 each at D = 128 (as at D = 64) and 4 x
+// 16 at D = 256 (205 KiB of shared memory there, one CTA per SM).  Every tile lives
 // in shared memory as fp32 rows padded by four floats, so that rows
 // cg + kCG*j fall on distinct banks.
 template <int D> struct BwdTile;
 template <> struct BwdTile<32> { static constexpr int kCG = 8; };
 template <> struct BwdTile<64> { static constexpr int kCG = 8; };
 template <> struct BwdTile<128> { static constexpr int kCG = 16; };
+template <> struct BwdTile<192> { static constexpr int kCG = 16; };
+template <> struct BwdTile<256> { static constexpr int kCG = 16; };
 
 template <int D>
 struct Bwd {
@@ -114,15 +128,18 @@ struct Bwd {
   static_assert(kDC % 4 == 0 && kBO <= kBS, "tile traits");
 };
 
-// out[i][j] = sum_c A[a0 + i][c] * B[cg + kCG*j][c]   (both tiles [row][d])
-template <int D>
+// out[i][j] (+)= sum_c A[a0 + i][c] * B[cg + kCG*j][c]   (both tiles [row][d];
+// kAcc: added to out)
+template <int D, bool kAcc = false>
 __device__ __forceinline__ void rows_dot(float out[kRows][Bwd<D>::kSC], const float* A, int a0,
                                          const float* Bt, int cg) {
   using F = Bwd<D>;
+  if (!kAcc) {
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
+    for (int i = 0; i < kRows; ++i)
 #pragma unroll
-    for (int j = 0; j < F::kSC; ++j) out[i][j] = 0.f;
+      for (int j = 0; j < F::kSC; ++j) out[i][j] = 0.f;
+  }
 #pragma unroll 2
   for (int c = 0; c < D; c += 4) {
     float4 a[kRows];
@@ -244,8 +261,57 @@ __device__ __forceinline__ void load_stats(float* stat0_s, float* stat1_s, float
   }
 }
 
-// dK/dV: one CTA per (b*h, key tile) keeps its K and V tile and its fp32 dK
-// and dV accumulators on chip and walks 64-query tiles:
+// o1 = A1 B1^T and o2 = A2 B2^T (rows_dot, kTwo: both, else o1 alone) over
+// the whole head dim, for this CTA's own rows own0 .. (A1, A2) against the
+// streamed rows str0 .. (B1, B2), D columns at a time: each column block's
+// rows are loaded into the tiles, then multiplied.  With one block (nd ==
+// 1) the own tiles already hold their rows and only B1, B2 are loaded.
+// Starts with a barrier (the tiles' previous readers are done) and leaves
+// B1, B2 holding the last block.
+template <int D, bool kTwo, typename T>
+__device__ __forceinline__ void dots_over_d(float o1[kRows][Bwd<D>::kSC],
+                                            float o2[kRows][Bwd<D>::kSC], float* A1, float* A2,
+                                            float* B1, float* B2, const T* a1, const T* a2,
+                                            long long a1l, long long a2l, int own0, const T* b1,
+                                            const T* b2, long long b1l, long long b2l, int str0,
+                                            int L, int d, int nd, int rg, int cg) {
+  using F = Bwd<D>;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < F::kSC; ++j) o1[i][j] = o2[i][j] = 0.f;
+  for (int c = 0; c < nd; ++c) {
+    const int cd = c * D;
+    __syncthreads();
+    if (nd > 1) {
+      load_rows<F::kBO, D>(A1, F::kS, a1 + cd, a1l, own0, L, d - cd);
+      if (kTwo) load_rows<F::kBO, D>(A2, F::kS, a2 + cd, a2l, own0, L, d - cd);
+    }
+    load_rows<F::kBS, D>(B1, F::kS, b1 + cd, b1l, str0, L, d - cd);
+    if (kTwo) load_rows<F::kBS, D>(B2, F::kS, b2 + cd, b2l, str0, L, d - cd);
+    __syncthreads();
+    rows_dot<D, true>(o1, A1, rg * kRows, B1, cg);
+    if (kTwo) rows_dot<D, true>(o2, A2, rg * kRows, B2, cg);
+  }
+}
+
+// With nd > 1 column blocks, the streamed rows str0 .. of the output's
+// column block c0 into the tiles B1 (and B2) (after a barrier, then another);
+// with one block they hold them already.
+template <int D, bool kTwo, typename T>
+__device__ __forceinline__ void out_columns(float* B1, float* B2, const T* b1, const T* b2,
+                                            long long b1l, long long b2l, int str0, int L, int d,
+                                            int nd, int c0) {
+  using F = Bwd<D>;
+  if (nd == 1) return;
+  __syncthreads();
+  load_rows<F::kBS, D>(B1, F::kS, b1 + c0, b1l, str0, L, d - c0);
+  if (kTwo) load_rows<F::kBS, D>(B2, F::kS, b2 + c0, b2l, str0, L, d - c0);
+  __syncthreads();
+}
+
+// dK/dV: one CTA per (b*h, key tile, column pass) keeps its K and V tile and
+// its fp32 dK and dV accumulators on chip and walks 64-query tiles:
 //   dV += P^T dO,  dK += dS^T Q * scale
 template <typename T, int D, bool kWholeRow>
 __global__ void __launch_bounds__(kThreads)
@@ -273,10 +339,15 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int rg = tid / F::kCG;
   const int cg = tid % F::kCG;
 
+  const int nd = passes(d, D), c0 = blockIdx.z * D;
   const T* qp = q + b * st.s[0][0] + h * st.s[0][1];
   const T* gp = g + b * st.s[3][0] + h * st.s[3][1];
-  load_rows<F::kBO, D>(Ks, F::kS, k + b * st.s[1][0] + h * st.s[1][1], st.s[1][2], k0, L, d);
-  load_rows<F::kBO, D>(Vs, F::kS, v + b * st.s[2][0] + h * st.s[2][1], st.s[2][2], k0, L, d);
+  const T* kp = k + b * st.s[1][0] + h * st.s[1][1];
+  const T* vp = v + b * st.s[2][0] + h * st.s[2][1];
+  if (nd == 1) {
+    load_rows<F::kBO, D>(Ks, F::kS, kp, st.s[1][2], k0, L, d);
+    load_rows<F::kBO, D>(Vs, F::kS, vp, st.s[2][2], k0, L, d);
+  }
 
   float dk_acc[kRows][F::kDC], dv_acc[kRows][F::kDC];
 #pragma unroll
@@ -285,15 +356,13 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int c = 0; c < F::kDC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
   for (int q0 = 0; q0 < L; q0 += F::kBS) {
-    __syncthreads();  // the previous query tile's Q, dO and dS are no longer read
-    load_rows<F::kBS, D>(Qs, F::kS, qp, st.s[0][2], q0, L, d);
-    load_rows<F::kBS, D>(Gs, F::kS, gp, st.s[3][2], q0, L, d);
+    // (the previous query tile's statistics were last read before its barriers)
     load_stats(stat0_s, stat1_s, delta_s, stat0, stat1, delta, bh, q0, F::kBS, L);
-    __syncthreads();
-
+    // S^T = K Q^T and dP^T = V dO^T: this thread's keys x queries
     float p[kRows][F::kSC], ds[kRows][F::kSC];
-    rows_dot<D>(p, Ks, rg * kRows, Qs, cg);   // S^T: this thread's keys x queries
-    rows_dot<D>(ds, Vs, rg * kRows, Gs, cg);  // dP^T = V dO^T
+    dots_over_d<D, true>(p, ds, Ks, Vs, Qs, Gs, kp, vp, st.s[1][2], st.s[2][2], k0, qp, gp,
+                         st.s[0][2], st.s[3][2], q0, L, d, nd, rg, cg);
+    out_columns<D, true>(Qs, Gs, qp, gp, st.s[0][2], st.s[3][2], q0, L, d, nd, c0);
     probs_and_dscores<D, true, kWholeRow>(p, ds, k0, q0, rg, cg, L, scale, mask, stat0_s,
                                           stat1_s, delta_s);
 
@@ -306,11 +375,14 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     cols_dot<D>(dk_acc, Ps, rg * kRows, Qs, cg);  // dK += dS^T Q
   }
 
-  store_rows<D>(dk, st.s[4][0], st.s[4][1], st.s[4][2], b, h, k0, rg, cg, L, d, dk_acc, scale);
-  store_rows<D>(dv, st.s[5][0], st.s[5][1], st.s[5][2], b, h, k0, rg, cg, L, d, dv_acc, 1.f);
+  store_rows<D>(dk + c0, st.s[4][0], st.s[4][1], st.s[4][2], b, h, k0, rg, cg, L, d - c0, dk_acc,
+                scale);
+  store_rows<D>(dv + c0, st.s[5][0], st.s[5][1], st.s[5][2], b, h, k0, rg, cg, L, d - c0, dv_acc,
+                1.f);
 }
 
-// dQ: one CTA per (b*h, query tile) walks 64-key tiles: dQ += dS K * scale
+// dQ: one CTA per (b*h, query tile, column pass) walks 64-key tiles:
+// dQ += dS K * scale
 template <typename T, int D, bool kWholeRow>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -337,10 +409,15 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   const int rg = tid / F::kCG;
   const int cg = tid % F::kCG;
 
+  const int nd = passes(d, D), c0 = blockIdx.z * D;
+  const T* qp = q + b * st.s[0][0] + h * st.s[0][1];
+  const T* gp = g + b * st.s[3][0] + h * st.s[3][1];
   const T* kp = k + b * st.s[1][0] + h * st.s[1][1];
   const T* vp = v + b * st.s[2][0] + h * st.s[2][1];
-  load_rows<F::kBO, D>(Qs, F::kS, q + b * st.s[0][0] + h * st.s[0][1], st.s[0][2], q0, L, d);
-  load_rows<F::kBO, D>(Gs, F::kS, g + b * st.s[3][0] + h * st.s[3][1], st.s[3][2], q0, L, d);
+  if (nd == 1) {
+    load_rows<F::kBO, D>(Qs, F::kS, qp, st.s[0][2], q0, L, d);
+    load_rows<F::kBO, D>(Gs, F::kS, gp, st.s[3][2], q0, L, d);
+  }
   load_stats(stat0_s, stat1_s, delta_s, stat0, stat1, delta, bh, q0, F::kBO, L);
 
   float dq_acc[kRows][F::kDC];
@@ -350,14 +427,12 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     for (int c = 0; c < F::kDC; ++c) dq_acc[i][c] = 0.f;
 
   for (int k0 = 0; k0 < L; k0 += F::kBS) {
-    __syncthreads();  // the previous key tile's K and dS are no longer read
-    load_rows<F::kBS, D>(Ks, F::kS, kp, st.s[1][2], k0, L, d);
-    load_rows<F::kBS, D>(Vs, F::kS, vp, st.s[2][2], k0, L, d);
-    __syncthreads();
-
+    // S = Q K^T and dP = dO V^T: this thread's queries x keys (the previous
+    // key tile's K and dS are no longer read past the first barrier)
     float p[kRows][F::kSC], ds[kRows][F::kSC];
-    rows_dot<D>(p, Qs, rg * kRows, Ks, cg);   // S: this thread's queries x keys
-    rows_dot<D>(ds, Gs, rg * kRows, Vs, cg);  // dP = dO V^T
+    dots_over_d<D, true>(p, ds, Qs, Gs, Ks, Vs, qp, gp, st.s[0][2], st.s[3][2], q0, kp, vp,
+                         st.s[1][2], st.s[2][2], k0, L, d, nd, rg, cg);
+    out_columns<D, false>(Ks, nullptr, kp, kp, st.s[1][2], 0, k0, L, d, nd, c0);
     probs_and_dscores<D, false, kWholeRow>(p, ds, q0, k0, rg, cg, L, scale, mask, stat0_s,
                                            stat1_s, delta_s);
 
@@ -366,7 +441,8 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     cols_dot<D>(dq_acc, Ss, rg * kRows, Ks, cg);  // dQ += dS K
   }
 
-  store_rows<D>(dq, st.s[4][0], st.s[4][1], st.s[4][2], b, h, q0, rg, cg, L, d, dq_acc, scale);
+  store_rows<D>(dq + c0, st.s[4][0], st.s[4][1], st.s[4][2], b, h, q0, rg, cg, L, d - c0, dq_acc,
+                scale);
 }
 
 template <typename T, int D, bool kWholeRow>
@@ -378,7 +454,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g, const
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          F::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (L + F::kBO - 1) / F::kBO);
+  const dim3 grid(B * H, (L + F::kBO - 1) / F::kBO, passes(d, D));
   attn_bwd_dkv_kernel<T, D, kWholeRow><<<grid, kThreads, F::kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), static_cast<const float*>(stat0),
@@ -397,7 +473,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* g, const 
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          F::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (L + F::kBO - 1) / F::kBO);
+  const dim3 grid(B * H, (L + F::kBO - 1) / F::kBO, passes(d, D));
   attn_bwd_dq_kernel<T, D, kWholeRow><<<grid, kThreads, F::kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), static_cast<const float*>(stat0),
@@ -406,7 +482,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* g, const 
   return (int)cudaGetLastError();
 }
 
-// the dK/dV (kDkv) or dQ kernel at the instantiation that holds d
+// the dK/dV (kDkv) or dQ kernel at the instantiation that holds d (past
+// 256: D = 256 in column passes)
 template <typename T, bool kWholeRow, bool kDkv>
 int bwd_dim(const void* q, const void* k, const void* v, const void* g, const void* stat0,
             const void* stat1, const void* delta, const void* mask, void* out0, void* out1,
@@ -421,6 +498,8 @@ int bwd_dim(const void* q, const void* k, const void* v, const void* g, const vo
     FSVLM_BWD_CASE(32)
     FSVLM_BWD_CASE(64)
     FSVLM_BWD_CASE(128)
+    FSVLM_BWD_CASE(192)
+    FSVLM_BWD_CASE(256)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FSVLM_BWD_CASE

@@ -1,5 +1,5 @@
-// Blockwise flash-attention backward at any head dim up to 128, hand-written
-// for Hopper (sm_90a): two kernels, dK/dV and dQ.
+// Blockwise flash-attention backward at any head dim, hand-written for Hopper
+// (sm_90a): two kernels, dK/dV and dQ.
 //
 // Replaces fsvlm_tpu/ops/flash_attention.py::_blockwise_dkv_kernel (:324,
 // pallas_call at :465) and ::_blockwise_dq_kernel (:372, pallas_call at
@@ -18,8 +18,11 @@
 // at or past L get P = 0 instead of padding in memory.  A -inf mask entry
 // gives P = 0 and so dS = 0; a row whose keys are all masked has LSE ~ -1e30
 // from the forward and gets zero gradients.  The head dim d is zero-padded
-// in shared memory to the instantiation D in {32, 64, 128} that holds it
-// (the TPU pads to 128 lanes, :281); only dims below d are stored.
+// in shared memory to the instantiation D in {32, 64, 128, 192, 256} that
+// holds it (the TPU pads to 128 lanes, :281); only dims below d are stored.
+// Past d = 256 both dtypes run the FMA tiles at D = 256 in column passes
+// (blockwise_attn.cuh); bf16 at D = 192 and 256 writes two column passes of
+// D / 2 on the tensor cores (mma_attn.cuh).
 //
 // Grid.  The TPU kernels carry dK/dV (and dQ) in scratch across a
 // sequential grid axis (grid=(B*H, n_kv, n_q) at :467, (B*H, n_q, n_kv) at
@@ -67,11 +70,14 @@ namespace {
 // device time on an H100 at the vision shapes: D = 32 dK/dV 4 warps 14%
 // faster, dQ 8 warps 7%; D = 64 dK/dV a tie (4, #7's instantiation), dQ 8
 // warps 3%; D = 128 8 warps for both, 1.5% and 7% (one 136 KiB CTA per SM,
-// each streamed tile copied half as often).  None spills.
+// each streamed tile copied half as often).  None spills.  D = 192 and 256:
+// 4 warps, untimed (8 would take 200 and 264 KiB of shared memory).
 template <int D> struct Warps;
 template <> struct Warps<32> { static constexpr int kDkv = 4, kDq = 8; };
 template <> struct Warps<64> { static constexpr int kDkv = 4, kDq = 8; };
 template <> struct Warps<128> { static constexpr int kDkv = 8, kDq = 8; };
+template <> struct Warps<192> { static constexpr int kDkv = 4, kDq = 4; };
+template <> struct Warps<256> { static constexpr int kDkv = 4, kDq = 4; };
 
 template <int D, bool kDkv>
 int launch_bf16(const void* q, const void* k, const void* v, const void* g, const void* lse,
@@ -84,7 +90,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* g, cons
 }
 
 // The dK/dV (kDkv) or dQ kernel over the dtype code (0 = float32 on the
-// FMA tiles, 1 = bfloat16 on mma.sync) at the instantiation that holds d.
+// FMA tiles, 1 = bfloat16 on mma.sync up to d = 256, on the FMA tiles past
+// it) at the instantiation that holds d.
 template <bool kDkv>
 int entry(int dtype, int d, const void* q, const void* k, const void* v, const void* g,
           const void* lse, const void* delta, const void* mask, void* out0, void* out1, int B,
@@ -95,10 +102,16 @@ int entry(int dtype, int d, const void* q, const void* k, const void* v, const v
     return blockwise::bwd_dim<float, false, kDkv>(q, k, v, g, lse, nullptr, delta, mask, out0,
                                                   out1, B, H, L, d, scale, strides, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (d > 256)
+    return blockwise::bwd_dim<__nv_bfloat16, false, kDkv>(q, k, v, g, lse, nullptr, delta, mask,
+                                                          out0, out1, B, H, L, d, scale, strides,
+                                                          s);
   switch (blockwise::padded_dim(d)) {
     case 32: return launch_bf16<32, kDkv>(q, k, v, g, lse, delta, mask, out0, out1, B, H, L, d, scale, strides, s);
     case 64: return launch_bf16<64, kDkv>(q, k, v, g, lse, delta, mask, out0, out1, B, H, L, d, scale, strides, s);
     case 128: return launch_bf16<128, kDkv>(q, k, v, g, lse, delta, mask, out0, out1, B, H, L, d, scale, strides, s);
+    case 192: return launch_bf16<192, kDkv>(q, k, v, g, lse, delta, mask, out0, out1, B, H, L, d, scale, strides, s);
+    case 256: return launch_bf16<256, kDkv>(q, k, v, g, lse, delta, mask, out0, out1, B, H, L, d, scale, strides, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -107,7 +120,7 @@ int entry(int dtype, int d, const void* q, const void* k, const void* v, const v
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  d: the head dim, 1..128.  strides: 18
+// dtype: 0 = float32, 1 = bfloat16.  d: the head dim, any d >= 1.  strides: 18
 // element strides, the (b, h, l) strides of q, k, v, dO, dK and dV in that
 // order.  mask may be null.  Launches on the current device, which the
 // caller sets to the tensors'.  Returns a cudaError_t (0 on success); the

@@ -1,5 +1,5 @@
-// Blockwise flash-attention forward at any head dim up to 128, hand-written
-// for Hopper (sm_90a).
+// Blockwise flash-attention forward at any head dim, hand-written for Hopper
+// (sm_90a).
 //
 // Replaces fsvlm_tpu/ops/flash_attention.py::_blockwise_fwd_kernel (:232,
 // pallas_call at :296, entry blockwise_attention :414).  Same function, per
@@ -17,13 +17,17 @@
 // dtype before the P.V product while l sums the unrounded P;
 // O = acc / max(l, 1e-30) and LSE = m + log(max(l, 1e-30)).  Keys past L are
 // excluded (the TPU pads them with -1e30); query rows past L are computed
-// but not stored.  Templated on the head dim D in {32, 64, 128}; d <= D is
-// zero-padded in shared memory.
+// but not stored.  Templated on the head dim D in {32, 64, 128, 192, 256};
+// d <= D is zero-padded in shared memory; past d = 256 the FMA tiles run at
+// D = 256 in column passes (blockwise_attn.cuh), each pass summing S over
+// the whole head dim and writing 256 columns of O (every pass writes the
+// same LSE; pass 0 stores it).
 //
 // bfloat16 takes the tensor-core forward of mma_flash_fwd.cuh (the same
-// kernel as #6's bf16 entry in flash_attn_fwd.cu, here at D = 32, 64 and
-// 128): one pass over 64-key tiles at every D, mma.sync on cp.async tiles,
-// and below L = 33 a whole (b*h) per warp.  It is bound by the bytes at
+// kernel as #6's bf16 entry in flash_attn_fwd.cu, here at D = 32, 64, 128,
+// 192 and 256): one pass over 64-key tiles at every D, mma.sync on cp.async
+// tiles, and below L = 33 a whole (b*h) per warp at D <= 128.  Past d = 256
+// bfloat16 takes the FMA tiles' column passes too.  It is bound by the bytes at
 // CLIP's shapes (L <= 201: about L / 2 operations per byte, under the
 // H100's ridge of about 295).
 //
@@ -34,7 +38,11 @@
 // loop).  Tile traits per D: 8 column groups and 64-key tiles at D = 32 and
 // 64; 32-key tiles at D = 128, which keeps the fp32 tiles at 77 KiB (two
 // CTAs per SM) and a thread's accumulator at 4 x 16: in fp32 the tile walk
-// changes only the order of sums, not a rounding.  Q and K are transposed
+// changes only the order of sums, not a rounding.  At D = 192 and 256, 16
+// column groups of 32 query rows and 64-key tiles (177 KiB at 256, one CTA
+// per SM; a thread's accumulator 4 x 16): 64 keys as the bf16 forward, so
+// that bf16 past d = 256, which rounds P on these tiles, walks the same
+// key tiles as the plain version.  Q and K are transposed
 // (Q broadcast and K read as consecutive 16-byte vectors in the S loop), V
 // and P row-major.
 
@@ -51,6 +59,8 @@ template <int D> struct FwdTile;
 template <> struct FwdTile<32> { static constexpr int kCG = 8, kBK = 64; };
 template <> struct FwdTile<64> { static constexpr int kCG = 8, kBK = 64; };
 template <> struct FwdTile<128> { static constexpr int kCG = 8, kBK = 32; };
+template <> struct FwdTile<192> { static constexpr int kCG = 16, kBK = 64; };
+template <> struct FwdTile<256> { static constexpr int kCG = 16, kBK = 64; };
 
 template <int D>
 struct Fwd {
@@ -89,9 +99,11 @@ blockwise_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int rg = tid / kCG;
   const int cg = tid % kCG;
 
+  const int nd = passes(d, D), c0 = blockIdx.z * D;
+  const T* qp = q + b * st.s[0][0] + h * st.s[0][1];
   const T* kp = k + b * st.s[1][0] + h * st.s[1][1];
   const T* vp = v + b * st.s[2][0] + h * st.s[2][1];
-  load_rows_t<F::kBQ, D>(Qt, F::kQS, q + b * st.s[0][0] + h * st.s[0][1], st.s[0][2], q0, L, d);
+  if (nd == 1) load_rows_t<F::kBQ, D>(Qt, F::kQS, qp, st.s[0][2], q0, L, d);
 
   float m[kRows], l[kRows], acc[kRows][F::kDC];
 #pragma unroll
@@ -103,29 +115,33 @@ blockwise_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   for (int k0 = 0; k0 < L; k0 += F::kBK) {
-    __syncthreads();  // the previous tile's K, V and P are no longer read
-    load_rows_t<F::kBK, D>(Kt, F::kKS, kp, st.s[1][2], k0, L, d);
-    load_rows<F::kBK, D>(Vs, D, vp, st.s[2][2], k0, L, d);
-    __syncthreads();
-
-    // S = Q K^T for this thread's 4 rows x kSC keys, fp32
+    // S = Q K^T for this thread's 4 rows x kSC keys, fp32, D columns of the
+    // head dim at a time; V's output columns come with the last
     float s[kRows][F::kSC];
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
       for (int j = 0; j < F::kSC; ++j) s[i][j] = 0.f;
+    for (int cb = 0; cb < nd; ++cb) {
+      const int cd = cb * D;
+      __syncthreads();  // the previous tile's Q, K, V and P are no longer read
+      if (nd > 1) load_rows_t<F::kBQ, D>(Qt, F::kQS, qp + cd, st.s[0][2], q0, L, d - cd);
+      load_rows_t<F::kBK, D>(Kt, F::kKS, kp + cd, st.s[1][2], k0, L, d - cd);
+      if (cb == nd - 1) load_rows<F::kBK, D>(Vs, D, vp + c0, st.s[2][2], k0, L, d - c0);
+      __syncthreads();
 #pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      const float4 qa = *reinterpret_cast<const float4*>(&Qt[c * F::kQS + rg * kRows]);
-      const float qr[kRows] = {qa.x, qa.y, qa.z, qa.w};
+      for (int c = 0; c < D; ++c) {
+        const float4 qa = *reinterpret_cast<const float4*>(&Qt[c * F::kQS + rg * kRows]);
+        const float qr[kRows] = {qa.x, qa.y, qa.z, qa.w};
 #pragma unroll
-      for (int t = 0; t < F::kSC / 4; ++t) {
-        const float4 ka = *reinterpret_cast<const float4*>(&Kt[c * F::kKS + t * 4 * kCG + cg * 4]);
-        const float kc[4] = {ka.x, ka.y, ka.z, ka.w};
+        for (int t = 0; t < F::kSC / 4; ++t) {
+          const float4 ka = *reinterpret_cast<const float4*>(&Kt[c * F::kKS + t * 4 * kCG + cg * 4]);
+          const float kc[4] = {ka.x, ka.y, ka.z, ka.w};
 #pragma unroll
-        for (int i = 0; i < kRows; ++i)
+          for (int i = 0; i < kRows; ++i)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) s[i][t * 4 + e] = fmaf(qr[i], kc[e], s[i][t * 4 + e]);
+            for (int e = 0; e < 4; ++e) s[i][t * 4 + e] = fmaf(qr[i], kc[e], s[i][t * 4 + e]);
+        }
       }
     }
 
@@ -207,13 +223,13 @@ blockwise_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + rg * kRows + i;
     if (row < L) {
       const float lg = fmaxf(l[i], kLMin);
-      T* orow = o + b * st.s[3][0] + h * st.s[3][1] + row * st.s[3][2];
+      T* orow = o + b * st.s[3][0] + h * st.s[3][1] + row * st.s[3][2] + c0;
 #pragma unroll
       for (int c = 0; c < F::kDC; ++c) {
         const int dim = chunk_col<kCG>(cg, c);
-        if (dim < d) orow[dim] = from_f<T>(acc[i][c] / lg);
+        if (dim < d - c0) orow[dim] = from_f<T>(acc[i][c] / lg);
       }
-      if (cg == 0) lse[(long long)bh * L + row] = m[i] + logf(lg);
+      if (cg == 0 && c0 == 0) lse[(long long)bh * L + row] = m[i] + logf(lg);
     }
   }
 }
@@ -227,7 +243,7 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          F::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (L + F::kBQ - 1) / F::kBQ);
+  const dim3 grid(B * H, (L + F::kBQ - 1) / F::kBQ, passes(d, D));
   blockwise_attn_fwd_kernel<T, D><<<grid, kThreads, F::kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(mask), static_cast<T*>(o), static_cast<float*>(lse), H, L, d,
@@ -243,6 +259,8 @@ int launch_dim(const void* q, const void* k, const void* v, const void* mask, vo
     case 32: return launch<T, 32>(q, k, v, mask, o, lse, B, H, L, d, scale, strides, stream);
     case 64: return launch<T, 64>(q, k, v, mask, o, lse, B, H, L, d, scale, strides, stream);
     case 128: return launch<T, 128>(q, k, v, mask, o, lse, B, H, L, d, scale, strides, stream);
+    case 192: return launch<T, 192>(q, k, v, mask, o, lse, B, H, L, d, scale, strides, stream);
+    case 256: return launch<T, 256>(q, k, v, mask, o, lse, B, H, L, d, scale, strides, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -255,6 +273,11 @@ int launch_bf16_dim(const void* q, const void* k, const void* v, const void* mas
     case 32: return launch_flash<32>(q, k, v, mask, o, lse, B, H, L, d, scale, strides, stream);
     case 64: return launch_flash<64>(q, k, v, mask, o, lse, B, H, L, d, scale, strides, stream);
     case 128: return launch_flash<128>(q, k, v, mask, o, lse, B, H, L, d, scale, strides, stream);
+    case 192: return launch_flash<192>(q, k, v, mask, o, lse, B, H, L, d, scale, strides, stream);
+    case 256:
+      if (d <= 256)
+        return launch_flash<256>(q, k, v, mask, o, lse, B, H, L, d, scale, strides, stream);
+      return launch<__nv_bfloat16, 256>(q, k, v, mask, o, lse, B, H, L, d, scale, strides, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -263,7 +286,7 @@ int launch_bf16_dim(const void* q, const void* k, const void* v, const void* mas
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  d: the head dim, 1..128.  strides: 12
+// dtype: 0 = float32, 1 = bfloat16.  d: the head dim, any d >= 1.  strides: 12
 // element strides, the (b, h, l) strides of q, k, v and o in that order.
 // mask may be null.  Launches on the current device, which the caller sets
 // to the tensors'.  Returns a cudaError_t (0 on success); the launch is

@@ -1,5 +1,5 @@
-// Whole-sequence attention backward at any head dim up to 128, hand-written
-// for Hopper (sm_90a): a row pre-pass, then dK/dV and dQ.
+// Whole-sequence attention backward at any head dim, hand-written for Hopper
+// (sm_90a): a row pre-pass, then dK/dV and dQ.
 //
 // Replaces fsvlm_tpu/ops/flash_attention.py::_attn_bwd_kernel (:116,
 // pallas_call at :183), the backward of fused_attention (:163-200).  Same
@@ -27,7 +27,12 @@
 //   dK/dV, dQ: recompute P = exp(S - m) / l from those statistics; dK/dV
 //          one CTA per (b*h, key tile) walking the query tiles, dQ one per
 //          (b*h, query tile) walking the key tiles.
-// Templated on D in {32, 64, 128}; d <= D is zero-padded in shared memory.
+// Templated on D in {32, 64, 128, 192, 256}; d <= D is zero-padded in shared
+// memory; past d = 256 the FMA tiles run at D = 256 in column passes
+// (blockwise_attn.cuh) for both dtypes, the pre-pass summing S and dP over
+// the whole head dim 256 columns at a time.  bf16 at D = 192 and 256 reads
+// Q and dO from shared memory rather than holding them (mma_attn.cuh), and
+// its dK/dV and dQ kernels write two column passes of D / 2.
 //
 // bf16: every product is mma.sync m16n8k16 bf16 -> fp32 (mma_attn.cuh), on
 // bf16 tiles copied into shared memory by cp.async, with the forward's work
@@ -64,20 +69,23 @@ using mma_attn::bf16;
       float scale, blockwise::Strides st, int vec
 
 // Fold a key tile (rows 0 .. 8 * NT - 1 of Ks and Vs, keys key0 ..) into one
-// warp's running m, l and u = sum exp(S - m) dP, 16 keys at a time.
+// warp's running m, l and u = sum exp(S - m) dP, 16 keys at a time; Q and dO
+// from the held A fragments qa, ga at D <= 128, else from rows own .. of the
+// Qs, Gs tiles.
 template <int D, int NT>
-__device__ __forceinline__ void stats_tile(const uint32_t qa[D / 16][4],
-                                           const uint32_t ga[D / 16][4], const bf16* Ks,
-                                           const bf16* Vs, int row0, int key0, int L, float scale,
-                                           const float* __restrict__ mask, float m[2], float l[2],
-                                           float u[2], int lane) {
+__device__ __forceinline__ void stats_tile(uint32_t (&qa)[D <= 128 ? D / 16 : 1][4],
+                                           uint32_t (&ga)[D <= 128 ? D / 16 : 1][4],
+                                           const bf16* Qs, const bf16* Gs, int own,
+                                           const bf16* Ks, const bf16* Vs, int row0, int key0,
+                                           int L, float scale, const float* __restrict__ mask,
+                                           float m[2], float l[2], float u[2], int lane) {
   using namespace mma_attn;
 #pragma unroll
   for (int kk = 0; kk < NT / 2; ++kk) {
     if (key0 + 16 * kk >= L) break;
     float s[2][4], dp[2][4];
-    mma_abt<D, 2>(s, qa, Ks, 16 * kk, lane);   // S = Q K^T
-    mma_abt<D, 2>(dp, ga, Vs, 16 * kk, lane);  // dP = dO V^T
+    scores_from<D, 2>(s, qa, false, Qs, own, Ks, 16 * kk, lane);   // S = Q K^T
+    scores_from<D, 2>(dp, ga, false, Gs, own, Vs, 16 * kk, lane);  // dP = dO V^T
     scores_log2<2>(s, row0, key0 + 16 * kk, L, scale * kLog2e, mask, lane);
     fold<2, true>(s, dp, m, l, u);
   }
@@ -125,7 +133,7 @@ __global__ void __launch_bounds__(mma_attn::kThreads) stats_tiled_kernel(FSVLM_S
   prefetch(0);
   const int own = 16 * warp, row0 = q0 + own;
   const bool active = row0 < L;
-  uint32_t qa[D / 16][4], ga[D / 16][4];
+  uint32_t qa[D <= 128 ? D / 16 : 1][4], ga[D <= 128 ? D / 16 : 1][4];
   float m[2] = {kMInit, kMInit}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
   const int n = (L + kTile - 1) / kTile;
   for (int s = 0; s < n; ++s) {
@@ -134,12 +142,14 @@ __global__ void __launch_bounds__(mma_attn::kThreads) stats_tiled_kernel(FSVLM_S
     cp_async_wait<1>();
     __syncthreads();
     if (active) {
-      if (s == 0) {
-        load_a<D>(qa, Qs, own, lane);
-        load_a<D>(ga, Gs, own, lane);
+      if constexpr (D <= 128) {
+        if (s == 0) {
+          load_a<D>(qa, Qs, own, lane);
+          load_a<D>(ga, Gs, own, lane);
+        }
       }
-      stats_tile<D, kTile / 8>(qa, ga, Ks + (s & 1) * kT, Vs + (s & 1) * kT, row0, s * kTile, L,
-                               scale, mask, m, l, u, lane);
+      stats_tile<D, kTile / 8>(qa, ga, Qs, Gs, own, Ks + (s & 1) * kT, Vs + (s & 1) * kT, row0,
+                               s * kTile, L, scale, mask, m, l, u, lane);
     }
     __syncthreads();
   }
@@ -178,7 +188,8 @@ __global__ void __launch_bounds__(mma_attn::kThreads) stats_packed_kernel(FSVLM_
     load_a<D>(qa, Qs, 16 * mt, lane);
     load_a<D>(ga, Gs, 16 * mt, lane);
     float m[2] = {kMInit, kMInit}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
-    stats_tile<D, R / 8>(qa, ga, Ks, Vs, 16 * mt, 0, L, scale, mask, m, l, u, lane);
+    stats_tile<D, R / 8>(qa, ga, Qs, Gs, 16 * mt, Ks, Vs, 16 * mt, 0, L, scale, mask, m, l, u,
+                         lane);
     merge_quad<true>(m, l, u);
     write_stats(row_max, row_sum, delta, (long long)bh * L, 16 * mt, L, m, l, u, lane);
   }
@@ -201,11 +212,14 @@ int launch_stats_bf16(const void* q, const void* k, const void* v, const void* g
                             blockwise::unpack(strides, 4), vec);
   };
   const dim3 packed((BH + kThreads / 32 - 1) / (kThreads / 32));
-  switch (pack_rows(L)) {
-    case 16: return run(stats_packed_kernel<D, 16>, packed, packed_smem<D, 16>(4));
-    case 32: return run(stats_packed_kernel<D, 32>, packed, packed_smem<D, 32>(4));
-    default: return run(stats_tiled_kernel<D>, tiled_grid(BH, L), 6 * Tile<D>::kRowsBytes);
+  if constexpr (D <= 128) {
+    switch (pack_rows(L)) {
+      case 16: return run(stats_packed_kernel<D, 16>, packed, packed_smem<D, 16>(4));
+      case 32: return run(stats_packed_kernel<D, 32>, packed, packed_smem<D, 32>(4));
+      default: break;
+    }
   }
+  return run(stats_tiled_kernel<D>, tiled_grid(BH, L), 6 * Tile<D>::kRowsBytes);
 }
 
 int stats_bf16_dim(const void* q, const void* k, const void* v, const void* g, const void* mask,
@@ -215,6 +229,8 @@ int stats_bf16_dim(const void* q, const void* k, const void* v, const void* g, c
     case 32: return launch_stats_bf16<32>(q, k, v, g, mask, row_max, row_sum, delta, B, H, L, d, scale, st, s);
     case 64: return launch_stats_bf16<64>(q, k, v, g, mask, row_max, row_sum, delta, B, H, L, d, scale, st, s);
     case 128: return launch_stats_bf16<128>(q, k, v, g, mask, row_max, row_sum, delta, B, H, L, d, scale, st, s);
+    case 192: return launch_stats_bf16<192>(q, k, v, g, mask, row_max, row_sum, delta, B, H, L, d, scale, st, s);
+    case 256: return launch_stats_bf16<256>(q, k, v, g, mask, row_max, row_sum, delta, B, H, L, d, scale, st, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -251,10 +267,15 @@ fused_attn_bwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int rg = tid / F::kCG;
   const int cg = tid % F::kCG;
 
+  const int nd = passes(d, D);
+  const T* qp = q + b * st.s[0][0] + h * st.s[0][1];
+  const T* gp = g + b * st.s[3][0] + h * st.s[3][1];
   const T* kp = k + b * st.s[1][0] + h * st.s[1][1];
   const T* vp = v + b * st.s[2][0] + h * st.s[2][1];
-  load_rows<F::kBO, D>(Qs, F::kS, q + b * st.s[0][0] + h * st.s[0][1], st.s[0][2], q0, L, d);
-  load_rows<F::kBO, D>(Gs, F::kS, g + b * st.s[3][0] + h * st.s[3][1], st.s[3][2], q0, L, d);
+  if (nd == 1) {
+    load_rows<F::kBO, D>(Qs, F::kS, qp, st.s[0][2], q0, L, d);
+    load_rows<F::kBO, D>(Gs, F::kS, gp, st.s[3][2], q0, L, d);
+  }
 
   float m[kRows], l[kRows], u[kRows];
 #pragma unroll
@@ -263,13 +284,11 @@ fused_attn_bwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l[i] = u[i] = 0.f;
   }
   for (int k0 = 0; k0 < L; k0 += F::kBS) {
-    __syncthreads();  // the previous key tile's K and V are no longer read
-    load_rows<F::kBS, D>(Ks, F::kS, kp, st.s[1][2], k0, L, d);
-    load_rows<F::kBS, D>(Vs, F::kS, vp, st.s[2][2], k0, L, d);
-    __syncthreads();
+    // S and dP = dO V^T: this thread's queries x keys, over the whole head dim
+    // (the previous key tile's K and V are no longer read past the first barrier)
     float s[kRows][F::kSC], dp[kRows][F::kSC];
-    rows_dot<D>(s, Qs, rg * kRows, Ks, cg);   // S: this thread's queries x keys
-    rows_dot<D>(dp, Gs, rg * kRows, Vs, cg);  // dP = dO V^T
+    dots_over_d<D, true>(s, dp, Qs, Gs, Ks, Vs, qp, gp, st.s[0][2], st.s[3][2], q0, kp, vp,
+                         st.s[1][2], st.s[2][2], k0, L, d, nd, rg, cg);
     scale_and_mask<D>(s, q0, k0, rg, cg, L, scale, mask);
     fold_row_stats<D, true>(s, dp, m, l, u);
   }
@@ -314,12 +333,15 @@ int stats_dim(const void* q, const void* k, const void* v, const void* g, const 
     case 32: return launch_stats<T, 32>(q, k, v, g, mask, row_max, row_sum, delta, B, H, L, d, scale, st, s);
     case 64: return launch_stats<T, 64>(q, k, v, g, mask, row_max, row_sum, delta, B, H, L, d, scale, st, s);
     case 128: return launch_stats<T, 128>(q, k, v, g, mask, row_max, row_sum, delta, B, H, L, d, scale, st, s);
+    case 192: return launch_stats<T, 192>(q, k, v, g, mask, row_max, row_sum, delta, B, H, L, d, scale, st, s);
+    case 256: return launch_stats<T, 256>(q, k, v, g, mask, row_max, row_sum, delta, B, H, L, d, scale, st, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // The dK/dV (kDkv) or dQ kernel over the dtype code: float32 on the FMA
-// tiles (blockwise_attn.cuh, kWholeRow), bfloat16 on mma.sync (mma_attn.cuh).
+// tiles (blockwise_attn.cuh, kWholeRow), bfloat16 on mma.sync (mma_attn.cuh)
+// up to d = 256 and on the FMA tiles past it.
 template <bool kDkv>
 int whole_row_bwd(int dtype, int d, const void* q, const void* k, const void* v, const void* g,
                   const void* row_max, const void* row_sum, const void* delta, const void* mask,
@@ -330,6 +352,10 @@ int whole_row_bwd(int dtype, int d, const void* q, const void* k, const void* v,
   if (dtype == 0)
     return blockwise::bwd_dim<float, true, kDkv>(q, k, v, g, row_max, row_sum, delta, mask, out0,
                                                  out1, B, H, L, d, scale, strides, s);
+  if (dtype == 1 && d > 256)
+    return blockwise::bwd_dim<__nv_bfloat16, true, kDkv>(q, k, v, g, row_max, row_sum, delta,
+                                                         mask, out0, out1, B, H, L, d, scale,
+                                                         strides, s);
   if (dtype == 1)
     return mma_attn::bwd_entry<kDkv>(d, q, k, v, g, row_max, row_sum, delta, mask, out0, out1, B,
                                      H, L, scale, strides, s);
@@ -340,7 +366,7 @@ int whole_row_bwd(int dtype, int d, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  d: the head dim, 1..128.  strides: 12
+// dtype: 0 = float32, 1 = bfloat16.  d: the head dim, any d >= 1.  strides: 12
 // element strides, the (b, h, l) strides of q, k, v and dO.  mask may be
 // null.  row_max, row_sum and delta: (B, H, L) float32, contiguous, written.
 // Launches on the current device, which the caller sets to the tensors'.
@@ -355,6 +381,9 @@ int fsvlm_fused_attn_bwd_stats(int dtype, int d, const void* q, const void* k, c
   if (dtype == 0)
     return stats_dim<float>(q, k, v, g, mask, row_max, row_sum, delta, B, H, L, d, scale,
                             strides, s);
+  if (dtype == 1 && d > 256)
+    return stats_dim<__nv_bfloat16>(q, k, v, g, mask, row_max, row_sum, delta, B, H, L, d, scale,
+                                    strides, s);
   if (dtype == 1)
     return stats_bf16_dim(q, k, v, g, mask, row_max, row_sum, delta, B, H, L, d, scale, strides,
                           s);

@@ -1,5 +1,5 @@
-// Whole-sequence attention forward at any head dim up to 128, hand-written
-// for Hopper (sm_90a).
+// Whole-sequence attention forward at any head dim, hand-written for Hopper
+// (sm_90a).
 //
 // Replaces fsvlm_tpu/ops/flash_attention.py::_attn_kernel (:32, pallas_call
 // at :99, entry fused_attention :73).  Same function, per (batch, head):
@@ -25,7 +25,10 @@
 // recomputes S, forms P = exp(S - m) / l, rounds it to the input dtype and
 // accumulates P V.  That is the same function at any L, up to the order of
 // fp32 sums, and no tile is sized by L.  Head dims are instantiated at D in
-// {32, 64, 128}, d <= D zero-padded in shared memory.
+// {32, 64, 128, 192, 256}, d <= D zero-padded in shared memory; past d = 256
+// the FMA tiles run at D = 256 in column passes (blockwise_attn.cuh), for
+// both dtypes: each pass sums S over the whole head dim, 256 columns at a
+// time, and writes 256 columns of O.
 //
 // bf16 (mma_attn.cuh): one warp owns 16 query rows.  S = Q K^T and O += P V
 // are mma.sync m16n8k16 products with fp32 accumulators; P goes from S's
@@ -38,6 +41,8 @@
 //   L <= 32 (CoOp's text 24, CoCoOp's 16): every warp takes one whole
 //     (b*h), one or two 16-row tiles, against that head's whole K and V,
 //     which it loads itself; no 64-row tile is padded out of 16 rows.
+//   D > 128: the tiled layout at every L, Q read from shared memory 16
+//     columns at a time rather than held (mma_attn.cuh).
 // float32 keeps the FMA tiles of blockwise_attn.cuh (Bwd<D>: 64 query rows,
 // 64-key tiles; 32 rows at D = 128): the agreement checks' fp32 limits are
 // tighter than TF32 tensor cores can meet.
@@ -92,7 +97,7 @@ __global__ void __launch_bounds__(mma_attn::kThreads) fwd_tiled_kernel(FSVLM_FWD
   prefetch(0);
   const int own = 16 * warp, row0 = q0 + own;
   const bool active = row0 < L;
-  uint32_t qa[D / 16][4];
+  uint32_t qa[D <= 128 ? D / 16 : 1][4];
   float m[2] = {kMInit, kMInit}, l[2] = {0.f, 0.f}, acc[D / 8][4];
   zero_acc<D>(acc);
   for (int s = 0; s < steps; ++s) {
@@ -101,10 +106,9 @@ __global__ void __launch_bounds__(mma_attn::kThreads) fwd_tiled_kernel(FSVLM_FWD
     cp_async_wait<1>();
     __syncthreads();
     if (active) {
-      if (s == 0) load_a<D>(qa, Qs, own, lane);
       const int k0 = (s % n) * kTile;
       float x[NT][4];
-      mma_abt<D, NT>(x, qa, Ks + (s & 1) * kT, 0, lane);
+      scores_from<D, NT>(x, qa, s == 0, Qs, own, Ks + (s & 1) * kT, 0, lane);
       scores_log2<NT>(x, row0, k0, L, scale * kLog2e, mask, lane);
       if (s < n) {
         fold<NT, false>(x, x, m, l, nullptr);
@@ -170,12 +174,19 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* mask, v
                   blockwise::unpack(strides, 4), vec);
   };
   const dim3 packed((BH + kThreads / 32 - 1) / (kThreads / 32));
-  switch (pack_rows(L)) {
-    case 16: return run(fwd_packed_kernel<D, 16>, packed, packed_smem<D, 16>(3));
-    case 32: return run(fwd_packed_kernel<D, 32>, packed, packed_smem<D, 32>(3));
-    default: return run(fwd_tiled_kernel<D>, tiled_grid(BH, L), 5 * Tile<D>::kRowsBytes);
+  if constexpr (D <= 128) {
+    switch (pack_rows(L)) {
+      case 16: return run(fwd_packed_kernel<D, 16>, packed, packed_smem<D, 16>(3));
+      case 32: return run(fwd_packed_kernel<D, 32>, packed, packed_smem<D, 32>(3));
+      default: break;
+    }
   }
+  return run(fwd_tiled_kernel<D>, tiled_grid(BH, L), 5 * Tile<D>::kRowsBytes);
 }
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const void* mask, void* o, int B, int H,
+           int L, int d, float scale, const long long* strides, cudaStream_t stream);
 
 int launch_bf16_dim(const void* q, const void* k, const void* v, const void* mask, void* o, int B,
                     int H, int L, int d, float scale, const long long* strides, cudaStream_t s) {
@@ -183,6 +194,10 @@ int launch_bf16_dim(const void* q, const void* k, const void* v, const void* mas
     case 32: return launch_bf16<32>(q, k, v, mask, o, B, H, L, d, scale, strides, s);
     case 64: return launch_bf16<64>(q, k, v, mask, o, B, H, L, d, scale, strides, s);
     case 128: return launch_bf16<128>(q, k, v, mask, o, B, H, L, d, scale, strides, s);
+    case 192: return launch_bf16<192>(q, k, v, mask, o, B, H, L, d, scale, strides, s);
+    case 256:
+      if (d <= 256) return launch_bf16<256>(q, k, v, mask, o, B, H, L, d, scale, strides, s);
+      return launch<bf16, 256>(q, k, v, mask, o, B, H, L, d, scale, strides, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -218,11 +233,14 @@ fused_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   const int rg = tid / F::kCG;
   const int cg = tid % F::kCG;
 
+  const int nd = passes(d, D), c0 = blockIdx.z * D;
+  const T* qp = q + b * st.s[0][0] + h * st.s[0][1];
   const T* kp = k + b * st.s[1][0] + h * st.s[1][1];
   const T* vp = v + b * st.s[2][0] + h * st.s[2][1];
-  load_rows<F::kBO, D>(Qs, F::kS, q + b * st.s[0][0] + h * st.s[0][1], st.s[0][2], q0, L, d);
+  if (nd == 1) load_rows<F::kBO, D>(Qs, F::kS, qp, st.s[0][2], q0, L, d);
 
-  // pass 1: the whole row's max and sum
+  // pass 1: the whole row's max and sum (each key tile's S over the whole
+  // head dim; the barrier at its start: the previous key tile is no longer read)
   float m[kRows], l[kRows];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
@@ -230,11 +248,9 @@ fused_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     l[i] = 0.f;
   }
   for (int k0 = 0; k0 < L; k0 += F::kBS) {
-    __syncthreads();  // the previous key tile is no longer read
-    load_rows<F::kBS, D>(Ks, F::kS, kp, st.s[1][2], k0, L, d);
-    __syncthreads();
     float s[kRows][F::kSC];
-    rows_dot<D>(s, Qs, rg * kRows, Ks, cg);
+    dots_over_d<D, false>(s, s, Qs, nullptr, Ks, nullptr, qp, qp, st.s[0][2], 0, q0, kp, kp,
+                          st.s[1][2], 0, k0, L, d, nd, rg, cg);
     scale_and_mask<D>(s, q0, k0, rg, cg, L, scale, mask);
     fold_row_stats<D, false>(s, s, m, l, nullptr);
   }
@@ -247,12 +263,18 @@ fused_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 #pragma unroll
     for (int c = 0; c < F::kDC; ++c) acc[i][c] = 0.f;
   for (int k0 = 0; k0 < L; k0 += F::kBS) {
-    __syncthreads();  // the previous K, V and P tiles are no longer read
-    load_rows<F::kBS, D>(Ks, F::kS, kp, st.s[1][2], k0, L, d);
-    load_rows<F::kBS, D>(Vs, F::kS, vp, st.s[2][2], k0, L, d);
-    __syncthreads();
     float s[kRows][F::kSC];
-    rows_dot<D>(s, Qs, rg * kRows, Ks, cg);
+    if (nd == 1) {  // K and V in one step
+      __syncthreads();  // the previous K, V and P tiles are no longer read
+      load_rows<F::kBS, D>(Ks, F::kS, kp, st.s[1][2], k0, L, d);
+      load_rows<F::kBS, D>(Vs, F::kS, vp, st.s[2][2], k0, L, d);
+      __syncthreads();
+      rows_dot<D>(s, Qs, rg * kRows, Ks, cg);
+    } else {  // S over the head dim, then V's output columns
+      dots_over_d<D, false>(s, s, Qs, nullptr, Ks, nullptr, qp, qp, st.s[0][2], 0, q0, kp, kp,
+                            st.s[1][2], 0, k0, L, d, nd, rg, cg);
+      out_columns<D, false>(Vs, nullptr, vp, vp, st.s[2][2], 0, k0, L, d, nd, c0);
+    }
     scale_and_mask<D>(s, q0, k0, rg, cg, L, scale, mask);
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
@@ -263,7 +285,7 @@ fused_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     cols_dot<D>(acc, Ps, rg * kRows, Vs, cg);
   }
 
-  store_rows<D>(o, st.s[3][0], st.s[3][1], st.s[3][2], b, h, q0, rg, cg, L, d, acc, 1.f);
+  store_rows<D>(o + c0, st.s[3][0], st.s[3][1], st.s[3][2], b, h, q0, rg, cg, L, d - c0, acc, 1.f);
 }
 
 template <typename T, int D>
@@ -273,7 +295,7 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
   cudaError_t err = cudaFuncSetAttribute(fused_attn_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (L + Bwd<D>::kBO - 1) / Bwd<D>::kBO);
+  const dim3 grid(B * H, (L + Bwd<D>::kBO - 1) / Bwd<D>::kBO, passes(d, D));
   fused_attn_fwd_kernel<T, D><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(mask), static_cast<T*>(o), H, L, d, scale, unpack(strides, 4));
@@ -287,6 +309,8 @@ int launch_dim(const void* q, const void* k, const void* v, const void* mask, vo
     case 32: return launch<T, 32>(q, k, v, mask, o, B, H, L, d, scale, strides, stream);
     case 64: return launch<T, 64>(q, k, v, mask, o, B, H, L, d, scale, strides, stream);
     case 128: return launch<T, 128>(q, k, v, mask, o, B, H, L, d, scale, strides, stream);
+    case 192: return launch<T, 192>(q, k, v, mask, o, B, H, L, d, scale, strides, stream);
+    case 256: return launch<T, 256>(q, k, v, mask, o, B, H, L, d, scale, strides, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -295,7 +319,7 @@ int launch_dim(const void* q, const void* k, const void* v, const void* mask, vo
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  d: the head dim, 1..128.  strides: 12
+// dtype: 0 = float32, 1 = bfloat16.  d: the head dim, any d >= 1.  strides: 12
 // element strides, the (b, h, l) strides of q, k, v and o in that order.
 // mask may be null.  Launches on the current device, which the caller sets
 // to the tensors'.  Returns a cudaError_t (0 on success); the launch is

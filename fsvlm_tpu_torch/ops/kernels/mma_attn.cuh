@@ -2,9 +2,9 @@
 // backward's dK/dV and dQ kernels built from them, which serve three
 // backwards: the whole-sequence one (#2, fused_attn_bwd.cu, from its row
 // pre-pass's max and sum), and from the forward's LSE the flash one at
-// d = 64 (#7/#8, flash_attn_bwd.cu) and the blockwise one at D = 32, 64 and
-// 128 (#4/#5, blockwise_attn_bwd.cu, warp counts per D; at D = 64 the same
-// instantiations as #7/#8).  fused_attn_fwd.cu holds the
+// d = 64 (#7/#8, flash_attn_bwd.cu) and the blockwise one at D = 32, 64,
+// 128, 192 and 256 (#4/#5, blockwise_attn_bwd.cu, warp counts per D; at
+// D = 64 the same instantiations as #7/#8).  fused_attn_fwd.cu holds the
 // whole-sequence forward and the pre-pass; mma_flash_fwd.cuh the flash
 // forward behind #3 and #6.  fp32 inputs keep the FMA tiles.
 //
@@ -29,6 +29,15 @@
 // exponential is one ex2.approx (about 1e-6 relative at these arguments, far
 // below a bf16 output's 2^-8); the pre-pass's row max and the forward's
 // LSE arrive in natural units.
+//
+// Past D = 128 a warp's own A fragments (D / 16 x 4 registers) and its fp32
+// accumulators (D / 8 x 4) would not fit its 255 registers together: the
+// kernels there read A from shared memory 16 columns at a time (mma_abt_s)
+// instead of holding it, run every 16-row tile over 64 keys (no packed
+// layout: its per-warp tiles would pass the 227 KiB of shared memory), and
+// the backward's dK/dV and dQ kernels write their outputs in two column
+// passes of D / 2 (kOut<D>), each recomputing S and dP over the whole head
+// dim.  Past D = 256 the FMA tiles of blockwise_attn.cuh take bf16 too.
 //
 // Why mma.sync and not wgmma/TMA: at CLIP's lengths these kernels do about
 // L/2 (forward) to 1.6 * 10 L / 8 (backward) operations per byte read,
@@ -169,13 +178,52 @@ __device__ __forceinline__ void mma_abt(float c[NT][4], const uint32_t a[D / 16]
   }
 }
 
-// acc += A . B[r0 .. r0+15][:] over all D columns of a [row][d] tile, for one
-// A (kSplit: A = a + a_lo, two products per B fragment)
-template <int D, bool kSplit>
+// as mma_abt, with A read 16 columns at a time from rows a_r0 .. a_r0+15 of
+// a [row][d] tile instead of held in registers (the D > 128 kernels)
+template <int D, int NT>
+__device__ __forceinline__ void mma_abt_s(float c[NT][4], const bf16* a_tile, int a_r0,
+                                          const bf16* tile, int r0, int lane) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+  const int i = lane >> 3;
+  const bf16* pa = a_tile + (a_r0 + (lane & 7) + (i & 1) * 8) * Tile<D>::kS + (lane >> 4) * 8;
+  const bf16* p = tile + (r0 + (lane & 7) + (i >> 1) * 8) * Tile<D>::kS + (i & 1) * 8;
+#pragma unroll 2
+  for (int kc = 0; kc < D / 16; ++kc) {
+    uint32_t a[4];
+    ldsm_x4(a, pa + kc * 16);
+#pragma unroll
+    for (int jp = 0; jp < NT / 2; ++jp) {
+      uint32_t b[4];
+      ldsm_x4(b, p + jp * 16 * Tile<D>::kS + kc * 16);
+      mma(c[2 * jp], a, b[0], b[1]);
+      mma(c[2 * jp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// The scores of a warp's 16 rows (own_r in the own tile) against NT * 8 rows
+// of a streamed tile: from the held A fragments a at D <= 128 (loaded from the
+// own tile when `load`), else from the own tile itself.
+template <int D, int NT>
+__device__ __forceinline__ void scores_from(float c[NT][4], uint32_t (&a)[D <= 128 ? D / 16 : 1][4],
+                                            bool load, const bf16* own, int own_r,
+                                            const bf16* tile, int r0, int lane) {
+  if constexpr (D <= 128) {
+    if (load) load_a<D>(a, own, own_r, lane);
+    mma_abt<D, NT>(c, a, tile, r0, lane);
+  } else {
+    mma_abt_s<D, NT>(c, own, own_r, tile, r0, lane);
+  }
+}
+
+// acc += A . B[r0 .. r0+15][:] over the first D columns of a [row][d] tile of
+// row stride kS, for one A (kSplit: A = a + a_lo, two products per B fragment)
+template <int D, bool kSplit, int kS = Tile<D>::kS>
 __device__ __forceinline__ void mma_ab(float acc[D / 8][4], const uint32_t a[4],
                                        const uint32_t a_lo[4], const bf16* tile, int r0, int lane) {
   const int i = lane >> 3;
-  const bf16* p = tile + (r0 + (lane & 7) + (i & 1) * 8) * Tile<D>::kS + (i >> 1) * 8;
+  const bf16* p = tile + (r0 + (lane & 7) + (i & 1) * 8) * kS + (i >> 1) * 8;
 #pragma unroll
   for (int np = 0; np < D / 16; ++np) {
     uint32_t b[4];
@@ -402,15 +450,21 @@ int launch(void (*kernel)(KArgs...), dim3 grid, int smem, cudaStream_t stream, A
 // dK/dV or dQ/unused, and strides the (b, h, l) strides of q, k, v, dO, out0
 // (and out1).
 
+// The output columns of one backward pass at head-dim instantiation D: all
+// D up to 128, else D / 2 (two passes, each recomputing S and dP), which
+// keeps dK's and dV's fp32 accumulators at 2 x 64 registers a thread.
+template <int D> constexpr int kOut = D <= 128 ? D : D / 2;
+
 // dK, dV of 16 own keys (own_r: their first row in the own K/V tiles, key0:
-// its global index) += one 16-query chunk (qr: its first row in the Q/dO
-// tiles, qry0: its global index).  Works on S^T = K Q^T and dP^T = V dO^T,
-// so that P^T and dS^T are the A fragments of dV += P^T dO and
-// dK += dS^T Q.  rm, rs, dl: this (b*h)'s row max (or LSE), row sum (not
-// read under kLse) and delta.
-template <int D, bool kLse>
-__device__ __forceinline__ void dkv_chunk(float dk[D / 8][4], float dv[D / 8][4], const bf16* Ks,
-                                          const bf16* Vs, int own_r, int key0, const bf16* Qs,
+// its global index), output columns c0 .. c0 + DO - 1, += one 16-query chunk
+// (qr: its first row in the Q/dO tiles, qry0: its global index).  Works on
+// S^T = K Q^T and dP^T = V dO^T over all D columns, so that P^T and dS^T are
+// the A fragments of dV += P^T dO and dK += dS^T Q.  rm, rs, dl: this
+// (b*h)'s row max (or LSE), row sum (not read under kLse) and delta.
+template <int D, bool kLse, int DO = D>
+__device__ __forceinline__ void dkv_chunk(float dk[DO / 8][4], float dv[DO / 8][4], int c0,
+                                          const bf16* Ks, const bf16* Vs, int own_r, int key0,
+                                          const bf16* Qs,
                                           const bf16* Gs, int qr, int qry0,
                                           const float* __restrict__ rm,
                                           const float* __restrict__ rs,
@@ -419,11 +473,9 @@ __device__ __forceinline__ void dkv_chunk(float dk[D / 8][4], float dv[D / 8][4]
                                           int lane) {
   float s[2][4], dp[2][4];
   {
-    uint32_t a[D / 16][4];
-    load_a<D>(a, Ks, own_r, lane);
-    mma_abt<D, 2>(s, a, Qs, qr, lane);
-    load_a<D>(a, Vs, own_r, lane);
-    mma_abt<D, 2>(dp, a, Gs, qr, lane);
+    uint32_t a[D <= 128 ? D / 16 : 1][4];
+    scores_from<D, 2>(s, a, true, Ks, own_r, Qs, qr, lane);
+    scores_from<D, 2>(dp, a, true, Vs, own_r, Gs, qr, lane);
   }
   const int g = lane >> 2, t = lane & 3;
   const float sc = scale * kLog2e;
@@ -454,28 +506,26 @@ __device__ __forceinline__ void dkv_chunk(float dk[D / 8][4], float dv[D / 8][4]
     }
   uint32_t hi[4], lo[4];
   c_to_a_split(hi, lo, s[0], s[1]);
-  mma_ab<D, true>(dv, hi, lo, Gs, qr, lane);
+  mma_ab<DO, true, Tile<D>::kS>(dv, hi, lo, Gs + c0, qr, lane);
   c_to_a_split(hi, lo, dp[0], dp[1]);
-  mma_ab<D, true>(dk, hi, lo, Qs, qr, lane);
+  mma_ab<DO, true, Tile<D>::kS>(dk, hi, lo, Qs + c0, qr, lane);
 }
 
-// dQ of 16 own queries (own_r in the own Q/dO tiles, row0 global) += one
-// 16-key chunk (kr in the K/V tiles, key0 global); m, il, dl: the own rows'
-// max or LSE (log2 units), 1 / sum (not read under kLse) and delta (rows g
-// and g + 8)
-template <int D, bool kLse>
-__device__ __forceinline__ void dq_chunk(float dq[D / 8][4], const bf16* Qs, const bf16* Gs,
+// dQ of 16 own queries (own_r in the own Q/dO tiles, row0 global), output
+// columns c0 .. c0 + DO - 1, += one 16-key chunk (kr in the K/V tiles, key0
+// global); m, il, dl: the own rows' max or LSE (log2 units), 1 / sum (not
+// read under kLse) and delta (rows g and g + 8)
+template <int D, bool kLse, int DO = D>
+__device__ __forceinline__ void dq_chunk(float dq[DO / 8][4], int c0, const bf16* Qs, const bf16* Gs,
                                          int own_r, int row0, const bf16* Ks, const bf16* Vs,
                                          int kr, int key0, const float m[2], const float il[2],
                                          const float dl[2], const float* __restrict__ mask,
                                          int L, float scale, int lane) {
   float s[2][4], dp[2][4];
   {
-    uint32_t a[D / 16][4];
-    load_a<D>(a, Qs, own_r, lane);
-    mma_abt<D, 2>(s, a, Ks, kr, lane);
-    load_a<D>(a, Gs, own_r, lane);
-    mma_abt<D, 2>(dp, a, Vs, kr, lane);
+    uint32_t a[D <= 128 ? D / 16 : 1][4];
+    scores_from<D, 2>(s, a, true, Qs, own_r, Ks, kr, lane);
+    scores_from<D, 2>(dp, a, true, Gs, own_r, Vs, kr, lane);
   }
   const int g = lane >> 2, t = lane & 3;
   const float sc = scale * kLog2e;
@@ -497,7 +547,7 @@ __device__ __forceinline__ void dq_chunk(float dq[D / 8][4], const bf16* Qs, con
     }
   uint32_t hi[4], lo[4];
   c_to_a_split(hi, lo, dp[0], dp[1]);
-  mma_ab<D, true>(dq, hi, lo, Ks, kr, lane);
+  mma_ab<DO, true, Tile<D>::kS>(dq, hi, lo, Ks + c0, kr, lane);
 }
 
 template <int D>
@@ -519,12 +569,13 @@ constexpr int tiled_smem() {
   return (2 * 16 * W + 4 * kTile) * Tile<D>::kS * (int)sizeof(bf16);
 }
 
-// dK/dV, L > 32: one CTA of W warps per (b*h, 16 W-key tile), warp w owning
-// keys 16w .. 16w + 15 of it, walks 64-query tiles of Q and dO,
-// double-buffered.
+// dK/dV, L > 32 (any L past D = 128): one CTA of W warps per (b*h, 16 W-key
+// tile, column pass), warp w owning keys 16w .. 16w + 15 of it, walks
+// 64-query tiles of Q and dO, double-buffered.
 template <int D, bool kLse, int W>
 __global__ void __launch_bounds__(32 * W) dkv_tiled_kernel(FSVLM_BWD_PARAMS) {
-  constexpr int kT = kTile * Tile<D>::kS, kOwn = 16 * W, kN = 32 * W;
+  constexpr int kT = kTile * Tile<D>::kS, kOwn = 16 * W, kN = 32 * W, DO = kOut<D>;
+  const int c0 = blockIdx.y * DO;
   extern __shared__ float4 smem4[];
   bf16* Ks = reinterpret_cast<bf16*>(smem4);  // own K   [key][d]
   bf16* Vs = Ks + kOwn * Tile<D>::kS;         // own V   [key][d]
@@ -546,9 +597,9 @@ __global__ void __launch_bounds__(32 * W) dkv_tiled_kernel(FSVLM_BWD_PARAMS) {
   const long long at = (long long)bh * L;
   const int own = 16 * warp;
   const bool active = k0 + own < L;
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-  zero_acc<D>(dk_acc);
-  zero_acc<D>(dv_acc);
+  float dk_acc[DO / 8][4], dv_acc[DO / 8][4];
+  zero_acc<DO>(dk_acc);
+  zero_acc<DO>(dv_acc);
   const int n = (L + kTile - 1) / kTile;
   for (int s = 0; s < n; ++s) {
     if (s + 1 < n) prefetch(s + 1);
@@ -560,17 +611,18 @@ __global__ void __launch_bounds__(32 * W) dkv_tiled_kernel(FSVLM_BWD_PARAMS) {
       const bf16* Gb = Gs + (s & 1) * kT;
       for (int kk = 0; kk < kTile / 16; ++kk) {
         if (s * kTile + 16 * kk >= L) break;
-        dkv_chunk<D, kLse>(dk_acc, dv_acc, Ks, Vs, own, k0 + own, Qb, Gb, 16 * kk,
-                           s * kTile + 16 * kk, rm + at, rs + at, dl + at, mask, L, scale, lane);
+        dkv_chunk<D, kLse, DO>(dk_acc, dv_acc, c0, Ks, Vs, own, k0 + own, Qb, Gb, 16 * kk,
+                               s * kTile + 16 * kk, rm + at, rs + at, dl + at, mask, L, scale,
+                               lane);
       }
     }
     __syncthreads();
   }
   if (active) {
-    store_acc<D>(out0 + b * st.s[4][0] + h * st.s[4][1], st.s[4][2], k0 + own, L, d, dk_acc,
-                 scale, lane, vec);
-    store_acc<D>(out1 + b * st.s[5][0] + h * st.s[5][1], st.s[5][2], k0 + own, L, d, dv_acc, 1.f,
-                 lane, vec);
+    store_acc<DO>(out0 + b * st.s[4][0] + h * st.s[4][1] + c0, st.s[4][2], k0 + own, L, d - c0,
+                  dk_acc, scale, lane, vec);
+    store_acc<DO>(out1 + b * st.s[5][0] + h * st.s[5][1] + c0, st.s[5][2], k0 + own, L, d - c0,
+                  dv_acc, 1.f, lane, vec);
   }
 }
 
@@ -618,7 +670,7 @@ __global__ void __launch_bounds__(kThreads) dkv_packed_kernel(FSVLM_BWD_PARAMS) 
     zero_acc<D>(dv_acc);
     for (int kc = 0; kc < R / 16; ++kc) {
       if (16 * kc >= L) break;
-      dkv_chunk<D, kLse>(dk_acc, dv_acc, Ks, Vs, 16 * mt, 16 * mt, Qs, Gs, 16 * kc, 16 * kc,
+      dkv_chunk<D, kLse>(dk_acc, dv_acc, 0, Ks, Vs, 16 * mt, 16 * mt, Qs, Gs, 16 * kc, 16 * kc,
                          rm + at, rs + at, dl + at, mask, L, scale, lane);
     }
     store_acc<D>(out0 + b * st.s[4][0] + h * st.s[4][1], st.s[4][2], 16 * mt, L, d, dk_acc, scale,
@@ -645,12 +697,13 @@ __device__ __forceinline__ void row_stats(float m[2], float il[2], float dd[2],
   }
 }
 
-// dQ, L > 32: one CTA of W warps per (b*h, 16 W-query tile), warp w owning
-// queries 16w .. 16w + 15 of it, walks 64-key tiles of K and V,
-// double-buffered.
+// dQ, L > 32 (any L past D = 128): one CTA of W warps per (b*h, 16 W-query
+// tile, column pass), warp w owning queries 16w .. 16w + 15 of it, walks
+// 64-key tiles of K and V, double-buffered.
 template <int D, bool kLse, int W>
 __global__ void __launch_bounds__(32 * W) dq_tiled_kernel(FSVLM_BWD_PARAMS) {
-  constexpr int kT = kTile * Tile<D>::kS, kOwn = 16 * W, kN = 32 * W;
+  constexpr int kT = kTile * Tile<D>::kS, kOwn = 16 * W, kN = 32 * W, DO = kOut<D>;
+  const int c0 = blockIdx.y * DO;
   extern __shared__ float4 smem4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem4);  // own Q   [query][d]
   bf16* Gs = Qs + kOwn * Tile<D>::kS;         // own dO  [query][d]
@@ -674,8 +727,8 @@ __global__ void __launch_bounds__(32 * W) dq_tiled_kernel(FSVLM_BWD_PARAMS) {
   const bool active = q0 + own < L;
   float m[2], il[2], dd[2];
   row_stats<kLse>(m, il, dd, rm + at, rs + at, dl + at, q0 + own, L, lane);
-  float dq_acc[D / 8][4];
-  zero_acc<D>(dq_acc);
+  float dq_acc[DO / 8][4];
+  zero_acc<DO>(dq_acc);
   const int n = (L + kTile - 1) / kTile;
   for (int s = 0; s < n; ++s) {
     if (s + 1 < n) prefetch(s + 1);
@@ -687,15 +740,15 @@ __global__ void __launch_bounds__(32 * W) dq_tiled_kernel(FSVLM_BWD_PARAMS) {
       const bf16* Vb = Vs + (s & 1) * kT;
       for (int kk = 0; kk < kTile / 16; ++kk) {
         if (s * kTile + 16 * kk >= L) break;
-        dq_chunk<D, kLse>(dq_acc, Qs, Gs, own, q0 + own, Kb, Vb, 16 * kk, s * kTile + 16 * kk, m,
-                          il, dd, mask, L, scale, lane);
+        dq_chunk<D, kLse, DO>(dq_acc, c0, Qs, Gs, own, q0 + own, Kb, Vb, 16 * kk,
+                              s * kTile + 16 * kk, m, il, dd, mask, L, scale, lane);
       }
     }
     __syncthreads();
   }
   if (active)
-    store_acc<D>(out0 + b * st.s[4][0] + h * st.s[4][1], st.s[4][2], q0 + own, L, d, dq_acc, scale,
-                 lane, vec);
+    store_acc<DO>(out0 + b * st.s[4][0] + h * st.s[4][1] + c0, st.s[4][2], q0 + own, L, d - c0,
+                  dq_acc, scale, lane, vec);
 }
 
 // dQ, L <= R (16 or 32): every warp one whole (b*h)
@@ -717,7 +770,7 @@ __global__ void __launch_bounds__(kThreads, 1) dq_packed_kernel(FSVLM_BWD_PARAMS
     zero_acc<D>(dq_acc);
     for (int kc = 0; kc < R / 16; ++kc) {
       if (16 * kc >= L) break;
-      dq_chunk<D, kLse>(dq_acc, Qs, Gs, 16 * mt, 16 * mt, Ks, Vs, 16 * kc, 16 * kc, m, il, dd,
+      dq_chunk<D, kLse>(dq_acc, 0, Qs, Gs, 16 * mt, 16 * mt, Ks, Vs, 16 * kc, 16 * kc, m, il, dd,
                         mask, L, scale, lane);
     }
     store_acc<D>(out0 + b * st.s[4][0] + h * st.s[4][1], st.s[4][2], 16 * mt, L, d, dq_acc, scale,
@@ -732,7 +785,8 @@ constexpr int packed_smem(int kTiles) {
 }
 
 // The dK/dV (kDkv) or dQ kernel for bf16 at head-dim instantiation D, from
-// the row max and sum or (kLse) the LSE; W warps per tiled CTA (L > 32).
+// the row max and sum or (kLse) the LSE; W warps per tiled CTA (L > 32, and
+// every L past D = 128), D / kOut<D> column passes.
 template <int D, bool kDkv, bool kLse = false, int W = 4>
 int launch_bwd(const void* q, const void* k, const void* v, const void* g, const void* rm,
                const void* rs, const void* dl, const void* mask, void* out0, void* out1, int B,
@@ -742,8 +796,9 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g, const
   const int vec = vec_ok(ptrs, n_t, strides, 3 * n_t);
   const int BH = B * H;
   const dim3 packed((BH + kThreads / 32 - 1) / (kThreads / 32));
-  const dim3 tiled = tiled_grid(BH, L, 16 * W);
-  const int R = pack_rows(L);
+  dim3 tiled = tiled_grid(BH, L, 16 * W);
+  tiled.y = D / kOut<D>;
+  const int R = D <= 128 ? pack_rows(L) : 0;
   auto run = [&](auto kernel, dim3 grid, int threads, int smem) {
     return launch_threads(kernel, grid, threads, smem, stream, static_cast<const bf16*>(q),
                           static_cast<const bf16*>(k), static_cast<const bf16*>(v),
@@ -754,12 +809,16 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g, const
                           blockwise::unpack(strides, n_t), vec);
   };
   if constexpr (kDkv) {
-    if (R == 16) return run(dkv_packed_kernel<D, 16, kLse>, packed, kThreads, packed_smem<D, 16>(4));
-    if (R == 32) return run(dkv_packed_kernel<D, 32, kLse>, packed, kThreads, packed_smem<D, 32>(4));
+    if constexpr (D <= 128) {
+      if (R == 16) return run(dkv_packed_kernel<D, 16, kLse>, packed, kThreads, packed_smem<D, 16>(4));
+      if (R == 32) return run(dkv_packed_kernel<D, 32, kLse>, packed, kThreads, packed_smem<D, 32>(4));
+    }
     return run(dkv_tiled_kernel<D, kLse, W>, tiled, 32 * W, tiled_smem<D, W>());
   } else {
-    if (R == 16) return run(dq_packed_kernel<D, 16, kLse>, packed, kThreads, packed_smem<D, 16>(4));
-    if (R == 32) return run(dq_packed_kernel<D, 32, kLse>, packed, kThreads, packed_smem<D, 32>(4));
+    if constexpr (D <= 128) {
+      if (R == 16) return run(dq_packed_kernel<D, 16, kLse>, packed, kThreads, packed_smem<D, 16>(4));
+      if (R == 32) return run(dq_packed_kernel<D, 32, kLse>, packed, kThreads, packed_smem<D, 32>(4));
+    }
     return run(dq_tiled_kernel<D, kLse, W>, tiled, 32 * W, tiled_smem<D, W>());
   }
 }
@@ -772,6 +831,8 @@ int bwd_entry(int d, const void* q, const void* k, const void* v, const void* g,
     case 32: return launch_bwd<32, kDkv>(q, k, v, g, rm, rs, dl, mask, out0, out1, B, H, L, d, scale, strides, s);
     case 64: return launch_bwd<64, kDkv>(q, k, v, g, rm, rs, dl, mask, out0, out1, B, H, L, d, scale, strides, s);
     case 128: return launch_bwd<128, kDkv>(q, k, v, g, rm, rs, dl, mask, out0, out1, B, H, L, d, scale, strides, s);
+    case 192: return launch_bwd<192, kDkv>(q, k, v, g, rm, rs, dl, mask, out0, out1, B, H, L, d, scale, strides, s);
+    case 256: return launch_bwd<256, kDkv>(q, k, v, g, rm, rs, dl, mask, out0, out1, B, H, L, d, scale, strides, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

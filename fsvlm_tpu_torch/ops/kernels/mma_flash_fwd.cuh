@@ -2,7 +2,7 @@
 // keys with an online softmax, shared by two entries: flash_attn_fwd.cu
 // (#6, fsvlm_tpu/ops/flash_attention.py::_hp_fwd_kernel :544, D = 64) and
 // blockwise_attn_fwd.cu (#3, ::_blockwise_fwd_kernel :232, D = 32, 64,
-// 128).  On the TPU the two differ only in head packing (:520-534), which
+// 128, 192, 256).  On the TPU the two differ only in head packing (:520-534), which
 // the port does not carry over.  Per (batch, head), for each key tile:
 //   S = Q K^T * scale + mask                     (fp32 accumulation)
 //   m_new = max(m, rowmax S), m from -1e30;  alpha = exp(m - m_new)
@@ -26,6 +26,9 @@
 //     CLIP's vision shapes than 64-row CTAs of 4 warps (PERF.md section 6).
 //   L <= 32 (the text passes): every warp takes one whole (b*h), one or two
 //     16-row tiles against that head's whole K and V in one key tile.
+//   D > 128: the tiled layout at every L, Q read from shared memory 16
+//     columns at a time (mma_abt_s) rather than held: a warp's 16 x 256 fp32
+//     accumulator alone is 128 registers a thread.
 // The 4 lanes of a quad hold one row's columns of S and of acc, so they
 // must rescale by one alpha: the row's max over a tile is taken across the
 // quad (two shuffles per row) before it is exponentiated, and each lane's
@@ -148,7 +151,7 @@ __global__ void __launch_bounds__(kFlashThreads) flash_tiled_kernel(FSVLM_FLASH_
   prefetch(0);
   const int own = 16 * warp, row0 = q0 + own;
   const bool active = row0 < L;
-  uint32_t qa[D / 16][4];
+  uint32_t qa[D <= 128 ? D / 16 : 1][4];
   float m[2] = {kMInitLog2, kMInitLog2}, l[2] = {0.f, 0.f}, acc[D / 8][4];
   zero_acc<D>(acc);
   const int n = (L + kTile - 1) / kTile;
@@ -158,9 +161,8 @@ __global__ void __launch_bounds__(kFlashThreads) flash_tiled_kernel(FSVLM_FLASH_
     cp_async_wait<1>();
     __syncthreads();
     if (active) {
-      if (s == 0) load_a<D>(qa, Qs, own, lane);
       float x[NT][4];
-      mma_abt<D, NT>(x, qa, Ks + (s & 1) * kT, 0, lane);
+      scores_from<D, NT>(x, qa, s == 0, Qs, own, Ks + (s & 1) * kT, 0, lane);
       scores_log2<NT>(x, row0, s * kTile, L, scale * kLog2e, mask, lane);
       online_tile<D, NT>(acc, m, l, x, Vs + (s & 1) * kT, s * kTile, L, lane);
     }
@@ -223,13 +225,15 @@ int launch_flash(const void* q, const void* k, const void* v, const void* mask, 
                   static_cast<float*>(lse), BH, H, L, d, scale, blockwise::unpack(strides, 4), vec);
   };
   const dim3 packed((BH + kThreads / 32 - 1) / (kThreads / 32));
-  switch (pack_rows(L)) {
-    case 16: return run(flash_packed_kernel<D, 16>, packed, kThreads, packed_smem<D, 16>(3));
-    case 32: return run(flash_packed_kernel<D, 32>, packed, kThreads, packed_smem<D, 32>(3));
-    default:
-      return run(flash_tiled_kernel<D>, tiled_grid(BH, L, kFlashRows), kFlashThreads,
-                 6 * Tile<D>::kRowsBytes);
+  if constexpr (D <= 128) {
+    switch (pack_rows(L)) {
+      case 16: return run(flash_packed_kernel<D, 16>, packed, kThreads, packed_smem<D, 16>(3));
+      case 32: return run(flash_packed_kernel<D, 32>, packed, kThreads, packed_smem<D, 32>(3));
+      default: break;
+    }
   }
+  return run(flash_tiled_kernel<D>, tiled_grid(BH, L, kFlashRows), kFlashThreads,
+             6 * Tile<D>::kRowsBytes);
 }
 
 }  // namespace mma_attn

@@ -20,7 +20,8 @@ serving; ``MODEL.QUANT_INT8 True`` serves the int8 image tower.  Output: one
 JSON object per line, {"path", "topk": [{"label", "prob"}, ...]}, probs
 rounded to 6 places.  Directories are walked in sorted order for the
 extensions of IMG_EXTS; the port reads JPEG, PNG, BMP, Netpbm, GIF, TIFF
-and WebP files (the TIFF kinds of ROADMAP A16 raise naming it).
+and WebP files (a TIFF compressed with LZMA, ZSTD, WebP, Thunderscan or
+SGILog raises naming ROADMAP A16).
 """
 
 import json

@@ -42,7 +42,7 @@ def read_image(path):
     raises IOError for a missing file, ValueError for corrupt data and a
     layout Pillow refuses too, and NotImplementedError (ROADMAP A16) for a
     file in another format or a variant the port does not read yet (TIFF's
-    YCbCr and JPEG kinds among them)."""
+    LZMA, ZSTD, WebP, Thunderscan and SGILog compressions among them)."""
     from ..native import read_image as decode
 
     return decode(path)

@@ -154,7 +154,62 @@ def test_blockwise_plain_gradcheck_float64(causal):
         fast_mode=True)
 
 
-@pytest.mark.parametrize("d", [32, 64, 80, 128])
+_WIDE = [(d, L, causal) for d in (192, 256, 320) for L in (13, 77) for causal in (True, False)]
+
+
+@pytest.mark.parametrize("d,L,causal", _WIDE, ids=[
+    f"d{d}_L{L}_{'causal' if c else 'nomask'}" for d, L, c in _WIDE])
+def test_blockwise_wide_head_dims_match_jax_pallas(d, L, causal):
+    """Head dims past 128 (the D = 192 and 256 instantiations, and 320 in
+    two column passes of 256 on the card): the forward and the three
+    gradients of a weighted sum against JAX's blockwise forward and Pallas
+    backward in interpret mode, which pad d to a multiple of 128; fp32,
+    forward rtol 2e-4 / atol 2e-5, gradients rtol 2e-4 / atol 2e-4."""
+    q, k, v, w = _inputs(1, 2, L, d, seed=d + L + 7 * causal, n=4)
+    mask_j = jax_attention.causal_mask(L) if causal else None
+
+    @jax.jit
+    def fwd_grads(q_, k_, v_):
+        o, vjp = jax.vjp(lambda a, b, c: jax_blockwise(a, b, c, mask_j, 256, 512, True),
+                         q_, k_, v_)
+        return o, vjp(w)
+
+    ref_o, ref = fwd_grads(q, k, v)
+    qkv = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
+    mask_t = attention.causal_mask(L, device="cpu") if causal else None
+    o = flash_attention.blockwise_attention(*qkv, mask_t)
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(ref_o), rtol=2e-4, atol=2e-5)
+    got = torch.autograd.grad(o, qkv, torch.from_numpy(w))
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4, atol=2e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("force", [None, "1", "legacy"], ids=["unset", "1", "legacy"])
+@pytest.mark.parametrize("d", [192, 256, 320])
+def test_dispatch_at_wide_head_dims_matches_jax(d, force, monkeypatch):
+    """attention_dispatch past head dim 128 gives JAX's attention_dispatch's
+    result under FSVLM_FORCE_PALLAS unset (JAX: XLA's attention; the port:
+    its blockwise kernels, not a detour to reference_attention), ``1`` (both
+    blockwise) and ``legacy`` (both whole-sequence), at rtol 2e-4 / atol
+    2e-5.  The port's route is its kernel family under every value."""
+    import fsvlm_tpu.ops.flash_attention as jax_fa
+
+    if force is None:
+        monkeypatch.delenv("FSVLM_FORCE_PALLAS", raising=False)
+    else:
+        monkeypatch.setenv("FSVLM_FORCE_PALLAS", force)
+    L = 9
+    q, k, v = _inputs(1, 2, L, d, seed=d + 1)
+    mask = attention.causal_mask(L, device="cpu")
+    want = "fused" if force == "legacy" else "blockwise"
+    assert flash_attention.attention_route(d, mask, heads=2) == want
+    ref = jax_fa.attention_dispatch(q, k, v, jax_attention.causal_mask(L))
+    got = flash_attention.attention_dispatch(*map(torch.from_numpy, (q, k, v)), mask)
+    assert got.shape == (1, 2, L, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 192, 256, 320])
 def test_blockwise_plain_versions_walk_the_kernel_tiles_like_plain_autograd(d):
     """reference_blockwise_fwd / _bwd against autograd through a one-shot
     softmax attention (independent of the tiling), with a fully masked row:
@@ -273,9 +328,15 @@ def test_packed_route_follows_the_head_count_as_jax(H, want, monkeypatch):
 
 
 def test_blockwise_rejects_what_it_does_not_take():
-    q = torch.zeros(1, 2, 8, 136)
-    with pytest.raises(ValueError, match="B6"):
-        flash_attention.blockwise_attention(q, q, q)
+    """Bad tile sizes and ``impl`` raise; a head dim past 128 (136, in the
+    D = 192 instantiation on the card) no longer does: it gives JAX's
+    blockwise forward in interpret mode (rtol 2e-4 / atol 2e-5)."""
+    q, k, v = _inputs(1, 2, 8, 136, seed=9)
+    ref = jax_blockwise(q, k, v, None, 256, 512, True)
+    got = flash_attention.blockwise_attention(*map(torch.from_numpy, (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-4, atol=2e-5)
+    with pytest.raises(ValueError, match=">= 1"):
+        flash_attention.blockwise_attention(*(torch.zeros(1, 2, 8, 0),) * 3)
     q = torch.zeros(1, 2, 8, 32)
     for bad in ({"block_q": 0}, {"block_k": 1.5}):
         with pytest.raises(ValueError):

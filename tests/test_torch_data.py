@@ -159,17 +159,17 @@ def test_device_aug_cache_matches_jax_bytes(pre_size):
 
 
 def test_a_file_path_raises_instead_of_falling_back(tmp_path):
-    """A file of a kind the port does not read yet (a YCbCr TIFF) raises
+    """A file of a kind the port does not read yet (an LZMA TIFF) raises
     naming ROADMAP A16 on both views, whatever its extension; a missing file
     raises IOError.  Nothing falls back to another decoder."""
-    tiff = tmp_path / "img.jpg"  # a YCbCr TIFF under a JPEG name
+    tiff = tmp_path / "img.jpg"  # an LZMA TIFF under a JPEG name
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_fixtures",
-                           "formats", "tiff_ycbcr_refused_32x32.tif"), "rb") as f:
+                           "formats", "tiff_lzma_refused_64x48.tif"), "rb") as f:
         tiff.write_bytes(f.read())
     item = base_dataset.Datum(impath=str(tiff), label=0)
-    with pytest.raises(NotImplementedError, match="YCbCr.*ROADMAP A16"):
+    with pytest.raises(NotImplementedError, match="LZMA.*ROADMAP A16"):
         loader.RawDatasetWrapper([item]).materialize(num_threads=1)
-    with pytest.raises(NotImplementedError, match="YCbCr.*ROADMAP A16"):
+    with pytest.raises(NotImplementedError, match="LZMA.*ROADMAP A16"):
         loader.DatasetWrapper([item], lambda img: img)[0]
     missing = base_dataset.Datum(impath=str(tmp_path / "none.jpg"), label=0)
     with pytest.raises(IOError, match="No file exists"):

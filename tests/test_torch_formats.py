@@ -23,7 +23,8 @@ g++ at first use, so they run on the CPU too.  Every comparison is exact.
 - truncated and corrupt files raising ``ValueError``, Pillow's bomb limit,
   the TIFF and JPEG kinds the port leaves to ROADMAP A16 raising
   ``NotImplementedError``, a WebP under a JPEG name read as Pillow reads it
-  (tests/test_torch_webp.py holds WebP itself); eight threads giving the
+  (tests/test_torch_webp.py holds WebP itself, tests/test_torch_tiff.py the
+  TIFF kinds read through libtiff's other codecs); eight threads giving the
   same bytes.
 """
 
@@ -388,17 +389,25 @@ def test_jpeg_kinds_pillow_refuses_keep_their_refusal(tmp_path, marker, why):
 
 # ------------------------------------------------------------------ refusals and errors
 def test_webp_named_jpg_is_read_and_unread_tiff_kinds_raise_naming_a16(tmp_path):
+    """A WebP under a JPEG name is read as Pillow reads it; an uncompressed
+    YCbCr TIFF raises ValueError as Pillow calls it truncated (its raw RGBX
+    runs past the data); the compressions ROADMAP A16 keeps raise naming
+    it."""
     webp = tmp_path / "x.jpg"  # the magic bytes decide, not the extension
     Image.fromarray(np.random.default_rng(2).integers(0, 256, (4, 4, 3), np.uint8)).save(
         webp, format="WEBP")
     np.testing.assert_array_equal(read_image(str(webp)), _pillow(webp.read_bytes()))
     assert native.decode_file(str(webp), 64) is None  # as the JAX package's libjpeg build
     rng = np.random.default_rng(3)
-    path = os.path.join(FIXTURES, "tiff_ycbcr_refused_32x32.tif")
-    with pytest.raises(NotImplementedError, match="YCbCr.*A16"):
+    path = os.path.join(FIXTURES, "truncated_tiff_ycbcr_raw_32x32.tif")
+    assert isinstance(_pillow(open(path, "rb").read()), OSError)
+    with pytest.raises(ValueError, match="corrupt or truncated TIFF"):
+        read_image(path)
+    path = os.path.join(FIXTURES, "tiff_lzma_refused_64x48.tif")
+    with pytest.raises(NotImplementedError, match="LZMA.*A16"):
         read_image(path)
     assert native.decode_file(path, 64) is None  # no decode_file view of a TIFF at all
-    for compression in (6, 7, 2, 34925):
+    for compression in (34925, 50000, 50001, 32809):
         data = bytearray(enc.encode_tiff(rng.integers(0, 256, (8, 8, 3)), 2))
         i = data.index(struct.pack("<HHI", 259, 3, 1))
         data[i + 8:i + 10] = struct.pack("<H", compression)
@@ -511,10 +520,12 @@ def test_committed_fixtures_match_their_expected_digests(name):
 
 
 def test_the_truncated_and_refused_fixtures_raise():
-    assert EXPECTED["truncated"] == ["truncated_gif_80x60.gif", "truncated_webp_97x61.webp"]
-    for name, kind in zip(EXPECTED["truncated"], ("GIF", "WebP")):
+    assert EXPECTED["truncated"] == ["truncated_tiff_ycbcr_raw_32x32.tif",
+                                     "truncated_gif_80x60.gif", "truncated_webp_97x61.webp"]
+    for name, kind in zip(EXPECTED["truncated"], ("TIFF", "GIF", "WebP")):
         with pytest.raises(ValueError, match=f"corrupt or truncated {kind} data"):
             read_image(os.path.join(FIXTURES, name))
-    assert EXPECTED["refused"] == ["tiff_ycbcr_refused_32x32.tif"]
-    with pytest.raises(NotImplementedError, match="A16"):
-        read_image(os.path.join(FIXTURES, EXPECTED["refused"][0]))
+    assert EXPECTED["refused"] == ["tiff_lzma_refused_64x48.tif", "tiff_zstd_refused_64x48.tif"]
+    for name in EXPECTED["refused"]:
+        with pytest.raises(NotImplementedError, match="LZMA, ZSTD.*A16"):
+            read_image(os.path.join(FIXTURES, name))

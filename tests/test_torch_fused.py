@@ -197,14 +197,58 @@ def test_broadcast_mask_raises_value_error_in_both_packages(force, monkeypatch):
 
 
 def test_fused_rejects_head_dims_above_128(monkeypatch):
-    q = torch.zeros(1, 2, 8, 136)
-    with pytest.raises(ValueError, match="B6"):
-        fa.fused_attention(q, q, q)
+    """Head dims past 128 are no longer refused: at d = 136 fused_attention
+    and the ``legacy`` route give JAX's fused_attention in interpret mode
+    (rtol 2e-4 / atol 2e-5); a head dim of 0 and an unknown ``impl`` still
+    raise."""
+    q, k, v = _inputs(1, 2, 8, 136, seed=11)
+    ref = np.asarray(_jax_fused(q, k, v, None))
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    np.testing.assert_allclose(fa.fused_attention(*t).numpy(), ref, rtol=2e-4, atol=2e-5)
     monkeypatch.setenv("FSVLM_FORCE_PALLAS", "legacy")
-    with pytest.raises(ValueError, match="B6"):
-        fa.attention_dispatch(q, q, q)
+    np.testing.assert_allclose(fa.attention_dispatch(*t).numpy(), ref, rtol=2e-4, atol=2e-5)
+    with pytest.raises(ValueError, match=">= 1"):
+        fa.fused_attention(*(torch.zeros(1, 2, 8, 0),) * 3)
     with pytest.raises(ValueError):
-        fa.fused_attention(q[..., :32], q[..., :32], q[..., :32], impl="kernel")
+        fa.fused_attention(t[0][..., :32], t[1][..., :32], t[2][..., :32], impl="kernel")
+
+
+_WIDE = [(d, L, causal) for d in (192, 256, 320) for L in (13, 77) for causal in (True, False)]
+
+
+@pytest.mark.parametrize("d,L,causal", _WIDE, ids=[
+    f"d{d}_L{L}_{'causal' if c else 'nomask'}" for d, L, c in _WIDE])
+def test_fused_wide_head_dims_match_jax_pallas(d, L, causal):
+    """Head dims past 128 (the D = 192 and 256 instantiations, and 320 in
+    two column passes of 256 on the card): the forward and the three
+    gradients of a weighted sum against JAX's fused_attention and its
+    custom VJP, the Pallas kernels in interpret mode, which pad d to a
+    multiple of 128; fp32, forward rtol 2e-4 / atol 2e-5, gradients rtol
+    2e-4 / atol 2e-4.  And the plain versions against autograd through a
+    one-shot softmax attention."""
+    q, k, v, w = _inputs(1, 2, L, d, seed=d + L + 7 * causal, n=4)
+    mask_j = jax_attention.causal_mask(L) if causal else None
+
+    @jax.jit
+    def fwd_grads(q_, k_, v_):
+        o, vjp = jax.vjp(lambda a, b, c: _jax_fused(a, b, c, mask_j), q_, k_, v_)
+        return o, vjp(w)
+
+    ref_o, ref = fwd_grads(q, k, v)
+    qkv = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    mask_t = attention.causal_mask(L, device="cpu") if causal else None
+    o = fa.fused_attention(*qkv, mask_t)
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(ref_o), rtol=2e-4, atol=2e-5)
+    got = torch.autograd.grad(o, qkv, torch.from_numpy(w))
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4, atol=2e-4, err_msg=name)
+    plain = [t.detach().clone().requires_grad_() for t in qkv]
+    s = plain[0] @ plain[1].transpose(-1, -2) * d ** -0.5
+    out = torch.softmax(s if mask_t is None else s + mask_t, dim=-1) @ plain[2]
+    want = torch.autograd.grad(out, plain, torch.from_numpy(w))
+    torch.testing.assert_close(o.detach(), out.detach(), rtol=1e-4, atol=1e-5)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
 
 def test_fused_operators_fake_implementation_build_and_cpu_path():

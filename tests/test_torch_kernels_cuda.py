@@ -272,8 +272,10 @@ def test_mha_backward_through_the_kernels_matches_the_plain_path(card, causal):
 # ---------------------- the bf16 tensor-core flash backwards #7/#8 and #4/#5
 # mma_attn.cuh's dK/dV and dQ kernels from the LSE: behind the d = 64 entry
 # ("packed", #7/#8) and behind the blockwise one (#4/#5) at its
-# instantiations D = 32, 64 and 128
-_BWD_ENTRIES = [("packed", 64), ("blockwise", 32), ("blockwise", 64), ("blockwise", 128)]
+# instantiations D = 32, 64, 128, 192 and 256 (two column passes of D / 2),
+# and at 320 (the FMA tiles' column passes of 256)
+_BWD_ENTRIES = [("packed", 64), ("blockwise", 32), ("blockwise", 64), ("blockwise", 128),
+                ("blockwise", 192), ("blockwise", 256), ("blockwise", 320)]
 
 
 def _bwd_fns(entry):
@@ -423,7 +425,7 @@ _BW_SHAPES = [  # (B, H, L, causal): the IVLP step's vision and text shapes, edg
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("B,H,L,causal", _BW_SHAPES)
-@pytest.mark.parametrize("d", [32, 64, 128, 80])
+@pytest.mark.parametrize("d", [32, 64, 128, 80, 192, 256, 320])
 def test_blockwise_fwd_and_bwd_match_plain(card, d, B, H, L, causal, dtype):
     """Kernels #3-#5 on mha's strided views and a (B, L, H, d) dO, against
     the plain versions on the same inputs; outputs written (B, L, H, d)."""
@@ -489,10 +491,12 @@ def test_blockwise_rejects_what_it_does_not_take(card):
     for args, err in bad:
         with pytest.raises(err):
             torch.ops.fsvlm.blockwise_attn_fwd(*args)
-    big = torch.zeros(1, 2, 8, 136, device=card)
-    with pytest.raises(ValueError, match="B6"):
-        fa.blockwise_attention(big, big, big)
+    with pytest.raises(ValueError, match=">= 1"):
+        fa.blockwise_attention(*(torch.zeros(1, 2, 8, 0, device=card),) * 3)
     assert fa.LAUNCHES == before
+    big = torch.zeros(1, 2, 8, 136, device=card)  # a head dim past 128 is taken
+    assert fa.blockwise_attention(big, big, big).shape == big.shape
+    assert fa.LAUNCHES[fa.BW_KERNEL] == before[fa.BW_KERNEL] + 1
 
 
 @pytest.mark.parametrize("force,launched", [(None, "flash_attn"), ("1", "blockwise")],
@@ -532,7 +536,7 @@ def test_mha_launches_the_routed_family(card, force, launched, monkeypatch):
 # 64-key tiles past 32, one key tile up to 64) and the main paths' lengths
 _FLASH_LENGTHS = (1, 8, 15, 16, 17, 24, 31, 32, 33, 63, 64, 65, 77, 197, 201, 513, 1024)
 _FLASH_ENTRIES = [("packed", 64), ("blockwise", 32), ("blockwise", 64), ("blockwise", 80),
-                  ("blockwise", 128)]
+                  ("blockwise", 128), ("blockwise", 192), ("blockwise", 256), ("blockwise", 320)]
 
 
 def _flash_fwd(entry, q, k, v, mask):
@@ -634,7 +638,7 @@ _FUSED_SHAPES = [  # (B, H, L, causal): the CoOp/CoCoOp vision and text shapes, 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("B,H,L,causal", _FUSED_SHAPES)
-@pytest.mark.parametrize("d", [32, 64, 128, 80])
+@pytest.mark.parametrize("d", [32, 64, 128, 80, 192, 256, 320])
 def test_fused_fwd_and_bwd_match_plain(card, d, B, H, L, causal, dtype):
     """Kernels #1-#2 on mha's strided views and a (B, L, H, d) dO, against
     the plain versions on the same inputs; one launch of the forward and of
@@ -743,13 +747,15 @@ def test_fused_rejects_what_it_does_not_take(card, monkeypatch):
     for args, err in bad:
         with pytest.raises(err):
             torch.ops.fsvlm.fused_attn_fwd(*args)
-    big = torch.zeros(1, 2, 8, 136, device=card)
-    with pytest.raises(ValueError, match="B6"):
-        fa.fused_attention(big, big, big)
+    with pytest.raises(ValueError, match=">= 1"):
+        fa.fused_attention(*(torch.zeros(1, 2, 8, 0, device=card),) * 3)
     monkeypatch.setenv("FSVLM_FORCE_PALLAS", "legacy")
     with pytest.raises(ValueError, match="cannot take it"):
         fa.attention_dispatch(q, k, v, torch.zeros(2, 1, 1, 16, device=card))
     assert fa.LAUNCHES == before
+    big = torch.zeros(1, 2, 8, 136, device=card)  # a head dim past 128 is taken
+    assert fa.fused_attention(big, big, big).shape == big.shape
+    assert fa.LAUNCHES[fa.FUSED_KERNEL] == before[fa.FUSED_KERNEL] + 1
 
 
 def test_fused_build_and_launch_errors_propagate(card, monkeypatch):

@@ -201,7 +201,7 @@ def test_collect_images_walks_in_sorted_order(tmp_path):
 
 
 def test_predict_names_a16_on_a_png(tmp_path, model_dir):
-    """A PNG, a GIF and a WebP among the images are read; a YCbCr TIFF among
+    """A PNG, a GIF and a WebP among the images are read; an LZMA TIFF among
     them makes the port's reader raise naming ROADMAP A16 (the JAX package's
     PIL reads all four)."""
     from PIL import Image
@@ -211,7 +211,7 @@ def test_predict_names_a16_on_a_png(tmp_path, model_dir):
         Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(path)
     tif = tmp_path / "w.tif"
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_fixtures",
-                           "formats", "tiff_ycbcr_refused_32x32.tif"), "rb") as f:
+                           "formats", "tiff_lzma_refused_64x48.tif"), "rb") as f:
         tif.write_bytes(f.read())
     _, pcfg = _cfgs(tmp_path)
     with redirect_stdout(io.StringIO()):

@@ -343,13 +343,26 @@ def lzw_tiff(data, old_style=False):
 
 
 def _pack_samples(block, bits, order):
-    """(rows, cols, spp) samples to each row's bytes."""
+    """(rows, cols, spp) samples to each row's bytes: 32 bits as the array's
+    kind (float32, int32 or uint32), 16, 12 (two samples in three bytes, high
+    nibble first), 8 or fewer bits packed MSB first."""
     r, c, s = block.shape
     flat = block.reshape(r, c * s)
+    if bits == 32:
+        kind = {"f": "f4", "i": "i4"}.get(flat.dtype.kind, "u4")
+        return [row.astype(order + kind).tobytes() for row in flat]
     if bits == 16:
-        return [row.astype(order + "u2").tobytes() for row in flat]
+        kind = "i2" if flat.dtype.kind == "i" else "u2"
+        return [row.astype(order + kind).tobytes() for row in flat]
     if bits == 8:
         return [row.astype(np.uint8).tobytes() for row in flat]
+    if bits == 12:
+        n = flat.shape[1] + flat.shape[1] % 2
+        v = np.zeros((r, n), np.int64)
+        v[:, :flat.shape[1]] = flat
+        a, b = v[:, 0::2], v[:, 1::2]
+        out = np.stack([a >> 4, ((a & 15) << 4) | (b >> 8), b & 255], -1).reshape(r, -1)
+        return [bytes(x) for x in out[:, :(flat.shape[1] * 12 + 7) // 8].astype(np.uint8)]
     per = 8 // bits
     n = -(-flat.shape[1] // per) * per
     padded = np.zeros((r, n), np.uint8)
@@ -360,19 +373,64 @@ def _pack_samples(block, bits, order):
 
 def _predict(block, bits):
     """Horizontal differencing (Predictor 2) of (rows, cols, spp) samples."""
-    b = block.astype(np.int64)
+    if bits == 32 and block.dtype.kind == "f":  # the floats' bit patterns
+        b = block.astype("<f4").view("<u4").astype(np.int64)
+    else:
+        b = block.astype(np.int64)
     d = b.copy()
     d[:, 1:] = b[:, 1:] - b[:, :-1]
     return d & ((1 << bits) - 1)
 
 
+_REVERSED = [int(f"{b:08b}"[::-1], 2) for b in range(256)]
+
+
+def _fp_predict(block):
+    """The floating-point predictor (Predictor 3) of (rows, cols, spp)
+    float32 samples: each row's bytes regrouped most significant first
+    (all the samples' high bytes, then the next ...), then differenced byte
+    by byte at a distance of spp bytes."""
+    r, c, s = block.shape
+    rows = []
+    for row in block.reshape(r, c * s).astype("<f4"):
+        b = np.frombuffer(row.tobytes(), np.uint8).reshape(-1, 4)
+        planes = np.concatenate([b[:, 3 - j] for j in range(4)]).astype(np.int64)
+        planes[s:] = planes[s:] - planes[:-s]
+        rows.append(bytes((planes & 255).astype(np.uint8)))
+    return rows
+
+
+def _ycbcr_blocks(block, hs, vs):
+    """(rows, cols, 3) YCbCr samples as TIFF's subsampled blocks: for each
+    hs x vs block (edge blocks padded with their last row and column), its
+    hs * vs Y values, then the block's mean Cb and Cr; one row of bytes per
+    row of blocks."""
+    r, c, _ = block.shape
+    pr, pc = -(-r // vs) * vs, -(-c // hs) * hs
+    a = np.pad(block.astype(np.int64), ((0, pr - r), (0, pc - c), (0, 0)), mode="edge")
+    a = a.reshape(pr // vs, vs, pc // hs, hs, 3).transpose(0, 2, 1, 3, 4)
+    y = a[..., 0].reshape(pr // vs, pc // hs, hs * vs)
+    chroma = np.rint(a[..., 1:].reshape(pr // vs, pc // hs, hs * vs, 2).mean(2)).astype(np.int64)
+    return [bytes(row.astype(np.uint8)) for row in
+            np.concatenate([y, chroma], -1).reshape(pr // vs, -1)]
+
+
 def encode_tiff(samples, photometric, *, bits=8, order="<", compression=1, predictor=1,
                 tile=None, rows_per_strip=None, planar=1, extra=None, colormap=None,
-                orientation=None, fillorder=None, lzw_old_style=False):
+                orientation=None, fillorder=None, lzw_old_style=False, sample_format=None,
+                big=False, ycbcr=None, ref_bw=None, luma=None, jpeg=None, jpeg_tables=None,
+                extra_tags=None):
     """A TIFF's bytes: one IFD over (h, w, spp) samples.  ``compression``:
-    1, 5 (LZW), 8 or 32946 (Deflate), 32773 (PackBits); ``tile``: (tw, th)
-    tiles, else strips of ``rows_per_strip`` rows; ``planar``: 1 or 2;
-    ``extra``: ExtraSamples values; ``colormap``: (3, 2**bits) 16-bit."""
+    1, 5 (LZW), 8 or 32946 (Deflate), 32773 (PackBits), 7 (JPEG: ``jpeg``
+    turns each strip's or tile's samples into its stream, ``jpeg_tables``
+    the JPEGTables bytes); ``tile``: (tw, th) tiles, else strips of
+    ``rows_per_strip`` rows; ``planar``: 1 or 2; ``extra``: ExtraSamples
+    values; ``colormap``: (3, 2**bits) 16-bit; ``sample_format``: the
+    SampleFormat of every sample (the array's kind sets the bytes at 16
+    and 32 bits); ``big``: BigTIFF (8-byte offsets, 20-byte entries);
+    ``ycbcr``: (hs, vs) YCbCrSubsampling, YCbCr samples packed in blocks;
+    ``ref_bw`` / ``luma``: ReferenceBlackWhite / YCbCrCoefficients as
+    (numerator, denominator) pairs; ``extra_tags``: {tag: (type, values)}."""
     a = np.asarray(samples)
     if a.ndim == 2:
         a = a[..., None]
@@ -395,18 +453,30 @@ def encode_tiff(samples, photometric, *, bits=8, order="<", compression=1, predi
                 segs.append(plane[y:y + rps])
     chunks = []
     for blk in segs:
-        if predictor == 2:
-            blk = _predict(blk, bits)
-        rows = _pack_samples(blk, bits, ">" if order == ">" else "<")
+        if jpeg is not None:
+            chunks.append(jpeg(blk))
+            continue
+        if ycbcr:
+            rows = _ycbcr_blocks(blk, *ycbcr)
+        elif predictor == 3:
+            rows = _fp_predict(blk)
+        else:
+            if predictor == 2:
+                blk = _predict(blk, bits).astype(np.uint32 if bits == 32 else np.int64)
+            rows = _pack_samples(blk, bits, ">" if order == ">" else "<")
         raw = b"".join(rows)
         if compression == 1:
             chunks.append(raw)
-        elif compression == 32773:
-            chunks.append(b"".join(packbits(r) for r in rows))
+            continue
+        if compression == 32773:
+            coded = b"".join(packbits(r) for r in rows)
         elif compression == 5:
-            chunks.append(lzw_tiff(raw, lzw_old_style))
+            coded = lzw_tiff(raw, lzw_old_style)
         else:
-            chunks.append(zlib.compress(raw, 6))
+            coded = zlib.compress(raw, 6)
+        if fillorder == 2:  # the coded bytes least significant bit first
+            coded = bytes(_REVERSED[b] for b in coded)
+        chunks.append(coded)
     tags = {256: (3, [w]), 257: (3, [h]), 258: (3, [bits] * spp), 259: (3, [compression]),
             262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar])}
     if predictor != 1:
@@ -419,41 +489,86 @@ def encode_tiff(samples, photometric, *, bits=8, order="<", compression=1, predi
         tags[274] = (3, [orientation])
     if fillorder is not None:
         tags[266] = (3, [fillorder])
+    if sample_format is not None:
+        tags[339] = (3, [sample_format] * spp)
+    if ycbcr:
+        tags[530] = (3, list(ycbcr))
+    if ref_bw is not None:
+        tags[532] = (5, list(ref_bw))
+    if luma is not None:
+        tags[529] = (5, list(luma))
+    if jpeg_tables is not None:
+        tags[347] = (7, jpeg_tables)
+    tags.update(extra_tags or {})
     body = bytearray()
     offsets = []
-    base = 8
+    base = 16 if big else 8
     for c in chunks:
         offsets.append(base + len(body))
         body += c
         if len(body) % 2:
             body += b"\x00"
+    off_type = 16 if big else 4
     if tile:
         tags[322] = (3, [tile[0]])
         tags[323] = (3, [tile[1]])
-        tags[324] = (4, offsets)
-        tags[325] = (4, [len(c) for c in chunks])
+        tags[324] = (off_type, offsets)
+        tags[325] = (off_type, [len(c) for c in chunks])
     else:
-        tags[273] = (4, offsets)
+        tags[273] = (off_type, offsets)
         tags[278] = (3, [rows_per_strip or h])
-        tags[279] = (4, [len(c) for c in chunks])
+        tags[279] = (off_type, [len(c) for c in chunks])
     ifd_at = base + len(body)
     entries = sorted(tags.items())
-    ifd_len = 2 + 12 * len(entries) + 4
+    cell, count_fmt, n_fmt = (8, "Q", "Q") if big else (4, "I", "H")
+    ifd_len = struct.calcsize(order + n_fmt) + (4 + struct.calcsize(count_fmt) + cell) * len(
+        entries) + cell
     data_at = ifd_at + ifd_len
-    ifd, extra_data = bytearray(struct.pack(order + "H", len(entries))), bytearray()
+    ifd, extra_data = bytearray(struct.pack(order + n_fmt, len(entries))), bytearray()
     for tag, (typ, vals) in entries:
-        fmt = "H" if typ == 3 else "I"
-        payload = struct.pack(order + fmt * len(vals), *vals)
-        if len(payload) <= 4:
-            ifd += struct.pack(order + "HHI", tag, typ, len(vals)) + payload.ljust(4, b"\x00")
+        if typ == 7:
+            payload, count = bytes(vals), len(vals)
+        elif typ == 5:
+            flat = [x for v in vals for x in v]  # (numerator, denominator) pairs
+            payload, count = struct.pack(order + "II" * len(vals), *flat), len(vals)
         else:
-            ifd += struct.pack(order + "HHII", tag, typ, len(vals), data_at + len(extra_data))
+            fmt = {3: "H", 4: "I", 16: "Q"}[typ]
+            payload, count = struct.pack(order + fmt * len(vals), *vals), len(vals)
+        head = struct.pack(order + "HH" + count_fmt, tag, typ, count)
+        if len(payload) <= cell:
+            ifd += head + payload.ljust(cell, b"\x00")
+        else:
+            ifd += head + struct.pack(order + ("Q" if big else "I"), data_at + len(extra_data))
             extra_data += payload
             if len(extra_data) % 2:
                 extra_data += b"\x00"
-    ifd += struct.pack(order + "I", 0)
-    head = (b"II*\x00" if order == "<" else b"MM\x00*") + struct.pack(order + "I", ifd_at)
+    ifd += struct.pack(order + ("Q" if big else "I"), 0)
+    if big:
+        head = (b"II+\x00" if order == "<" else b"MM\x00+") + struct.pack(order + "HHQ", 8, 0,
+                                                                          ifd_at)
+    else:
+        head = (b"II*\x00" if order == "<" else b"MM\x00*") + struct.pack(order + "I", ifd_at)
     return head + bytes(body) + bytes(ifd) + bytes(extra_data)
+
+
+def jpeg_parts(stream):
+    """A whole JPEG stream split as JPEG-in-TIFF writers split it: the
+    JPEGTables stream (SOI, the DQT and DHT segments, EOI) and the
+    abbreviated image stream (SOI, every other segment, the scans, EOI)."""
+    tables, image, pos = bytearray(b"\xff\xd8"), bytearray(b"\xff\xd8"), 2
+    while pos < len(stream):
+        marker = stream[pos + 1]
+        if marker == 0xDA:  # the scans to the end
+            image += stream[pos:]
+            break
+        n = struct.unpack(">H", stream[pos + 2:pos + 4])[0]
+        seg = stream[pos:pos + 2 + n]
+        if marker in (0xDB, 0xC4):
+            tables += seg
+        elif not 0xE0 <= marker <= 0xEF:  # APPn markers dropped, as libtiff writes none
+            image += seg
+        pos += 2 + n
+    return bytes(tables + b"\xff\xd9"), bytes(image)
 
 
 # ------------------------------------------------------------------ lossless JPEG

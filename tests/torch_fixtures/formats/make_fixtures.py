@@ -60,10 +60,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 from encoders import (encode_bmp, encode_gif, encode_lossless_jpeg, encode_pnm,  # noqa: E402
-                      encode_tiff, rle_encode)
+                      encode_tiff, jpeg_parts, rle_encode)
 
 SEED = 24
 WEBP_SEED = 25
+TIFF_SEED = 26
 PRE_SIZE = 256
 EVAL_SIZE = (224, 224)
 JPEG_DIR = os.path.join(os.path.dirname(HERE), "jpeg")
@@ -171,7 +172,9 @@ def _files(rng, exe):
     files["tiff_lzw_oldstyle_80x60.tif"] = encode_tiff(scene(rng, 60, 80), 2, compression=5,
                                                        lzw_old_style=True)
     files["tiff_orientation6_60x40.tif"] = encode_tiff(scene(rng, 40, 60), 2, orientation=6)
-    files["tiff_ycbcr_refused_32x32.tif"] = encode_tiff(scene(rng, 32, 32), 6)
+    # uncompressed YCbCr: Pillow's raw decoder reads RGBX, four bytes a pixel,
+    # past the data, and calls the file truncated
+    files["truncated_tiff_ycbcr_raw_32x32.tif"] = encode_tiff(scene(rng, 32, 32), 6)
     files["jpeg_lossless_pred7_96x64.jpg"] = encode_lossless_jpeg(scene(rng, 64, 96), predictor=7,
                                                                   pt=1, restart_rows=16)
     whole = encode_gif(scene(rng, 60, 80, 1)[..., 0], global_palette=np.stack([np.arange(256)] * 3,
@@ -263,6 +266,110 @@ def _webp_files(rng, exe):
     return files
 
 
+def _tiff_files(rng):
+    """name -> bytes of the TIFF kinds read through libtiff's other codecs
+    in Pillow (their own seed, so the files above keep their bytes): JPEG,
+    CCITT, BigTIFF and the F / I modes from Pillow's writer; YCbCr blocks
+    (edge blocks, tiles, ReferenceBlackWhite, the 4:4 strip libtiff reads
+    short), JPEG tiles of whole streams, old-style JPEG, signed, float with
+    the floating-point predictor, 12-bit and FillOrder 2 16-bit samples from
+    encoders.py, the JPEG streams from Pillow's JPEG encoder; CIELab from
+    Pillow's writer; LZMA and ZSTD, which the port leaves to ROADMAP A16, as
+    the refused files."""
+    import io
+
+    from PIL import Image
+
+    def pillow(im, **kw):
+        b = io.BytesIO()
+        im.save(b, "TIFF", **kw)
+        return b.getvalue()
+
+    def jpeg(block, **kw):
+        b = io.BytesIO()
+        Image.fromarray(block.astype(np.uint8)).save(b, "JPEG", **kw)
+        return b.getvalue()
+
+    def page(h, w):  # text-like black marks on white, mode 1
+        a = scene(rng, h, w, 1)[..., 0] > 90
+        for _ in range(40):
+            y0, x0 = rng.integers(0, h), rng.integers(0, w)
+            a[y0:y0 + rng.integers(2, 9), x0:x0 + rng.integers(3, 80)] = False
+        return Image.fromarray(a)
+
+    def set_short(data, tag, value):
+        b = bytearray(data)
+        at = int.from_bytes(b[4:8], "little")
+        for i in range(int.from_bytes(b[at:at + 2], "little")):
+            e = at + 2 + 12 * i
+            if int.from_bytes(b[e:e + 2], "little") == tag:
+                b[e + 8:e + 10] = value.to_bytes(2, "little")
+        return bytes(b)
+
+    files = {}
+    rgb = Image.fromarray(scene(rng, 72, 96).astype(np.uint8))
+    files["tiff_jpeg_rgb_tables_96x72.tif"] = pillow(rgb, compression="jpeg", quality=85)
+    files["tiff_jpeg_ycbcr_tables_96x72.tif"] = pillow(
+        Image.fromarray(scene(rng, 72, 96).astype(np.uint8)).convert("YCbCr"),
+        compression="jpeg", quality=85)
+    files["tiff_jpeg_gray_strips_80x60.tif"] = pillow(
+        Image.fromarray(scene(rng, 60, 80, 1)[..., 0].astype(np.uint8)), compression="jpeg",
+        strip_size=80 * 16)
+    files["tiff_ccitt_g3_2d_320x240.tif"] = pillow(page(240, 320), compression="group3",
+                                                   tiffinfo={292: 1})
+    files["tiff_ccitt_g4_320x240.tif"] = pillow(page(240, 320), compression="group4")
+    files["tiff_ccitt_rle_200x150.tif"] = pillow(page(150, 200), compression="tiff_ccitt")
+    files["tiff_ccitt_rlew_minwhite_200x150.tif"] = set_short(
+        pillow(page(150, 200), compression="tiff_raw_16"), 262, 0)
+    files["tiff_bigtiff_lzw_100x80.tif"] = pillow(Image.fromarray(scene(rng, 80, 100).astype(
+        np.uint8)), big_tiff=True, compression="tiff_lzw")
+    files["tiff_float_f_deflate_64x48.tif"] = pillow(Image.fromarray(
+        (scene(rng, 48, 64, 1)[..., 0] * 1.7 - 60).astype(np.float32), "F"),
+        compression="tiff_adobe_deflate")
+    files["tiff_int32_i_lzw_64x48.tif"] = pillow(Image.fromarray(
+        (scene(rng, 48, 64, 1)[..., 0].astype(np.int32) * 3 - 200), "I"), compression="tiff_lzw")
+    ycc = scene(rng, 67, 99)
+    files["tiff_ycbcr22_lzw_tiles_99x67.tif"] = encode_tiff(ycc, 6, compression=5, ycbcr=(2, 2),
+                                                           tile=(32, 32))
+    files["tiff_ycbcr42_deflate_refbw_101x75.tif"] = encode_tiff(
+        scene(rng, 75, 101), 6, compression=8, ycbcr=(4, 2), rows_per_strip=16,
+        ref_bw=[(16, 1), (235, 1), (128, 1), (240, 1), (128, 1), (240, 1)],
+        luma=[(2126, 10000), (7152, 10000), (722, 10000)])
+    files["tiff_ycbcr44_packbits_75x53.tif"] = encode_tiff(scene(rng, 53, 75), 6,
+                                                          compression=32773, ycbcr=(4, 4),
+                                                          rows_per_strip=8)
+    files["tiff_jpeg_sub22_tiles_120x90.tif"] = encode_tiff(
+        scene(rng, 90, 120), 6, compression=7, ycbcr=(2, 2), tile=(64, 64),
+        jpeg=lambda b: jpeg(b, quality=80, subsampling=2))
+    gray = scene(rng, 70, 90, 1)
+    tables = jpeg_parts(jpeg(gray[:16, :16, 0], quality=75))[0]
+    files["tiff_jpeg_minwhite_abbrev_90x70.tif"] = encode_tiff(
+        gray, 0, compression=7, rows_per_strip=24, jpeg_tables=tables,
+        jpeg=lambda b: jpeg_parts(jpeg(b[..., 0], quality=75))[1])
+    stream = jpeg(scene(rng, 64, 96), quality=85, subsampling=2)
+    files["tiff_ojpeg_jfif_96x64.tif"] = encode_tiff(
+        np.zeros((64, 96, 3), np.uint8), 6, compression=6, jpeg=lambda b: stream,
+        extra_tags={513: (4, [8]), 514: (4, [len(stream)])})
+    files["tiff_s16_mm_deflate_pred_64x48.tif"] = encode_tiff(
+        (scene(rng, 48, 64, 1) * 3 - 250).astype(np.int16), 1, bits=16, order=">", compression=8,
+        predictor=2, sample_format=2)
+    files["tiff_f32_mm_lzw_fppred_64x48.tif"] = encode_tiff(
+        (scene(rng, 48, 64, 1) * 1.3 - 20).astype(np.float32), 1, bits=32, order=">",
+        compression=5, predictor=3, sample_format=3, rows_per_strip=16)
+    files["tiff_gray12_strips_64x48.tif"] = encode_tiff(scene(rng, 48, 64, 1) * 16, 1, bits=12,
+                                                        rows_per_strip=16)
+    files["tiff_gray16_fill2_64x48.tif"] = encode_tiff(scene(rng, 48, 64, 1) + 100, 1, bits=16,
+                                                       fillorder=2, rows_per_strip=16)
+    lab = np.stack([scene(rng, 48, 64, 1)[..., 0], scene(rng, 48, 64, 1)[..., 0] - 40,
+                    scene(rng, 48, 64, 1)[..., 0] + 60], -1).clip(0, 255).astype(np.uint8)
+    files["tiff_lab_lzw_64x48.tif"] = pillow(Image.frombytes("LAB", (64, 48), lab.tobytes()),
+                                             compression="tiff_lzw")
+    small = Image.fromarray(scene(rng, 48, 64).astype(np.uint8))
+    files["tiff_lzma_refused_64x48.tif"] = pillow(small, compression="lzma")
+    files["tiff_zstd_refused_64x48.tif"] = pillow(small, compression="zstd")
+    return files
+
+
 def digest(a):
     a = np.ascontiguousarray(a, np.uint8)
     return {"shape": list(a.shape), "sha256": hashlib.sha256(a.tobytes()).hexdigest(),
@@ -299,6 +406,7 @@ def main():
     expected, truncated, refused = {}, [], []
     files = _files(np.random.default_rng(SEED), _encoder())
     files.update(_webp_files(np.random.default_rng(WEBP_SEED), _webp_encoder()))
+    files.update(_tiff_files(np.random.default_rng(TIFF_SEED)))
     for name, data in files.items():
         path = os.path.join(HERE, name)
         with open(path, "wb") as f:
